@@ -1,0 +1,345 @@
+"""Inference engine: model/decoder lifecycle and batch transcription.
+
+The port of the batch path of ``danspeech_tpu/engine.py``. The device
+program (int16/float32 waveforms -> spectrogram -> conv -> GRU stack ->
+head -> softmax -> argmax) runs on the engine's device; waveforms are
+grouped by length bucket into dispatch groups of at most 128 rows, every
+group is staged in pinned host memory, uploaded and enqueued before the
+host collapses the first group's argmax paths, so host decoding overlaps
+the device work of later groups.
+
+The device is CUDA unless the caller passes ``device="cpu"``. Streaming,
+beam/LM decoding, mu-law staging and long-form transcription come with
+later slices.
+"""
+
+from __future__ import annotations
+
+import warnings
+
+import numpy as np
+import torch
+
+from .decode.greedy import GreedyDecoder, collapse_batch
+from .errors import ModelNotInitialized
+from .features.spectrogram import SpectrogramAudioParser
+from .models import deepspeech as ds
+from .ops import stft as stft_ops
+
+
+class NoLmInstantiatedWarning(Warning):
+    pass
+
+
+def _bucket(n: int, quantum: int) -> int:
+    return max(quantum, ((n + quantum - 1) // quantum) * quantum)
+
+
+def _resolve_device(device=None) -> torch.device:
+    """``None`` means CUDA; a CUDA device raises when no GPU is present."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run on the CPU"
+        )
+    return dev
+
+
+class DanSpeechRecognizer:
+    """Holds the active model + decoder and runs transcription."""
+
+    # waveform lengths are padded up to multiples of this many samples (1 s)
+    SAMPLE_BUCKET = 16000
+    # rows of one dispatch group; row counts pad to powers of two up to it
+    MAX_BATCH_ROWS = 128
+    # merging two adjacent length buckets into one dispatch may inflate the
+    # padded sample volume (rows x bucket length) by at most this factor
+    MERGE_INFLATION = 1.6
+    # total bytes of pinned staging buffers kept across calls
+    STAGING_CACHE_BYTES = 256 * 1024 * 1024
+
+    def __init__(
+        self,
+        model_name=None,
+        lm_name=None,
+        alpha: float = 1.3,
+        beta: float = 0.2,
+        with_gpu: bool = False,  # accepted for API parity; see ``device``
+        beam_width: int = 64,
+        compute_dtype: str = "auto",
+        transfer_format: str = "auto",
+        device=None,
+    ):
+        if transfer_format == "ulaw":
+            raise NotImplementedError(
+                "transfer_format='ulaw' comes with a later slice"
+            )
+        if transfer_format != "auto":
+            raise ValueError(f"unknown transfer_format: {transfer_format!r}")
+        self.transfer_format = transfer_format
+        self.device = _resolve_device(device)
+        print(f"Using device: {self.device}")
+        # "auto": bf16 matmul operands with f32 accumulation on CUDA (the
+        # GRU kernel's dtype), float32 on the CPU
+        if compute_dtype == "auto":
+            compute_dtype = "bfloat16" if self.device.type == "cuda" else "float32"
+        if compute_dtype not in ("bfloat16", "float32"):
+            raise ValueError(f"unknown compute_dtype: {compute_dtype!r}")
+        if compute_dtype == "float32" and self.device.type == "cuda":
+            # full float32: cuDNN would run f32 convolutions (and cuBLAS may
+            # run f32 matmuls) in TF32, which keeps about three digits
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+        self.compute_dtype = compute_dtype
+        self._compute_params = None
+
+        self.model = None
+        self.model_name = None
+        self.labels = None
+        self.audio_config = None
+        self.audio_parser = None
+        self.lm = None
+        self.decoder = None
+        self.alpha = alpha
+        self.beta = beta
+        self.beam_width = beam_width
+
+        # pinned host staging buffers, keyed by (shape, dtype)
+        self._staging: dict = {}
+        self._staging_used: set = set()
+        self._window = None
+
+        if model_name:
+            self.update_model(model_name)
+        if lm_name:
+            if not self.model:
+                raise ModelNotInitialized(
+                    "Trying to initialize LM without also choosing an acoustic model."
+                )
+            self.update_decoder(lm_name)
+
+    # ------------------------------------------------------------------
+    # Model / decoder lifecycle
+    # ------------------------------------------------------------------
+
+    def update_model(self, model) -> None:
+        """Swap the acoustic model: its parameters are cast to the compute
+        dtype and moved to the engine's device once, here."""
+        self.model = model
+        self.model_name = model.model_name
+        self.audio_config = model.audio_conf
+        self.audio_parser = SpectrogramAudioParser(self.audio_config)
+        self._window = self.audio_parser.window.to(self.device)
+        self.labels = model.labels
+        params = model.params
+        if self.compute_dtype == "bfloat16":
+            params = ds.cast_matmul_weights(params, torch.bfloat16)
+        self._compute_params = ds.params_to(params, self.device)
+        self.update_decoder(labels=self.labels)
+
+    def update_decoder(self, lm=None, alpha=None, beta=None, labels=None,
+                       beam_width=None):
+        """Decoder swap. Only the greedy decoder is ported; a language
+        model raises until the beam decoders are."""
+        if lm is not None and lm != "greedy":
+            raise NotImplementedError(
+                "beam search with a language model comes with a later slice "
+                "(ROADMAP A7); only greedy decoding is ported"
+            )
+        if alpha is not None:
+            self.alpha = alpha
+        if beta is not None:
+            self.beta = beta
+        if beam_width:
+            self.beam_width = beam_width
+        if labels:
+            self.labels = labels
+        self.lm = "greedy"
+        if self.labels:
+            self.decoder = GreedyDecoder(
+                labels=self.labels, blank_index=self.labels.index("_")
+            )
+
+    # ------------------------------------------------------------------
+    # Device program
+    # ------------------------------------------------------------------
+
+    @torch.inference_mode()
+    def _forward(self, params, waveforms, lengths, rnn_impl: str = "auto"):
+        """(rows, n) int16/float32 waveforms on the device -> ((rows, T', C)
+        probabilities, (rows,) output lengths)."""
+        parser = self.audio_parser
+        spect, frame_lens = stft_ops.batched_log_spectrogram(
+            waveforms.float(), lengths, parser.n_fft, parser.hop_length,
+            self._window, normalize=parser.normalize,
+        )
+        return ds.forward(
+            params, self.model.config, spect[:, None], frame_lens,
+            rnn_impl=rnn_impl,
+        )
+
+    @torch.inference_mode()
+    def _forward_greedy(self, params, waveforms, lengths):
+        """Forward + argmax on the device: only the (rows, T') path ids
+        (uint8 while the labels fit) and the lengths cross to the host."""
+        probs, out_lens = self._forward(params, waveforms, lengths)
+        ids = probs.argmax(dim=-1)
+        if probs.shape[-1] <= 256:
+            ids = ids.to(torch.uint8)
+        return ids, out_lens
+
+    # ------------------------------------------------------------------
+    # Bucketed batch scheduler
+    # ------------------------------------------------------------------
+
+    @staticmethod
+    def _row_quantum(n: int) -> int:
+        p = 1
+        while p < n:
+            p *= 2
+        return min(p, DanSpeechRecognizer.MAX_BATCH_ROWS)
+
+    def _plan_groups(self, recordings: list[np.ndarray]):
+        """Group utterance indices into (indices, bucket_len) dispatch
+        plans: one length bucket per SAMPLE_BUCKET quantum, at most
+        MAX_BATCH_ROWS rows per plan, then adjacent under-filled buckets
+        merged while the padded volume stays within MERGE_INFLATION of the
+        sum of the merged plans' own volumes."""
+        buckets: dict[int, list[int]] = {}
+        for i, r in enumerate(recordings):
+            b = _bucket(len(r), self.SAMPLE_BUCKET)
+            buckets.setdefault(b, []).append(i)
+        plans = []
+        for maxlen in sorted(buckets):
+            idxs = buckets[maxlen]
+            for s in range(0, len(idxs), self.MAX_BATCH_ROWS):
+                plans.append((idxs[s : s + self.MAX_BATCH_ROWS], maxlen))
+
+        def cost(idxs, maxlen):
+            return self._row_quantum(len(idxs)) * maxlen
+
+        merged: list[tuple[list[int], int, int]] = []  # (idxs, maxlen, orig)
+        for idxs, maxlen in plans:  # ascending maxlen
+            own = cost(idxs, maxlen)
+            if merged:
+                prev_idxs, _, prev_orig = merged[-1]
+                if len(prev_idxs) + len(idxs) <= self.MAX_BATCH_ROWS:
+                    joint = cost(prev_idxs + idxs, maxlen)
+                    if joint <= self.MERGE_INFLATION * (prev_orig + own):
+                        merged[-1] = (prev_idxs + idxs, maxlen, prev_orig + own)
+                        continue
+            merged.append((list(idxs), maxlen, own))
+        return [(idxs, maxlen) for idxs, maxlen, _ in merged]
+
+    def _staging_buffer(self, shape, dtype: torch.dtype) -> torch.Tensor:
+        """A host staging buffer for one dispatch group (pinned when the
+        device is CUDA), kept across calls keyed by (shape, dtype). Within
+        one call a key is handed out once, since an upload from the first
+        may still be in flight; least-recently-used buffers beyond
+        STAGING_CACHE_BYTES are dropped."""
+        key = (tuple(shape), dtype)
+        buf = self._staging.pop(key, None)  # re-insert => LRU order
+        if buf is None or key in self._staging_used:
+            buf = torch.zeros(shape, dtype=dtype,
+                              pin_memory=self.device.type == "cuda")
+        self._staging[key] = buf
+        self._staging_used.add(key)
+        total = sum(b.numel() * b.element_size() for b in self._staging.values())
+        for k in list(self._staging):
+            if total <= self.STAGING_CACHE_BYTES or k in self._staging_used:
+                continue
+            b = self._staging.pop(k)
+            total -= b.numel() * b.element_size()
+        return buf
+
+    def _stage_group(self, recordings, chunk, maxlen):
+        """Build the (rows, maxlen) host batch for one dispatch group: rows
+        padded to a power of two, int16 when every input is int16 PCM
+        (half the upload bytes; the device casts), else float32. Pad rows
+        take a real row's length; their outputs are dropped."""
+        rows = self._row_quantum(len(chunk))
+        int16 = all(recordings[i].dtype == np.int16 for i in chunk)
+        buf = self._staging_buffer(
+            (rows, maxlen), torch.int16 if int16 else torch.float32
+        )
+        batch = buf.numpy()
+        lengths = np.empty((rows,), dtype=np.int32)
+        for j, i in enumerate(chunk):
+            r = recordings[i]
+            batch[j, : len(r)] = r
+            batch[j, len(r) :] = 0
+            lengths[j] = len(r)
+        lengths[len(chunk) :] = lengths[0]
+        return buf, lengths
+
+    def _transcribe_pipelined(self, recordings: list[np.ndarray], show_all: bool):
+        if self.model is None:
+            raise ModelNotInitialized("No acoustic model loaded")
+        try:
+            return self._transcribe_pipelined_inner(recordings, show_all)
+        except BaseException:
+            # uploads may still read the pinned buffers: drop the cache so
+            # the next call cannot overwrite an in-flight source
+            self._staging = {}
+            self._staging_used = set()
+            raise
+
+    def _transcribe_pipelined_inner(self, recordings, show_all):
+        plans = self._plan_groups(recordings)
+        params = self._compute_params
+        self._staging_used = set()
+        cuda = self.device.type == "cuda"
+
+        # phase 1: stage, upload and enqueue every group
+        pending = []
+        for idxs, maxlen in plans:
+            batch, lengths = self._stage_group(recordings, idxs, maxlen)
+            wave = batch.to(self.device, non_blocking=True)
+            lens = torch.from_numpy(lengths).to(self.device, non_blocking=True)
+            ids, out_lens = self._forward_greedy(params, wave, lens)
+            if cuda:
+                host_ids = torch.empty(ids.shape, dtype=ids.dtype, pin_memory=True)
+                host_ids.copy_(ids, non_blocking=True)
+                host_lens = torch.empty(out_lens.shape, dtype=out_lens.dtype,
+                                        pin_memory=True)
+                host_lens.copy_(out_lens, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record()
+            else:
+                host_ids, host_lens, done = ids, out_lens, None
+            pending.append((idxs, host_ids, host_lens, done))
+
+        # phase 2: collapse in dispatch order while later groups run
+        results: list = [None] * len(recordings)
+        blank = self.decoder.blank_index
+        for idxs, host_ids, host_lens, done in pending:
+            if done is not None:
+                done.synchronize()
+            strings = collapse_batch(
+                host_ids.numpy()[: len(idxs)],
+                host_lens.numpy()[: len(idxs)],
+                self.labels, blank,
+            )
+            for j, i in enumerate(idxs):
+                results[i] = [strings[j]]
+        return results
+
+    def transcribe(self, recording, show_all: bool = False):
+        """One-shot transcription of a waveform."""
+        decoded_output = self._transcribe_pipelined([np.asarray(recording)], show_all)
+        if show_all:
+            warnings.warn(
+                "You are trying to get all beams but no LM has been instantiated.",
+                NoLmInstantiatedWarning,
+            )
+            return decoded_output[0]
+        return decoded_output[0][0]
+
+    def transcribe_batch(self, recordings: list, show_all: bool = False) -> list:
+        """Batch transcription through the bucketed scheduler."""
+        decoded_output = self._transcribe_pipelined(
+            [np.asarray(r) for r in recordings], show_all
+        )
+        if show_all:
+            return decoded_output
+        return [d[0] for d in decoded_output]

@@ -1,0 +1,6 @@
+from .spectrogram import (  # noqa: F401
+    AudioParser,
+    SpectrogramAudioParser,
+    get_default_audio_config,
+)
+from .windows import get_window  # noqa: F401

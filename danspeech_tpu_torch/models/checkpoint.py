@@ -1,0 +1,167 @@
+"""Checkpoint import/export: the weight bridge.
+
+The port of ``danspeech_tpu/models/checkpoint.py``. Parameters cross
+between the two packages, and to and from disk, as a reference-named
+state_dict of numpy arrays (the original danspeech ``DeepSpeech`` module's
+key names, RNN weights in torch's (G·H, I) layout). The native ``.dsz``
+format is that dict as an ``.npz`` plus a JSON config inside one zip.
+Loading the original ``.pth`` zoo packages waits for a later slice.
+"""
+
+from __future__ import annotations
+
+import io
+import json
+import zipfile
+
+import numpy as np
+import torch
+
+from ..ops.conv import BatchNormParams, ConvParams, LinearParams, LookaheadParams
+from ..ops.rnn import GRUWeights
+from .config import DeepSpeechConfig
+from .deepspeech import Params, _require_gru
+
+
+def _t(x, dtype=torch.float32) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, dtype=np.float32, copy=True)).to(dtype)
+
+
+def params_from_state_dict(
+    state_dict: dict, config: DeepSpeechConfig, dtype=torch.float32
+) -> Params:
+    """Map a reference-named state_dict of numpy arrays onto the port's
+    parameter tree, on the CPU.
+
+    Keys: conv block i at ``conv.seq_module.{3i}`` (conv) and ``.{3i+1}``
+    (BN); RNN layer k at ``rnns.k.rnn.*`` with its pre-BN at
+    ``rnns.k.batch_norm.module.*`` for k >= 1; lookahead at
+    ``lookahead.0.conv.weight`` (batch) or ``lookahead.conv.weight``
+    (streaming); head at ``fc.0.module.{0,1}``.
+    """
+    _require_gru(config)
+    sd = {k: np.asarray(v) for k, v in state_dict.items()}
+
+    convs = []
+    for i in range(config.conv_layers):
+        base = f"conv.seq_module.{3 * i}"
+        bn = f"conv.seq_module.{3 * i + 1}"
+        convs.append(
+            ConvParams(
+                weight=_t(sd[f"{base}.weight"], dtype),
+                bias=_t(sd[f"{base}.bias"], dtype),
+                bn_gamma=_t(sd[f"{bn}.weight"], dtype),
+                bn_beta=_t(sd[f"{bn}.bias"], dtype),
+                bn_mean=_t(sd[f"{bn}.running_mean"], dtype),
+                bn_var=_t(sd[f"{bn}.running_var"], dtype),
+            )
+        )
+
+    def rnn_dir(k: int, suffix: str):
+        return GRUWeights(
+            w_ih=_t(sd[f"rnns.{k}.rnn.weight_ih_l0{suffix}"].T, dtype),
+            w_hh=_t(sd[f"rnns.{k}.rnn.weight_hh_l0{suffix}"].T, dtype),
+            b_ih=_t(sd[f"rnns.{k}.rnn.bias_ih_l0{suffix}"], dtype),
+            b_hh=_t(sd[f"rnns.{k}.rnn.bias_hh_l0{suffix}"], dtype),
+        )
+
+    rnns = []
+    for k in range(config.rnn_layers):
+        bn_key = f"rnns.{k}.batch_norm.module"
+        bn = None
+        if f"{bn_key}.weight" in sd:
+            bn = BatchNormParams(
+                gamma=_t(sd[f"{bn_key}.weight"], dtype),
+                beta=_t(sd[f"{bn_key}.bias"], dtype),
+                mean=_t(sd[f"{bn_key}.running_mean"], dtype),
+                var=_t(sd[f"{bn_key}.running_var"], dtype),
+            )
+        bwd = None
+        if config.bidirectional and not config.streaming_model:
+            bwd = rnn_dir(k, "_reverse")
+        rnns.append({"bn": bn, "fwd": rnn_dir(k, ""), "bwd": bwd})
+
+    look = None
+    if not config.bidirectional or config.streaming_model:
+        w = sd.get("lookahead.0.conv.weight")
+        if w is None:
+            w = sd["lookahead.conv.weight"]
+        look = LookaheadParams(weight=_t(w.reshape(w.shape[0], w.shape[-1]), dtype))
+
+    return {
+        "conv": convs,
+        "rnns": rnns,
+        "lookahead": look,
+        "fc_bn": BatchNormParams(
+            gamma=_t(sd["fc.0.module.0.weight"], dtype),
+            beta=_t(sd["fc.0.module.0.bias"], dtype),
+            mean=_t(sd["fc.0.module.0.running_mean"], dtype),
+            var=_t(sd["fc.0.module.0.running_var"], dtype),
+        ),
+        "fc": LinearParams(weight=_t(sd["fc.0.module.1.weight"], dtype), bias=None),
+    }
+
+
+def state_dict_from_params(params: Params, config: DeepSpeechConfig) -> dict:
+    """Inverse mapping: parameter tree -> reference-named numpy state_dict
+    (float32)."""
+
+    def n(t):
+        return t.detach().float().cpu().numpy()
+
+    sd: dict[str, np.ndarray] = {}
+    for i, c in enumerate(params["conv"]):
+        base = f"conv.seq_module.{3 * i}"
+        bn = f"conv.seq_module.{3 * i + 1}"
+        sd[f"{base}.weight"] = n(c.weight)
+        sd[f"{base}.bias"] = n(c.bias)
+        sd[f"{bn}.weight"] = n(c.bn_gamma)
+        sd[f"{bn}.bias"] = n(c.bn_beta)
+        sd[f"{bn}.running_mean"] = n(c.bn_mean)
+        sd[f"{bn}.running_var"] = n(c.bn_var)
+    for k, entry in enumerate(params["rnns"]):
+        if entry["bn"] is not None:
+            bn_key = f"rnns.{k}.batch_norm.module"
+            sd[f"{bn_key}.weight"] = n(entry["bn"].gamma)
+            sd[f"{bn_key}.bias"] = n(entry["bn"].beta)
+            sd[f"{bn_key}.running_mean"] = n(entry["bn"].mean)
+            sd[f"{bn_key}.running_var"] = n(entry["bn"].var)
+        for suffix, w in (("", entry["fwd"]), ("_reverse", entry["bwd"])):
+            if w is None:
+                continue
+            sd[f"rnns.{k}.rnn.weight_ih_l0{suffix}"] = n(w.w_ih).T
+            sd[f"rnns.{k}.rnn.weight_hh_l0{suffix}"] = n(w.w_hh).T
+            sd[f"rnns.{k}.rnn.bias_ih_l0{suffix}"] = n(w.b_ih)
+            sd[f"rnns.{k}.rnn.bias_hh_l0{suffix}"] = n(w.b_hh)
+    if params["lookahead"] is not None:
+        w = n(params["lookahead"].weight)
+        key = "lookahead.conv.weight" if config.streaming_model else "lookahead.0.conv.weight"
+        sd[key] = w.reshape(w.shape[0], 1, w.shape[1])
+    sd["fc.0.module.0.weight"] = n(params["fc_bn"].gamma)
+    sd["fc.0.module.0.bias"] = n(params["fc_bn"].beta)
+    sd["fc.0.module.0.running_mean"] = n(params["fc_bn"].mean)
+    sd["fc.0.module.0.running_var"] = n(params["fc_bn"].var)
+    sd["fc.0.module.1.weight"] = n(params["fc"].weight)
+    return sd
+
+
+# ---------------------------------------------------------------------------
+# Native format (.dsz): npz arrays + config.json inside one zip
+# ---------------------------------------------------------------------------
+
+
+def save_checkpoint(path: str, config: DeepSpeechConfig, params: Params) -> None:
+    sd = state_dict_from_params(params, config)
+    with zipfile.ZipFile(path, "w", zipfile.ZIP_STORED) as zf:
+        zf.writestr("config.json", json.dumps(config.to_dict()))
+        buf = io.BytesIO()
+        np.savez(buf, **sd)
+        zf.writestr("weights.npz", buf.getvalue())
+
+
+def load_checkpoint(path: str) -> tuple[DeepSpeechConfig, Params]:
+    with zipfile.ZipFile(path, "r") as zf:
+        config = DeepSpeechConfig.from_dict(json.loads(zf.read("config.json")))
+        with np.load(io.BytesIO(zf.read("weights.npz"))) as npz:
+            sd = {k: npz[k] for k in npz.files}
+    return config, params_from_state_dict(sd, config)

@@ -10,14 +10,23 @@ Phases, in order; any failure exits non-zero:
 2. build every CUDA kernel from ``danspeech_tpu_torch/csrc`` (one nvcc per
    source, all started together), timed;
 3. each kernel against its plain PyTorch version on the card at a ragged
-   small shape and the flagship's layer shapes, with its time, the plain
-   version's time, one library call's time as a yardstick, and the bound;
-4. the main path: ``Recognizer.recognize`` / ``recognize_batch`` on the
+   small shape and the layer shapes of the paths below, with its time, the
+   plain version's time, one library call's time as a yardstick, and the
+   bound;
+4. the batch path: ``Recognizer.recognize`` / ``recognize_batch`` on the
    flagship DanSpeechPrimary (3 conv, 9x1200 bidirectional GRU, random
    weights from a seed), with the kernels' launch counts read around it,
    one batch checked against the plain GRU on the card, and a small model
    checked against the port's CPU path;
-5. one ``{"kernels": [...]}`` line, then the device line as the last line.
+5. the streaming path on GPUStreamingRNN (2 conv, 5x2000 unidirectional
+   GRU, lookahead 20, random weights from a seed) with the flagship as the
+   secondary model: ``recognize_batch`` of 128 waveforms, then
+   ``enable_real_time_streaming`` and ``streaming_transcribe`` over 8 s of
+   seeded audio (each chunk timed), then ``real_time_streaming`` over a
+   seeded WAV file read at the pace of a live microphone; the launch counts
+   of each path read around it, every chunk's probabilities checked against
+   the plain GRU on the card;
+6. one ``{"kernels": [...]}`` line, then the device line as the last line.
 
 Imports no JAX and nothing of ``danspeech_tpu``.
 """
@@ -30,7 +39,10 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
+import threading
 import time
+import wave
 
 import numpy as np
 import torch
@@ -48,6 +60,12 @@ GRU_ATOL = 2e-2
 FLAGSHIP = dict(
     model_name="DanSpeechPrimary", rnn_hidden_size=1200, rnn_layers=9,
     conv_layers=3, bidirectional=True,
+)
+# the zoo's large streaming model: 2 conv (RNN input 1312), 5x2000
+# unidirectional GRU, lookahead context 20
+GPU_STREAMING = dict(
+    model_name="GPUStreamingRNN", rnn_hidden_size=2000, rnn_layers=5,
+    conv_layers=2, bidirectional=False, context=20,
 )
 
 
@@ -182,8 +200,113 @@ def phase_kernels():
     return [small] + flag
 
 
+def scan_bound(lengths, t, b, h):
+    """(bound_ms, bound_by) of one gru_scan call: the operations of the
+    valid steps over the bf16 peak against the bytes (gx of the valid steps
+    read once, w_hh once, out written once, h0 read and h_last written)
+    over the memory rate."""
+    valid = int(sum(lengths))
+    flops = 2 * valid * h * 3 * h
+    nbytes = (
+        valid * 3 * h * 2               # gx bf16, valid rows
+        + h * 3 * h * 2                 # w_hh bf16
+        + 2 * 3 * h * 4 + b * 4         # b_ih, b_hh f32, lengths int32
+        + t * b * h * 2                 # out bf16
+        + 2 * b * h * 4                 # h0, h_last f32
+    )
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_mem = nbytes / PEAK_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
+
+
+def check_scan(gen, label, t, lengths, h, reverse, carried, timed):
+    from danspeech_tpu_torch.ops import gru_cuda
+
+    dev = "cuda"
+    b = len(lengths)
+    bound = 1.0 / h ** 0.5
+
+    def uni(*shape):
+        return (torch.rand(*shape, generator=gen, device=dev) * 2 - 1) * bound
+
+    gx = (torch.randn(t, b, 3 * h, generator=gen, device=dev) * 0.5).to(torch.bfloat16)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    w_hh = uni(h, 3 * h).to(torch.bfloat16)
+    b_ih, b_hh = uni(3 * h), uni(3 * h)
+    h0 = torch.zeros(b, h, device=dev)
+    if carried:
+        h0 = torch.rand(b, h, generator=gen, device=dev) - 0.5
+    args = (gx, lens, w_hh, b_ih, b_hh, h0)
+    got = gru_cuda.gru_scan(*args, reverse=reverse)
+    torch.cuda.synchronize()
+    ref = gru_cuda.gru_scan_plain(*args, reverse=reverse)
+    torch.cuda.synchronize()
+    errs = {}
+    for name, g, r in zip(("out", "h_last"), got, ref):
+        if g.shape != r.shape or g.dtype != r.dtype:
+            raise AssertionError(f"{name}: {g.shape}/{g.dtype} vs {r.shape}/{r.dtype}")
+        if not torch.isfinite(g.float()).all():
+            raise AssertionError(f"{name}: non-finite values from the kernel")
+        errs[name] = float((g.float() - r.float()).abs().max())
+    pad = torch.arange(t, device=dev)[:, None] >= lens[None, :].long()
+    if pad.any() and float(got[0][pad].float().abs().max()) != 0.0:
+        raise AssertionError("gru_scan: non-zero output past a row's length")
+    err = max(errs.values())
+    res = {"label": label,
+           "shape": {"T": t, "B": b, "H": h, "reverse": reverse, "carried_h0": carried},
+           "max_abs_err": err, "errs": errs, "atol": GRU_ATOL}
+    log(f"  gru_scan {label} T={t} B={b} H={h} reverse={reverse} "
+        f"h0={'carried' if carried else 'zero'}: max|err| "
+        + ", ".join(f"{k}={v:.3e}" for k, v in errs.items()) + f" (atol {GRU_ATOL})")
+    if not err <= GRU_ATOL:
+        raise AssertionError(f"gru_scan disagrees with its plain version: {err}")
+    if timed:
+        res["ms"] = time_ms(lambda: gru_cuda.gru_scan(*args, reverse=reverse), iters=5)
+        res["plain_ms"] = time_ms(
+            lambda: gru_cuda.gru_scan_plain(*args, reverse=reverse), iters=2)
+        # cuDNN's GRU(D=H, H) on (T, B, H): it also computes the input
+        # projection, which gru_scan takes precomputed
+        gru = torch.nn.GRU(h, h).to(dev, torch.bfloat16)
+        gru.flatten_parameters()
+        x = torch.randn(t, b, h, generator=gen, device=dev).to(torch.bfloat16)
+        with torch.no_grad():
+            res["library_ms"] = time_ms(lambda: gru(x), iters=5)
+        del gru, x
+        res["bound_ms"], res["bound_by"] = scan_bound(lengths, t, b, h)
+        log(f"    ms={res['ms']:.3f} plain_ms={res['plain_ms']:.3f} "
+            f"library_ms(cuDNN nn.GRU({h},{h}) bf16, with its projection)="
+            f"{res['library_ms']:.3f} bound_ms={res['bound_ms']:.4f} ({res['bound_by']})")
+    del args, got, ref
+    torch.cuda.empty_cache()
+    return res
+
+
+# the valid steps of a steady streaming chunk: 39 new spectrogram frames
+# (6240 samples) + the 10-column cache -> 25 after conv1 -> 35 after the
+# conv2 cache, of phys_rnn_frames(64, is_first=False) = 55 physical frames
+STREAM_T, STREAM_VALID = 55, 35
+
+
+def phase_scan_kernels():
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    checks = []
+    for lengths in ([13], [13, 1, 7, 12, 3]):  # B = 1 and B = 5, H % 64 != 0
+        for reverse in (False, True):
+            checks.append(check_scan(gen, "small", 13, lengths, 72, reverse, carried=True,
+                                     timed=len(lengths) == 5 and not reverse))
+    rng = np.random.default_rng(2000)
+    lengths = rng.integers(1, 402, size=128)
+    lengths[0], lengths[1] = 401, 1
+    checks.append(check_scan(gen, "uni batch layer", 401, lengths.tolist(), 2000,
+                             False, carried=False, timed=True))
+    checks.append(check_scan(gen, "streaming step", STREAM_T, [STREAM_VALID], 2000,
+                             False, carried=True, timed=True))
+    return checks
+
+
 # ---------------------------------------------------------------------------
-# Phase 4: the main path
+# Phase 4: the batch path
 # ---------------------------------------------------------------------------
 
 # the flagship on the card against the plain GRU on the card, and a small
@@ -223,16 +346,16 @@ def seeded_waveforms(rng, n, lo_s=1.0, hi_s=8.0):
     ]
 
 
-def profile_batch(rec, batch, top=12):
-    """Device time by kernel over one recognize_batch call (torch.profiler),
-    and the device's busy share of the call's wall time."""
+def profile_call(label, fn, top=12):
+    """Device time by kernel over one call of ``fn`` (torch.profiler), and
+    the device's busy share of the call's wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        rec.recognize_batch(batch)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = []
@@ -245,7 +368,7 @@ def profile_batch(rec, batch, top=12):
         rows.append((e.key, us / 1e3, e.count))
     rows.sort(key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows)
-    log(f"  profile of one recognize_batch: wall {wall_ms:.1f} ms, device busy "
+    log(f"  profile of {label}: wall {wall_ms:.1f} ms, device busy "
         f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%)")
     for name, ms, count in rows[:top]:
         log(f"    {ms:9.2f} ms {100 * ms / max(busy_ms, 1e-9):5.1f}% x{count:<6d} {name[:90]}")
@@ -316,7 +439,8 @@ def phase_serve(card):
         log(f"  {kind}({what}): {audio_s:.2f} audio-s in {wall:.3f} s = "
             f"{audio_s / wall:.1f} audio-s/s [{card}]")
 
-    profile = profile_batch(rec, batches[1])
+    profile = profile_call("one recognize_batch",
+                           lambda: rec.recognize_batch(batches[1]))
 
     # one dispatch group of the first batch, kernel vs plain GRU on the card
     idxs, maxlen = eng._plan_groups(batches[0])[0]
@@ -360,6 +484,288 @@ def phase_serve(card):
 
 
 # ---------------------------------------------------------------------------
+# Phase 5: the streaming path
+# ---------------------------------------------------------------------------
+
+RATE = 16000
+MIC_READ = 3200  # samples per microphone read in the documented accumulation
+
+
+def stream_requirements(context):
+    """Samples of the first and of every later streaming chunk: (context-1)*2
+    new spectrogram frames per step, and 15 more 10 ms blocks on the first
+    for the conv left padding (8640 and 6240 at context 20)."""
+    per10ms = RATE // 100
+    general = per10ms * 2 + per10ms * ((context - 1) * 2 - 1)
+    return general + per10ms * 15, general
+
+
+def accumulate(wave_f32, context):
+    """The documented accumulation: the (chunk, is_first, is_last) calls of
+    streaming_transcribe for a waveform read MIC_READ samples at a time."""
+    first_req, general_req = stream_requirements(context)
+    reads = [wave_f32[i:i + MIC_READ] for i in range(0, len(wave_f32), MIC_READ)]
+    calls, acc, first = [], np.zeros(0, np.float32), True
+    for k, r in enumerate(reads):
+        last = k == len(reads) - 1
+        acc = np.concatenate([acc, r])
+        if first:
+            if len(acc) >= first_req:
+                calls.append((acc, True, False))
+                acc, first = np.zeros(0, np.float32), False
+        elif last or len(acc) >= general_req:
+            calls.append((acc, False, last))
+            acc = np.zeros(0, np.float32)
+    return calls
+
+
+def record_calls(eng):
+    """Record every streaming_transcribe call of ``eng`` as (chunk,
+    is_first, is_last) and count its secondary-model runs."""
+    calls, secondary = [], []
+    cls = type(eng)
+
+    def recorded(recording, is_last, is_first):
+        calls.append((np.array(recording, np.float32), is_first, is_last))
+        return cls.streaming_transcribe(eng, recording, is_last=is_last,
+                                        is_first=is_first)
+
+    def counted(spect):
+        secondary.append(spect.shape[1])
+        return cls._run_secondary(eng, spect)
+
+    eng.streaming_transcribe, eng._run_secondary = recorded, counted
+    return calls, secondary
+
+
+def frame_steps(calls, audio_config):
+    """Replay the chunks through a fresh streaming parser: the (spectrogram,
+    is_first, is_last) of every call that yields frames, i.e. that runs the
+    device step."""
+    from danspeech_tpu_torch.features.spectrogram import InferenceSpectrogramAudioParser
+
+    parser = InferenceSpectrogramAudioParser(audio_config)
+    steps = []
+    for chunk, first, last in calls:
+        spect = parser.parse_audio(chunk, last)
+        if len(spect):
+            steps.append((spect, first, last))
+    return steps
+
+
+def check_stream_chunks(label, eng, steps):
+    """Every chunk step on the card, GRU kernel against the plain GRU from
+    the same state; the kernel's state carries on."""
+    from danspeech_tpu_torch.models import streaming
+
+    params, config = eng._compute_params, eng.model.config
+    state, got_all, ref_all, worst = None, [], [], 0.0
+    for spect, first, last in steps:
+        x, t = eng._stream_input(spect)
+        if state is None:
+            state = eng._new_stream_state(x.shape[-1])
+        got, n, nxt = streaming.streaming_step_masked(
+            params, config, x, t, state, first, last)
+        ref, n_ref, _ = streaming.streaming_step_masked(
+            params, config, x, t, state, first, last, rnn_impl="plain")
+        state = nxt
+        if got is None:
+            continue
+        if n != n_ref or got.shape[0] != 1 or got.shape[2] != config.num_classes:
+            raise AssertionError(f"{label}: chunk probs {tuple(got.shape)}, out_len "
+                                 f"{n} vs {n_ref}")
+        worst = max(worst, float((got[:, :n] - ref[:, :n]).abs().max()))
+        got_all.append(got[:, :n])
+        ref_all.append(ref[:, :n])
+    probs, ref = torch.cat(got_all, 1), torch.cat(ref_all, 1)
+    res = compare_probs(f"{label}: {len(got_all)} chunks, kernel vs plain GRU",
+                        probs, ref, torch.tensor([probs.shape[1]]), 1)
+    res["worst_chunk_max_abs_prob_err"] = worst
+    return res
+
+
+def paced_speech_file(path):
+    """A SpeechFile over ``path`` whose reads take as long as the audio they
+    return, as a live microphone's do."""
+    from danspeech_tpu_torch.audio.io import SpeechFile
+
+    class PacedSpeechFile(SpeechFile):
+        def __enter__(self):
+            super().__enter__()
+            inner, rate = self.stream, self.sampling_rate
+
+            class Stream:
+                def read(self, size=-1):
+                    time.sleep(max(size, 0) / rate)
+                    return inner.read(size)
+
+            self.stream = Stream()
+            return self
+
+    return PacedSpeechFile(path)
+
+
+def seeded_wav(path, rng):
+    """1 s silence, 4 s speech-level noise, 2 s silence: 16-bit mono PCM."""
+    speech = np.clip(rng.normal(size=4 * RATE) * 3000.0, -32768, 32767)
+    pcm = np.concatenate([np.zeros(RATE), speech, np.zeros(2 * RATE)]).astype("<i2")
+    with wave.open(path, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(RATE)
+        w.writeframes(pcm.tobytes())
+    return len(pcm)
+
+
+def phase_stream(card):
+    from danspeech_tpu_torch import Recognizer
+    from danspeech_tpu_torch.models import DeepSpeechConfig, DeepSpeechModel
+    from danspeech_tpu_torch.ops import gru_cuda
+
+    config = DeepSpeechConfig(**GPU_STREAMING)
+    t0 = time.perf_counter()
+    model = DeepSpeechModel.init_random(config, seed=2)
+    secondary = DeepSpeechModel.init_random(DeepSpeechConfig(**FLAGSHIP), seed=0)
+    rec = Recognizer(model=model)  # device=None: CUDA
+    eng = rec.danspeech_recognizer
+    torch.cuda.synchronize()
+    log(f"  {config.model_name} {config.rnn_layers}x{config.rnn_hidden_size} uni GRU, "
+        f"{config.conv_layers} conv, RNN input {config.rnn_input_size}, lookahead "
+        f"{config.context}, {model.get_param_size()} params; secondary "
+        f"{secondary.model_name}: set up in {time.perf_counter() - t0:.1f} s")
+    if eng.device.type != "cuda" or eng.compute_dtype != "bfloat16":
+        raise AssertionError("the default engine must run bf16 on CUDA")
+    layers, sec_layers = config.rnn_layers, secondary.config.rnn_layers
+    out = {}
+
+    # 5a: recognize_batch on the unidirectional model
+    rng = np.random.default_rng(5)
+    batches = [seeded_waveforms(rng, 128) for _ in range(2)]
+    expected = layers * sum(len(eng._plan_groups(b)) for b in batches)
+    gru_cuda.gru_scan.launches = 0
+    serve = []
+    for k, batch in enumerate(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        texts = rec.recognize_batch(batch)
+        wall = time.perf_counter() - t0
+        if len(texts) != len(batch) or not all(isinstance(t, str) for t in texts):
+            raise AssertionError("recognize_batch returned the wrong shape")
+        audio_s = sum(len(w) for w in batch) / RATE
+        serve.append({"call": "recognize_batch", "input": f"uni batch{k}",
+                      "audio_s": audio_s, "wall_s": wall, "audio_s_per_s": audio_s / wall})
+        log(f"  recognize_batch(uni batch{k}): {audio_s:.2f} audio-s in {wall:.3f} s "
+            f"= {audio_s / wall:.1f} audio-s/s [{card}]")
+    batch_launches = gru_cuda.gru_scan.launches
+    log(f"  gru_scan launches on the uni batch path: {batch_launches} (expected "
+        f"{expected} = {layers} layers x dispatch groups)")
+    if batch_launches != expected:
+        raise AssertionError("the uni batch path did not run every GRU layer on gru_scan")
+    out["batch"] = {"launches": batch_launches, "serve": serve}
+    out["batch"]["profile"] = profile_call(
+        "one uni recognize_batch", lambda: rec.recognize_batch(batches[1]))
+    idxs, maxlen = eng._plan_groups(batches[0])[0]
+    staged, lengths = eng._stage_group(batches[0], idxs, maxlen)
+    wave_d, lens = staged.to(eng.device), torch.from_numpy(lengths).to(eng.device)
+    probs, out_lens = eng._forward(eng._compute_params, wave_d, lens)
+    ref, _ = eng._forward(eng._compute_params, wave_d, lens, rnn_impl="plain")
+    out["batch"]["vs_plain"] = compare_probs(
+        f"uni group rows={len(idxs)} bucket={maxlen}: kernel vs plain GRU",
+        probs, ref, out_lens, len(idxs))
+    del probs, ref, wave_d
+    torch.cuda.empty_cache()
+
+    # 5b: streaming_transcribe over 8 s of seeded audio, each chunk timed
+    rec.enable_real_time_streaming(model, secondary_model=secondary, string_parts=True)
+    calls, sec_runs = record_calls(eng)
+    audio = (np.random.default_rng(6).normal(size=8 * RATE) * 3000.0).astype(np.float32)
+    plan = accumulate(audio, config.context)
+    gru_cuda.gru_scan.launches = 0
+    gru_cuda.gru_bidi_fused.launches = 0
+    chunks, texts = [], []
+    for chunk, first, last in plan:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        text = eng.streaming_transcribe(chunk, is_last=last, is_first=first)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        kind = "first" if first else ("final" if last else "steady")
+        chunks.append({"kind": kind, "samples": len(chunk), "ms": ms})
+        texts.append(text)
+    scan_direct = gru_cuda.gru_scan.launches
+    bidi_direct = gru_cuda.gru_bidi_fused.launches
+    steps = frame_steps(calls, config.audio_conf)
+    log(f"  streaming_transcribe: {len(plan)} chunks over {len(audio) / RATE:.1f} s, "
+        f"{len(steps)} with frames; gru_scan launches {scan_direct} (expected "
+        f"{layers * len(steps)}), gru_bidi_fused launches {bidi_direct} (expected "
+        f"{sec_layers * len(sec_runs)} = {sec_layers} x {len(sec_runs)} finals)")
+    if scan_direct != layers * len(steps) or bidi_direct != sec_layers * len(sec_runs):
+        raise AssertionError("streaming did not run every GRU layer on its kernel")
+    if not sec_runs or not texts[-1]:
+        raise AssertionError("the final chunk gave no secondary-model transcript")
+    steady = sorted(c["ms"] for c in chunks if c["kind"] == "steady")
+    for kind in ("first", "final"):
+        log(f"    {kind} chunk: " + ", ".join(f"{c['ms']:.2f} ms ({c['samples']} samples)"
+                                           for c in chunks if c["kind"] == kind))
+    log(f"    steady chunks ({len(steady)} of {stream_requirements(config.context)[1]} "
+        f"samples = {stream_requirements(config.context)[1] / RATE * 1e3:.0f} ms of "
+        f"audio): min {steady[0]:.2f} ms, median {steady[len(steady) // 2]:.2f} ms, "
+        f"max {steady[-1]:.2f} ms [{card}]")
+    out["direct"] = {"chunks": chunks, "scan_launches": scan_direct,
+                     "bidi_launches": bidi_direct, "finals": len(sec_runs),
+                     "vs_plain": check_stream_chunks("streaming_transcribe", eng, steps)}
+    out["direct"]["profile"] = profile_call(
+        "3 steady streaming chunks",
+        lambda: [eng.streaming_transcribe(c, is_last=False, is_first=False)
+                 for c, _, _ in plan[1:4]])
+    eng.reset_streaming_params()
+    eng.audio_parser.reset()
+
+    # 5c: real_time_streaming over a WAV read at a live microphone's pace
+    rec.enable_real_time_streaming(model, secondary_model=secondary,
+                                   string_parts=True, pipeline_depth=2)
+    calls, sec_runs = record_calls(eng)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "seeded.wav")
+        n_samples = seeded_wav(path, np.random.default_rng(7))
+        gru_cuda.gru_scan.launches = 0
+        gru_cuda.gru_bidi_fused.launches = 0
+        yields = []
+        t0 = time.perf_counter()
+        # a stream that never ends ends the generator after 180 s
+        watchdog = threading.Timer(180.0, lambda: setattr(rec, "stream", False))
+        watchdog.daemon = True
+        watchdog.start()
+        for is_last, text in rec.real_time_streaming(paced_speech_file(path)):
+            yields.append((is_last, text))
+            if is_last:
+                break
+        wall = time.perf_counter() - t0
+        watchdog.cancel()
+        rec.disable_real_time_streaming(keep_secondary_model_loaded=True)
+        rec.stream_thread_stopper(wait_for_stop=True)
+    scan_rts = gru_cuda.gru_scan.launches
+    bidi_rts = gru_cuda.gru_bidi_fused.launches
+    steps = frame_steps(calls, config.audio_conf)
+    partials = [t for last, t in yields if not last]
+    log(f"  real_time_streaming over {n_samples / RATE:.1f} s of WAV in {wall:.2f} s: "
+        f"{len(partials)} partials, final={bool(yields and yields[-1][0])}; "
+        f"{len(calls)} chunks, {len(steps)} with frames; gru_scan launches "
+        f"{scan_rts} (expected {layers * len(steps)}), gru_bidi_fused launches "
+        f"{bidi_rts} (expected {sec_layers * len(sec_runs)})")
+    if not partials or not (yields and yields[-1][0]):
+        raise AssertionError("real_time_streaming gave no partial or no final")
+    if scan_rts != layers * len(steps) or bidi_rts != sec_layers * len(sec_runs):
+        raise AssertionError("real_time_streaming did not run every GRU layer on its kernel")
+    out["real_time"] = {"wall_s": wall, "partials": len(partials),
+                        "scan_launches": scan_rts, "bidi_launches": bidi_rts,
+                        "vs_plain": check_stream_chunks("real_time_streaming", eng, steps)}
+    out["scan_launches"] = batch_launches + scan_direct + scan_rts
+    out["bidi_launches"] = bidi_direct + bidi_rts
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 
 def main(argv=None) -> int:
@@ -382,7 +788,7 @@ def main(argv=None) -> int:
 
     # phase 2
     t0 = time.perf_counter()
-    build_logs = cuda_build.build("gru_bidi_fused")
+    build_logs = cuda_build.build("gru_bidi_fused", "gru_scan")
     log(f"build: {time.perf_counter() - t0:.1f} s")
     for name, text in build_logs.items():
         for line in text.splitlines():
@@ -392,14 +798,19 @@ def main(argv=None) -> int:
     # phase 3
     log("phase 3: kernels vs plain versions")
     gru_checks = phase_kernels()
+    scan_checks = phase_scan_kernels()
 
-    launches = None
+    launches = scan_launches = None
     if not args.kernels:
-        log("phase 4: main path (Recognizer on the flagship)")
+        log("phase 4: batch path (Recognizer on the flagship)")
         served = phase_serve(card)
-        launches = served["launches"]
+        log("phase 5: streaming path (GPUStreamingRNN, flagship secondary)")
+        streamed = phase_stream(card)
+        launches = served["launches"] + streamed["bidi_launches"]
+        scan_launches = streamed["scan_launches"]
 
     flag0 = gru_checks[1]
+    scan0 = next(c for c in scan_checks if c["label"] == "uni batch layer")
     kernels = [{
         "name": "gru_bidi_fused",
         "route": "cuda",
@@ -411,6 +822,17 @@ def main(argv=None) -> int:
         "bound_ms": flag0["bound_ms"], "bound_by": flag0["bound_by"],
         "library_ms": flag0["library_ms"],
         "shapes": gru_checks,
+    }, {
+        "name": "gru_scan",
+        "route": "cuda",
+        "source": "danspeech_tpu_torch/csrc/gru_scan.cu",
+        "replaces": "danspeech_tpu/ops/pallas_gru.py:770",
+        "launches": scan_launches,
+        "max_abs_err": max(c["max_abs_err"] for c in scan_checks),
+        "ms": scan0["ms"], "plain_ms": scan0["plain_ms"],
+        "bound_ms": scan0["bound_ms"], "bound_by": scan0["bound_by"],
+        "library_ms": scan0["library_ms"],
+        "shapes": scan_checks,
     }]
     log(card)  # as nvidia-smi prints it: name, power limit
     print(json.dumps({"kernels": kernels}))

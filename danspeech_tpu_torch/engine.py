@@ -1,16 +1,21 @@
-"""Inference engine: model/decoder lifecycle and batch transcription.
+"""Inference engine: model/decoder lifecycle, batch and streaming
+transcription.
 
-The port of the batch path of ``danspeech_tpu/engine.py``. The device
-program (int16/float32 waveforms -> spectrogram -> conv -> GRU stack ->
-head -> softmax -> argmax) runs on the engine's device; waveforms are
-grouped by length bucket into dispatch groups of at most 128 rows, every
-group is staged in pinned host memory, uploaded and enqueued before the
-host collapses the first group's argmax paths, so host decoding overlaps
-the device work of later groups.
+The port of the batch and streaming paths of ``danspeech_tpu/engine.py``.
+Batch: the device program (int16/float32 waveforms -> spectrogram -> conv
+-> GRU stack -> head -> softmax -> argmax) runs on the engine's device;
+waveforms are grouped by length bucket into dispatch groups of at most 128
+rows, every group is staged in pinned host memory, uploaded and enqueued
+before the host collapses the first group's argmax paths, so host decoding
+overlaps the device work of later groups. Streaming: the host parses each
+chunk's spectrogram, pads it to a CHUNK_BUCKET multiple and runs the masked
+chunk step (``models/streaming.py``) on state kept on the device; greedy
+partials per chunk, and on the final chunk an optional secondary model
+re-transcribes the whole stream.
 
-The device is CUDA unless the caller passes ``device="cpu"``. Streaming,
-beam/LM decoding, mu-law staging and long-form transcription come with
-later slices.
+The device is CUDA unless the caller passes ``device="cpu"``. Beam/LM
+decoding, mu-law staging and long-form transcription come with later
+slices.
 """
 
 from __future__ import annotations
@@ -21,9 +26,13 @@ import numpy as np
 import torch
 
 from .decode.greedy import GreedyDecoder, collapse_batch
-from .errors import ModelNotInitialized
-from .features.spectrogram import SpectrogramAudioParser
+from .errors import ModelNotInitialized, WrongUsageOfListen
+from .features.spectrogram import (
+    InferenceSpectrogramAudioParser,
+    SpectrogramAudioParser,
+)
 from .models import deepspeech as ds
+from .models import streaming
 from .ops import stft as stft_ops
 
 
@@ -45,6 +54,37 @@ def _resolve_device(device=None) -> torch.device:
     return dev
 
 
+def _resolve_compute_dtype(compute_dtype: str, device: torch.device) -> str:
+    """"auto" means bf16 matmul operands with f32 accumulation on CUDA (the
+    GRU kernels' dtype) and float32 on the CPU. The GRU kernels take bf16
+    only, so float32 on CUDA is refused here rather than failing inside a
+    kernel wrapper at the first transcription (ROADMAP A6b)."""
+    if compute_dtype == "auto":
+        compute_dtype = "bfloat16" if device.type == "cuda" else "float32"
+    if compute_dtype not in ("bfloat16", "float32"):
+        raise ValueError(f"unknown compute_dtype: {compute_dtype!r}")
+    if compute_dtype == "float32" and device.type == "cuda":
+        raise ValueError(
+            "compute_dtype='float32' is not available on CUDA: the GRU "
+            "kernels take bf16 only (ROADMAP A6b); use 'bfloat16' on the "
+            "card or device='cpu' for float32"
+        )
+    return compute_dtype
+
+
+def _to_host_async(t: torch.Tensor):
+    """Start a device-to-host copy without blocking: (host tensor, event),
+    the copy into pinned memory and the CUDA event recorded after it, or
+    (t, None) for a CPU tensor."""
+    if t.device.type != "cuda":
+        return t, None
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+    return host, done
+
+
 class DanSpeechRecognizer:
     """Holds the active model + decoder and runs transcription."""
 
@@ -57,6 +97,8 @@ class DanSpeechRecognizer:
     MERGE_INFLATION = 1.6
     # total bytes of pinned staging buffers kept across calls
     STAGING_CACHE_BYTES = 256 * 1024 * 1024
+    # streaming chunk frame counts are padded to multiples of this
+    CHUNK_BUCKET = 16
 
     def __init__(
         self,
@@ -79,18 +121,7 @@ class DanSpeechRecognizer:
         self.transfer_format = transfer_format
         self.device = _resolve_device(device)
         print(f"Using device: {self.device}")
-        # "auto": bf16 matmul operands with f32 accumulation on CUDA (the
-        # GRU kernel's dtype), float32 on the CPU
-        if compute_dtype == "auto":
-            compute_dtype = "bfloat16" if self.device.type == "cuda" else "float32"
-        if compute_dtype not in ("bfloat16", "float32"):
-            raise ValueError(f"unknown compute_dtype: {compute_dtype!r}")
-        if compute_dtype == "float32" and self.device.type == "cuda":
-            # full float32: cuDNN would run f32 convolutions (and cuBLAS may
-            # run f32 matmuls) in TF32, which keeps about three digits
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.allow_tf32 = False
-        self.compute_dtype = compute_dtype
+        self.compute_dtype = _resolve_compute_dtype(compute_dtype, self.device)
         self._compute_params = None
 
         self.model = None
@@ -108,6 +139,17 @@ class DanSpeechRecognizer:
         self._staging: dict = {}
         self._staging_used: set = set()
         self._window = None
+
+        # streaming state
+        self.secondary_model = None
+        self._secondary_params = None  # cast and on the device
+        self.greedy_decoder = None
+        self.string_parts = False
+        self._stream_state = None
+        self.pipeline_depth = 0
+        self._stream_queue: list = []
+        self.iterating_transcript = ""
+        self.spectrograms = []
 
         if model_name:
             self.update_model(model_name)
@@ -131,11 +173,15 @@ class DanSpeechRecognizer:
         self.audio_parser = SpectrogramAudioParser(self.audio_config)
         self._window = self.audio_parser.window.to(self.device)
         self.labels = model.labels
+        self._compute_params = self._device_params(model)
+        self.update_decoder(labels=self.labels)
+
+    def _device_params(self, model):
+        """The model's parameters cast to the compute dtype, on the device."""
         params = model.params
         if self.compute_dtype == "bfloat16":
             params = ds.cast_matmul_weights(params, torch.bfloat16)
-        self._compute_params = ds.params_to(params, self.device)
-        self.update_decoder(labels=self.labels)
+        return ds.params_to(params, self.device)
 
     def update_decoder(self, lm=None, alpha=None, beta=None, labels=None,
                        beam_width=None):
@@ -288,7 +334,6 @@ class DanSpeechRecognizer:
         plans = self._plan_groups(recordings)
         params = self._compute_params
         self._staging_used = set()
-        cuda = self.device.type == "cuda"
 
         # phase 1: stage, upload and enqueue every group
         pending = []
@@ -297,16 +342,8 @@ class DanSpeechRecognizer:
             wave = batch.to(self.device, non_blocking=True)
             lens = torch.from_numpy(lengths).to(self.device, non_blocking=True)
             ids, out_lens = self._forward_greedy(params, wave, lens)
-            if cuda:
-                host_ids = torch.empty(ids.shape, dtype=ids.dtype, pin_memory=True)
-                host_ids.copy_(ids, non_blocking=True)
-                host_lens = torch.empty(out_lens.shape, dtype=out_lens.dtype,
-                                        pin_memory=True)
-                host_lens.copy_(out_lens, non_blocking=True)
-                done = torch.cuda.Event()
-                done.record()
-            else:
-                host_ids, host_lens, done = ids, out_lens, None
+            host_ids, _ = _to_host_async(ids)
+            host_lens, done = _to_host_async(out_lens)
             pending.append((idxs, host_ids, host_lens, done))
 
         # phase 2: collapse in dispatch order while later groups run
@@ -343,3 +380,173 @@ class DanSpeechRecognizer:
         if show_all:
             return decoded_output
         return [d[0] for d in decoded_output]
+
+    # ------------------------------------------------------------------
+    # Streaming
+    # ------------------------------------------------------------------
+
+    def enable_streaming(self, secondary_model=None, return_string_parts=True,
+                         pipeline_depth: int = 0):
+        """Enter streaming mode.
+
+        ``pipeline_depth`` > 0 enables the pipelined mode: chunk k's device
+        step is enqueued at once, but its partial transcript is returned
+        ``pipeline_depth`` chunks later, so up to that many result copies
+        are in flight while the host parses later chunks. Final results
+        equal depth 0; only the cadence of the partials shifts.
+        """
+        self.iterating_transcript = ""
+        self.secondary_model = secondary_model
+        # cast and upload now, not on the latency path of the final chunk
+        self._secondary_params = (
+            None if secondary_model is None else self._device_params(secondary_model)
+        )
+        self.spectrograms = []
+        self.greedy_decoder = GreedyDecoder(
+            labels=self.labels, blank_index=self.labels.index("_")
+        )
+        self.audio_parser = InferenceSpectrogramAudioParser(
+            audio_config=self.audio_config
+        )
+        self.string_parts = bool(return_string_parts)
+        self._stream_state = None
+        self.pipeline_depth = int(pipeline_depth)
+        self._stream_queue = []
+
+    def disable_streaming(self, keep_secondary_model=False):
+        self.audio_parser = SpectrogramAudioParser(self.audio_config)
+        self.greedy_decoder = None
+        self.reset_streaming_params()
+        self.string_parts = False
+        if not keep_secondary_model:
+            self.secondary_model = None
+            self._secondary_params = None
+
+    def reset_streaming_params(self):
+        self.iterating_transcript = ""
+        self.spectrograms = []
+        self._stream_state = None
+        self._stream_queue = []
+
+    def _stream_input(self, spect) -> tuple[torch.Tensor, int]:
+        """A (F, t) host spectrogram -> ((1, 1, F, Tp) chunk on the device,
+        zero-padded to a CHUNK_BUCKET multiple with CHUNK_HEADROOM spare
+        columns, t)."""
+        spect = np.asarray(spect, dtype=np.float32)
+        t_chunk = spect.shape[1]
+        t_padded = _bucket(t_chunk + streaming.CHUNK_HEADROOM, self.CHUNK_BUCKET)
+        chunk = np.zeros((spect.shape[0], t_padded), np.float32)
+        chunk[:, :t_chunk] = spect
+        x = torch.from_numpy(chunk)[None, None].to(self.device)
+        return x, t_chunk
+
+    def _new_stream_state(self, width: int) -> streaming.StreamStateM:
+        """Masked streaming state on the device, its lookahead buffer sized
+        for a first chunk of ``width`` padded columns."""
+        buf_cap = _bucket(streaming.phys_rnn_frames(width, is_first=True), 16)
+        return streaming.init_stream_state_masked(
+            self.model.config, buf_cap=buf_cap, device=self.device
+        )
+
+    def streaming_transcribe(self, recording, is_last: bool, is_first: bool):
+        """Chunked streaming transcription state machine.
+
+        Greedy partials per chunk; on the final chunk, a secondary model
+        (if any) re-transcribes the concatenated spectrograms. (The LM
+        re-decode of the whole stream comes with the LM decoders.)
+        """
+        spect = self.audio_parser.parse_audio(recording, is_last)
+        out = ""
+        if len(spect) != 0 and is_first and spect.shape[1] < 5:
+            # the conv left-context cache is 10 columns; a first chunk of
+            # fewer than 5 spectrogram frames cannot fill it and would
+            # corrupt every later chunk
+            raise WrongUsageOfListen(
+                f"first streaming chunk yields {spect.shape[1]} spectrogram "
+                "frames; at least 5 (~0.1 s of audio) are required; use "
+                "Recognizer.real_time_streaming, which sizes chunks "
+                "correctly"
+            )
+        if len(spect) != 0:
+            if self.secondary_model is not None:
+                self.spectrograms.append(np.asarray(spect))
+            chunk, t_chunk = self._stream_input(spect)
+            if self._stream_state is None:
+                self._stream_state = self._new_stream_state(chunk.shape[-1])
+            probs, out_len, self._stream_state = streaming.streaming_step_masked(
+                self._compute_params, self.model.config, chunk, t_chunk,
+                self._stream_state, is_first, is_last,
+            )
+
+            if is_first:
+                return ""
+
+            result = _to_host_async(probs[:, :out_len])
+            if self.pipeline_depth and not is_last:
+                # pipelined mode: return the partial of the chunk that fell
+                # off the window
+                self._stream_queue.append(result)
+                if len(self._stream_queue) > self.pipeline_depth:
+                    out = self._absorb_stream_result(*self._stream_queue.pop(0))
+            else:
+                # sync mode (and the final chunk of pipelined mode): drain
+                # anything still in flight, then this chunk
+                for queued in self._stream_queue:
+                    self._absorb_stream_result(*queued)
+                self._stream_queue = []
+                out = self._absorb_stream_result(*result)
+
+        if is_last:
+            # drain results still in flight even when this final chunk
+            # produced no frames (shorter than n_fft)
+            for queued in self._stream_queue:
+                self._absorb_stream_result(*queued)
+            self._stream_queue = []
+            if len(self.iterating_transcript) > 1:
+                if self.secondary_model is not None:
+                    final = np.concatenate(self.spectrograms, axis=1)
+                    self.spectrograms = []
+                    probs, out_lens = self._run_secondary(final)
+                    decoded_out, _ = self.decoder.decode(probs, out_lens)
+                    self.reset_streaming_params()
+                    return decoded_out[0][0]
+                out = self.iterating_transcript
+                self.reset_streaming_params()
+                return out
+            return ""
+
+        return out
+
+    def _absorb_stream_result(self, probs, done) -> str:
+        """Wait for one chunk's probabilities to reach the host, fold its
+        greedy partial into the running transcript (joining a repeated
+        character across the chunk boundary) and return the per-chunk
+        output string."""
+        if done is not None:
+            done.synchronize()
+        decoded_out, _ = self.greedy_decoder.decode(probs.numpy())
+        transcript = decoded_out[0][0]
+
+        if (
+            self.iterating_transcript
+            and transcript
+            and self.iterating_transcript[-1] == transcript[0]
+        ):
+            self.iterating_transcript += transcript[1:]
+            transcript = transcript[1:]
+        else:
+            self.iterating_transcript += transcript
+
+        return transcript if self.string_parts else self.iterating_transcript
+
+    @torch.inference_mode()
+    def _run_secondary(self, spect: np.ndarray):
+        """Run the secondary model over the accumulated (F, T) spectrogram,
+        on its own parameters cast to the compute dtype (a bidirectional
+        secondary model runs the ``gru_bidi_fused`` kernel on CUDA)."""
+        x = torch.from_numpy(np.ascontiguousarray(spect))[None, None].to(self.device)
+        lengths = torch.tensor([spect.shape[1]], dtype=torch.int32, device=self.device)
+        probs, out_lens = ds.forward(
+            self._secondary_params, self.secondary_model.config, x, lengths
+        )
+        return probs, out_lens.cpu()

@@ -1,5 +1,6 @@
 from .spectrogram import (  # noqa: F401
     AudioParser,
+    InferenceSpectrogramAudioParser,
     SpectrogramAudioParser,
     get_default_audio_config,
 )

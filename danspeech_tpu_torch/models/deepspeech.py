@@ -4,10 +4,12 @@ The port of ``danspeech_tpu/models/deepspeech.py``: ``forward(params,
 config, spect, lengths)`` on tensors, with the parameter tree of the JAX
 package (dicts, lists and NamedTuples of tensors). Semantics of the
 original DeepSpeech2: masked conv stack, bidirectional RNNs whose
-directions are summed, lookahead for unidirectional models, BN -> Linear
-head, softmax at inference.
+directions are summed (the ``gru_bidi_fused`` kernel on CUDA) or
+unidirectional RNNs followed by the lookahead convolution and hardtanh (the
+``gru_scan`` kernel on CUDA), BN -> Linear head, softmax at inference. The
+streaming twin of the forward pass is :mod:`.streaming`.
 
-Only GRU models are ported in this slice; LSTM and tanh-RNN models raise.
+Only GRU models are ported so far; LSTM and tanh-RNN models raise.
 """
 
 from __future__ import annotations

@@ -5,13 +5,20 @@ the JAX package's: ``w_ih`` (I, 3H), ``w_hh`` (H, 3H), gate order r, z, n,
 with the recurrent bias b_hn inside the reset product. Rows past their
 length freeze h and emit zeros (torch ``pack_padded_sequence`` semantics).
 
-Dispatch for ``impl="auto"``: a bidirectional layer with summed directions
-and h0 = None goes through :func:`gru_cuda.gru_bidi_fused` (the kernel for
-CUDA tensors, its plain version for CPU tensors). Every other shape runs
-the plain recurrence on the CPU and raises on CUDA until its kernel is
-ported. ``impl="plain"`` runs the plain versions on any device (the
-counterpart of the JAX package's ``impl="xla"``); it exists to check the
-kernel against them.
+Dispatch for ``impl="auto"``, as the JAX package's Pallas route:
+
+- a bidirectional layer with summed directions and h0 = None goes through
+  :func:`gru_cuda.gru_bidi_fused`;
+- a unidirectional layer (h0 = None or carried), and the streaming chunk
+  step :func:`gru_layer_streaming`, take a bias-free projection in the
+  stream dtype and go through :func:`gru_cuda.gru_scan`;
+
+each the kernel for CUDA tensors, its plain version for CPU tensors.
+Bidirectional layers with concatenated directions or a carried h0 run the
+plain recurrence on the CPU and raise on CUDA until ``gru_scan_bidi`` is
+ported (ROADMAP B2). ``impl="plain"`` runs the plain versions on any
+device (the counterpart of the JAX package's ``impl="xla"``); it exists to
+check the kernels against them.
 """
 
 from __future__ import annotations
@@ -44,17 +51,17 @@ def _reverse_valid(x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
 
 
 def _gru_layer_plain(x, lengths, fwd, bwd, h0, sum_directions):
-    """The JAX package's lax.scan recurrence: both directions stacked, the
-    backward one over the valid-reversed sequence, f32 gates and state,
-    products on operands rounded to the weights' dtype."""
+    """The JAX package's lax.scan recurrence for a bidirectional layer: both
+    directions stacked, the backward one over the valid-reversed sequence,
+    f32 gates and state, products on operands rounded to the weights'
+    dtype."""
     t_max, batch, _ = x.shape
     hidden = fwd.w_hh.shape[0]
-    directions = [fwd] if bwd is None else [fwd, bwd]
-    ndir = len(directions)
+    directions = [fwd, bwd]
     mm_dtype = fwd.w_ih.dtype
     lengths = lengths.to(x.device)
 
-    xs = [x] if ndir == 1 else [x, _reverse_valid(x, lengths)]
+    xs = [x, _reverse_valid(x, lengths)]
     gx = torch.stack(
         [
             torch.einsum("tbi,ik->tbk", xd.to(mm_dtype).float(), d.w_ih.float())
@@ -62,11 +69,11 @@ def _gru_layer_plain(x, lengths, fwd, bwd, h0, sum_directions):
             for xd, d in zip(xs, directions)
         ],
         dim=1,
-    )  # (T, D, B, 3H)
+    )  # (T, 2, B, 3H)
     w_hh = torch.stack([d.w_hh for d in directions]).float()
     b_hh = torch.stack([d.b_hh for d in directions]).float()[:, None, :]
     if h0 is None:
-        h = torch.zeros((ndir, batch, hidden), dtype=torch.float32, device=x.device)
+        h = torch.zeros((2, batch, hidden), dtype=torch.float32, device=x.device)
     else:
         h = h0.float()
     mask = (torch.arange(t_max, device=x.device)[:, None] < lengths[None, :]).float()
@@ -82,14 +89,27 @@ def _gru_layer_plain(x, lengths, fwd, bwd, h0, sum_directions):
         m = mask[t][None, :, None]
         h = m * h_new + (1.0 - m) * h
         outs.append(h_new * m)
-    out = torch.stack(outs)  # (T, D, B, H)
+    out = torch.stack(outs)  # (T, 2, B, H)
 
-    if ndir == 1:
-        return out[:, 0], h
     out_f = out[:, 0]
     out_b = _reverse_valid(out[:, 1], lengths)
     merged = out_f + out_b if sum_directions else torch.cat([out_f, out_b], -1)
     return merged, h
+
+
+def _uni_scan(x, lengths, w: GRUWeights, h0, impl: str):
+    """Bias-free projection in the stream dtype (b_ih is added in the
+    kernel), then one forward chain: JAX ``rnn.py`` ``_pallas_gru_uni`` and
+    the carried-h0 branch of ``_gru_layer_pallas``."""
+    mm_dtype = w.w_ih.dtype
+    gx = torch.matmul(x.to(mm_dtype), w.w_ih)
+    run = gru_cuda.gru_scan if impl == "auto" else gru_cuda.gru_scan_plain
+    out, h_last = run(
+        gx.contiguous(),
+        lengths.to(device=x.device, dtype=torch.int32).contiguous(),
+        w.w_hh, w.b_ih.float(), w.b_hh.float(), h0.float().contiguous(),
+    )
+    return out.float(), h_last
 
 
 def gru_layer(
@@ -105,17 +125,23 @@ def gru_layer(
 
     Returns (outputs, h_last): outputs (T, B, H) with directions summed, or
     (T, B, 2H) concatenated if ``sum_directions=False``; h_last (D, B, H)
-    f32, the state after each row's last valid step.
+    f32, the state after each row's last valid step. ``h0`` is (D, B, H).
     """
     if impl not in ("auto", "plain"):
         raise ValueError(f"unknown GRU impl {impl!r}")
-    fused = bwd is not None and sum_directions and h0 is None
+    if bwd is None:
+        batch, hidden = x.shape[1], fwd.w_hh.shape[0]
+        if h0 is None:
+            h0_f = torch.zeros((batch, hidden), dtype=torch.float32, device=x.device)
+        else:
+            h0_f = h0[0]
+        out, h_last = _uni_scan(x, lengths, fwd, h0_f, impl)
+        return out, h_last[None]
+    fused = sum_directions and h0 is None
     if impl == "auto" and x.device.type == "cuda" and not fused:
         raise NotImplementedError(
-            "on CUDA only bidirectional, direction-summed GRU layers with "
-            "h0=None have a kernel; unidirectional, concatenated and "
-            "carried-state layers wait for the ports of gru_scan and "
-            "gru_scan_bidi (ROADMAP queue B1/B2)"
+            "on CUDA, bidirectional GRU layers with concatenated directions "
+            "or a carried h0 wait for the port of gru_scan_bidi (ROADMAP B2)"
         )
     if not fused:
         return _gru_layer_plain(x, lengths, fwd, bwd, h0, sum_directions)
@@ -129,3 +155,25 @@ def gru_layer(
         fwd.b_ih, bwd.b_ih, fwd.b_hh, bwd.b_hh,
     )
     return out_f.float() + out_b.float(), torch.stack([hl_f, hl_b])
+
+
+def gru_layer_streaming(
+    x: torch.Tensor,
+    weights: GRUWeights,
+    h0: torch.Tensor,
+    t_valid: int | None = None,
+    impl: str = "auto",
+):
+    """Unidirectional GRU chunk step with a carried state (the port of JAX
+    ``rnn.py:gru_layer_streaming``). x is (T, B, I), h0 (B, H). Returns
+    ((T, B, H) f32 outputs, (B, H) f32 h_last).
+
+    ``t_valid`` (a host int) masks a zero-padded chunk: the state freezes
+    and the outputs are zero past the first ``t_valid`` steps.
+    """
+    if impl not in ("auto", "plain"):
+        raise ValueError(f"unknown GRU impl {impl!r}")
+    t_max, batch, _ = x.shape
+    n = t_max if t_valid is None else int(t_valid)
+    lengths = torch.full((batch,), n, dtype=torch.int32, device=x.device)
+    return _uni_scan(x, lengths, weights, h0, impl)

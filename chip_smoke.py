@@ -9,10 +9,11 @@ Phases, in order; any failure exits non-zero:
 1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
 2. build every CUDA kernel from ``danspeech_tpu_torch/csrc`` (one nvcc per
    source, all started together), timed;
-3. each kernel against its plain PyTorch version on the card at a ragged
-   small shape and the layer shapes of the paths below, with its time, the
-   plain version's time, one library call's time as a yardstick, and the
-   bound;
+3. each of the four kernels against its plain PyTorch version on the card
+   at a ragged small shape and the layer shapes of the paths below, with
+   its time, the plain version's time, one library call's time as a
+   yardstick, and the bound; and ``gru_layer`` with concatenated directions
+   and with a carried h0, the two routes that reach ``gru_scan_bidi``;
 4. the batch path: ``Recognizer.recognize`` / ``recognize_batch`` on the
    flagship DanSpeechPrimary (3 conv, 9x1200 bidirectional GRU, random
    weights from a seed), with the kernels' launch counts read around it,
@@ -26,7 +27,16 @@ Phases, in order; any failure exits non-zero:
    seeded WAV file read at the pace of a live microphone; the launch counts
    of each path read around it, every chunk's probabilities checked against
    the plain GRU on the card;
-6. one ``{"kernels": [...]}`` line, then the device line as the last line.
+6. the training path: ``train.make_wave_train_step`` on the flagship at
+   full width and depth (mixed precision, remat; 3 steps on one seeded
+   batch of 32 waveforms of 1-8 s, one more with SpecAugment), each step's
+   loss, wall time and launch counts, the peak device memory and a profile
+   of one step; the gradients of one 8-row batch through the kernels
+   against the same step on the plain GRU; 2 steps of a 2-conv, 2x2000
+   unidirectional model; then ``train.train`` on a manifest of seeded WAVs
+   with checkpoints, ``continue_training`` from them, ``export_model`` and
+   ``Recognizer.recognize`` of the exported ``.dsz`` (3x1200);
+7. one ``{"kernels": [...]}`` line, then the device line as the last line.
 
 Imports no JAX and nothing of ``danspeech_tpu``.
 """
@@ -56,6 +66,10 @@ PEAK_BYTES_PER_S = 3.35e12
 # bf16 rounding of one h element and carry on through the recurrence: allow
 # about five bf16 ulps at |h| < 1
 GRU_ATOL = 2e-2
+
+# wrapper name -> source under danspeech_tpu_torch/csrc
+SOURCES = {"gru_bidi_fused": "gru_bidi_fused", "gru_scan": "gru_scan",
+           "gru_scan_bidi": "gru_scan_bidi", "gru_bwd_scan": "gru_bwd"}
 
 FLAGSHIP = dict(
     model_name="DanSpeechPrimary", rnn_hidden_size=1200, rnn_layers=9,
@@ -305,6 +319,257 @@ def phase_scan_kernels():
     return checks
 
 
+def compare_outputs(label, names, got, ref, tol):
+    """Per-output max |got - ref|, each held to ``tol`` times the larger of
+    1 and max |ref| (the GRU outputs are below 1 in magnitude; gradients
+    scale with their cotangents). Returns (errs, worst error)."""
+    errs = {}
+    for name, g, r in zip(names, got, ref):
+        if g.shape != r.shape or g.dtype != r.dtype:
+            raise AssertionError(f"{label} {name}: {g.shape}/{g.dtype} vs "
+                                 f"{r.shape}/{r.dtype}")
+        if not torch.isfinite(g.float()).all():
+            raise AssertionError(f"{label} {name}: non-finite values from the kernel")
+        err = float((g.float() - r.float()).abs().max())
+        scale = max(1.0, float(r.float().abs().max()))
+        errs[name] = err
+        if not err <= tol * scale:
+            raise AssertionError(f"{label} {name} disagrees with its plain version: "
+                                 f"{err} > {tol} x {scale}")
+    return errs, max(errs.values())
+
+
+def scan_bidi_bound(lengths, t, b, h):
+    """(bound_ms, bound_by) of one gru_scan_bidi call: two chains' worth of
+    :func:`scan_bound`'s operations and bytes."""
+    valid = int(sum(lengths))
+    flops = 2 * 2 * valid * h * 3 * h
+    nbytes = 2 * (valid * 3 * h * 2 + h * 3 * h * 2 + 2 * 3 * h * 4
+                  + t * b * h * 2 + 2 * b * h * 4) + b * 4
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_mem = nbytes / PEAK_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
+
+
+def check_scan_bidi(gen, label, t, lengths, h, carried, timed):
+    from danspeech_tpu_torch.ops import gru_cuda
+
+    dev = "cuda"
+    b = len(lengths)
+    bound = 1.0 / h ** 0.5
+
+    def uni(*shape):
+        return (torch.rand(*shape, generator=gen, device=dev) * 2 - 1) * bound
+
+    gx = [(torch.randn(t, b, 3 * h, generator=gen, device=dev) * 0.5).to(torch.bfloat16)
+          for _ in range(2)]
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    w_hh = [uni(h, 3 * h).to(torch.bfloat16) for _ in range(2)]
+    b_ih = [uni(3 * h) for _ in range(2)]
+    b_hh = [uni(3 * h) for _ in range(2)]
+    h0 = [torch.zeros(b, h, device=dev) for _ in range(2)]
+    if carried:
+        h0 = [torch.rand(b, h, generator=gen, device=dev) - 0.5 for _ in range(2)]
+    args = (*gx, lens, *w_hh, *b_ih, *b_hh, *h0)
+    got = gru_cuda.gru_scan_bidi(*args)
+    torch.cuda.synchronize()
+    ref = gru_cuda.gru_scan_bidi_plain(*args)
+    torch.cuda.synchronize()
+    name = f"gru_scan_bidi {label}"
+    errs, err = compare_outputs(name, ("out_f", "out_b", "h_last_f", "h_last_b"),
+                                got, ref, GRU_ATOL)
+    pad = torch.arange(t, device=dev)[:, None] >= lens[None, :].long()
+    for g in got[:2]:
+        if pad.any() and float(g[pad].float().abs().max()) != 0.0:
+            raise AssertionError(f"{name}: non-zero output past a row's length")
+    res = {"label": label, "shape": {"T": t, "B": b, "H": h, "carried_h0": carried},
+           "max_abs_err": err, "errs": errs, "atol": GRU_ATOL}
+    log(f"  {name} T={t} B={b} H={h} h0={'carried' if carried else 'zero'}: max|err| "
+        + ", ".join(f"{k}={v:.3e}" for k, v in errs.items()) + f" (atol {GRU_ATOL})")
+    if timed:
+        res["ms"] = time_ms(lambda: gru_cuda.gru_scan_bidi(*args), iters=3)
+        res["plain_ms"] = time_ms(lambda: gru_cuda.gru_scan_bidi_plain(*args), iters=1)
+        # cuDNN's bidirectional GRU(D=H, H): it also computes the input
+        # projections, which gru_scan_bidi takes precomputed
+        gru = torch.nn.GRU(h, h, bidirectional=True).to(dev, torch.bfloat16)
+        gru.flatten_parameters()
+        x = torch.randn(t, b, h, generator=gen, device=dev).to(torch.bfloat16)
+        with torch.no_grad():
+            res["library_ms"] = time_ms(lambda: gru(x), iters=3)
+        del gru, x
+        res["bound_ms"], res["bound_by"] = scan_bidi_bound(lengths, t, b, h)
+        log(f"    ms={res['ms']:.3f} plain_ms={res['plain_ms']:.3f} "
+            f"library_ms(cuDNN bidirectional nn.GRU({h},{h}) bf16, with its "
+            f"projections)={res['library_ms']:.3f} bound_ms={res['bound_ms']:.4f} "
+            f"({res['bound_by']})")
+    del args, got, ref
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_scan_bidi_kernels():
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    checks = [check_scan_bidi(gen, "small", 13, lengths, 72, carried=True,
+                              timed=len(lengths) == 5)
+              for lengths in ([13], [13, 1, 7, 12, 3])]
+    rng = np.random.default_rng(1200)
+    lengths = rng.integers(1, 402, size=128)
+    lengths[0], lengths[1] = 401, 1
+    checks.append(check_scan_bidi(gen, "bidi batch layer", 401, lengths.tolist(), 1200,
+                                  carried=False, timed=True))
+    return checks
+
+
+# the backward walk against its plain version: the same bf16-rounded
+# operands and f32 accumulation, so they differ by summation order, which
+# can flip the bf16 rounding of one dgh element (2^-8 of its value) and
+# carry on through the walk: allow 2e-2 of the largest reference value
+BWD_TOL = 2e-2
+
+
+def bwd_bound(lengths, t, b, h):
+    """(bound_ms, bound_by) of one gru_bwd_scan call: two (H x 3H) products
+    per valid step over the bf16 peak, against the bytes (gx, hprev and dout
+    of the valid steps and w_hh read once, dgx and dghn written once) over
+    the memory rate."""
+    valid = int(sum(lengths))
+    flops = 2 * 2 * valid * h * 3 * h
+    nbytes = (
+        valid * (3 * h * 2 + h * 2 + h * 4)   # gx, hprev bf16, dout f32
+        + h * 3 * h * 2                       # w_hh bf16
+        + 2 * 3 * h * 4 + b * 4               # b_ih, b_hh f32, lengths int32
+        + t * b * 4 * h * 4                   # dgx, dghn f32
+        + 2 * b * h * 4                       # dh_last, dh0 f32
+    )
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_mem = nbytes / PEAK_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
+
+
+def cudnn_gru_backward_ms(gen, t, b, h):
+    """cuDNN's nn.GRU(H, H) in bf16 at (T, B, H): the time of forward plus
+    backward less the time of the forward alone. Its backward also computes
+    the weight and input gradients, which gru_bwd_scan leaves to its caller."""
+    gru = torch.nn.GRU(h, h).to("cuda", torch.bfloat16)
+    gru.flatten_parameters()
+    x = torch.randn(t, b, h, generator=gen, device="cuda").to(torch.bfloat16)
+    x.requires_grad_(True)
+    dout = torch.randn(t, b, h, generator=gen, device="cuda").to(torch.bfloat16)
+
+    def fwd_bwd():
+        out, _ = gru(x)
+        out.backward(dout)
+
+    both = time_ms(fwd_bwd, iters=3)
+    fwd = time_ms(lambda: gru(x), iters=3)
+    return max(both - fwd, 0.0)
+
+
+def check_bwd(gen, label, t, lengths, h, reverse, timed):
+    from danspeech_tpu_torch.ops import gru_cuda
+
+    dev = "cuda"
+    b = len(lengths)
+    bound = 1.0 / h ** 0.5
+
+    def uni(*shape):
+        return (torch.rand(*shape, generator=gen, device=dev) * 2 - 1) * bound
+
+    gx = (torch.randn(t, b, 3 * h, generator=gen, device=dev) * 0.5).to(torch.bfloat16)
+    hprev = (torch.rand(t, b, h, generator=gen, device=dev) * 2 - 1).to(torch.bfloat16)
+    dout = torch.randn(t, b, h, generator=gen, device=dev)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    w_hh = uni(h, 3 * h).to(torch.bfloat16)
+    b_ih, b_hh = uni(3 * h), uni(3 * h)
+    dh_last = torch.randn(b, h, generator=gen, device=dev)
+    args = (gx, hprev, dout, lens, w_hh, b_ih, b_hh, dh_last)
+    got = gru_cuda.gru_bwd_scan(*args, reverse=reverse)
+    torch.cuda.synchronize()
+    ref = gru_cuda.gru_bwd_scan_plain(*args, reverse=reverse)
+    torch.cuda.synchronize()
+    name = f"gru_bwd_scan {label}"
+    errs, err = compare_outputs(name, ("dgx", "dghn", "dh0"), got, ref, BWD_TOL)
+    pad = torch.arange(t, device=dev)[:, None] >= lens[None, :].long()
+    for g in got[:2]:
+        if pad.any() and float(g[pad].abs().max()) != 0.0:
+            raise AssertionError(f"{name}: non-zero gradient past a row's length")
+    res = {"label": label, "shape": {"T": t, "B": b, "H": h, "reverse": reverse},
+           "max_abs_err": err, "errs": errs, "tol": BWD_TOL,
+           "max_abs_ref": {k: float(r.abs().max()) for k, r in zip(errs, ref)}}
+    log(f"  {name} T={t} B={b} H={h} reverse={reverse}: max|err| "
+        + ", ".join(f"{k}={v:.3e} (max|ref| {res['max_abs_ref'][k]:.2f})"
+                    for k, v in errs.items()) + f" (tol {BWD_TOL} x max(1, max|ref|))")
+    if timed:
+        res["ms"] = time_ms(lambda: gru_cuda.gru_bwd_scan(*args, reverse=reverse), iters=3)
+        res["plain_ms"] = time_ms(
+            lambda: gru_cuda.gru_bwd_scan_plain(*args, reverse=reverse), iters=1)
+        res["library_ms"] = cudnn_gru_backward_ms(gen, t, b, h)
+        res["bound_ms"], res["bound_by"] = bwd_bound(lengths, t, b, h)
+        log(f"    ms={res['ms']:.3f} plain_ms={res['plain_ms']:.3f} "
+            f"library_ms(cuDNN nn.GRU({h},{h}) bf16 forward+backward less forward)="
+            f"{res['library_ms']:.3f} bound_ms={res['bound_ms']:.4f} ({res['bound_by']})")
+    del args, got, ref
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_bwd_kernels():
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    checks = [check_bwd(gen, "small", 13, [13, 0, 1, 7, 12], 72, reverse, timed=reverse)
+              for reverse in (True, False)]
+    checks.append(check_bwd(gen, "small T=1", 1, [1, 0], 72, True, timed=False))
+    for label, h in (("flagship layer", 1200), ("uni layer", 2000)):
+        rng = np.random.default_rng(h + 1)
+        lengths = rng.integers(1, 402, size=32)
+        lengths[0], lengths[1] = 401, 1
+        checks.append(check_bwd(gen, label, 401, lengths.tolist(), h, True, timed=True))
+    return checks
+
+
+def phase_gru_layer_routes():
+    """gru_layer on the card for the shapes that reach gru_scan_bidi:
+    concatenated directions, and a carried h0. One launch each; the result
+    against impl="plain" on the card."""
+    from danspeech_tpu_torch.ops import gru_cuda
+    from danspeech_tpu_torch.ops.rnn import GRUWeights, gru_layer
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    t, b, d, h = 401, 32, 1200, 1200
+    rng = np.random.default_rng(4)
+    lengths = rng.integers(1, t + 1, size=b)
+    lengths[0] = t
+    x, lens, wif, wib, whf, whb, bif, bib, bhf, bhb = gru_layer_inputs(
+        gen, t, b, d, h, lengths.tolist())
+    fwd, bwd = GRUWeights(wif, whf, bif, bhf), GRUWeights(wib, whb, bib, bhb)
+    h0 = torch.rand(2, b, h, generator=gen, device="cuda") - 0.5
+    out = {}
+    gru_cuda.gru_scan_bidi.launches = 0
+    with torch.no_grad():
+        for label, kw in (("concat", dict(sum_directions=False)), ("carried h0", dict(h0=h0))):
+            before = gru_cuda.gru_scan_bidi.launches
+            got = gru_layer(x.float(), lens, fwd, bwd, **kw)
+            torch.cuda.synchronize()
+            if gru_cuda.gru_scan_bidi.launches != before + 1:
+                raise AssertionError(f"gru_layer({label}) did not launch gru_scan_bidi once")
+            ref = gru_layer(x.float(), lens, fwd, bwd, impl="plain", **kw)
+            width = h if label == "carried h0" else 2 * h
+            if tuple(got[0].shape) != (t, b, width) or tuple(got[1].shape) != (2, b, h):
+                raise AssertionError(f"gru_layer({label}): shapes {got[0].shape}, {got[1].shape}")
+            # a summed output holds two bf16 roundings
+            errs, _ = compare_outputs(f"gru_layer({label})", ("out", "h_last"), got, ref,
+                                      2 * GRU_ATOL)
+            log(f"  gru_layer({label}) T={t} B={b} D={d} H={h}: one gru_scan_bidi launch, "
+                f"max|err| out={errs['out']:.3e} h_last={errs['h_last']:.3e} "
+                f"(atol {2 * GRU_ATOL})")
+            out[label] = errs
+    out["launches"] = gru_cuda.gru_scan_bidi.launches
+    torch.cuda.empty_cache()
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Phase 4: the batch path
 # ---------------------------------------------------------------------------
@@ -346,9 +611,11 @@ def seeded_waveforms(rng, n, lo_s=1.0, hi_s=8.0):
     ]
 
 
-def profile_call(label, fn, top=12):
+def profile_call(label, fn, top=12, groups=None):
     """Device time by kernel over one call of ``fn`` (torch.profiler), and
-    the device's busy share of the call's wall time."""
+    the device's busy share of the call's wall time. ``groups`` maps a
+    label to substrings of kernel names: the device time of each group (a
+    kernel counts for the first group that matches) is logged and returned."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -374,8 +641,20 @@ def profile_call(label, fn, top=12):
         log(f"    {ms:9.2f} ms {100 * ms / max(busy_ms, 1e-9):5.1f}% x{count:<6d} {name[:90]}")
     if not rows:
         log("    the profiler saw no device time")
-    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
-            "top": [{"kernel": n, "ms": ms, "count": c} for n, ms, c in rows[:top]]}
+    res = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+           "top": [{"kernel": n, "ms": ms, "count": c} for n, ms, c in rows[:top]]}
+    if groups:
+        split = {g: 0.0 for g in groups}
+        split["other"] = 0.0
+        for name, ms, _ in rows:
+            hit = next((g for g, subs in groups.items()
+                        if any(sub in name.lower() for sub in subs)), "other")
+            split[hit] += ms
+        res["split_ms"] = split
+        log("    split: " + ", ".join(
+            f"{g} {ms:.1f} ms ({100 * ms / max(busy_ms, 1e-9):.1f}%)"
+            for g, ms in split.items()))
+    return res
 
 
 def phase_serve(card):
@@ -766,6 +1045,286 @@ def phase_stream(card):
 
 
 # ---------------------------------------------------------------------------
+# Phase 6: the training path
+# ---------------------------------------------------------------------------
+
+TRAIN_BATCH = 32
+TRAIN_LR = 1e-4
+# kernel path against plain path, one batch: relative L2 error of the
+# gradient of each parameter group. The two paths round the same operands
+# to bf16 and differ by summation order, which flips single bf16 roundings
+# of h and dgh and carries on through 9 layers and 401 steps both ways.
+GRAD_REL_TOL = 5e-2
+
+TRAIN_PROFILE_GROUPS = {
+    "B4 walk": ("gru_bwd_step_kernel",),
+    "B3 recurrence": ("gru_step_kernel",),
+    "B1 recurrence": ("gru_scan_step_kernel",),
+    "WMMA GEMM (B3 projection, B4 recompute)": ("gru_proj_kernel",),
+    "CTC": ("ctc",),
+    "optimizer": ("adam", "multi_tensor", "foreach"),
+    # before the GEMMs: cuDNN's kernels carry "gemm" in their names too
+    "convolution": ("conv", "cudnn", "wgrad", "dgrad", "fprop"),
+    "library GEMM": ("gemm", "cutlass", "nvjet", "cublas"),
+}
+
+
+def train_batch(rng, config, rows, lo_s=1.0, hi_s=8.0, sample_bucket=8000):
+    """A seeded training batch as train/data.py lays it out: ``rows`` padded
+    float32 waveforms of lo_s..hi_s seconds (the first as long as hi_s, so
+    the padded shape is fixed) and label rows that fit their output frames
+    with room for a blank between every pair."""
+    from danspeech_tpu_torch.models.deepspeech import get_seq_lens
+
+    waves = seeded_waveforms(rng, rows, lo_s, hi_s)
+    waves[0] = seeded_waveforms(rng, 1, hi_s, hi_s)[0]
+    lens = np.array([len(w) for w in waves], np.int32)
+    maxlen = -(-int(lens.max()) // sample_bucket) * sample_bucket
+    padded = np.zeros((rows, maxlen), np.float32)
+    for r, w in enumerate(waves):
+        padded[r, : len(w)] = w
+    frames = np.asarray(get_seq_lens(config, 1 + lens // 160))
+    label_lens = np.array([rng.integers(3, max(4, f // 3)) for f in frames], np.int32)
+    labels = np.zeros((rows, int(-(-label_lens.max() // 8) * 8)), np.int32)
+    for r, n in enumerate(label_lens):
+        labels[r, :n] = rng.integers(1, config.num_classes, size=n)
+    weights = np.ones((rows,), np.float32)
+    return (padded, lens, labels, label_lens, weights), float(lens.sum()) / RATE
+
+
+def timed_steps(label, step_fn, state, batch, audio_s, n, expect, card, rng=None):
+    """``n`` train steps on ``batch``: each step's loss, wall time and the
+    kernels' launch counts (held to ``expect``). Returns (state, steps)."""
+    from danspeech_tpu_torch.ops import gru_cuda
+
+    wrappers = {"gru_bidi_fused": gru_cuda.gru_bidi_fused, "gru_scan": gru_cuda.gru_scan,
+                "gru_scan_bidi": gru_cuda.gru_scan_bidi, "gru_bwd_scan": gru_cuda.gru_bwd_scan}
+    steps = []
+    for k in range(n):
+        for w in wrappers.values():
+            w.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = step_fn(state, *batch, rng)
+        loss = float(loss)  # waits for the device
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {name: w.launches for name, w in wrappers.items()}
+        steps.append({"loss": loss, "wall_s": wall, "audio_s_per_step_s": audio_s / wall,
+                      "launches": counts})
+        log(f"  {label} step {k + 1}: loss {loss:.4f}, {wall:.3f} s, "
+            f"{audio_s / wall:.1f} audio-s per step-second, launches "
+            + ", ".join(f"{a} {c}" for a, c in counts.items() if c) + f" [{card}]")
+        if not np.isfinite(loss):
+            raise AssertionError(f"{label}: step {k + 1} gave a non-finite loss")
+        if counts != expect:
+            raise AssertionError(f"{label}: launches {counts}, expected {expect}")
+    return state, steps
+
+
+def grad_groups(params):
+    """Gradients of a parameter tree by group: {group: flat f32 tensor}."""
+    from danspeech_tpu_torch.models.checkpoint import flatten_tree
+    from danspeech_tpu_torch.models.deepspeech import map_params
+
+    flat = flatten_tree(map_params(lambda p: p.grad, params))
+    groups: dict[str, list] = {}
+    for name, g in flat.items():
+        leaf = name.rsplit(".", 1)[1]
+        if name.startswith("conv."):
+            key = "conv BN statistics" if leaf in ("bn_mean", "bn_var") else "conv"
+        elif leaf in ("w_ih", "w_hh"):
+            key = f"GRU {leaf}"
+        elif leaf in ("b_ih", "b_hh"):
+            key = "GRU biases"
+        elif name.startswith("fc."):
+            key = "fc"
+        else:
+            key = "BN"
+        groups.setdefault(key, []).append(torch.from_numpy(g).reshape(-1))
+    return {k: torch.cat(v) for k, v in groups.items()}
+
+
+def sum_launches(*step_lists):
+    total: dict[str, int] = {}
+    for steps in step_lists:
+        for s in steps:
+            for name, c in s["launches"].items():
+                total[name] = total.get(name, 0) + c
+    return total
+
+
+def seeded_manifest(tmp, rng, labels, n):
+    """``n`` seeded WAVs of 1-3 s with seeded transcripts, and their
+    manifest."""
+    letters = [c for c in labels if c not in "_ "]
+    lines = []
+    for i, pcm in enumerate(seeded_waveforms(rng, n, 1.0, 3.0)):
+        path = os.path.join(tmp, f"utt{i}.wav")
+        with wave.open(path, "wb") as w:
+            w.setnchannels(1)
+            w.setsampwidth(2)
+            w.setframerate(RATE)
+            w.writeframes(pcm.astype("<i2").tobytes())
+        words = ["".join(rng.choice(letters, size=rng.integers(2, 6)))
+                 for _ in range(rng.integers(1, 4))]
+        lines.append(f"{path},{' '.join(words)}")
+    manifest = os.path.join(tmp, "train.csv")
+    with open(manifest, "w", encoding="utf-8") as f:
+        f.write("\n".join(lines) + "\n")
+    return manifest
+
+
+def phase_train(card):
+    from danspeech_tpu_torch import Recognizer, train as tr
+    from danspeech_tpu_torch.audio import load_audio_pcm16
+    from danspeech_tpu_torch.models import DeepSpeechConfig, DeepSpeechModel
+    from danspeech_tpu_torch.ops import gru_cuda
+    from danspeech_tpu_torch.train.checkpoint import latest_step
+
+    out = {}
+    zero = {"gru_bidi_fused": 0, "gru_scan": 0, "gru_scan_bidi": 0, "gru_bwd_scan": 0}
+
+    # 6a: the flagship, full width and depth, mixed precision, remat
+    config = DeepSpeechConfig(**FLAGSHIP)
+    layers = config.rnn_layers
+    optimizer = tr.make_optimizer(TRAIN_LR)
+    t0 = time.perf_counter()
+    state = tr.init_train_state(config, optimizer, seed=0)  # device=None: CUDA
+    torch.cuda.synchronize()
+    log(f"  flagship train state ({layers}x{config.rnn_hidden_size} bidi GRU, f32 "
+        f"masters + Adam) set up in {time.perf_counter() - t0:.1f} s")
+    batch, audio_s = train_batch(np.random.default_rng(8), config, TRAIN_BATCH)
+    log(f"  batch: {TRAIN_BATCH} rows, {audio_s:.1f} audio-s, padded to "
+        f"{batch[0].shape[1]} samples, labels {batch[2].shape[1]} wide")
+    # with remat the forward kernel runs in the forward and again in the backward
+    expect = dict(zero, gru_bidi_fused=2 * layers, gru_bwd_scan=2 * layers)
+    step_fn = tr.make_wave_train_step(config, optimizer, augment=None,
+                                      mixed_precision="auto", remat=True)
+    torch.cuda.reset_peak_memory_stats()
+    state, steps = timed_steps("flagship", step_fn, state, batch, audio_s, 2,
+                               expect, card)
+    holder = {}
+
+    def third():
+        holder["state"], holder["steps"] = timed_steps(
+            "flagship (profiled)", step_fn, state, batch, audio_s, 1, expect, card)
+
+    out["profile"] = profile_call("one flagship train step", third,
+                                  groups=TRAIN_PROFILE_GROUPS)
+    state, steps = holder["state"], steps + holder["steps"]
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  peak device memory over 3 steps: {peak / 2**30:.2f} GiB")
+    if not steps[2]["loss"] < steps[0]["loss"]:
+        raise AssertionError(
+            f"flagship: the loss did not fall over two updates on one batch: "
+            f"{[s['loss'] for s in steps]}")
+    aug_fn = tr.make_wave_train_step(config, optimizer, augment=True,
+                                     mixed_precision="auto", remat=True)
+    state, aug_steps = timed_steps("flagship + SpecAugment", aug_fn, state, batch,
+                                   audio_s, 1, expect, card,
+                                   rng=torch.Generator().manual_seed(0))
+    if state.step != 4:
+        raise AssertionError(f"4 updates were taken, the state counts {state.step}")
+    out["flagship"] = {"steps": steps, "augment_steps": aug_steps,
+                       "peak_memory_bytes": peak, "audio_s": audio_s,
+                       "batch_rows": TRAIN_BATCH, "lr": TRAIN_LR}
+    del state, holder
+    torch.cuda.empty_cache()
+
+    # 6b: gradients of one batch of 8 rows, kernel path against plain path
+    small, _ = train_batch(np.random.default_rng(9), config, 8)
+    grads = {}
+    for impl in ("auto", "plain"):
+        st = tr.init_train_state(config, optimizer, seed=0)
+        fn = tr.make_wave_train_step(config, optimizer, augment=None,
+                                     mixed_precision="auto", remat=True, rnn_impl=impl)
+        before = gru_cuda.gru_bwd_scan.launches
+        t0 = time.perf_counter()
+        st, loss = fn(st, *small)
+        grads[impl] = (grad_groups(st.params), float(loss))
+        log(f"  8-row step, rnn_impl={impl!r}: loss {grads[impl][1]:.5f}, "
+            f"{time.perf_counter() - t0:.2f} s, gru_bwd_scan launches "
+            f"{gru_cuda.gru_bwd_scan.launches - before}")
+        del st, fn
+        torch.cuda.empty_cache()
+    rel = {}
+    for group, ref in grads["plain"][0].items():
+        got = grads["auto"][0][group]
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"{group}: non-finite gradient from the kernel path")
+        rel[group] = float((got - ref).norm() / ref.norm().clamp(min=1e-30))
+    log("  gradient, kernel path vs plain path, relative L2 error by group: "
+        + ", ".join(f"{g} {e:.3e}" for g, e in rel.items())
+        + f" (limit {GRAD_REL_TOL})")
+    if not all(e <= GRAD_REL_TOL for e in rel.values()):
+        raise AssertionError("kernel-path gradients outside the stated limit")
+    out["grad_vs_plain"] = {"rel_l2": rel, "limit": GRAD_REL_TOL,
+                            "loss_kernel": grads["auto"][1],
+                            "loss_plain": grads["plain"][1]}
+    del grads
+
+    # 6c: the unidirectional route (B1 forward, B4 backward), depth cut to 2
+    uni = DeepSpeechConfig(**dict(GPU_STREAMING, rnn_layers=2))
+    ustate = tr.init_train_state(uni, optimizer, seed=2)
+    ubatch, uaudio = train_batch(np.random.default_rng(10), uni, TRAIN_BATCH)
+    ufn = tr.make_wave_train_step(uni, optimizer, augment=None,
+                                  mixed_precision="auto", remat=True)
+    uexpect = dict(zero, gru_scan=2 * uni.rnn_layers, gru_bwd_scan=uni.rnn_layers)
+    ustate, usteps = timed_steps(
+        f"uni {uni.rnn_layers}x{uni.rnn_hidden_size}", ufn, ustate, ubatch, uaudio, 2,
+        uexpect, card)
+    out["uni"] = {"steps": usteps, "audio_s": uaudio, "rnn_layers": uni.rnn_layers}
+    del ustate, ufn
+    torch.cuda.empty_cache()
+
+    # 6d: train() itself on a manifest, resume, export, recognise. Depth cut
+    # to 3 layers: the checkpoints of the full depth are 2 GB each
+    loop_cfg = DeepSpeechConfig(**dict(FLAGSHIP, rnn_layers=3))
+    for w in (gru_cuda.gru_bidi_fused, gru_cuda.gru_bwd_scan):
+        w.launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        manifest = seeded_manifest(tmp, np.random.default_rng(11), loop_cfg.labels, 8)
+        ckpt = os.path.join(tmp, "ckpt")
+        lines = []
+        t0 = time.perf_counter()
+        st = tr.train(loop_cfg, manifest, epochs=1, batch_size=4, learning_rate=TRAIN_LR,
+                      checkpoint_dir=ckpt, val_manifest=manifest, log=lines.append)
+        st = tr.continue_training(loop_cfg, manifest, ckpt, epochs=2, batch_size=4,
+                                  learning_rate=TRAIN_LR, log=lines.append)
+        for line in lines:
+            log(f"    {line}")
+        if st.step != 4 or latest_step(ckpt) != 4:
+            raise AssertionError(f"train + continue_training: step {st.step}, newest "
+                                 f"checkpoint {latest_step(ckpt)}, expected 4")
+        if not any("resumed step 2 (epoch 1)" in line for line in lines):
+            raise AssertionError("continue_training did not resume at epoch 1")
+        path = tr.export_model(st, loop_cfg, os.path.join(tmp, "trained.dsz"))
+        rec = Recognizer(model=DeepSpeechModel.load_model(path))
+        clip = sorted(glob.glob(os.path.join("tests", "data", "clip_*.wav")))[0]
+        text = rec.recognize(load_audio_pcm16(clip))
+        if not isinstance(text, str):
+            raise AssertionError(f"recognize returned {type(text)}")
+        log(f"  train (1 epoch) + continue_training (1 more) + export_model + "
+            f"Recognizer.recognize on {loop_cfg.rnn_layers}x{loop_cfg.rnn_hidden_size}: "
+            f"{time.perf_counter() - t0:.1f} s, transcript {text!r}")
+    # 4 train steps x (2 forwards with remat + the validation forward of epoch 0
+    # + the recognize call), 4 x 2 directions backward
+    loop_counts = {"gru_bidi_fused": gru_cuda.gru_bidi_fused.launches,
+                   "gru_bwd_scan": gru_cuda.gru_bwd_scan.launches}
+    want_bwd = 4 * 2 * loop_cfg.rnn_layers
+    log(f"  loop launches: {loop_counts} (expected gru_bwd_scan {want_bwd})")
+    if loop_counts["gru_bwd_scan"] != want_bwd or loop_counts["gru_bidi_fused"] <= want_bwd:
+        raise AssertionError("train() did not run every GRU layer on the kernels")
+    out["loop"] = {"launches": loop_counts, "log": lines}
+
+    out["launches"] = sum_launches(steps, aug_steps, usteps)
+    for name, c in loop_counts.items():
+        out["launches"][name] += c
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 
 def main(argv=None) -> int:
@@ -788,7 +1347,7 @@ def main(argv=None) -> int:
 
     # phase 2
     t0 = time.perf_counter()
-    build_logs = cuda_build.build("gru_bidi_fused", "gru_scan")
+    build_logs = cuda_build.build(*SOURCES.values())
     log(f"build: {time.perf_counter() - t0:.1f} s")
     for name, text in build_logs.items():
         for line in text.splitlines():
@@ -799,41 +1358,53 @@ def main(argv=None) -> int:
     log("phase 3: kernels vs plain versions")
     gru_checks = phase_kernels()
     scan_checks = phase_scan_kernels()
+    bidi_checks = phase_scan_bidi_kernels()
+    bwd_checks = phase_bwd_kernels()
+    routes = phase_gru_layer_routes()
 
-    launches = scan_launches = None
+    launches = {}  # per kernel, summed over the main paths of phases 4-6
     if not args.kernels:
         log("phase 4: batch path (Recognizer on the flagship)")
         served = phase_serve(card)
         log("phase 5: streaming path (GPUStreamingRNN, flagship secondary)")
         streamed = phase_stream(card)
-        launches = served["launches"] + streamed["bidi_launches"]
-        scan_launches = streamed["scan_launches"]
+        log("phase 6: training path (flagship train steps, uni steps, the loop)")
+        trained = phase_train(card)
+        launches = {
+            "gru_bidi_fused": served["launches"] + streamed["bidi_launches"]
+            + trained["launches"]["gru_bidi_fused"],
+            "gru_scan": streamed["scan_launches"] + trained["launches"]["gru_scan"],
+            "gru_scan_bidi": routes["launches"],
+            "gru_bwd_scan": trained["launches"]["gru_bwd_scan"],
+        }
+        for name, n in launches.items():
+            if not n:
+                raise AssertionError(f"{name} was launched no time on the main paths")
 
-    flag0 = gru_checks[1]
-    scan0 = next(c for c in scan_checks if c["label"] == "uni batch layer")
-    kernels = [{
-        "name": "gru_bidi_fused",
-        "route": "cuda",
-        "source": "danspeech_tpu_torch/csrc/gru_bidi_fused.cu",
-        "replaces": "danspeech_tpu/ops/pallas_gru.py:400",
-        "launches": launches,
-        "max_abs_err": max(c["max_abs_err"] for c in gru_checks),
-        "ms": flag0["ms"], "plain_ms": flag0["plain_ms"],
-        "bound_ms": flag0["bound_ms"], "bound_by": flag0["bound_by"],
-        "library_ms": flag0["library_ms"],
-        "shapes": gru_checks,
-    }, {
-        "name": "gru_scan",
-        "route": "cuda",
-        "source": "danspeech_tpu_torch/csrc/gru_scan.cu",
-        "replaces": "danspeech_tpu/ops/pallas_gru.py:770",
-        "launches": scan_launches,
-        "max_abs_err": max(c["max_abs_err"] for c in scan_checks),
-        "ms": scan0["ms"], "plain_ms": scan0["plain_ms"],
-        "bound_ms": scan0["bound_ms"], "bound_by": scan0["bound_by"],
-        "library_ms": scan0["library_ms"],
-        "shapes": scan_checks,
-    }]
+    def entry(name, replaces, launches, checks, main_label):
+        main = next(c for c in checks if c.get("label") == main_label)
+        return {
+            "name": name, "route": "cuda",
+            "source": f"danspeech_tpu_torch/csrc/{SOURCES[name]}.cu",
+            "replaces": f"danspeech_tpu/ops/pallas_gru.py:{replaces}",
+            "launches": launches,
+            "max_abs_err": max(c["max_abs_err"] for c in checks),
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": main["library_ms"],
+            "shapes": checks,
+        }
+
+    gru_checks[1]["label"] = "flagship layer 0"
+    kernels = [
+        entry("gru_bidi_fused", 400, launches.get("gru_bidi_fused"), gru_checks,
+              "flagship layer 0"),
+        entry("gru_scan", 770, launches.get("gru_scan"), scan_checks, "uni batch layer"),
+        entry("gru_scan_bidi", 171, launches.get("gru_scan_bidi"), bidi_checks,
+              "bidi batch layer"),
+        entry("gru_bwd_scan", 987, launches.get("gru_bwd_scan"), bwd_checks,
+              "flagship layer"),
+    ]
     log(card)  # as nvidia-smi prints it: name, power limit
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

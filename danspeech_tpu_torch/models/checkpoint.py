@@ -146,6 +146,69 @@ def state_dict_from_params(params: Params, config: DeepSpeechConfig) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Trees by leaf name: parameters, gradients and optimizer moments cross to
+# and from the JAX package's parameter tree, which has the same structure,
+# field names and layouts
+# ---------------------------------------------------------------------------
+
+
+def flatten_tree(tree) -> dict:
+    """A parameter-shaped tree (parameters, or their gradients) as a flat
+    {leaf name: float32 numpy array}: names are the tree's keys, list
+    indices and NamedTuple fields joined by dots (``conv.0.bn_mean``,
+    ``rnns.1.bwd.w_hh``, ``fc_bn.var``), the paths of the JAX package's
+    tree. ``None`` nodes are skipped."""
+    flat: dict[str, np.ndarray] = {}
+
+    def walk(node, prefix):
+        if node is None:
+            return
+        if isinstance(node, torch.Tensor):
+            # a copy: the arrays must not follow later in-place updates
+            flat[prefix] = np.array(node.detach().float().cpu().numpy(), copy=True)
+        elif isinstance(node, tuple) and hasattr(node, "_fields"):
+            for name, v in zip(node._fields, node):
+                walk(v, f"{prefix}.{name}")
+        elif isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, f"{prefix}.{k}" if prefix else str(k))
+        elif isinstance(node, list):
+            for i, v in enumerate(node):
+                walk(v, f"{prefix}.{i}")
+        else:
+            raise TypeError(f"unexpected node at {prefix!r}: {type(node)}")
+
+    walk(tree, "")
+    return flat
+
+
+def unflatten_tree(flat: dict, like: Params, dtype=torch.float32) -> Params:
+    """Inverse of :func:`flatten_tree`: a tree with the structure of
+    ``like`` whose leaves are CPU tensors made from ``flat``'s arrays."""
+
+    def walk(node, prefix):
+        if node is None:
+            return None
+        if isinstance(node, torch.Tensor):
+            leaf = _t(flat[prefix], dtype)
+            if leaf.shape != node.shape:
+                raise ValueError(f"{prefix}: shape {tuple(leaf.shape)}, expected "
+                                 f"{tuple(node.shape)}")
+            return leaf
+        if isinstance(node, tuple) and hasattr(node, "_fields"):
+            return type(node)(*(walk(v, f"{prefix}.{name}")
+                                for name, v in zip(node._fields, node)))
+        if isinstance(node, dict):
+            return {k: walk(v, f"{prefix}.{k}" if prefix else str(k))
+                    for k, v in node.items()}
+        if isinstance(node, list):
+            return [walk(v, f"{prefix}.{i}") for i, v in enumerate(node)]
+        raise TypeError(f"unexpected node at {prefix!r}: {type(node)}")
+
+    return walk(like, "")
+
+
+# ---------------------------------------------------------------------------
 # Native format (.dsz): npz arrays + config.json inside one zip
 # ---------------------------------------------------------------------------
 

@@ -9,7 +9,9 @@ unidirectional RNNs followed by the lookahead convolution and hardtanh (the
 ``gru_scan`` kernel on CUDA), BN -> Linear head, softmax at inference. The
 streaming twin of the forward pass is :mod:`.streaming`.
 
-Only GRU models are ported so far; LSTM and tanh-RNN models raise.
+The forward pass is differentiable in every parameter leaf (training:
+:mod:`danspeech_tpu_torch.train`). Only GRU models are ported so far; LSTM
+and tanh-RNN models raise.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from typing import Any, Callable
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..ops import conv as conv_ops
 from ..ops import rnn as rnn_ops
@@ -163,7 +166,8 @@ def num_params(params: Params) -> int:
 
 def cast_matmul_weights(params: Params, dtype=torch.bfloat16) -> Params:
     """Cast the large matmul weights (RNN w_ih/w_hh, conv kernels, FC) to
-    ``dtype``; biases and BatchNorm statistics stay float32."""
+    ``dtype``; biases and BatchNorm statistics stay float32. The casts are
+    differentiable: gradients reach float32 master leaves through them."""
 
     def cast_rnn(w):
         if w is None:
@@ -221,6 +225,14 @@ def head(params: Params, x: torch.Tensor) -> torch.Tensor:
     return x.to(w.dtype).float() @ w.float().T
 
 
+def _apply_rnn_layer(entry, x, lengths, impl: str) -> torch.Tensor:
+    if entry["bn"] is not None:
+        scale, shift = entry["bn"].scale_shift()
+        x = x * scale + shift
+    out, _ = rnn_ops.gru_layer(x, lengths, entry["fwd"], entry["bwd"], impl=impl)
+    return out
+
+
 def forward(
     params: Params,
     config: DeepSpeechConfig,
@@ -228,10 +240,14 @@ def forward(
     input_lengths: torch.Tensor,
     softmax: bool = True,
     rnn_impl: str = "auto",
+    rnn_remat: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Batch forward: (N, 1, F, T) spectrograms -> ((N, T', C) probs, or
     logits with ``softmax=False``; (N,) output lengths). ``rnn_impl`` is
-    passed to :func:`rnn_ops.gru_layer`."""
+    passed to :func:`rnn_ops.gru_layer`. ``rnn_remat`` checkpoints each RNN
+    layer (``torch.utils.checkpoint``): the backward pass runs the layer's
+    forward again instead of keeping its residuals, so only one layer's
+    output streams are alive at a time."""
     _require_gru(config)
     out_lengths = get_seq_lens(config, input_lengths)
     x = conv_stack(params, config, x, out_lengths)
@@ -240,12 +256,11 @@ def forward(
     x = x.reshape(n, c * f, t).permute(2, 0, 1)  # (T, N, H)
 
     for entry in params["rnns"]:
-        if entry["bn"] is not None:
-            scale, shift = entry["bn"].scale_shift()
-            x = x * scale + shift
-        x, _ = rnn_ops.gru_layer(
-            x, out_lengths, entry["fwd"], entry["bwd"], impl=rnn_impl
-        )
+        if rnn_remat:
+            x = checkpoint(_apply_rnn_layer, entry, x, out_lengths, rnn_impl,
+                           use_reentrant=False)
+        else:
+            x = _apply_rnn_layer(entry, x, out_lengths, rnn_impl)
 
     if not config.bidirectional:
         x = conv_ops.hardtanh(conv_ops.lookahead(x, params["lookahead"]))

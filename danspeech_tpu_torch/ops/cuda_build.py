@@ -3,8 +3,9 @@
 Each source is compiled by ``nvcc`` on its own into a library with a plain C
 interface, loaded with ctypes. The build happens at first use into
 ``danspeech_tpu_torch/build/`` (listed in ``.gitignore``); the file name
-carries a hash of the source, so an edited source is rebuilt. There is no
-fallback: a missing ``nvcc`` or a failed compile raises.
+carries a hash of the source and of the shared headers (``csrc/*.cuh``), so
+an edited source is rebuilt. There is no fallback: a missing ``nvcc`` or a
+failed compile raises.
 """
 
 from __future__ import annotations
@@ -48,9 +49,12 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> str:
-    src = os.path.join(CSRC_DIR, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:12]
+    digest = hashlib.sha256()
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for fname in [f"{name}.cu", *headers]:
+        with open(os.path.join(CSRC_DIR, fname), "rb") as f:
+            digest.update(f.read())
+    digest = digest.hexdigest()[:12]
     return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
 
 

@@ -1,12 +1,17 @@
 """GRU kernels and their plain PyTorch versions.
 
-The ports of two kernels of ``danspeech_tpu/ops/pallas_gru.py``:
+The ports of four kernels of ``danspeech_tpu/ops/pallas_gru.py``:
 
 - :func:`gru_bidi_fused` (``gru_scan_bidi_fused``, ``csrc/gru_bidi_fused.cu``):
   the input projection and both chains of a bidirectional layer, h0 = 0;
 - :func:`gru_scan` (``gru_scan``, ``csrc/gru_scan.cu``): one chain over a
   precomputed bias-free projection, with a carried h0 and a ``reverse``
-  flag (unidirectional layers and the streaming chunk step).
+  flag (unidirectional layers and the streaming chunk step);
+- :func:`gru_scan_bidi` (``gru_scan_bidi``, ``csrc/gru_scan_bidi.cu``): both
+  chains of a bidirectional layer over precomputed projections, with
+  carried h0 (concatenated directions, carried state);
+- :func:`gru_bwd_scan` (``gru_bwd_scan``, ``csrc/gru_bwd.cu``): the backward
+  walk of one chain for training.
 
 Each source's header note says what bounds it on an H100 and what the
 design does about it. A wrapper launches its kernel for CUDA tensors and
@@ -77,6 +82,24 @@ def gru_bidi_fused_plain(
     return out[0], out[1], h[0], h[1]
 
 
+def _check_tensors(anchor: str, expect: dict) -> None:
+    """``expect`` maps a name to (tensor, shape, dtype): every tensor must be
+    contiguous, of that shape and dtype, on the device of ``expect[anchor]``."""
+    dev = expect[anchor][0].device
+    for name, (t, shape, dtype) in expect.items():
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, {anchor} on {dev}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+        if t.dtype != dtype:
+            raise TypeError(
+                f"{name} is {t.dtype}, the kernel takes {dtype} (the GRU "
+                "kernels take bf16 sequences and weights only, ROADMAP A6b)"
+            )
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
 def _check_operands(x, lengths, w_ih_f, w_ih_b, w_hh_f, w_hh_b, biases):
     if x.dim() != 3:
         raise ValueError(f"x must be (T, B, D), got shape {tuple(x.shape)}")
@@ -87,27 +110,16 @@ def _check_operands(x, lengths, w_ih_f, w_ih_b, w_hh_f, w_hh_b, biases):
         raise ValueError(f"T*B = {t_max * batch} rows exceed the projection grid")
     hidden = w_hh_f.shape[0]
     expect = {
+        "x": (x, (t_max, batch, d_in), torch.bfloat16),
         "w_ih_f": (w_ih_f, (d_in, 3 * hidden), torch.bfloat16),
         "w_ih_b": (w_ih_b, (d_in, 3 * hidden), torch.bfloat16),
         "w_hh_f": (w_hh_f, (hidden, 3 * hidden), torch.bfloat16),
         "w_hh_b": (w_hh_b, (hidden, 3 * hidden), torch.bfloat16),
-        "x": (x, (t_max, batch, d_in), torch.bfloat16),
         "lengths": (lengths, (batch,), torch.int32),
     }
     for name, b in zip(("b_ih_f", "b_ih_b", "b_hh_f", "b_hh_b"), biases):
         expect[name] = (b, (3 * hidden,), torch.float32)
-    for name, (t, shape, dtype) in expect.items():
-        if t.device != x.device:
-            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
-        if t.dtype != dtype:
-            raise TypeError(
-                f"{name} is {t.dtype}, the kernel takes {dtype} (the float32 "
-                "GRU kernel is not ported yet)"
-            )
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    _check_tensors("x", expect)
 
 
 def _bind_bidi_fused():
@@ -224,18 +236,7 @@ def _check_scan_operands(gx, lengths, w_hh, b_ih, b_hh, h0):
         "b_hh": (b_hh, (3 * hidden,), torch.float32),
         "h0": (h0, (batch, hidden), torch.float32),
     }
-    for name, (t, shape, dtype) in expect.items():
-        if t.device != gx.device:
-            raise ValueError(f"{name} is on {t.device}, gx on {gx.device}")
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
-        if t.dtype != dtype:
-            raise TypeError(
-                f"{name} is {t.dtype}, the kernel takes {dtype} (the GRU "
-                "kernels take bf16 sequences and weights only, ROADMAP A6b)"
-            )
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    _check_tensors("gx", expect)
 
 
 def _bind_scan():
@@ -286,3 +287,212 @@ def gru_scan(gx, lengths, w_hh, b_ih, b_hh, h0, reverse: bool = False):
 
 
 gru_scan.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# gru_scan_bidi: both chains over precomputed projections
+# ---------------------------------------------------------------------------
+
+
+def gru_scan_bidi_plain(
+    gx_f, gx_b, lengths, w_hh_f, w_hh_b, b_ih_f, b_ih_b, b_hh_f, b_hh_b, h0_f, h0_b
+):
+    """The kernel's arithmetic in plain tensor ops, on any device: the
+    forward chain and the reverse-time chain of :func:`gru_scan_plain`.
+
+    gx_f, gx_b (T, B, 3H) are the bias-free projections of the two
+    directions in natural time order (stream dtype), h0_f, h0_b (B, H) f32.
+    Returns (out_f, out_b, h_last_f, h_last_b) as :func:`gru_bidi_fused_plain`.
+    """
+    out_f, hl_f = gru_scan_plain(gx_f, lengths, w_hh_f, b_ih_f, b_hh_f, h0_f)
+    out_b, hl_b = gru_scan_plain(
+        gx_b, lengths, w_hh_b, b_ih_b, b_hh_b, h0_b, reverse=True
+    )
+    return out_f, out_b, hl_f, hl_b
+
+
+def _bind_scan_bidi():
+    lib = cuda_build.load("gru_scan_bidi")
+    fn = lib.gru_scan_bidi_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def gru_scan_bidi(
+    gx_f, gx_b, lengths, w_hh_f, w_hh_b, b_ih_f, b_ih_b, b_hh_f, b_hh_b, h0_f, h0_b
+):
+    """Both chains of a bidirectional GRU layer over precomputed
+    projections, with carried initial states.
+
+    Same contract and return values as :func:`gru_scan_bidi_plain`. CUDA
+    operands launch the kernel (bf16 gx and w_hh, f32 biases and h0, int32
+    lengths, all contiguous on gx_f's device) or raise; CPU operands run the
+    plain version. ``gru_scan_bidi.launches`` counts kernel launches (one per
+    call: the T step kernels of one layer, both directions in each).
+    """
+    args = (gx_f, gx_b, lengths, w_hh_f, w_hh_b, b_ih_f, b_ih_b, b_hh_f, b_hh_b,
+            h0_f, h0_b)
+    if gx_f.device.type == "cpu":
+        return gru_scan_bidi_plain(*args)
+    if gx_f.device.type != "cuda":
+        raise ValueError(f"unsupported device {gx_f.device}")
+    for gx, w_hh, b_ih, b_hh, h0 in (
+        (gx_f, w_hh_f, b_ih_f, b_hh_f, h0_f), (gx_b, w_hh_b, b_ih_b, b_hh_b, h0_b)
+    ):
+        _check_scan_operands(gx, lengths, w_hh, b_ih, b_hh, h0)
+    if gx_b.shape != gx_f.shape or gx_b.device != gx_f.device:
+        raise ValueError(
+            f"gx_b {tuple(gx_b.shape)} on {gx_b.device} does not match gx_f "
+            f"{tuple(gx_f.shape)} on {gx_f.device}"
+        )
+    launch = _bind_scan_bidi()
+
+    t_max, batch, _ = gx_f.shape
+    hidden = w_hh_f.shape[0]
+    dev = gx_f.device
+    h32 = torch.empty((2, 2, batch, hidden), dtype=torch.float32, device=dev)
+    h16 = torch.empty((2, 2, batch, hidden), dtype=torch.bfloat16, device=dev)
+    for d, h0 in enumerate((h0_f, h0_b)):
+        h32[0, d].copy_(h0)
+        h16[0, d].copy_(h0)  # round to nearest even, as __float2bfloat16
+    out = torch.empty((2, t_max, batch, hidden), dtype=torch.bfloat16, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = launch(
+            gx_f.data_ptr(), gx_b.data_ptr(), lengths.data_ptr(),
+            w_hh_f.data_ptr(), w_hh_b.data_ptr(),
+            b_ih_f.data_ptr(), b_ih_b.data_ptr(),
+            b_hh_f.data_ptr(), b_hh_b.data_ptr(),
+            h32.data_ptr(), h16.data_ptr(), out.data_ptr(),
+            t_max, batch, hidden, stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"gru_scan_bidi launch failed: CUDA error {rc}")
+    gru_scan_bidi.launches += 1
+    last = h32[t_max % 2]
+    return out[0], out[1], last[0], last[1]
+
+
+gru_scan_bidi.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# gru_bwd_scan: the backward walk of one chain
+# ---------------------------------------------------------------------------
+
+
+def gru_bwd_scan_plain(
+    gx, hprev, dout, lengths, w_hh, b_ih, b_hh, dh_last, reverse: bool = True
+):
+    """The kernel's arithmetic in plain tensor ops, on any device.
+
+    gx (T, B, 3H) is the bias-free projection and hprev (T, B, H) the state
+    before each step in chain order, both in the stream dtype and natural
+    time order; dout (T, B, H) f32 is dL/d out; w_hh (H, 3H) in the weights'
+    dtype; b_ih, b_hh (3H,) f32; dh_last (B, H) f32 is dL/d h_last.
+    ``reverse=True`` walks t = T-1 .. 0 (the backward of a forward chain),
+    ``reverse=False`` 0 .. T-1 (the backward of a reverse-time chain).
+    Returns (dgx (T, B, 3H) f32, the gradient of the gate pre-activations
+    with respect to gx; dghn (T, B, H) f32, the n part of the gradient with
+    respect to gh, whose r and z parts equal dgx's; dh0 (B, H) f32). Steps
+    past a row's length give zeros and pass dL/dh through. Both products
+    take operands rounded to w_hh's dtype and accumulate in f32.
+    """
+    t_max, batch, _ = gx.shape
+    hidden = w_hh.shape[0]
+    dev = gx.device
+    mm_dtype = w_hh.dtype
+    w = w_hh.float()
+    w_t = w.t()
+    b_ih = b_ih.float()
+    b_hh = b_hh.float()
+    lengths = lengths.to(dev)
+    dh = dh_last.float()
+    dgx = torch.empty((t_max, batch, 3 * hidden), dtype=torch.float32, device=dev)
+    dghn = torch.empty((t_max, batch, hidden), dtype=torch.float32, device=dev)
+    for t in (range(t_max - 1, -1, -1) if reverse else range(t_max)):
+        m = (lengths > t).float()[:, None]
+        hp = hprev[t].float()
+        x = gx[t].float() + b_ih
+        gh = hp.to(mm_dtype).float() @ w + b_hh
+        r = torch.sigmoid(x[:, :hidden] + gh[:, :hidden])
+        z = torch.sigmoid(x[:, hidden : 2 * hidden] + gh[:, hidden : 2 * hidden])
+        gh_n = gh[:, 2 * hidden :]
+        n = torch.tanh(x[:, 2 * hidden :] + r * gh_n)
+
+        dhnew = m * (dh + dout[t].float())
+        dpre_n = dhnew * (1.0 - z) * (1.0 - n * n)
+        dpre_r = dpre_n * gh_n * r * (1.0 - r)
+        dpre_z = dhnew * (hp - n) * z * (1.0 - z)
+        dghn_t = dpre_n * r
+        dgx[t] = torch.cat([dpre_r, dpre_z, dpre_n], dim=-1)
+        dghn[t] = dghn_t
+        dgh = torch.cat([dpre_r, dpre_z, dghn_t], dim=-1)
+        dh = dhnew * z + dgh.to(mm_dtype).float() @ w_t + (1.0 - m) * dh
+    return dgx, dghn, dh
+
+
+def _bind_bwd():
+    lib = cuda_build.load("gru_bwd")
+    fn = lib.gru_bwd_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def gru_bwd_scan(
+    gx, hprev, dout, lengths, w_hh, b_ih, b_hh, dh_last, reverse: bool = True
+):
+    """The backward walk of one GRU chain.
+
+    Same contract and return values as :func:`gru_bwd_scan_plain`. A CUDA
+    ``gx`` launches the kernel (bf16 gx, hprev and w_hh, f32 dout, biases
+    and dh_last, int32 lengths, all contiguous on gx's device) or raises; a
+    CPU ``gx`` runs the plain version. ``gru_bwd_scan.launches`` counts
+    kernel launches (one per call: the gate-recompute product and the T + 1
+    step kernels of one chain).
+    """
+    if gx.device.type == "cpu":
+        return gru_bwd_scan_plain(
+            gx, hprev, dout, lengths, w_hh, b_ih, b_hh, dh_last, reverse
+        )
+    if gx.device.type != "cuda":
+        raise ValueError(f"unsupported device {gx.device}")
+    _check_scan_operands(gx, lengths, w_hh, b_ih, b_hh, dh_last)
+    t_max, batch, _ = gx.shape
+    hidden = w_hh.shape[0]
+    if (t_max * batch + 127) // 128 > 65535:  # the recompute grid's y limit
+        raise ValueError(f"T*B = {t_max * batch} rows exceed the projection grid")
+    _check_tensors("gx", {
+        "gx": (gx, tuple(gx.shape), torch.bfloat16),
+        "hprev": (hprev, (t_max, batch, hidden), torch.bfloat16),
+        "dout": (dout, (t_max, batch, hidden), torch.float32),
+    })
+    launch = _bind_bwd()
+
+    dev = gx.device
+    w_hht = w_hh.t().contiguous()
+    part = torch.empty((2, batch, hidden), dtype=torch.float32, device=dev)
+    part[0].copy_(dh_last)
+    dgh = torch.empty((2, batch, 3 * hidden), dtype=torch.bfloat16, device=dev)
+    dgh[0].zero_()
+    dgx = torch.empty((t_max, batch, 3 * hidden), dtype=torch.float32, device=dev)
+    dghn = torch.empty((t_max, batch, hidden), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = launch(
+            gx.data_ptr(), hprev.data_ptr(), dout.data_ptr(), lengths.data_ptr(),
+            w_hh.data_ptr(), w_hht.data_ptr(), b_ih.data_ptr(), b_hh.data_ptr(),
+            part.data_ptr(), dgh.data_ptr(), dgx.data_ptr(), dghn.data_ptr(),
+            t_max, batch, hidden, int(bool(reverse)), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"gru_bwd_scan launch failed: CUDA error {rc}")
+    gru_bwd_scan.launches += 1
+    return dgx, dghn, part[(t_max + 1) % 2]
+
+
+gru_bwd_scan.launches = 0

@@ -9,11 +9,12 @@ Phases, in order; any failure exits non-zero:
 1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
 2. build every CUDA kernel from ``danspeech_tpu_torch/csrc`` (one nvcc per
    source, all started together), timed;
-3. each of the four kernels against its plain PyTorch version on the card
-   at a ragged small shape and the layer shapes of the paths below, with
-   its time, the plain version's time, one library call's time as a
-   yardstick, and the bound; and ``gru_layer`` with concatenated directions
-   and with a carried h0, the two routes that reach ``gru_scan_bidi``;
+3. each of the nine kernels (four GRU, three LSTM, two tanh-RNN) against
+   its plain PyTorch version on the card at a ragged small shape and the
+   layer shapes of the paths below, with its time, the plain version's
+   time, one library call's time as a yardstick, and the bound; and
+   ``gru_layer`` with concatenated directions and with a carried h0, the two
+   routes that reach ``gru_scan_bidi``;
 4. the batch path: ``Recognizer.recognize`` / ``recognize_batch`` on the
    flagship DanSpeechPrimary (3 conv, 9x1200 bidirectional GRU, random
    weights from a seed), with the kernels' launch counts read around it,
@@ -36,7 +37,20 @@ Phases, in order; any failure exits non-zero:
    unidirectional model; then ``train.train`` on a manifest of seeded WAVs
    with checkpoints, ``continue_training`` from them, ``export_model`` and
    ``Recognizer.recognize`` of the exported ``.dsz`` (3x1200);
-7. one ``{"kernels": [...]}`` line, then the device line as the last line.
+7. the LSTM and tanh-RNN models, served and trained: ``LSTM5x800`` and
+   ``Tanh5x800`` (2 conv, RNN input 1312, 5 bidirectional layers of width
+   800, what ``python -m danspeech_tpu_torch.train --rnn-type lstm|rnn``
+   builds; random weights from a seed) through ``Recognizer.recognize`` and
+   ``recognize_batch`` of 128 waveforms, one dispatch group checked against
+   the plain recurrence on the card; ``make_wave_train_step`` steps on one
+   seeded batch of 32 waveforms of 1-8 s with their launch counts (per LSTM
+   step 10 ``lstm_scan``, 10 ``lstm_scan_with_cell``, 10 ``lstm_bwd_scan``;
+   per tanh step 20 ``rnn_tanh_scan``, 10 ``rnn_tanh_bwd_scan``), the
+   gradients of an 8-row batch against the plain path; for the LSTM a
+   profile of one step and ``train.train`` + ``export_model`` +
+   ``Recognizer.recognize`` on a 2-layer cut;
+8. one ``{"kernels": [...]}`` line of nine entries, then the device line as
+   the last line.
 
 Imports no JAX and nothing of ``danspeech_tpu``.
 """
@@ -69,7 +83,14 @@ GRU_ATOL = 2e-2
 
 # wrapper name -> source under danspeech_tpu_torch/csrc
 SOURCES = {"gru_bidi_fused": "gru_bidi_fused", "gru_scan": "gru_scan",
-           "gru_scan_bidi": "gru_scan_bidi", "gru_bwd_scan": "gru_bwd"}
+           "gru_scan_bidi": "gru_scan_bidi", "gru_bwd_scan": "gru_bwd",
+           "lstm_scan": "lstm_scan", "lstm_scan_with_cell": "lstm_scan",
+           "lstm_bwd_scan": "lstm_bwd", "rnn_tanh_scan": "rnn_tanh_scan",
+           "rnn_tanh_bwd_scan": "rnn_tanh_bwd"}
+# wrapper name -> line of the Pallas function in danspeech_tpu/ops/pallas_gru.py
+REPLACES = {"gru_bidi_fused": 400, "gru_scan": 770, "gru_scan_bidi": 171,
+            "gru_bwd_scan": 987, "lstm_scan": 577, "lstm_scan_with_cell": 1136,
+            "lstm_bwd_scan": 1293, "rnn_tanh_scan": 706, "rnn_tanh_bwd_scan": 1416}
 
 FLAGSHIP = dict(
     model_name="DanSpeechPrimary", rnn_hidden_size=1200, rnn_layers=9,
@@ -81,6 +102,13 @@ GPU_STREAMING = dict(
     model_name="GPUStreamingRNN", rnn_hidden_size=2000, rnn_layers=5,
     conv_layers=2, bidirectional=False, context=20,
 )
+# what the training CLI builds for --rnn-type lstm / rnn: 2 conv (RNN input
+# 1312), 5 bidirectional layers of width 800, directions summed
+LSTM5X800 = dict(
+    model_name="LSTM5x800", rnn_type="lstm", rnn_hidden_size=800, rnn_layers=5,
+    conv_layers=2, bidirectional=True,
+)
+TANH5X800 = dict(LSTM5X800, model_name="Tanh5x800", rnn_type="rnn")
 
 
 def log(msg: str) -> None:
@@ -93,6 +121,30 @@ def card_line() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()
     return out[torch.cuda.current_device()] if out else ""
+
+
+def kernel_wrappers() -> dict:
+    """Every kernel wrapper of the port by name; each counts its launches."""
+    from danspeech_tpu_torch.ops import gru_cuda, lstm_cuda, rnn_tanh_cuda
+
+    return {
+        "gru_bidi_fused": gru_cuda.gru_bidi_fused, "gru_scan": gru_cuda.gru_scan,
+        "gru_scan_bidi": gru_cuda.gru_scan_bidi, "gru_bwd_scan": gru_cuda.gru_bwd_scan,
+        "lstm_scan": lstm_cuda.lstm_scan,
+        "lstm_scan_with_cell": lstm_cuda.lstm_scan_with_cell,
+        "lstm_bwd_scan": lstm_cuda.lstm_bwd_scan,
+        "rnn_tanh_scan": rnn_tanh_cuda.rnn_tanh_scan,
+        "rnn_tanh_bwd_scan": rnn_tanh_cuda.rnn_tanh_bwd_scan,
+    }
+
+
+def zero_launches() -> None:
+    for w in kernel_wrappers().values():
+        w.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: w.launches for name, w in kernel_wrappers().items()}
 
 
 def time_ms(fn, iters: int, warmup: int = 1) -> float:
@@ -447,22 +499,31 @@ def bwd_bound(lengths, t, b, h):
     return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
 
 
-def cudnn_gru_backward_ms(gen, t, b, h):
-    """cuDNN's nn.GRU(H, H) in bf16 at (T, B, H): the time of forward plus
-    backward less the time of the forward alone. Its backward also computes
-    the weight and input gradients, which gru_bwd_scan leaves to its caller."""
-    gru = torch.nn.GRU(h, h).to("cuda", torch.bfloat16)
-    gru.flatten_parameters()
-    x = torch.randn(t, b, h, generator=gen, device="cuda").to(torch.bfloat16)
+def cudnn_rnn_ms(module, gen, t, b, h, backward: bool, dtype=torch.bfloat16):
+    """One cuDNN recurrent module (nn.GRU, nn.LSTM or nn.RNN of (H, H)) in
+    ``dtype`` at (T, B, H): the time of its forward, or with ``backward`` the
+    time of forward plus backward less the time of the forward alone. It
+    also computes the input projection, and its backward the weight and
+    input gradients, which the port's kernels leave to their caller.
+
+    cuDNN wants its weights in one block. ``flatten_parameters`` makes that
+    block for float16 but leaves bf16 weights apart (PyTorch's
+    ``cudnn.is_acceptable`` refuses the dtype), so a bf16 call compacts them
+    every time and warns: the bf16 time is an upper bound of the library's."""
+    rnn = module.to("cuda", dtype)
+    rnn.flatten_parameters()
+    x = torch.randn(t, b, h, generator=gen, device="cuda").to(dtype)
+    if not backward:
+        with torch.no_grad():
+            return time_ms(lambda: rnn(x), iters=3)
     x.requires_grad_(True)
-    dout = torch.randn(t, b, h, generator=gen, device="cuda").to(torch.bfloat16)
+    dout = torch.randn(t, b, h, generator=gen, device="cuda").to(dtype)
 
     def fwd_bwd():
-        out, _ = gru(x)
-        out.backward(dout)
+        rnn(x)[0].backward(dout)
 
     both = time_ms(fwd_bwd, iters=3)
-    fwd = time_ms(lambda: gru(x), iters=3)
+    fwd = time_ms(lambda: rnn(x), iters=3)
     return max(both - fwd, 0.0)
 
 
@@ -504,7 +565,7 @@ def check_bwd(gen, label, t, lengths, h, reverse, timed):
         res["ms"] = time_ms(lambda: gru_cuda.gru_bwd_scan(*args, reverse=reverse), iters=3)
         res["plain_ms"] = time_ms(
             lambda: gru_cuda.gru_bwd_scan_plain(*args, reverse=reverse), iters=1)
-        res["library_ms"] = cudnn_gru_backward_ms(gen, t, b, h)
+        res["library_ms"] = cudnn_rnn_ms(torch.nn.GRU(h, h), gen, t, b, h, backward=True)
         res["bound_ms"], res["bound_by"] = bwd_bound(lengths, t, b, h)
         log(f"    ms={res['ms']:.3f} plain_ms={res['plain_ms']:.3f} "
             f"library_ms(cuDNN nn.GRU({h},{h}) bf16 forward+backward less forward)="
@@ -525,6 +586,157 @@ def phase_bwd_kernels():
         lengths = rng.integers(1, 402, size=32)
         lengths[0], lengths[1] = 401, 1
         checks.append(check_bwd(gen, label, 401, lengths.tolist(), h, True, timed=True))
+    return checks
+
+
+# ---------------------------------------------------------------------------
+# Phase 3, LSTM and tanh-RNN kernels
+# ---------------------------------------------------------------------------
+
+
+def rnn_kernel_bound(kind, lengths, t, b, h):
+    """(bound_ms, bound_by) of one call of an LSTM or tanh-RNN kernel: the
+    operations of the valid steps over the bf16 peak against the bytes (the
+    input streams of the valid steps and the weights read once, the output
+    streams and final states written once) over the memory rate."""
+    valid = int(sum(lengths))
+    gates = 4 if kind.startswith("lstm") else 1
+    # the LSTM walk recomputes its gates; tanh' comes off the stored stream
+    products = 2 if kind == "lstm_bwd_scan" else 1
+    flops = 2 * products * valid * h * gates * h
+    nbytes = h * gates * h * 2 + b * 4           # w_hh bf16, lengths int32
+    if kind in ("lstm_scan", "lstm_scan_with_cell"):
+        nbytes += valid * 4 * h * 2 + 4 * h * 4  # gx bf16, b_hh f32
+        nbytes += t * b * h * 2 * (2 if kind == "lstm_scan_with_cell" else 1)
+        nbytes += 4 * b * h * 4                  # h0, c0, h_last, c_last f32
+    elif kind == "lstm_bwd_scan":
+        nbytes += valid * (4 * h * 2 + 2 * h * 2 + h * 4)  # gx, hprev, cprev, dout
+        nbytes += 4 * h * 4 + t * b * 4 * h * 4 + 2 * b * h * 4  # b_hh, dg4, dh0, dc0
+    elif kind == "rnn_tanh_scan":
+        nbytes += valid * h * 2 + t * b * h * 2 + b * h * 4      # gx, out, h_last
+    else:
+        nbytes += valid * (h * 2 + h * 4) + t * b * h * 4 + b * h * 4  # out, dout, dpre, dh0
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_mem = nbytes / PEAK_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
+
+
+def check_rnn_kernel(kind, gen, label, t, lengths, h, reverse, timed):
+    """One LSTM or tanh-RNN kernel against its plain version on the card.
+    Forward kernels are held to GRU_ATOL and backward walks to BWD_TOL, each
+    times the larger of 1 and the largest reference value."""
+    from danspeech_tpu_torch.ops import lstm_cuda, rnn_tanh_cuda
+
+    dev = "cuda"
+    b = len(lengths)
+    bound = 1.0 / h ** 0.5
+    lstm = kind.startswith("lstm")
+    gates = 4 if lstm else 1
+    module = lstm_cuda if lstm else rnn_tanh_cuda
+    wrapper, plain = getattr(module, kind), getattr(module, f"{kind}_plain")
+
+    def uni(*shape):
+        return (torch.rand(*shape, generator=gen, device=dev) * 2 - 1) * bound
+
+    def stream(width, scale=0.5):
+        return (torch.randn(t, b, width, generator=gen, device=dev) * scale).to(
+            torch.bfloat16)
+
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    pad = torch.arange(t, device=dev)[:, None] >= lens[None, :].long()
+    w_hh = uni(h, gates * h).to(torch.bfloat16)
+    backward = kind.endswith("bwd_scan")
+    if kind in ("lstm_scan", "lstm_scan_with_cell"):
+        carried = [torch.rand(b, h, generator=gen, device=dev) - 0.5 for _ in range(2)]
+        args = (stream(4 * h), lens, w_hh, uni(4 * h), *carried)
+        names = (("out", "c_seq", "h_last", "c_last") if kind == "lstm_scan_with_cell"
+                 else ("out", "h_last", "c_last"))
+        n_streams = len(names) - 2
+    elif kind == "lstm_bwd_scan":
+        hprev = (torch.rand(t, b, h, generator=gen, device=dev) * 2 - 1).to(torch.bfloat16)
+        args = (stream(4 * h), hprev, stream(h, 1.0),
+                torch.randn(t, b, h, generator=gen, device=dev), lens, w_hh, uni(4 * h))
+        names, n_streams = ("dg4", "dh0", "dc0"), 1
+    elif kind == "rnn_tanh_scan":
+        args = (stream(h), lens, w_hh)
+        names, n_streams = ("out", "h_last"), 1
+    else:
+        out = (torch.rand(t, b, h, generator=gen, device=dev) * 2 - 1).to(torch.bfloat16)
+        out[pad] = 0  # the forward stream is zero past a row's length
+        args = (out, torch.randn(t, b, h, generator=gen, device=dev), lens, w_hh)
+        names, n_streams = ("dpre", "dh0"), 1
+    got = wrapper(*args, reverse=reverse)
+    torch.cuda.synchronize()
+    ref = plain(*args, reverse=reverse)
+    torch.cuda.synchronize()
+    tol = BWD_TOL if backward else GRU_ATOL
+    name = f"{kind} {label}"
+    errs, err = compare_outputs(name, names, got, ref, tol)
+    for g in got[:n_streams]:
+        if pad.any() and float(g[pad].float().abs().max()) != 0.0:
+            raise AssertionError(f"{name}: non-zero values past a row's length")
+    res = {"label": label, "shape": {"T": t, "B": b, "H": h, "reverse": reverse},
+           "max_abs_err": err, "errs": errs, "tol": tol,
+           "max_abs_ref": {k: float(r.float().abs().max()) for k, r in zip(names, ref)}}
+    log(f"  {name} T={t} B={b} H={h} reverse={reverse}: max|err| "
+        + ", ".join(f"{k}={v:.3e} (max|ref| {res['max_abs_ref'][k]:.2f})"
+                    for k, v in errs.items()) + f" (tol {tol} x max(1, max|ref|))")
+    if timed:
+        res["ms"] = time_ms(lambda: wrapper(*args, reverse=reverse), iters=3)
+        res["plain_ms"] = time_ms(lambda: plain(*args, reverse=reverse), iters=1)
+        def lib():
+            return torch.nn.LSTM(h, h) if lstm else torch.nn.RNN(h, h, nonlinearity="tanh")
+
+        res["library_ms"] = cudnn_rnn_ms(lib(), gen, t, b, h, backward=backward)
+        # the same call in float16, where cuDNN's weights are one block
+        res["library_fp16_ms"] = cudnn_rnn_ms(lib(), gen, t, b, h, backward=backward,
+                                              dtype=torch.float16)
+        res["bound_ms"], res["bound_by"] = rnn_kernel_bound(kind, lengths, t, b, h)
+        log(f"    ms={res['ms']:.3f} plain_ms={res['plain_ms']:.3f} library_ms(cuDNN "
+            f"nn.{'LSTM' if lstm else 'RNN'}({h},{h}) bf16, with its projection, "
+            + ("forward+backward less forward" if backward else "forward")
+            + f")={res['library_ms']:.3f} (float16: {res['library_fp16_ms']:.3f}) "
+            f"bound_ms={res['bound_ms']:.4f} ({res['bound_by']})")
+    del args, got, ref
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_rnn_type_kernels():
+    """{kernel: checks} for the three LSTM and two tanh-RNN kernels: ragged
+    small shapes (B = 5 with an empty row and B = 1, H = 72, both
+    directions, T = 1), then the layer shapes of LSTM5x800 / Tanh5x800:
+    serving (B = 128) for the forward kernels, training (B = 32) for the
+    backward walks and the forward that keeps the cell stream."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    serve = np.random.default_rng(800).integers(1, 402, size=128)
+    train = np.random.default_rng(801).integers(1, 402, size=32)
+    for lengths in (serve, train):
+        lengths[0], lengths[1] = 401, 1
+    layer_shapes = {
+        "lstm_scan": [("serve layer", serve)],
+        "lstm_scan_with_cell": [("train layer", train), ("serve-size layer", serve)],
+        "lstm_bwd_scan": [("train layer", train)],
+        "rnn_tanh_scan": [("serve layer", serve), ("train layer", train)],
+        "rnn_tanh_bwd_scan": [("train layer", train)],
+    }
+    checks = {}
+    for kind, shapes in layer_shapes.items():
+        forward_chain = not kind.endswith("bwd_scan")
+        rows = []
+        for lengths in ([13, 0, 1, 7, 12], [13]):
+            for reverse in (False, True):
+                # time the small shape once, in the direction of a forward chain
+                timed = len(lengths) == 5 and reverse != forward_chain
+                rows.append(check_rnn_kernel(kind, gen, "small", 13, lengths, 72,
+                                             reverse, timed))
+        rows.append(check_rnn_kernel(kind, gen, "small T=1", 1, [1, 0], 72,
+                                     not forward_chain, False))
+        for label, lengths in shapes:
+            rows.append(check_rnn_kernel(kind, gen, label, 401, lengths.tolist(), 800,
+                                         not forward_chain, True))
+        checks[kind] = rows
     return checks
 
 
@@ -1095,21 +1307,16 @@ def train_batch(rng, config, rows, lo_s=1.0, hi_s=8.0, sample_bucket=8000):
 def timed_steps(label, step_fn, state, batch, audio_s, n, expect, card, rng=None):
     """``n`` train steps on ``batch``: each step's loss, wall time and the
     kernels' launch counts (held to ``expect``). Returns (state, steps)."""
-    from danspeech_tpu_torch.ops import gru_cuda
-
-    wrappers = {"gru_bidi_fused": gru_cuda.gru_bidi_fused, "gru_scan": gru_cuda.gru_scan,
-                "gru_scan_bidi": gru_cuda.gru_scan_bidi, "gru_bwd_scan": gru_cuda.gru_bwd_scan}
     steps = []
     for k in range(n):
-        for w in wrappers.values():
-            w.launches = 0
+        zero_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, loss = step_fn(state, *batch, rng)
         loss = float(loss)  # waits for the device
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts = {name: w.launches for name, w in wrappers.items()}
+        counts = read_launches()
         steps.append({"loss": loss, "wall_s": wall, "audio_s_per_step_s": audio_s / wall,
                       "launches": counts})
         log(f"  {label} step {k + 1}: loss {loss:.4f}, {wall:.3f} s, "
@@ -1134,9 +1341,9 @@ def grad_groups(params):
         if name.startswith("conv."):
             key = "conv BN statistics" if leaf in ("bn_mean", "bn_var") else "conv"
         elif leaf in ("w_ih", "w_hh"):
-            key = f"GRU {leaf}"
+            key = f"RNN {leaf}"
         elif leaf in ("b_ih", "b_hh"):
-            key = "GRU biases"
+            key = "RNN biases"
         elif name.startswith("fc."):
             key = "fc"
         else:
@@ -1183,7 +1390,7 @@ def phase_train(card):
     from danspeech_tpu_torch.train.checkpoint import latest_step
 
     out = {}
-    zero = {"gru_bidi_fused": 0, "gru_scan": 0, "gru_scan_bidi": 0, "gru_bwd_scan": 0}
+    zero = dict.fromkeys(kernel_wrappers(), 0)
 
     # 6a: the flagship, full width and depth, mixed precision, remat
     config = DeepSpeechConfig(**FLAGSHIP)
@@ -1325,6 +1532,210 @@ def phase_train(card):
 
 
 # ---------------------------------------------------------------------------
+# Phase 7: LSTM and tanh-RNN models, served and trained
+# ---------------------------------------------------------------------------
+
+RNN_TYPE_PROFILE_GROUPS = {
+    "B7 walk": ("lstm_bwd_step_kernel",),
+    "B5/B6 recurrence": ("lstm_step_kernel",),
+    "B9 walk": ("rnn_tanh_bwd_step_kernel",),
+    "B8 recurrence": ("rnn_tanh_step_kernel",),
+    "WMMA GEMM (B7 recompute)": ("gru_proj_kernel",),
+    "CTC": ("ctc",),
+    "optimizer": ("adam", "multi_tensor", "foreach"),
+    "convolution": ("conv", "cudnn", "wgrad", "dgrad", "fprop"),
+    "library GEMM": ("gemm", "cutlass", "nvjet", "cublas"),
+}
+
+
+def phase_rnn_type(card, cfg, train_steps, profile, loop):
+    """Serve and train one LSTM or tanh-RNN configuration. Returns its
+    results with ``launches``, the kernels' counts summed over its main
+    paths (each path driven with the counts at zero and read right after)."""
+    from danspeech_tpu_torch import Recognizer, train as tr
+    from danspeech_tpu_torch.audio import load_audio_pcm16
+    from danspeech_tpu_torch.models import DeepSpeechConfig, DeepSpeechModel
+    from danspeech_tpu_torch.models.deepspeech import get_seq_lens
+
+    config = DeepSpeechConfig(**cfg)
+    name, layers = config.model_name, config.rnn_layers
+    lstm = config.rnn_type == "lstm"
+    zero = dict.fromkeys(kernel_wrappers(), 0)
+    total = dict(zero)
+    out = {}
+
+    def add(counts):
+        for k, c in counts.items():
+            total[k] += c
+
+    # 7a: serve through Recognizer
+    t0 = time.perf_counter()
+    model = DeepSpeechModel.init_random(config, seed=12)
+    rec = Recognizer(model=model)  # device=None: CUDA
+    eng = rec.danspeech_recognizer
+    torch.cuda.synchronize()
+    log(f"  {name}: {layers}x{config.rnn_hidden_size} bidi {config.rnn_type}, "
+        f"{config.conv_layers} conv, RNN input {config.rnn_input_size}, "
+        f"{model.get_param_size()} params: set up in {time.perf_counter() - t0:.1f} s")
+    if eng.device.type != "cuda" or eng.compute_dtype != "bfloat16":
+        raise AssertionError("the default engine must run bf16 on CUDA")
+    clip = sorted(glob.glob(os.path.join("tests", "data", "clip_*.wav")))[0]
+    clip_audio = load_audio_pcm16(clip)
+    batch = seeded_waveforms(np.random.default_rng(13), 128)
+    groups = 1 + len(eng._plan_groups(batch))
+    fwd_kernel = "lstm_scan" if lstm else "rnn_tanh_scan"
+    expect = dict(zero, **{fwd_kernel: 2 * layers * groups})
+    rec.recognize_batch(batch[:4])  # warm-up: cuDNN picks its conv algorithms
+    zero_launches()
+    t0 = time.perf_counter()
+    text = rec.recognize(clip_audio)
+    clip_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    texts = rec.recognize_batch(batch)
+    wall = time.perf_counter() - t0
+    counts = read_launches()
+    if not isinstance(text, str) or len(texts) != len(batch) or not all(
+            isinstance(t, str) for t in texts):
+        raise AssertionError(f"{name}: recognize / recognize_batch returned the wrong shape")
+    audio_s = sum(len(w) for w in batch) / RATE
+    log(f"  {name} recognize({os.path.basename(clip)}): {clip_s * 1e3:.1f} ms; "
+        f"recognize_batch: {audio_s:.2f} audio-s in {wall:.3f} s = "
+        f"{audio_s / wall:.1f} audio-s/s; launches "
+        + ", ".join(f"{a} {c}" for a, c in counts.items() if c)
+        + f" (expected {fwd_kernel} {expect[fwd_kernel]} = 2 chains x {layers} layers x "
+        f"{groups} dispatch groups) [{card}]")
+    if counts != expect:
+        raise AssertionError(f"{name} serve: launches {counts}, expected {expect}")
+    add(counts)
+    out["serve"] = {"recognize_s": clip_s, "audio_s": audio_s, "wall_s": wall,
+                    "audio_s_per_s": audio_s / wall,
+                    "launches": counts, "dispatch_groups": groups}
+    if profile:
+        out["serve"]["profile"] = profile_call(
+            f"one {name} recognize_batch", lambda: rec.recognize_batch(batch),
+            groups=RNN_TYPE_PROFILE_GROUPS)
+    # the largest dispatch group, kernels against the plain recurrence on the card
+    idxs, maxlen = max(eng._plan_groups(batch), key=lambda g: len(g[0]) * g[1])
+    staged, lengths = eng._stage_group(batch, idxs, maxlen)
+    wave_d, lens = staged.to("cuda"), torch.from_numpy(lengths).to("cuda")
+    probs, out_lens = eng._forward(eng._compute_params, wave_d, lens)
+    ref, _ = eng._forward(eng._compute_params, wave_d, lens, rnn_impl="plain")
+    torch.cuda.synchronize()
+    frames = int(get_seq_lens(config, 1 + maxlen // eng.audio_parser.hop_length))
+    if tuple(probs.shape) != (len(lengths), frames, config.num_classes):
+        raise AssertionError(f"{name}: probs shape {tuple(probs.shape)}")
+    out["serve"]["vs_plain"] = compare_probs(
+        f"{name} group rows={len(idxs)} bucket={maxlen}: kernel vs plain recurrence",
+        probs, ref, out_lens, len(idxs))
+    del probs, ref, wave_d, rec, eng, model
+    torch.cuda.empty_cache()
+
+    # 7b: train steps at B = 32, mixed precision, remat
+    optimizer = tr.make_optimizer(TRAIN_LR)
+    state = tr.init_train_state(config, optimizer, seed=12)  # device=None: CUDA
+    tbatch, taudio = train_batch(np.random.default_rng(14), config, TRAIN_BATCH)
+    if lstm:
+        # with remat the first forward keeps nothing (B5), the recomputed one
+        # keeps the cell streams (B6); one walk per direction (B7)
+        texpect = dict(zero, lstm_scan=2 * layers, lstm_scan_with_cell=2 * layers,
+                       lstm_bwd_scan=2 * layers)
+    else:
+        texpect = dict(zero, rnn_tanh_scan=4 * layers, rnn_tanh_bwd_scan=2 * layers)
+    step_fn = tr.make_wave_train_step(config, optimizer, augment=None,
+                                      mixed_precision="auto", remat=True)
+    torch.cuda.reset_peak_memory_stats()
+    state, steps = timed_steps(name, step_fn, state, tbatch, taudio, train_steps - 1,
+                               texpect, card)
+    holder = {}
+
+    def last_step():
+        holder["state"], holder["steps"] = timed_steps(
+            f"{name} (last)", step_fn, state, tbatch, taudio, 1, texpect, card)
+
+    if profile:
+        out["train_profile"] = profile_call(f"one {name} train step", last_step,
+                                            groups=RNN_TYPE_PROFILE_GROUPS)
+    else:
+        last_step()
+    steps += holder["steps"]
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  {name}: peak device memory over {train_steps} steps: {peak / 2**30:.2f} GiB")
+    if not steps[-1]["loss"] < steps[0]["loss"]:
+        raise AssertionError(f"{name}: the loss did not fall on one batch: "
+                             f"{[s['loss'] for s in steps]}")
+    add(sum_launches(steps))
+    out["train"] = {"steps": steps, "peak_memory_bytes": peak, "audio_s": taudio,
+                    "batch_rows": TRAIN_BATCH, "lr": TRAIN_LR}
+    del state, holder
+    torch.cuda.empty_cache()
+
+    # 7c: gradients of one batch of 8 rows, kernel path against plain path
+    small, _ = train_batch(np.random.default_rng(15), config, 8)
+    grads = {}
+    for impl in ("auto", "plain"):
+        st = tr.init_train_state(config, optimizer, seed=12)
+        fn = tr.make_wave_train_step(config, optimizer, augment=None,
+                                     mixed_precision="auto", remat=True, rnn_impl=impl)
+        t0 = time.perf_counter()
+        st, loss = fn(st, *small)
+        grads[impl] = (grad_groups(st.params), float(loss))
+        log(f"  {name} 8-row step, rnn_impl={impl!r}: loss {grads[impl][1]:.5f}, "
+            f"{time.perf_counter() - t0:.2f} s")
+        del st, fn
+        torch.cuda.empty_cache()
+    rel = {}
+    for group, ref in grads["plain"][0].items():
+        got = grads["auto"][0][group]
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"{name} {group}: non-finite gradient from the kernel path")
+        rel[group] = float((got - ref).norm() / ref.norm().clamp(min=1e-30))
+    log(f"  {name} gradient, kernel path vs plain path, relative L2 error by group: "
+        + ", ".join(f"{g} {e:.3e}" for g, e in rel.items())
+        + f" (limit {GRAD_REL_TOL})")
+    if not all(e <= GRAD_REL_TOL for e in rel.values()):
+        raise AssertionError(f"{name}: kernel-path gradients outside the stated limit")
+    out["grad_vs_plain"] = {"rel_l2": rel, "limit": GRAD_REL_TOL,
+                            "loss_kernel": grads["auto"][1],
+                            "loss_plain": grads["plain"][1]}
+    del grads
+
+    # 7d: train() on a manifest, export, recognise, on a 2-layer cut
+    if loop:
+        loop_cfg = DeepSpeechConfig(**dict(cfg, rnn_layers=2))
+        with tempfile.TemporaryDirectory() as tmp:
+            manifest = seeded_manifest(tmp, np.random.default_rng(16), loop_cfg.labels, 8)
+            lines = []
+            t0 = time.perf_counter()
+            zero_launches()
+            st = tr.train(loop_cfg, manifest, epochs=1, batch_size=4,
+                          learning_rate=TRAIN_LR, log=lines.append)
+            path = tr.export_model(st, loop_cfg, os.path.join(tmp, "trained.dsz"))
+            rec = Recognizer(model=DeepSpeechModel.load_model(path))
+            text = rec.recognize(clip_audio)
+            counts = read_launches()
+            for line in lines:
+                log(f"    {line}")
+            if st.step != 2 or not isinstance(text, str):
+                raise AssertionError(f"{name} loop: step {st.step}, transcript {text!r}")
+            log(f"  {name} train (1 epoch, 2 steps) + export_model + Recognizer.recognize "
+                f"on a {loop_cfg.rnn_layers}-layer cut: {time.perf_counter() - t0:.1f} s, "
+                f"transcript {text!r}, launches "
+                + ", ".join(f"{a} {c}" for a, c in counts.items() if c))
+        # per step and layer: 2 chains each of B5 (first pass), B6 (recomputed),
+        # B7; the recognize call adds one B5 per chain and layer
+        per = 2 * 2 * loop_cfg.rnn_layers
+        want = dict(zero, lstm_scan=per + 2 * loop_cfg.rnn_layers,
+                    lstm_scan_with_cell=per, lstm_bwd_scan=per)
+        if counts != want:
+            raise AssertionError(f"{name} loop: launches {counts}, expected {want}")
+        add(counts)
+        out["loop"] = {"launches": counts, "log": lines}
+
+    out["launches"] = total
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 
 def main(argv=None) -> int:
@@ -1347,7 +1758,7 @@ def main(argv=None) -> int:
 
     # phase 2
     t0 = time.perf_counter()
-    build_logs = cuda_build.build(*SOURCES.values())
+    build_logs = cuda_build.build(*sorted(set(SOURCES.values())))
     log(f"build: {time.perf_counter() - t0:.1f} s")
     for name, text in build_logs.items():
         for line in text.splitlines():
@@ -1361,6 +1772,7 @@ def main(argv=None) -> int:
     bidi_checks = phase_scan_bidi_kernels()
     bwd_checks = phase_bwd_kernels()
     routes = phase_gru_layer_routes()
+    rnn_type_checks = phase_rnn_type_kernels()
 
     launches = {}  # per kernel, summed over the main paths of phases 4-6
     if not args.kernels:
@@ -1370,6 +1782,9 @@ def main(argv=None) -> int:
         streamed = phase_stream(card)
         log("phase 6: training path (flagship train steps, uni steps, the loop)")
         trained = phase_train(card)
+        log("phase 7: LSTM5x800 and Tanh5x800, served and trained")
+        lstm_run = phase_rnn_type(card, LSTM5X800, train_steps=3, profile=True, loop=True)
+        tanh_run = phase_rnn_type(card, TANH5X800, train_steps=2, profile=False, loop=False)
         launches = {
             "gru_bidi_fused": served["launches"] + streamed["bidi_launches"]
             + trained["launches"]["gru_bidi_fused"],
@@ -1377,17 +1792,21 @@ def main(argv=None) -> int:
             "gru_scan_bidi": routes["launches"],
             "gru_bwd_scan": trained["launches"]["gru_bwd_scan"],
         }
+        for name in ("lstm_scan", "lstm_scan_with_cell", "lstm_bwd_scan"):
+            launches[name] = lstm_run["launches"][name]
+        for name in ("rnn_tanh_scan", "rnn_tanh_bwd_scan"):
+            launches[name] = tanh_run["launches"][name]
         for name, n in launches.items():
             if not n:
                 raise AssertionError(f"{name} was launched no time on the main paths")
 
-    def entry(name, replaces, launches, checks, main_label):
+    def entry(name, checks, main_label):
         main = next(c for c in checks if c.get("label") == main_label)
         return {
             "name": name, "route": "cuda",
             "source": f"danspeech_tpu_torch/csrc/{SOURCES[name]}.cu",
-            "replaces": f"danspeech_tpu/ops/pallas_gru.py:{replaces}",
-            "launches": launches,
+            "replaces": f"danspeech_tpu/ops/pallas_gru.py:{REPLACES[name]}",
+            "launches": launches.get(name),
             "max_abs_err": max(c["max_abs_err"] for c in checks),
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
@@ -1397,13 +1816,15 @@ def main(argv=None) -> int:
 
     gru_checks[1]["label"] = "flagship layer 0"
     kernels = [
-        entry("gru_bidi_fused", 400, launches.get("gru_bidi_fused"), gru_checks,
-              "flagship layer 0"),
-        entry("gru_scan", 770, launches.get("gru_scan"), scan_checks, "uni batch layer"),
-        entry("gru_scan_bidi", 171, launches.get("gru_scan_bidi"), bidi_checks,
-              "bidi batch layer"),
-        entry("gru_bwd_scan", 987, launches.get("gru_bwd_scan"), bwd_checks,
-              "flagship layer"),
+        entry("gru_bidi_fused", gru_checks, "flagship layer 0"),
+        entry("gru_scan", scan_checks, "uni batch layer"),
+        entry("gru_scan_bidi", bidi_checks, "bidi batch layer"),
+        entry("gru_bwd_scan", bwd_checks, "flagship layer"),
+        entry("lstm_scan", rnn_type_checks["lstm_scan"], "serve layer"),
+        entry("lstm_scan_with_cell", rnn_type_checks["lstm_scan_with_cell"], "train layer"),
+        entry("lstm_bwd_scan", rnn_type_checks["lstm_bwd_scan"], "train layer"),
+        entry("rnn_tanh_scan", rnn_type_checks["rnn_tanh_scan"], "serve layer"),
+        entry("rnn_tanh_bwd_scan", rnn_type_checks["rnn_tanh_bwd_scan"], "train layer"),
     ]
     log(card)  # as nvidia-smi prints it: name, power limit
     print(json.dumps({"kernels": kernels}))

@@ -3,7 +3,7 @@ transcription.
 
 The port of the batch and streaming paths of ``danspeech_tpu/engine.py``.
 Batch: the device program (int16/float32 waveforms -> spectrogram -> conv
--> GRU stack -> head -> softmax -> argmax) runs on the engine's device;
+-> RNN stack -> head -> softmax -> argmax) runs on the engine's device;
 waveforms are grouped by length bucket into dispatch groups of at most 128
 rows, every group is staged in pinned host memory, uploaded and enqueued
 before the host collapses the first group's argmax paths, so host decoding
@@ -56,7 +56,7 @@ def _resolve_device(device=None) -> torch.device:
 
 def _resolve_compute_dtype(compute_dtype: str, device: torch.device) -> str:
     """"auto" means bf16 matmul operands with f32 accumulation on CUDA (the
-    GRU kernels' dtype) and float32 on the CPU. The GRU kernels take bf16
+    recurrent kernels' dtype) and float32 on the CPU. Those kernels take bf16
     only, so float32 on CUDA is refused here rather than failing inside a
     kernel wrapper at the first transcription (ROADMAP A6b)."""
     if compute_dtype == "auto":
@@ -65,7 +65,7 @@ def _resolve_compute_dtype(compute_dtype: str, device: torch.device) -> str:
         raise ValueError(f"unknown compute_dtype: {compute_dtype!r}")
     if compute_dtype == "float32" and device.type == "cuda":
         raise ValueError(
-            "compute_dtype='float32' is not available on CUDA: the GRU "
+            "compute_dtype='float32' is not available on CUDA: the recurrent "
             "kernels take bf16 only (ROADMAP A6b); use 'bfloat16' on the "
             "card or device='cpu' for float32"
         )
@@ -395,6 +395,8 @@ class DanSpeechRecognizer:
         are in flight while the host parses later chunks. Final results
         equal depth 0; only the cadence of the partials shifts.
         """
+        if self.model is not None:
+            streaming.require_gru(self.model.config)
         self.iterating_transcript = ""
         self.secondary_model = secondary_model
         # cast and upload now, not on the latency path of the final chunk

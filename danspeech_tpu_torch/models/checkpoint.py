@@ -3,7 +3,8 @@
 The port of ``danspeech_tpu/models/checkpoint.py``. Parameters cross
 between the two packages, and to and from disk, as a reference-named
 state_dict of numpy arrays (the original danspeech ``DeepSpeech`` module's
-key names, RNN weights in torch's (G·H, I) layout). The native ``.dsz``
+key names, RNN weights in torch's (G·H, I) layout, G = 3, 4 or 1 for
+``rnn_type`` "gru", "lstm" or "rnn"). The native ``.dsz``
 format is that dict as an ``.npz`` plus a JSON config inside one zip.
 Loading the original ``.pth`` zoo packages waits for a later slice.
 """
@@ -18,9 +19,8 @@ import numpy as np
 import torch
 
 from ..ops.conv import BatchNormParams, ConvParams, LinearParams, LookaheadParams
-from ..ops.rnn import GRUWeights
 from .config import DeepSpeechConfig
-from .deepspeech import Params, _require_gru
+from .deepspeech import RNN_WEIGHTS_CLS, Params
 
 
 def _t(x, dtype=torch.float32) -> torch.Tensor:
@@ -39,7 +39,6 @@ def params_from_state_dict(
     ``lookahead.0.conv.weight`` (batch) or ``lookahead.conv.weight``
     (streaming); head at ``fc.0.module.{0,1}``.
     """
-    _require_gru(config)
     sd = {k: np.asarray(v) for k, v in state_dict.items()}
 
     convs = []
@@ -57,8 +56,10 @@ def params_from_state_dict(
             )
         )
 
+    wcls = RNN_WEIGHTS_CLS[config.rnn_type]
+
     def rnn_dir(k: int, suffix: str):
-        return GRUWeights(
+        return wcls(
             w_ih=_t(sd[f"rnns.{k}.rnn.weight_ih_l0{suffix}"].T, dtype),
             w_hh=_t(sd[f"rnns.{k}.rnn.weight_hh_l0{suffix}"].T, dtype),
             b_ih=_t(sd[f"rnns.{k}.rnn.bias_ih_l0{suffix}"], dtype),

@@ -4,14 +4,17 @@ The port of ``danspeech_tpu/models/deepspeech.py``: ``forward(params,
 config, spect, lengths)`` on tensors, with the parameter tree of the JAX
 package (dicts, lists and NamedTuples of tensors). Semantics of the
 original DeepSpeech2: masked conv stack, bidirectional RNNs whose
-directions are summed (the ``gru_bidi_fused`` kernel on CUDA) or
-unidirectional RNNs followed by the lookahead convolution and hardtanh (the
-``gru_scan`` kernel on CUDA), BN -> Linear head, softmax at inference. The
-streaming twin of the forward pass is :mod:`.streaming`.
+directions are summed or unidirectional RNNs followed by the lookahead
+convolution and hardtanh, BN -> Linear head, softmax at inference. The
+three ``rnn_type``s of the JAX package are supported: ``"gru"`` (on CUDA the
+``gru_bidi_fused`` kernel for bidirectional layers, ``gru_scan`` for
+unidirectional ones), ``"lstm"`` (``lstm_scan``) and ``"rnn"``, the tanh RNN
+(``rnn_tanh_scan``). The streaming twin of the forward pass, for GRU models
+only as in the JAX package, is :mod:`.streaming`.
 
-The forward pass is differentiable in every parameter leaf (training:
-:mod:`danspeech_tpu_torch.train`). Only GRU models are ported so far; LSTM
-and tanh-RNN models raise.
+The forward pass is differentiable in every parameter leaf for every
+``rnn_type``, through the kernels' backward walks (training:
+:mod:`danspeech_tpu_torch.train`).
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ from typing import Any, Callable
 
 import numpy as np
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.autograd.function import once_differentiable
 
 from ..ops import conv as conv_ops
 from ..ops import rnn as rnn_ops
@@ -31,13 +34,12 @@ from .config import CONV_SPECS, DeepSpeechConfig
 Params = dict[str, Any]
 
 
-def _require_gru(config: DeepSpeechConfig) -> None:
-    if config.rnn_type != "gru":
-        raise NotImplementedError(
-            f"rnn_type={config.rnn_type!r}: only GRU models are ported so far "
-            "(LSTM and tanh-RNN come with the ports of their kernels, ROADMAP "
-            "queue B5-B8)"
-        )
+_RNN_GATES = {"gru": 3, "lstm": 4, "rnn": 1}
+RNN_WEIGHTS_CLS = {
+    "gru": rnn_ops.GRUWeights,
+    "lstm": rnn_ops.LSTMWeights,
+    "rnn": rnn_ops.RNNWeights,
+}
 
 
 def map_params(fn: Callable[[torch.Tensor], torch.Tensor], params: Params) -> Params:
@@ -74,7 +76,6 @@ def init_params(
     """Random parameters with torch-default initializers, drawn from
     ``np.random.default_rng(seed)`` in the JAX package's order, so the same
     seed gives bit-identical weights in both packages."""
-    _require_gru(config)
     rng = np.random.default_rng(seed)
 
     def uniform(shape, bound):
@@ -106,15 +107,17 @@ def init_params(
             )
         )
 
+    gates = _RNN_GATES[config.rnn_type]
+    wcls = RNN_WEIGHTS_CLS[config.rnn_type]
     hidden = config.rnn_hidden_size
     bound = 1.0 / math.sqrt(hidden)
 
     def rnn_dir(input_size):
-        return rnn_ops.GRUWeights(
-            w_ih=uniform((input_size, 3 * hidden), bound),
-            w_hh=uniform((hidden, 3 * hidden), bound),
-            b_ih=uniform((3 * hidden,), bound),
-            b_hh=uniform((3 * hidden,), bound),
+        return wcls(
+            w_ih=uniform((input_size, gates * hidden), bound),
+            w_hh=uniform((hidden, gates * hidden), bound),
+            b_ih=uniform((gates * hidden,), bound),
+            b_hh=uniform((gates * hidden,), bound),
         )
 
     rnns = []
@@ -225,12 +228,57 @@ def head(params: Params, x: torch.Tensor) -> torch.Tensor:
     return x.to(w.dtype).float() @ w.float().T
 
 
-def _apply_rnn_layer(entry, x, lengths, impl: str) -> torch.Tensor:
+def _apply_rnn_layer(rnn_type: str, entry, x, lengths, impl: str) -> torch.Tensor:
     if entry["bn"] is not None:
         scale, shift = entry["bn"].scale_shift()
         x = x * scale + shift
-    out, _ = rnn_ops.gru_layer(x, lengths, entry["fwd"], entry["bwd"], impl=impl)
-    return out
+    if rnn_type == "gru":
+        out, _ = rnn_ops.gru_layer(x, lengths, entry["fwd"], entry["bwd"], impl=impl)
+        return out
+    layer = rnn_ops.lstm_layer if rnn_type == "lstm" else rnn_ops.rnn_tanh_layer
+    return layer(x, lengths, entry["fwd"], entry["bwd"], impl=impl)
+
+
+class _RematLayer(torch.autograd.Function):
+    """``run(*tensors)`` without its residuals (``jax.checkpoint`` in the JAX
+    package): the forward runs without grad and keeps its inputs only, the
+    backward runs it again with grad and differentiates that run."""
+
+    @staticmethod
+    def forward(ctx, run, *tensors):
+        ctx.run = run
+        ctx.save_for_backward(*tensors)
+        return run(*tensors)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, d_out):
+        inputs = [
+            t.detach().requires_grad_(need)
+            for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad[1:])
+        ]
+        with torch.enable_grad():
+            out = ctx.run(*inputs)
+            wanted = [t for t in inputs if t.requires_grad]
+            grads = iter(torch.autograd.grad(out, wanted, d_out, allow_unused=True))
+        return (None, *(next(grads) if t.requires_grad else None for t in inputs))
+
+
+def _remat_rnn_layer(rnn_type: str, entry, x, lengths, impl: str) -> torch.Tensor:
+    """:func:`_apply_rnn_layer` through :class:`_RematLayer`. The first run
+    needs no gradient, so an LSTM layer takes the scan that writes no cell
+    stream there, and the one that does in the run the backward makes."""
+    names = [k for k in ("bn", "fwd", "bwd") if entry[k] is not None]
+    leaves = [t for k in names for t in entry[k]]
+
+    def run(x, *leaves):
+        it = iter(leaves)
+        rebuilt = dict.fromkeys(entry)
+        for k in names:
+            rebuilt[k] = type(entry[k])(*(next(it) for _ in entry[k]))
+        return _apply_rnn_layer(rnn_type, rebuilt, x, lengths, impl)
+
+    return _RematLayer.apply(run, x, *leaves)
 
 
 def forward(
@@ -244,11 +292,13 @@ def forward(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Batch forward: (N, 1, F, T) spectrograms -> ((N, T', C) probs, or
     logits with ``softmax=False``; (N,) output lengths). ``rnn_impl`` is
-    passed to :func:`rnn_ops.gru_layer`. ``rnn_remat`` checkpoints each RNN
-    layer (``torch.utils.checkpoint``): the backward pass runs the layer's
-    forward again instead of keeping its residuals, so only one layer's
-    output streams are alive at a time."""
-    _require_gru(config)
+    passed to the layer function of ``config.rnn_type``
+    (:func:`rnn_ops.gru_layer`, :func:`rnn_ops.lstm_layer` or
+    :func:`rnn_ops.rnn_tanh_layer`): ``"auto"`` runs the kernels on CUDA and
+    trains every type through their backward walks. ``rnn_remat``
+    checkpoints each RNN layer (:class:`_RematLayer`): the backward pass
+    runs the layer's forward again instead of keeping its residuals, so only
+    one layer's output streams are alive at a time."""
     out_lengths = get_seq_lens(config, input_lengths)
     x = conv_stack(params, config, x, out_lengths)
 
@@ -256,11 +306,8 @@ def forward(
     x = x.reshape(n, c * f, t).permute(2, 0, 1)  # (T, N, H)
 
     for entry in params["rnns"]:
-        if rnn_remat:
-            x = checkpoint(_apply_rnn_layer, entry, x, out_lengths, rnn_impl,
-                           use_reentrant=False)
-        else:
-            x = _apply_rnn_layer(entry, x, out_lengths, rnn_impl)
+        layer = _remat_rnn_layer if rnn_remat else _apply_rnn_layer
+        x = layer(config.rnn_type, entry, x, out_lengths, rnn_impl)
 
     if not config.bidirectional:
         x = conv_ops.hardtanh(conv_ops.lookahead(x, params["lookahead"]))

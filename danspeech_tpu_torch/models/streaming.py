@@ -41,6 +41,17 @@ def _require_two_convs(config: DeepSpeechConfig) -> None:
         )
 
 
+def require_gru(config: DeepSpeechConfig) -> None:
+    """Streaming is a GRU-only path, here as in the JAX package, whose
+    streaming twins call its GRU chunk step whatever the model's type."""
+    if config.rnn_type != "gru":
+        raise NotImplementedError(
+            f"rnn_type={config.rnn_type!r}: streaming supports GRU models "
+            "only; the JAX package has no streaming path for LSTM or "
+            "tanh-RNN models either"
+        )
+
+
 def _stream_convs(params: Params):
     """The two conv layers with BN folded in: [(w, b, spec), ...]."""
     return [
@@ -159,6 +170,7 @@ def streaming_step(
     x is (1, 1, F, T_chunk). Returns (probs (1, T_out, C) or None, state').
     """
     _require_two_convs(config)
+    require_gru(config)
     x, left_1, left_2 = _stream_conv(params, x, state, is_first, is_last)
     x, hiddens = _rnn_stack(params, x, state.hiddens, None, rnn_impl)
     out, la_buffer = _stream_lookahead(params, x, state, is_first, is_last)
@@ -336,6 +348,7 @@ def streaming_step_masked(
     probs[:, :out_len].
     """
     _require_two_convs(config)
+    require_gru(config)
     x, valid, left_1, left_2 = _stream_conv_masked(
         params, x, int(t_valid), state, is_first, is_last
     )

@@ -99,3 +99,16 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(library_path(name))
         _loaded[name] = lib
     return lib
+
+
+def bind(name: str, fn_name: str, n_ptr: int, n_int: int):
+    """The C entry ``fn_name`` of ``csrc/<name>.cu`` with its ctypes
+    signature set: ``n_ptr`` pointers, ``n_int`` ints, then the stream;
+    it returns ``cudaGetLastError()`` as an int."""
+    fn = getattr(load(name), fn_name)
+    if fn.argtypes is None:
+        fn.argtypes = (
+            [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
+        )
+        fn.restype = ctypes.c_int
+    return fn

@@ -27,7 +27,7 @@ import ctypes
 import torch
 
 from . import cuda_build
-
+from .cuda_checks import check_tensors as _check_tensors
 
 
 def gru_bidi_fused_plain(
@@ -80,24 +80,6 @@ def gru_bidi_fused_plain(
         out[0, s] = o[0]
         out[1, tb] = o[1]
     return out[0], out[1], h[0], h[1]
-
-
-def _check_tensors(anchor: str, expect: dict) -> None:
-    """``expect`` maps a name to (tensor, shape, dtype): every tensor must be
-    contiguous, of that shape and dtype, on the device of ``expect[anchor]``."""
-    dev = expect[anchor][0].device
-    for name, (t, shape, dtype) in expect.items():
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, {anchor} on {dev}")
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
-        if t.dtype != dtype:
-            raise TypeError(
-                f"{name} is {t.dtype}, the kernel takes {dtype} (the GRU "
-                "kernels take bf16 sequences and weights only, ROADMAP A6b)"
-            )
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
 
 
 def _check_operands(x, lengths, w_ih_f, w_ih_b, w_hh_f, w_hh_b, biases):

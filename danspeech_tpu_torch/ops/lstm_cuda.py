@@ -1,0 +1,281 @@
+"""LSTM kernels and their plain PyTorch versions.
+
+The ports of three kernels of ``danspeech_tpu/ops/pallas_gru.py``, gate
+order i, f, g, o:
+
+- :func:`lstm_scan` (``lstm_scan``, ``csrc/lstm_scan.cu``): one chain over a
+  precomputed projection, with carried h0 and c0 and a ``reverse`` flag
+  (serving, and the forward pass that needs no gradient);
+- :func:`lstm_scan_with_cell` (``lstm_scan_with_cell``, the same source and
+  step kernel): the chain that also writes the masked cell sequence, the
+  residual of the backward walk (the training forward);
+- :func:`lstm_bwd_scan` (``lstm_bwd_scan``, ``csrc/lstm_bwd.cu``): the
+  backward walk of one chain.
+
+Unlike the GRU kernels, these take a projection ``gx`` that already holds
+``b_ih`` (added in f32, then rounded to the stream dtype, as the JAX
+package's ``_lstm_project``); the kernel adds ``b_hh`` only. Each source's
+header note says what bounds it on an H100 and what the design does about
+it. A wrapper launches its kernel for CUDA tensors and raises on anything
+the kernel does not take; for CPU tensors, and only for those, it runs the
+plain version. There is no fallback from a failed build or launch to the
+plain version.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import cuda_build
+from .cuda_checks import check_proj_rows, check_stream_shape, check_tensors, time_order
+
+
+def _gates(pre, hidden):
+    return (
+        torch.sigmoid(pre[:, :hidden]),
+        torch.sigmoid(pre[:, hidden : 2 * hidden]),
+        torch.tanh(pre[:, 2 * hidden : 3 * hidden]),
+        torch.sigmoid(pre[:, 3 * hidden :]),
+    )
+
+
+def _scan_plain(gx, lengths, w_hh, b_hh, h0, c0, reverse, with_cell):
+    t_max, batch, _ = gx.shape
+    hidden = w_hh.shape[0]
+    dev = gx.device
+    mm_dtype = w_hh.dtype
+    w = w_hh.float()
+    b_hh = b_hh.float()
+    lengths = lengths.to(dev)
+    h, c = h0.float(), c0.float()
+    out = torch.empty((t_max, batch, hidden), dtype=gx.dtype, device=dev)
+    cseq = torch.empty_like(out) if with_cell else None
+    for t in time_order(t_max, reverse):
+        pre = gx[t].float() + h.to(mm_dtype).float() @ w + b_hh
+        i, f, g, o = _gates(pre, hidden)
+        c_new = f * c + i * g
+        h_new = o * torch.tanh(c_new)
+        valid = (lengths > t)[:, None]
+        h = torch.where(valid, h_new, h)
+        c = torch.where(valid, c_new, c)
+        out[t] = torch.where(valid, h_new, torch.zeros_like(h_new)).to(gx.dtype)
+        if with_cell:
+            cseq[t] = torch.where(valid, c_new, torch.zeros_like(c_new)).to(gx.dtype)
+    return (out, cseq, h, c) if with_cell else (out, h, c)
+
+
+def lstm_scan_plain(gx, lengths, w_hh, b_hh, h0, c0, reverse: bool = False):
+    """The kernel's arithmetic in plain tensor ops, on any device.
+
+    gx (T, B, 4H) is the projection ``x @ w_ih + b_ih`` in the stream dtype,
+    w_hh (H, 4H) in the weights' dtype, b_hh (4H,) f32, h0 and c0 (B, H) f32,
+    lengths (B,). Returns (out (T, B, H) in gx's dtype with exact zeros where
+    t >= length, h_last, c_last (B, H) f32). ``reverse`` walks t = T-1 .. 0
+    and holds the states until t < length. The product takes h rounded to
+    w_hh's dtype and accumulates in f32 (both operands upcast first: a bf16
+    matmul on the CPU would round its result).
+    """
+    return _scan_plain(gx, lengths, w_hh, b_hh, h0, c0, reverse, False)
+
+
+def lstm_scan_with_cell_plain(gx, lengths, w_hh, b_hh, h0, c0, reverse: bool = False):
+    """:func:`lstm_scan_plain` that also returns the cell sequence: (out,
+    c_seq, h_last, c_last), c_seq (T, B, H) the new cell state of each valid
+    step rounded to gx's dtype, exact zeros where t >= length."""
+    return _scan_plain(gx, lengths, w_hh, b_hh, h0, c0, reverse, True)
+
+
+def _check_scan_operands(gx, lengths, w_hh, b_hh, h0, c0):
+    if w_hh.dim() != 2:
+        raise ValueError(f"w_hh must be (H, 4H), got shape {tuple(w_hh.shape)}")
+    hidden = w_hh.shape[0]
+    check_stream_shape("gx", gx, 4, hidden)
+    t_max, batch, _ = gx.shape
+    check_tensors("gx", {
+        "gx": (gx, (t_max, batch, 4 * hidden), torch.bfloat16),
+        "lengths": (lengths, (batch,), torch.int32),
+        "w_hh": (w_hh, (hidden, 4 * hidden), torch.bfloat16),
+        "b_hh": (b_hh, (4 * hidden,), torch.float32),
+        "h0": (h0, (batch, hidden), torch.float32),
+        "c0": (c0, (batch, hidden), torch.float32),
+    })
+
+
+def _scan_cuda(gx, lengths, w_hh, b_hh, h0, c0, reverse, with_cell):
+    if gx.device.type != "cuda":
+        raise ValueError(f"unsupported device {gx.device}")
+    _check_scan_operands(gx, lengths, w_hh, b_hh, h0, c0)
+    name = "lstm_scan_with_cell" if with_cell else "lstm_scan"
+    launch = cuda_build.bind("lstm_scan", f"{name}_launch", 9 if with_cell else 8, 4)
+
+    t_max, batch, _ = gx.shape
+    hidden = w_hh.shape[0]
+    dev = gx.device
+    h32 = torch.empty((2, batch, hidden), dtype=torch.float32, device=dev)
+    h16 = torch.empty((2, batch, hidden), dtype=torch.bfloat16, device=dev)
+    h32[0].copy_(h0)
+    h16[0].copy_(h0)  # round to nearest even, as __float2bfloat16
+    c = c0.clone()  # updated in place by the thread that owns each (b, j)
+    out = torch.empty((t_max, batch, hidden), dtype=torch.bfloat16, device=dev)
+    streams = [out.data_ptr()]
+    if with_cell:
+        cseq = torch.empty_like(out)
+        streams.append(cseq.data_ptr())
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = launch(
+            gx.data_ptr(), lengths.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(),
+            h32.data_ptr(), h16.data_ptr(), c.data_ptr(), *streams,
+            t_max, batch, hidden, int(bool(reverse)), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+    h_last = h32[t_max % 2]  # the buffer the final step wrote
+    return (out, cseq, h_last, c) if with_cell else (out, h_last, c)
+
+
+def lstm_scan(gx, lengths, w_hh, b_hh, h0, c0, reverse: bool = False):
+    """One LSTM chain over a precomputed projection, with carried h0, c0.
+
+    Same contract and return values as :func:`lstm_scan_plain`. A CUDA ``gx``
+    launches the kernel (bf16 gx and w_hh, f32 b_hh, h0 and c0, int32
+    lengths, all contiguous on gx's device) or raises; a CPU ``gx`` runs the
+    plain version. ``lstm_scan.launches`` counts kernel launches (one per
+    call: the T step kernels of one chain).
+    """
+    if gx.device.type == "cpu":
+        return lstm_scan_plain(gx, lengths, w_hh, b_hh, h0, c0, reverse)
+    result = _scan_cuda(gx, lengths, w_hh, b_hh, h0, c0, reverse, False)
+    lstm_scan.launches += 1
+    return result
+
+
+lstm_scan.launches = 0
+
+
+def lstm_scan_with_cell(gx, lengths, w_hh, b_hh, h0, c0, reverse: bool = False):
+    """One LSTM chain that also writes its cell sequence.
+
+    Same contract and return values as :func:`lstm_scan_with_cell_plain`; a
+    CUDA ``gx`` launches the kernel or raises, a CPU ``gx`` runs the plain
+    version, as :func:`lstm_scan`. ``lstm_scan_with_cell.launches`` counts
+    kernel launches (one per call).
+    """
+    if gx.device.type == "cpu":
+        return lstm_scan_with_cell_plain(gx, lengths, w_hh, b_hh, h0, c0, reverse)
+    result = _scan_cuda(gx, lengths, w_hh, b_hh, h0, c0, reverse, True)
+    lstm_scan_with_cell.launches += 1
+    return result
+
+
+lstm_scan_with_cell.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# lstm_bwd_scan: the backward walk of one chain
+# ---------------------------------------------------------------------------
+
+
+def lstm_bwd_scan_plain(gx, hprev, cprev, dout, lengths, w_hh, b_hh,
+                        reverse: bool = True):
+    """The kernel's arithmetic in plain tensor ops, on any device.
+
+    gx (T, B, 4H) is the projection ``x @ w_ih + b_ih``, hprev and cprev
+    (T, B, H) the states before each step in chain order, all in the stream
+    dtype and natural time order (cprev is the cell stream as
+    :func:`lstm_scan_with_cell` rounded it); dout (T, B, H) f32 is dL/d out;
+    w_hh (H, 4H) in the weights' dtype; b_hh (4H,) f32. dL/dh and dL/dc start
+    at zero. ``reverse=True`` walks t = T-1 .. 0 (the backward of a forward
+    chain), ``reverse=False`` 0 .. T-1 (the backward of a reverse-time
+    chain). Returns (dg4 (T, B, 4H) f32, the gradient of the gate
+    pre-activations, which is that of gx and of gh alike; dh0, dc0 (B, H)
+    f32). Steps past a row's length give zeros and pass dL/dh and dL/dc
+    through. Both products take operands rounded to w_hh's dtype and
+    accumulate in f32.
+    """
+    t_max, batch, _ = gx.shape
+    hidden = w_hh.shape[0]
+    dev = gx.device
+    mm_dtype = w_hh.dtype
+    w = w_hh.float()
+    w_t = w.t()
+    b_hh = b_hh.float()
+    lengths = lengths.to(dev)
+    dh = torch.zeros((batch, hidden), dtype=torch.float32, device=dev)
+    dc = torch.zeros_like(dh)
+    dg4 = torch.empty((t_max, batch, 4 * hidden), dtype=torch.float32, device=dev)
+    for t in time_order(t_max, reverse):
+        m = (lengths > t).float()[:, None]
+        cp = cprev[t].float()
+        pre = gx[t].float() + hprev[t].to(mm_dtype).float() @ w + b_hh
+        i, f, g, o = _gates(pre, hidden)
+        tanh_c = torch.tanh(f * cp + i * g)
+
+        dhnew = m * (dh + dout[t].float())
+        dc_new = dhnew * o * (1.0 - tanh_c * tanh_c) + m * dc
+        dg4_t = torch.cat([
+            dc_new * g * i * (1.0 - i),
+            dc_new * cp * f * (1.0 - f),
+            dc_new * i * (1.0 - g * g),
+            dhnew * tanh_c * o * (1.0 - o),
+        ], dim=-1)
+        dg4[t] = dg4_t
+        dh = dg4_t.to(mm_dtype).float() @ w_t + (1.0 - m) * dh
+        dc = dc_new * f + (1.0 - m) * dc
+    return dg4, dh, dc
+
+
+def lstm_bwd_scan(gx, hprev, cprev, dout, lengths, w_hh, b_hh, reverse: bool = True):
+    """The backward walk of one LSTM chain.
+
+    Same contract and return values as :func:`lstm_bwd_scan_plain`. A CUDA
+    ``gx`` launches the kernel (bf16 gx, hprev, cprev and w_hh, f32 dout and
+    b_hh, int32 lengths, all contiguous on gx's device) or raises; a CPU
+    ``gx`` runs the plain version. ``lstm_bwd_scan.launches`` counts kernel
+    launches (one per call: the gate-recompute product and the T + 1 step
+    kernels of one chain).
+    """
+    if gx.device.type == "cpu":
+        return lstm_bwd_scan_plain(gx, hprev, cprev, dout, lengths, w_hh, b_hh, reverse)
+    if gx.device.type != "cuda":
+        raise ValueError(f"unsupported device {gx.device}")
+    if w_hh.dim() != 2:
+        raise ValueError(f"w_hh must be (H, 4H), got shape {tuple(w_hh.shape)}")
+    hidden = w_hh.shape[0]
+    check_stream_shape("gx", gx, 4, hidden)
+    t_max, batch, _ = gx.shape
+    check_proj_rows(t_max, batch)
+    check_tensors("gx", {
+        "gx": (gx, (t_max, batch, 4 * hidden), torch.bfloat16),
+        "hprev": (hprev, (t_max, batch, hidden), torch.bfloat16),
+        "cprev": (cprev, (t_max, batch, hidden), torch.bfloat16),
+        "dout": (dout, (t_max, batch, hidden), torch.float32),
+        "lengths": (lengths, (batch,), torch.int32),
+        "w_hh": (w_hh, (hidden, 4 * hidden), torch.bfloat16),
+        "b_hh": (b_hh, (4 * hidden,), torch.float32),
+    })
+    launch = cuda_build.bind("lstm_bwd", "lstm_bwd_launch", 12, 4)
+
+    dev = gx.device
+    w_hht = w_hh.t().contiguous()
+    part = torch.empty((2, batch, hidden), dtype=torch.float32, device=dev)
+    part[0].zero_()
+    dg = torch.empty((2, batch, 4 * hidden), dtype=torch.bfloat16, device=dev)
+    dg[0].zero_()
+    dc = torch.zeros((batch, hidden), dtype=torch.float32, device=dev)
+    dg4 = torch.empty((t_max, batch, 4 * hidden), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = launch(
+            gx.data_ptr(), hprev.data_ptr(), cprev.data_ptr(), dout.data_ptr(),
+            lengths.data_ptr(), w_hh.data_ptr(), w_hht.data_ptr(), b_hh.data_ptr(),
+            part.data_ptr(), dg.data_ptr(), dc.data_ptr(), dg4.data_ptr(),
+            t_max, batch, hidden, int(bool(reverse)), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"lstm_bwd_scan launch failed: CUDA error {rc}")
+    lstm_bwd_scan.launches += 1
+    return dg4, part[(t_max + 1) % 2], dc
+
+
+lstm_bwd_scan.launches = 0

@@ -1,11 +1,13 @@
-"""GRU layer: the CUDA kernels on the card, their plain versions elsewhere.
+"""Recurrent layers (GRU, LSTM, tanh RNN): the CUDA kernels on the card,
+their plain versions elsewhere.
 
-The port of the GRU part of ``danspeech_tpu/ops/rnn.py``. Weight layout is
-the JAX package's: ``w_ih`` (I, 3H), ``w_hh`` (H, 3H), gate order r, z, n,
-with the recurrent bias b_hn inside the reset product. Rows past their
-length freeze h and emit zeros (torch ``pack_padded_sequence`` semantics).
+The port of ``danspeech_tpu/ops/rnn.py``. Weight layout is the JAX
+package's: ``w_ih`` (I, G*H), ``w_hh`` (H, G*H) with G = 3 gates r, z, n for
+the GRU (the recurrent bias b_hn inside the reset product), G = 4 gates i,
+f, g, o for the LSTM and G = 1 for the tanh RNN. Rows past their length
+freeze the state and emit zeros (torch ``pack_padded_sequence`` semantics).
 
-Dispatch for ``impl="auto"``, as the JAX package's Pallas route:
+GRU dispatch for ``impl="auto"``, as the JAX package's Pallas route:
 
 - a bidirectional layer with summed directions and h0 = None goes through
   :func:`gru_cuda.gru_bidi_fused`, whatever its width (the JAX package
@@ -23,13 +25,25 @@ each the kernel for CUDA tensors, its plain version for CPU tensors.
 the JAX package's ``impl="xla"``); it exists to check the kernels against
 them.
 
-The first two routes with h0 = None are differentiable through
+The first two GRU routes with h0 = None are differentiable through
 ``torch.autograd.Function``s whose backward is the walk of
 :func:`gru_cuda.gru_bwd_scan` per direction (the kernel on CUDA, its plain
 version on the CPU or with ``impl="plain"``) followed by plain matrix
 products for the weight, bias and input gradients, as the JAX package's
-custom VJPs. The other routes are forward-only on CUDA, as in the JAX
+custom VJPs. The other GRU routes are forward-only on CUDA, as in the JAX
 package: they raise there when a gradient is asked for.
+
+:func:`lstm_layer` and :func:`rnn_tanh_layer` run one chain per direction
+(:func:`lstm_cuda.lstm_scan`, :func:`rnn_tanh_cuda.rnn_tanh_scan`; the
+reverse-time chain reads time backwards, no reversed copy is made) over a
+projection that already holds the input bias (both biases for the tanh
+RNN), start from zero states and return the outputs only. Every shape of
+them (one or two directions, summed or concatenated) is differentiable: the
+backward is :func:`lstm_cuda.lstm_bwd_scan` /
+:func:`rnn_tanh_cuda.rnn_tanh_bwd_scan` per direction followed by the same
+plain matrix products. An LSTM forward that will be differentiated runs
+:func:`lstm_cuda.lstm_scan_with_cell`, which also keeps the cell stream the
+walk needs; one that will not runs :func:`lstm_cuda.lstm_scan`.
 """
 
 from __future__ import annotations
@@ -39,7 +53,7 @@ from typing import NamedTuple
 import torch
 from torch.autograd.function import once_differentiable
 
-from . import gru_cuda
+from . import gru_cuda, lstm_cuda, rnn_tanh_cuda
 
 
 class GRUWeights(NamedTuple):
@@ -61,6 +75,17 @@ def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.matmul(a, b).float()
 
 
+def _shift_chain(seq: torch.Tensor, chain_reverse: bool) -> torch.Tensor:
+    """The state before each step, in natural time order: seq[t - 1] for the
+    forward chain (zeros at t = 0), seq[t + 1] for the reverse-time chain
+    (zeros at t = T - 1); zeros because these layers start from zero
+    states."""
+    zeros = torch.zeros_like(seq[:1])
+    if chain_reverse:
+        return torch.cat([seq[1:], zeros])
+    return torch.cat([zeros, seq[:-1]])
+
+
 def _gru_dir_grads(x, lengths, w: GRUWeights, out_dir, dout, dh_last,
                    chain_reverse: bool, impl: str):
     """Gradients of one direction: the backward walk over the recomputed
@@ -74,13 +99,7 @@ def _gru_dir_grads(x, lengths, w: GRUWeights, out_dir, dout, dh_last,
     mm_dtype = w.w_ih.dtype
     x_mm = x.to(mm_dtype)
     gx = torch.matmul(x_mm, w.w_ih)  # cheaper to recompute than to save
-    zeros = out_dir.new_zeros((1, batch, hidden))
-    if chain_reverse:
-        # the state before step t is the state after step t + 1; the chain
-        # starts from zeros at t = T - 1
-        hprev = torch.cat([out_dir[1:], zeros])
-    else:
-        hprev = torch.cat([zeros, out_dir[:-1]])
+    hprev = _shift_chain(out_dir, chain_reverse)
     run = gru_cuda.gru_bwd_scan if impl == "auto" else gru_cuda.gru_bwd_scan_plain
     dgx, dghn, _ = run(
         gx.contiguous(), hprev, dout.float().contiguous(), lengths, w.w_hh,
@@ -247,3 +266,250 @@ def gru_layer_streaming(
     lengths = torch.full((batch,), n, dtype=torch.int32, device=x.device)
     out, h_last = _uni_scan(x, lengths, weights, h0, impl)
     return out.float(), h_last
+
+
+# ---------------------------------------------------------------------------
+# LSTM and tanh RNN
+# ---------------------------------------------------------------------------
+
+
+class LSTMWeights(NamedTuple):
+    """One direction of one LSTM layer, gate order i, f, g, o."""
+
+    w_ih: torch.Tensor  # (I, 4H)
+    w_hh: torch.Tensor  # (H, 4H)
+    b_ih: torch.Tensor  # (4H,)
+    b_hh: torch.Tensor  # (4H,)
+
+
+class RNNWeights(NamedTuple):
+    """One direction of one tanh-RNN layer."""
+
+    w_ih: torch.Tensor  # (I, H)
+    w_hh: torch.Tensor  # (H, H)
+    b_ih: torch.Tensor  # (H,)
+    b_hh: torch.Tensor  # (H,)
+
+
+def _project(x, w_ih, bias):
+    """x @ w_ih + bias in f32, rounded to the weights' dtype: the stream the
+    LSTM and tanh kernels read, bias inside (JAX ``_lstm_project`` and
+    ``_rnn_project``). On CUDA the bf16 product is rounded once before the
+    bias is added (see :func:`_mm`), where the JAX package rounds only the
+    sum (ROADMAP C12)."""
+    mm_dtype = w_ih.dtype
+    return (_mm(x.to(mm_dtype), w_ih) + bias.float()).to(mm_dtype).contiguous()
+
+
+def _lstm_project(x, w: LSTMWeights):
+    return _project(x, w.w_ih, w.b_ih)
+
+
+def _rnn_project(x, w: RNNWeights):
+    return _project(x, w.w_ih, w.b_ih.float() + w.b_hh.float())
+
+
+def _stream_grads(x, hprev, dpre, w):
+    """The weight, bias and input gradients of one direction from dpre
+    (T, B, G*H) f32, the gradient of the gate pre-activations, which the
+    projection and the recurrent product enter additively: matrix products
+    over the streams, operands rounded to the weights' dtype (JAX
+    ``_lstm_dir_grads`` / ``_rnn_dir_grads``). Returns (dx f32, gradients as
+    ``type(w)`` in the weights' dtypes)."""
+    t_max, batch, d_in = x.shape
+    mm_dtype = w.w_ih.dtype
+    rows = t_max * batch
+    db = dpre.sum(dim=(0, 1))
+    dpre_mm = dpre.to(mm_dtype).reshape(rows, -1)
+    del dpre
+    dw_hh = _mm(hprev.to(mm_dtype).reshape(rows, -1).t(), dpre_mm)
+    dw_ih = _mm(x.to(mm_dtype).reshape(rows, d_in).t(), dpre_mm)
+    dx = _mm(dpre_mm, w.w_ih.t()).reshape(t_max, batch, d_in)
+    grads = type(w)(
+        w_ih=dw_ih.to(w.w_ih.dtype), w_hh=dw_hh.to(w.w_hh.dtype),
+        # both biases enter the gates additively: identical gradients
+        b_ih=db.to(w.b_ih.dtype), b_hh=db.to(w.b_hh.dtype),
+    )
+    return dx, grads
+
+
+def _lstm_dir_grads(x, lengths, w: LSTMWeights, out_dir, c_dir, dout,
+                    chain_reverse: bool, impl: str):
+    """Gradients of one LSTM direction: the backward walk over the recomputed
+    projection and the shifted output and cell streams, then
+    :func:`_stream_grads`."""
+    hprev = _shift_chain(out_dir, chain_reverse)
+    run = lstm_cuda.lstm_bwd_scan if impl == "auto" else lstm_cuda.lstm_bwd_scan_plain
+    dg4, _, _ = run(
+        _lstm_project(x, w), hprev, _shift_chain(c_dir, chain_reverse),
+        dout.float().contiguous(), lengths, w.w_hh, w.b_hh.float(),
+        # the walk runs opposite the chain's own order
+        reverse=not chain_reverse,
+    )
+    return _stream_grads(x, hprev, dg4, w)
+
+
+def _rnn_dir_grads(x, lengths, w: RNNWeights, out_dir, dout,
+                   chain_reverse: bool, impl: str):
+    """Gradients of one tanh-RNN direction: the backward walk over the
+    output stream, then :func:`_stream_grads`."""
+    run = (rnn_tanh_cuda.rnn_tanh_bwd_scan if impl == "auto"
+           else rnn_tanh_cuda.rnn_tanh_bwd_scan_plain)
+    dpre, _ = run(out_dir, dout.float().contiguous(), lengths, w.w_hh,
+                  reverse=not chain_reverse)
+    return _stream_grads(x, _shift_chain(out_dir, chain_reverse), dpre, w)
+
+
+def _directions(cls, weights):
+    """[(weights of one direction, whether its chain runs in reverse time)]
+    from the flat tensors a Function received."""
+    dirs = [(cls(*weights[:4]), False)]
+    if len(weights) > 4:
+        dirs.append((cls(*weights[4:]), True))
+    return dirs
+
+
+def _merge_directions(outs, sum_directions: bool) -> torch.Tensor:
+    outs = [o.float() for o in outs]
+    if len(outs) == 1:
+        return outs[0]
+    return outs[0] + outs[1] if sum_directions else torch.cat(outs, dim=-1)
+
+
+def _layer_backward(x, dirs, sum_directions, d_out, dir_grads):
+    """The common backward of the LSTM and tanh layers: split the cotangent
+    per direction, call ``dir_grads(direction index, weights, dout,
+    chain_reverse)`` for each, sum dx. Returns (dx in x's dtype, the flat
+    weight gradients in the order the Function received the weights)."""
+    hidden = dirs[0][0].w_hh.shape[0]
+    dx, grads = None, []
+    for k, (w, chain_reverse) in enumerate(dirs):
+        dout = d_out
+        if len(dirs) == 2 and not sum_directions:
+            dout = d_out[..., k * hidden : (k + 1) * hidden]
+        dx_k, dw = dir_grads(k, w, dout, chain_reverse)
+        # on CUDA each direction's dx was rounded to bf16 by its product
+        dx = dx_k if dx is None else dx + dx_k
+        grads += dw
+    return dx.to(x.dtype), grads
+
+
+class _LSTMLayer(torch.autograd.Function):
+    """One or two LSTM chains from zero states (JAX ``_pallas_lstm``).
+    ``keep_cell`` picks the forward that also writes the cell streams; the
+    residuals are then x, lengths, the weights and each direction's output
+    and cell stream in the stream dtype."""
+
+    @staticmethod
+    def forward(ctx, impl, sum_directions, keep_cell, x, lengths, *weights):
+        dirs = _directions(LSTMWeights, weights)
+        batch, hidden = x.shape[1], weights[1].shape[0]
+        zeros = torch.zeros((batch, hidden), dtype=torch.float32, device=x.device)
+        if keep_cell:
+            run = (lstm_cuda.lstm_scan_with_cell if impl == "auto"
+                   else lstm_cuda.lstm_scan_with_cell_plain)
+        else:
+            run = lstm_cuda.lstm_scan if impl == "auto" else lstm_cuda.lstm_scan_plain
+        outs, cells = [], []
+        for w, chain_reverse in dirs:
+            res = run(_lstm_project(x, w), lengths, w.w_hh, w.b_hh.float(),
+                      zeros, zeros, reverse=chain_reverse)
+            outs.append(res[0])
+            if keep_cell:
+                cells.append(res[1])
+        ctx.impl, ctx.sum_directions, ctx.keep_cell = impl, sum_directions, keep_cell
+        if keep_cell:
+            ctx.save_for_backward(x, lengths, *outs, *cells, *weights)
+        return _merge_directions(outs, sum_directions)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, d_out):
+        if not ctx.keep_cell:
+            raise RuntimeError("this LSTM forward kept no cell stream")
+        x, lengths, *rest = ctx.saved_tensors
+        ndir = len(rest) // 6
+        outs, cells = rest[:ndir], rest[ndir : 2 * ndir]
+        dx, grads = _layer_backward(
+            x, _directions(LSTMWeights, rest[2 * ndir :]), ctx.sum_directions, d_out,
+            lambda k, w, dout, rev: _lstm_dir_grads(
+                x, lengths, w, outs[k], cells[k], dout, rev, ctx.impl),
+        )
+        return (None, None, None, dx, None, *grads)
+
+
+class _RNNTanhLayer(torch.autograd.Function):
+    """One or two tanh-RNN chains from zero states (JAX ``_pallas_rnn_tanh``):
+    residuals x, lengths, the weights and each direction's output in the
+    stream dtype."""
+
+    @staticmethod
+    def forward(ctx, impl, sum_directions, x, lengths, *weights):
+        dirs = _directions(RNNWeights, weights)
+        run = (rnn_tanh_cuda.rnn_tanh_scan if impl == "auto"
+               else rnn_tanh_cuda.rnn_tanh_scan_plain)
+        outs = [
+            run(_rnn_project(x, w), lengths, w.w_hh, reverse=chain_reverse)[0]
+            for w, chain_reverse in dirs
+        ]
+        ctx.impl, ctx.sum_directions = impl, sum_directions
+        ctx.save_for_backward(x, lengths, *outs, *weights)
+        return _merge_directions(outs, sum_directions)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, d_out):
+        x, lengths, *rest = ctx.saved_tensors
+        ndir = len(rest) // 5
+        outs = rest[:ndir]
+        dx, grads = _layer_backward(
+            x, _directions(RNNWeights, rest[ndir:]), ctx.sum_directions, d_out,
+            lambda k, w, dout, rev: _rnn_dir_grads(
+                x, lengths, w, outs[k], dout, rev, ctx.impl),
+        )
+        return (None, None, dx, None, *grads)
+
+
+def _layer_operands(x, lengths, fwd, bwd, impl):
+    """(lengths as int32 on x's device, the directions' weights as one flat
+    tuple) for the LSTM and tanh Functions."""
+    if impl not in ("auto", "plain"):
+        raise ValueError(f"unknown RNN impl {impl!r}")
+    lengths = lengths.to(device=x.device, dtype=torch.int32).contiguous()
+    return lengths, (*fwd, *bwd) if bwd is not None else tuple(fwd)
+
+
+def lstm_layer(
+    x: torch.Tensor,
+    lengths: torch.Tensor,
+    fwd: LSTMWeights,
+    bwd: LSTMWeights | None = None,
+    sum_directions: bool = True,
+    impl: str = "auto",
+) -> torch.Tensor:
+    """One (optionally bidirectional) LSTM layer over (T, B, I), torch gate
+    order i, f, g, o, from zero states. Returns the outputs (T, B, H) f32,
+    directions summed, or (T, B, 2H) concatenated if
+    ``sum_directions=False``. Differentiable in x and every weight."""
+    lengths, weights = _layer_operands(x, lengths, fwd, bwd, impl)
+    # what jax.custom_vjp decides by tracing: the forward that keeps the cell
+    # streams runs only when a gradient will be asked for
+    differentiated = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (x, *weights)
+    )
+    return _LSTMLayer.apply(impl, sum_directions, differentiated, x, lengths, *weights)
+
+
+def rnn_tanh_layer(
+    x: torch.Tensor,
+    lengths: torch.Tensor,
+    fwd: RNNWeights,
+    bwd: RNNWeights | None = None,
+    sum_directions: bool = True,
+    impl: str = "auto",
+) -> torch.Tensor:
+    """One (optionally bidirectional) tanh-RNN layer over (T, B, I), from a
+    zero state. Returns the outputs as :func:`lstm_layer`. Differentiable in
+    x and every weight."""
+    lengths, weights = _layer_operands(x, lengths, fwd, bwd, impl)
+    return _RNNTanhLayer.apply(impl, sum_directions, x, lengths, *weights)

@@ -39,7 +39,7 @@ class GreedyEvaluator:
 
     Corpus WER = total word edits / total reference words over the whole
     set. The forward pass runs on the device of the parameters it is given,
-    with bf16 matmul weights on CUDA (the GRU kernels' dtype) and float32
+    with bf16 matmul weights on CUDA (the recurrent kernels' dtype) and float32
     on the CPU; sample lengths pad to a bucket, as in training.
     """
 
@@ -142,12 +142,6 @@ def train(
     - ``stop_fn(epoch, state, train_loss, val_wer) -> bool``: early-stop
       hook (also how tests bound runtime).
     """
-    if config.rnn_type != "gru":
-        raise NotImplementedError(
-            f"rnn_type={config.rnn_type!r}: only GRU models train so far; LSTM "
-            "and tanh-RNN training come with the ports of their kernels "
-            "(ROADMAP B5-B9)"
-        )
     if mesh is not None:
         raise NotImplementedError(
             "training over a mesh comes with the port of the parallel package "

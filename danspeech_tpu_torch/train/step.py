@@ -12,7 +12,7 @@ package, which is functional:
 - frozen leaves are left out of the update (their gradient is dropped
   before the optimizer runs), so weight decay does not shrink them; the JAX
   package zeroes their gradients and ``optax.adamw`` still decays them;
-- on CUDA the GRU kernels take bf16 only, so ``mixed_precision=False`` is
+- on CUDA the recurrent kernels take bf16 only, so ``mixed_precision=False`` is
   refused there; the conv stack stays float32 under mixed precision, as in
   the JAX package (cuDNN runs float32 convolutions in TF32 unless
   ``torch.backends.cudnn.allow_tf32`` is turned off).
@@ -101,12 +101,12 @@ def init_train_state(
 
 def _resolve_mixed_precision(mixed_precision, device: torch.device) -> bool:
     """"auto" -> bf16 matmul weights on CUDA, float32 on the CPU. Float32 on
-    CUDA is refused: the GRU kernels take bf16 only (ROADMAP A6b)."""
+    CUDA is refused: the recurrent kernels take bf16 only (ROADMAP A6b)."""
     if mixed_precision == "auto":
         return device.type == "cuda"
     if not mixed_precision and device.type == "cuda":
         raise ValueError(
-            "mixed_precision=False is not available on CUDA: the GRU kernels "
+            "mixed_precision=False is not available on CUDA: the recurrent kernels "
             "take bf16 only (ROADMAP A6b); train in mixed precision on the "
             "card or on device='cpu' for float32"
         )
@@ -191,12 +191,12 @@ def make_wave_train_step(
     passes through as spec_augment kwargs. The ``rng`` argument of the step
     (a ``torch.Generator``) is consumed only when augmentation is on.
 
-    ``mixed_precision``: run the GRU and head products on bfloat16 weights
+    ``mixed_precision``: run the RNN and head products on bfloat16 weights
     (float32 masters for the optimizer; the casts are inside the autograd
     graph, so gradients come back in float32); the conv stack stays float32.
     "auto" = on for CUDA, where False is refused. ``remat``: checkpoint each
     RNN layer so the backward recomputes its forward instead of keeping its
-    residuals. ``rnn_impl="plain"`` runs the GRU kernels' plain versions,
+    residuals. ``rnn_impl="plain"`` runs the recurrent kernels' plain versions,
     forward and backward, to check the kernels against them.
 
     The step takes (state, waves, wave_lengths, labels, label_lengths,

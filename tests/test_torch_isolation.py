@@ -72,6 +72,8 @@ def test_sources_name_no_foreign_import():
     for root, _, files in os.walk(os.path.join(REPO, "danspeech_tpu_torch")):
         sources += [os.path.join(root, f) for f in files if f.endswith(".py")]
     assert any(p.endswith(os.path.join("train", "loop.py")) for p in sources)
+    for module in ("lstm_cuda.py", "rnn_tanh_cuda.py", "cuda_checks.py"):
+        assert any(p.endswith(os.path.join("ops", module)) for p in sources), module
     for path in sources:
         assert not (_imported_roots(path) & FOREIGN), path
 
@@ -88,3 +90,28 @@ def test_training_default_device_is_cuda():
     else:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             init_train_state(config, make_optimizer())
+
+
+def test_every_kernel_has_a_source_a_plain_version_and_a_counter():
+    """Each of the nine wrappers has its plain version beside it and a
+    ``launches`` counter; the CUDA sources they name exist, and no source
+    lies under csrc/ without a wrapper."""
+    from danspeech_tpu_torch.ops import cuda_build, gru_cuda, lstm_cuda, rnn_tanh_cuda
+
+    kernels = {
+        gru_cuda: {"gru_bidi_fused": "gru_bidi_fused", "gru_scan": "gru_scan",
+                   "gru_scan_bidi": "gru_scan_bidi", "gru_bwd_scan": "gru_bwd"},
+        lstm_cuda: {"lstm_scan": "lstm_scan", "lstm_scan_with_cell": "lstm_scan",
+                    "lstm_bwd_scan": "lstm_bwd"},
+        rnn_tanh_cuda: {"rnn_tanh_scan": "rnn_tanh_scan",
+                        "rnn_tanh_bwd_scan": "rnn_tanh_bwd"},
+    }
+    sources = set()
+    for module, names in kernels.items():
+        for name, source in names.items():
+            assert callable(getattr(module, f"{name}_plain")), name
+            assert isinstance(getattr(module, name).launches, int), name
+            assert os.path.isfile(os.path.join(cuda_build.CSRC_DIR, f"{source}.cu")), source
+            sources.add(f"{source}.cu")
+    on_disk = {f for f in os.listdir(cuda_build.CSRC_DIR) if f.endswith(".cu")}
+    assert on_disk == sources

@@ -1,0 +1,360 @@
+"""LSTM kernels' plain versions and ``lstm_layer`` of the PyTorch port
+against the JAX package (CPU).
+
+The CUDA kernels ``lstm_scan``, ``lstm_scan_with_cell`` and ``lstm_bwd_scan``
+run only on the card (chip_smoke.py holds them against their plain versions
+there). Here the plain versions, which the wrappers run for CPU tensors, are
+held against the JAX Pallas kernels with ``interpret=True``, and
+``lstm_layer`` against JAX ``lstm_layer`` (``impl="xla"`` and ``"pallas"``)
+and ``jax.grad`` through its custom VJP, as ``tests/test_pallas_grad.py``
+runs it.
+
+Tolerances: float32 differs by summation order only (F32_ATOL). With bf16
+streams and weights both sides round the same operands at the same places
+(gx with its bias inside, the bf16 copy of h, out, c_seq): BF16_ATOL on
+values of order 1, one or two bf16 ulps. In the backward walk one flipped
+rounding of a dg4 element moves the carried dL/dh from there on:
+BF16_BWD_ATOL. Layer gradients: GRAD_TOL, the bound of the JAX package's own
+gradient test.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from danspeech_tpu.ops import pallas_gru as jk
+from danspeech_tpu.ops import rnn as jrnn
+from danspeech_tpu_torch.ops import lstm_cuda
+from danspeech_tpu_torch.ops import rnn as trnn
+
+F32_ATOL = 1e-5
+BF16_ATOL = 1e-2
+BF16_BWD_ATOL = 3e-2
+GRAD_TOL = 2e-4
+
+CASES = [(13, [13, 0, 1, 7, 12], 16), (1, [1, 0], 8), (9, [9, 9], 24)]
+
+
+def _dtypes(dtype):
+    return ((jnp.float32, torch.float32) if dtype == "float32"
+            else (jnp.bfloat16, torch.bfloat16))
+
+
+def _scan_inputs(seed, t, lengths, hidden):
+    rng = np.random.default_rng(seed)
+    b = len(lengths)
+
+    def f32(*shape, scale=1.0):
+        return (rng.normal(size=shape) * scale).astype(np.float32)
+
+    return dict(
+        gx=f32(t, b, 4 * hidden), lengths=np.asarray(lengths, np.int32),
+        w_hh=f32(hidden, 4 * hidden, scale=0.3), b_hh=f32(4 * hidden, scale=0.3),
+        h0=f32(b, hidden, scale=0.5), c0=f32(b, hidden, scale=0.5),
+    )
+
+
+@pytest.mark.parametrize("with_cell", [False, True])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("t,lengths,hidden", CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_scan_matches_pallas_interpret(dtype, t, lengths, hidden, reverse, with_cell):
+    """Carried h0 and c0, ragged lengths with an empty and a full row, T = 1."""
+    a = _scan_inputs(t + hidden, t, lengths, hidden)
+    jdt, tdt = _dtypes(dtype)
+    jfn = jk.lstm_scan_with_cell if with_cell else jk.lstm_scan
+    tfn = lstm_cuda.lstm_scan_with_cell if with_cell else lstm_cuda.lstm_scan
+    ref = jfn(
+        jnp.asarray(a["gx"], jdt), jnp.asarray(a["lengths"]), jnp.asarray(a["w_hh"], jdt),
+        jnp.asarray(a["b_hh"]), jnp.asarray(a["h0"]), jnp.asarray(a["c0"]),
+        reverse=reverse, interpret=True,
+    )
+    before = tfn.launches
+    got = tfn(
+        torch.from_numpy(a["gx"]).to(tdt), torch.from_numpy(a["lengths"]),
+        torch.from_numpy(a["w_hh"]).to(tdt), torch.from_numpy(a["b_hh"]),
+        torch.from_numpy(a["h0"]), torch.from_numpy(a["c0"]), reverse=reverse,
+    )
+    # a CPU tensor runs the plain version: no kernel launch is counted
+    assert tfn.launches == before
+    atol = F32_ATOL if dtype == "float32" else BF16_ATOL
+    n_streams = 2 if with_cell else 1
+    assert len(got) == len(ref) == n_streams + 2
+    pad = np.arange(t)[:, None] >= a["lengths"][None, :]
+    for k, (g, r) in enumerate(zip(got, ref)):
+        assert g.dtype == (tdt if k < n_streams else torch.float32)
+        assert tuple(g.shape) == r.shape
+        np.testing.assert_allclose(g.float().numpy(), np.asarray(r, np.float32),
+                                   atol=atol, rtol=0, err_msg=f"result {k}")
+        if k < n_streams:  # out and c_seq: exact zeros past a row's length
+            assert float(np.abs(g.float().numpy()[pad]).max(initial=0.0)) == 0.0
+    # an empty row keeps its carried states
+    for row, n in enumerate(lengths):
+        if n == 0:
+            np.testing.assert_array_equal(got[-2][row].numpy(), a["h0"][row])
+            np.testing.assert_array_equal(got[-1][row].numpy(), a["c0"][row])
+
+
+def test_cell_stream_is_rounded_where_the_backward_reads_it():
+    """c_seq is the f32 cell state rounded to the stream dtype, c_last is
+    not; out and the final states equal those of the scan without cells."""
+    a = _scan_inputs(3, 6, [6, 4], 8)
+    bf = torch.bfloat16
+    args = (torch.from_numpy(a["gx"]).to(bf), torch.from_numpy(a["lengths"]),
+            torch.from_numpy(a["w_hh"]).to(bf), torch.from_numpy(a["b_hh"]),
+            torch.from_numpy(a["h0"]), torch.from_numpy(a["c0"]))
+    out, cseq, h_last, c_last = lstm_cuda.lstm_scan_with_cell(*args)
+    out2, h_last2, c_last2 = lstm_cuda.lstm_scan(*args)
+    assert cseq.dtype == bf and c_last.dtype == torch.float32
+    assert torch.equal(out, out2) and torch.equal(h_last, h_last2)
+    assert torch.equal(c_last, c_last2)
+    assert torch.equal(cseq[5, 0], c_last[0].to(bf))  # row 0 is full
+    assert torch.equal(cseq[3, 1], c_last[1].to(bf))  # row 1 ends at t = 3
+
+
+def _walk_inputs(seed, t, lengths, hidden):
+    rng = np.random.default_rng(seed)
+    b = len(lengths)
+
+    def f32(*shape, scale=1.0):
+        return (rng.normal(size=shape) * scale).astype(np.float32)
+
+    return dict(
+        gx=f32(t, b, 4 * hidden, scale=0.5),
+        hprev=rng.uniform(-1, 1, (t, b, hidden)).astype(np.float32),
+        cprev=f32(t, b, hidden), dout=f32(t, b, hidden),
+        lengths=np.asarray(lengths, np.int32),
+        w_hh=f32(hidden, 4 * hidden, scale=0.3), b_hh=f32(4 * hidden, scale=0.3),
+    )
+
+
+@pytest.mark.parametrize("reverse", [True, False])
+@pytest.mark.parametrize("t,lengths,hidden", CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_bwd_matches_pallas_interpret(dtype, t, lengths, hidden, reverse):
+    a = _walk_inputs(t + hidden, t, lengths, hidden)
+    jdt, tdt = _dtypes(dtype)
+    ref = jk.lstm_bwd_scan(
+        jnp.asarray(a["gx"], jdt), jnp.asarray(a["hprev"], jdt),
+        jnp.asarray(a["cprev"], jdt), jnp.asarray(a["dout"]), jnp.asarray(a["lengths"]),
+        jnp.asarray(a["w_hh"], jdt), jnp.asarray(a["b_hh"]),
+        reverse=reverse, interpret=True,
+    )
+    before = lstm_cuda.lstm_bwd_scan.launches
+    got = lstm_cuda.lstm_bwd_scan(
+        torch.from_numpy(a["gx"]).to(tdt), torch.from_numpy(a["hprev"]).to(tdt),
+        torch.from_numpy(a["cprev"]).to(tdt), torch.from_numpy(a["dout"]),
+        torch.from_numpy(a["lengths"]), torch.from_numpy(a["w_hh"]).to(tdt),
+        torch.from_numpy(a["b_hh"]), reverse=reverse,
+    )
+    assert lstm_cuda.lstm_bwd_scan.launches == before
+    atol = F32_ATOL if dtype == "float32" else BF16_BWD_ATOL
+    for name, g, r in zip(("dg4", "dh0", "dc0"), got, ref):
+        assert g.dtype == torch.float32 and tuple(g.shape) == r.shape, name
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=atol, rtol=0,
+                                   err_msg=name)
+    # steps past a row's length give exact zeros; an empty row's carried
+    # gradients stay at their zero start
+    pad = np.arange(t)[:, None] >= a["lengths"][None, :]
+    assert float(np.abs(got[0].numpy()[pad]).max(initial=0.0)) == 0.0
+    for row, n in enumerate(lengths):
+        if n == 0:
+            assert float(got[1][row].abs().max()) == 0.0
+            assert float(got[2][row].abs().max()) == 0.0
+
+
+# ---------------------------------------------------------------------------
+# lstm_layer
+# ---------------------------------------------------------------------------
+
+SHAPES = [("uni", True), ("bidi", True), ("bidi", False)]
+
+
+def _weights(rng, d_in, hidden, scale=0.3):
+    return [
+        (rng.normal(size=shape) * scale).astype(np.float32)
+        for shape in ((d_in, 4 * hidden), (hidden, 4 * hidden), (4 * hidden,),
+                      (4 * hidden,))
+    ]
+
+
+def _layer_case(direction, sum_directions, lens, seed):
+    rng = np.random.default_rng(seed)
+    t, d_in, hidden = max(max(lens), 1), 10, 8
+    b = len(lens)
+    x = rng.normal(size=(t, b, d_in)).astype(np.float32)
+    fwd = _weights(rng, d_in, hidden)
+    bwd = _weights(rng, d_in, hidden) if direction == "bidi" else None
+    width = hidden * (2 if bwd is not None and not sum_directions else 1)
+    r_out = rng.normal(size=(t, b, width)).astype(np.float32)
+    return x, np.asarray(lens, np.int32), fwd, bwd, r_out
+
+
+def _jax_layer(x, lens, fwd, bwd, sum_directions, impl, cast=None):
+    jw = [jrnn.LSTMWeights(*map(jnp.asarray, w)) for w in (fwd, bwd) if w is not None]
+
+    def run(x, *ws):
+        if cast is not None:
+            ws = [w._replace(w_ih=w.w_ih.astype(cast), w_hh=w.w_hh.astype(cast))
+                  for w in ws]
+        return jrnn.lstm_layer(x, jnp.asarray(lens), ws[0],
+                               ws[1] if len(ws) > 1 else None,
+                               sum_directions=sum_directions, impl=impl)
+
+    return run, (jnp.asarray(x), *jw)
+
+
+def _torch_leaves(x, fwd, bwd):
+    leaves = [torch.from_numpy(x).requires_grad_(True)]
+    for w in (fwd, bwd):
+        if w is not None:
+            leaves += [torch.from_numpy(a).requires_grad_(True) for a in w]
+    return leaves
+
+
+def _torch_layer(leaves, lens, sum_directions, impl, cast=None):
+    def w(k):
+        w = trnn.LSTMWeights(*leaves[1 + 4 * k : 5 + 4 * k])
+        if cast is not None:
+            w = w._replace(w_ih=w.w_ih.to(cast), w_hh=w.w_hh.to(cast))
+        return w
+
+    return trnn.lstm_layer(leaves[0], torch.from_numpy(lens), w(0),
+                           w(1) if len(leaves) > 5 else None,
+                           sum_directions=sum_directions, impl=impl)
+
+
+@pytest.mark.parametrize("impl", ["auto", "plain"])
+@pytest.mark.parametrize("direction,sum_directions", SHAPES)
+@pytest.mark.parametrize("lens", [[13, 13, 13], [13, 7, 0, 4]])
+def test_lstm_layer_forward_and_grads_match_jax(lens, direction, sum_directions, impl):
+    """Forward against JAX ``impl="xla"`` and ``"pallas"``; gradients of
+    sum(out * r) in x and every weight against jax.grad through the custom
+    VJP."""
+    x, lens, fwd, bwd, r_out = _layer_case(direction, sum_directions, lens,
+                                           seed=len(lens) + sum_directions)
+    leaves = _torch_leaves(x, fwd, bwd)
+    out = _torch_layer(leaves, lens, sum_directions, impl)
+    assert out.dtype == torch.float32
+    for jimpl in ("xla", "pallas"):
+        run, args = _jax_layer(x, lens, fwd, bwd, sum_directions, jimpl)
+        ref = np.asarray(run(*args))
+        assert out.shape == ref.shape
+        np.testing.assert_allclose(out.detach().numpy(), ref, atol=F32_ATOL, rtol=0,
+                                   err_msg=jimpl)
+    ref_grads = jax.grad(lambda *a: jnp.sum(run(*a) * r_out),
+                         argnums=tuple(range(len(args))))(*args)
+    ref_grads = [np.asarray(g) for g in jax.tree_util.tree_leaves(ref_grads)]
+    got = torch.autograd.grad((out * torch.from_numpy(r_out)).sum(), leaves)
+    assert len(got) == len(ref_grads) == (9 if bwd is not None else 5)
+    for g, r in zip(got, ref_grads):
+        assert g.shape == r.shape
+        np.testing.assert_allclose(g.numpy(), r, rtol=GRAD_TOL, atol=GRAD_TOL)
+
+
+def test_lstm_layer_grads_match_autograd_through_the_plain_recurrence():
+    """The Function's backward against torch autograd through the plain
+    scans themselves (no Function, no backward walk)."""
+    x, lens, fwd, bwd, r_out = _layer_case("bidi", False, [9, 5, 0], seed=11)
+    leaves = _torch_leaves(x, fwd, bwd)
+    got = torch.autograd.grad(
+        (_torch_layer(leaves, lens, False, "auto") * torch.from_numpy(r_out)).sum(), leaves)
+    tl = torch.from_numpy(lens)
+    zeros = torch.zeros((len(lens), 8))
+    outs = []
+    for k, reverse in ((0, False), (1, True)):
+        w = trnn.LSTMWeights(*leaves[1 + 4 * k : 5 + 4 * k])
+        outs.append(lstm_cuda.lstm_scan_plain(
+            leaves[0] @ w.w_ih + w.b_ih, tl, w.w_hh, w.b_hh, zeros, zeros,
+            reverse=reverse)[0])
+    auto = torch.autograd.grad(
+        (torch.cat(outs, -1) * torch.from_numpy(r_out)).sum(), leaves)
+    for g, a in zip(got, auto):
+        np.testing.assert_allclose(g.numpy(), a.numpy(), rtol=F32_ATOL, atol=F32_ATOL)
+
+
+@pytest.mark.parametrize("direction,sum_directions", SHAPES)
+def test_lstm_layer_bf16_close_to_jax_pallas(direction, sum_directions):
+    """The dispatch of mixed precision: float32 x, bf16 weights cast inside
+    the graph, float32 gradients back at the masters. Both packages round gx
+    (bias inside), h, out and c_seq to bf16 at the same places; a gradient of
+    order 1-10 may differ by a few bf16 ulps of its largest terms."""
+    x, lens, fwd, bwd, r_out = _layer_case(direction, sum_directions, [13, 7, 4], seed=5)
+    run, args = _jax_layer(x, lens, fwd, bwd, sum_directions, "pallas",
+                           cast=jnp.bfloat16)
+    ref = np.asarray(run(*args))
+    ref_grads = jax.grad(lambda *a: jnp.sum(run(*a) * r_out),
+                         argnums=tuple(range(len(args))))(*args)
+    ref_grads = [np.asarray(g) for g in jax.tree_util.tree_leaves(ref_grads)]
+    leaves = _torch_leaves(x, fwd, bwd)
+    out = _torch_layer(leaves, lens, sum_directions, "auto", cast=torch.bfloat16)
+    np.testing.assert_allclose(out.detach().numpy(), ref, atol=2 * BF16_ATOL, rtol=0)
+    got = torch.autograd.grad((out * torch.from_numpy(r_out)).sum(), leaves)
+    for g, r in zip(got, ref_grads):
+        assert g.dtype == torch.float32
+        scale = max(1.0, float(np.abs(r).max()))
+        np.testing.assert_allclose(g.numpy(), r, atol=3e-2 * scale, rtol=0)
+
+
+def test_forward_keeps_the_cell_stream_only_when_differentiated(monkeypatch):
+    """What jax.custom_vjp decides by tracing: ``lstm_scan`` for a forward
+    that no gradient will follow, ``lstm_scan_with_cell`` for one that a
+    gradient will, and one backward walk per direction."""
+    calls = []
+    for name in ("lstm_scan", "lstm_scan_with_cell", "lstm_bwd_scan"):
+        orig = getattr(lstm_cuda, name)
+        monkeypatch.setattr(
+            lstm_cuda, name,
+            lambda *a, _orig=orig, _name=name, **kw: calls.append(_name) or _orig(*a, **kw))
+    x, lens, fwd, bwd, r_out = _layer_case("bidi", True, [6, 3], seed=2)
+    leaves = _torch_leaves(x, fwd, bwd)
+    with torch.no_grad():
+        quiet = _torch_layer(leaves, lens, True, "auto")
+    assert calls == ["lstm_scan"] * 2
+    frozen = [t.detach() for t in leaves]  # grad mode on, nothing requires it
+    _torch_layer(frozen, lens, True, "auto")
+    assert calls == ["lstm_scan"] * 4
+    del calls[:]
+    out = _torch_layer(leaves, lens, True, "auto")
+    assert calls == ["lstm_scan_with_cell"] * 2
+    assert torch.equal(out.detach(), quiet)
+    out.sum().backward()
+    assert calls == ["lstm_scan_with_cell"] * 2 + ["lstm_bwd_scan"] * 2
+    with pytest.raises(ValueError, match="unknown RNN impl"):
+        _torch_layer(leaves, lens, True, "pallas")
+
+
+def test_wrapper_operand_checks_and_devices():
+    a = _walk_inputs(0, 5, [5, 3], 8)
+    bf = torch.bfloat16
+    gx = torch.from_numpy(a["gx"]).to(bf)
+    lengths = torch.from_numpy(a["lengths"])
+    w_hh, b_hh = torch.from_numpy(a["w_hh"]).to(bf), torch.from_numpy(a["b_hh"])
+    zeros = torch.zeros((2, 8))
+    for fn in (lstm_cuda.lstm_scan, lstm_cuda.lstm_scan_with_cell):
+        with pytest.raises(ValueError, match="unsupported device"):
+            fn(*(v.to("meta") for v in (gx, lengths, w_hh, b_hh, zeros, zeros)))
+    with pytest.raises(ValueError, match="unsupported device"):
+        lstm_cuda.lstm_bwd_scan(*(v.to("meta") for v in (
+            gx, torch.from_numpy(a["hprev"]).to(bf), torch.from_numpy(a["cprev"]).to(bf),
+            torch.from_numpy(a["dout"]), lengths, w_hh, b_hh)))
+    # the checks the CUDA branch makes before it launches
+    lstm_cuda._check_scan_operands(gx, lengths, w_hh, b_hh, zeros, zeros)
+    with pytest.raises(TypeError, match="A6b"):  # float32 streams are refused
+        lstm_cuda._check_scan_operands(gx.float(), lengths, w_hh, b_hh, zeros, zeros)
+    with pytest.raises(TypeError):
+        lstm_cuda._check_scan_operands(gx, lengths.long(), w_hh, b_hh, zeros, zeros)
+    with pytest.raises(ValueError, match="contiguous"):
+        lstm_cuda._check_scan_operands(
+            gx.transpose(0, 1).contiguous().transpose(0, 1), lengths, w_hh, b_hh,
+            zeros, zeros)
+    with pytest.raises(ValueError, match="4H"):
+        lstm_cuda._check_scan_operands(gx[..., :24].contiguous(), lengths, w_hh, b_hh,
+                                       zeros, zeros)
+    with pytest.raises(ValueError, match="shape"):
+        lstm_cuda._check_scan_operands(gx, lengths, w_hh, b_hh, zeros[:1], zeros)
+    with pytest.raises(ValueError, match="empty"):
+        lstm_cuda._check_scan_operands(gx[:0], lengths, w_hh, b_hh, zeros, zeros)

@@ -147,5 +147,16 @@ def test_forward_bf16_matches_jax_pallas():
 
 
 def test_non_gru_models_raise():
-    with pytest.raises(NotImplementedError):
-        tds.init_params(TConfig(rnn_type="lstm", rnn_hidden_size=8, rnn_layers=1))
+    """LSTM and tanh-RNN models build (their own weights class, 4 and 1
+    gates); what still raises for them is streaming, which is GRU-only in
+    both packages."""
+    from danspeech_tpu_torch.models import streaming as tstream
+    from danspeech_tpu_torch.ops import rnn as trnn
+
+    for rnn_type, cls, gates in (("lstm", trnn.LSTMWeights, 4), ("rnn", trnn.RNNWeights, 1)):
+        cfg = TConfig(rnn_type=rnn_type, rnn_hidden_size=8, rnn_layers=1, conv_layers=2)
+        fwd = tds.init_params(cfg)["rnns"][0]["fwd"]
+        assert type(fwd) is cls and fwd.w_hh.shape == (8, gates * 8)
+        with pytest.raises(NotImplementedError, match="GRU models only"):
+            tstream.require_gru(cfg)
+    tstream.require_gru(TConfig(rnn_hidden_size=8, rnn_layers=1))

@@ -246,7 +246,11 @@ def test_train_refusals(corpus):
             train(config, corpus, epochs=1, **QUIET)
     with pytest.raises(NotImplementedError, match="A13"):
         train(config, corpus, epochs=1, mesh=object(), device="cpu", **QUIET)
+    # the mesh refusal holds for every rnn_type, and none is refused itself
     for rnn_type in ("lstm", "rnn"):
-        with pytest.raises(NotImplementedError, match="B5-B9"):
-            train(TConfig(**dict(SMALL, rnn_type=rnn_type)), corpus, epochs=1,
-                  device="cpu", **QUIET)
+        other = TConfig(**dict(SMALL, rnn_type=rnn_type, rnn_hidden_size=8))
+        with pytest.raises(NotImplementedError, match="A13"):
+            train(other, corpus, epochs=1, mesh=object(), device="cpu", **QUIET)
+        state = train(other, corpus, epochs=1, batch_size=8, augment=False,
+                      device="cpu", **QUIET)
+        assert state.step == 1

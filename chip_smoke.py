@@ -3,16 +3,23 @@
 
     python3 chip_smoke.py            # every phase, needs one CUDA card
     python3 chip_smoke.py --kernels  # phases 1-3 only (build + kernel checks)
+    python3 chip_smoke.py --phase-clocks  # where a persistent kernel's step
+                                          # spends its clocks (-DPS_PROFILE build)
 
 Phases, in order; any failure exits non-zero:
 
 1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
 2. build every CUDA kernel from ``danspeech_tpu_torch/csrc`` (one nvcc per
    source, all started together), timed;
-3. each of the nine kernels (four GRU, three LSTM, two tanh-RNN) against
-   its plain PyTorch version on the card at a ragged small shape and the
-   layer shapes of the paths below, with its time, the plain version's
-   time, one library call's time as a yardstick, and the bound; and
+3. the grid barrier of ``csrc/persist.cuh`` alone (timed, and a grid too
+   large to be co-resident must be refused); then each of the nine kernels
+   (four GRU, three LSTM, two tanh-RNN) against its plain PyTorch version on
+   the card at ragged small shapes and the layer shapes of the paths below,
+   with its time, the plain version's time, one library call's time (bf16
+   and float16) as a yardstick, and the bound; ``gru_bidi_fused`` and
+   ``gru_bwd_scan`` in both designs (``design="persistent"`` and
+   ``"step"``, both checked and timed in the same run), and every main
+   path below must take the persistent one; and
    ``gru_layer`` with concatenated directions and with a carried h0, the two
    routes that reach ``gru_scan_bidi``;
 4. the batch path: ``Recognizer.recognize`` / ``recognize_batch`` on the
@@ -162,6 +169,97 @@ def time_ms(fn, iters: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms_by_kernel(fn) -> dict:
+    """Device time of one call of ``fn`` by kernel name (torch.profiler), ms."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "device_time_total", None)
+        if us is None:
+            us = e.cuda_time_total
+        out[e.key] = out.get(e.key, 0.0) + us / 1e3
+    return out
+
+
+def kernel_ms(split: dict, name: str) -> float:
+    """The summed time of the kernels whose name starts with ``name`` (a
+    template instance carries its arguments after the name)."""
+    return sum(ms for k, ms in split.items()
+               if k.split("<")[0].split("(")[0].strip().endswith(name))
+
+
+DESIGNS = ("persistent", "step")
+
+
+def require_persistent(wrapper, label):
+    """The calls since the counts were last zeroed all took the persistent
+    design."""
+    counts = wrapper.design_counts
+    log(f"  {label}: designs taken {counts}")
+    if counts["step"] or not counts["persistent"]:
+        raise AssertionError(f"{label}: expected the persistent design only, got {counts}")
+
+
+def zero_designs():
+    from danspeech_tpu_torch.ops import gru_cuda
+
+    for w in (gru_cuda.gru_bidi_fused, gru_cuda.gru_bwd_scan):
+        w.design_counts = dict.fromkeys(DESIGNS, 0)
+
+
+def phase_barrier():
+    """The grid barrier of csrc/persist.cuh alone: a cooperative launch of
+    one block per SM, each holding 200 KB of shared memory, that takes 2000
+    barriers and checks after each that another block's write before it is
+    visible. Returns the time of one barrier for a full grid and for the 50
+    and 75 blocks that one chain of the flagship uses."""
+    import ctypes
+
+    from danspeech_tpu_torch.ops import cuda_build, gru_cuda
+
+    fn = cuda_build.load("gru_bwd").persist_barrier_probe_launch
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    sms, smem_optin = gru_cuda.device_info(torch.device("cuda", torch.cuda.current_device()))
+    log(f"  device: {sms} SMs, {smem_optin} bytes of shared memory a block")
+    iters, smem = 2000, 200 * 1024
+    res = {"sm_count": sms, "smem_optin": smem_optin, "iters": iters, "us": {}}
+    for grid in (50, 75, sms):
+        counter = torch.zeros(1, dtype=torch.int32, device="cuda")
+        slots = torch.zeros(grid, dtype=torch.int32, device="cuda")
+        errors = torch.zeros(1, dtype=torch.int32, device="cuda")
+
+        def run():
+            counter.zero_()
+            rc = fn(counter.data_ptr(), slots.data_ptr(), errors.data_ptr(), grid, smem,
+                    iters, torch.cuda.current_stream().cuda_stream)
+            if rc != 0:
+                raise RuntimeError(f"barrier probe launch failed: CUDA error {rc}")
+
+        ms = time_ms(run, iters=3)
+        if int(errors) != 0 or int(counter) != grid * iters:
+            raise AssertionError(f"barrier probe, {grid} blocks: {int(errors)} stale reads, "
+                                 f"counter {int(counter)} of {grid * iters}")
+        res["us"][grid] = ms * 1e3 / iters
+        log(f"  grid barrier, {grid} blocks x 256 threads, {smem} B each: "
+            f"{res['us'][grid]:.2f} us a barrier over {iters}, every write seen after it")
+    # a grid beyond one block per SM must be refused, not hang
+    rc = fn(counter.data_ptr(), slots.data_ptr(), errors.data_ptr(), sms + 1, smem, 1,
+            torch.cuda.current_stream().cuda_stream)
+    log(f"  {sms + 1} blocks of {smem} B: launch refused with CUDA error {rc}")
+    if rc == 0:
+        raise AssertionError("a grid that cannot be co-resident was launched")
+    return res
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -202,51 +300,89 @@ def gru_bound(t, b, d, h):
 
 
 def check_gru(gen, t, b, d, h, lengths, timed: bool):
-    from danspeech_tpu_torch.ops import gru_cuda
+    """gru_bidi_fused in both designs against its plain version; the plan
+    must choose the persistent design at this shape."""
+    from danspeech_tpu_torch.ops import gru_cuda, persist_plan
 
     args = gru_layer_inputs(gen, t, b, d, h, lengths)
-    got = gru_cuda.gru_bidi_fused(*args)
-    torch.cuda.synchronize()
+    dev_info = gru_cuda.device_info(args[0].device)
+    planned = persist_plan.plan_gru_forward(h, b, *dev_info)
+    if planned.design != "persistent":
+        raise AssertionError(f"gru_bidi_fused H={h} B={b}: planned {planned}")
     ref = gru_cuda.gru_bidi_fused_plain(*args)
     torch.cuda.synchronize()
     names = ("out_f", "out_b", "h_last_f", "h_last_b")
-    errs = {}
-    for name, g, r in zip(names, got, ref):
-        if g.shape != r.shape or g.dtype != r.dtype:
-            raise AssertionError(f"{name}: {g.shape}/{g.dtype} vs {r.shape}/{r.dtype}")
-        if not torch.isfinite(g.float()).all():
-            raise AssertionError(f"{name}: non-finite values from the kernel")
-        errs[name] = float((g.float() - r.float()).abs().max())
-    # rows past their length must be exact zeros
     tt = torch.arange(t, device="cuda")[:, None]
     pad = tt >= args[1][None, :].long()
-    for name, g in zip(names[:2], got[:2]):
-        if pad.any() and float(g[pad].float().abs().max()) != 0.0:
-            raise AssertionError(f"{name}: non-zero output past a row's length")
-    err = max(errs.values())
+    all_errs = {}
+    for design in DESIGNS:
+        got = gru_cuda.gru_bidi_fused(*args, design=design)
+        torch.cuda.synchronize()
+        errs = {}
+        for name, g, r in zip(names, got, ref):
+            if g.shape != r.shape or g.dtype != r.dtype:
+                raise AssertionError(f"{name}: {g.shape}/{g.dtype} vs {r.shape}/{r.dtype}")
+            if not torch.isfinite(g.float()).all():
+                raise AssertionError(f"{name} ({design}): non-finite values from the kernel")
+            errs[name] = float((g.float() - r.float()).abs().max())
+        # rows past their length must be exact zeros
+        for name, g in zip(names[:2], got[:2]):
+            if pad.any() and float(g[pad].float().abs().max()) != 0.0:
+                raise AssertionError(f"{name} ({design}): non-zero output past a row's length")
+        log(f"  gru_bidi_fused[{design}] T={t} B={b} D={d} H={h}: max|err| "
+            + ", ".join(f"{k}={v:.3e}" for k, v in errs.items())
+            + f" (atol {GRU_ATOL})")
+        if not max(errs.values()) <= GRU_ATOL:
+            raise AssertionError(f"gru_bidi_fused ({design}) disagrees with its plain "
+                                 f"version: {max(errs.values())}")
+        all_errs[design] = errs
+        del got
     res = {
         "shape": {"T": t, "B": b, "D": d, "H": h},
-        "max_abs_err": err, "errs": errs, "atol": GRU_ATOL,
+        "max_abs_err": max(max(e.values()) for e in all_errs.values()),
+        "errs": all_errs, "atol": GRU_ATOL,
+        "plan": {"units": planned.units, "grid": planned.grid, "row_groups": planned.row_groups,
+                 "k_splits": planned.k_splits, "stages": planned.stages,
+                 "chunk_depth": planned.chunk_depth,
+                 "smem_bytes": planned.smem_bytes},
     }
-    log(f"  gru_bidi_fused T={t} B={b} D={d} H={h}: max|err| "
-        + ", ".join(f"{k}={v:.3e}" for k, v in errs.items())
-        + f" (atol {GRU_ATOL})")
-    if not err <= GRU_ATOL:
-        raise AssertionError(f"gru_bidi_fused disagrees with its plain version: {err}")
     if timed:
-        res["ms"] = time_ms(lambda: gru_cuda.gru_bidi_fused(*args), iters=3)
+        def run(design):
+            return lambda: gru_cuda.gru_bidi_fused(*args, design=design)
+
+        # step, persistent, persistent, step: both designs on one card in one run
+        step_a = time_ms(run("step"), iters=3)
+        res["ms"] = 0.5 * (time_ms(run("persistent"), iters=5)
+                           + time_ms(run("persistent"), iters=5))
+        res["step_design_ms"] = 0.5 * (step_a + time_ms(run("step"), iters=3))
+        res["design"] = "persistent"
+        split = device_ms_by_kernel(run("persistent"))
+        res["recurrence_ms"] = kernel_ms(split, "gru_persist_kernel")
+        res["projection_ms"] = (kernel_ms(split, "gru_proj_wgmma_kernel")
+                                + kernel_ms(split, "gru_proj_kernel"))
+        res["step_ms"] = res["recurrence_ms"] / t
+        res["projection_tflops"] = (2 * 2 * t * b * d * 3 * h
+                                    / max(res["projection_ms"], 1e-9) / 1e9)
         res["plain_ms"] = time_ms(lambda: gru_cuda.gru_bidi_fused_plain(*args), iters=2)
-        gru = torch.nn.GRU(d, h, bidirectional=True).to("cuda", torch.bfloat16)
-        gru.flatten_parameters()  # cuDNN wants its weights in one block
         x = args[0]
-        with torch.no_grad():
-            res["library_ms"] = time_ms(lambda: gru(x), iters=3)
-        del gru
+        for key, dtype in (("library_ms", torch.bfloat16), ("library_fp16_ms", torch.float16)):
+            # cuDNN wants its weights in one block: flatten_parameters makes it
+            # for float16 only (see cudnn_rnn_ms)
+            gru = torch.nn.GRU(d, h, bidirectional=True).to("cuda", dtype)
+            gru.flatten_parameters()
+            xd = x.to(dtype)
+            with torch.no_grad():
+                res[key] = time_ms(lambda: gru(xd), iters=3)
+            del gru, xd
         res["bound_ms"], res["bound_by"] = gru_bound(t, b, d, h)
-        log(f"    ms={res['ms']:.3f} plain_ms={res['plain_ms']:.3f} "
+        log(f"    persistent ms={res['ms']:.3f} (recurrence {res['recurrence_ms']:.3f} = "
+            f"{res['step_ms'] * 1e3:.2f} us a step, projection {res['projection_ms']:.3f} = "
+            f"{res['projection_tflops']:.0f} TFLOP/s) step-design ms="
+            f"{res['step_design_ms']:.3f} plain_ms={res['plain_ms']:.3f} "
             f"library_ms(cuDNN nn.GRU bf16)={res['library_ms']:.3f} "
+            f"(float16: {res['library_fp16_ms']:.3f}) "
             f"bound_ms={res['bound_ms']:.3f} ({res['bound_by']})")
-    del args, got, ref
+    del args, ref
     torch.cuda.empty_cache()
     return res
 
@@ -256,14 +392,30 @@ def phase_kernels():
     gen.manual_seed(0)
     torch.backends.cuda.matmul.allow_tf32 = False  # plain version in full f32
     torch.backends.cudnn.allow_tf32 = False
-    small = check_gru(gen, 37, 5, 96, 64, [37, 1, 20, 36, 5], timed=False)
+    small = [
+        check_gru(gen, 37, 5, 96, 64, [37, 1, 20, 36, 5], timed=False),
+        # H and D no multiples of 8 (scalar load paths), a lone row, T = 1
+        check_gru(gen, 9, 3, 50, 100, [9, 1, 4], timed=False),
+        check_gru(gen, 1, 2, 96, 64, [1, 1], timed=False),
+        check_gru(gen, 11, 1, 40, 72, [11], timed=False),
+        # B above 128: two row blocks over the same resident slice
+        check_gru(gen, 7, 150, 64, 72, [7, 1] + [1 + (i % 7) for i in range(148)],
+                  timed=False),
+        # the training batch: one 64-row block, the warpgroups split the depth
+        check_gru(gen, 21, 32, 160, 200, [21, 1] + [1 + (i % 21) for i in range(30)],
+                  timed=False),
+    ]
     flag = []
     for d in (2016, 1200):
         rng = np.random.default_rng(d)
         lengths = rng.integers(1, 402, size=128)
         lengths[0], lengths[1] = 401, 1
         flag.append(check_gru(gen, 401, 128, d, 1200, lengths.tolist(), timed=True))
-    return [small] + flag
+    rng = np.random.default_rng(32)
+    lengths = rng.integers(1, 402, size=32)
+    lengths[0], lengths[1] = 401, 1
+    flag.append(check_gru(gen, 401, 32, 1200, 1200, lengths.tolist(), timed=True))
+    return small + flag
 
 
 def scan_bound(lengths, t, b, h):
@@ -338,10 +490,14 @@ def check_scan(gen, label, t, lengths, h, reverse, carried, timed):
         with torch.no_grad():
             res["library_ms"] = time_ms(lambda: gru(x), iters=5)
         del gru, x
+        # the same call in float16, where cuDNN's weights are one block
+        res["library_fp16_ms"] = cudnn_rnn_ms(torch.nn.GRU(h, h), gen, t, b, h,
+                                              backward=False, dtype=torch.float16)
         res["bound_ms"], res["bound_by"] = scan_bound(lengths, t, b, h)
         log(f"    ms={res['ms']:.3f} plain_ms={res['plain_ms']:.3f} "
             f"library_ms(cuDNN nn.GRU({h},{h}) bf16, with its projection)="
-            f"{res['library_ms']:.3f} bound_ms={res['bound_ms']:.4f} ({res['bound_by']})")
+            f"{res['library_ms']:.3f} (float16: {res['library_fp16_ms']:.3f}) "
+            f"bound_ms={res['bound_ms']:.4f} ({res['bound_by']})")
     del args, got, ref
     torch.cuda.empty_cache()
     return res
@@ -449,10 +605,14 @@ def check_scan_bidi(gen, label, t, lengths, h, carried, timed):
         with torch.no_grad():
             res["library_ms"] = time_ms(lambda: gru(x), iters=3)
         del gru, x
+        res["library_fp16_ms"] = cudnn_rnn_ms(
+            torch.nn.GRU(h, h, bidirectional=True), gen, t, b, h, backward=False,
+            dtype=torch.float16)
         res["bound_ms"], res["bound_by"] = scan_bidi_bound(lengths, t, b, h)
         log(f"    ms={res['ms']:.3f} plain_ms={res['plain_ms']:.3f} "
             f"library_ms(cuDNN bidirectional nn.GRU({h},{h}) bf16, with its "
-            f"projections)={res['library_ms']:.3f} bound_ms={res['bound_ms']:.4f} "
+            f"projections)={res['library_ms']:.3f} (float16: "
+            f"{res['library_fp16_ms']:.3f}) bound_ms={res['bound_ms']:.4f} "
             f"({res['bound_by']})")
     del args, got, ref
     torch.cuda.empty_cache()
@@ -527,9 +687,7 @@ def cudnn_rnn_ms(module, gen, t, b, h, backward: bool, dtype=torch.bfloat16):
     return max(both - fwd, 0.0)
 
 
-def check_bwd(gen, label, t, lengths, h, reverse, timed):
-    from danspeech_tpu_torch.ops import gru_cuda
-
+def bwd_inputs(gen, t, lengths, h, lens=None):
     dev = "cuda"
     b = len(lengths)
     bound = 1.0 / h ** 0.5
@@ -540,37 +698,111 @@ def check_bwd(gen, label, t, lengths, h, reverse, timed):
     gx = (torch.randn(t, b, 3 * h, generator=gen, device=dev) * 0.5).to(torch.bfloat16)
     hprev = (torch.rand(t, b, h, generator=gen, device=dev) * 2 - 1).to(torch.bfloat16)
     dout = torch.randn(t, b, h, generator=gen, device=dev)
-    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    if lens is None:
+        lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
     w_hh = uni(h, 3 * h).to(torch.bfloat16)
     b_ih, b_hh = uni(3 * h), uni(3 * h)
     dh_last = torch.randn(b, h, generator=gen, device=dev)
-    args = (gx, hprev, dout, lens, w_hh, b_ih, b_hh, dh_last)
-    got = gru_cuda.gru_bwd_scan(*args, reverse=reverse)
-    torch.cuda.synchronize()
+    return (gx, hprev, dout, lens, w_hh, b_ih, b_hh, dh_last)
+
+
+def check_bwd(gen, label, t, lengths, h, reverse, timed, pair=True):
+    """gru_bwd_scan in both designs, and gru_bwd_scan_pair (two chains in one
+    persistent launch where the plan allows), against the plain version; the
+    plan must choose the persistent design at this shape."""
+    from danspeech_tpu_torch.ops import gru_cuda, persist_plan
+
+    dev = "cuda"
+    b = len(lengths)
+    args = bwd_inputs(gen, t, lengths, h)
+    lens = args[3]
+    dev_info = gru_cuda.device_info(args[0].device)
+    planned = persist_plan.plan_gru_backward(h, b, 1, *dev_info)
+    if planned.design != "persistent":
+        raise AssertionError(f"gru_bwd_scan H={h} B={b}: planned {planned}")
     ref = gru_cuda.gru_bwd_scan_plain(*args, reverse=reverse)
     torch.cuda.synchronize()
     name = f"gru_bwd_scan {label}"
-    errs, err = compare_outputs(name, ("dgx", "dghn", "dh0"), got, ref, BWD_TOL)
     pad = torch.arange(t, device=dev)[:, None] >= lens[None, :].long()
-    for g in got[:2]:
-        if pad.any() and float(g[pad].abs().max()) != 0.0:
-            raise AssertionError(f"{name}: non-zero gradient past a row's length")
+    max_ref = {k: float(r.abs().max()) for k, r in zip(("dgx", "dghn", "dh0"), ref)}
+
+    def hold(tag, got, want):
+        errs, err = compare_outputs(f"{name} [{tag}]", ("dgx", "dghn", "dh0"), got, want,
+                                    BWD_TOL)
+        for g in got[:2]:
+            if pad.any() and float(g[pad].abs().max()) != 0.0:
+                raise AssertionError(f"{name} [{tag}]: non-zero gradient past a row's length")
+        log(f"  {name} [{tag}] T={t} B={b} H={h} reverse={reverse}: max|err| "
+            + ", ".join(f"{k}={v:.3e} (max|ref| {max_ref[k]:.2f})" for k, v in errs.items())
+            + f" (tol {BWD_TOL} x max(1, max|ref|))")
+        return errs, err
+
+    all_errs, worst = {}, 0.0
+    for design in DESIGNS:
+        got = gru_cuda.gru_bwd_scan(*args, reverse=reverse, design=design)
+        torch.cuda.synchronize()
+        all_errs[design], err = hold(design, got, ref)
+        worst = max(worst, err)
+        del got
+    pair_plan = persist_plan.plan_gru_backward(h, b, 2, *dev_info)
+    other = ref_b = None
+    if pair:
+        # a second chain walking the other way over the same lengths
+        other = bwd_inputs(gen, t, lengths, h, lens=lens)
+        ref_b = gru_cuda.gru_bwd_scan_plain(*other, reverse=not reverse)
+        before = gru_cuda.gru_bwd_scan.launches
+        got_a, got_b = gru_cuda.gru_bwd_scan_pair(args, other, reverse, not reverse)
+        torch.cuda.synchronize()
+        if gru_cuda.gru_bwd_scan.launches != before + 2:
+            raise AssertionError(f"{name}: a pair must count two chains")
+        tag = "pair, one launch" if pair_plan.design == "persistent" else "pair, two launches"
+        all_errs["pair a"], err_a = hold(tag + ", chain a", got_a, ref)
+        max_ref = {k: float(r.abs().max()) for k, r in zip(("dgx", "dghn", "dh0"), ref_b)}
+        all_errs["pair b"], err_b = hold(tag + ", chain b", got_b, ref_b)
+        worst = max(worst, err_a, err_b)
+        del got_a, got_b
     res = {"label": label, "shape": {"T": t, "B": b, "H": h, "reverse": reverse},
-           "max_abs_err": err, "errs": errs, "tol": BWD_TOL,
-           "max_abs_ref": {k: float(r.abs().max()) for k, r in zip(errs, ref)}}
-    log(f"  {name} T={t} B={b} H={h} reverse={reverse}: max|err| "
-        + ", ".join(f"{k}={v:.3e} (max|ref| {res['max_abs_ref'][k]:.2f})"
-                    for k, v in errs.items()) + f" (tol {BWD_TOL} x max(1, max|ref|))")
+           "max_abs_err": worst, "errs": all_errs, "tol": BWD_TOL,
+           "max_abs_ref": {k: float(r.abs().max()) for k, r in zip(("dgx", "dghn", "dh0"), ref)},
+           "plan": {"units": planned.units, "grid": planned.grid, "row_groups": planned.row_groups,
+                    "k_splits": planned.k_splits, "stages": planned.stages,
+                 "chunk_depth": planned.chunk_depth,
+                    "smem_bytes": planned.smem_bytes, "pair": pair_plan.design}}
     if timed:
-        res["ms"] = time_ms(lambda: gru_cuda.gru_bwd_scan(*args, reverse=reverse), iters=3)
+        def run(design):
+            return lambda: gru_cuda.gru_bwd_scan(*args, reverse=reverse, design=design)
+
+        # step, persistent, persistent, step: both designs on one card in one run
+        step_a = time_ms(run("step"), iters=3)
+        res["ms"] = 0.5 * (time_ms(run("persistent"), iters=5)
+                           + time_ms(run("persistent"), iters=5))
+        res["step_design_ms"] = 0.5 * (step_a + time_ms(run("step"), iters=3))
+        res["design"] = "persistent"
+        split = device_ms_by_kernel(run("persistent"))
+        res["walk_ms"] = kernel_ms(split, "gru_bwd_persist_kernel")
+        res["recompute_ms"] = (kernel_ms(split, "gru_proj_wgmma_kernel")
+                               + kernel_ms(split, "gru_proj_kernel"))
+        res["step_ms"] = res["walk_ms"] / (t + 1)
+        res["recompute_tflops"] = 2 * t * b * h * 3 * h / max(res["recompute_ms"], 1e-9) / 1e9
+        if pair:
+            res["pair_ms_per_chain"] = 0.5 * time_ms(
+                lambda: gru_cuda.gru_bwd_scan_pair(args, other, reverse, not reverse), iters=5)
         res["plain_ms"] = time_ms(
             lambda: gru_cuda.gru_bwd_scan_plain(*args, reverse=reverse), iters=1)
         res["library_ms"] = cudnn_rnn_ms(torch.nn.GRU(h, h), gen, t, b, h, backward=True)
+        res["library_fp16_ms"] = cudnn_rnn_ms(torch.nn.GRU(h, h), gen, t, b, h,
+                                              backward=True, dtype=torch.float16)
         res["bound_ms"], res["bound_by"] = bwd_bound(lengths, t, b, h)
-        log(f"    ms={res['ms']:.3f} plain_ms={res['plain_ms']:.3f} "
+        log(f"    persistent ms={res['ms']:.3f} (walk {res['walk_ms']:.3f} = "
+            f"{res['step_ms'] * 1e3:.2f} us a step, recompute {res['recompute_ms']:.3f} = "
+            f"{res['recompute_tflops']:.0f} TFLOP/s"
+            + (f"; as a pair [{pair_plan.design}] {res['pair_ms_per_chain']:.3f} a chain"
+               if pair else "")
+            + f") step-design ms={res['step_design_ms']:.3f} plain_ms={res['plain_ms']:.3f} "
             f"library_ms(cuDNN nn.GRU({h},{h}) bf16 forward+backward less forward)="
-            f"{res['library_ms']:.3f} bound_ms={res['bound_ms']:.4f} ({res['bound_by']})")
-    del args, got, ref
+            f"{res['library_ms']:.3f} (float16: {res['library_fp16_ms']:.3f}) "
+            f"bound_ms={res['bound_ms']:.4f} ({res['bound_by']})")
+    del args, ref, other, ref_b
     torch.cuda.empty_cache()
     return res
 
@@ -581,11 +813,19 @@ def phase_bwd_kernels():
     checks = [check_bwd(gen, "small", 13, [13, 0, 1, 7, 12], 72, reverse, timed=reverse)
               for reverse in (True, False)]
     checks.append(check_bwd(gen, "small T=1", 1, [1, 0], 72, True, timed=False))
+    # H no multiple of 8 (scalar load paths), a lone row
+    checks.append(check_bwd(gen, "small H=100", 9, [9, 1, 4], 100, True, timed=False))
+    checks.append(check_bwd(gen, "small B=1", 11, [11], 64, False, timed=False))
+    # B above 128: two row blocks over the same resident slice
+    checks.append(check_bwd(gen, "small B=150", 7, [7, 0] + [1 + (i % 7) for i in range(148)],
+                            72, True, timed=False))
     for label, h in (("flagship layer", 1200), ("uni layer", 2000)):
         rng = np.random.default_rng(h + 1)
         lengths = rng.integers(1, 402, size=32)
         lengths[0], lengths[1] = 401, 1
         checks.append(check_bwd(gen, label, 401, lengths.tolist(), h, True, timed=True))
+        checks.append(check_bwd(gen, f"{label}, forward walk", 401, lengths.tolist(), h,
+                                False, timed=False, pair=False))
     return checks
 
 
@@ -901,6 +1141,7 @@ def phase_serve(card):
     )
 
     gru_cuda.gru_bidi_fused.launches = 0
+    zero_designs()
     calls = []
     for path, wave in zip(clips, clip_audio):
         t0 = time.perf_counter()
@@ -922,6 +1163,7 @@ def phase_serve(card):
         f"(expected {expected} = {config.rnn_layers} layers x dispatch groups)")
     if launches != expected:
         raise AssertionError("the main path did not run every GRU layer on the kernel")
+    require_persistent(gru_cuda.gru_bidi_fused, "flagship serving")
     serve = []
     for kind, what, samples, wall in calls:
         audio_s = samples / 16000.0
@@ -931,7 +1173,8 @@ def phase_serve(card):
             f"{audio_s / wall:.1f} audio-s/s [{card}]")
 
     profile = profile_call("one recognize_batch",
-                           lambda: rec.recognize_batch(batches[1]))
+                           lambda: rec.recognize_batch(batches[1]),
+                           groups=TRAIN_PROFILE_GROUPS)
 
     # one dispatch group of the first batch, kernel vs plain GRU on the card
     idxs, maxlen = eng._plan_groups(batches[0])[0]
@@ -1173,6 +1416,7 @@ def phase_stream(card):
     plan = accumulate(audio, config.context)
     gru_cuda.gru_scan.launches = 0
     gru_cuda.gru_bidi_fused.launches = 0
+    zero_designs()
     chunks, texts = [], []
     for chunk, first, last in plan:
         torch.cuda.synchronize()
@@ -1194,6 +1438,7 @@ def phase_stream(card):
         raise AssertionError("streaming did not run every GRU layer on its kernel")
     if not sec_runs or not texts[-1]:
         raise AssertionError("the final chunk gave no secondary-model transcript")
+    require_persistent(gru_cuda.gru_bidi_fused, "streaming rescore (flagship secondary)")
     steady = sorted(c["ms"] for c in chunks if c["kind"] == "steady")
     for kind in ("first", "final"):
         log(f"    {kind} chunk: " + ", ".join(f"{c['ms']:.2f} ms ({c['samples']} samples)"
@@ -1269,10 +1514,10 @@ TRAIN_LR = 1e-4
 GRAD_REL_TOL = 5e-2
 
 TRAIN_PROFILE_GROUPS = {
-    "B4 walk": ("gru_bwd_step_kernel",),
-    "B3 recurrence": ("gru_step_kernel",),
+    "B4 walk": ("gru_bwd_persist_kernel", "gru_bwd_step_kernel"),
+    "B3 recurrence": ("gru_persist_kernel", "gru_step_kernel"),
     "B1 recurrence": ("gru_scan_step_kernel",),
-    "WMMA GEMM (B3 projection, B4 recompute)": ("gru_proj_kernel",),
+    "tensor-core GEMM (B3 projection, B4 recompute)": ("gru_proj",),
     "CTC": ("ctc",),
     "optimizer": ("adam", "multi_tensor", "foreach"),
     # before the GEMMs: cuDNN's kernels carry "gemm" in their names too
@@ -1409,6 +1654,7 @@ def phase_train(card):
     step_fn = tr.make_wave_train_step(config, optimizer, augment=None,
                                       mixed_precision="auto", remat=True)
     torch.cuda.reset_peak_memory_stats()
+    zero_designs()
     state, steps = timed_steps("flagship", step_fn, state, batch, audio_s, 2,
                                expect, card)
     holder = {}
@@ -1433,6 +1679,8 @@ def phase_train(card):
                                    rng=torch.Generator().manual_seed(0))
     if state.step != 4:
         raise AssertionError(f"4 updates were taken, the state counts {state.step}")
+    require_persistent(gru_cuda.gru_bidi_fused, "flagship training, forward")
+    require_persistent(gru_cuda.gru_bwd_scan, "flagship training, backward walks")
     out["flagship"] = {"steps": steps, "augment_steps": aug_steps,
                        "peak_memory_bytes": peak, "audio_s": audio_s,
                        "batch_rows": TRAIN_BATCH, "lr": TRAIN_LR}
@@ -1478,9 +1726,11 @@ def phase_train(card):
     ufn = tr.make_wave_train_step(uni, optimizer, augment=None,
                                   mixed_precision="auto", remat=True)
     uexpect = dict(zero, gru_scan=2 * uni.rnn_layers, gru_bwd_scan=uni.rnn_layers)
+    zero_designs()
     ustate, usteps = timed_steps(
         f"uni {uni.rnn_layers}x{uni.rnn_hidden_size}", ufn, ustate, ubatch, uaudio, 2,
         uexpect, card)
+    require_persistent(gru_cuda.gru_bwd_scan, "uni training, backward walks (H=2000)")
     out["uni"] = {"steps": usteps, "audio_s": uaudio, "rnn_layers": uni.rnn_layers}
     del ustate, ufn
     torch.cuda.empty_cache()
@@ -1490,6 +1740,7 @@ def phase_train(card):
     loop_cfg = DeepSpeechConfig(**dict(FLAGSHIP, rnn_layers=3))
     for w in (gru_cuda.gru_bidi_fused, gru_cuda.gru_bwd_scan):
         w.launches = 0
+    zero_designs()
     with tempfile.TemporaryDirectory() as tmp:
         manifest = seeded_manifest(tmp, np.random.default_rng(11), loop_cfg.labels, 8)
         ckpt = os.path.join(tmp, "ckpt")
@@ -1523,6 +1774,8 @@ def phase_train(card):
     log(f"  loop launches: {loop_counts} (expected gru_bwd_scan {want_bwd})")
     if loop_counts["gru_bwd_scan"] != want_bwd or loop_counts["gru_bidi_fused"] <= want_bwd:
         raise AssertionError("train() did not run every GRU layer on the kernels")
+    require_persistent(gru_cuda.gru_bidi_fused, "train() loop, forward (small ragged batches)")
+    require_persistent(gru_cuda.gru_bwd_scan, "train() loop, backward walks")
     out["loop"] = {"launches": loop_counts, "log": lines}
 
     out["launches"] = sum_launches(steps, aug_steps, usteps)
@@ -1540,7 +1793,7 @@ RNN_TYPE_PROFILE_GROUPS = {
     "B5/B6 recurrence": ("lstm_step_kernel",),
     "B9 walk": ("rnn_tanh_bwd_step_kernel",),
     "B8 recurrence": ("rnn_tanh_step_kernel",),
-    "WMMA GEMM (B7 recompute)": ("gru_proj_kernel",),
+    "tensor-core GEMM (B7 recompute)": ("gru_proj_kernel",),
     "CTC": ("ctc",),
     "optimizer": ("adam", "multi_tensor", "foreach"),
     "convolution": ("conv", "cudnn", "wgrad", "dgrad", "fprop"),
@@ -1736,12 +1989,90 @@ def phase_rnn_type(card, cfg, train_steps, profile, loop):
 
 
 # ---------------------------------------------------------------------------
+# --phase-clocks: where a step of the persistent kernels spends its clocks
+# ---------------------------------------------------------------------------
+
+# the sums csrc/persist.cuh keeps when built with -DPS_PROFILE (PS_ACC(i)):
+# a step is barrier + prefetch + product + epilogue + other; the product is
+# the wait for chunks + the MMAs + the drain + the store of the partial sums
+PHASE_CLOCKS = {1: "grid barrier", 2: "prefetch of the next step's streams", 9: "product",
+                5: "  of it: waiting for a chunk", 10: "  of it: issuing the wgmmas",
+                11: "  of it: waiting for the chunk before's wgmmas",
+                6: "  of it: leaving the stage",
+                7: "  of it: drain", 8: "  of it: partial sums to shared memory",
+                3: "epilogue", 0: "other"}
+
+
+def phase_clocks(card):
+    """Builds gru_bidi_fused and gru_bwd with -DPS_PROFILE into a build
+    directory of their own, runs the persistent kernels once at the flagship
+    and the 2000-wide shapes, and prints the clocks that thread 0 of block 0
+    spent per step in each part (the instrumented build is a little slower
+    than the plain one)."""
+    import ctypes
+
+    from danspeech_tpu_torch.ops import cuda_build, gru_cuda
+
+    cuda_build.NVCC_FLAGS.append("-DPS_PROFILE")
+    cuda_build.BUILD_DIR = os.path.join(cuda_build.BUILD_DIR, "profile")
+    cuda_build.build("gru_bidi_fused", "gru_bwd")
+
+    def read(lib):
+        fn = cuda_build.load(lib).persist_prof_read
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int]
+        fn.restype = ctypes.c_int
+        buf = (ctypes.c_ulonglong * 16)()
+        rc = fn(ctypes.cast(buf, ctypes.c_void_p), 1)
+        if rc != 0:
+            raise RuntimeError(f"persist_prof_read failed: CUDA error {rc}")
+        return list(buf)
+
+    def report(tag, lib, fn, steps):
+        fn()
+        torch.cuda.synchronize()
+        read(lib)
+        ms = time_ms(fn, iters=1, warmup=0)
+        sums = read(lib)
+        step = sum(sums[i] for i in (0, 1, 2, 3, 9))
+        log(f"  {tag}: {ms:.3f} ms a call, {step / steps:.0f} clocks a step [{card}]")
+        for i, name in PHASE_CLOCKS.items():
+            log(f"    {name:40s} {sums[i] / steps:9.0f} clocks a step "
+                f"{100 * sums[i] / max(step, 1):5.1f}%")
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    t = 401
+    for b in (128, 32):
+        lengths = np.random.default_rng(1200).integers(1, 402, size=b)
+        lengths[0], lengths[1] = 401, 1
+        args = gru_layer_inputs(gen, t, b, 1200, 1200, lengths.tolist())
+        report(f"gru_bidi_fused T={t} B={b} D=1200 H=1200", "gru_bidi_fused",
+               lambda: gru_cuda.gru_bidi_fused(*args, design="persistent"), t)
+        del args
+    for h in (1200, 2000):
+        lengths = np.random.default_rng(h + 1).integers(1, 402, size=32)
+        lengths[0], lengths[1] = 401, 1
+        args = bwd_inputs(gen, t, lengths.tolist(), h)
+        report(f"gru_bwd_scan T={t} B=32 H={h}", "gru_bwd",
+               lambda: gru_cuda.gru_bwd_scan(*args, reverse=True, design="persistent"), t + 1)
+        if h == 1200:
+            other = bwd_inputs(gen, t, lengths.tolist(), h, lens=args[3])
+            report(f"gru_bwd_scan_pair T={t} B=32 H={h}", "gru_bwd",
+                   lambda: gru_cuda.gru_bwd_scan_pair(args, other, True, False), t + 1)
+            del other
+        del args
+
+
+# ---------------------------------------------------------------------------
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels", action="store_true",
                     help="run phases 1-3 only (build and kernel checks)")
+    ap.add_argument("--phase-clocks", action="store_true",
+                    help="instead of the phases: build the persistent kernels with "
+                         "-DPS_PROFILE and print where a step spends its clocks")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -1755,6 +2086,9 @@ def main(argv=None) -> int:
     log(f"card: {card}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
+    if args.phase_clocks:
+        phase_clocks(card)
+        return 0
 
     # phase 2
     t0 = time.perf_counter()
@@ -1766,7 +2100,8 @@ def main(argv=None) -> int:
                 log(f"  {name}: {line.strip()}")
 
     # phase 3
-    log("phase 3: kernels vs plain versions")
+    log("phase 3: the grid barrier alone, then kernels vs plain versions")
+    barrier = phase_barrier()
     gru_checks = phase_kernels()
     scan_checks = phase_scan_kernels()
     bidi_checks = phase_scan_bidi_kernels()
@@ -1802,7 +2137,12 @@ def main(argv=None) -> int:
 
     def entry(name, checks, main_label):
         main = next(c for c in checks if c.get("label") == main_label)
+        extra = {k: main[k] for k in (
+            "library_fp16_ms", "design", "step_ms", "step_design_ms", "recurrence_ms",
+            "walk_ms", "projection_ms", "projection_tflops", "recompute_ms",
+            "recompute_tflops", "pair_ms_per_chain", "plan") if k in main}
         return {
+            **extra,
             "name": name, "route": "cuda",
             "source": f"danspeech_tpu_torch/csrc/{SOURCES[name]}.cu",
             "replaces": f"danspeech_tpu/ops/pallas_gru.py:{REPLACES[name]}",
@@ -1814,7 +2154,7 @@ def main(argv=None) -> int:
             "shapes": checks,
         }
 
-    gru_checks[1]["label"] = "flagship layer 0"
+    next(c for c in gru_checks if c["shape"]["D"] == 2016)["label"] = "flagship layer 0"
     kernels = [
         entry("gru_bidi_fused", gru_checks, "flagship layer 0"),
         entry("gru_scan", scan_checks, "uni batch layer"),
@@ -1827,7 +2167,7 @@ def main(argv=None) -> int:
         entry("rnn_tanh_bwd_scan", rnn_type_checks["rnn_tanh_bwd_scan"], "train layer"),
     ]
     log(card)  # as nvidia-smi prints it: name, power limit
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernels, "barrier_us": barrier["us"]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

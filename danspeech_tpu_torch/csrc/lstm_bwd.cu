@@ -28,7 +28,7 @@
 //   0.10 ms at 3.35 TB/s: bound by operations, closely.
 // - The gate recompute hprev_t @ w_hh does not depend on the walk (hprev is
 //   the stored forward stream), so it runs for all t at once, before the
-//   walk, as one tiled WMMA GEMM (gru_proj_kernel, gru_proj.cuh), bound by
+//   walk, as one tiled tensor-core GEMM (gru_proj_kernel, gru_proj.cuh), bound by
 //   the tensor cores. It writes gh into the dg4 output buffer: each
 //   (t, b, j) is read back and overwritten with the gate gradient by the one
 //   thread that owns it, so the walk needs no (T, B, 4H) scratch of its own.
@@ -153,12 +153,11 @@ extern "C" int lstm_bwd_launch(
   const int M = T * B;
   const int N = 4 * H;
   // gh = hprev @ w_hh for every step, into the dg4 buffer
-  dim3 pgrid((N + P_BN - 1) / P_BN, (M + P_BM - 1) / P_BM, 1);
-  gru_proj_kernel<<<pgrid, P_THREADS, 0, s>>>(
+  int rc = gru_proj_launch(
       static_cast<const bf16*>(hprev), static_cast<const bf16*>(w_hh),
-      static_cast<const bf16*>(w_hh), static_cast<float*>(dg4), M, N, H);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+      static_cast<const bf16*>(w_hh), static_cast<float*>(dg4), M, N, H, 1, s);
+  if (rc != 0) return rc;
+  cudaError_t err;
 
   const size_t psz = (size_t)B * H;
   const size_t gsz = (size_t)B * N;

@@ -14,10 +14,16 @@ The ports of four kernels of ``danspeech_tpu/ops/pallas_gru.py``:
   walk of one chain for training.
 
 Each source's header note says what bounds it on an H100 and what the
-design does about it. A wrapper launches its kernel for CUDA tensors and
-raises on anything the kernel does not take; for CPU tensors, and only for
-those, it runs the plain version. There is no fallback from a failed build
-or launch to the plain version.
+design does about it. ``gru_bidi_fused`` and ``gru_bwd_scan`` have two
+designs: "persistent" (one cooperative launch walks every step, the weights
+resident in shared memory, ``csrc/persist.cuh``) and "step" (one launch per
+time step). ``persist_plan`` chooses between them from the shape and the
+device's SM count and shared memory, never after a failed launch; the
+``design=`` argument of the wrappers overrides the choice for checks. A
+wrapper launches its kernel for CUDA tensors and raises on anything the
+kernel does not take; for CPU tensors, and only for those, it runs the plain
+version. There is no fallback from a failed build or launch to the plain
+version.
 """
 
 from __future__ import annotations
@@ -26,8 +32,27 @@ import ctypes
 
 import torch
 
-from . import cuda_build
+from . import cuda_build, persist_plan
 from .cuda_checks import check_tensors as _check_tensors
+
+_device_info: dict[int, tuple[int, int]] = {}
+
+
+def device_info(device: torch.device) -> tuple[int, int]:
+    """(SM count, bytes of shared memory one block may opt in to) of a CUDA
+    device, as the CUDA runtime reports them."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _device_info:
+        fn = cuda_build.load("gru_bwd").persist_device_info
+        fn.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
+        fn.restype = ctypes.c_int
+        sms, smem = ctypes.c_int(0), ctypes.c_int(0)
+        with torch.cuda.device(index):
+            rc = fn(ctypes.byref(sms), ctypes.byref(smem))
+        if rc != 0:
+            raise RuntimeError(f"persist_device_info failed: CUDA error {rc}")
+        _device_info[index] = (sms.value, smem.value)
+    return _device_info[index]
 
 
 def gru_bidi_fused_plain(
@@ -104,25 +129,20 @@ def _check_operands(x, lengths, w_ih_f, w_ih_b, w_hh_f, w_hh_b, biases):
     _check_tensors("x", expect)
 
 
-def _bind_bidi_fused():
-    lib = cuda_build.load("gru_bidi_fused")
-    fn = lib.gru_bidi_fused_launch
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
-
-
 def gru_bidi_fused(
-    x, lengths, w_ih_f, w_ih_b, w_hh_f, w_hh_b, b_ih_f, b_ih_b, b_hh_f, b_hh_b
+    x, lengths, w_ih_f, w_ih_b, w_hh_f, w_hh_b, b_ih_f, b_ih_b, b_hh_f, b_hh_b,
+    design: str | None = None,
 ):
     """Both directions of one GRU layer from its raw input, h0 = 0.
 
     Same contract and return values as :func:`gru_bidi_fused_plain`. A CUDA
     ``x`` launches the kernel (bf16 x and weights, f32 biases, int32
     lengths, all contiguous on x's device) or raises; a CPU ``x`` runs the
-    plain version. ``gru_bidi_fused.launches`` counts kernel launches (one
-    per call: the projection and the T step kernels of one layer).
+    plain version. ``design`` is None (the plan of
+    :func:`persist_plan.plan_gru_forward` decides), "persistent" or "step";
+    ``gru_bidi_fused.design_counts`` counts the CUDA calls by the design taken.
+    ``gru_bidi_fused.launches`` counts kernel launches (one per call: the
+    projection and the recurrence of one layer).
     """
     args = (w_ih_f, w_ih_b, w_hh_f, w_hh_b, b_ih_f, b_ih_b, b_hh_f, b_hh_b)
     if x.device.type == "cpu":
@@ -130,35 +150,59 @@ def gru_bidi_fused(
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     _check_operands(x, lengths, w_ih_f, w_ih_b, w_hh_f, w_hh_b, args[4:])
-    launch = _bind_bidi_fused()
 
     t_max, batch, d_in = x.shape
     hidden = w_hh_f.shape[0]
     dev = x.device
+    planned = persist_plan.plan_gru_forward(hidden, batch, *device_info(dev))
+    design = persist_plan.choose(design, planned)
+    persistent = design == "persistent"
     # gx in f32 for both directions: 1.5 GB at T=401, B=128, H=1200
     gx = torch.empty((2, t_max, batch, 3 * hidden), dtype=torch.float32, device=dev)
-    h32 = torch.zeros((2, 2, batch, hidden), dtype=torch.float32, device=dev)
-    h16 = torch.zeros((2, 2, batch, hidden), dtype=torch.bfloat16, device=dev)
     out = torch.empty((2, t_max, batch, hidden), dtype=torch.bfloat16, device=dev)
+    if persistent:
+        launch = cuda_build.bind("gru_bidi_fused", "gru_bidi_fused_persist_launch", 16, 10)
+        # the resident slices are rows of w_hh^T; f32 h is updated in place
+        w_f, w_b = w_hh_f.t().contiguous(), w_hh_b.t().contiguous()
+        # rows of x that start on 16 bytes: the projection reads both operands
+        # depth-contiguous through the copy engine (wgmma), else as they lie
+        w_iht = None
+        if d_in % 8 == 0 and x.data_ptr() % 16 == 0:
+            w_iht = torch.stack([w_ih_f.t(), w_ih_b.t()]).contiguous()
+        h32 = torch.zeros((2, batch, hidden), dtype=torch.float32, device=dev)
+        h16 = torch.empty((2, 2, batch, hidden), dtype=torch.bfloat16, device=dev)
+        barrier = torch.zeros((2,), dtype=torch.int32, device=dev)
+        tail = (barrier.data_ptr(), None if w_iht is None else w_iht.data_ptr(),
+                t_max, batch, d_in, hidden, planned.units,
+                planned.row_groups, planned.stages, planned.chunk_depth,
+                planned.blocks_per_dir, planned.smem_bytes)
+    else:
+        launch = cuda_build.bind("gru_bidi_fused", "gru_bidi_fused_launch", 14, 4)
+        w_f, w_b = w_hh_f, w_hh_b
+        h32 = torch.zeros((2, 2, batch, hidden), dtype=torch.float32, device=dev)
+        h16 = torch.zeros((2, 2, batch, hidden), dtype=torch.bfloat16, device=dev)
+        tail = (t_max, batch, d_in, hidden)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = launch(
             x.data_ptr(), lengths.data_ptr(),
-            w_ih_f.data_ptr(), w_ih_b.data_ptr(),
-            w_hh_f.data_ptr(), w_hh_b.data_ptr(),
+            w_ih_f.data_ptr(), w_ih_b.data_ptr(), w_f.data_ptr(), w_b.data_ptr(),
             b_ih_f.data_ptr(), b_ih_b.data_ptr(),
             b_hh_f.data_ptr(), b_hh_b.data_ptr(),
             gx.data_ptr(), h32.data_ptr(), h16.data_ptr(), out.data_ptr(),
-            t_max, batch, d_in, hidden, stream,
+            *tail, stream,
         )
     if rc != 0:
-        raise RuntimeError(f"gru_bidi_fused launch failed: CUDA error {rc}")
+        raise RuntimeError(f"gru_bidi_fused ({design}) launch failed: CUDA error {rc}")
     gru_bidi_fused.launches += 1
-    last = h32[t_max % 2]  # the buffer the final step wrote
+    gru_bidi_fused.design_counts[design] += 1
+    # step design: the buffer the final step wrote
+    last = h32 if persistent else h32[t_max % 2]
     return out[0], out[1], last[0], last[1]
 
 
 gru_bidi_fused.launches = 0
+gru_bidi_fused.design_counts = {"persistent": 0, "step": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -416,33 +460,7 @@ def gru_bwd_scan_plain(
     return dgx, dghn, dh
 
 
-def _bind_bwd():
-    lib = cuda_build.load("gru_bwd")
-    fn = lib.gru_bwd_launch
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
-
-
-def gru_bwd_scan(
-    gx, hprev, dout, lengths, w_hh, b_ih, b_hh, dh_last, reverse: bool = True
-):
-    """The backward walk of one GRU chain.
-
-    Same contract and return values as :func:`gru_bwd_scan_plain`. A CUDA
-    ``gx`` launches the kernel (bf16 gx, hprev and w_hh, f32 dout, biases
-    and dh_last, int32 lengths, all contiguous on gx's device) or raises; a
-    CPU ``gx`` runs the plain version. ``gru_bwd_scan.launches`` counts
-    kernel launches (one per call: the gate-recompute product and the T + 1
-    step kernels of one chain).
-    """
-    if gx.device.type == "cpu":
-        return gru_bwd_scan_plain(
-            gx, hprev, dout, lengths, w_hh, b_ih, b_hh, dh_last, reverse
-        )
-    if gx.device.type != "cuda":
-        raise ValueError(f"unsupported device {gx.device}")
+def _check_bwd_operands(gx, hprev, dout, lengths, w_hh, b_ih, b_hh, dh_last):
     _check_scan_operands(gx, lengths, w_hh, b_ih, b_hh, dh_last)
     t_max, batch, _ = gx.shape
     hidden = w_hh.shape[0]
@@ -453,8 +471,56 @@ def gru_bwd_scan(
         "hprev": (hprev, (t_max, batch, hidden), torch.bfloat16),
         "dout": (dout, (t_max, batch, hidden), torch.float32),
     })
-    launch = _bind_bwd()
 
+
+def _bwd_persistent(chains, reverses, planned):
+    """The persistent walk of one or two chains that share T, B, H and
+    lengths, in one launch. ``chains`` holds the operand tuples of
+    :func:`gru_bwd_scan`; returns one (dgx, dghn, dh0) per chain."""
+    launch = cuda_build.bind("gru_bwd", "gru_bwd_persist_launch", 23, 12)
+    gx, _, _, lengths, w_hh = chains[0][:5]
+    t_max, batch, _ = gx.shape
+    hidden = w_hh.shape[0]
+    dev = gx.device
+    n = len(chains)
+    outs = []
+    for c in chains:
+        dh0 = c[7].clone()  # dh_last on entry, the carry in place, dh0 on exit
+        dgx = torch.empty((t_max, batch, 3 * hidden), dtype=torch.float32, device=dev)
+        dghn = torch.empty((t_max, batch, hidden), dtype=torch.float32, device=dev)
+        outs.append((dgx, dghn, dh0))
+    dgh = torch.empty((2, n, batch, 3 * hidden), dtype=torch.bfloat16, device=dev)
+    barrier = torch.zeros((n,), dtype=torch.int32, device=dev)
+    # rows of hprev that start on 16 bytes: the gate recompute reads both
+    # operands depth-contiguous through the copy engine (wgmma), else as they lie
+    w_hht = [None, None]
+    if hidden % 8 == 0 and all(c[1].data_ptr() % 16 == 0 for c in chains):
+        w_hht = ([c[4].t().contiguous() for c in chains] * 2)[:2]
+
+    def pair(i, of_outs=False):
+        src = outs if of_outs else chains
+        return [src[k][i].data_ptr() for k in (0, n - 1)]
+
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = launch(
+            *pair(0), *pair(1), *pair(2), lengths.data_ptr(), *pair(4), *pair(5),
+            *pair(6), *pair(2, True), dgh.data_ptr(), *pair(0, True),
+            *pair(1, True), barrier.data_ptr(),
+            *(None if w is None else w.data_ptr() for w in w_hht),
+            t_max, batch, hidden, int(bool(reverses[0])), int(bool(reverses[-1])),
+            n, planned.units, planned.row_groups, planned.stages, planned.chunk_depth,
+            planned.blocks_per_dir, planned.smem_bytes, stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"gru_bwd_scan (persistent) launch failed: CUDA error {rc}")
+    return outs
+
+
+def _bwd_step(gx, hprev, dout, lengths, w_hh, b_ih, b_hh, dh_last, reverse):
+    launch = cuda_build.bind("gru_bwd", "gru_bwd_launch", 12, 4)
+    t_max, batch, _ = gx.shape
+    hidden = w_hh.shape[0]
     dev = gx.device
     w_hht = w_hh.t().contiguous()
     part = torch.empty((2, batch, hidden), dtype=torch.float32, device=dev)
@@ -472,9 +538,75 @@ def gru_bwd_scan(
             t_max, batch, hidden, int(bool(reverse)), stream,
         )
     if rc != 0:
-        raise RuntimeError(f"gru_bwd_scan launch failed: CUDA error {rc}")
-    gru_bwd_scan.launches += 1
+        raise RuntimeError(f"gru_bwd_scan (step) launch failed: CUDA error {rc}")
     return dgx, dghn, part[(t_max + 1) % 2]
 
 
+def gru_bwd_scan(
+    gx, hprev, dout, lengths, w_hh, b_ih, b_hh, dh_last, reverse: bool = True,
+    design: str | None = None,
+):
+    """The backward walk of one GRU chain.
+
+    Same contract and return values as :func:`gru_bwd_scan_plain`. A CUDA
+    ``gx`` launches the kernel (bf16 gx, hprev and w_hh, f32 dout, biases
+    and dh_last, int32 lengths, all contiguous on gx's device) or raises; a
+    CPU ``gx`` runs the plain version. ``design`` is None (the plan of
+    :func:`persist_plan.plan_gru_backward` decides), "persistent" or "step";
+    ``gru_bwd_scan.design_counts`` counts the chains by the design taken.
+    ``gru_bwd_scan.launches`` counts kernel launches (one per chain: the
+    gate-recompute product and the walk).
+    """
+    args = (gx, hprev, dout, lengths, w_hh, b_ih, b_hh, dh_last)
+    if gx.device.type == "cpu":
+        return gru_bwd_scan_plain(*args, reverse)
+    if gx.device.type != "cuda":
+        raise ValueError(f"unsupported device {gx.device}")
+    _check_bwd_operands(*args)
+    planned = persist_plan.plan_gru_backward(
+        w_hh.shape[0], gx.shape[1], 1, *device_info(gx.device))
+    design = persist_plan.choose(design, planned)
+    if design == "persistent":
+        result = _bwd_persistent([args], [reverse], planned)[0]
+    else:
+        result = _bwd_step(*args, reverse)
+    gru_bwd_scan.launches += 1
+    gru_bwd_scan.design_counts[design] += 1
+    return result
+
+
 gru_bwd_scan.launches = 0
+gru_bwd_scan.design_counts = {"persistent": 0, "step": 0}
+
+
+def gru_bwd_scan_pair(chain_a, chain_b, reverse_a: bool, reverse_b: bool,
+                      design: str | None = None):
+    """The backward walks of the two chains of a bidirectional layer.
+
+    ``chain_a`` and ``chain_b`` are the operand tuples (gx, hprev, dout,
+    lengths, w_hh, b_ih, b_hh, dh_last) of :func:`gru_bwd_scan`, over the
+    same lengths tensor and shapes. Returns ((dgx, dghn, dh0) of a, the same
+    of b), each as :func:`gru_bwd_scan` would return it. On CUDA both walks
+    share one persistent launch when the plan for two chains fits (each
+    chain has its own barrier: the step count on the critical path halves);
+    otherwise, and for ``design="step"``, they run one after the other as two
+    :func:`gru_bwd_scan` calls. Either way ``gru_bwd_scan.launches`` grows by
+    two: it counts chains.
+    """
+    if chain_a[0].device.type != "cuda":
+        return (gru_bwd_scan(*chain_a, reverse=reverse_a),
+                gru_bwd_scan(*chain_b, reverse=reverse_b))
+    _check_bwd_operands(*chain_a)
+    _check_bwd_operands(*chain_b)
+    if chain_a[0].shape != chain_b[0].shape or chain_a[3] is not chain_b[3]:
+        raise ValueError("the two chains must share their shapes and lengths")
+    planned = persist_plan.plan_gru_backward(
+        chain_a[4].shape[0], chain_a[0].shape[1], 2, *device_info(chain_a[0].device))
+    if design == "step" or planned.design != "persistent":
+        return (gru_bwd_scan(*chain_a, reverse=reverse_a, design=design),
+                gru_bwd_scan(*chain_b, reverse=reverse_b, design=design))
+    persist_plan.choose(design, planned)
+    outs = _bwd_persistent([chain_a, chain_b], [reverse_a, reverse_b], planned)
+    gru_bwd_scan.launches += 2
+    gru_bwd_scan.design_counts["persistent"] += 2
+    return outs[0], outs[1]

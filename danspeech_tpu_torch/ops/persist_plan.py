@@ -1,0 +1,181 @@
+"""The host-side plan of a persistent recurrence (``csrc/persist.cuh``).
+
+A persistent kernel walks every step of a recurrence in one cooperative
+launch: each block keeps a gate-aligned slice of the recurrent weights in
+shared memory for the whole walk and streams the step's left operand through
+a ring beside it. Whether a shape can run that way, and how it is cut over
+the card, is decided here, before any launch, from the shape and two
+properties of the device (its SM count and the shared memory one block may
+use). :func:`plan` is a pure function: the tests call it with an H100's
+figures (:data:`H100_SMS`, :data:`H100_SMEM_OPTIN`) and no device.
+
+The rule: one block per SM. Take the smallest number of units per block, a
+multiple of 8 (the step of a wgmma's width), whose blocks (ceil(H / units) per
+direction, times the directions) are no more than the SMs; the shape runs
+persistently if that slice, a ring beside it and the kernel's template range
+hold it, else it takes the ``"step"`` design (one launch per time step). The
+ring takes what the slice leaves free, up to six stages. A chunk costs the
+copy engine a fixed time whatever its size, so chunks are as deep as leaves
+three stages: 128 per warpgroup, else 64, else (where the two warpgroups
+split the depth: a chunk is read in boxes 64 deep) 32, of which two must fit. The
+partial sums of a product lie over the ring. Fewer units per block would need
+more blocks than can be co-resident; more would only use fewer SMs.
+
+The constants mirror ``csrc/persist.cuh``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+THREADS = 256       # PS_THREADS: the 8 multiplying warps (a block has one more)
+WARPGROUPS = 2      # of 4 warps each; a warpgroup multiplies 64 rows at a time
+GROUP_ROWS = 64
+KC_CHOICES = (128, 64, 32)  # depth one warpgroup covers of a ring chunk, by preference
+MAX_STAGES = 6      # PS_MAX_STAGES
+BOX = 64            # PS_BOX: depth of one swizzled tile of the operand and the slice
+UNIT_STEP = 8       # units per block come in tiles of 8 columns
+MAX_ROWS = 128      # rows of the left operand per row block (2 warpgroups)
+STATIC_RESERVE = 1024  # bytes kept free for a kernel's static shared memory
+
+H100_SMS = 132
+H100_SMEM_OPTIN = 232_448
+
+DESIGNS = ("persistent", "step")
+
+
+@dataclasses.dataclass(frozen=True)
+class PersistPlan:
+    """How one recurrence is cut over the card. ``design`` is "persistent"
+    or "step"; for "step" the sizes describe the candidate that did not fit
+    (zeros if there was none) and ``reason`` says why."""
+
+    design: str
+    reason: str
+    units: int = 0            # hidden units per block
+    blocks_per_dir: int = 0
+    grid: int = 0             # blocks_per_dir * directions
+    row_groups: int = 0       # warpgroups along the rows of a row block: 1 or 2
+    k_splits: int = 0         # depth slices per chunk: 2 / row_groups
+    rows_per_block: int = 0   # row_groups * 64
+    row_blocks: int = 0       # ceil(batch / rows_per_block)
+    depth_padded: int = 0     # depth rounded up to 64
+    stages: int = 0           # ring stages: 2 .. MAX_STAGES
+    chunk_depth: int = 0      # depth one warpgroup covers of a ring chunk: 128, 64 or 32
+    slice_bytes: int = 0      # the resident weight slice
+    ring_bytes: int = 0       # stages * one chunk of the left operand
+    staging_bytes: int = 0    # the partial sums (they lie over the ring)
+    work_bytes: int = 0       # the larger of ring and partial sums: the slice's offset
+    smem_bytes: int = 0       # work + slice: dynamic shared memory per block
+
+    def owner(self, unit: int) -> int:
+        """The block (within its direction) that owns hidden unit ``unit``."""
+        return unit // self.units
+
+    def columns(self, block: int, hidden: int, gates: int) -> list[int]:
+        """The columns of the (depth, gates * hidden) matrix that block
+        ``block`` keeps resident, in shared-memory row order."""
+        j0 = block * self.units
+        return [g * hidden + j for g in range(gates)
+                for j in range(j0, min(j0 + self.units, hidden))]
+
+
+def row_groups_for(batch: int) -> int:
+    """Warpgroups along the rows: one (the two split the depth) for a batch
+    of up to 64 rows, two (row blocks of 128) above."""
+    return 1 if batch <= GROUP_ROWS else 2
+
+
+def plan(hidden: int, batch: int, gates: int, depth: int, directions: int,
+         sm_count: int, smem_optin: int, max_tiles: int) -> PersistPlan:
+    """The plan of one recurrence.
+
+    ``hidden`` units, each owning ``gates`` columns of a weight matrix that is
+    ``depth`` deep (forward GRU: 3 gates, depth H; its backward walk: 1
+    column, depth 3H); ``batch`` rows in the left operand; ``directions``
+    chains in the launch; ``max_tiles`` the widest slice, in tiles of 8
+    columns, that the kernel is compiled for.
+    """
+    if min(hidden, batch, gates, depth, directions, sm_count) < 1:
+        raise ValueError("hidden, batch, gates, depth, directions and sm_count "
+                         "must be positive")
+    per_dir = sm_count // directions
+    if per_dir < 1:
+        return PersistPlan("step", f"{directions} directions on {sm_count} SMs")
+    units = -(-hidden // per_dir)                  # ceil(H / blocks allowed)
+    units = -(-units // UNIT_STEP) * UNIT_STEP     # up to a multiple of 8
+    blocks = -(-hidden // units)
+    row_groups = row_groups_for(batch)
+    cols = gates * units
+    k_splits = WARPGROUPS // row_groups
+    rows = row_groups * GROUP_ROWS
+    depth_padded = -(-depth // BOX) * BOX
+    slice_bytes = cols * depth_padded * 2
+    staging_bytes = k_splits * rows * (cols + 1) * 4  # a plane per depth split
+    sizes = dict(
+        units=units, blocks_per_dir=blocks, grid=blocks * directions,
+        row_groups=row_groups, k_splits=k_splits, rows_per_block=rows,
+        row_blocks=-(-batch // rows), depth_padded=depth_padded,
+        slice_bytes=slice_bytes, staging_bytes=staging_bytes,
+    )
+    if cols // UNIT_STEP > max_tiles:
+        return PersistPlan(
+            "step", f"{units} units x {gates} gates = {cols // UNIT_STEP} tiles, "
+            f"the kernel holds {max_tiles}", **sizes)
+    budget = smem_optin - STATIC_RESERVE - slice_bytes
+    # the slice starts on 1024 bytes: its swizzle counts rows from there
+    staging_bytes = -(-staging_bytes // 1024) * 1024
+    sizes["staging_bytes"] = staging_bytes
+    stage_bytes = 0
+    for kc in KC_CHOICES:
+        least = 2 if kc == KC_CHOICES[-1] else 3  # stages a chunk depth must leave room for
+        if (k_splits * kc) % BOX:
+            continue
+        if kc != KC_CHOICES[-1] and k_splits * kc >= 2 * depth_padded:
+            continue  # a chunk twice as deep as the whole product is mostly zeros
+        stage_bytes = rows * k_splits * kc * 2
+        stages = min(MAX_STAGES, budget // stage_bytes)
+        work = max(stages * stage_bytes, staging_bytes)
+        if stages >= least and work <= budget:
+            return PersistPlan(
+                "persistent", "fits", stages=stages, chunk_depth=kc,
+                ring_bytes=stages * stage_bytes, work_bytes=work,
+                smem_bytes=work + slice_bytes, **sizes)
+    work = max(2 * stage_bytes, staging_bytes)
+    return PersistPlan(
+        "step", f"slice {slice_bytes} B + ring and partial sums {work} B of "
+        f"{smem_optin - STATIC_RESERVE} B a block", stages=2,
+        chunk_depth=KC_CHOICES[-1], ring_bytes=2 * stage_bytes, work_bytes=work,
+        smem_bytes=slice_bytes + work, **sizes)
+
+
+# the widest slices the kernels are compiled for (the switch statements of the
+# host entries), in MMA tiles of 8 columns
+GRU_FWD_MAX_TILES = 18   # csrc/gru_bidi_fused.cu: 3 gates x up to 48 units
+GRU_BWD_MAX_TILES = 8    # csrc/gru_bwd.cu: up to 64 units
+
+
+def plan_gru_forward(hidden, batch, sm_count, smem_optin) -> PersistPlan:
+    """Both chains of a bidirectional GRU layer (``gru_bidi_fused``): per
+    direction h (B, H) @ w_hh (H, 3H)."""
+    return plan(hidden, batch, 3, hidden, 2, sm_count, smem_optin,
+                GRU_FWD_MAX_TILES)
+
+
+def plan_gru_backward(hidden, batch, chains, sm_count, smem_optin) -> PersistPlan:
+    """The backward walk of ``chains`` (1 or 2) GRU chains (``gru_bwd_scan``):
+    per chain dgh (B, 3H) @ w_hh^T (3H, H)."""
+    return plan(hidden, batch, 1, 3 * hidden, chains, sm_count, smem_optin,
+                GRU_BWD_MAX_TILES)
+
+
+def choose(design: str | None, planned: PersistPlan) -> str:
+    """The design a wrapper takes: the plan's when ``design`` is None, else
+    the one asked for, which must be one the plan allows ("step" always is)."""
+    if design is None:
+        return planned.design
+    if design not in DESIGNS:
+        raise ValueError(f"unknown design {design!r}: one of {DESIGNS} or None")
+    if design == "persistent" and planned.design != "persistent":
+        raise ValueError(f"the persistent design does not fit: {planned.reason}")
+    return design

@@ -86,27 +86,25 @@ def _shift_chain(seq: torch.Tensor, chain_reverse: bool) -> torch.Tensor:
     return torch.cat([zeros, seq[:-1]])
 
 
-def _gru_dir_grads(x, lengths, w: GRUWeights, out_dir, dout, dh_last,
-                   chain_reverse: bool, impl: str):
-    """Gradients of one direction: the backward walk over the recomputed
-    bias-free projection, then the weight, bias and input gradients as
-    matrix products over its streams (JAX ``rnn.py:_gru_dir_grads``).
-    ``out_dir`` is the direction's output in the stream dtype, ``dout`` and
-    ``dh_last`` the cotangents of the output and of h_last. Returns (dx f32,
-    GRUWeights of gradients in the weights' dtypes)."""
-    t_max, batch, d_in = x.shape
-    hidden = w.w_hh.shape[0]
-    mm_dtype = w.w_ih.dtype
-    x_mm = x.to(mm_dtype)
+def _gru_walk_operands(x, lengths, w: GRUWeights, out_dir, dout, dh_last,
+                       chain_reverse: bool):
+    """The operands of one direction's backward walk (``gru_bwd_scan``): the
+    recomputed bias-free projection, the state before each step, and the
+    cotangents. Returns (operand tuple, x in the weights' dtype)."""
+    x_mm = x.to(w.w_ih.dtype)
     gx = torch.matmul(x_mm, w.w_ih)  # cheaper to recompute than to save
     hprev = _shift_chain(out_dir, chain_reverse)
-    run = gru_cuda.gru_bwd_scan if impl == "auto" else gru_cuda.gru_bwd_scan_plain
-    dgx, dghn, _ = run(
-        gx.contiguous(), hprev, dout.float().contiguous(), lengths, w.w_hh,
-        w.b_ih.float(), w.b_hh.float(), dh_last.float().contiguous(),
-        # the walk runs opposite the chain's own order
-        reverse=not chain_reverse,
-    )
+    return (gx.contiguous(), hprev, dout.float().contiguous(), lengths, w.w_hh,
+            w.b_ih.float(), w.b_hh.float(), dh_last.float().contiguous()), x_mm
+
+
+def _gru_weight_grads(x_mm, w: GRUWeights, hprev, dgx, dghn):
+    """The weight, bias and input gradients of one direction as matrix
+    products over the walk's streams. Returns (dx f32, GRUWeights of
+    gradients in the weights' dtypes)."""
+    t_max, batch, d_in = x_mm.shape
+    hidden = w.w_hh.shape[0]
+    mm_dtype = w.w_ih.dtype
     db_ih = dgx.sum(dim=(0, 1))
     db_hh = torch.cat([db_ih[: 2 * hidden], dghn.sum(dim=(0, 1))])
     dgx_mm = dgx.to(mm_dtype).reshape(t_max * batch, 3 * hidden)
@@ -122,6 +120,40 @@ def _gru_dir_grads(x, lengths, w: GRUWeights, out_dir, dout, dh_last,
         b_ih=db_ih.to(w.b_ih.dtype), b_hh=db_hh.to(w.b_hh.dtype),
     )
     return dx, grads
+
+
+def _gru_dir_grads(x, lengths, w: GRUWeights, out_dir, dout, dh_last,
+                   chain_reverse: bool, impl: str):
+    """Gradients of one direction: the backward walk over the recomputed
+    bias-free projection, then the weight, bias and input gradients as
+    matrix products over its streams (JAX ``rnn.py:_gru_dir_grads``).
+    ``out_dir`` is the direction's output in the stream dtype, ``dout`` and
+    ``dh_last`` the cotangents of the output and of h_last. Returns (dx f32,
+    GRUWeights of gradients in the weights' dtypes)."""
+    ops, x_mm = _gru_walk_operands(x, lengths, w, out_dir, dout, dh_last,
+                                   chain_reverse)
+    run = gru_cuda.gru_bwd_scan if impl == "auto" else gru_cuda.gru_bwd_scan_plain
+    # the walk runs opposite the chain's own order
+    dgx, dghn, _ = run(*ops, reverse=not chain_reverse)
+    return _gru_weight_grads(x_mm, w, ops[1], dgx, dghn)
+
+
+def _gru_bidi_grads(x, lengths, fwd: GRUWeights, bwd: GRUWeights, out_f, out_b,
+                    d_out, d_hl, impl: str):
+    """Gradients of both directions of a bidirectional layer. On the kernel
+    path the two backward walks share one launch where the plan allows
+    (``gru_cuda.gru_bwd_scan_pair``). Returns ((dx, grads) forward chain,
+    (dx, grads) reverse-time chain), each as :func:`_gru_dir_grads`."""
+    if impl != "auto":
+        return (_gru_dir_grads(x, lengths, fwd, out_f, d_out, d_hl[0], False, impl),
+                _gru_dir_grads(x, lengths, bwd, out_b, d_out, d_hl[1], True, impl))
+    ops_f, x_mm = _gru_walk_operands(x, lengths, fwd, out_f, d_out, d_hl[0], False)
+    ops_b, x_mm_b = _gru_walk_operands(x, lengths, bwd, out_b, d_out, d_hl[1], True)
+    (dgx_f, dghn_f, _), (dgx_b, dghn_b, _) = gru_cuda.gru_bwd_scan_pair(
+        ops_f, ops_b, reverse_a=True, reverse_b=False)
+    res_f = _gru_weight_grads(x_mm, fwd, ops_f[1], dgx_f, dghn_f)
+    del dgx_f, dghn_f
+    return res_f, _gru_weight_grads(x_mm_b, bwd, ops_b[1], dgx_b, dghn_b)
 
 
 class _GRUBidiSum(torch.autograd.Function):
@@ -147,10 +179,8 @@ class _GRUBidiSum(torch.autograd.Function):
     def backward(ctx, d_out, d_hl):
         x, lengths, out_f, out_b, *weights = ctx.saved_tensors
         fwd, bwd = GRUWeights(*weights[:4]), GRUWeights(*weights[4:])
-        dx_f, dfwd = _gru_dir_grads(x, lengths, fwd, out_f, d_out, d_hl[0],
-                                    False, ctx.impl)
-        dx_b, dbwd = _gru_dir_grads(x, lengths, bwd, out_b, d_out, d_hl[1],
-                                    True, ctx.impl)
+        (dx_f, dfwd), (dx_b, dbwd) = _gru_bidi_grads(
+            x, lengths, fwd, bwd, out_f, out_b, d_out, d_hl, ctx.impl)
         return (None, (dx_f + dx_b).to(x.dtype), None, *dfwd, *dbwd)
 
 

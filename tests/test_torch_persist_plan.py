@@ -1,0 +1,190 @@
+"""The host-side plan of the persistent recurrences (ops/persist_plan.py),
+with an H100's figures passed in: no CUDA device is needed.
+
+Every hidden unit is owned by exactly one block and its columns are
+gate-aligned; the slice and the ring (with the partial sums over it) stay
+within the shared memory a block may use; the grid stays within one block
+per SM; a width that cannot fit is reported as "step".
+"""
+
+import pytest
+
+from danspeech_tpu_torch.ops import persist_plan as pp
+
+SMS, SMEM = pp.H100_SMS, pp.H100_SMEM_OPTIN
+
+# (hidden, batch): the flagship serving and training shapes, H=800, H=2000
+# where it fits, small and odd shapes
+FORWARD_FITS = [(1200, 128), (1200, 32), (1200, 8), (1200, 1), (1200, 200),
+                (800, 128), (800, 32), (64, 5), (72, 1), (100, 3), (7, 2), (528, 16)]
+# (hidden, batch, chains)
+BACKWARD_FITS = [(1200, 32, 1), (1200, 32, 2), (1200, 8, 2), (1200, 128, 1),
+                 (2000, 32, 1), (2000, 8, 1), (800, 32, 1), (800, 32, 2),
+                 (72, 5, 1), (72, 5, 2), (100, 3, 1), (64, 1, 1), (7, 2, 2)]
+
+
+def _plans():
+    for h, b in FORWARD_FITS:
+        yield pytest.param(pp.plan_gru_forward(h, b, SMS, SMEM), h, b, 3, h, 2,
+                           id=f"forward-H{h}-B{b}")
+    for h, b, c in BACKWARD_FITS:
+        yield pytest.param(pp.plan_gru_backward(h, b, c, SMS, SMEM), h, b, 1, 3 * h, c,
+                           id=f"backward-H{h}-B{b}-chains{c}")
+
+
+@pytest.mark.parametrize("plan,hidden,batch,gates,depth,directions", _plans())
+def test_plan_fits_the_card(plan, hidden, batch, gates, depth, directions):
+    assert plan.design == "persistent", plan.reason
+    # one block per SM, all co-resident
+    assert plan.grid == plan.blocks_per_dir * directions <= SMS
+    # the ring first (the partial sums lie over it), then the slice, and room
+    # left for the kernel's static shared memory
+    assert plan.work_bytes == max(plan.ring_bytes, plan.staging_bytes)
+    assert plan.work_bytes % 1024 == 0 and plan.ring_bytes % 1024 == 0
+    assert plan.smem_bytes == plan.work_bytes + plan.slice_bytes <= SMEM - pp.STATIC_RESERVE
+    assert 2 <= plan.stages <= pp.MAX_STAGES and plan.chunk_depth in pp.KC_CHOICES
+    # a chunk is read in whole boxes
+    assert (plan.k_splits * plan.chunk_depth) % pp.BOX == 0
+    # the two warpgroups: along the rows or along the depth, enough rows for the batch
+    assert plan.row_groups in (1, 2) and plan.row_groups * plan.k_splits == pp.WARPGROUPS
+    assert plan.rows_per_block == pp.GROUP_ROWS * plan.row_groups <= pp.MAX_ROWS
+    assert plan.row_blocks * plan.rows_per_block >= batch
+    assert (plan.row_blocks - 1) * plan.rows_per_block < batch
+    assert plan.depth_padded % pp.BOX == 0 and 0 <= plan.depth_padded - depth < pp.BOX
+    # the bytes are those of the layout in csrc/persist.cuh
+    cols = gates * plan.units
+    assert plan.slice_bytes == cols * plan.depth_padded * 2
+    planes = plan.k_splits * plan.rows_per_block * (cols + 1) * 4
+    assert plan.staging_bytes == -(-planes // 1024) * 1024
+    stage = plan.rows_per_block * plan.k_splits * plan.chunk_depth * 2
+    assert plan.ring_bytes == plan.stages * stage
+
+
+@pytest.mark.parametrize("plan,hidden,batch,gates,depth,directions", _plans())
+def test_every_unit_has_one_owner_and_gate_aligned_columns(
+        plan, hidden, batch, gates, depth, directions):
+    assert plan.units % pp.UNIT_STEP == 0
+    assert (plan.blocks_per_dir - 1) * plan.units < hidden <= plan.blocks_per_dir * plan.units
+    seen = []
+    for block in range(plan.blocks_per_dir):
+        cols = plan.columns(block, hidden, gates)
+        n = len(cols) // gates
+        assert 0 < n <= plan.units and len(cols) == gates * n
+        units = cols[:n]
+        assert all(plan.owner(j) == block for j in units)
+        # gate g of unit j is column g * H + j, in the same order for each gate
+        for g in range(gates):
+            assert cols[g * n:(g + 1) * n] == [g * hidden + j for j in units]
+        seen += cols
+    assert sorted(seen) == list(range(gates * hidden))
+
+
+@pytest.mark.parametrize("hidden,batch,units,grid,row_groups,stages,chunk_depth,smem", [
+    (1200, 128, 24, 100, 2, 3, 64, 224256),   # flagship serving: chunks of 128 rows x 64
+    (1200, 32, 24, 100, 1, 3, 64, 224256),    # flagship training, forward: 64 rows x 128
+    (1200, 1, 24, 100, 1, 3, 64, 224256),     # one clip
+    (800, 128, 16, 100, 2, 4, 128, 210944),   # smaller slices leave room for deeper chunks
+])
+def test_forward_plan_at_the_model_shapes(hidden, batch, units, grid, row_groups, stages,
+                                          chunk_depth, smem):
+    plan = pp.plan_gru_forward(hidden, batch, SMS, SMEM)
+    assert (plan.design, plan.units, plan.grid, plan.row_groups, plan.stages,
+            plan.chunk_depth, plan.smem_bytes) \
+        == ("persistent", units, grid, row_groups, stages, chunk_depth, smem)
+
+
+@pytest.mark.parametrize("hidden,chains,units,grid,stages,chunk_depth,slice_bytes", [
+    (1200, 1, 16, 75, 3, 128, 16 * 3648 * 2),   # 117 KB slices: three stages of 32 KB
+    (1200, 2, 24, 100, 3, 64, 24 * 3648 * 2),   # both chains of a layer in one launch
+    # 193 KB slices leave 38 KB: four stages of 32-deep chunks
+    (2000, 1, 16, 125, 4, 32, 16 * 6016 * 2),
+    (800, 2, 16, 100, 4, 128, 16 * 2432 * 2),
+])
+def test_backward_plan_at_the_model_shapes(hidden, chains, units, grid, stages, chunk_depth,
+                                           slice_bytes):
+    plan = pp.plan_gru_backward(hidden, 32, chains, SMS, SMEM)
+    assert (plan.design, plan.units, plan.grid, plan.stages, plan.chunk_depth,
+            plan.slice_bytes) == ("persistent", units, grid, stages, chunk_depth, slice_bytes)
+    assert (plan.row_groups, plan.k_splits) == (1, 2)  # B = 32: the warpgroups split the depth
+
+
+@pytest.mark.parametrize("plan", [
+    pytest.param(pp.plan_gru_forward(2000, 128, SMS, SMEM), id="forward-H2000"),
+    pytest.param(pp.plan_gru_forward(4096, 32, SMS, SMEM), id="forward-H4096"),
+    pytest.param(pp.plan_gru_backward(2000, 32, 2, SMS, SMEM), id="backward-H2000-pair"),
+    pytest.param(pp.plan_gru_backward(4000, 32, 1, SMS, SMEM), id="backward-H4000"),
+    pytest.param(pp.plan_gru_backward(20000, 4, 1, SMS, SMEM), id="backward-H20000"),
+    pytest.param(pp.plan_gru_forward(1200, 128, 40, SMEM), id="forward-40-SMs"),
+    pytest.param(pp.plan_gru_forward(1200, 128, SMS, 100_000), id="forward-100KB"),
+    pytest.param(pp.plan_gru_forward(64, 4, 1, SMEM), id="two-directions-one-SM"),
+])
+def test_a_width_that_cannot_fit_takes_the_step_design(plan):
+    assert plan.design == "step"
+    assert plan.reason and plan.reason != "fits"
+    assert pp.choose(None, plan) == "step"
+    assert pp.choose("step", plan) == "step"
+    with pytest.raises(ValueError, match="does not fit"):
+        pp.choose("persistent", plan)
+
+
+@pytest.mark.parametrize("batch,groups", [(1, 1), (32, 1), (64, 1), (65, 2), (128, 2),
+                                           (500, 2)])
+def test_row_groups_follow_the_batch(batch, groups):
+    assert pp.row_groups_for(batch) == groups
+    for plan in (pp.plan_gru_forward(1200, batch, SMS, SMEM),
+                 pp.plan_gru_backward(1200, batch, 1, SMS, SMEM)):
+        assert plan.row_groups == groups and plan.k_splits == pp.WARPGROUPS // groups
+        assert plan.row_blocks == -(-batch // (64 * groups))
+
+
+@pytest.mark.parametrize("design", [None, "persistent", "step"])
+def test_choose_follows_the_request_where_the_plan_allows(design):
+    plan = pp.plan_gru_forward(1200, 128, SMS, SMEM)
+    assert pp.choose(design, plan) == (design or "persistent")
+
+
+def test_choose_refuses_an_unknown_design():
+    with pytest.raises(ValueError, match="unknown design"):
+        pp.choose("fused", pp.plan_gru_forward(64, 4, SMS, SMEM))
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(hidden=0, batch=1), dict(hidden=8, batch=0), dict(hidden=8, batch=1, sm_count=0),
+])
+def test_plan_refuses_empty_shapes(kwargs):
+    args = dict(hidden=8, batch=1, gates=3, depth=8, directions=1, sm_count=SMS,
+                smem_optin=SMEM, max_tiles=18)
+    args.update(kwargs)
+    with pytest.raises(ValueError):
+        pp.plan(**args)
+
+
+def test_wrappers_take_a_design_argument_and_use_the_plain_version_on_the_cpu():
+    """On CPU tensors the wrappers run the plain versions whatever the
+    design; the design counters only count CUDA calls."""
+    import torch
+
+    from danspeech_tpu_torch.ops import gru_cuda
+
+    gen = torch.Generator().manual_seed(0)
+    t, b, h = 3, 2, 8
+    gx = torch.randn(t, b, 3 * h, generator=gen)
+    hprev = torch.randn(t, b, h, generator=gen)
+    dout = torch.randn(t, b, h, generator=gen)
+    lens = torch.tensor([3, 2], dtype=torch.int32)
+    w = torch.randn(h, 3 * h, generator=gen) * 0.3
+    bi, bh = torch.randn(3 * h, generator=gen), torch.randn(3 * h, generator=gen)
+    dh = torch.randn(b, h, generator=gen)
+    ops = (gx, hprev, dout, lens, w, bi, bh, dh)
+    before = dict(gru_cuda.gru_bwd_scan.design_counts)
+    want = gru_cuda.gru_bwd_scan_plain(*ops, reverse=True)
+    for design in (None, "persistent", "step"):
+        got = gru_cuda.gru_bwd_scan(*ops, reverse=True, design=design)
+        for g, r in zip(got, want):
+            assert torch.equal(g, r)
+    pair_a, pair_b = gru_cuda.gru_bwd_scan_pair(ops, ops, True, False)
+    for g, r in zip(pair_a, want):
+        assert torch.equal(g, r)
+    for g, r in zip(pair_b, gru_cuda.gru_bwd_scan_plain(*ops, reverse=False)):
+        assert torch.equal(g, r)
+    assert gru_cuda.gru_bwd_scan.design_counts == before

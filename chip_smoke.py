@@ -16,10 +16,11 @@ Phases, in order; any failure exits non-zero:
    (four GRU, three LSTM, two tanh-RNN) against its plain PyTorch version on
    the card at ragged small shapes and the layer shapes of the paths below,
    with its time, the plain version's time, one library call's time (bf16
-   and float16) as a yardstick, and the bound; ``gru_bidi_fused`` and
-   ``gru_bwd_scan`` in both designs (``design="persistent"`` and
-   ``"step"``, both checked and timed in the same run), and every main
-   path below must take the persistent one; and
+   and float16) as a yardstick, and the bound; ``gru_bidi_fused``,
+   ``gru_scan``, ``gru_bwd_scan``, ``lstm_scan`` and ``lstm_scan_with_cell``
+   in both designs (``design="persistent"`` and ``"step"``, both checked and
+   timed in the same run; the LSTM ones also as a pair of chains in one
+   launch), and every main path below must take the persistent one; and
    ``gru_layer`` with concatenated directions and with a carried h0, the two
    routes that reach ``gru_scan_bidi``;
 4. the batch path: ``Recognizer.recognize`` / ``recognize_batch`` on the
@@ -51,8 +52,9 @@ Phases, in order; any failure exits non-zero:
    ``recognize_batch`` of 128 waveforms, one dispatch group checked against
    the plain recurrence on the card; ``make_wave_train_step`` steps on one
    seeded batch of 32 waveforms of 1-8 s with their launch counts (per LSTM
-   step 10 ``lstm_scan``, 10 ``lstm_scan_with_cell``, 10 ``lstm_bwd_scan``;
-   per tanh step 20 ``rnn_tanh_scan``, 10 ``rnn_tanh_bwd_scan``), the
+   step 5 ``lstm_scan``, 5 ``lstm_scan_with_cell``, each a pair of chains in
+   one launch, and 10 ``lstm_bwd_scan``; per tanh step 20 ``rnn_tanh_scan``,
+   10 ``rnn_tanh_bwd_scan``), the
    gradients of an 8-row batch against the plain path; for the LSTM a
    profile of one step and ``train.train`` + ``export_model`` +
    ``Recognizer.recognize`` on a 2-layer cut;
@@ -209,9 +211,10 @@ def require_persistent(wrapper, label):
 
 
 def zero_designs():
-    from danspeech_tpu_torch.ops import gru_cuda
+    from danspeech_tpu_torch.ops import gru_cuda, lstm_cuda
 
-    for w in (gru_cuda.gru_bidi_fused, gru_cuda.gru_bwd_scan):
+    for w in (gru_cuda.gru_bidi_fused, gru_cuda.gru_scan, gru_cuda.gru_bwd_scan,
+              lstm_cuda.lstm_scan, lstm_cuda.lstm_scan_with_cell):
         w.design_counts = dict.fromkeys(DESIGNS, 0)
 
 
@@ -437,9 +440,8 @@ def scan_bound(lengths, t, b, h):
     return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
 
 
-def check_scan(gen, label, t, lengths, h, reverse, carried, timed):
-    from danspeech_tpu_torch.ops import gru_cuda
-
+def scan_inputs(gen, t, lengths, h, carried):
+    """Seeded operands of gru_scan: (gx, lengths, w_hh, b_ih, b_hh, h0)."""
     dev = "cuda"
     b = len(lengths)
     bound = 1.0 / h ** 0.5
@@ -454,34 +456,69 @@ def check_scan(gen, label, t, lengths, h, reverse, carried, timed):
     h0 = torch.zeros(b, h, device=dev)
     if carried:
         h0 = torch.rand(b, h, generator=gen, device=dev) - 0.5
-    args = (gx, lens, w_hh, b_ih, b_hh, h0)
-    got = gru_cuda.gru_scan(*args, reverse=reverse)
-    torch.cuda.synchronize()
+    return gx, lens, w_hh, b_ih, b_hh, h0
+
+
+def check_scan(gen, label, t, lengths, h, reverse, carried, timed):
+    """gru_scan in both designs against its plain version; the plan must
+    choose the persistent design at this shape."""
+    from danspeech_tpu_torch.ops import gru_cuda, persist_plan
+
+    dev = "cuda"
+    b = len(lengths)
+    args = scan_inputs(gen, t, lengths, h, carried)
+    gx, lens = args[:2]
+    planned = persist_plan.plan_gru_scan(h, b, *gru_cuda.device_info(gx.device))
+    if planned.design != "persistent":
+        raise AssertionError(f"gru_scan H={h} B={b}: planned {planned}")
     ref = gru_cuda.gru_scan_plain(*args, reverse=reverse)
     torch.cuda.synchronize()
-    errs = {}
-    for name, g, r in zip(("out", "h_last"), got, ref):
-        if g.shape != r.shape or g.dtype != r.dtype:
-            raise AssertionError(f"{name}: {g.shape}/{g.dtype} vs {r.shape}/{r.dtype}")
-        if not torch.isfinite(g.float()).all():
-            raise AssertionError(f"{name}: non-finite values from the kernel")
-        errs[name] = float((g.float() - r.float()).abs().max())
     pad = torch.arange(t, device=dev)[:, None] >= lens[None, :].long()
-    if pad.any() and float(got[0][pad].float().abs().max()) != 0.0:
-        raise AssertionError("gru_scan: non-zero output past a row's length")
-    err = max(errs.values())
+    runs = {design: (lambda d=design: gru_cuda.gru_scan(*args, reverse=reverse, design=d))
+            for design in DESIGNS}
+    all_errs = {}
+    for tag, run in runs.items():
+        got = run()
+        torch.cuda.synchronize()
+        errs = {}
+        for name, g, r in zip(("out", "h_last"), got, ref):
+            if g.shape != r.shape or g.dtype != r.dtype:
+                raise AssertionError(f"{name}: {g.shape}/{g.dtype} vs {r.shape}/{r.dtype}")
+            if not torch.isfinite(g.float()).all():
+                raise AssertionError(f"{name} ({tag}): non-finite values from the kernel")
+            errs[name] = float((g.float() - r.float()).abs().max())
+        if pad.any() and float(got[0][pad].float().abs().max()) != 0.0:
+            raise AssertionError(f"gru_scan ({tag}): non-zero output past a row's length")
+        log(f"  gru_scan[{tag}] {label} T={t} B={b} H={h} reverse={reverse} "
+            f"h0={'carried' if carried else 'zero'}: max|err| "
+            + ", ".join(f"{k}={v:.3e}" for k, v in errs.items()) + f" (atol {GRU_ATOL})")
+        if not max(errs.values()) <= GRU_ATOL:
+            raise AssertionError(f"gru_scan ({tag}) disagrees with its plain version: "
+                                 f"{max(errs.values())}")
+        all_errs[tag] = errs
+        del got
+    walked = max(1, min(t, max(lengths)))
     res = {"label": label,
-           "shape": {"T": t, "B": b, "H": h, "reverse": reverse, "carried_h0": carried},
-           "max_abs_err": err, "errs": errs, "atol": GRU_ATOL}
-    log(f"  gru_scan {label} T={t} B={b} H={h} reverse={reverse} "
-        f"h0={'carried' if carried else 'zero'}: max|err| "
-        + ", ".join(f"{k}={v:.3e}" for k, v in errs.items()) + f" (atol {GRU_ATOL})")
-    if not err <= GRU_ATOL:
-        raise AssertionError(f"gru_scan disagrees with its plain version: {err}")
+           "shape": {"T": t, "B": b, "H": h, "reverse": reverse, "carried_h0": carried,
+                     "steps_walked": walked},
+           "max_abs_err": max(max(e.values()) for e in all_errs.values()),
+           "errs": all_errs, "atol": GRU_ATOL,
+           "plan": {"units": planned.units, "grid": planned.grid,
+                    "product": planned.product, "row_groups": planned.row_groups,
+                    "k_splits": planned.k_splits, "stages": planned.stages,
+                    "chunk_depth": planned.chunk_depth, "smem_bytes": planned.smem_bytes}}
     if timed:
-        res["ms"] = time_ms(lambda: gru_cuda.gru_scan(*args, reverse=reverse), iters=5)
-        res["plain_ms"] = time_ms(
-            lambda: gru_cuda.gru_scan_plain(*args, reverse=reverse), iters=2)
+        # step, persistent, persistent, step: both designs on one card in one run
+        step_a = time_ms(runs["step"], iters=3)
+        res["ms"] = 0.5 * (time_ms(runs["persistent"], iters=5)
+                           + time_ms(runs["persistent"], iters=5))
+        res["step_design_ms"] = 0.5 * (step_a + time_ms(runs["step"], iters=3))
+        res["design"] = "persistent"
+        res["recurrence_ms"] = kernel_ms(device_ms_by_kernel(runs["persistent"]),
+                                         "gru_scan_persist_kernel")
+        res["step_ms"] = res["recurrence_ms"] / walked
+        res["plain_ms"] = time_ms(lambda: gru_cuda.gru_scan_plain(*args, reverse=reverse),
+                                  iters=2)
         # cuDNN's GRU(D=H, H) on (T, B, H): it also computes the input
         # projection, which gru_scan takes precomputed
         gru = torch.nn.GRU(h, h).to(dev, torch.bfloat16)
@@ -494,11 +531,13 @@ def check_scan(gen, label, t, lengths, h, reverse, carried, timed):
         res["library_fp16_ms"] = cudnn_rnn_ms(torch.nn.GRU(h, h), gen, t, b, h,
                                               backward=False, dtype=torch.float16)
         res["bound_ms"], res["bound_by"] = scan_bound(lengths, t, b, h)
-        log(f"    ms={res['ms']:.3f} plain_ms={res['plain_ms']:.3f} "
+        log(f"    persistent ms={res['ms']:.3f} (kernel {res['recurrence_ms']:.3f} = "
+            f"{res['step_ms'] * 1e3:.2f} us a step over {walked}) step-design ms="
+            f"{res['step_design_ms']:.3f} plain_ms={res['plain_ms']:.3f} "
             f"library_ms(cuDNN nn.GRU({h},{h}) bf16, with its projection)="
             f"{res['library_ms']:.3f} (float16: {res['library_fp16_ms']:.3f}) "
             f"bound_ms={res['bound_ms']:.4f} ({res['bound_by']})")
-    del args, got, ref
+    del args, ref
     torch.cuda.empty_cache()
     return res
 
@@ -513,17 +552,32 @@ def phase_scan_kernels():
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
     checks = []
-    for lengths in ([13], [13, 1, 7, 12, 3]):  # B = 1 and B = 5, H % 64 != 0
+    # B = 1 and B = 5 (the product on the CUDA cores), H % 64 != 0
+    for lengths in ([13], [13, 1, 7, 12, 3]):
         for reverse in (False, True):
             checks.append(check_scan(gen, "small", 13, lengths, 72, reverse, carried=True,
                                      timed=len(lengths) == 5 and not reverse))
+    # H no multiple of 8 (element copies, scalar epilogue), a row of length 0
+    checks.append(check_scan(gen, "small H=100", 9, [9, 0, 4], 100, True, carried=True,
+                             timed=False))
+    # B above 128: two row blocks over the resident slice
+    checks.append(check_scan(gen, "small B=150", 7, [7, 1] + [1 + (i % 7) for i in range(148)],
+                             72, False, carried=False, timed=False))
     rng = np.random.default_rng(2000)
     lengths = rng.integers(1, 402, size=128)
     lengths[0], lengths[1] = 401, 1
     checks.append(check_scan(gen, "uni batch layer", 401, lengths.tolist(), 2000,
                              False, carried=False, timed=True))
+    train = np.random.default_rng(2001).integers(1, 402, size=32)
+    train[0] = 401
+    checks.append(check_scan(gen, "uni train layer", 401, train.tolist(), 2000,
+                             False, carried=False, timed=False))
     checks.append(check_scan(gen, "streaming step", STREAM_T, [STREAM_VALID], 2000,
                              False, carried=True, timed=True))
+    # the widest batch of the CUDA-core product (eight streams stepped together)
+    checks.append(check_scan(gen, "streaming B=8", STREAM_T,
+                             [STREAM_VALID, 20, STREAM_VALID, 1, STREAM_VALID, 0, 12, 34],
+                             2000, False, carried=True, timed=False))
     return checks
 
 
@@ -596,6 +650,7 @@ def check_scan_bidi(gen, label, t, lengths, h, carried, timed):
         + ", ".join(f"{k}={v:.3e}" for k, v in errs.items()) + f" (atol {GRU_ATOL})")
     if timed:
         res["ms"] = time_ms(lambda: gru_cuda.gru_scan_bidi(*args), iters=3)
+        res["design"] = "step"  # the only design of this kernel
         res["plain_ms"] = time_ms(lambda: gru_cuda.gru_scan_bidi_plain(*args), iters=1)
         # cuDNN's bidirectional GRU(D=H, H): it also computes the input
         # projections, which gru_scan_bidi takes precomputed
@@ -861,16 +916,37 @@ def rnn_kernel_bound(kind, lengths, t, b, h):
     return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
 
 
+def lstm_inputs(gen, t, lengths, h, lens=None):
+    """Seeded operands of one LSTM chain: (gx, lengths, w_hh, b_hh, h0, c0),
+    h0 and c0 carried; ``lens`` shares another chain's lengths tensor."""
+    dev = "cuda"
+    b = len(lengths)
+    bound = 1.0 / h ** 0.5
+
+    def uni(*shape):
+        return (torch.rand(*shape, generator=gen, device=dev) * 2 - 1) * bound
+
+    if lens is None:
+        lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    gx = (torch.randn(t, b, 4 * h, generator=gen, device=dev) * 0.5).to(torch.bfloat16)
+    carried = [torch.rand(b, h, generator=gen, device=dev) - 0.5 for _ in range(2)]
+    return (gx, lens, uni(h, 4 * h).to(torch.bfloat16), uni(4 * h), *carried)
+
+
 def check_rnn_kernel(kind, gen, label, t, lengths, h, reverse, timed):
     """One LSTM or tanh-RNN kernel against its plain version on the card.
     Forward kernels are held to GRU_ATOL and backward walks to BWD_TOL, each
-    times the larger of 1 and the largest reference value."""
-    from danspeech_tpu_torch.ops import lstm_cuda, rnn_tanh_cuda
+    times the larger of 1 and the largest reference value. The two LSTM
+    forward kernels are checked in both designs and as a pair of chains in
+    one launch (lstm_scan_pair); the plan must choose the persistent design
+    for one chain and for two."""
+    from danspeech_tpu_torch.ops import gru_cuda, lstm_cuda, persist_plan, rnn_tanh_cuda
 
     dev = "cuda"
     b = len(lengths)
     bound = 1.0 / h ** 0.5
     lstm = kind.startswith("lstm")
+    lstm_fwd = kind in ("lstm_scan", "lstm_scan_with_cell")
     gates = 4 if lstm else 1
     module = lstm_cuda if lstm else rnn_tanh_cuda
     wrapper, plain = getattr(module, kind), getattr(module, f"{kind}_plain")
@@ -884,11 +960,11 @@ def check_rnn_kernel(kind, gen, label, t, lengths, h, reverse, timed):
 
     lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
     pad = torch.arange(t, device=dev)[:, None] >= lens[None, :].long()
-    w_hh = uni(h, gates * h).to(torch.bfloat16)
     backward = kind.endswith("bwd_scan")
-    if kind in ("lstm_scan", "lstm_scan_with_cell"):
-        carried = [torch.rand(b, h, generator=gen, device=dev) - 0.5 for _ in range(2)]
-        args = (stream(4 * h), lens, w_hh, uni(4 * h), *carried)
+
+    w_hh = None if lstm_fwd else uni(h, gates * h).to(torch.bfloat16)
+    if lstm_fwd:
+        args = lstm_inputs(gen, t, lengths, h, lens)
         names = (("out", "c_seq", "h_last", "c_last") if kind == "lstm_scan_with_cell"
                  else ("out", "h_last", "c_last"))
         n_streams = len(names) - 2
@@ -905,25 +981,84 @@ def check_rnn_kernel(kind, gen, label, t, lengths, h, reverse, timed):
         out[pad] = 0  # the forward stream is zero past a row's length
         args = (out, torch.randn(t, b, h, generator=gen, device=dev), lens, w_hh)
         names, n_streams = ("dpre", "dh0"), 1
-    got = wrapper(*args, reverse=reverse)
-    torch.cuda.synchronize()
     ref = plain(*args, reverse=reverse)
     torch.cuda.synchronize()
     tol = BWD_TOL if backward else GRU_ATOL
     name = f"{kind} {label}"
-    errs, err = compare_outputs(name, names, got, ref, tol)
-    for g in got[:n_streams]:
-        if pad.any() and float(g[pad].float().abs().max()) != 0.0:
-            raise AssertionError(f"{name}: non-zero values past a row's length")
+
+    def hold(tag, got, want):
+        errs, err = compare_outputs(f"{name} [{tag}]", names, got, want, tol)
+        for g in got[:n_streams]:
+            if pad.any() and float(g[pad].float().abs().max()) != 0.0:
+                raise AssertionError(f"{name} [{tag}]: non-zero values past a row's length")
+        log(f"  {name} [{tag}] T={t} B={b} H={h} reverse={reverse}: max|err| "
+            + ", ".join(f"{k}={v:.3e} (max|ref| {float(r.float().abs().max()):.2f})"
+                        for (k, v), r in zip(errs.items(), want))
+            + f" (tol {tol} x max(1, max|ref|))")
+        return errs, err
+
+    runs = {"kernel": lambda: wrapper(*args, reverse=reverse)}
+    if lstm_fwd:
+        dev_info = gru_cuda.device_info(lens.device)
+        planned = persist_plan.plan_lstm_forward(h, b, 1, *dev_info)
+        pair_plan = persist_plan.plan_lstm_forward(h, b, 2, *dev_info)
+        if planned.design != "persistent" or pair_plan.design != "persistent":
+            raise AssertionError(f"{kind} H={h} B={b}: planned {planned}, pair {pair_plan}")
+        runs = {d: (lambda d=d: wrapper(*args, reverse=reverse, design=d)) for d in DESIGNS}
+        # a second chain walking the other way over the same lengths
+        other = lstm_inputs(gen, t, lengths, h, lens)
+        ref_b = plain(*other, reverse=not reverse)
+        with_cell = kind == "lstm_scan_with_cell"
+        runs["pair"] = lambda: lstm_cuda.lstm_scan_pair(args, other, reverse, not reverse,
+                                                        with_cell=with_cell)
+    all_errs, worst = {}, 0.0
+    for tag, run in runs.items():
+        before = wrapper.launches
+        got = run()
+        torch.cuda.synchronize()
+        if tag == "pair":
+            if wrapper.launches != before + 1:
+                raise AssertionError(f"{name}: a pair must be one launch")
+            all_errs["pair a"], err_a = hold("pair, one launch, chain a", got[0], ref)
+            all_errs["pair b"], err_b = hold("pair, one launch, chain b", got[1], ref_b)
+            worst = max(worst, err_a, err_b)
+        else:
+            all_errs[tag], err = hold(tag, got, ref)
+            worst = max(worst, err)
+        del got
     res = {"label": label, "shape": {"T": t, "B": b, "H": h, "reverse": reverse},
-           "max_abs_err": err, "errs": errs, "tol": tol,
+           "max_abs_err": worst, "errs": all_errs, "tol": tol,
            "max_abs_ref": {k: float(r.float().abs().max()) for k, r in zip(names, ref)}}
-    log(f"  {name} T={t} B={b} H={h} reverse={reverse}: max|err| "
-        + ", ".join(f"{k}={v:.3e} (max|ref| {res['max_abs_ref'][k]:.2f})"
-                    for k, v in errs.items()) + f" (tol {tol} x max(1, max|ref|))")
+    if lstm_fwd:
+        res["plan"] = {"units": planned.units, "grid": planned.grid,
+                       "row_groups": planned.row_groups, "stages": planned.stages,
+                       "chunk_depth": planned.chunk_depth, "pair_units": pair_plan.units,
+                       "pair_grid": pair_plan.grid, "pair_stages": pair_plan.stages}
     if timed:
-        res["ms"] = time_ms(lambda: wrapper(*args, reverse=reverse), iters=3)
+        extra = ""
+        if lstm_fwd:
+            # step, persistent, pair, persistent, step: one card, one run
+            step_a = time_ms(runs["step"], iters=3)
+            first = time_ms(runs["persistent"], iters=5)
+            res["pair_ms_per_chain"] = 0.5 * time_ms(runs["pair"], iters=5)
+            res["ms"] = 0.5 * (first + time_ms(runs["persistent"], iters=5))
+            res["step_design_ms"] = 0.5 * (step_a + time_ms(runs["step"], iters=3))
+            res["design"] = "persistent"
+            walked = max(1, min(t, max(lengths)))
+            res["recurrence_ms"] = kernel_ms(device_ms_by_kernel(runs["persistent"]),
+                                             "lstm_persist_kernel")
+            res["step_ms"] = res["recurrence_ms"] / walked
+            res["pair_kernel_ms"] = kernel_ms(device_ms_by_kernel(runs["pair"]),
+                                              "lstm_persist_kernel")
+            extra = (f" (kernel {res['recurrence_ms']:.3f} = {res['step_ms'] * 1e3:.2f} us a "
+                     f"step over {walked}; as a pair {res['pair_ms_per_chain']:.3f} a chain, "
+                     f"kernel {res['pair_kernel_ms']:.3f} for both) step-design ms="
+                     f"{res['step_design_ms']:.3f}")
+        else:
+            res["ms"] = time_ms(runs["kernel"], iters=3)
+            res["design"] = "step"  # the only design of this kernel
         res["plain_ms"] = time_ms(lambda: plain(*args, reverse=reverse), iters=1)
+
         def lib():
             return torch.nn.LSTM(h, h) if lstm else torch.nn.RNN(h, h, nonlinearity="tanh")
 
@@ -932,12 +1067,12 @@ def check_rnn_kernel(kind, gen, label, t, lengths, h, reverse, timed):
         res["library_fp16_ms"] = cudnn_rnn_ms(lib(), gen, t, b, h, backward=backward,
                                               dtype=torch.float16)
         res["bound_ms"], res["bound_by"] = rnn_kernel_bound(kind, lengths, t, b, h)
-        log(f"    ms={res['ms']:.3f} plain_ms={res['plain_ms']:.3f} library_ms(cuDNN "
+        log(f"    ms={res['ms']:.3f}{extra} plain_ms={res['plain_ms']:.3f} library_ms(cuDNN "
             f"nn.{'LSTM' if lstm else 'RNN'}({h},{h}) bf16, with its projection, "
             + ("forward+backward less forward" if backward else "forward")
             + f")={res['library_ms']:.3f} (float16: {res['library_fp16_ms']:.3f}) "
             f"bound_ms={res['bound_ms']:.4f} ({res['bound_by']})")
-    del args, got, ref
+    del args, ref
     torch.cuda.empty_cache()
     return res
 
@@ -945,9 +1080,9 @@ def check_rnn_kernel(kind, gen, label, t, lengths, h, reverse, timed):
 def phase_rnn_type_kernels():
     """{kernel: checks} for the three LSTM and two tanh-RNN kernels: ragged
     small shapes (B = 5 with an empty row and B = 1, H = 72, both
-    directions, T = 1), then the layer shapes of LSTM5x800 / Tanh5x800:
-    serving (B = 128) for the forward kernels, training (B = 32) for the
-    backward walks and the forward that keeps the cell stream."""
+    directions, T = 1; H = 100 and B = 150 for the LSTM forward), then the layer
+    shapes of LSTM5x800 / Tanh5x800: serving (B = 128) and training (B = 32)
+    for the forward kernels, training for the backward walks."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(5)
     serve = np.random.default_rng(800).integers(1, 402, size=128)
@@ -955,7 +1090,7 @@ def phase_rnn_type_kernels():
     for lengths in (serve, train):
         lengths[0], lengths[1] = 401, 1
     layer_shapes = {
-        "lstm_scan": [("serve layer", serve)],
+        "lstm_scan": [("serve layer", serve), ("train-size layer", train)],
         "lstm_scan_with_cell": [("train layer", train), ("serve-size layer", serve)],
         "lstm_bwd_scan": [("train layer", train)],
         "rnn_tanh_scan": [("serve layer", serve), ("train layer", train)],
@@ -973,6 +1108,14 @@ def phase_rnn_type_kernels():
                                              reverse, timed))
         rows.append(check_rnn_kernel(kind, gen, "small T=1", 1, [1, 0], 72,
                                      not forward_chain, False))
+        if kind.startswith("lstm_scan"):
+            # H no multiple of 8 (element copies, scalar epilogue); B above
+            # 128 (two row blocks over the resident slices)
+            rows.append(check_rnn_kernel(kind, gen, "small H=100", 9, [9, 0, 4], 100,
+                                         False, False))
+            rows.append(check_rnn_kernel(kind, gen, "small B=150", 7,
+                                         [7, 1] + [1 + (i % 7) for i in range(148)], 72,
+                                         False, False))
         for label, lengths in shapes:
             rows.append(check_rnn_kernel(kind, gen, label, 401, lengths.tolist(), 800,
                                          not forward_chain, True))
@@ -1351,6 +1494,28 @@ def seeded_wav(path, rng):
     return len(pcm)
 
 
+STREAM_PROFILE_GROUPS = {
+    "B1 recurrence": ("gru_scan_persist_kernel", "gru_scan_step_kernel"),
+    "B3 (secondary model)": ("gru_persist_kernel", "gru_step_kernel", "gru_proj"),
+    "convolution": ("conv", "cudnn", "wgrad", "dgrad", "fprop"),
+    "library GEMM": ("gemm", "cutlass", "nvjet", "cublas"),
+}
+
+
+def transpose_share(eng, chunk_busy_ms, card):
+    """The device time that remaking the transposed copies of w_hh, which
+    gru_scan's persistent route reads, would cost at every chunk (one per
+    layer), against a steady chunk's device busy time; gru_cuda.transposed
+    keeps one copy per weight tensor instead."""
+    weights = [entry["fwd"].w_hh for entry in eng._compute_params["rnns"]]
+    ms = sum(time_ms(lambda w=w: w.t().contiguous(), iters=20) for w in weights)
+    share = ms / max(chunk_busy_ms, 1e-9)
+    log(f"  w_hh transposed copies, {len(weights)} layers x {tuple(weights[0].shape)}: "
+        f"{ms:.4f} ms a chunk if remade at every call = {100 * share:.1f}% of a steady "
+        f"chunk's device time ({chunk_busy_ms:.3f} ms); kept per tensor instead [{card}]")
+    return {"ms_per_chunk": ms, "chunk_busy_ms": chunk_busy_ms, "share": share}
+
+
 def phase_stream(card):
     from danspeech_tpu_torch import Recognizer
     from danspeech_tpu_torch.models import DeepSpeechConfig, DeepSpeechModel
@@ -1377,6 +1542,7 @@ def phase_stream(card):
     batches = [seeded_waveforms(rng, 128) for _ in range(2)]
     expected = layers * sum(len(eng._plan_groups(b)) for b in batches)
     gru_cuda.gru_scan.launches = 0
+    zero_designs()
     serve = []
     for k, batch in enumerate(batches):
         torch.cuda.synchronize()
@@ -1395,9 +1561,11 @@ def phase_stream(card):
         f"{expected} = {layers} layers x dispatch groups)")
     if batch_launches != expected:
         raise AssertionError("the uni batch path did not run every GRU layer on gru_scan")
+    require_persistent(gru_cuda.gru_scan, "uni batch")
     out["batch"] = {"launches": batch_launches, "serve": serve}
     out["batch"]["profile"] = profile_call(
-        "one uni recognize_batch", lambda: rec.recognize_batch(batches[1]))
+        "one uni recognize_batch", lambda: rec.recognize_batch(batches[1]),
+        groups=STREAM_PROFILE_GROUPS)
     idxs, maxlen = eng._plan_groups(batches[0])[0]
     staged, lengths = eng._stage_group(batches[0], idxs, maxlen)
     wave_d, lens = staged.to(eng.device), torch.from_numpy(lengths).to(eng.device)
@@ -1439,6 +1607,7 @@ def phase_stream(card):
     if not sec_runs or not texts[-1]:
         raise AssertionError("the final chunk gave no secondary-model transcript")
     require_persistent(gru_cuda.gru_bidi_fused, "streaming rescore (flagship secondary)")
+    require_persistent(gru_cuda.gru_scan, "streaming chunks")
     steady = sorted(c["ms"] for c in chunks if c["kind"] == "steady")
     for kind in ("first", "final"):
         log(f"    {kind} chunk: " + ", ".join(f"{c['ms']:.2f} ms ({c['samples']} samples)"
@@ -1453,7 +1622,9 @@ def phase_stream(card):
     out["direct"]["profile"] = profile_call(
         "3 steady streaming chunks",
         lambda: [eng.streaming_transcribe(c, is_last=False, is_first=False)
-                 for c, _, _ in plan[1:4]])
+                 for c, _, _ in plan[1:4]], groups=STREAM_PROFILE_GROUPS)
+    out["direct"]["w_hh_transpose"] = transpose_share(
+        eng, out["direct"]["profile"]["device_busy_ms"] / 3, card)
     eng.reset_streaming_params()
     eng.audio_parser.reset()
 
@@ -1466,6 +1637,7 @@ def phase_stream(card):
         n_samples = seeded_wav(path, np.random.default_rng(7))
         gru_cuda.gru_scan.launches = 0
         gru_cuda.gru_bidi_fused.launches = 0
+        zero_designs()
         yields = []
         t0 = time.perf_counter()
         # a stream that never ends ends the generator after 180 s
@@ -1493,6 +1665,7 @@ def phase_stream(card):
         raise AssertionError("real_time_streaming gave no partial or no final")
     if scan_rts != layers * len(steps) or bidi_rts != sec_layers * len(sec_runs):
         raise AssertionError("real_time_streaming did not run every GRU layer on its kernel")
+    require_persistent(gru_cuda.gru_scan, "real_time_streaming chunks")
     out["real_time"] = {"wall_s": wall, "partials": len(partials),
                         "scan_launches": scan_rts, "bidi_launches": bidi_rts,
                         "vs_plain": check_stream_chunks("real_time_streaming", eng, steps)}
@@ -1516,7 +1689,7 @@ GRAD_REL_TOL = 5e-2
 TRAIN_PROFILE_GROUPS = {
     "B4 walk": ("gru_bwd_persist_kernel", "gru_bwd_step_kernel"),
     "B3 recurrence": ("gru_persist_kernel", "gru_step_kernel"),
-    "B1 recurrence": ("gru_scan_step_kernel",),
+    "B1 recurrence": ("gru_scan_persist_kernel", "gru_scan_step_kernel"),
     "tensor-core GEMM (B3 projection, B4 recompute)": ("gru_proj",),
     "CTC": ("ctc",),
     "optimizer": ("adam", "multi_tensor", "foreach"),
@@ -1730,6 +1903,7 @@ def phase_train(card):
     ustate, usteps = timed_steps(
         f"uni {uni.rnn_layers}x{uni.rnn_hidden_size}", ufn, ustate, ubatch, uaudio, 2,
         uexpect, card)
+    require_persistent(gru_cuda.gru_scan, "uni training, forward (H=2000)")
     require_persistent(gru_cuda.gru_bwd_scan, "uni training, backward walks (H=2000)")
     out["uni"] = {"steps": usteps, "audio_s": uaudio, "rnn_layers": uni.rnn_layers}
     del ustate, ufn
@@ -1790,7 +1964,7 @@ def phase_train(card):
 
 RNN_TYPE_PROFILE_GROUPS = {
     "B7 walk": ("lstm_bwd_step_kernel",),
-    "B5/B6 recurrence": ("lstm_step_kernel",),
+    "B5/B6 recurrence": ("lstm_persist_kernel", "lstm_step_kernel"),
     "B9 walk": ("rnn_tanh_bwd_step_kernel",),
     "B8 recurrence": ("rnn_tanh_step_kernel",),
     "tensor-core GEMM (B7 recompute)": ("gru_proj_kernel",),
@@ -1837,9 +2011,12 @@ def phase_rnn_type(card, cfg, train_steps, profile, loop):
     batch = seeded_waveforms(np.random.default_rng(13), 128)
     groups = 1 + len(eng._plan_groups(batch))
     fwd_kernel = "lstm_scan" if lstm else "rnn_tanh_scan"
-    expect = dict(zero, **{fwd_kernel: 2 * layers * groups})
+    # an LSTM layer's two chains are one launch (lstm_scan_pair)
+    chains = 1 if lstm else 2
+    expect = dict(zero, **{fwd_kernel: chains * layers * groups})
     rec.recognize_batch(batch[:4])  # warm-up: cuDNN picks its conv algorithms
     zero_launches()
+    zero_designs()
     t0 = time.perf_counter()
     text = rec.recognize(clip_audio)
     clip_s = time.perf_counter() - t0
@@ -1855,10 +2032,14 @@ def phase_rnn_type(card, cfg, train_steps, profile, loop):
         f"recognize_batch: {audio_s:.2f} audio-s in {wall:.3f} s = "
         f"{audio_s / wall:.1f} audio-s/s; launches "
         + ", ".join(f"{a} {c}" for a, c in counts.items() if c)
-        + f" (expected {fwd_kernel} {expect[fwd_kernel]} = 2 chains x {layers} layers x "
-        f"{groups} dispatch groups) [{card}]")
+        + f" (expected {fwd_kernel} {expect[fwd_kernel]} = {chains} launch(es) x {layers} "
+        f"layers x {groups} dispatch groups) [{card}]")
     if counts != expect:
         raise AssertionError(f"{name} serve: launches {counts}, expected {expect}")
+    if lstm:
+        from danspeech_tpu_torch.ops import lstm_cuda
+
+        require_persistent(lstm_cuda.lstm_scan, f"{name} serving")
     add(counts)
     out["serve"] = {"recognize_s": clip_s, "audio_s": audio_s, "wall_s": wall,
                     "audio_s_per_s": audio_s / wall,
@@ -1889,14 +2070,16 @@ def phase_rnn_type(card, cfg, train_steps, profile, loop):
     tbatch, taudio = train_batch(np.random.default_rng(14), config, TRAIN_BATCH)
     if lstm:
         # with remat the first forward keeps nothing (B5), the recomputed one
-        # keeps the cell streams (B6); one walk per direction (B7)
-        texpect = dict(zero, lstm_scan=2 * layers, lstm_scan_with_cell=2 * layers,
+        # keeps the cell streams (B6), each a pair of chains in one launch;
+        # one walk per direction (B7)
+        texpect = dict(zero, lstm_scan=layers, lstm_scan_with_cell=layers,
                        lstm_bwd_scan=2 * layers)
     else:
         texpect = dict(zero, rnn_tanh_scan=4 * layers, rnn_tanh_bwd_scan=2 * layers)
     step_fn = tr.make_wave_train_step(config, optimizer, augment=None,
                                       mixed_precision="auto", remat=True)
     torch.cuda.reset_peak_memory_stats()
+    zero_designs()
     state, steps = timed_steps(name, step_fn, state, tbatch, taudio, train_steps - 1,
                                texpect, card)
     holder = {}
@@ -1911,6 +2094,11 @@ def phase_rnn_type(card, cfg, train_steps, profile, loop):
     else:
         last_step()
     steps += holder["steps"]
+    if lstm:
+        from danspeech_tpu_torch.ops import lstm_cuda
+
+        require_persistent(lstm_cuda.lstm_scan, f"{name} training, first forward")
+        require_persistent(lstm_cuda.lstm_scan_with_cell, f"{name} training, recomputed forward")
     peak = torch.cuda.max_memory_allocated()
     log(f"  {name}: peak device memory over {train_steps} steps: {peak / 2**30:.2f} GiB")
     if not steps[-1]["loss"] < steps[0]["loss"]:
@@ -1974,11 +2162,12 @@ def phase_rnn_type(card, cfg, train_steps, profile, loop):
                 f"on a {loop_cfg.rnn_layers}-layer cut: {time.perf_counter() - t0:.1f} s, "
                 f"transcript {text!r}, launches "
                 + ", ".join(f"{a} {c}" for a, c in counts.items() if c))
-        # per step and layer: 2 chains each of B5 (first pass), B6 (recomputed),
-        # B7; the recognize call adds one B5 per chain and layer
-        per = 2 * 2 * loop_cfg.rnn_layers
-        want = dict(zero, lstm_scan=per + 2 * loop_cfg.rnn_layers,
-                    lstm_scan_with_cell=per, lstm_bwd_scan=per)
+        # per step and layer: one launch each of B5 (first pass) and B6
+        # (recomputed), both chains of the layer in it, and a B7 per chain;
+        # the recognize call adds one B5 per layer
+        per = 2 * loop_cfg.rnn_layers
+        want = dict(zero, lstm_scan=per + loop_cfg.rnn_layers,
+                    lstm_scan_with_cell=per, lstm_bwd_scan=2 * per)
         if counts != want:
             raise AssertionError(f"{name} loop: launches {counts}, expected {want}")
         add(counts)
@@ -2004,18 +2193,18 @@ PHASE_CLOCKS = {1: "grid barrier", 2: "prefetch of the next step's streams", 9: 
 
 
 def phase_clocks(card):
-    """Builds gru_bidi_fused and gru_bwd with -DPS_PROFILE into a build
-    directory of their own, runs the persistent kernels once at the flagship
-    and the 2000-wide shapes, and prints the clocks that thread 0 of block 0
-    spent per step in each part (the instrumented build is a little slower
-    than the plain one)."""
+    """Builds the four persistent kernels' sources with -DPS_PROFILE into a
+    build directory of their own, runs the persistent kernels once at the
+    flagship, the 2000-wide, the streaming and the LSTM serving shapes, and
+    prints the clocks that thread 0 of block 0 spent per step in each part
+    (the instrumented build is a little slower than the plain one)."""
     import ctypes
 
-    from danspeech_tpu_torch.ops import cuda_build, gru_cuda
+    from danspeech_tpu_torch.ops import cuda_build, gru_cuda, lstm_cuda
 
     cuda_build.NVCC_FLAGS.append("-DPS_PROFILE")
     cuda_build.BUILD_DIR = os.path.join(cuda_build.BUILD_DIR, "profile")
-    cuda_build.build("gru_bidi_fused", "gru_bwd")
+    cuda_build.build("gru_bidi_fused", "gru_bwd", "gru_scan", "lstm_scan")
 
     def read(lib):
         fn = cuda_build.load(lib).persist_prof_read
@@ -2061,6 +2250,23 @@ def phase_clocks(card):
                    lambda: gru_cuda.gru_bwd_scan_pair(args, other, True, False), t + 1)
             del other
         del args
+    # B1 at the uni batch layer and the streaming chunk (steps walked: the
+    # longest length)
+    uni_lengths = np.random.default_rng(2000).integers(1, 402, size=128)
+    uni_lengths[0] = 401
+    for label, tt, lengths in (("uni batch layer", t, uni_lengths.tolist()),
+                               ("streaming step", STREAM_T, [STREAM_VALID])):
+        args = scan_inputs(gen, tt, lengths, 2000, carried=True)
+        report(f"gru_scan {label} T={tt} B={len(lengths)} H=2000", "gru_scan",
+               lambda: gru_cuda.gru_scan(*args, design="persistent"), max(lengths))
+        del args
+    # B5 as a pair at the LSTM serving layer
+    serve = np.random.default_rng(800).integers(1, 402, size=128)
+    serve[0] = 401
+    chain_a = lstm_inputs(gen, t, serve.tolist(), 800)
+    chain_b = lstm_inputs(gen, t, serve.tolist(), 800, lens=chain_a[1])
+    report(f"lstm_scan_pair T={t} B=128 H=800", "lstm_scan",
+           lambda: lstm_cuda.lstm_scan_pair(chain_a, chain_b, False, True), t)
 
 
 # ---------------------------------------------------------------------------
@@ -2140,7 +2346,7 @@ def main(argv=None) -> int:
         extra = {k: main[k] for k in (
             "library_fp16_ms", "design", "step_ms", "step_design_ms", "recurrence_ms",
             "walk_ms", "projection_ms", "projection_tflops", "recompute_ms",
-            "recompute_tflops", "pair_ms_per_chain", "plan") if k in main}
+            "recompute_tflops", "pair_ms_per_chain", "pair_kernel_ms", "plan") if k in main}
         return {
             **extra,
             "name": name, "route": "cuda",

@@ -12,27 +12,38 @@
 //   the state at t = 0).
 //
 // What bounds it on an H100, and what this design does about it:
-// - T dependent steps, each a (B, H) x (H, 3H) product: 2*T*B*H*3H
-//   operations, 1.23 TFLOP at the unidirectional batch shape (T=401,
-//   B=128, H=2000), 1.25 ms at the bf16 peak. Every step needs all of
-//   h_{t-1} and blocks of one launch cannot wait for each other, so the
-//   launch boundary orders the steps: the host loop below launches
-//   gru_scan_step_kernel T times on the caller's stream.
-// - Each block owns a gate-aligned slice of J hidden units (columns j, H+j,
-//   2H+j of w_hh) for BR batch rows, computes that slice of bf16(h) @ w_hh
-//   with WMMA and applies the gates, the length mask, the out write and the
-//   h update in its epilogue. h ping-pongs between two buffers (the f32
-//   state and the bf16 copy that the next step's product reads). w_hh
-//   (24 MB at H=2000) stays in the 50 MB L2 across steps, so a step is
-//   bound by L2 reads of w_hh, its unpipelined load-then-multiply loop and
-//   the launch itself, not by HBM.
-// - Streaming runs B = 1: 63 of every 64 MMA rows of a block are padding.
-//   Warps whose 16-row tile lies wholly past B skip their products, but
-//   the block still walks all of w_hh's slice each step, so a chunk of 55
-//   frames over 5 layers is 275 launches whose time is launch and
-//   L2-latency bound. A CUDA graph over the steps, or a persistent kernel
-//   with w_hh resident in shared memory across the SMs and a GEMV-shaped
-//   step for B = 1, is the later, faster design.
+// - T dependent steps, each a (B, H) x (H, 3H) product that needs all of
+//   h_{t-1}: 2*T*B*H*3H operations, 1.23 TFLOP at the unidirectional batch
+//   shape (T=401, B=128, H=2000), 1.25 ms at the bf16 peak; at the streaming
+//   chunk (B = 1) 24 MFLOP a step against 24 MB of w_hh. What a step costs
+//   is latency (a barrier, an L2 round trip, one pass over the weights), not
+//   bytes or operations. Two designs, chosen on the host by
+//   ops/persist_plan.py (plan_gru_scan) from the shape and the device's SM
+//   count and shared memory:
+//   * persistent (gru_scan_persist_kernel, persist.cuh): ONE cooperative
+//     launch walks the chain. A block owns U hidden units (U = 16 at
+//     H = 2000: 125 blocks) and keeps their 3U columns of w_hh, H deep, in
+//     shared memory for the whole walk (192 KB at H = 2000, in the swizzled
+//     tiles wgmma reads), so no weight is read from L2 after the start. Per
+//     step: a grid barrier; bf16 h of the previous step streams from L2
+//     through a TMA ring beside the slice, fed by a ninth warp, while the two
+//     warpgroups multiply with wgmma (B above 64: 64 rows each in row blocks
+//     of 128, or, where those leave too few ring stages as at H = 2000, two
+//     row blocks of 64 with the warpgroups splitting the depth; B <= 64:
+//     one row block, the depth split; B <= 8, the streaming chunk among
+//     them: h staged whole in shared memory and the product on the CUDA
+//     cores, ps_dot_product, since the ring's per-chunk waits took most of
+//     a B = 1 step); then the gates, the mask, the out
+//     write and the h update (f32 h owned in place by one thread, its bf16
+//     copy ping-pongs between two buffers that the other blocks read). The
+//     first step multiplies bf16(h0). gx of the next step is prefetched into
+//     L2 during the product. The walk covers only t < the longest row's
+//     length: the later steps (the padding of a streaming chunk) write zeros
+//     at the start and take no barrier.
+//   * step (gru_scan_step_kernel): one launch per time step from the host
+//     loop below, the launch boundary as the barrier; each block owns 16
+//     units x 64 rows and rereads its slice of w_hh from L2 through an
+//     unpipelined WMMA loop. Kept for widths whose slices do not fit.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -41,6 +52,8 @@
 
 using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
+
+#include "persist.cuh"
 
 #define S_J 16        // hidden units per block (one WMMA tile per gate)
 #define S_BR 64       // batch rows per block (one 16-row WMMA tile per warp)
@@ -172,7 +185,7 @@ gru_scan_step_kernel(const bf16* __restrict__ gx,       // (T, B, 3H)
 }
 
 // ---------------------------------------------------------------------------
-// Host entry: one chain, on the caller's stream. h32/h16 hold two buffers of
+// Host entry, step design: one chain, on the caller's stream. h32/h16 hold two buffers of
 // (B, H); buffer 0 holds h0 (f32 and its bf16 copy) on entry, and buffer
 // T % 2 holds h_last on exit. Returns cudaGetLastError() of the first launch
 // that failed, else 0.
@@ -202,4 +215,260 @@ extern "C" int gru_scan_launch(
     if (err != cudaSuccess) return (int)err;
   }
   return 0;
+}
+
+// ---------------------------------------------------------------------------
+// Persistent design: the whole chain in one cooperative launch
+// ---------------------------------------------------------------------------
+
+struct GruScanPersistArgs {
+  const bf16* gx;         // (T, B, 3H) bf16, bias-free
+  const int* lengths;     // (B,)
+  const bf16* whht;       // (3H, H): w_hh transposed, depth contiguous
+  const float* bih;       // (3H,)
+  const float* bhh;       // (3H,)
+  float* h32;             // (B, H) f32: h0 on entry, h_last on exit
+  bf16* hb;               // (2 buffers, B, H) bf16: buffer 0 holds bf16(h0)
+  bf16* out;              // (T, B, H)
+  unsigned int* barrier;  // (1,) zero on entry
+  int T, B, H;
+  int reverse;
+  int U;       // hidden units per block (a multiple of 8)
+  int MG;      // warpgroups along the rows of a row block (64 rows each): 1 or 2
+  int stages;  // ring stages: 2 .. PS_MAX_STAGES
+  int kc;      // depth one warpgroup covers of a ring chunk: 128, 64 or 32
+  int bpd;     // blocks
+  int Kr;      // H rounded up to 64
+  int ws_off;  // bytes from the start of shared memory (the ring) to the slice
+  int tma;     // hb can be read by the copy engine (else element by element)
+  int dot;     // B <= PS_DOT_ROWS: the product on the CUDA cores (ps_dot_product)
+};
+
+template <int NT>  // 3 * U / 8: 8-column tiles of the block's slice
+__global__ void __launch_bounds__(PS_BLOCK, 1)
+gru_scan_persist_kernel(const GruScanPersistArgs p,
+                        const __grid_constant__ CUtensorMap hb_map) {
+  extern __shared__ __align__(1024) unsigned char ps_smem_raw[];
+  __shared__ __align__(8) uint64_t ps_mbar[2 * PS_MAX_STAGES];
+  PsPhases phases;
+  const int tid = threadIdx.x;
+  const int j0 = blockIdx.x * p.U;
+  const int T = p.T, B = p.B, H = p.H, U = p.U;
+  const int G = 3 * H;
+  bf16* ring = reinterpret_cast<bf16*>(ps_smem_raw);
+  bf16* Ws = reinterpret_cast<bf16*>(ps_smem_raw + p.ws_off);
+  // the partial sums lie over the ring; for the CUDA-core product, after h
+  float* Cs = reinterpret_cast<float*>(p.dot ? ring + (size_t)B * p.Kr : ring);
+  const int BR = p.MG * 64;
+  const int KS = p.dot ? 1 : 2 / p.MG;  // planes of partial sums: one a depth split
+  const int ldc = NT * 8 + 1;
+  const int nrb = (B + BR - 1) / BR;
+
+  // the epilogue's streams do not alias: its loads may be issued together
+  const bf16* __restrict__ gx = p.gx;
+  const float* __restrict__ bih = p.bih;
+  const float* __restrict__ bhh = p.bhh;
+  const int* __restrict__ lengths = p.lengths;
+  float* __restrict__ h32 = p.h32;
+  bf16* __restrict__ out = p.out;
+  const int uw = min(U, H - j0);  // real units of this block
+  // the epilogue works on four neighbouring units at a time where every row
+  // segment it touches starts on 16 bytes (the bf16 ones on 8)
+  const bool vec4 =
+      (H % 4) == 0 &&
+      ((reinterpret_cast<uintptr_t>(h32) | reinterpret_cast<uintptr_t>(bih) |
+        reinterpret_cast<uintptr_t>(bhh)) % 16) == 0 &&
+      ((reinterpret_cast<uintptr_t>(gx) | reinterpret_cast<uintptr_t>(p.hb) |
+        reinterpret_cast<uintptr_t>(out)) % 8) == 0;
+
+  const int steps = ps_longest(lengths, B, T);
+  ps_zero_steps(out, steps, T, B, H, j0, uw);
+  ps_load_slice(Ws, p.whht, H, H, p.Kr, 3, U, j0);
+  ps_ring_init(ring, ps_mbar, p.stages);
+
+  PS_T0();
+  for (int step = 0; step < steps; ++step) {
+    const int t = p.reverse ? steps - 1 - step : step;
+    const bf16* hb_in = p.hb + (size_t)(step & 1) * B * H;
+    bf16* __restrict__ hb_out = p.hb + (size_t)((step & 1) ^ 1) * B * H;
+    PS_ACC(0);
+    if (step > 0) ps_grid_barrier(p.barrier, (unsigned int)step * p.bpd);
+    PS_ACC(1);
+    if (step + 1 < steps) {
+      // the next step's gx does not depend on h: bring it into L2 meanwhile
+      const int tn = p.reverse ? t - 1 : t + 1;
+      for (int i = tid; i < B * 3; i += PS_BLOCK) {
+        const int b = i / 3, g = i - b * 3;
+        const bf16* q = gx + ((size_t)tn * B + b) * G + (size_t)g * H + j0;
+        ps_prefetch_l2(q);
+        ps_prefetch_l2(q + uw - 1);
+      }
+    }
+    PS_ACC(2);
+    for (int rb = 0; rb < nrb; ++rb) {
+      const int row0 = rb * BR;
+      PS_ACC(0);
+      if (p.dot)
+        ps_dot_product<NT>(hb_in, B, H, p.Kr, Ws, ring, Cs);
+      else
+        ps_block_product<NT>(hb_in, &hb_map, p.tma, step & 1, row0, B, H, p.Kr, Ws, ring,
+                             Cs, p.MG, p.stages, p.kc, ps_mbar, phases);
+      PS_ACC(9);
+      constexpr int UC = NT * 8 / 3;  // == U
+      if (vec4) {
+        // a thread's quads of four neighbouring units, EQ at a time: first
+        // every load they need, then the arithmetic, so the loads' latencies
+        // overlap
+        constexpr int QC = UC / 4;
+        constexpr int EQ = 3;
+        for (int base = tid; base < BR * QC; base += EQ * PS_BLOCK) {
+          float4 xr[EQ], xz[EQ], xn[EQ], hp[EQ];
+          int len[EQ];
+          unsigned live = 0u;
+#pragma unroll
+          for (int e = 0; e < EQ; ++e) {
+            const int idx = base + e * PS_BLOCK;
+            const int r = idx / QC, q = idx - r * QC;
+            const int b = row0 + r, j = j0 + 4 * q;
+            if (idx < BR * QC && b < B && j < H) {  // H % 4 == 0: a whole quad
+              const bf16* gxr = gx + ((size_t)t * B + b) * G + j;
+              xr[e] = ps_load_bf16x4(gxr);
+              xz[e] = ps_load_bf16x4(gxr + H);
+              xn[e] = ps_load_bf16x4(gxr + 2 * H);
+              hp[e] = *reinterpret_cast<const float4*>(h32 + (size_t)b * H + j);
+              len[e] = lengths[b];
+              live |= 1u << e;
+            }
+          }
+#pragma unroll
+          for (int e = 0; e < EQ; ++e) {
+            if (!(live >> e & 1u)) continue;
+            const int idx = base + e * PS_BLOCK;
+            const int r = idx / QC, q = idx - r * QC;
+            const int b = row0 + r, j = j0 + 4 * q;
+            const bool valid = len[e] > t;
+            const float4 bir = *reinterpret_cast<const float4*>(bih + j);
+            const float4 biz = *reinterpret_cast<const float4*>(bih + H + j);
+            const float4 bin = *reinterpret_cast<const float4*>(bih + 2 * H + j);
+            const float4 bhr = *reinterpret_cast<const float4*>(bhh + j);
+            const float4 bhz = *reinterpret_cast<const float4*>(bhh + H + j);
+            const float4 bhn = *reinterpret_cast<const float4*>(bhh + 2 * H + j);
+            const float pr[4] = {xr[e].x + bir.x + bhr.x, xr[e].y + bir.y + bhr.y,
+                                 xr[e].z + bir.z + bhr.z, xr[e].w + bir.w + bhr.w};
+            const float pz[4] = {xz[e].x + biz.x + bhz.x, xz[e].y + biz.y + bhz.y,
+                                 xz[e].z + biz.z + bhz.z, xz[e].w + biz.w + bhz.w};
+            const float pn[4] = {xn[e].x + bin.x, xn[e].y + bin.y, xn[e].z + bin.z,
+                                 xn[e].w + bin.w};
+            const float gn0[4] = {bhn.x, bhn.y, bhn.z, bhn.w};
+            const float hpv[4] = {hp[e].x, hp[e].y, hp[e].z, hp[e].w};
+            float hv[4], ov[4];
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {
+              const int u = 4 * q + k;
+              const float ghr = ps_sum_splits(Cs, KS, BR, ldc, r, u);
+              const float ghz = ps_sum_splits(Cs, KS, BR, ldc, r, UC + u);
+              const float ghn = gn0[k] + ps_sum_splits(Cs, KS, BR, ldc, r, 2 * UC + u);
+              const float rg = ps_sigmoid(pr[k] + ghr);
+              const float zg = ps_sigmoid(pz[k] + ghz);
+              const float ng = ps_tanh(pn[k] + rg * ghn);
+              const float hn = (1.0f - zg) * ng + zg * hpv[k];
+              hv[k] = valid ? hn : hpv[k];
+              ov[k] = valid ? hn : 0.0f;
+            }
+            const size_t hi = (size_t)b * H + j;
+            *reinterpret_cast<float4*>(h32 + hi) = make_float4(hv[0], hv[1], hv[2], hv[3]);
+            ps_store_bf16x4(hb_out + hi, hv);
+            ps_store_bf16x4(out + ((size_t)t * B + b) * H + j, ov);
+          }
+        }
+      } else {
+        // H no multiple of 4, or a stream that does not start where the
+        // vector loads need: one unit at a time
+        for (int idx = tid; idx < BR * UC; idx += PS_BLOCK) {
+          const int r = idx / UC, u = idx - r * UC;
+          const int b = row0 + r, j = j0 + u;
+          if (b >= B || j >= H) continue;
+          const float ghr = bhh[j] + ps_sum_splits(Cs, KS, BR, ldc, r, u);
+          const float ghz = bhh[H + j] + ps_sum_splits(Cs, KS, BR, ldc, r, UC + u);
+          const float ghn = bhh[2 * H + j] + ps_sum_splits(Cs, KS, BR, ldc, r, 2 * UC + u);
+          const bf16* gxr = gx + ((size_t)t * B + b) * G;
+          const float rg = ps_sigmoid(__bfloat162float(gxr[j]) + bih[j] + ghr);
+          const float zg = ps_sigmoid(__bfloat162float(gxr[H + j]) + bih[H + j] + ghz);
+          const float ng =
+              ps_tanh(__bfloat162float(gxr[2 * H + j]) + bih[2 * H + j] + rg * ghn);
+          const size_t hi = (size_t)b * H + j;
+          const float hp = h32[hi];
+          const float hn = (1.0f - zg) * ng + zg * hp;
+          const bool valid = lengths[b] > t;
+          const float hnext = valid ? hn : hp;
+          h32[hi] = hnext;
+          hb_out[hi] = __float2bfloat16(hnext);
+          out[((size_t)t * B + b) * H + j] = __float2bfloat16(valid ? hn : 0.0f);
+        }
+      }
+      __syncthreads();  // Cs lies over the ring of the next product
+      PS_ACC(3);
+    }
+  }
+}
+
+// Host entry, persistent design, on the caller's stream. h32 holds h0 on
+// entry and h_last on exit; buffer 0 of h16 holds bf16(h0). w_hht is w_hh
+// transposed (3H, H). The plan (U, MG, stages, kc, bpd, smem bytes, and dot:
+// the product on the CUDA cores for B <= PS_DOT_ROWS) comes from
+// ops/persist_plan.py; the launch is refused with an error code if the device
+// cannot hold the grid.
+extern "C" int gru_scan_persist_launch(
+    const void* gx, const void* lengths, const void* w_hht, const void* b_ih,
+    const void* b_hh,
+    void* h32,      // (B, H) f32
+    void* h16,      // (2 buffers, B, H) bf16
+    void* out,      // (T, B, H) bf16
+    void* barrier,  // (1,) uint32, zeroed
+    int T, int B, int H, int reverse, int U, int MG, int stages, int kc, int bpd,
+    int smem, int dot, void* stream) {
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (U % 8 != 0 || (MG != 1 && MG != 2) || stages < 2 || stages > PS_MAX_STAGES ||
+      (kc != 32 && kc != 64 && kc != 128) || bpd * U < H || (bpd - 1) * U >= H ||
+      (dot && (B > PS_DOT_ROWS || MG != 1)))
+    return (int)cudaErrorInvalidValue;
+  GruScanPersistArgs p;
+  p.gx = static_cast<const bf16*>(gx);
+  p.lengths = static_cast<const int*>(lengths);
+  p.whht = static_cast<const bf16*>(w_hht);
+  p.bih = static_cast<const float*>(b_ih);
+  p.bhh = static_cast<const float*>(b_hh);
+  p.h32 = static_cast<float*>(h32);
+  p.hb = static_cast<bf16*>(h16);
+  p.out = static_cast<bf16*>(out);
+  p.barrier = static_cast<unsigned int*>(barrier);
+  p.T = T; p.B = B; p.H = H; p.reverse = reverse ? 1 : 0;
+  p.U = U; p.MG = MG; p.stages = stages; p.kc = kc; p.bpd = bpd; p.dot = dot ? 1 : 0;
+  p.Kr = (H + 63) / 64 * 64;
+  p.ws_off = smem - 3 * U * p.Kr * 2;
+  const int BR = MG * 64;
+  const int KCB = 2 / MG * kc;  // depth of a ring chunk
+  if (KCB % PS_BOX != 0 || p.ws_off < stages * BR * KCB * 2 ||
+      p.ws_off < 2 / MG * BR * (3 * U + 1) * 4 || p.ws_off % 1024 != 0 ||
+      (dot && p.ws_off < B * p.Kr * 2 + B * (3 * U + 1) * 4))
+    return (int)cudaErrorInvalidValue;
+  // hb: (2 buffers, B, H)
+  CUtensorMap hb_map = {};
+  p.tma = ps_tma_ok(h16, H) ? 1 : 0;
+  if (p.tma) {
+    const int rc = ps_make_tmap(&hb_map, h16, H, B, 2, BR);
+    if (rc != 0) return rc;
+  }
+  void* args[] = {&p, &hb_map};
+  const void* kernel = nullptr;
+  switch (3 * U / 8) {
+    case 3: kernel = (const void*)gru_scan_persist_kernel<3>; break;
+    case 6: kernel = (const void*)gru_scan_persist_kernel<6>; break;
+    case 9: kernel = (const void*)gru_scan_persist_kernel<9>; break;
+    case 12: kernel = (const void*)gru_scan_persist_kernel<12>; break;
+    case 15: kernel = (const void*)gru_scan_persist_kernel<15>; break;
+    case 18: kernel = (const void*)gru_scan_persist_kernel<18>; break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return ps_coop_launch(kernel, bpd, PS_BLOCK, smem, args, s);
 }

@@ -33,6 +33,9 @@
 // spends in each part of a step (PS_ACC below; persist_prof_read fetches the
 // sums): the barrier, the wait for a chunk, the products, the epilogue.
 //
+// The forward chains (gru_scan.cu, lstm_scan.cu) walk only the steps before
+// the longest row's length (ps_longest); the later steps only write zeros.
+//
 // Include after <cuda_bf16.h> and the bf16 typedef.
 
 #pragma once
@@ -299,6 +302,50 @@ __device__ __forceinline__ float ps_tanh(float x) {
   return 1.0f - __fdividef(2.0f, 1.0f + __expf(2.0f * fminf(fmaxf(x, -15.0f), 15.0f)));
 }
 
+// four neighbouring bf16 (8 bytes, from an 8-byte boundary) as floats, and back
+__device__ __forceinline__ float4 ps_load_bf16x4(const bf16* p) {
+  const uint2 v = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+__device__ __forceinline__ void ps_store_bf16x4(bf16* p, const float (&v)[4]) {
+  __nv_bfloat162 a = __floats2bfloat162_rn(v[0], v[1]);
+  __nv_bfloat162 b = __floats2bfloat162_rn(v[2], v[3]);
+  uint2 w;
+  w.x = *reinterpret_cast<uint32_t*>(&a);
+  w.y = *reinterpret_cast<uint32_t*>(&b);
+  *reinterpret_cast<uint2*>(p) = w;
+}
+
+// The steps a forward chain must walk: t < the longest of the B lengths (at
+// most T). Every block computes the same; the later steps change no state
+// and only write zeros (ps_zero_steps), so they need no barrier.
+__device__ __forceinline__ int ps_longest(const int* lengths, int B, int T) {
+  __shared__ int longest;
+  if (threadIdx.x == 0) longest = 0;
+  __syncthreads();
+  int m = 0;
+  for (int b = threadIdx.x; b < B; b += blockDim.x) m = max(m, lengths[b]);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) m = max(m, __shfl_xor_sync(0xffffffffu, m, o));
+  if ((threadIdx.x & 31) == 0) atomicMax(&longest, m);
+  __syncthreads();
+  return min(longest, T);
+}
+
+// seq[t][b][j0 + u] = 0 for t0 <= t < T, every row b < B, u < uw: a (T, B, H)
+// stream's steps past every row's length, at this block's units
+__device__ __forceinline__ void ps_zero_steps(bf16* seq, int t0, int T, int B, int H,
+                                              int j0, int uw) {
+  const size_t n = (size_t)(T - t0) * B * uw;
+  for (size_t i = threadIdx.x; i < n; i += blockDim.x) {
+    const size_t row = i / uw;  // (t - t0) * B + b
+    seq[((size_t)t0 * B + row) * H + j0 + (i - row * uw)] = __float2bfloat16(0.0f);
+  }
+}
+
 // ---------------------------------------------------------------------------
 // Grid-wide barrier over the `blocks` blocks that share `counter`
 // ---------------------------------------------------------------------------
@@ -310,7 +357,9 @@ __device__ __forceinline__ float ps_tanh(float x) {
 // block-wide barrier orders the block's writes before thread 0's fence, the
 // fence (cumulative, device scope) before its arrival, and the second fence
 // orders the observed count before the block's later reads. Read exchanged
-// buffers through L2 (TMA, cp.async.cg, __ldcg), not through L1.
+// buffers through L2 (TMA, cp.async.cg, __ldcg), not through L1. A wait
+// that never ends (a block that never arrives) traps instead of hanging the
+// card.
 
 __device__ __forceinline__ void ps_grid_barrier(unsigned int* counter,
                                                 unsigned int target) {
@@ -318,8 +367,9 @@ __device__ __forceinline__ void ps_grid_barrier(unsigned int* counter,
   if (threadIdx.x == 0) {
     __threadfence();
     atomicAdd(counter, 1u);
-    while (*reinterpret_cast<volatile unsigned int*>(counter) < target) {
-    }
+    for (uint32_t spins = 0;
+         *reinterpret_cast<volatile unsigned int*>(counter) < target; ++spins)
+      if (spins > (1u << 24)) __trap();
     __threadfence();
   }
   __syncthreads();
@@ -583,6 +633,92 @@ __device__ __forceinline__ void ps_block_product(
   ps_fence_proxy_async();  // the copy engine writes these bytes again later
   __syncthreads();
   PS_ACC(8);
+}
+
+// ---------------------------------------------------------------------------
+// The step product of a batch of at most PS_DOT_ROWS rows, on the CUDA cores
+// ---------------------------------------------------------------------------
+//
+// Cs[r][c] (f32, rows NT * 8 + 1 apart: the layout ps_block_product leaves
+// with one depth split) = a[r][:] @ slice[c][:] for r < rows, c < NT * 8.
+// a (rows, K) bf16, which other blocks wrote before the grid barrier, comes
+// once through L2 (cp.async.cg) into shared memory at hs, rows Kr apart with
+// zeros past K; each warp then owns the columns warp, warp + 9, ..., its lanes
+// take 8-deep pieces of the depth 256 apart and meet through shuffles, in a
+// fixed order. hs and Cs must not overlap. Every thread of the block calls
+// this. (At B = 1 the wgmma ring spent 84% of a gru_scan step, mostly on
+// its per-chunk waits, for 32 chunks of 63 zero rows and one real one:
+// chip_smoke.py --phase-clocks on an NVIDIA H100 80GB HBM3 at 700 W. This
+// product takes 69% of a step half as long; walking four columns a warp at
+// a time, tried, left its clocks as they were.)
+
+#define PS_DOT_ROWS 8
+
+template <int NT>
+__device__ __forceinline__ void ps_dot_product(const bf16* a, int rows, int K, int Kr,
+                                               const bf16* Ws, bf16* hs, float* Cs) {
+  const int tid = threadIdx.x;
+  const bool vec = (K % 8) == 0 && (reinterpret_cast<uintptr_t>(a) % 16) == 0;
+  const int pieces = Kr / 8;
+  for (int p = tid; p < rows * pieces; p += PS_BLOCK) {
+    const int r = p / pieces;
+    const int k = (p - r * pieces) * 8;
+    bf16* dst = hs + (size_t)r * Kr + k;
+    const unsigned short* src = reinterpret_cast<const unsigned short*>(a + (size_t)r * K + k);
+    if (vec && k + 8 <= K) {
+      ps_cp_async16(dst, src);
+    } else {
+      unsigned short* d16 = reinterpret_cast<unsigned short*>(dst);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) d16[e] = k + e < K ? __ldcg(src + e) : (unsigned short)0;
+    }
+  }
+  ps_commit();
+  ps_wait<0>();
+  __syncthreads();
+
+  constexpr int NC = NT * 8;
+  const int warp = tid >> 5, lane = tid & 31;
+  for (int c = warp; c < NC; c += PS_BLOCK / 32) {
+    float acc[PS_DOT_ROWS];
+#pragma unroll
+    for (int r = 0; r < PS_DOT_ROWS; ++r) acc[r] = 0.0f;
+    for (int k = lane * 8; k < Kr; k += 256) {
+      // 8 of column c's depth from its swizzled tile (ps_load_slice's layout)
+      const uint4 wv = *reinterpret_cast<const uint4*>(
+          Ws + (k >> 6) * (NC * PS_BOX) + c * PS_BOX + ((((k & 63) >> 3) ^ (c & 7)) << 3));
+      const uint32_t wu[4] = {wv.x, wv.y, wv.z, wv.w};
+      float w[8];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&wu[q]));
+        w[2 * q] = f.x;
+        w[2 * q + 1] = f.y;
+      }
+#pragma unroll
+      for (int r = 0; r < PS_DOT_ROWS; ++r) {
+        if (r >= rows) break;
+        const uint4 hv = *reinterpret_cast<const uint4*>(hs + (size_t)r * Kr + k);
+        const uint32_t hu[4] = {hv.x, hv.y, hv.z, hv.w};
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const float2 f =
+              __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&hu[q]));
+          acc[r] = fmaf(f.x, w[2 * q], acc[r]);
+          acc[r] = fmaf(f.y, w[2 * q + 1], acc[r]);
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < PS_DOT_ROWS; ++r) {
+      if (r >= rows) break;
+      float v = acc[r];
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+      if (lane == 0) Cs[r * (NC + 1) + c] = v;
+    }
+  }
+  __syncthreads();
 }
 
 // the sum of the k_splits partial sums of element (r, c), in split order

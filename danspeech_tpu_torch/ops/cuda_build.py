@@ -16,6 +16,8 @@ import os
 import shutil
 import subprocess
 
+import torch
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
@@ -112,3 +114,12 @@ def bind(name: str, fn_name: str, n_ptr: int, n_int: int):
         )
         fn.restype = ctypes.c_int
     return fn
+
+
+def call(fn, name: str, device, *args) -> None:
+    """Call a bound C entry (:func:`bind`) with ``args`` and the current
+    stream of the CUDA ``device``; raise if it returns a CUDA error."""
+    with torch.cuda.device(device):
+        rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")

@@ -14,12 +14,12 @@ The ports of four kernels of ``danspeech_tpu/ops/pallas_gru.py``:
   walk of one chain for training.
 
 Each source's header note says what bounds it on an H100 and what the
-design does about it. ``gru_bidi_fused`` and ``gru_bwd_scan`` have two
-designs: "persistent" (one cooperative launch walks every step, the weights
-resident in shared memory, ``csrc/persist.cuh``) and "step" (one launch per
-time step). ``persist_plan`` chooses between them from the shape and the
-device's SM count and shared memory, never after a failed launch; the
-``design=`` argument of the wrappers overrides the choice for checks. A
+design does about it. ``gru_bidi_fused``, ``gru_scan`` and ``gru_bwd_scan``
+have two designs: "persistent" (one cooperative launch walks every step, the
+weights resident in shared memory, ``csrc/persist.cuh``) and "step" (one
+launch per time step). ``persist_plan`` chooses between them from the shape
+and the device's SM count and shared memory, never after a failed launch;
+the ``design=`` argument of the wrappers overrides the choice for checks. A
 wrapper launches its kernel for CUDA tensors and raises on anything the
 kernel does not take; for CPU tensors, and only for those, it runs the plain
 version. There is no fallback from a failed build or launch to the plain
@@ -29,6 +29,7 @@ version.
 from __future__ import annotations
 
 import ctypes
+import weakref
 
 import torch
 
@@ -36,6 +37,12 @@ from . import cuda_build, persist_plan
 from .cuda_checks import check_tensors as _check_tensors
 
 _device_info: dict[int, tuple[int, int]] = {}
+
+# The most bytes gru_bidi_fused's f32 projection buffer (2, T, rows, 3H) may
+# take: a larger batch runs in groups of rows, one launch each. The flagship's
+# 128-row group at T = 401 (1.48 GB) stays one launch; 128 one-minute clips
+# (T = 3001) would otherwise ask for 11 GB.
+GX_BUDGET_BYTES = 2 << 30
 
 
 def device_info(device: torch.device) -> tuple[int, int]:
@@ -53,6 +60,32 @@ def device_info(device: torch.device) -> tuple[int, int]:
             raise RuntimeError(f"persist_device_info failed: CUDA error {rc}")
         _device_info[index] = (sms.value, smem.value)
     return _device_info[index]
+
+
+_transposes: dict[int, tuple] = {}
+
+
+def transposed(w: torch.Tensor) -> torch.Tensor:
+    """``w.t().contiguous()``, kept per weight tensor for as long as it lives
+    with the same storage and version counter. The persistent ``gru_scan`` and
+    LSTM routes read rows of w_hh^T; remade at every call, the 24 MB copies
+    of GPUStreamingRNN's five layers took 12.7% of a streaming chunk's device
+    time (PERF.md). A tensor written in place (an optimizer step) has a
+    new version and is transposed again; an inference tensor keeps no version
+    and is transposed at every call."""
+    try:
+        version = w._version
+    except RuntimeError:
+        return w.t().contiguous()
+    key = id(w)
+    hit = _transposes.get(key)
+    if (hit is not None and hit[0]() is w and hit[1] == version
+            and hit[2] == w.data_ptr()):
+        return hit[3]
+    wt = w.t().contiguous()
+    _transposes[key] = (weakref.ref(w, lambda _, k=key: _transposes.pop(k, None)),
+                        version, w.data_ptr(), wt)
+    return wt
 
 
 def gru_bidi_fused_plain(
@@ -129,6 +162,20 @@ def _check_operands(x, lengths, w_ih_f, w_ih_b, w_hh_f, w_hh_b, biases):
     _check_tensors("x", expect)
 
 
+def gx_row_groups(t_max: int, batch: int, hidden: int,
+                  budget: int | None = None) -> list[slice]:
+    """The groups of rows that :func:`gru_bidi_fused` runs one at a time:
+    as many rows a group as keep its f32 projection buffer, 2 * T * rows *
+    3H * 4 bytes, within ``budget`` (:data:`GX_BUDGET_BYTES`), at least one.
+    Rows of a recurrence are independent, so the groups' results, put side
+    by side, are the batch's (up to the order of the sums of a matrix
+    product whose kernel depends on the rows: the plan's on the card, the
+    BLAS's on the CPU)."""
+    budget = GX_BUDGET_BYTES if budget is None else budget
+    rows = max(1, budget // (2 * t_max * 3 * hidden * 4))
+    return [slice(r, min(r + rows, batch)) for r in range(0, batch, rows)]
+
+
 def gru_bidi_fused(
     x, lengths, w_ih_f, w_ih_b, w_hh_f, w_hh_b, b_ih_f, b_ih_b, b_hh_f, b_hh_b,
     design: str | None = None,
@@ -142,9 +189,18 @@ def gru_bidi_fused(
     :func:`persist_plan.plan_gru_forward` decides), "persistent" or "step";
     ``gru_bidi_fused.design_counts`` counts the CUDA calls by the design taken.
     ``gru_bidi_fused.launches`` counts kernel launches (one per call: the
-    projection and the recurrence of one layer).
+    projection and the recurrence of one layer). The kernel keeps the
+    projection in an f32 buffer of 2 * T * B * 3H * 4 bytes; where that
+    would exceed :data:`GX_BUDGET_BYTES` (2 GiB) the batch runs in groups of
+    rows (:func:`gx_row_groups`), one call each, on either device.
     """
     args = (w_ih_f, w_ih_b, w_hh_f, w_hh_b, b_ih_f, b_ih_b, b_hh_f, b_hh_b)
+    groups = gx_row_groups(x.shape[0], x.shape[1], w_hh_f.shape[0])
+    if len(groups) > 1:
+        parts = [gru_bidi_fused(x[:, g].contiguous(), lengths[g], *args, design=design)
+                 for g in groups]
+        return (torch.cat([p[0] for p in parts], 1), torch.cat([p[1] for p in parts], 1),
+                torch.cat([p[2] for p in parts]), torch.cat([p[3] for p in parts]))
     if x.device.type == "cpu":
         return gru_bidi_fused_plain(x, lengths, *args)
     if x.device.type != "cuda":
@@ -265,31 +321,64 @@ def _check_scan_operands(gx, lengths, w_hh, b_ih, b_hh, h0):
     _check_tensors("gx", expect)
 
 
-def _bind_scan():
-    lib = cuda_build.load("gru_scan")
-    fn = lib.gru_scan_launch
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
-
-
-def gru_scan(gx, lengths, w_hh, b_ih, b_hh, h0, reverse: bool = False):
+def gru_scan(gx, lengths, w_hh, b_ih, b_hh, h0, reverse: bool = False,
+             design: str | None = None):
     """One GRU chain over a precomputed projection, with a carried h0.
 
     Same contract and return values as :func:`gru_scan_plain`. A CUDA
     ``gx`` launches the kernel (bf16 gx and w_hh, f32 biases and h0, int32
     lengths, all contiguous on gx's device) or raises; a CPU ``gx`` runs the
-    plain version. ``gru_scan.launches`` counts kernel launches (one per
-    call: the T step kernels of one chain).
+    plain version. ``design`` is None (the plan of
+    :func:`persist_plan.plan_gru_scan` decides), "persistent" or "step";
+    ``gru_scan.design_counts`` counts the CUDA calls by the design taken.
+    ``gru_scan.launches`` counts kernel launches (one per call).
     """
     if gx.device.type == "cpu":
         return gru_scan_plain(gx, lengths, w_hh, b_ih, b_hh, h0, reverse)
     if gx.device.type != "cuda":
         raise ValueError(f"unsupported device {gx.device}")
     _check_scan_operands(gx, lengths, w_hh, b_ih, b_hh, h0)
-    launch = _bind_scan()
+    planned = persist_plan.plan_gru_scan(w_hh.shape[0], gx.shape[1],
+                                         *device_info(gx.device))
+    design = persist_plan.choose(design, planned)
+    if design == "persistent":
+        result = _scan_persistent(gx, lengths, w_hh, b_ih, b_hh, h0, reverse, planned)
+    else:
+        result = _scan_step(gx, lengths, w_hh, b_ih, b_hh, h0, reverse)
+    gru_scan.launches += 1
+    gru_scan.design_counts[design] += 1
+    return result
 
+
+gru_scan.launches = 0
+gru_scan.design_counts = {"persistent": 0, "step": 0}
+
+
+def _scan_persistent(gx, lengths, w_hh, b_ih, b_hh, h0, reverse, planned):
+    """The whole chain in one cooperative launch of the planned grid."""
+    launch = cuda_build.bind("gru_scan", "gru_scan_persist_launch", 9, 11)
+    t_max, batch, _ = gx.shape
+    hidden = w_hh.shape[0]
+    dev = gx.device
+    w_hht = transposed(w_hh)  # the resident slices are rows of w_hh^T
+    h32 = h0.clone()  # h0 on entry, updated in place, h_last on exit
+    h16 = torch.empty((2, batch, hidden), dtype=torch.bfloat16, device=dev)
+    h16[0].copy_(h0)  # round to nearest even, as __float2bfloat16
+    out = torch.empty((t_max, batch, hidden), dtype=torch.bfloat16, device=dev)
+    barrier = torch.zeros((1,), dtype=torch.int32, device=dev)
+    cuda_build.call(
+        launch, "gru_scan (persistent)", dev,
+        gx.data_ptr(), lengths.data_ptr(), w_hht.data_ptr(), b_ih.data_ptr(),
+        b_hh.data_ptr(), h32.data_ptr(), h16.data_ptr(), out.data_ptr(),
+        barrier.data_ptr(), t_max, batch, hidden, int(bool(reverse)),
+        planned.units, planned.row_groups, planned.stages, planned.chunk_depth,
+        planned.blocks_per_dir, planned.smem_bytes, int(planned.product == "dot"))
+    return out, h32
+
+
+def _scan_step(gx, lengths, w_hh, b_ih, b_hh, h0, reverse):
+    """T launches of the step kernel."""
+    launch = cuda_build.bind("gru_scan", "gru_scan_launch", 8, 4)
     t_max, batch, _ = gx.shape
     hidden = w_hh.shape[0]
     dev = gx.device
@@ -298,21 +387,12 @@ def gru_scan(gx, lengths, w_hh, b_ih, b_hh, h0, reverse: bool = False):
     h32[0].copy_(h0)
     h16[0].copy_(h0)  # round to nearest even, as __float2bfloat16
     out = torch.empty((t_max, batch, hidden), dtype=torch.bfloat16, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = launch(
-            gx.data_ptr(), lengths.data_ptr(), w_hh.data_ptr(),
-            b_ih.data_ptr(), b_hh.data_ptr(),
-            h32.data_ptr(), h16.data_ptr(), out.data_ptr(),
-            t_max, batch, hidden, int(bool(reverse)), stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"gru_scan launch failed: CUDA error {rc}")
-    gru_scan.launches += 1
-    return out, h32[t_max % 2]
-
-
-gru_scan.launches = 0
+    cuda_build.call(
+        launch, "gru_scan (step)", dev,
+        gx.data_ptr(), lengths.data_ptr(), w_hh.data_ptr(), b_ih.data_ptr(),
+        b_hh.data_ptr(), h32.data_ptr(), h16.data_ptr(), out.data_ptr(),
+        t_max, batch, hidden, int(bool(reverse)))
+    return out, h32[t_max % 2]  # the buffer the final step wrote
 
 
 # ---------------------------------------------------------------------------

@@ -16,18 +16,23 @@ Unlike the GRU kernels, these take a projection ``gx`` that already holds
 ``b_ih`` (added in f32, then rounded to the stream dtype, as the JAX
 package's ``_lstm_project``); the kernel adds ``b_hh`` only. Each source's
 header note says what bounds it on an H100 and what the design does about
-it. A wrapper launches its kernel for CUDA tensors and raises on anything
-the kernel does not take; for CPU tensors, and only for those, it runs the
-plain version. There is no fallback from a failed build or launch to the
-plain version.
+it. The two forward kernels have two designs, as the GRU ones: "persistent"
+(one cooperative launch walks every step, ``csrc/persist.cuh``) and "step"
+(one launch per time step), chosen by :func:`persist_plan.plan_lstm_forward`
+or by ``design=``; :func:`lstm_scan_pair` runs both chains of a
+bidirectional layer in one persistent launch. A wrapper launches its kernel
+for CUDA tensors and raises on anything the kernel does not take; for CPU
+tensors, and only for those, it runs the plain version. There is no fallback
+from a failed build or launch to the plain version.
 """
 
 from __future__ import annotations
 
 import torch
 
-from . import cuda_build
+from . import cuda_build, persist_plan
 from .cuda_checks import check_proj_rows, check_stream_shape, check_tensors, time_order
+from .gru_cuda import device_info, transposed
 
 
 def _gates(pre, hidden):
@@ -101,13 +106,25 @@ def _check_scan_operands(gx, lengths, w_hh, b_hh, h0, c0):
     })
 
 
-def _scan_cuda(gx, lengths, w_hh, b_hh, h0, c0, reverse, with_cell):
+def _scan_cuda(gx, lengths, w_hh, b_hh, h0, c0, reverse, with_cell, design):
+    """One chain on the card in the design the plan (or ``design``) gives.
+    Returns (the design taken, the results)."""
     if gx.device.type != "cuda":
         raise ValueError(f"unsupported device {gx.device}")
     _check_scan_operands(gx, lengths, w_hh, b_hh, h0, c0)
+    planned = persist_plan.plan_lstm_forward(w_hh.shape[0], gx.shape[1], 1,
+                                             *device_info(gx.device))
+    design = persist_plan.choose(design, planned)
+    chain = (gx, lengths, w_hh, b_hh, h0, c0)
+    if design == "persistent":
+        return design, _persistent([chain], [reverse], with_cell, planned)[0]
+    return design, _step(*chain, reverse, with_cell)
+
+
+def _step(gx, lengths, w_hh, b_hh, h0, c0, reverse, with_cell):
+    """T launches of the step kernel."""
     name = "lstm_scan_with_cell" if with_cell else "lstm_scan"
     launch = cuda_build.bind("lstm_scan", f"{name}_launch", 9 if with_cell else 8, 4)
-
     t_max, batch, _ = gx.shape
     hidden = w_hh.shape[0]
     dev = gx.device
@@ -117,58 +134,129 @@ def _scan_cuda(gx, lengths, w_hh, b_hh, h0, c0, reverse, with_cell):
     h16[0].copy_(h0)  # round to nearest even, as __float2bfloat16
     c = c0.clone()  # updated in place by the thread that owns each (b, j)
     out = torch.empty((t_max, batch, hidden), dtype=torch.bfloat16, device=dev)
-    streams = [out.data_ptr()]
-    if with_cell:
-        cseq = torch.empty_like(out)
-        streams.append(cseq.data_ptr())
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = launch(
-            gx.data_ptr(), lengths.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(),
-            h32.data_ptr(), h16.data_ptr(), c.data_ptr(), *streams,
-            t_max, batch, hidden, int(bool(reverse)), stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+    cseq = torch.empty_like(out) if with_cell else None
+    streams = [out.data_ptr()] + ([cseq.data_ptr()] if with_cell else [])
+    cuda_build.call(launch, f"{name} (step)", dev,
+                    gx.data_ptr(), lengths.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(),
+                    h32.data_ptr(), h16.data_ptr(), c.data_ptr(), *streams,
+                    t_max, batch, hidden, int(bool(reverse)))
     h_last = h32[t_max % 2]  # the buffer the final step wrote
     return (out, cseq, h_last, c) if with_cell else (out, h_last, c)
 
 
-def lstm_scan(gx, lengths, w_hh, b_hh, h0, c0, reverse: bool = False):
+def _persistent(chains, reverses, with_cell, planned):
+    """One or two chains that share T, B, H and lengths in one cooperative
+    launch. ``chains`` holds (gx, lengths, w_hh, b_hh, h0, c0) tuples;
+    returns one result tuple per chain, as :func:`lstm_scan` or
+    :func:`lstm_scan_with_cell` gives it."""
+    launch = cuda_build.bind("lstm_scan", "lstm_scan_persist_launch", 17, 12)
+    gx, lengths, w_hh = chains[0][:3]
+    t_max, batch, _ = gx.shape
+    hidden = w_hh.shape[0]
+    dev = gx.device
+    n = len(chains)
+    h16 = torch.empty((2, n, batch, hidden), dtype=torch.bfloat16, device=dev)
+    outs, w_hht = [], []
+    for k, (_, _, w, _, h0, c0) in enumerate(chains):
+        h16[0, k].copy_(h0)  # round to nearest even, as __float2bfloat16
+        out = torch.empty((t_max, batch, hidden), dtype=torch.bfloat16, device=dev)
+        cseq = torch.empty_like(out) if with_cell else None
+        # h and c: the carried states on entry, updated in place, the last on exit
+        outs.append((out, cseq, h0.clone(), c0.clone()))
+        w_hht.append(transposed(w))  # the resident slices are rows of w_hh^T
+    barrier = torch.zeros((n,), dtype=torch.int32, device=dev)
+
+    def each(values):  # one pointer a chain; a single chain fills both places
+        ptrs = [None if v is None else v.data_ptr() for v in values]
+        return ptrs + ptrs[:1] * (2 - n)
+
+    cuda_build.call(
+        launch, "lstm_scan (persistent)", dev,
+        *each([c[0] for c in chains]), lengths.data_ptr(), *each(w_hht),
+        *each([c[3] for c in chains]), *each([o[2] for o in outs]),
+        *each([o[3] for o in outs]), h16.data_ptr(), *each([o[0] for o in outs]),
+        *each([o[1] for o in outs]), barrier.data_ptr(),
+        t_max, batch, hidden, int(bool(reverses[0])), int(bool(reverses[-1])), n,
+        planned.units, planned.row_groups, planned.stages, planned.chunk_depth,
+        planned.blocks_per_dir, planned.smem_bytes)
+    return [o if with_cell else (o[0], o[2], o[3]) for o in outs]
+
+
+def lstm_scan(gx, lengths, w_hh, b_hh, h0, c0, reverse: bool = False,
+              design: str | None = None):
     """One LSTM chain over a precomputed projection, with carried h0, c0.
 
     Same contract and return values as :func:`lstm_scan_plain`. A CUDA ``gx``
     launches the kernel (bf16 gx and w_hh, f32 b_hh, h0 and c0, int32
     lengths, all contiguous on gx's device) or raises; a CPU ``gx`` runs the
-    plain version. ``lstm_scan.launches`` counts kernel launches (one per
-    call: the T step kernels of one chain).
+    plain version. ``design`` is None (the plan of
+    :func:`persist_plan.plan_lstm_forward` decides), "persistent" or "step";
+    ``lstm_scan.design_counts`` counts the CUDA calls by the design taken.
+    ``lstm_scan.launches`` counts kernel launches (one per call).
     """
     if gx.device.type == "cpu":
         return lstm_scan_plain(gx, lengths, w_hh, b_hh, h0, c0, reverse)
-    result = _scan_cuda(gx, lengths, w_hh, b_hh, h0, c0, reverse, False)
+    design, result = _scan_cuda(gx, lengths, w_hh, b_hh, h0, c0, reverse, False, design)
     lstm_scan.launches += 1
+    lstm_scan.design_counts[design] += 1
     return result
 
 
 lstm_scan.launches = 0
+lstm_scan.design_counts = {"persistent": 0, "step": 0}
 
 
-def lstm_scan_with_cell(gx, lengths, w_hh, b_hh, h0, c0, reverse: bool = False):
+def lstm_scan_with_cell(gx, lengths, w_hh, b_hh, h0, c0, reverse: bool = False,
+                        design: str | None = None):
     """One LSTM chain that also writes its cell sequence.
 
     Same contract and return values as :func:`lstm_scan_with_cell_plain`; a
     CUDA ``gx`` launches the kernel or raises, a CPU ``gx`` runs the plain
-    version, as :func:`lstm_scan`. ``lstm_scan_with_cell.launches`` counts
-    kernel launches (one per call).
+    version, and ``design`` and the counters are those of :func:`lstm_scan`.
     """
     if gx.device.type == "cpu":
         return lstm_scan_with_cell_plain(gx, lengths, w_hh, b_hh, h0, c0, reverse)
-    result = _scan_cuda(gx, lengths, w_hh, b_hh, h0, c0, reverse, True)
+    design, result = _scan_cuda(gx, lengths, w_hh, b_hh, h0, c0, reverse, True, design)
     lstm_scan_with_cell.launches += 1
+    lstm_scan_with_cell.design_counts[design] += 1
     return result
 
 
 lstm_scan_with_cell.launches = 0
+lstm_scan_with_cell.design_counts = {"persistent": 0, "step": 0}
+
+
+def lstm_scan_pair(chain_a, chain_b, reverse_a: bool, reverse_b: bool,
+                   with_cell: bool = False, design: str | None = None):
+    """Both chains of a bidirectional LSTM layer.
+
+    ``chain_a`` and ``chain_b`` are the operand tuples (gx, lengths, w_hh,
+    b_hh, h0, c0) of :func:`lstm_scan`, over the same lengths tensor and
+    shapes. Returns (the results of a, the results of b), each as
+    :func:`lstm_scan` (or, with ``with_cell``, :func:`lstm_scan_with_cell`)
+    would return it. On CUDA both chains share one persistent launch when the
+    plan for two chains fits (each chain with its own barrier, so the two
+    never wait for each other), and that wrapper's ``launches`` and
+    ``design_counts`` grow by one; otherwise, for ``design="step"``, and on
+    the CPU, they run one after the other as two calls of that wrapper.
+    """
+    scan = lstm_scan_with_cell if with_cell else lstm_scan
+    if chain_a[0].device.type != "cuda":
+        return scan(*chain_a, reverse=reverse_a), scan(*chain_b, reverse=reverse_b)
+    _check_scan_operands(*chain_a)
+    _check_scan_operands(*chain_b)
+    if chain_a[0].shape != chain_b[0].shape or chain_a[1] is not chain_b[1]:
+        raise ValueError("the two chains must share their shapes and lengths")
+    planned = persist_plan.plan_lstm_forward(
+        chain_a[2].shape[0], chain_a[0].shape[1], 2, *device_info(chain_a[0].device))
+    if design == "step" or planned.design != "persistent":
+        return (scan(*chain_a, reverse=reverse_a, design=design),
+                scan(*chain_b, reverse=reverse_b, design=design))
+    persist_plan.choose(design, planned)
+    outs = _persistent([chain_a, chain_b], [reverse_a, reverse_b], with_cell, planned)
+    scan.launches += 1
+    scan.design_counts["persistent"] += 1
+    return outs[0], outs[1]
 
 
 # ---------------------------------------------------------------------------

@@ -18,8 +18,11 @@ ring takes what the slice leaves free, up to six stages. A chunk costs the
 copy engine a fixed time whatever its size, so chunks are as deep as leaves
 three stages: 128 per warpgroup, else 64, else (where the two warpgroups
 split the depth: a chunk is read in boxes 64 deep) 32, of which two must fit. The
-partial sums of a product lie over the ring. Fewer units per block would need
-more blocks than can be co-resident; more would only use fewer SMs.
+partial sums of a product lie over the ring. A batch above 64 rows takes row
+blocks of 128 (a warpgroup each 64 rows); where their chunks leave too few
+stages beside the slice (one GRU chain at H = 2000), it walks row blocks of
+64 instead, the two warpgroups splitting the depth. Fewer units per block
+would need more blocks than can be co-resident; more would only use fewer SMs.
 
 The constants mirror ``csrc/persist.cuh``.
 """
@@ -37,6 +40,7 @@ BOX = 64            # PS_BOX: depth of one swizzled tile of the operand and the 
 UNIT_STEP = 8       # units per block come in tiles of 8 columns
 MAX_ROWS = 128      # rows of the left operand per row block (2 warpgroups)
 STATIC_RESERVE = 1024  # bytes kept free for a kernel's static shared memory
+DOT_ROWS = 8        # PS_DOT_ROWS: the widest batch of the CUDA-core product
 
 H100_SMS = 132
 H100_SMEM_OPTIN = 232_448
@@ -67,6 +71,8 @@ class PersistPlan:
     staging_bytes: int = 0    # the partial sums (they lie over the ring)
     work_bytes: int = 0       # the larger of ring and partial sums: the slice's offset
     smem_bytes: int = 0       # work + slice: dynamic shared memory per block
+    product: str = "wgmma"    # "wgmma" (the ring), or "dot": the CUDA cores
+    dot_bytes: int = 0        # "dot": the staged left operand and the sums after it
 
     def owner(self, unit: int) -> int:
         """The block (within its direction) that owns hidden unit ``unit``."""
@@ -91,10 +97,10 @@ def plan(hidden: int, batch: int, gates: int, depth: int, directions: int,
     """The plan of one recurrence.
 
     ``hidden`` units, each owning ``gates`` columns of a weight matrix that is
-    ``depth`` deep (forward GRU: 3 gates, depth H; its backward walk: 1
-    column, depth 3H); ``batch`` rows in the left operand; ``directions``
-    chains in the launch; ``max_tiles`` the widest slice, in tiles of 8
-    columns, that the kernel is compiled for.
+    ``depth`` deep (forward GRU: 3 gates, depth H; forward LSTM: 4 gates,
+    depth H; the GRU's backward walk: 1 column, depth 3H); ``batch`` rows in
+    the left operand; ``directions`` chains in the launch; ``max_tiles`` the
+    widest slice, in tiles of 8 columns, that the kernel is compiled for.
     """
     if min(hidden, batch, gates, depth, directions, sm_count) < 1:
         raise ValueError("hidden, batch, gates, depth, directions and sm_count "
@@ -102,10 +108,22 @@ def plan(hidden: int, batch: int, gates: int, depth: int, directions: int,
     per_dir = sm_count // directions
     if per_dir < 1:
         return PersistPlan("step", f"{directions} directions on {sm_count} SMs")
+    first = _plan_rows(hidden, batch, gates, depth, directions, smem_optin, max_tiles,
+                       per_dir, row_groups_for(batch))
+    if first.design == "step" and first.row_groups == 2:
+        halves = _plan_rows(hidden, batch, gates, depth, directions, smem_optin,
+                            max_tiles, per_dir, 1)
+        if halves.design == "persistent":
+            return halves
+    return first
+
+
+def _plan_rows(hidden, batch, gates, depth, directions, smem_optin, max_tiles, per_dir,
+               row_groups) -> PersistPlan:
+    """:func:`plan` with the warpgroups along the rows given."""
     units = -(-hidden // per_dir)                  # ceil(H / blocks allowed)
     units = -(-units // UNIT_STEP) * UNIT_STEP     # up to a multiple of 8
     blocks = -(-hidden // units)
-    row_groups = row_groups_for(batch)
     cols = gates * units
     k_splits = WARPGROUPS // row_groups
     rows = row_groups * GROUP_ROWS
@@ -151,8 +169,9 @@ def plan(hidden: int, batch: int, gates: int, depth: int, directions: int,
 
 # the widest slices the kernels are compiled for (the switch statements of the
 # host entries), in MMA tiles of 8 columns
-GRU_FWD_MAX_TILES = 18   # csrc/gru_bidi_fused.cu: 3 gates x up to 48 units
+GRU_FWD_MAX_TILES = 18   # csrc/gru_bidi_fused.cu, csrc/gru_scan.cu: 3 gates x up to 48 units
 GRU_BWD_MAX_TILES = 8    # csrc/gru_bwd.cu: up to 64 units
+LSTM_FWD_MAX_TILES = 8   # csrc/lstm_scan.cu: 4 gates x 8 or 16 units
 
 
 def plan_gru_forward(hidden, batch, sm_count, smem_optin) -> PersistPlan:
@@ -160,6 +179,32 @@ def plan_gru_forward(hidden, batch, sm_count, smem_optin) -> PersistPlan:
     direction h (B, H) @ w_hh (H, 3H)."""
     return plan(hidden, batch, 3, hidden, 2, sm_count, smem_optin,
                 GRU_FWD_MAX_TILES)
+
+
+def plan_gru_scan(hidden, batch, sm_count, smem_optin) -> PersistPlan:
+    """One GRU chain over a precomputed projection (``gru_scan``): h (B, H)
+    @ w_hh (H, 3H). A batch of at most :data:`DOT_ROWS` rows (the streaming
+    chunk) takes the product on the CUDA cores where its staged operand
+    fits beside the slice: the whole of h in shared memory, the sums after
+    it (``ps_dot_product`` in ``csrc/persist.cuh``)."""
+    planned = plan(hidden, batch, 3, hidden, 1, sm_count, smem_optin, GRU_FWD_MAX_TILES)
+    if planned.design != "persistent" or batch > DOT_ROWS:
+        return planned
+    dot = batch * planned.depth_padded * 2 + batch * (3 * planned.units + 1) * 4
+    dot = -(-dot // 1024) * 1024
+    work = max(planned.work_bytes, dot)
+    if work + planned.slice_bytes > smem_optin - STATIC_RESERVE:
+        return planned
+    return dataclasses.replace(planned, product="dot", dot_bytes=dot, work_bytes=work,
+                               smem_bytes=work + planned.slice_bytes)
+
+
+def plan_lstm_forward(hidden, batch, chains, sm_count, smem_optin) -> PersistPlan:
+    """``chains`` (1 or 2) LSTM chains in one launch (``lstm_scan``,
+    ``lstm_scan_with_cell`` and their pair): per chain h (B, H) @ w_hh
+    (H, 4H)."""
+    return plan(hidden, batch, 4, hidden, chains, sm_count, smem_optin,
+                LSTM_FWD_MAX_TILES)
 
 
 def plan_gru_backward(hidden, batch, chains, sm_count, smem_optin) -> PersistPlan:

@@ -35,11 +35,13 @@ package: they raise there when a gradient is asked for.
 
 :func:`lstm_layer` and :func:`rnn_tanh_layer` run one chain per direction
 (:func:`lstm_cuda.lstm_scan`, :func:`rnn_tanh_cuda.rnn_tanh_scan`; the
-reverse-time chain reads time backwards, no reversed copy is made) over a
-projection that already holds the input bias (both biases for the tanh
-RNN), start from zero states and return the outputs only. Every shape of
-them (one or two directions, summed or concatenated) is differentiable: the
-backward is :func:`lstm_cuda.lstm_bwd_scan` /
+reverse-time chain reads time backwards, no reversed copy is made; the two
+LSTM chains of a bidirectional layer go through
+:func:`lstm_cuda.lstm_scan_pair`, one launch on the card, chain by chain on
+the CPU) over a projection that already holds the input bias (both biases
+for the tanh RNN), start from zero states and return the outputs only.
+Every shape of them (one or two directions, summed or concatenated) is
+differentiable: the backward is :func:`lstm_cuda.lstm_bwd_scan` /
 :func:`rnn_tanh_cuda.rnn_tanh_bwd_scan` per direction followed by the same
 plain matrix products. An LSTM forward that will be differentiated runs
 :func:`lstm_cuda.lstm_scan_with_cell`, which also keeps the cell stream the
@@ -440,13 +442,16 @@ class _LSTMLayer(torch.autograd.Function):
                    else lstm_cuda.lstm_scan_with_cell_plain)
         else:
             run = lstm_cuda.lstm_scan if impl == "auto" else lstm_cuda.lstm_scan_plain
-        outs, cells = [], []
-        for w, chain_reverse in dirs:
-            res = run(_lstm_project(x, w), lengths, w.w_hh, w.b_hh.float(),
-                      zeros, zeros, reverse=chain_reverse)
-            outs.append(res[0])
-            if keep_cell:
-                cells.append(res[1])
+        chains = [((_lstm_project(x, w), lengths, w.w_hh, w.b_hh.float(), zeros, zeros),
+                   chain_reverse) for w, chain_reverse in dirs]
+        if impl == "auto" and len(chains) == 2:
+            results = lstm_cuda.lstm_scan_pair(chains[0][0], chains[1][0], False, True,
+                                               with_cell=keep_cell)
+        else:
+            results = [run(*ops, reverse=chain_reverse) for ops, chain_reverse in chains]
+        del chains
+        outs = [res[0] for res in results]
+        cells = [res[1] for res in results] if keep_cell else []
         ctx.impl, ctx.sum_directions, ctx.keep_cell = impl, sum_directions, keep_cell
         if keep_cell:
             ctx.save_for_backward(x, lengths, *outs, *cells, *weights)

@@ -24,6 +24,7 @@ from danspeech_tpu_torch.ops import rnn as trnn
 BF16_OUT_ATOL = 8e-3
 H_LAST_ATOL = 1e-4
 F32_ATOL = 1e-5
+SPLIT_H_LAST_ATOL = 1e-7  # one f32 ulp at |h| < 1
 
 
 def _weights(rng, d_in, hidden, scale=0.3):
@@ -207,3 +208,57 @@ def test_build_raises_without_nvcc(tmp_path, monkeypatch):
     monkeypatch.setattr(cuda_build.os.path, "isfile", lambda p: False)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         cuda_build.build("k")
+
+
+def _fused_case(seed, t=9, lengths=(9, 3, 1, 7, 9), d_in=12, hidden=8):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(t, len(lengths), d_in)).astype(np.float32)
+    f, b = _torch_w(_weights(rng, d_in, hidden), torch.bfloat16), \
+        _torch_w(_weights(rng, d_in, hidden), torch.bfloat16)
+    return (torch.from_numpy(x).to(torch.bfloat16), torch.tensor(lengths, dtype=torch.int32),
+            f.w_ih, b.w_ih, f.w_hh, b.w_hh, f.b_ih, b.b_ih, f.b_hh, b.b_hh)
+
+
+@pytest.mark.parametrize("rows_per_group,groups", [(1, 5), (2, 3), (3, 2), (5, 1)])
+def test_gx_budget_splits_the_batch_into_groups_of_rows(monkeypatch, rows_per_group,
+                                                        groups):
+    """ROADMAP C14: where the f32 projection buffer (2, T, rows, 3H) would
+    exceed the budget, gru_bidi_fused runs the batch in groups of rows, on
+    the CPU as on the card. Rows of a recurrence are independent: the groups'
+    bf16 outputs, side by side, equal one call's bit for bit. The f32 h_last
+    may differ in its last bit (SPLIT_H_LAST_ATOL): the CPU's batched matrix
+    product picks its kernel, and with it the order of its sums, by the
+    number of rows."""
+    args = _fused_case(3)
+    t, batch, hidden = args[0].shape[0], args[0].shape[1], args[4].shape[0]
+    whole = gru_cuda.gru_bidi_fused(*args)
+    monkeypatch.setattr(gru_cuda, "GX_BUDGET_BYTES", rows_per_group * 2 * t * 3 * hidden * 4)
+    assert gru_cuda.gx_row_groups(t, batch, hidden) == [
+        slice(r, min(r + rows_per_group, batch)) for r in range(0, batch, rows_per_group)]
+    sizes, plain = [], gru_cuda.gru_bidi_fused_plain
+    monkeypatch.setattr(gru_cuda, "gru_bidi_fused_plain",
+                        lambda x, *a: sizes.append(x.shape[1]) or plain(x, *a))
+    split = gru_cuda.gru_bidi_fused(*args)
+    assert len(sizes) == groups and sum(sizes) == batch
+    assert max(sizes) <= rows_per_group
+    for k, (g, w) in enumerate(zip(split, whole)):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        if k < 2:
+            assert torch.equal(g, w)
+        else:
+            torch.testing.assert_close(g, w, atol=SPLIT_H_LAST_ATOL, rtol=0)
+
+
+def test_gx_budget_keeps_the_flagship_group_whole():
+    """The flagship's 128-row group at T = 401 (1.48 GB of f32 projection)
+    stays one launch; 128 one-minute clips (T = 3001, 11 GB) do not, and
+    every group of theirs keeps within the 2 GiB budget."""
+    assert gru_cuda.GX_BUDGET_BYTES == 2 << 30
+    assert gru_cuda.gx_row_groups(401, 128, 1200) == [slice(0, 128)]
+    groups = gru_cuda.gx_row_groups(3001, 128, 1200)
+    assert len(groups) == 6 and groups[0] == slice(0, 24) and groups[-1] == slice(120, 128)
+    for g in groups:
+        assert 2 * 3001 * (g.stop - g.start) * 3 * 1200 * 4 <= gru_cuda.GX_BUDGET_BYTES
+    # a row larger than the budget still runs, one row a group
+    assert gru_cuda.gx_row_groups(10, 3, 8, budget=1) == [slice(0, 1), slice(1, 2),
+                                                          slice(2, 3)]

@@ -203,3 +203,24 @@ def test_streaming_layer_rejects_unknown_impl():
     with pytest.raises(ValueError):
         trnn.gru_layer_streaming(torch.zeros(3, 1, 4), w, torch.zeros(1, 8),
                                  impl="xla")
+
+
+def test_transposed_copy_is_kept_per_tensor_and_version():
+    """The persistent routes read rows of w_hh^T: one copy per weight tensor,
+    made again when the tensor is written in place, dropped with it."""
+    w = torch.randn(4, 12)
+    wt = gru_cuda.transposed(w)
+    assert torch.equal(wt, w.t()) and wt.is_contiguous()
+    assert gru_cuda.transposed(w) is wt
+    w.mul_(2.0)  # an optimizer step bumps the version counter
+    wt2 = gru_cuda.transposed(w)
+    assert wt2 is not wt and torch.equal(wt2, w.t())
+    other = torch.randn(4, 12)
+    assert torch.equal(gru_cuda.transposed(other), other.t())
+    key = id(other)
+    del other
+    assert key not in gru_cuda._transposes
+    with torch.inference_mode():
+        frozen = torch.randn(3, 6)  # an inference tensor keeps no version
+    assert torch.equal(gru_cuda.transposed(frozen), frozen.t())
+    assert gru_cuda.transposed(frozen) is not gru_cuda.transposed(frozen)

@@ -358,3 +358,71 @@ def test_wrapper_operand_checks_and_devices():
         lstm_cuda._check_scan_operands(gx, lengths, w_hh, b_hh, zeros[:1], zeros)
     with pytest.raises(ValueError, match="empty"):
         lstm_cuda._check_scan_operands(gx[:0], lengths, w_hh, b_hh, zeros, zeros)
+
+
+# ---------------------------------------------------------------------------
+# lstm_scan_pair: both chains of a bidirectional layer
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("with_cell", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_pair_equals_two_single_chains(dtype, with_cell):
+    """On CPU tensors the pair runs the two chains one after the other through
+    the single-chain wrappers (the plain versions): exactly their results."""
+    _, tdt = _dtypes(dtype)
+    lens = torch.tensor([13, 0, 1, 7, 12], dtype=torch.int32)
+    chains = []
+    for seed in (1, 2):
+        a = _scan_inputs(seed, 13, lens.tolist(), 16)
+        chains.append((torch.from_numpy(a["gx"]).to(tdt), lens,
+                       torch.from_numpy(a["w_hh"]).to(tdt), torch.from_numpy(a["b_hh"]),
+                       torch.from_numpy(a["h0"]), torch.from_numpy(a["c0"])))
+    single = lstm_cuda.lstm_scan_with_cell if with_cell else lstm_cuda.lstm_scan
+    before = single.launches
+    got = lstm_cuda.lstm_scan_pair(chains[0], chains[1], False, True, with_cell=with_cell)
+    assert single.launches == before
+    for got_chain, chain, reverse in zip(got, chains, (False, True)):
+        want = single(*chain, reverse=reverse)
+        assert len(got_chain) == len(want) == (4 if with_cell else 3)
+        for g, w in zip(got_chain, want):
+            assert torch.equal(g, w)
+    with pytest.raises(ValueError, match="unsupported device"):
+        lstm_cuda.lstm_scan_pair(*([tuple(v.to("meta") for v in c) for c in chains]),
+                                 False, True, with_cell=with_cell)
+
+
+@pytest.mark.parametrize("sum_directions", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bidi_layer_takes_the_pair_route(monkeypatch, dtype, sum_directions):
+    """A bidirectional lstm_layer runs its two chains through lstm_scan_pair
+    (one launch on the card): the result equals the two chains run by hand
+    through the plain version, and matches the JAX package's lstm_layer
+    (float32: ``impl="xla"``, F32_ATOL; bf16 weights: the Pallas kernel in
+    interpret mode, the bound of test_lstm_layer_bf16_close_to_jax_pallas)."""
+    pairs = []
+    orig = lstm_cuda.lstm_scan_pair
+    monkeypatch.setattr(lstm_cuda, "lstm_scan_pair",
+                        lambda *a, **kw: pairs.append(kw.get("with_cell")) or orig(*a, **kw))
+    x, lens, fwd, bwd, _ = _layer_case("bidi", sum_directions, [13, 7, 0, 4], seed=21)
+    cast = None if dtype == "float32" else torch.bfloat16
+    leaves = [t.detach() for t in _torch_leaves(x, fwd, bwd)]
+    out = _torch_layer(leaves, lens, sum_directions, "auto", cast=cast)
+    assert pairs == [False]
+    tl = torch.from_numpy(lens)
+    zeros = torch.zeros((len(lens), 8))
+    by_hand = []
+    for k, reverse in ((0, False), (1, True)):
+        w = trnn.LSTMWeights(*leaves[1 + 4 * k : 5 + 4 * k])
+        if cast is not None:
+            w = w._replace(w_ih=w.w_ih.to(cast), w_hh=w.w_hh.to(cast))
+        by_hand.append(lstm_cuda.lstm_scan_plain(
+            trnn._lstm_project(leaves[0], w), tl, w.w_hh, w.b_hh.float(), zeros, zeros,
+            reverse=reverse)[0].float())
+    want = by_hand[0] + by_hand[1] if sum_directions else torch.cat(by_hand, -1)
+    assert torch.equal(out, want)
+    run, args = _jax_layer(x, lens, fwd, bwd, sum_directions,
+                           "xla" if cast is None else "pallas",
+                           cast=None if cast is None else jnp.bfloat16)
+    atol = F32_ATOL if cast is None else 2 * BF16_ATOL
+    np.testing.assert_allclose(out.numpy(), np.asarray(run(*args)), atol=atol, rtol=0)

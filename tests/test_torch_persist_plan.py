@@ -21,6 +21,13 @@ FORWARD_FITS = [(1200, 128), (1200, 32), (1200, 8), (1200, 1), (1200, 200),
 BACKWARD_FITS = [(1200, 32, 1), (1200, 32, 2), (1200, 8, 2), (1200, 128, 1),
                  (2000, 32, 1), (2000, 8, 1), (800, 32, 1), (800, 32, 2),
                  (72, 5, 1), (72, 5, 2), (100, 3, 1), (64, 1, 1), (7, 2, 2)]
+# (hidden, batch): one GRU chain (gru_scan), the uni model's layers at the
+# streaming chunk, training and serving batches, and small shapes
+SCAN_FITS = [(2000, 1), (2000, 8), (2000, 9), (2000, 32), (2000, 64), (2000, 128),
+             (2000, 150), (72, 5), (100, 3)]
+# (hidden, batch, chains): LSTM forward chains (lstm_scan and its pair)
+LSTM_FITS = [(800, 32, 1), (800, 128, 1), (800, 32, 2), (800, 128, 2), (72, 5, 2),
+             (100, 3, 1), (1200, 32, 1)]
 
 
 def _plans():
@@ -30,6 +37,12 @@ def _plans():
     for h, b, c in BACKWARD_FITS:
         yield pytest.param(pp.plan_gru_backward(h, b, c, SMS, SMEM), h, b, 1, 3 * h, c,
                            id=f"backward-H{h}-B{b}-chains{c}")
+    for h, b in SCAN_FITS:
+        yield pytest.param(pp.plan_gru_scan(h, b, SMS, SMEM), h, b, 3, h, 1,
+                           id=f"scan-H{h}-B{b}")
+    for h, b, c in LSTM_FITS:
+        yield pytest.param(pp.plan_lstm_forward(h, b, c, SMS, SMEM), h, b, 4, h, c,
+                           id=f"lstm-H{h}-B{b}-chains{c}")
 
 
 @pytest.mark.parametrize("plan,hidden,batch,gates,depth,directions", _plans())
@@ -38,8 +51,15 @@ def test_plan_fits_the_card(plan, hidden, batch, gates, depth, directions):
     # one block per SM, all co-resident
     assert plan.grid == plan.blocks_per_dir * directions <= SMS
     # the ring first (the partial sums lie over it), then the slice, and room
-    # left for the kernel's static shared memory
-    assert plan.work_bytes == max(plan.ring_bytes, plan.staging_bytes)
+    # left for the kernel's static shared memory; the CUDA-core product of a
+    # small batch stages the whole left operand and its sums there instead
+    assert plan.work_bytes == max(plan.ring_bytes, plan.staging_bytes, plan.dot_bytes)
+    assert plan.product in ("wgmma", "dot")
+    if plan.product == "dot":
+        assert batch <= pp.DOT_ROWS and plan.row_groups == 1 and plan.dot_bytes % 1024 == 0
+        assert plan.dot_bytes >= batch * (plan.depth_padded * 2 + (gates * plan.units + 1) * 4)
+    else:
+        assert plan.dot_bytes == 0
     assert plan.work_bytes % 1024 == 0 and plan.ring_bytes % 1024 == 0
     assert plan.smem_bytes == plan.work_bytes + plan.slice_bytes <= SMEM - pp.STATIC_RESERVE
     assert 2 <= plan.stages <= pp.MAX_STAGES and plan.chunk_depth in pp.KC_CHOICES
@@ -108,6 +128,38 @@ def test_backward_plan_at_the_model_shapes(hidden, chains, units, grid, stages, 
     assert (plan.row_groups, plan.k_splits) == (1, 2)  # B = 32: the warpgroups split the depth
 
 
+@pytest.mark.parametrize("batch,product,row_blocks,smem", [
+    (1, "dot", 1, 229376),      # the streaming chunk: h (4 KB) staged whole
+    # the widest batch of the CUDA-core product fills the shared memory
+    (8, "dot", 1, 231424),
+    (32, "wgmma", 1, 229376),   # uni training: four stages of 32-deep chunks
+    (64, "wgmma", 1, 229376),
+    # uni serving: 128-row blocks leave one 64-deep stage beside the 192 KB
+    # slice, so the batch walks two row blocks of 64
+    (128, "wgmma", 2, 229376),
+])
+def test_scan_plan_at_the_uni_model_shapes(batch, product, row_blocks, smem):
+    plan = pp.plan_gru_scan(2000, batch, SMS, SMEM)
+    assert (plan.design, plan.units, plan.grid, plan.slice_bytes, plan.smem_bytes) \
+        == ("persistent", 16, 125, 48 * 2048 * 2, smem)
+    assert (plan.product, plan.row_groups, plan.k_splits, plan.row_blocks, plan.stages,
+            plan.chunk_depth) == (product, 1, 2, row_blocks, 4, 32)
+
+
+@pytest.mark.parametrize("batch,chains,units,grid,row_groups,stages,smem", [
+    (32, 1, 8, 100, 1, 5, 217088),     # one chain: 52 KB slices, five 32 KB stages
+    (128, 1, 8, 100, 2, 5, 217088),
+    (32, 2, 16, 100, 1, 3, 204800),    # both chains of a layer: 104 KB slices
+    (128, 2, 16, 100, 2, 3, 204800),
+])
+def test_lstm_plan_at_the_lstm5x800_shapes(batch, chains, units, grid, row_groups, stages,
+                                           smem):
+    plan = pp.plan_lstm_forward(800, batch, chains, SMS, SMEM)
+    assert (plan.design, plan.units, plan.grid, plan.row_groups, plan.stages,
+            plan.chunk_depth, plan.slice_bytes, plan.smem_bytes) \
+        == ("persistent", units, grid, row_groups, stages, 128, 4 * units * 832 * 2, smem)
+
+
 @pytest.mark.parametrize("plan", [
     pytest.param(pp.plan_gru_forward(2000, 128, SMS, SMEM), id="forward-H2000"),
     pytest.param(pp.plan_gru_forward(4096, 32, SMS, SMEM), id="forward-H4096"),
@@ -117,6 +169,9 @@ def test_backward_plan_at_the_model_shapes(hidden, chains, units, grid, stages, 
     pytest.param(pp.plan_gru_forward(1200, 128, 40, SMEM), id="forward-40-SMs"),
     pytest.param(pp.plan_gru_forward(1200, 128, SMS, 100_000), id="forward-100KB"),
     pytest.param(pp.plan_gru_forward(64, 4, 1, SMEM), id="two-directions-one-SM"),
+    pytest.param(pp.plan_gru_scan(6000, 8, SMS, SMEM), id="scan-H6000"),
+    pytest.param(pp.plan_lstm_forward(1200, 32, 2, SMS, SMEM), id="lstm-H1200-pair"),
+    pytest.param(pp.plan_lstm_forward(2000, 32, 1, SMS, SMEM), id="lstm-H2000"),
 ])
 def test_a_width_that_cannot_fit_takes_the_step_design(plan):
     assert plan.design == "step"
@@ -188,3 +243,41 @@ def test_wrappers_take_a_design_argument_and_use_the_plain_version_on_the_cpu():
     for g, r in zip(pair_b, gru_cuda.gru_bwd_scan_plain(*ops, reverse=False)):
         assert torch.equal(g, r)
     assert gru_cuda.gru_bwd_scan.design_counts == before
+
+
+@pytest.mark.parametrize("design", [None, "persistent", "step"])
+def test_forward_wrappers_take_a_design_argument_and_use_the_plain_version_on_the_cpu(
+        design):
+    """gru_scan, lstm_scan, lstm_scan_with_cell and lstm_scan_pair on CPU
+    tensors run the plain versions whatever the design, and count nothing."""
+    import torch
+
+    from danspeech_tpu_torch.ops import gru_cuda, lstm_cuda
+
+    gen = torch.Generator().manual_seed(1)
+    t, b, h = 4, 3, 8
+    lens = torch.tensor([4, 0, 2], dtype=torch.int32)
+    h0, c0 = torch.randn(b, h, generator=gen), torch.randn(b, h, generator=gen)
+    gx3 = torch.randn(t, b, 3 * h, generator=gen)
+    w3 = torch.randn(h, 3 * h, generator=gen) * 0.3
+    bi, bh = torch.randn(3 * h, generator=gen), torch.randn(3 * h, generator=gen)
+    wrappers = (gru_cuda.gru_scan, lstm_cuda.lstm_scan, lstm_cuda.lstm_scan_with_cell)
+    before = [(w.launches, dict(w.design_counts)) for w in wrappers]
+    got = gru_cuda.gru_scan(gx3, lens, w3, bi, bh, h0, reverse=True, design=design)
+    for g, r in zip(got, gru_cuda.gru_scan_plain(gx3, lens, w3, bi, bh, h0, reverse=True)):
+        assert torch.equal(g, r)
+    chains = [(torch.randn(t, b, 4 * h, generator=gen), lens,
+               torch.randn(h, 4 * h, generator=gen) * 0.3, torch.randn(4 * h, generator=gen),
+               h0, c0) for _ in range(2)]
+    for with_cell, plain in ((False, lstm_cuda.lstm_scan_plain),
+                             (True, lstm_cuda.lstm_scan_with_cell_plain)):
+        single = lstm_cuda.lstm_scan_with_cell if with_cell else lstm_cuda.lstm_scan
+        for g, r in zip(single(*chains[0], reverse=False, design=design),
+                        plain(*chains[0], reverse=False)):
+            assert torch.equal(g, r)
+        pair = lstm_cuda.lstm_scan_pair(chains[0], chains[1], False, True,
+                                        with_cell=with_cell, design=design)
+        for got_chain, chain, reverse in zip(pair, chains, (False, True)):
+            for g, r in zip(got_chain, plain(*chain, reverse=reverse)):
+                assert torch.equal(g, r)
+    assert [(w.launches, dict(w.design_counts)) for w in wrappers] == before

@@ -17,10 +17,11 @@ Phases, in order; any failure exits non-zero:
    the card at ragged small shapes and the layer shapes of the paths below,
    with its time, the plain version's time, one library call's time (bf16
    and float16) as a yardstick, and the bound; ``gru_bidi_fused``,
-   ``gru_scan``, ``gru_bwd_scan``, ``lstm_scan`` and ``lstm_scan_with_cell``
-   in both designs (``design="persistent"`` and ``"step"``, both checked and
-   timed in the same run; the LSTM ones also as a pair of chains in one
-   launch), and every main path below must take the persistent one; and
+   ``gru_scan``, ``gru_scan_bidi``, ``gru_bwd_scan``, ``lstm_scan``,
+   ``lstm_scan_with_cell`` and ``lstm_bwd_scan`` in both designs
+   (``design="persistent"`` and ``"step"``, both checked and timed in the
+   same run; ``gru_bwd_scan`` and the LSTM ones also as a pair of chains in
+   one launch), and every main path below must take the persistent one; and
    ``gru_layer`` with concatenated directions and with a carried h0, the two
    routes that reach ``gru_scan_bidi``;
 4. the batch path: ``Recognizer.recognize`` / ``recognize_batch`` on the
@@ -53,8 +54,8 @@ Phases, in order; any failure exits non-zero:
    the plain recurrence on the card; ``make_wave_train_step`` steps on one
    seeded batch of 32 waveforms of 1-8 s with their launch counts (per LSTM
    step 5 ``lstm_scan``, 5 ``lstm_scan_with_cell``, each a pair of chains in
-   one launch, and 10 ``lstm_bwd_scan``; per tanh step 20 ``rnn_tanh_scan``,
-   10 ``rnn_tanh_bwd_scan``), the
+   one launch, and 10 ``lstm_bwd_scan`` chains in 5 paired launches; per tanh
+   step 20 ``rnn_tanh_scan``, 10 ``rnn_tanh_bwd_scan``), the
    gradients of an 8-row batch against the plain path; for the LSTM a
    profile of one step and ``train.train`` + ``export_model`` +
    ``Recognizer.recognize`` on a 2-layer cut;
@@ -90,9 +91,10 @@ PEAK_BYTES_PER_S = 3.35e12
 # about five bf16 ulps at |h| < 1
 GRU_ATOL = 2e-2
 
-# wrapper name -> source under danspeech_tpu_torch/csrc
+# wrapper name -> the source under danspeech_tpu_torch/csrc of the design its
+# main path takes (gru_scan_bidi's step design is gru_scan_bidi.cu)
 SOURCES = {"gru_bidi_fused": "gru_bidi_fused", "gru_scan": "gru_scan",
-           "gru_scan_bidi": "gru_scan_bidi", "gru_bwd_scan": "gru_bwd",
+           "gru_scan_bidi": "gru_scan", "gru_bwd_scan": "gru_bwd",
            "lstm_scan": "lstm_scan", "lstm_scan_with_cell": "lstm_scan",
            "lstm_bwd_scan": "lstm_bwd", "rnn_tanh_scan": "rnn_tanh_scan",
            "rnn_tanh_bwd_scan": "rnn_tanh_bwd"}
@@ -211,11 +213,15 @@ def require_persistent(wrapper, label):
 
 
 def zero_designs():
+    """The design counts of every wrapper with two designs, and the count of
+    paired lstm_bwd_scan launches, to 0."""
     from danspeech_tpu_torch.ops import gru_cuda, lstm_cuda
 
-    for w in (gru_cuda.gru_bidi_fused, gru_cuda.gru_scan, gru_cuda.gru_bwd_scan,
-              lstm_cuda.lstm_scan, lstm_cuda.lstm_scan_with_cell):
+    for w in (gru_cuda.gru_bidi_fused, gru_cuda.gru_scan, gru_cuda.gru_scan_bidi,
+              gru_cuda.gru_bwd_scan, lstm_cuda.lstm_scan, lstm_cuda.lstm_scan_with_cell,
+              lstm_cuda.lstm_bwd_scan):
         w.design_counts = dict.fromkeys(DESIGNS, 0)
+    lstm_cuda.lstm_bwd_scan.pair_launches = 0
 
 
 def phase_barrier():
@@ -614,6 +620,9 @@ def scan_bidi_bound(lengths, t, b, h):
 
 
 def check_scan_bidi(gen, label, t, lengths, h, carried, timed):
+    """gru_scan_bidi in both designs against its plain version. The plan
+    must choose the persistent design: both chains in one launch where the
+    plan for two chains fits, else one launch a chain (H = 2000)."""
     from danspeech_tpu_torch.ops import gru_cuda
 
     dev = "cuda"
@@ -633,24 +642,49 @@ def check_scan_bidi(gen, label, t, lengths, h, carried, timed):
     if carried:
         h0 = [torch.rand(b, h, generator=gen, device=dev) - 0.5 for _ in range(2)]
     args = (*gx, lens, *w_hh, *b_ih, *b_hh, *h0)
-    got = gru_cuda.gru_scan_bidi(*args)
-    torch.cuda.synchronize()
+    pair, single = gru_cuda.scan_bidi_plans(h, b, lens.device)
+    if single.design != "persistent":
+        raise AssertionError(f"gru_scan_bidi H={h} B={b}: planned {single}")
+    planned = pair if pair.design == "persistent" else single
+    layout = "both chains, one launch" if planned is pair else "one launch a chain"
     ref = gru_cuda.gru_scan_bidi_plain(*args)
     torch.cuda.synchronize()
     name = f"gru_scan_bidi {label}"
-    errs, err = compare_outputs(name, ("out_f", "out_b", "h_last_f", "h_last_b"),
-                                got, ref, GRU_ATOL)
     pad = torch.arange(t, device=dev)[:, None] >= lens[None, :].long()
-    for g in got[:2]:
-        if pad.any() and float(g[pad].float().abs().max()) != 0.0:
-            raise AssertionError(f"{name}: non-zero output past a row's length")
-    res = {"label": label, "shape": {"T": t, "B": b, "H": h, "carried_h0": carried},
-           "max_abs_err": err, "errs": errs, "atol": GRU_ATOL}
-    log(f"  {name} T={t} B={b} H={h} h0={'carried' if carried else 'zero'}: max|err| "
-        + ", ".join(f"{k}={v:.3e}" for k, v in errs.items()) + f" (atol {GRU_ATOL})")
+    runs = {d: (lambda d=d: gru_cuda.gru_scan_bidi(*args, design=d)) for d in DESIGNS}
+    all_errs = {}
+    for tag, run in runs.items():
+        got = run()
+        torch.cuda.synchronize()
+        errs, _ = compare_outputs(f"{name} [{tag}]", ("out_f", "out_b", "h_last_f", "h_last_b"),
+                                  got, ref, GRU_ATOL)
+        for g in got[:2]:
+            if pad.any() and float(g[pad].float().abs().max()) != 0.0:
+                raise AssertionError(f"{name} [{tag}]: non-zero output past a row's length")
+        log(f"  {name} [{tag}{', ' + layout if tag == 'persistent' else ''}] T={t} B={b} "
+            f"H={h} h0={'carried' if carried else 'zero'}: max|err| "
+            + ", ".join(f"{k}={v:.3e}" for k, v in errs.items()) + f" (atol {GRU_ATOL})")
+        all_errs[tag] = errs
+        del got
+    walked = max(1, min(t, max(lengths)))
+    res = {"label": label,
+           "shape": {"T": t, "B": b, "H": h, "carried_h0": carried, "steps_walked": walked},
+           "max_abs_err": max(max(e.values()) for e in all_errs.values()),
+           "errs": all_errs, "atol": GRU_ATOL,
+           "plan": {"pair": pair.design, "units": planned.units, "grid": planned.grid,
+                    "product": planned.product, "row_groups": planned.row_groups,
+                    "stages": planned.stages, "chunk_depth": planned.chunk_depth,
+                    "smem_bytes": planned.smem_bytes}}
     if timed:
-        res["ms"] = time_ms(lambda: gru_cuda.gru_scan_bidi(*args), iters=3)
-        res["design"] = "step"  # the only design of this kernel
+        # step, persistent, persistent, step: both designs on one card in one run
+        step_a = time_ms(runs["step"], iters=3)
+        res["ms"] = 0.5 * (time_ms(runs["persistent"], iters=5)
+                           + time_ms(runs["persistent"], iters=5))
+        res["step_design_ms"] = 0.5 * (step_a + time_ms(runs["step"], iters=3))
+        res["design"] = "persistent"
+        res["recurrence_ms"] = kernel_ms(device_ms_by_kernel(runs["persistent"]),
+                                         "gru_scan_persist_kernel")
+        res["step_ms"] = res["recurrence_ms"] / walked
         res["plain_ms"] = time_ms(lambda: gru_cuda.gru_scan_bidi_plain(*args), iters=1)
         # cuDNN's bidirectional GRU(D=H, H): it also computes the input
         # projections, which gru_scan_bidi takes precomputed
@@ -664,27 +698,42 @@ def check_scan_bidi(gen, label, t, lengths, h, carried, timed):
             torch.nn.GRU(h, h, bidirectional=True), gen, t, b, h, backward=False,
             dtype=torch.float16)
         res["bound_ms"], res["bound_by"] = scan_bidi_bound(lengths, t, b, h)
-        log(f"    ms={res['ms']:.3f} plain_ms={res['plain_ms']:.3f} "
-            f"library_ms(cuDNN bidirectional nn.GRU({h},{h}) bf16, with its "
-            f"projections)={res['library_ms']:.3f} (float16: "
-            f"{res['library_fp16_ms']:.3f}) bound_ms={res['bound_ms']:.4f} "
+        log(f"    persistent ms={res['ms']:.3f} ({layout}: kernel "
+            f"{res['recurrence_ms']:.3f} = {res['step_ms'] * 1e3:.2f} us a step over "
+            f"{walked}) step-design ms={res['step_design_ms']:.3f} "
+            f"plain_ms={res['plain_ms']:.3f} library_ms(cuDNN bidirectional "
+            f"nn.GRU({h},{h}) bf16, with its projections)={res['library_ms']:.3f} "
+            f"(float16: {res['library_fp16_ms']:.3f}) bound_ms={res['bound_ms']:.4f} "
             f"({res['bound_by']})")
-    del args, got, ref
+    del args, ref
     torch.cuda.empty_cache()
     return res
 
 
 def phase_scan_bidi_kernels():
+    """gru_scan_bidi: B = 1 and B = 5 (the product on the CUDA cores) with a
+    carried h0, H no multiple of 8 with an empty row, B above 128, the bidi
+    batch layer (T = 401, B = 128, H = 1200: both chains in one launch) and
+    H = 2000 (a pair does not fit: one launch a chain)."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(2)
     checks = [check_scan_bidi(gen, "small", 13, lengths, 72, carried=True,
                               timed=len(lengths) == 5)
               for lengths in ([13], [13, 1, 7, 12, 3])]
+    checks.append(check_scan_bidi(gen, "small H=100", 9, [9, 0, 4], 100, carried=True,
+                                  timed=False))
+    checks.append(check_scan_bidi(gen, "small B=150", 7,
+                                  [7, 1] + [1 + (i % 7) for i in range(148)], 72,
+                                  carried=True, timed=False))
     rng = np.random.default_rng(1200)
     lengths = rng.integers(1, 402, size=128)
     lengths[0], lengths[1] = 401, 1
     checks.append(check_scan_bidi(gen, "bidi batch layer", 401, lengths.tolist(), 1200,
                                   carried=False, timed=True))
+    wide = np.random.default_rng(2002).integers(1, 402, size=32)
+    wide[0] = 401
+    checks.append(check_scan_bidi(gen, "H=2000, one launch a chain", 401, wide.tolist(),
+                                  2000, carried=True, timed=True))
     return checks
 
 
@@ -936,10 +985,11 @@ def lstm_inputs(gen, t, lengths, h, lens=None):
 def check_rnn_kernel(kind, gen, label, t, lengths, h, reverse, timed):
     """One LSTM or tanh-RNN kernel against its plain version on the card.
     Forward kernels are held to GRU_ATOL and backward walks to BWD_TOL, each
-    times the larger of 1 and the largest reference value. The two LSTM
-    forward kernels are checked in both designs and as a pair of chains in
-    one launch (lstm_scan_pair); the plan must choose the persistent design
-    for one chain and for two."""
+    times the larger of 1 and the largest reference value. The three LSTM
+    kernels are checked in both designs and as a pair of chains in one
+    launch (lstm_scan_pair, lstm_bwd_scan_pair; the second chain walks the
+    other way); the plan must choose the persistent design for one chain
+    and for two."""
     from danspeech_tpu_torch.ops import gru_cuda, lstm_cuda, persist_plan, rnn_tanh_cuda
 
     dev = "cuda"
@@ -947,6 +997,7 @@ def check_rnn_kernel(kind, gen, label, t, lengths, h, reverse, timed):
     bound = 1.0 / h ** 0.5
     lstm = kind.startswith("lstm")
     lstm_fwd = kind in ("lstm_scan", "lstm_scan_with_cell")
+    lstm_bwd = kind == "lstm_bwd_scan"
     gates = 4 if lstm else 1
     module = lstm_cuda if lstm else rnn_tanh_cuda
     wrapper, plain = getattr(module, kind), getattr(module, f"{kind}_plain")
@@ -968,10 +1019,13 @@ def check_rnn_kernel(kind, gen, label, t, lengths, h, reverse, timed):
         names = (("out", "c_seq", "h_last", "c_last") if kind == "lstm_scan_with_cell"
                  else ("out", "h_last", "c_last"))
         n_streams = len(names) - 2
-    elif kind == "lstm_bwd_scan":
-        hprev = (torch.rand(t, b, h, generator=gen, device=dev) * 2 - 1).to(torch.bfloat16)
-        args = (stream(4 * h), hprev, stream(h, 1.0),
-                torch.randn(t, b, h, generator=gen, device=dev), lens, w_hh, uni(4 * h))
+    elif lstm_bwd:
+        def walk_operands(w):
+            hprev = (torch.rand(t, b, h, generator=gen, device=dev) * 2 - 1).to(torch.bfloat16)
+            return (stream(4 * h), hprev, stream(h, 1.0),
+                    torch.randn(t, b, h, generator=gen, device=dev), lens, w, uni(4 * h))
+
+        args = walk_operands(w_hh)
         names, n_streams = ("dg4", "dh0", "dc0"), 1
     elif kind == "rnn_tanh_scan":
         args = (stream(h), lens, w_hh)
@@ -998,26 +1052,37 @@ def check_rnn_kernel(kind, gen, label, t, lengths, h, reverse, timed):
         return errs, err
 
     runs = {"kernel": lambda: wrapper(*args, reverse=reverse)}
-    if lstm_fwd:
+    if lstm:
         dev_info = gru_cuda.device_info(lens.device)
-        planned = persist_plan.plan_lstm_forward(h, b, 1, *dev_info)
-        pair_plan = persist_plan.plan_lstm_forward(h, b, 2, *dev_info)
+        plan_fn = persist_plan.plan_lstm_backward if lstm_bwd else persist_plan.plan_lstm_forward
+        planned = plan_fn(h, b, 1, *dev_info)
+        pair_plan = plan_fn(h, b, 2, *dev_info)
         if planned.design != "persistent" or pair_plan.design != "persistent":
             raise AssertionError(f"{kind} H={h} B={b}: planned {planned}, pair {pair_plan}")
         runs = {d: (lambda d=d: wrapper(*args, reverse=reverse, design=d)) for d in DESIGNS}
         # a second chain walking the other way over the same lengths
-        other = lstm_inputs(gen, t, lengths, h, lens)
+        if lstm_bwd:
+            other = walk_operands(uni(h, 4 * h).to(torch.bfloat16))
+            runs["pair"] = lambda: lstm_cuda.lstm_bwd_scan_pair(args, other, reverse,
+                                                                not reverse)
+        else:
+            other = lstm_inputs(gen, t, lengths, h, lens)
+            with_cell = kind == "lstm_scan_with_cell"
+            runs["pair"] = lambda: lstm_cuda.lstm_scan_pair(args, other, reverse, not reverse,
+                                                            with_cell=with_cell)
         ref_b = plain(*other, reverse=not reverse)
-        with_cell = kind == "lstm_scan_with_cell"
-        runs["pair"] = lambda: lstm_cuda.lstm_scan_pair(args, other, reverse, not reverse,
-                                                        with_cell=with_cell)
     all_errs, worst = {}, 0.0
     for tag, run in runs.items():
         before = wrapper.launches
+        pairs_before = lstm_cuda.lstm_bwd_scan.pair_launches
         got = run()
         torch.cuda.synchronize()
         if tag == "pair":
-            if wrapper.launches != before + 1:
+            # a pair is one launch; the backward walk's wrapper counts chains
+            if lstm_bwd and (wrapper.launches != before + 2
+                             or lstm_cuda.lstm_bwd_scan.pair_launches != pairs_before + 1):
+                raise AssertionError(f"{name}: a pair must be one launch of two chains")
+            if not lstm_bwd and wrapper.launches != before + 1:
                 raise AssertionError(f"{name}: a pair must be one launch")
             all_errs["pair a"], err_a = hold("pair, one launch, chain a", got[0], ref)
             all_errs["pair b"], err_b = hold("pair, one launch, chain b", got[1], ref_b)
@@ -1029,7 +1094,7 @@ def check_rnn_kernel(kind, gen, label, t, lengths, h, reverse, timed):
     res = {"label": label, "shape": {"T": t, "B": b, "H": h, "reverse": reverse},
            "max_abs_err": worst, "errs": all_errs, "tol": tol,
            "max_abs_ref": {k: float(r.float().abs().max()) for k, r in zip(names, ref)}}
-    if lstm_fwd:
+    if lstm:
         res["plan"] = {"units": planned.units, "grid": planned.grid,
                        "row_groups": planned.row_groups, "stages": planned.stages,
                        "chunk_depth": planned.chunk_depth, "pair_units": pair_plan.units,
@@ -1053,6 +1118,29 @@ def check_rnn_kernel(kind, gen, label, t, lengths, h, reverse, timed):
             extra = (f" (kernel {res['recurrence_ms']:.3f} = {res['step_ms'] * 1e3:.2f} us a "
                      f"step over {walked}; as a pair {res['pair_ms_per_chain']:.3f} a chain, "
                      f"kernel {res['pair_kernel_ms']:.3f} for both) step-design ms="
+                     f"{res['step_design_ms']:.3f}")
+        elif lstm_bwd:
+            # step, persistent, pair, persistent, step: one card, one run
+            step_a = time_ms(runs["step"], iters=3)
+            first = time_ms(runs["persistent"], iters=5)
+            res["pair_ms_per_chain"] = 0.5 * time_ms(runs["pair"], iters=5)
+            res["ms"] = 0.5 * (first + time_ms(runs["persistent"], iters=5))
+            res["step_design_ms"] = 0.5 * (step_a + time_ms(runs["step"], iters=3))
+            res["design"] = "persistent"
+            split = device_ms_by_kernel(runs["persistent"])
+            res["walk_ms"] = kernel_ms(split, "lstm_bwd_persist_kernel")
+            res["recompute_ms"] = (kernel_ms(split, "gru_proj_wgmma_kernel")
+                                   + kernel_ms(split, "gru_proj_kernel"))
+            res["step_ms"] = res["walk_ms"] / (t + 1)
+            res["recompute_tflops"] = (2 * t * b * h * 4 * h
+                                       / max(res["recompute_ms"], 1e-9) / 1e9)
+            res["pair_kernel_ms"] = kernel_ms(device_ms_by_kernel(runs["pair"]),
+                                              "lstm_bwd_persist_kernel")
+            extra = (f" (walk {res['walk_ms']:.3f} = {res['step_ms'] * 1e3:.2f} us a step "
+                     f"over {t + 1}, recompute {res['recompute_ms']:.3f} = "
+                     f"{res['recompute_tflops']:.0f} TFLOP/s; as a pair "
+                     f"{res['pair_ms_per_chain']:.3f} a chain, walk "
+                     f"{res['pair_kernel_ms']:.3f} for both) step-design ms="
                      f"{res['step_design_ms']:.3f}")
         else:
             res["ms"] = time_ms(runs["kernel"], iters=3)
@@ -1080,9 +1168,10 @@ def check_rnn_kernel(kind, gen, label, t, lengths, h, reverse, timed):
 def phase_rnn_type_kernels():
     """{kernel: checks} for the three LSTM and two tanh-RNN kernels: ragged
     small shapes (B = 5 with an empty row and B = 1, H = 72, both
-    directions, T = 1; H = 100 and B = 150 for the LSTM forward), then the layer
-    shapes of LSTM5x800 / Tanh5x800: serving (B = 128) and training (B = 32)
-    for the forward kernels, training for the backward walks."""
+    directions, T = 1; H = 100 and B = 150 for the LSTM kernels), then the
+    layer shapes of LSTM5x800 / Tanh5x800: serving (B = 128) and training
+    (B = 32) for the forward kernels, training for the backward walks (the
+    LSTM's walking both ways)."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(5)
     serve = np.random.default_rng(800).integers(1, 402, size=128)
@@ -1108,25 +1197,29 @@ def phase_rnn_type_kernels():
                                              reverse, timed))
         rows.append(check_rnn_kernel(kind, gen, "small T=1", 1, [1, 0], 72,
                                      not forward_chain, False))
-        if kind.startswith("lstm_scan"):
+        if kind.startswith("lstm"):
             # H no multiple of 8 (element copies, scalar epilogue); B above
             # 128 (two row blocks over the resident slices)
             rows.append(check_rnn_kernel(kind, gen, "small H=100", 9, [9, 0, 4], 100,
-                                         False, False))
+                                         not forward_chain, False))
             rows.append(check_rnn_kernel(kind, gen, "small B=150", 7,
                                          [7, 1] + [1 + (i % 7) for i in range(148)], 72,
-                                         False, False))
+                                         not forward_chain, False))
         for label, lengths in shapes:
             rows.append(check_rnn_kernel(kind, gen, label, 401, lengths.tolist(), 800,
                                          not forward_chain, True))
+        if kind == "lstm_bwd_scan":
+            rows.append(check_rnn_kernel(kind, gen, "train layer, forward walk", 401,
+                                         train.tolist(), 800, False, False))
         checks[kind] = rows
     return checks
 
 
 def phase_gru_layer_routes():
     """gru_layer on the card for the shapes that reach gru_scan_bidi:
-    concatenated directions, and a carried h0. One launch each; the result
-    against impl="plain" on the card."""
+    concatenated directions, and a carried h0. One call each, in the
+    persistent design (both chains in one launch); the result against
+    impl="plain" on the card."""
     from danspeech_tpu_torch.ops import gru_cuda
     from danspeech_tpu_torch.ops.rnn import GRUWeights, gru_layer
 
@@ -1142,6 +1235,7 @@ def phase_gru_layer_routes():
     h0 = torch.rand(2, b, h, generator=gen, device="cuda") - 0.5
     out = {}
     gru_cuda.gru_scan_bidi.launches = 0
+    zero_designs()
     with torch.no_grad():
         for label, kw in (("concat", dict(sum_directions=False)), ("carried h0", dict(h0=h0))):
             before = gru_cuda.gru_scan_bidi.launches
@@ -1161,6 +1255,7 @@ def phase_gru_layer_routes():
                 f"(atol {2 * GRU_ATOL})")
             out[label] = errs
     out["launches"] = gru_cuda.gru_scan_bidi.launches
+    require_persistent(gru_cuda.gru_scan_bidi, "gru_layer routes to gru_scan_bidi")
     torch.cuda.empty_cache()
     return out
 
@@ -1963,11 +2058,11 @@ def phase_train(card):
 # ---------------------------------------------------------------------------
 
 RNN_TYPE_PROFILE_GROUPS = {
-    "B7 walk": ("lstm_bwd_step_kernel",),
+    "B7 walk": ("lstm_bwd_persist_kernel", "lstm_bwd_step_kernel"),
     "B5/B6 recurrence": ("lstm_persist_kernel", "lstm_step_kernel"),
     "B9 walk": ("rnn_tanh_bwd_step_kernel",),
     "B8 recurrence": ("rnn_tanh_step_kernel",),
-    "tensor-core GEMM (B7 recompute)": ("gru_proj_kernel",),
+    "tensor-core GEMM (B7 recompute)": ("gru_proj_wgmma_kernel", "gru_proj_kernel"),
     "CTC": ("ctc",),
     "optimizer": ("adam", "multi_tensor", "foreach"),
     "convolution": ("conv", "cudnn", "wgrad", "dgrad", "fprop"),
@@ -2099,6 +2194,14 @@ def phase_rnn_type(card, cfg, train_steps, profile, loop):
 
         require_persistent(lstm_cuda.lstm_scan, f"{name} training, first forward")
         require_persistent(lstm_cuda.lstm_scan_with_cell, f"{name} training, recomputed forward")
+        require_persistent(lstm_cuda.lstm_bwd_scan, f"{name} training, backward walks")
+        pairs = lstm_cuda.lstm_bwd_scan.pair_launches
+        log(f"  {name} training: {pairs} paired lstm_bwd_scan launches over {train_steps} "
+            f"steps (expected {layers} a step: both walks of a layer in one)")
+        if pairs != layers * train_steps:
+            raise AssertionError(f"{name}: {pairs} paired backward launches, expected "
+                                 f"{layers * train_steps}")
+        out["pair_launches"] = pairs
     peak = torch.cuda.max_memory_allocated()
     log(f"  {name}: peak device memory over {train_steps} steps: {peak / 2**30:.2f} GiB")
     if not steps[-1]["loss"] < steps[0]["loss"]:
@@ -2148,6 +2251,7 @@ def phase_rnn_type(card, cfg, train_steps, profile, loop):
             lines = []
             t0 = time.perf_counter()
             zero_launches()
+            zero_designs()
             st = tr.train(loop_cfg, manifest, epochs=1, batch_size=4,
                           learning_rate=TRAIN_LR, log=lines.append)
             path = tr.export_model(st, loop_cfg, os.path.join(tmp, "trained.dsz"))
@@ -2170,6 +2274,8 @@ def phase_rnn_type(card, cfg, train_steps, profile, loop):
                     lstm_scan_with_cell=per, lstm_bwd_scan=2 * per)
         if counts != want:
             raise AssertionError(f"{name} loop: launches {counts}, expected {want}")
+        if lstm:
+            out["pair_launches"] += lstm_cuda.lstm_bwd_scan.pair_launches
         add(counts)
         out["loop"] = {"launches": counts, "log": lines}
 
@@ -2193,18 +2299,19 @@ PHASE_CLOCKS = {1: "grid barrier", 2: "prefetch of the next step's streams", 9: 
 
 
 def phase_clocks(card):
-    """Builds the four persistent kernels' sources with -DPS_PROFILE into a
+    """Builds the five persistent kernels' sources with -DPS_PROFILE into a
     build directory of their own, runs the persistent kernels once at the
-    flagship, the 2000-wide, the streaming and the LSTM serving shapes, and
-    prints the clocks that thread 0 of block 0 spent per step in each part
-    (the instrumented build is a little slower than the plain one)."""
+    flagship, the 2000-wide, the streaming, the bidi batch and the LSTM
+    serving and training shapes, and prints the clocks that thread 0 of
+    block 0 spent per step in each part (the instrumented build is a little
+    slower than the plain one)."""
     import ctypes
 
     from danspeech_tpu_torch.ops import cuda_build, gru_cuda, lstm_cuda
 
     cuda_build.NVCC_FLAGS.append("-DPS_PROFILE")
     cuda_build.BUILD_DIR = os.path.join(cuda_build.BUILD_DIR, "profile")
-    cuda_build.build("gru_bidi_fused", "gru_bwd", "gru_scan", "lstm_scan")
+    cuda_build.build("gru_bidi_fused", "gru_bwd", "gru_scan", "lstm_scan", "lstm_bwd")
 
     def read(lib):
         fn = cuda_build.load(lib).persist_prof_read
@@ -2267,6 +2374,35 @@ def phase_clocks(card):
     chain_b = lstm_inputs(gen, t, serve.tolist(), 800, lens=chain_a[1])
     report(f"lstm_scan_pair T={t} B=128 H=800", "lstm_scan",
            lambda: lstm_cuda.lstm_scan_pair(chain_a, chain_b, False, True), t)
+    del chain_a, chain_b
+    # B2 as a pair at the bidi batch layer (steps walked: the longest length)
+    bidi = np.random.default_rng(1200).integers(1, 402, size=128)
+    bidi[0] = 401
+    fwd = scan_inputs(gen, t, bidi.tolist(), 1200, carried=True)
+    bwd = scan_inputs(gen, t, bidi.tolist(), 1200, carried=True)
+    report(f"gru_scan_bidi T={t} B=128 H=1200", "gru_scan",
+           lambda: gru_cuda.gru_scan_bidi(fwd[0], bwd[0], fwd[1], fwd[2], bwd[2], fwd[3],
+                                          bwd[3], fwd[4], bwd[4], fwd[5], bwd[5],
+                                          design="persistent"), t)
+    del fwd, bwd
+    # B7 as a pair at the LSTM training layer (T + 1 steps)
+    train = np.random.default_rng(801).integers(1, 402, size=32)
+    train[0] = 401
+    lens = torch.tensor(train.tolist(), dtype=torch.int32, device="cuda")
+
+    def walk():
+        h = 800
+        w = ((torch.rand(h, 4 * h, generator=gen, device="cuda") * 2 - 1) / h ** 0.5)
+        return ((torch.randn(t, 32, 4 * h, generator=gen, device="cuda") * 0.5).to(
+                    torch.bfloat16),
+                (torch.rand(t, 32, h, generator=gen, device="cuda") * 2 - 1).to(torch.bfloat16),
+                torch.randn(t, 32, h, generator=gen, device="cuda").to(torch.bfloat16),
+                torch.randn(t, 32, h, generator=gen, device="cuda"), lens,
+                w.to(torch.bfloat16), torch.zeros(4 * h, device="cuda"))
+
+    walk_a, walk_b = walk(), walk()
+    report(f"lstm_bwd_scan_pair T={t} B=32 H=800", "lstm_bwd",
+           lambda: lstm_cuda.lstm_bwd_scan_pair(walk_a, walk_b, True, False), t + 1)
 
 
 # ---------------------------------------------------------------------------
@@ -2298,7 +2434,8 @@ def main(argv=None) -> int:
 
     # phase 2
     t0 = time.perf_counter()
-    build_logs = cuda_build.build(*sorted(set(SOURCES.values())))
+    build_logs = cuda_build.build(*sorted(
+        f[:-3] for f in os.listdir(cuda_build.CSRC_DIR) if f.endswith(".cu")))
     log(f"build: {time.perf_counter() - t0:.1f} s")
     for name, text in build_logs.items():
         for line in text.splitlines():
@@ -2315,7 +2452,8 @@ def main(argv=None) -> int:
     routes = phase_gru_layer_routes()
     rnn_type_checks = phase_rnn_type_kernels()
 
-    launches = {}  # per kernel, summed over the main paths of phases 4-6
+    launches = {}  # per kernel, summed over the main paths of phases 4-7
+    pair_launches = None  # paired lstm_bwd_scan launches on those paths
     if not args.kernels:
         log("phase 4: batch path (Recognizer on the flagship)")
         served = phase_serve(card)
@@ -2326,6 +2464,7 @@ def main(argv=None) -> int:
         log("phase 7: LSTM5x800 and Tanh5x800, served and trained")
         lstm_run = phase_rnn_type(card, LSTM5X800, train_steps=3, profile=True, loop=True)
         tanh_run = phase_rnn_type(card, TANH5X800, train_steps=2, profile=False, loop=False)
+        pair_launches = lstm_run["pair_launches"]
         launches = {
             "gru_bidi_fused": served["launches"] + streamed["bidi_launches"]
             + trained["launches"]["gru_bidi_fused"],
@@ -2368,7 +2507,8 @@ def main(argv=None) -> int:
         entry("gru_bwd_scan", bwd_checks, "flagship layer"),
         entry("lstm_scan", rnn_type_checks["lstm_scan"], "serve layer"),
         entry("lstm_scan_with_cell", rnn_type_checks["lstm_scan_with_cell"], "train layer"),
-        entry("lstm_bwd_scan", rnn_type_checks["lstm_bwd_scan"], "train layer"),
+        dict(entry("lstm_bwd_scan", rnn_type_checks["lstm_bwd_scan"], "train layer"),
+             pair_launches=pair_launches),
         entry("rnn_tanh_scan", rnn_type_checks["rnn_tanh_scan"], "serve layer"),
         entry("rnn_tanh_bwd_scan", rnn_type_checks["rnn_tanh_bwd_scan"], "train layer"),
     ]

@@ -1,7 +1,10 @@
-// One GRU chain over a precomputed input projection, for Hopper.
+// One GRU chain over a precomputed input projection, for Hopper; its
+// persistent kernel also walks both chains of a bidirectional layer.
 //
 // Replaces danspeech_tpu/ops/pallas_gru.py:gru_scan (kernel body
-// _gru_step_kernel). Same contract:
+// _gru_step_kernel), and, over two chains, pallas_gru.py:gru_scan_bidi (the
+// persistent design of ops/gru_cuda.py:gru_scan_bidi; its step design is
+// gru_scan_bidi.cu). Same contract:
 //   gx (T, B, 3H) bf16, the bias-free projection x @ w_ih; lengths (B,)
 //   int32; w_hh (H, 3H) bf16; b_ih, b_hh (3H,) f32, b_ih added when gx is
 //   read; h0 (B, H) f32;
@@ -39,7 +42,15 @@
 //     first step multiplies bf16(h0). gx of the next step is prefetched into
 //     L2 during the product. The walk covers only t < the longest row's
 //     length: the later steps (the padding of a streaming chunk) write zeros
-//     at the start and take no barrier.
+//     at the start and take no barrier. One launch may walk two chains that
+//     share T, B, H and the lengths (gru_scan_bidi: the forward and the
+//     reverse chain of a layer): the chain is the slow grid index, each chain
+//     has its own barrier counter and its own planes of the ping-pong
+//     buffer, so neither waits for the other (H = 1200: 50 blocks of 24
+//     units a chain, B3's recurrence plan: 6.9 ms for both chains at T=401,
+//     B=128, 17.1 us a step, by chip_smoke.py on an NVIDIA H100 80GB HBM3 at
+//     700 W). Where two chains' slices do not fit (H = 2000), gru_scan_bidi
+//     runs one launch a chain.
 //   * step (gru_scan_step_kernel): one launch per time step from the host
 //     loop below, the launch boundary as the barrier; each block owns 16
 //     units x 64 rows and rereads its slice of w_hh from L2 through an
@@ -218,26 +229,28 @@ extern "C" int gru_scan_launch(
 }
 
 // ---------------------------------------------------------------------------
-// Persistent design: the whole chain in one cooperative launch
+// Persistent design: one chain, or both chains of a bidirectional layer, in
+// one cooperative launch
 // ---------------------------------------------------------------------------
 
 struct GruScanPersistArgs {
-  const bf16* gx;         // (T, B, 3H) bf16, bias-free
+  const bf16* gx[2];      // (T, B, 3H) bf16, bias-free
   const int* lengths;     // (B,)
-  const bf16* whht;       // (3H, H): w_hh transposed, depth contiguous
-  const float* bih;       // (3H,)
-  const float* bhh;       // (3H,)
-  float* h32;             // (B, H) f32: h0 on entry, h_last on exit
-  bf16* hb;               // (2 buffers, B, H) bf16: buffer 0 holds bf16(h0)
-  bf16* out;              // (T, B, H)
-  unsigned int* barrier;  // (1,) zero on entry
+  const bf16* whht[2];    // (3H, H): w_hh transposed, depth contiguous
+  const float* bih[2];    // (3H,)
+  const float* bhh[2];    // (3H,)
+  float* h32[2];          // (B, H) f32: h0 on entry, h_last on exit
+  bf16* hb;               // (2 buffers, chains, B, H) bf16: buffer 0 holds bf16(h0)
+  bf16* out[2];           // (T, B, H)
+  unsigned int* barrier;  // (chains,) zeros on entry
+  int reverse[2];
+  int chains;
   int T, B, H;
-  int reverse;
   int U;       // hidden units per block (a multiple of 8)
   int MG;      // warpgroups along the rows of a row block (64 rows each): 1 or 2
   int stages;  // ring stages: 2 .. PS_MAX_STAGES
   int kc;      // depth one warpgroup covers of a ring chunk: 128, 64 or 32
-  int bpd;     // blocks
+  int bpd;     // blocks per chain
   int Kr;      // H rounded up to 64
   int ws_off;  // bytes from the start of shared memory (the ring) to the slice
   int tma;     // hb can be read by the copy engine (else element by element)
@@ -252,7 +265,8 @@ gru_scan_persist_kernel(const GruScanPersistArgs p,
   __shared__ __align__(8) uint64_t ps_mbar[2 * PS_MAX_STAGES];
   PsPhases phases;
   const int tid = threadIdx.x;
-  const int j0 = blockIdx.x * p.U;
+  const int ch = blockIdx.x / p.bpd;
+  const int j0 = (blockIdx.x - ch * p.bpd) * p.U;
   const int T = p.T, B = p.B, H = p.H, U = p.U;
   const int G = 3 * H;
   bf16* ring = reinterpret_cast<bf16*>(ps_smem_raw);
@@ -265,12 +279,15 @@ gru_scan_persist_kernel(const GruScanPersistArgs p,
   const int nrb = (B + BR - 1) / BR;
 
   // the epilogue's streams do not alias: its loads may be issued together
-  const bf16* __restrict__ gx = p.gx;
-  const float* __restrict__ bih = p.bih;
-  const float* __restrict__ bhh = p.bhh;
+  const bf16* __restrict__ gx = p.gx[ch];
+  const float* __restrict__ bih = p.bih[ch];
+  const float* __restrict__ bhh = p.bhh[ch];
   const int* __restrict__ lengths = p.lengths;
-  float* __restrict__ h32 = p.h32;
-  bf16* __restrict__ out = p.out;
+  float* __restrict__ h32 = p.h32[ch];
+  bf16* __restrict__ out = p.out[ch];
+  const bool reverse = p.reverse[ch] != 0;
+  const size_t hsz = (size_t)p.chains * B * H;
+  unsigned int* counter = p.barrier + ch;
   const int uw = min(U, H - j0);  // real units of this block
   // the epilogue works on four neighbouring units at a time where every row
   // segment it touches starts on 16 bytes (the bf16 ones on 8)
@@ -281,22 +298,23 @@ gru_scan_persist_kernel(const GruScanPersistArgs p,
       ((reinterpret_cast<uintptr_t>(gx) | reinterpret_cast<uintptr_t>(p.hb) |
         reinterpret_cast<uintptr_t>(out)) % 8) == 0;
 
+  // both chains share the lengths, so the steps walked
   const int steps = ps_longest(lengths, B, T);
   ps_zero_steps(out, steps, T, B, H, j0, uw);
-  ps_load_slice(Ws, p.whht, H, H, p.Kr, 3, U, j0);
+  ps_load_slice(Ws, p.whht[ch], H, H, p.Kr, 3, U, j0);
   ps_ring_init(ring, ps_mbar, p.stages);
 
   PS_T0();
   for (int step = 0; step < steps; ++step) {
-    const int t = p.reverse ? steps - 1 - step : step;
-    const bf16* hb_in = p.hb + (size_t)(step & 1) * B * H;
-    bf16* __restrict__ hb_out = p.hb + (size_t)((step & 1) ^ 1) * B * H;
+    const int t = reverse ? steps - 1 - step : step;
+    const bf16* hb_in = p.hb + (step & 1) * hsz + (size_t)ch * B * H;
+    bf16* __restrict__ hb_out = p.hb + ((step & 1) ^ 1) * hsz + (size_t)ch * B * H;
     PS_ACC(0);
-    if (step > 0) ps_grid_barrier(p.barrier, (unsigned int)step * p.bpd);
+    if (step > 0) ps_grid_barrier(counter, (unsigned int)step * p.bpd);
     PS_ACC(1);
     if (step + 1 < steps) {
       // the next step's gx does not depend on h: bring it into L2 meanwhile
-      const int tn = p.reverse ? t - 1 : t + 1;
+      const int tn = reverse ? t - 1 : t + 1;
       for (int i = tid; i < B * 3; i += PS_BLOCK) {
         const int b = i / 3, g = i - b * 3;
         const bf16* q = gx + ((size_t)tn * B + b) * G + (size_t)g * H + j0;
@@ -311,8 +329,8 @@ gru_scan_persist_kernel(const GruScanPersistArgs p,
       if (p.dot)
         ps_dot_product<NT>(hb_in, B, H, p.Kr, Ws, ring, Cs);
       else
-        ps_block_product<NT>(hb_in, &hb_map, p.tma, step & 1, row0, B, H, p.Kr, Ws, ring,
-                             Cs, p.MG, p.stages, p.kc, ps_mbar, phases);
+        ps_block_product<NT>(hb_in, &hb_map, p.tma, (step & 1) * p.chains + ch, row0, B,
+                             H, p.Kr, Ws, ring, Cs, p.MG, p.stages, p.kc, ps_mbar, phases);
       PS_ACC(9);
       constexpr int UC = NT * 8 / 3;  // == U
       if (vec4) {
@@ -412,37 +430,52 @@ gru_scan_persist_kernel(const GruScanPersistArgs p,
   }
 }
 
-// Host entry, persistent design, on the caller's stream. h32 holds h0 on
-// entry and h_last on exit; buffer 0 of h16 holds bf16(h0). w_hht is w_hh
-// transposed (3H, H). The plan (U, MG, stages, kc, bpd, smem bytes, and dot:
-// the product on the CUDA cores for B <= PS_DOT_ROWS) comes from
-// ops/persist_plan.py; the launch is refused with an error code if the device
-// cannot hold the grid.
+// Host entry, persistent design, for `chains` = 1 or 2 chains that share T,
+// B, H and lengths (gru_scan: one chain; gru_scan_bidi: the two directions of
+// a layer): every per-chain pointer has a second one, ignored when chains =
+// 1. h32_c holds h0 on entry and h_last on exit; buffer 0 of h16 holds
+// bf16(h0) of each chain. w_hht_c is w_hh transposed (3H, H). The plan (U,
+// MG, stages, kc, bpd, smem bytes, and dot: the product on the CUDA cores for
+// B <= PS_DOT_ROWS) comes from ops/persist_plan.py; the launch is refused with
+// an error code if the device cannot hold the grid.
 extern "C" int gru_scan_persist_launch(
-    const void* gx, const void* lengths, const void* w_hht, const void* b_ih,
-    const void* b_hh,
-    void* h32,      // (B, H) f32
-    void* h16,      // (2 buffers, B, H) bf16
-    void* out,      // (T, B, H) bf16
-    void* barrier,  // (1,) uint32, zeroed
-    int T, int B, int H, int reverse, int U, int MG, int stages, int kc, int bpd,
-    int smem, int dot, void* stream) {
+    const void* gx0, const void* gx1, const void* lengths, const void* w_hht0,
+    const void* w_hht1, const void* b_ih0, const void* b_ih1, const void* b_hh0,
+    const void* b_hh1,
+    void* h32_0, void* h32_1,   // (B, H) f32 each
+    void* h16,                  // (2 buffers, chains, B, H) bf16
+    void* out0, void* out1,     // (T, B, H) bf16 each
+    void* barrier,              // (chains,) uint32, zeroed
+    int T, int B, int H, int reverse0, int reverse1, int chains, int U, int MG,
+    int stages, int kc, int bpd, int smem, int dot, void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (U % 8 != 0 || (MG != 1 && MG != 2) || stages < 2 || stages > PS_MAX_STAGES ||
-      (kc != 32 && kc != 64 && kc != 128) || bpd * U < H || (bpd - 1) * U >= H ||
-      (dot && (B > PS_DOT_ROWS || MG != 1)))
+  if ((chains != 1 && chains != 2) || U % 8 != 0 || (MG != 1 && MG != 2) ||
+      stages < 2 || stages > PS_MAX_STAGES || (kc != 32 && kc != 64 && kc != 128) ||
+      bpd * U < H || (bpd - 1) * U >= H || (dot && (B > PS_DOT_ROWS || MG != 1)))
     return (int)cudaErrorInvalidValue;
   GruScanPersistArgs p;
-  p.gx = static_cast<const bf16*>(gx);
+  const void* gx[2] = {gx0, gx1};
+  const void* whht[2] = {w_hht0, w_hht1};
+  const void* bih[2] = {b_ih0, b_ih1};
+  const void* bhh[2] = {b_hh0, b_hh1};
+  void* h32[2] = {h32_0, h32_1};
+  void* out[2] = {out0, out1};
+  const int reverse[2] = {reverse0, reverse1};
+  for (int c = 0; c < 2; ++c) {
+    const int k = c < chains ? c : 0;
+    p.gx[c] = static_cast<const bf16*>(gx[k]);
+    p.whht[c] = static_cast<const bf16*>(whht[k]);
+    p.bih[c] = static_cast<const float*>(bih[k]);
+    p.bhh[c] = static_cast<const float*>(bhh[k]);
+    p.h32[c] = static_cast<float*>(h32[k]);
+    p.out[c] = static_cast<bf16*>(out[k]);
+    p.reverse[c] = reverse[k] ? 1 : 0;
+  }
   p.lengths = static_cast<const int*>(lengths);
-  p.whht = static_cast<const bf16*>(w_hht);
-  p.bih = static_cast<const float*>(b_ih);
-  p.bhh = static_cast<const float*>(b_hh);
-  p.h32 = static_cast<float*>(h32);
   p.hb = static_cast<bf16*>(h16);
-  p.out = static_cast<bf16*>(out);
   p.barrier = static_cast<unsigned int*>(barrier);
-  p.T = T; p.B = B; p.H = H; p.reverse = reverse ? 1 : 0;
+  p.chains = chains;
+  p.T = T; p.B = B; p.H = H;
   p.U = U; p.MG = MG; p.stages = stages; p.kc = kc; p.bpd = bpd; p.dot = dot ? 1 : 0;
   p.Kr = (H + 63) / 64 * 64;
   p.ws_off = smem - 3 * U * p.Kr * 2;
@@ -452,11 +485,11 @@ extern "C" int gru_scan_persist_launch(
       p.ws_off < 2 / MG * BR * (3 * U + 1) * 4 || p.ws_off % 1024 != 0 ||
       (dot && p.ws_off < B * p.Kr * 2 + B * (3 * U + 1) * 4))
     return (int)cudaErrorInvalidValue;
-  // hb: (2 buffers, B, H)
+  // hb: (2 buffers x chains, B, H)
   CUtensorMap hb_map = {};
   p.tma = ps_tma_ok(h16, H) ? 1 : 0;
   if (p.tma) {
-    const int rc = ps_make_tmap(&hb_map, h16, H, B, 2, BR);
+    const int rc = ps_make_tmap(&hb_map, h16, H, B, 2 * chains, BR);
     if (rc != 0) return rc;
   }
   void* args[] = {&p, &hb_map};
@@ -470,5 +503,5 @@ extern "C" int gru_scan_persist_launch(
     case 18: kernel = (const void*)gru_scan_persist_kernel<18>; break;
     default: return (int)cudaErrorInvalidValue;
   }
-  return ps_coop_launch(kernel, bpd, PS_BLOCK, smem, args, s);
+  return ps_coop_launch(kernel, chains * bpd, PS_BLOCK, smem, args, s);
 }

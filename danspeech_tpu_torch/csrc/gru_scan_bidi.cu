@@ -1,5 +1,7 @@
 // Both chains of a bidirectional GRU layer over precomputed input
-// projections, in one launch per step, for Hopper.
+// projections, in one launch per step, for Hopper: the step design of
+// ops/gru_cuda.py:gru_scan_bidi. Its persistent design, which the plan takes
+// wherever a chain's slice fits, is gru_scan.cu's kernel over two chains.
 //
 // Replaces danspeech_tpu/ops/pallas_gru.py:gru_scan_bidi (kernel body
 // _gru_bidi_step_kernel). Same contract:
@@ -29,7 +31,10 @@
 //   buffers (the f32 state and the bf16 copy that the next step's product
 //   reads). Both w_hh (17 MB at H=1200) stay in the 50 MB L2 across steps,
 //   so a step is bound by L2 reads of w_hh, its unpipelined
-//   load-then-multiply loop and the launch itself, not by HBM.
+//   load-then-multiply loop and the launch itself, not by HBM. Measured by
+//   chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700 W, T=401, B=128,
+//   H=1200: 22.8-23.8 ms, against 6.9 ms for the persistent design (17.1 us
+//   a step) and 8.9-17.5 ms for cuDNN's bidirectional GRU.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -116,6 +116,13 @@ def bind(name: str, fn_name: str, n_ptr: int, n_int: int):
     return fn
 
 
+def chain_ptrs(tensors) -> list:
+    """The two per-chain pointers of a launch over one or two chains: each
+    tensor's data pointer (None stays None); a single chain fills both."""
+    ptrs = [None if t is None else t.data_ptr() for t in tensors]
+    return ptrs + ptrs[:1] * (2 - len(ptrs))
+
+
 def call(fn, name: str, device, *args) -> None:
     """Call a bound C entry (:func:`bind`) with ``args`` and the current
     stream of the CUDA ``device``; raise if it returns a CUDA error."""

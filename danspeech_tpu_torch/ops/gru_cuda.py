@@ -7,17 +7,18 @@ The ports of four kernels of ``danspeech_tpu/ops/pallas_gru.py``:
 - :func:`gru_scan` (``gru_scan``, ``csrc/gru_scan.cu``): one chain over a
   precomputed bias-free projection, with a carried h0 and a ``reverse``
   flag (unidirectional layers and the streaming chunk step);
-- :func:`gru_scan_bidi` (``gru_scan_bidi``, ``csrc/gru_scan_bidi.cu``): both
-  chains of a bidirectional layer over precomputed projections, with
-  carried h0 (concatenated directions, carried state);
+- :func:`gru_scan_bidi` (``gru_scan_bidi``, ``csrc/gru_scan.cu`` over two
+  chains, its step design ``csrc/gru_scan_bidi.cu``): both chains of a
+  bidirectional layer over precomputed projections, with carried h0
+  (concatenated directions, carried state);
 - :func:`gru_bwd_scan` (``gru_bwd_scan``, ``csrc/gru_bwd.cu``): the backward
   walk of one chain for training.
 
 Each source's header note says what bounds it on an H100 and what the
-design does about it. ``gru_bidi_fused``, ``gru_scan`` and ``gru_bwd_scan``
-have two designs: "persistent" (one cooperative launch walks every step, the
-weights resident in shared memory, ``csrc/persist.cuh``) and "step" (one
-launch per time step). ``persist_plan`` chooses between them from the shape
+design does about it. Each kernel has two designs: "persistent" (one
+cooperative launch walks every step, the weights resident in shared memory,
+``csrc/persist.cuh``) and "step" (one launch per time step).
+``persist_plan`` chooses between them from the shape
 and the device's SM count and shared memory, never after a failed launch;
 the ``design=`` argument of the wrappers overrides the choice for checks. A
 wrapper launches its kernel for CUDA tensors and raises on anything the
@@ -34,6 +35,7 @@ import weakref
 import torch
 
 from . import cuda_build, persist_plan
+from .cuda_build import chain_ptrs
 from .cuda_checks import check_tensors as _check_tensors
 
 _device_info: dict[int, tuple[int, int]] = {}
@@ -342,7 +344,8 @@ def gru_scan(gx, lengths, w_hh, b_ih, b_hh, h0, reverse: bool = False,
                                          *device_info(gx.device))
     design = persist_plan.choose(design, planned)
     if design == "persistent":
-        result = _scan_persistent(gx, lengths, w_hh, b_ih, b_hh, h0, reverse, planned)
+        result = _scan_persistent([(gx, lengths, w_hh, b_ih, b_hh, h0)], [reverse],
+                                  planned)[0]
     else:
         result = _scan_step(gx, lengths, w_hh, b_ih, b_hh, h0, reverse)
     gru_scan.launches += 1
@@ -354,26 +357,36 @@ gru_scan.launches = 0
 gru_scan.design_counts = {"persistent": 0, "step": 0}
 
 
-def _scan_persistent(gx, lengths, w_hh, b_ih, b_hh, h0, reverse, planned):
-    """The whole chain in one cooperative launch of the planned grid."""
-    launch = cuda_build.bind("gru_scan", "gru_scan_persist_launch", 9, 11)
+def _scan_persistent(chains, reverses, planned):
+    """One or two chains that share T, B, H and lengths in one cooperative
+    launch of the planned grid. ``chains`` holds (gx, lengths, w_hh, b_ih,
+    b_hh, h0) tuples; returns one (out, h_last) per chain."""
+    launch = cuda_build.bind("gru_scan", "gru_scan_persist_launch", 15, 13)
+    gx, lengths, w_hh = chains[0][:3]
     t_max, batch, _ = gx.shape
     hidden = w_hh.shape[0]
     dev = gx.device
-    w_hht = transposed(w_hh)  # the resident slices are rows of w_hh^T
-    h32 = h0.clone()  # h0 on entry, updated in place, h_last on exit
-    h16 = torch.empty((2, batch, hidden), dtype=torch.bfloat16, device=dev)
-    h16[0].copy_(h0)  # round to nearest even, as __float2bfloat16
-    out = torch.empty((t_max, batch, hidden), dtype=torch.bfloat16, device=dev)
-    barrier = torch.zeros((1,), dtype=torch.int32, device=dev)
+    n = len(chains)
+    h16 = torch.empty((2, n, batch, hidden), dtype=torch.bfloat16, device=dev)
+    outs, w_hht = [], []
+    for k, (_, _, w, _, _, h0) in enumerate(chains):
+        h16[0, k].copy_(h0)  # round to nearest even, as __float2bfloat16
+        # h0 on entry, updated in place, h_last on exit
+        outs.append((torch.empty((t_max, batch, hidden), dtype=torch.bfloat16, device=dev),
+                     h0.clone()))
+        w_hht.append(transposed(w))  # the resident slices are rows of w_hh^T
+    barrier = torch.zeros((n,), dtype=torch.int32, device=dev)
+
     cuda_build.call(
         launch, "gru_scan (persistent)", dev,
-        gx.data_ptr(), lengths.data_ptr(), w_hht.data_ptr(), b_ih.data_ptr(),
-        b_hh.data_ptr(), h32.data_ptr(), h16.data_ptr(), out.data_ptr(),
-        barrier.data_ptr(), t_max, batch, hidden, int(bool(reverse)),
-        planned.units, planned.row_groups, planned.stages, planned.chunk_depth,
-        planned.blocks_per_dir, planned.smem_bytes, int(planned.product == "dot"))
-    return out, h32
+        *chain_ptrs([c[0] for c in chains]), lengths.data_ptr(), *chain_ptrs(w_hht),
+        *chain_ptrs([c[3] for c in chains]), *chain_ptrs([c[4] for c in chains]),
+        *chain_ptrs([o[1] for o in outs]), h16.data_ptr(), *chain_ptrs([o[0] for o in outs]),
+        barrier.data_ptr(), t_max, batch, hidden, int(bool(reverses[0])),
+        int(bool(reverses[-1])), n, planned.units, planned.row_groups, planned.stages,
+        planned.chunk_depth, planned.blocks_per_dir, planned.smem_bytes,
+        int(planned.product == "dot"))
+    return outs
 
 
 def _scan_step(gx, lengths, w_hh, b_ih, b_hh, h0, reverse):
@@ -417,44 +430,10 @@ def gru_scan_bidi_plain(
     return out_f, out_b, hl_f, hl_b
 
 
-def _bind_scan_bidi():
-    lib = cuda_build.load("gru_scan_bidi")
-    fn = lib.gru_scan_bidi_launch
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
-
-
-def gru_scan_bidi(
-    gx_f, gx_b, lengths, w_hh_f, w_hh_b, b_ih_f, b_ih_b, b_hh_f, b_hh_b, h0_f, h0_b
-):
-    """Both chains of a bidirectional GRU layer over precomputed
-    projections, with carried initial states.
-
-    Same contract and return values as :func:`gru_scan_bidi_plain`. CUDA
-    operands launch the kernel (bf16 gx and w_hh, f32 biases and h0, int32
-    lengths, all contiguous on gx_f's device) or raise; CPU operands run the
-    plain version. ``gru_scan_bidi.launches`` counts kernel launches (one per
-    call: the T step kernels of one layer, both directions in each).
-    """
-    args = (gx_f, gx_b, lengths, w_hh_f, w_hh_b, b_ih_f, b_ih_b, b_hh_f, b_hh_b,
-            h0_f, h0_b)
-    if gx_f.device.type == "cpu":
-        return gru_scan_bidi_plain(*args)
-    if gx_f.device.type != "cuda":
-        raise ValueError(f"unsupported device {gx_f.device}")
-    for gx, w_hh, b_ih, b_hh, h0 in (
-        (gx_f, w_hh_f, b_ih_f, b_hh_f, h0_f), (gx_b, w_hh_b, b_ih_b, b_hh_b, h0_b)
-    ):
-        _check_scan_operands(gx, lengths, w_hh, b_ih, b_hh, h0)
-    if gx_b.shape != gx_f.shape or gx_b.device != gx_f.device:
-        raise ValueError(
-            f"gx_b {tuple(gx_b.shape)} on {gx_b.device} does not match gx_f "
-            f"{tuple(gx_f.shape)} on {gx_f.device}"
-        )
-    launch = _bind_scan_bidi()
-
+def _scan_bidi_step(gx_f, gx_b, lengths, w_hh_f, w_hh_b, b_ih_f, b_ih_b, b_hh_f,
+                    b_hh_b, h0_f, h0_b):
+    """T launches of the step kernel, both directions in each."""
+    launch = cuda_build.bind("gru_scan_bidi", "gru_scan_bidi_launch", 12, 3)
     t_max, batch, _ = gx_f.shape
     hidden = w_hh_f.shape[0]
     dev = gx_f.device
@@ -464,24 +443,77 @@ def gru_scan_bidi(
         h32[0, d].copy_(h0)
         h16[0, d].copy_(h0)  # round to nearest even, as __float2bfloat16
     out = torch.empty((2, t_max, batch, hidden), dtype=torch.bfloat16, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = launch(
-            gx_f.data_ptr(), gx_b.data_ptr(), lengths.data_ptr(),
-            w_hh_f.data_ptr(), w_hh_b.data_ptr(),
-            b_ih_f.data_ptr(), b_ih_b.data_ptr(),
-            b_hh_f.data_ptr(), b_hh_b.data_ptr(),
-            h32.data_ptr(), h16.data_ptr(), out.data_ptr(),
-            t_max, batch, hidden, stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"gru_scan_bidi launch failed: CUDA error {rc}")
-    gru_scan_bidi.launches += 1
-    last = h32[t_max % 2]
+    cuda_build.call(
+        launch, "gru_scan_bidi (step)", dev,
+        gx_f.data_ptr(), gx_b.data_ptr(), lengths.data_ptr(),
+        w_hh_f.data_ptr(), w_hh_b.data_ptr(), b_ih_f.data_ptr(), b_ih_b.data_ptr(),
+        b_hh_f.data_ptr(), b_hh_b.data_ptr(), h32.data_ptr(), h16.data_ptr(),
+        out.data_ptr(), t_max, batch, hidden)
+    last = h32[t_max % 2]  # the buffer the final step wrote
     return out[0], out[1], last[0], last[1]
 
 
+def scan_bidi_plans(hidden, batch, device) -> tuple[persist_plan.PersistPlan, ...]:
+    """The plans :func:`gru_scan_bidi` chooses among on ``device``: both
+    chains in one persistent launch, else each chain in a launch of its own."""
+    info = device_info(device)
+    return (persist_plan.plan_gru_scan(hidden, batch, *info, chains=2),
+            persist_plan.plan_gru_scan(hidden, batch, *info, chains=1))
+
+
+def gru_scan_bidi(
+    gx_f, gx_b, lengths, w_hh_f, w_hh_b, b_ih_f, b_ih_b, b_hh_f, b_hh_b, h0_f, h0_b,
+    design: str | None = None,
+):
+    """Both chains of a bidirectional GRU layer over precomputed
+    projections, with carried initial states.
+
+    Same contract and return values as :func:`gru_scan_bidi_plain`. CUDA
+    operands launch the kernel (bf16 gx and w_hh, f32 biases and h0, int32
+    lengths, all contiguous on gx_f's device) or raise; CPU operands run the
+    plain version. ``design`` is None (the plans decide), "persistent" or
+    "step". The persistent design is :func:`gru_scan`'s kernel
+    (``csrc/gru_scan.cu``) over two chains in one launch where the plan of
+    :func:`persist_plan.plan_gru_scan` for two chains fits, else one launch a
+    chain where the plan for one does; the step design is
+    ``csrc/gru_scan_bidi.cu``, T launches with both directions in each.
+    ``gru_scan_bidi.launches`` counts calls (one a call, whatever the
+    design); ``gru_scan_bidi.design_counts`` counts them by the design taken.
+    """
+    args = (gx_f, gx_b, lengths, w_hh_f, w_hh_b, b_ih_f, b_ih_b, b_hh_f, b_hh_b,
+            h0_f, h0_b)
+    if gx_f.device.type == "cpu":
+        return gru_scan_bidi_plain(*args)
+    if gx_f.device.type != "cuda":
+        raise ValueError(f"unsupported device {gx_f.device}")
+    chains = ((gx_f, lengths, w_hh_f, b_ih_f, b_hh_f, h0_f),
+              (gx_b, lengths, w_hh_b, b_ih_b, b_hh_b, h0_b))
+    for chain in chains:
+        _check_scan_operands(*chain)
+    if gx_b.shape != gx_f.shape or gx_b.device != gx_f.device:
+        raise ValueError(
+            f"gx_b {tuple(gx_b.shape)} on {gx_b.device} does not match gx_f "
+            f"{tuple(gx_f.shape)} on {gx_f.device}"
+        )
+    pair, single = scan_bidi_plans(w_hh_f.shape[0], gx_f.shape[1], gx_f.device)
+    planned = pair if pair.design == "persistent" else single
+    design = persist_plan.choose(design, planned)
+    if design == "step":
+        result = _scan_bidi_step(*args)
+    elif planned is pair:
+        (out_f, hl_f), (out_b, hl_b) = _scan_persistent(chains, [False, True], pair)
+        result = out_f, out_b, hl_f, hl_b
+    else:
+        (out_f, hl_f), = _scan_persistent(chains[:1], [False], single)
+        (out_b, hl_b), = _scan_persistent(chains[1:], [True], single)
+        result = out_f, out_b, hl_f, hl_b
+    gru_scan_bidi.launches += 1
+    gru_scan_bidi.design_counts[design] += 1
+    return result
+
+
 gru_scan_bidi.launches = 0
+gru_scan_bidi.design_counts = {"persistent": 0, "step": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -575,7 +607,7 @@ def _bwd_persistent(chains, reverses, planned):
     # operands depth-contiguous through the copy engine (wgmma), else as they lie
     w_hht = [None, None]
     if hidden % 8 == 0 and all(c[1].data_ptr() % 16 == 0 for c in chains):
-        w_hht = ([c[4].t().contiguous() for c in chains] * 2)[:2]
+        w_hht = ([transposed(c[4]) for c in chains] * 2)[:2]
 
     def pair(i, of_outs=False):
         src = outs if of_outs else chains
@@ -602,7 +634,7 @@ def _bwd_step(gx, hprev, dout, lengths, w_hh, b_ih, b_hh, dh_last, reverse):
     t_max, batch, _ = gx.shape
     hidden = w_hh.shape[0]
     dev = gx.device
-    w_hht = w_hh.t().contiguous()
+    w_hht = transposed(w_hh)
     part = torch.empty((2, batch, hidden), dtype=torch.float32, device=dev)
     part[0].copy_(dh_last)
     dgh = torch.empty((2, batch, 3 * hidden), dtype=torch.bfloat16, device=dev)

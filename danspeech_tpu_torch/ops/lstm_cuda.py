@@ -10,16 +10,18 @@ order i, f, g, o:
   step kernel): the chain that also writes the masked cell sequence, the
   residual of the backward walk (the training forward);
 - :func:`lstm_bwd_scan` (``lstm_bwd_scan``, ``csrc/lstm_bwd.cu``): the
-  backward walk of one chain.
+  backward walk of one chain; :func:`lstm_bwd_scan_pair` walks both chains
+  of a bidirectional layer in one launch.
 
 Unlike the GRU kernels, these take a projection ``gx`` that already holds
 ``b_ih`` (added in f32, then rounded to the stream dtype, as the JAX
 package's ``_lstm_project``); the kernel adds ``b_hh`` only. Each source's
 header note says what bounds it on an H100 and what the design does about
-it. The two forward kernels have two designs, as the GRU ones: "persistent"
-(one cooperative launch walks every step, ``csrc/persist.cuh``) and "step"
-(one launch per time step), chosen by :func:`persist_plan.plan_lstm_forward`
-or by ``design=``; :func:`lstm_scan_pair` runs both chains of a
+it. All three have two designs, as the GRU ones: "persistent" (one
+cooperative launch walks every step, ``csrc/persist.cuh``) and "step" (one
+launch per time step), chosen by :func:`persist_plan.plan_lstm_forward` /
+:func:`persist_plan.plan_lstm_backward` or by ``design=``;
+:func:`lstm_scan_pair` and :func:`lstm_bwd_scan_pair` run both chains of a
 bidirectional layer in one persistent launch. A wrapper launches its kernel
 for CUDA tensors and raises on anything the kernel does not take; for CPU
 tensors, and only for those, it runs the plain version. There is no fallback
@@ -31,6 +33,7 @@ from __future__ import annotations
 import torch
 
 from . import cuda_build, persist_plan
+from .cuda_build import chain_ptrs
 from .cuda_checks import check_proj_rows, check_stream_shape, check_tensors, time_order
 from .gru_cuda import device_info, transposed
 
@@ -166,16 +169,12 @@ def _persistent(chains, reverses, with_cell, planned):
         w_hht.append(transposed(w))  # the resident slices are rows of w_hh^T
     barrier = torch.zeros((n,), dtype=torch.int32, device=dev)
 
-    def each(values):  # one pointer a chain; a single chain fills both places
-        ptrs = [None if v is None else v.data_ptr() for v in values]
-        return ptrs + ptrs[:1] * (2 - n)
-
     cuda_build.call(
         launch, "lstm_scan (persistent)", dev,
-        *each([c[0] for c in chains]), lengths.data_ptr(), *each(w_hht),
-        *each([c[3] for c in chains]), *each([o[2] for o in outs]),
-        *each([o[3] for o in outs]), h16.data_ptr(), *each([o[0] for o in outs]),
-        *each([o[1] for o in outs]), barrier.data_ptr(),
+        *chain_ptrs([c[0] for c in chains]), lengths.data_ptr(), *chain_ptrs(w_hht),
+        *chain_ptrs([c[3] for c in chains]), *chain_ptrs([o[2] for o in outs]),
+        *chain_ptrs([o[3] for o in outs]), h16.data_ptr(), *chain_ptrs([o[0] for o in outs]),
+        *chain_ptrs([o[1] for o in outs]), barrier.data_ptr(),
         t_max, batch, hidden, int(bool(reverses[0])), int(bool(reverses[-1])), n,
         planned.units, planned.row_groups, planned.stages, planned.chunk_depth,
         planned.blocks_per_dir, planned.smem_bytes)
@@ -313,20 +312,7 @@ def lstm_bwd_scan_plain(gx, hprev, cprev, dout, lengths, w_hh, b_hh,
     return dg4, dh, dc
 
 
-def lstm_bwd_scan(gx, hprev, cprev, dout, lengths, w_hh, b_hh, reverse: bool = True):
-    """The backward walk of one LSTM chain.
-
-    Same contract and return values as :func:`lstm_bwd_scan_plain`. A CUDA
-    ``gx`` launches the kernel (bf16 gx, hprev, cprev and w_hh, f32 dout and
-    b_hh, int32 lengths, all contiguous on gx's device) or raises; a CPU
-    ``gx`` runs the plain version. ``lstm_bwd_scan.launches`` counts kernel
-    launches (one per call: the gate-recompute product and the T + 1 step
-    kernels of one chain).
-    """
-    if gx.device.type == "cpu":
-        return lstm_bwd_scan_plain(gx, hprev, cprev, dout, lengths, w_hh, b_hh, reverse)
-    if gx.device.type != "cuda":
-        raise ValueError(f"unsupported device {gx.device}")
+def _check_bwd_operands(gx, hprev, cprev, dout, lengths, w_hh, b_hh):
     if w_hh.dim() != 2:
         raise ValueError(f"w_hh must be (H, 4H), got shape {tuple(w_hh.shape)}")
     hidden = w_hh.shape[0]
@@ -342,28 +328,132 @@ def lstm_bwd_scan(gx, hprev, cprev, dout, lengths, w_hh, b_hh, reverse: bool = T
         "w_hh": (w_hh, (hidden, 4 * hidden), torch.bfloat16),
         "b_hh": (b_hh, (4 * hidden,), torch.float32),
     })
-    launch = cuda_build.bind("lstm_bwd", "lstm_bwd_launch", 12, 4)
 
+
+def _bwd_step(gx, hprev, cprev, dout, lengths, w_hh, b_hh, reverse):
+    """The gate recompute and T + 1 launches of the step kernel."""
+    launch = cuda_build.bind("lstm_bwd", "lstm_bwd_launch", 12, 4)
+    t_max, batch, _ = gx.shape
+    hidden = w_hh.shape[0]
     dev = gx.device
-    w_hht = w_hh.t().contiguous()
-    part = torch.empty((2, batch, hidden), dtype=torch.float32, device=dev)
-    part[0].zero_()
-    dg = torch.empty((2, batch, 4 * hidden), dtype=torch.bfloat16, device=dev)
-    dg[0].zero_()
+    part = torch.zeros((2, batch, hidden), dtype=torch.float32, device=dev)
+    dg = torch.zeros((2, batch, 4 * hidden), dtype=torch.bfloat16, device=dev)
     dc = torch.zeros((batch, hidden), dtype=torch.float32, device=dev)
     dg4 = torch.empty((t_max, batch, 4 * hidden), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = launch(
-            gx.data_ptr(), hprev.data_ptr(), cprev.data_ptr(), dout.data_ptr(),
-            lengths.data_ptr(), w_hh.data_ptr(), w_hht.data_ptr(), b_hh.data_ptr(),
-            part.data_ptr(), dg.data_ptr(), dc.data_ptr(), dg4.data_ptr(),
-            t_max, batch, hidden, int(bool(reverse)), stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"lstm_bwd_scan launch failed: CUDA error {rc}")
-    lstm_bwd_scan.launches += 1
+    cuda_build.call(
+        launch, "lstm_bwd_scan (step)", dev,
+        gx.data_ptr(), hprev.data_ptr(), cprev.data_ptr(), dout.data_ptr(),
+        lengths.data_ptr(), w_hh.data_ptr(), transposed(w_hh).data_ptr(), b_hh.data_ptr(),
+        part.data_ptr(), dg.data_ptr(), dc.data_ptr(), dg4.data_ptr(),
+        t_max, batch, hidden, int(bool(reverse)))
     return dg4, part[(t_max + 1) % 2], dc
 
 
+def _bwd_persistent(chains, reverses, planned):
+    """The persistent walk of one or two chains that share T, B, H and
+    lengths, in one launch. ``chains`` holds the operand tuples of
+    :func:`lstm_bwd_scan`; returns one (dg4, dh0, dc0) per chain."""
+    launch = cuda_build.bind("lstm_bwd", "lstm_bwd_persist_launch", 23, 12)
+    gx, _, _, _, lengths, w_hh = chains[0][:6]
+    t_max, batch, _ = gx.shape
+    hidden = w_hh.shape[0]
+    dev = gx.device
+    n = len(chains)
+    outs = []
+    for _ in chains:
+        # dg4 gets the recomputed gh first; dh and dc start at zero, are
+        # carried in place and end as dh0 and dc0
+        outs.append((torch.empty((t_max, batch, 4 * hidden), dtype=torch.float32, device=dev),
+                     torch.zeros((batch, hidden), dtype=torch.float32, device=dev),
+                     torch.zeros((batch, hidden), dtype=torch.float32, device=dev)))
+    dg = torch.empty((2, n, batch, 4 * hidden), dtype=torch.bfloat16, device=dev)
+    barrier = torch.zeros((n,), dtype=torch.int32, device=dev)
+    # the gate recompute reads w_hh^T (4H, H) through the copy engine
+    w_hht = [transposed(c[5]) for c in chains]
+
+    cuda_build.call(
+        launch, "lstm_bwd_scan (persistent)", dev,
+        *(p for i in range(4) for p in chain_ptrs([c[i] for c in chains])),
+        lengths.data_ptr(), *chain_ptrs([c[5] for c in chains]), *chain_ptrs(w_hht),
+        *chain_ptrs([c[6] for c in chains]), *chain_ptrs([o[1] for o in outs]),
+        *chain_ptrs([o[2] for o in outs]), dg.data_ptr(), *chain_ptrs([o[0] for o in outs]),
+        barrier.data_ptr(), t_max, batch, hidden, int(bool(reverses[0])),
+        int(bool(reverses[-1])), n, planned.units, planned.row_groups, planned.stages,
+        planned.chunk_depth, planned.blocks_per_dir, planned.smem_bytes)
+    return outs
+
+
+def lstm_bwd_scan(gx, hprev, cprev, dout, lengths, w_hh, b_hh, reverse: bool = True,
+                  design: str | None = None):
+    """The backward walk of one LSTM chain.
+
+    Same contract and return values as :func:`lstm_bwd_scan_plain`. A CUDA
+    ``gx`` launches the kernel (bf16 gx, hprev, cprev and w_hh, f32 dout and
+    b_hh, int32 lengths, all contiguous on gx's device) or raises; a CPU
+    ``gx`` runs the plain version. ``design`` is None (the plan of
+    :func:`persist_plan.plan_lstm_backward` decides), "persistent" or
+    "step"; ``lstm_bwd_scan.design_counts`` counts the chains by the design
+    taken. ``lstm_bwd_scan.launches`` counts chains (one per call: the
+    gate-recompute product and the walk), ``lstm_bwd_scan.pair_launches``
+    the cooperative launches that walked two chains
+    (:func:`lstm_bwd_scan_pair`).
+    """
+    args = (gx, hprev, cprev, dout, lengths, w_hh, b_hh)
+    if gx.device.type == "cpu":
+        return lstm_bwd_scan_plain(*args, reverse)
+    if gx.device.type != "cuda":
+        raise ValueError(f"unsupported device {gx.device}")
+    _check_bwd_operands(*args)
+    planned = persist_plan.plan_lstm_backward(w_hh.shape[0], gx.shape[1], 1,
+                                              *device_info(gx.device))
+    design = persist_plan.choose(design, planned)
+    if design == "persistent":
+        result = _bwd_persistent([args], [reverse], planned)[0]
+    else:
+        result = _bwd_step(*args, reverse)
+    lstm_bwd_scan.launches += 1
+    lstm_bwd_scan.design_counts[design] += 1
+    return result
+
+
 lstm_bwd_scan.launches = 0
+lstm_bwd_scan.pair_launches = 0
+lstm_bwd_scan.design_counts = {"persistent": 0, "step": 0}
+
+
+def lstm_bwd_scan_pair(chain_a, chain_b, reverse_a: bool, reverse_b: bool,
+                       design: str | None = None):
+    """The backward walks of the two chains of a bidirectional LSTM layer.
+
+    ``chain_a`` and ``chain_b`` are the operand tuples (gx, hprev, cprev,
+    dout, lengths, w_hh, b_hh) of :func:`lstm_bwd_scan`, of the same shapes
+    and over the same lengths tensor (else ValueError, on any device).
+    Returns ((dg4, dh0, dc0) of a, the same of b), each as
+    :func:`lstm_bwd_scan` would return it. On CUDA both walks share one
+    persistent launch when the plan for two chains fits (each chain has its
+    own barrier, so the two never wait for each other) and
+    ``lstm_bwd_scan.pair_launches`` grows by one; otherwise, for
+    ``design="step"``, and on the CPU, they run one after the other as two
+    :func:`lstm_bwd_scan` calls. Either way ``lstm_bwd_scan.launches`` grows
+    by two: it counts chains.
+    """
+    if (tuple(chain_a[0].shape) != tuple(chain_b[0].shape)
+            or tuple(chain_a[5].shape) != tuple(chain_b[5].shape)
+            or chain_a[4] is not chain_b[4]):
+        raise ValueError("the two chains must share their shapes and lengths")
+    if chain_a[0].device.type != "cuda":
+        return (lstm_bwd_scan(*chain_a, reverse=reverse_a),
+                lstm_bwd_scan(*chain_b, reverse=reverse_b))
+    _check_bwd_operands(*chain_a)
+    _check_bwd_operands(*chain_b)
+    planned = persist_plan.plan_lstm_backward(
+        chain_a[5].shape[0], chain_a[0].shape[1], 2, *device_info(chain_a[0].device))
+    if design == "step" or planned.design != "persistent":
+        return (lstm_bwd_scan(*chain_a, reverse=reverse_a, design=design),
+                lstm_bwd_scan(*chain_b, reverse=reverse_b, design=design))
+    persist_plan.choose(design, planned)
+    outs = _bwd_persistent([chain_a, chain_b], [reverse_a, reverse_b], planned)
+    lstm_bwd_scan.launches += 2
+    lstm_bwd_scan.design_counts["persistent"] += 2
+    lstm_bwd_scan.pair_launches += 1
+    return outs[0], outs[1]

@@ -172,6 +172,7 @@ def _plan_rows(hidden, batch, gates, depth, directions, smem_optin, max_tiles, p
 GRU_FWD_MAX_TILES = 18   # csrc/gru_bidi_fused.cu, csrc/gru_scan.cu: 3 gates x up to 48 units
 GRU_BWD_MAX_TILES = 8    # csrc/gru_bwd.cu: up to 64 units
 LSTM_FWD_MAX_TILES = 8   # csrc/lstm_scan.cu: 4 gates x 8 or 16 units
+LSTM_BWD_MAX_TILES = 3   # csrc/lstm_bwd.cu: up to 24 units
 
 
 def plan_gru_forward(hidden, batch, sm_count, smem_optin) -> PersistPlan:
@@ -181,13 +182,15 @@ def plan_gru_forward(hidden, batch, sm_count, smem_optin) -> PersistPlan:
                 GRU_FWD_MAX_TILES)
 
 
-def plan_gru_scan(hidden, batch, sm_count, smem_optin) -> PersistPlan:
-    """One GRU chain over a precomputed projection (``gru_scan``): h (B, H)
-    @ w_hh (H, 3H). A batch of at most :data:`DOT_ROWS` rows (the streaming
-    chunk) takes the product on the CUDA cores where its staged operand
-    fits beside the slice: the whole of h in shared memory, the sums after
-    it (``ps_dot_product`` in ``csrc/persist.cuh``)."""
-    planned = plan(hidden, batch, 3, hidden, 1, sm_count, smem_optin, GRU_FWD_MAX_TILES)
+def plan_gru_scan(hidden, batch, sm_count, smem_optin, chains=1) -> PersistPlan:
+    """``chains`` (1 or 2) GRU chains over precomputed projections in one
+    launch (``gru_scan``; ``gru_scan_bidi``, both directions of a layer): per
+    chain h (B, H) @ w_hh (H, 3H). A batch of at most :data:`DOT_ROWS` rows
+    (the streaming chunk) takes the product on the CUDA cores where its
+    staged operand fits beside the slice: the whole of h in shared memory,
+    the sums after it (``ps_dot_product`` in ``csrc/persist.cuh``)."""
+    planned = plan(hidden, batch, 3, hidden, chains, sm_count, smem_optin,
+                   GRU_FWD_MAX_TILES)
     if planned.design != "persistent" or batch > DOT_ROWS:
         return planned
     dot = batch * planned.depth_padded * 2 + batch * (3 * planned.units + 1) * 4
@@ -212,6 +215,13 @@ def plan_gru_backward(hidden, batch, chains, sm_count, smem_optin) -> PersistPla
     per chain dgh (B, 3H) @ w_hh^T (3H, H)."""
     return plan(hidden, batch, 1, 3 * hidden, chains, sm_count, smem_optin,
                 GRU_BWD_MAX_TILES)
+
+
+def plan_lstm_backward(hidden, batch, chains, sm_count, smem_optin) -> PersistPlan:
+    """The backward walk of ``chains`` (1 or 2) LSTM chains
+    (``lstm_bwd_scan`` and its pair): per chain dg (B, 4H) @ w_hh^T (4H, H)."""
+    return plan(hidden, batch, 1, 4 * hidden, chains, sm_count, smem_optin,
+                LSTM_BWD_MAX_TILES)
 
 
 def choose(design: str | None, planned: PersistPlan) -> str:

@@ -42,8 +42,9 @@ the CPU) over a projection that already holds the input bias (both biases
 for the tanh RNN), start from zero states and return the outputs only.
 Every shape of them (one or two directions, summed or concatenated) is
 differentiable: the backward is :func:`lstm_cuda.lstm_bwd_scan` /
-:func:`rnn_tanh_cuda.rnn_tanh_bwd_scan` per direction followed by the same
-plain matrix products. An LSTM forward that will be differentiated runs
+:func:`rnn_tanh_cuda.rnn_tanh_bwd_scan` per direction (the two LSTM walks of
+a bidirectional layer through :func:`lstm_cuda.lstm_bwd_scan_pair`, one
+launch on the card) followed by the same plain matrix products. An LSTM forward that will be differentiated runs
 :func:`lstm_cuda.lstm_scan_with_cell`, which also keeps the cell stream the
 walk needs; one that will not runs :func:`lstm_cuda.lstm_scan`.
 """
@@ -365,20 +366,33 @@ def _stream_grads(x, hprev, dpre, w):
     return dx, grads
 
 
-def _lstm_dir_grads(x, lengths, w: LSTMWeights, out_dir, c_dir, dout,
-                    chain_reverse: bool, impl: str):
-    """Gradients of one LSTM direction: the backward walk over the recomputed
-    projection and the shifted output and cell streams, then
-    :func:`_stream_grads`."""
-    hprev = _shift_chain(out_dir, chain_reverse)
-    run = lstm_cuda.lstm_bwd_scan if impl == "auto" else lstm_cuda.lstm_bwd_scan_plain
-    dg4, _, _ = run(
-        _lstm_project(x, w), hprev, _shift_chain(c_dir, chain_reverse),
-        dout.float().contiguous(), lengths, w.w_hh, w.b_hh.float(),
-        # the walk runs opposite the chain's own order
-        reverse=not chain_reverse,
-    )
-    return _stream_grads(x, hprev, dg4, w)
+def _lstm_walk_operands(x, lengths, w: LSTMWeights, out_dir, c_dir, dout,
+                        chain_reverse: bool):
+    """The operands of one LSTM direction's backward walk
+    (``lstm_bwd_scan``): the recomputed projection and the shifted output and
+    cell streams."""
+    return (_lstm_project(x, w), _shift_chain(out_dir, chain_reverse),
+            _shift_chain(c_dir, chain_reverse), dout.float().contiguous(), lengths,
+            w.w_hh, w.b_hh.float())
+
+
+def _lstm_grads(x, lengths, dirs, outs, cells, douts, impl: str):
+    """Gradients of every direction of an LSTM layer: the backward walks,
+    then :func:`_stream_grads` per direction. On the kernel path the two
+    walks of a bidirectional layer share one launch where the plan allows
+    (``lstm_cuda.lstm_bwd_scan_pair``). Returns [(dx, grads)] per
+    direction."""
+    ops = [_lstm_walk_operands(x, lengths, w, outs[k], cells[k], douts[k], rev)
+           for k, (w, rev) in enumerate(dirs)]
+    if impl == "auto" and len(ops) == 2:
+        # the walks run opposite the chains' own order
+        walks = lstm_cuda.lstm_bwd_scan_pair(ops[0], ops[1], reverse_a=True,
+                                             reverse_b=False)
+    else:
+        run = lstm_cuda.lstm_bwd_scan if impl == "auto" else lstm_cuda.lstm_bwd_scan_plain
+        walks = [run(*o, reverse=not rev) for o, (_, rev) in zip(ops, dirs)]
+    return [_stream_grads(x, o[1], walk[0], w)
+            for o, walk, (w, _) in zip(ops, walks, dirs)]
 
 
 def _rnn_dir_grads(x, lengths, w: RNNWeights, out_dir, dout,
@@ -408,18 +422,19 @@ def _merge_directions(outs, sum_directions: bool) -> torch.Tensor:
     return outs[0] + outs[1] if sum_directions else torch.cat(outs, dim=-1)
 
 
-def _layer_backward(x, dirs, sum_directions, d_out, dir_grads):
-    """The common backward of the LSTM and tanh layers: split the cotangent
-    per direction, call ``dir_grads(direction index, weights, dout,
-    chain_reverse)`` for each, sum dx. Returns (dx in x's dtype, the flat
-    weight gradients in the order the Function received the weights)."""
-    hidden = dirs[0][0].w_hh.shape[0]
+def _cotangents(d_out, dirs, sum_directions: bool):
+    """The cotangent of each direction's output."""
+    if len(dirs) == 2 and not sum_directions:
+        hidden = dirs[0][0].w_hh.shape[0]
+        return [d_out[..., :hidden], d_out[..., hidden:]]
+    return [d_out] * len(dirs)
+
+
+def _gather(x, results):
+    """(dx in x's dtype, the flat weight gradients in the order the Function
+    received the weights) from each direction's (dx, gradients)."""
     dx, grads = None, []
-    for k, (w, chain_reverse) in enumerate(dirs):
-        dout = d_out
-        if len(dirs) == 2 and not sum_directions:
-            dout = d_out[..., k * hidden : (k + 1) * hidden]
-        dx_k, dw = dir_grads(k, w, dout, chain_reverse)
+    for dx_k, dw in results:
         # on CUDA each direction's dx was rounded to bf16 by its product
         dx = dx_k if dx is None else dx + dx_k
         grads += dw
@@ -464,12 +479,10 @@ class _LSTMLayer(torch.autograd.Function):
             raise RuntimeError("this LSTM forward kept no cell stream")
         x, lengths, *rest = ctx.saved_tensors
         ndir = len(rest) // 6
-        outs, cells = rest[:ndir], rest[ndir : 2 * ndir]
-        dx, grads = _layer_backward(
-            x, _directions(LSTMWeights, rest[2 * ndir :]), ctx.sum_directions, d_out,
-            lambda k, w, dout, rev: _lstm_dir_grads(
-                x, lengths, w, outs[k], cells[k], dout, rev, ctx.impl),
-        )
+        dirs = _directions(LSTMWeights, rest[2 * ndir :])
+        dx, grads = _gather(x, _lstm_grads(
+            x, lengths, dirs, rest[:ndir], rest[ndir : 2 * ndir],
+            _cotangents(d_out, dirs, ctx.sum_directions), ctx.impl))
         return (None, None, None, dx, None, *grads)
 
 
@@ -496,12 +509,11 @@ class _RNNTanhLayer(torch.autograd.Function):
     def backward(ctx, d_out):
         x, lengths, *rest = ctx.saved_tensors
         ndir = len(rest) // 5
-        outs = rest[:ndir]
-        dx, grads = _layer_backward(
-            x, _directions(RNNWeights, rest[ndir:]), ctx.sum_directions, d_out,
-            lambda k, w, dout, rev: _rnn_dir_grads(
-                x, lengths, w, outs[k], dout, rev, ctx.impl),
-        )
+        dirs = _directions(RNNWeights, rest[ndir:])
+        douts = _cotangents(d_out, dirs, ctx.sum_directions)
+        dx, grads = _gather(x, [
+            _rnn_dir_grads(x, lengths, w, rest[k], douts[k], rev, ctx.impl)
+            for k, (w, rev) in enumerate(dirs)])
         return (None, None, dx, None, *grads)
 
 

@@ -210,6 +210,15 @@ def test_build_raises_without_nvcc(tmp_path, monkeypatch):
         cuda_build.build("k")
 
 
+def test_chain_ptrs_fills_both_chains_of_a_launch():
+    """A launch over one or two chains takes two pointers per operand; one
+    chain passes its own twice, and an absent operand stays null."""
+    a, b = torch.zeros(3), torch.zeros(3)
+    assert cuda_build.chain_ptrs([a]) == [a.data_ptr(), a.data_ptr()]
+    assert cuda_build.chain_ptrs([a, b]) == [a.data_ptr(), b.data_ptr()]
+    assert cuda_build.chain_ptrs([None]) == [None, None]
+
+
 def _fused_case(seed, t=9, lengths=(9, 3, 1, 7, 9), d_in=12, hidden=8):
     rng = np.random.default_rng(seed)
     x = rng.normal(size=(t, len(lengths), d_in)).astype(np.float32)

@@ -172,3 +172,32 @@ def test_forward_only_routes_are_differentiable_on_cpu():
     out.sum().backward()
     assert x.grad is not None and torch.isfinite(x.grad).all()
     assert float(b.w_hh.grad.abs().max()) > 0
+
+
+@pytest.mark.parametrize("design", ["persistent", "step"])
+def test_scan_bidi_design_runs_the_plain_version_on_the_cpu(design):
+    """``design`` picks the kernel on the card (one persistent launch of
+    gru_scan's kernel over both chains, or the step kernel); CPU tensors run
+    the plain version whatever it says: exactly the plain result, and JAX's
+    ``gru_scan_bidi(interpret=True)`` within BF16_OUT_ATOL / H_LAST_ATOL."""
+    t, lengths, hidden = 13, [13, 0, 1, 7, 12], 24
+    a = _inputs(41, t, lengths, hidden)
+    seq = ("gx_f", "gx_b", "w_hh_f", "w_hh_b")
+    p = {k: torch.from_numpy(v).to(torch.bfloat16) if k in seq else torch.from_numpy(v)
+         for k, v in a.items()}
+    names = ("gx_f", "gx_b", "lengths", "w_hh_f", "w_hh_b", "b_ih_f", "b_ih_b", "b_hh_f",
+             "b_hh_b", "h0_f", "h0_b")
+    counts = dict(gru_cuda.gru_scan_bidi.design_counts)
+    got = gru_cuda.gru_scan_bidi(*(p[k] for k in names), design=design)
+    assert gru_cuda.gru_scan_bidi.design_counts == counts
+    for g, w in zip(got, gru_cuda.gru_scan_bidi_plain(*(p[k] for k in names))):
+        assert torch.equal(g, w)
+    j = {k: jnp.asarray(v, jnp.bfloat16 if k in seq else None) for k, v in a.items()}
+    ref = j_gru_scan_bidi(
+        j["gx_f"], j["gx_b"], j["lengths"], j["w_hh_f"], j["w_hh_b"],
+        j["b_hh_f"], j["b_hh_b"], j["h0_f"], j["h0_b"],
+        interpret=True, b_ih_f=j["b_ih_f"], b_ih_b=j["b_ih_b"],
+    )
+    for i, (g, r) in enumerate(zip(got, ref)):
+        np.testing.assert_allclose(g.float().numpy(), np.asarray(r.astype(jnp.float32)),
+                                   atol=BF16_OUT_ATOL if i < 2 else H_LAST_ATOL, rtol=0)

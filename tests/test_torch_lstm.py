@@ -426,3 +426,107 @@ def test_bidi_layer_takes_the_pair_route(monkeypatch, dtype, sum_directions):
                            cast=None if cast is None else jnp.bfloat16)
     atol = F32_ATOL if cast is None else 2 * BF16_ATOL
     np.testing.assert_allclose(out.numpy(), np.asarray(run(*args)), atol=atol, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# lstm_bwd_scan_pair: both backward walks of a bidirectional layer
+# ---------------------------------------------------------------------------
+
+
+def _walk_chain(a, tdt, lengths):
+    return (torch.from_numpy(a["gx"]).to(tdt), torch.from_numpy(a["hprev"]).to(tdt),
+            torch.from_numpy(a["cprev"]).to(tdt), torch.from_numpy(a["dout"]), lengths,
+            torch.from_numpy(a["w_hh"]).to(tdt), torch.from_numpy(a["b_hh"]))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bwd_pair_matches_two_jax_walks(dtype):
+    """On CPU tensors the pair is two lstm_bwd_scan calls (the plain
+    version): chain a walks t = T-1 .. 0, chain b 0 .. T-1, over one ragged
+    lengths tensor, each against JAX ``lstm_bwd_scan(interpret=True)`` with
+    the tolerances of test_plain_bwd_matches_pallas_interpret."""
+    jdt, tdt = _dtypes(dtype)
+    lengths = [13, 0, 1, 7, 12]
+    tl = torch.tensor(lengths, dtype=torch.int32)
+    inputs = [_walk_inputs(seed, 13, lengths, 16) for seed in (31, 32)]
+    before = (lstm_cuda.lstm_bwd_scan.launches, lstm_cuda.lstm_bwd_scan.pair_launches)
+    got = lstm_cuda.lstm_bwd_scan_pair(_walk_chain(inputs[0], tdt, tl),
+                                       _walk_chain(inputs[1], tdt, tl), True, False)
+    assert (lstm_cuda.lstm_bwd_scan.launches, lstm_cuda.lstm_bwd_scan.pair_launches) == before
+    atol = F32_ATOL if dtype == "float32" else BF16_BWD_ATOL
+    pad = np.arange(13)[:, None] >= np.asarray(lengths)[None, :]
+    for a, got_chain, reverse in zip(inputs, got, (True, False)):
+        ref = jk.lstm_bwd_scan(
+            jnp.asarray(a["gx"], jdt), jnp.asarray(a["hprev"], jdt),
+            jnp.asarray(a["cprev"], jdt), jnp.asarray(a["dout"]), jnp.asarray(a["lengths"]),
+            jnp.asarray(a["w_hh"], jdt), jnp.asarray(a["b_hh"]),
+            reverse=reverse, interpret=True,
+        )
+        for name, g, r in zip(("dg4", "dh0", "dc0"), got_chain, ref):
+            assert g.dtype == torch.float32 and tuple(g.shape) == r.shape, name
+            np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=atol, rtol=0,
+                                       err_msg=f"{name} reverse={reverse}")
+        assert float(np.abs(got_chain[0].numpy()[pad]).max(initial=0.0)) == 0.0
+
+
+@pytest.mark.parametrize("design", [None, "persistent", "step"])
+def test_bwd_design_argument_runs_the_plain_version_on_the_cpu(design):
+    a = _walk_inputs(7, 9, [9, 4, 0], 8)
+    chain = _walk_chain(a, torch.bfloat16, torch.from_numpy(a["lengths"]))
+    counts = dict(lstm_cuda.lstm_bwd_scan.design_counts)
+    want = lstm_cuda.lstm_bwd_scan_plain(*chain, reverse=False)
+    for g, w in zip(lstm_cuda.lstm_bwd_scan(*chain, reverse=False, design=design), want):
+        assert torch.equal(g, w)
+    assert lstm_cuda.lstm_bwd_scan.design_counts == counts
+
+
+def test_bwd_pair_refuses_chains_that_differ():
+    lengths = torch.tensor([5, 3], dtype=torch.int32)
+    a = _walk_chain(_walk_inputs(1, 5, [5, 3], 8), torch.float32, lengths)
+    wider = _walk_chain(_walk_inputs(2, 5, [5, 3], 16), torch.float32, lengths)
+    longer = _walk_chain(_walk_inputs(3, 6, [5, 3], 8), torch.float32, lengths)
+    other_lengths = _walk_chain(_walk_inputs(4, 5, [5, 3], 8), torch.float32,
+                                lengths.clone())
+    for b in (wider, longer, other_lengths):
+        with pytest.raises(ValueError, match="share their shapes and lengths"):
+            lstm_cuda.lstm_bwd_scan_pair(a, b, True, False)
+    meta = tuple(v.to("meta") for v in a)
+    with pytest.raises(ValueError, match="unsupported device"):
+        lstm_cuda.lstm_bwd_scan_pair(meta, meta, True, False)
+
+
+@pytest.mark.parametrize("sum_directions", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bidi_layer_backward_takes_the_bwd_pair_route(monkeypatch, dtype, sum_directions):
+    """The backward of a bidirectional lstm_layer walks its two chains
+    through lstm_bwd_scan_pair (one launch on the card; on the CPU two
+    lstm_bwd_scan calls), the forward chain's walk in reverse time; the
+    gradients equal jax.grad through the JAX package's lstm_layer (float32:
+    ``impl="xla"`` to GRAD_TOL; bf16 weights: the Pallas kernels in
+    interpret mode, the bound of test_lstm_layer_bf16_close_to_jax_pallas)."""
+    pairs, walks = [], []
+    orig_pair, orig_walk = lstm_cuda.lstm_bwd_scan_pair, lstm_cuda.lstm_bwd_scan
+    monkeypatch.setattr(lstm_cuda, "lstm_bwd_scan_pair",
+                        lambda a, b, **kw: pairs.append((kw["reverse_a"], kw["reverse_b"]))
+                        or orig_pair(a, b, **kw))
+    monkeypatch.setattr(lstm_cuda, "lstm_bwd_scan",
+                        lambda *a, **kw: walks.append(kw["reverse"]) or orig_walk(*a, **kw))
+    x, lens, fwd, bwd, r_out = _layer_case("bidi", sum_directions, [13, 7, 0, 4], seed=23)
+    cast = None if dtype == "float32" else torch.bfloat16
+    leaves = _torch_leaves(x, fwd, bwd)
+    out = _torch_layer(leaves, lens, sum_directions, "auto", cast=cast)
+    got = torch.autograd.grad((out * torch.from_numpy(r_out)).sum(), leaves)
+    assert pairs == [(True, False)] and walks == [True, False]
+    run, args = _jax_layer(x, lens, fwd, bwd, sum_directions,
+                           "xla" if cast is None else "pallas",
+                           cast=None if cast is None else jnp.bfloat16)
+    ref_grads = jax.grad(lambda *a: jnp.sum(run(*a) * r_out),
+                         argnums=tuple(range(len(args))))(*args)
+    ref_grads = [np.asarray(g) for g in jax.tree_util.tree_leaves(ref_grads)]
+    for g, r in zip(got, ref_grads):
+        assert g.dtype == torch.float32
+        if cast is None:
+            np.testing.assert_allclose(g.numpy(), r, atol=GRAD_TOL, rtol=GRAD_TOL)
+        else:
+            scale = max(1.0, float(np.abs(r).max()))
+            np.testing.assert_allclose(g.numpy(), r, atol=3e-2 * scale, rtol=0)

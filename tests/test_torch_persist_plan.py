@@ -28,6 +28,13 @@ SCAN_FITS = [(2000, 1), (2000, 8), (2000, 9), (2000, 32), (2000, 64), (2000, 128
 # (hidden, batch, chains): LSTM forward chains (lstm_scan and its pair)
 LSTM_FITS = [(800, 32, 1), (800, 128, 1), (800, 32, 2), (800, 128, 2), (72, 5, 2),
              (100, 3, 1), (1200, 32, 1)]
+# (hidden, batch, chains): two GRU chains in one launch (gru_scan_bidi)
+SCAN_PAIR_FITS = [(1200, 128, 2), (1200, 32, 2), (1200, 1, 2), (72, 5, 2), (72, 150, 2),
+                  (100, 3, 2)]
+# (hidden, batch, chains): LSTM backward walks (lstm_bwd_scan and its pair)
+LSTM_BWD_FITS = [(800, 32, 1), (800, 32, 2), (800, 128, 2), (800, 150, 1), (800, 8, 2),
+                 (72, 5, 1), (72, 5, 2), (72, 1, 2), (100, 3, 1), (72, 150, 2),
+                 (1200, 32, 1)]
 
 
 def _plans():
@@ -43,6 +50,12 @@ def _plans():
     for h, b, c in LSTM_FITS:
         yield pytest.param(pp.plan_lstm_forward(h, b, c, SMS, SMEM), h, b, 4, h, c,
                            id=f"lstm-H{h}-B{b}-chains{c}")
+    for h, b, c in SCAN_PAIR_FITS:
+        yield pytest.param(pp.plan_gru_scan(h, b, SMS, SMEM, chains=c), h, b, 3, h, c,
+                           id=f"scan-H{h}-B{b}-chains{c}")
+    for h, b, c in LSTM_BWD_FITS:
+        yield pytest.param(pp.plan_lstm_backward(h, b, c, SMS, SMEM), h, b, 1, 4 * h, c,
+                           id=f"lstm-backward-H{h}-B{b}-chains{c}")
 
 
 @pytest.mark.parametrize("plan,hidden,batch,gates,depth,directions", _plans())
@@ -160,7 +173,53 @@ def test_lstm_plan_at_the_lstm5x800_shapes(batch, chains, units, grid, row_group
         == ("persistent", units, grid, row_groups, stages, 128, 4 * units * 832 * 2, smem)
 
 
+@pytest.mark.parametrize("batch,chains,units,grid,row_groups,stages,slice_bytes,smem", [
+    (32, 1, 8, 100, 1, 5, 51200, 215040),    # one chain: 51 KB slices, five 32 KB stages
+    (32, 2, 16, 100, 1, 3, 102400, 200704),  # both chains of a layer: 50 blocks a chain
+    (128, 1, 8, 100, 2, 5, 51200, 215040),   # a batch above 64: row blocks of 128
+    (128, 2, 16, 100, 2, 3, 102400, 200704),
+    (150, 1, 8, 100, 2, 5, 51200, 215040),
+    (150, 2, 16, 100, 2, 3, 102400, 200704),
+])
+def test_lstm_backward_plan_at_the_lstm5x800_shapes(batch, chains, units, grid, row_groups,
+                                                    stages, slice_bytes, smem):
+    """The walk's slice is U columns of w_hh^T 4H deep (3200 at H = 800)."""
+    plan = pp.plan_lstm_backward(800, batch, chains, SMS, SMEM)
+    assert (plan.design, plan.units, plan.grid, plan.blocks_per_dir, plan.row_groups,
+            plan.stages, plan.chunk_depth, plan.slice_bytes, plan.smem_bytes) \
+        == ("persistent", units, grid, grid // chains, row_groups, stages, 128,
+            slice_bytes, smem)
+    assert plan.depth_padded == 3200 and plan.slice_bytes == units * 3200 * 2
+
+
+@pytest.mark.parametrize("batch,row_groups", [(128, 2), (32, 1)])
+def test_scan_pair_plan_is_the_fused_forward_plan(batch, row_groups):
+    """Two gru_scan chains at H = 1200 (gru_scan_bidi) are cut as B3's
+    recurrence: 24 units, 50 blocks a chain, three 64-deep stages."""
+    plan = pp.plan_gru_scan(1200, batch, SMS, SMEM, chains=2)
+    assert (plan.design, plan.units, plan.grid, plan.blocks_per_dir, plan.row_groups,
+            plan.stages, plan.chunk_depth, plan.slice_bytes, plan.smem_bytes, plan.product) \
+        == ("persistent", 24, 100, 50, row_groups, 3, 64, 175104, 224256, "wgmma")
+    assert plan == pp.plan_gru_forward(1200, batch, SMS, SMEM)
+    # one chain is gru_scan's own plan
+    assert pp.plan_gru_scan(1200, batch, SMS, SMEM, chains=1) \
+        == pp.plan_gru_scan(1200, batch, SMS, SMEM)
+
+
+def test_scan_pair_at_h2000_does_not_fit_but_one_chain_does():
+    """At H = 2000 a pair would need 32 units a block (a 393 KB slice):
+    gru_scan_bidi then takes one launch a chain, on gru_scan's plan."""
+    pair = pp.plan_gru_scan(2000, 128, SMS, SMEM, chains=2)
+    assert (pair.design, pair.units, pair.slice_bytes) == ("step", 32, 393216)
+    single = pp.plan_gru_scan(2000, 128, SMS, SMEM, chains=1)
+    assert (single.design, single.units, single.grid) == ("persistent", 16, 125)
+
+
 @pytest.mark.parametrize("plan", [
+    pytest.param(pp.plan_gru_scan(2000, 128, SMS, SMEM, chains=2), id="scan-H2000-pair"),
+    pytest.param(pp.plan_gru_scan(2000, 32, SMS, SMEM, chains=2), id="scan-H2000-B32-pair"),
+    pytest.param(pp.plan_lstm_backward(1200, 32, 2, SMS, SMEM), id="lstm-backward-H1200-pair"),
+    pytest.param(pp.plan_lstm_backward(2000, 32, 1, SMS, SMEM), id="lstm-backward-H2000"),
     pytest.param(pp.plan_gru_forward(2000, 128, SMS, SMEM), id="forward-H2000"),
     pytest.param(pp.plan_gru_forward(4096, 32, SMS, SMEM), id="forward-H4096"),
     pytest.param(pp.plan_gru_backward(2000, 32, 2, SMS, SMEM), id="backward-H2000-pair"),
@@ -281,3 +340,43 @@ def test_forward_wrappers_take_a_design_argument_and_use_the_plain_version_on_th
             for g, r in zip(got_chain, plain(*chain, reverse=reverse)):
                 assert torch.equal(g, r)
     assert [(w.launches, dict(w.design_counts)) for w in wrappers] == before
+
+
+@pytest.mark.parametrize("design", [None, "persistent", "step"])
+def test_slice_7_wrappers_take_a_design_argument_and_use_the_plain_version_on_the_cpu(
+        design):
+    """lstm_bwd_scan, lstm_bwd_scan_pair and gru_scan_bidi on CPU tensors run
+    the plain versions whatever the design, and count nothing."""
+    import torch
+
+    from danspeech_tpu_torch.ops import gru_cuda, lstm_cuda
+
+    gen = torch.Generator().manual_seed(2)
+    t, b, h = 5, 3, 8
+    lens = torch.tensor([5, 0, 3], dtype=torch.int32)
+
+    def walk():
+        return (torch.randn(t, b, 4 * h, generator=gen), torch.randn(t, b, h, generator=gen),
+                torch.randn(t, b, h, generator=gen), torch.randn(t, b, h, generator=gen), lens,
+                torch.randn(h, 4 * h, generator=gen) * 0.3, torch.randn(4 * h, generator=gen))
+
+    wrappers = (lstm_cuda.lstm_bwd_scan, gru_cuda.gru_scan_bidi)
+    before = [(w.launches, dict(w.design_counts)) for w in wrappers]
+    pairs = lstm_cuda.lstm_bwd_scan.pair_launches
+    a, c = walk(), walk()
+    for g, r in zip(lstm_cuda.lstm_bwd_scan(*a, reverse=True, design=design),
+                    lstm_cuda.lstm_bwd_scan_plain(*a, reverse=True)):
+        assert torch.equal(g, r)
+    got = lstm_cuda.lstm_bwd_scan_pair(a, c, True, False, design=design)
+    for got_chain, chain, reverse in zip(got, (a, c), (True, False)):
+        for g, r in zip(got_chain, lstm_cuda.lstm_bwd_scan_plain(*chain, reverse=reverse)):
+            assert torch.equal(g, r)
+    bidi = [torch.randn(t, b, 3 * h, generator=gen) for _ in range(2)] + [lens]
+    bidi += [torch.randn(h, 3 * h, generator=gen) * 0.3 for _ in range(2)]
+    bidi += [torch.randn(3 * h, generator=gen) for _ in range(4)]
+    bidi += [torch.randn(b, h, generator=gen) for _ in range(2)]
+    for g, r in zip(gru_cuda.gru_scan_bidi(*bidi, design=design),
+                    gru_cuda.gru_scan_bidi_plain(*bidi)):
+        assert torch.equal(g, r)
+    assert [(w.launches, dict(w.design_counts)) for w in wrappers] == before
+    assert lstm_cuda.lstm_bwd_scan.pair_launches == pairs

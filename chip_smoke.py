@@ -16,12 +16,11 @@ Phases, in order; any failure exits non-zero:
    (four GRU, three LSTM, two tanh-RNN) against its plain PyTorch version on
    the card at ragged small shapes and the layer shapes of the paths below,
    with its time, the plain version's time, one library call's time (bf16
-   and float16) as a yardstick, and the bound; ``gru_bidi_fused``,
-   ``gru_scan``, ``gru_scan_bidi``, ``gru_bwd_scan``, ``lstm_scan``,
-   ``lstm_scan_with_cell`` and ``lstm_bwd_scan`` in both designs
+   and float16) as a yardstick, and the bound; every kernel in both designs
    (``design="persistent"`` and ``"step"``, both checked and timed in the
-   same run; ``gru_bwd_scan`` and the LSTM ones also as a pair of chains in
-   one launch), and every main path below must take the persistent one; and
+   same run; ``gru_bwd_scan``, the LSTM and the tanh-RNN ones also as a
+   pair of chains in one launch), and every main path below must take the
+   persistent one; and
    ``gru_layer`` with concatenated directions and with a carried h0, the two
    routes that reach ``gru_scan_bidi``;
 4. the batch path: ``Recognizer.recognize`` / ``recognize_batch`` on the
@@ -55,10 +54,12 @@ Phases, in order; any failure exits non-zero:
    seeded batch of 32 waveforms of 1-8 s with their launch counts (per LSTM
    step 5 ``lstm_scan``, 5 ``lstm_scan_with_cell``, each a pair of chains in
    one launch, and 10 ``lstm_bwd_scan`` chains in 5 paired launches; per tanh
-   step 20 ``rnn_tanh_scan``, 10 ``rnn_tanh_bwd_scan``), the
-   gradients of an 8-row batch against the plain path; for the LSTM a
-   profile of one step and ``train.train`` + ``export_model`` +
-   ``Recognizer.recognize`` on a 2-layer cut;
+   step 20 ``rnn_tanh_scan`` chains in 10 paired launches and 10
+   ``rnn_tanh_bwd_scan`` chains in 5; a tanh dispatch group 10
+   ``rnn_tanh_scan`` chains in 5), the gradients of an 8-row batch against
+   the plain path, a profile of one batch and of one step; for the LSTM
+   ``train.train`` + ``export_model`` + ``Recognizer.recognize`` on a
+   2-layer cut;
 8. one ``{"kernels": [...]}`` line of nine entries, then the device line as
    the last line.
 
@@ -173,23 +174,30 @@ def time_ms(fn, iters: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms_by_kernel(fn) -> dict:
-    """Device time of one call of ``fn`` by kernel name (torch.profiler), ms."""
+def device_ms_by_kernel(fn, need: str | None = None, tries: int = 3) -> dict:
+    """Device time of one call of ``fn`` by kernel name (torch.profiler), ms.
+    Now and then the profiler returns a call without its device events (a
+    persistent walk read 0 ms beside its 6 ms by CUDA events): a reading
+    with no device time, or none for the kernel ``need`` names, is taken
+    again, up to ``tries`` calls in all."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
+    for _ in range(tries):
+        out = {}
         torch.cuda.synchronize()
-    out = {}
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        us = getattr(e, "device_time_total", None)
-        if us is None:
-            us = e.cuda_time_total
-        out[e.key] = out.get(e.key, 0.0) + us / 1e3
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            us = getattr(e, "device_time_total", None)
+            if us is None:
+                us = e.cuda_time_total
+            out[e.key] = out.get(e.key, 0.0) + us / 1e3
+        if out and (need is None or kernel_ms(out, need) > 0):
+            break
     return out
 
 
@@ -213,15 +221,12 @@ def require_persistent(wrapper, label):
 
 
 def zero_designs():
-    """The design counts of every wrapper with two designs, and the count of
-    paired lstm_bwd_scan launches, to 0."""
-    from danspeech_tpu_torch.ops import gru_cuda, lstm_cuda
-
-    for w in (gru_cuda.gru_bidi_fused, gru_cuda.gru_scan, gru_cuda.gru_scan_bidi,
-              gru_cuda.gru_bwd_scan, lstm_cuda.lstm_scan, lstm_cuda.lstm_scan_with_cell,
-              lstm_cuda.lstm_bwd_scan):
+    """The design counts of every wrapper, and the counts of paired
+    launches (lstm_bwd_scan, rnn_tanh_scan, rnn_tanh_bwd_scan), to 0."""
+    for w in kernel_wrappers().values():
         w.design_counts = dict.fromkeys(DESIGNS, 0)
-    lstm_cuda.lstm_bwd_scan.pair_launches = 0
+        if hasattr(w, "pair_launches"):
+            w.pair_launches = 0
 
 
 def phase_barrier():
@@ -365,7 +370,7 @@ def check_gru(gen, t, b, d, h, lengths, timed: bool):
                            + time_ms(run("persistent"), iters=5))
         res["step_design_ms"] = 0.5 * (step_a + time_ms(run("step"), iters=3))
         res["design"] = "persistent"
-        split = device_ms_by_kernel(run("persistent"))
+        split = device_ms_by_kernel(run("persistent"), need="gru_persist_kernel")
         res["recurrence_ms"] = kernel_ms(split, "gru_persist_kernel")
         res["projection_ms"] = (kernel_ms(split, "gru_proj_wgmma_kernel")
                                 + kernel_ms(split, "gru_proj_kernel"))
@@ -520,8 +525,9 @@ def check_scan(gen, label, t, lengths, h, reverse, carried, timed):
                            + time_ms(runs["persistent"], iters=5))
         res["step_design_ms"] = 0.5 * (step_a + time_ms(runs["step"], iters=3))
         res["design"] = "persistent"
-        res["recurrence_ms"] = kernel_ms(device_ms_by_kernel(runs["persistent"]),
-                                         "gru_scan_persist_kernel")
+        res["recurrence_ms"] = kernel_ms(
+            device_ms_by_kernel(runs["persistent"], need="gru_scan_persist_kernel"),
+            "gru_scan_persist_kernel")
         res["step_ms"] = res["recurrence_ms"] / walked
         res["plain_ms"] = time_ms(lambda: gru_cuda.gru_scan_plain(*args, reverse=reverse),
                                   iters=2)
@@ -682,8 +688,9 @@ def check_scan_bidi(gen, label, t, lengths, h, carried, timed):
                            + time_ms(runs["persistent"], iters=5))
         res["step_design_ms"] = 0.5 * (step_a + time_ms(runs["step"], iters=3))
         res["design"] = "persistent"
-        res["recurrence_ms"] = kernel_ms(device_ms_by_kernel(runs["persistent"]),
-                                         "gru_scan_persist_kernel")
+        res["recurrence_ms"] = kernel_ms(
+            device_ms_by_kernel(runs["persistent"], need="gru_scan_persist_kernel"),
+            "gru_scan_persist_kernel")
         res["step_ms"] = res["recurrence_ms"] / walked
         res["plain_ms"] = time_ms(lambda: gru_cuda.gru_scan_bidi_plain(*args), iters=1)
         # cuDNN's bidirectional GRU(D=H, H): it also computes the input
@@ -882,7 +889,7 @@ def check_bwd(gen, label, t, lengths, h, reverse, timed, pair=True):
                            + time_ms(run("persistent"), iters=5))
         res["step_design_ms"] = 0.5 * (step_a + time_ms(run("step"), iters=3))
         res["design"] = "persistent"
-        split = device_ms_by_kernel(run("persistent"))
+        split = device_ms_by_kernel(run("persistent"), need="gru_bwd_persist_kernel")
         res["walk_ms"] = kernel_ms(split, "gru_bwd_persist_kernel")
         res["recompute_ms"] = (kernel_ms(split, "gru_proj_wgmma_kernel")
                                + kernel_ms(split, "gru_proj_kernel"))
@@ -982,14 +989,22 @@ def lstm_inputs(gen, t, lengths, h, lens=None):
     return (gx, lens, uni(h, 4 * h).to(torch.bfloat16), uni(4 * h), *carried)
 
 
+# the persistent kernel of each LSTM and tanh-RNN wrapper, as the profiler names it
+PERSIST_KERNELS = {"lstm_scan": "lstm_persist_kernel",
+                   "lstm_scan_with_cell": "lstm_persist_kernel",
+                   "lstm_bwd_scan": "lstm_bwd_persist_kernel",
+                   "rnn_tanh_scan": "rnn_tanh_persist_kernel",
+                   "rnn_tanh_bwd_scan": "rnn_tanh_bwd_persist_kernel"}
+
+
 def check_rnn_kernel(kind, gen, label, t, lengths, h, reverse, timed):
     """One LSTM or tanh-RNN kernel against its plain version on the card.
     Forward kernels are held to GRU_ATOL and backward walks to BWD_TOL, each
-    times the larger of 1 and the largest reference value. The three LSTM
-    kernels are checked in both designs and as a pair of chains in one
-    launch (lstm_scan_pair, lstm_bwd_scan_pair; the second chain walks the
-    other way); the plan must choose the persistent design for one chain
-    and for two."""
+    times the larger of 1 and the largest reference value. Each kernel is
+    checked in both designs and as a pair of chains in one launch
+    (lstm_scan_pair, lstm_bwd_scan_pair, rnn_tanh_scan_pair,
+    rnn_tanh_bwd_scan_pair; the second chain walks the other way); the plan
+    must choose the persistent design for one chain and for two."""
     from danspeech_tpu_torch.ops import gru_cuda, lstm_cuda, persist_plan, rnn_tanh_cuda
 
     dev = "cuda"
@@ -1028,12 +1043,18 @@ def check_rnn_kernel(kind, gen, label, t, lengths, h, reverse, timed):
         args = walk_operands(w_hh)
         names, n_streams = ("dg4", "dh0", "dc0"), 1
     elif kind == "rnn_tanh_scan":
-        args = (stream(h), lens, w_hh)
+        def tanh_operands(w):
+            return (stream(h), lens, w)
+
+        args = tanh_operands(w_hh)
         names, n_streams = ("out", "h_last"), 1
     else:
-        out = (torch.rand(t, b, h, generator=gen, device=dev) * 2 - 1).to(torch.bfloat16)
-        out[pad] = 0  # the forward stream is zero past a row's length
-        args = (out, torch.randn(t, b, h, generator=gen, device=dev), lens, w_hh)
+        def tanh_walk_operands(w):
+            out = (torch.rand(t, b, h, generator=gen, device=dev) * 2 - 1).to(torch.bfloat16)
+            out[pad] = 0  # the forward stream is zero past a row's length
+            return (out, torch.randn(t, b, h, generator=gen, device=dev), lens, w)
+
+        args = tanh_walk_operands(w_hh)
         names, n_streams = ("dpre", "dh0"), 1
     ref = plain(*args, reverse=reverse)
     torch.cuda.synchronize()
@@ -1051,38 +1072,49 @@ def check_rnn_kernel(kind, gen, label, t, lengths, h, reverse, timed):
             + f" (tol {tol} x max(1, max|ref|))")
         return errs, err
 
-    runs = {"kernel": lambda: wrapper(*args, reverse=reverse)}
-    if lstm:
-        dev_info = gru_cuda.device_info(lens.device)
-        plan_fn = persist_plan.plan_lstm_backward if lstm_bwd else persist_plan.plan_lstm_forward
-        planned = plan_fn(h, b, 1, *dev_info)
-        pair_plan = plan_fn(h, b, 2, *dev_info)
-        if planned.design != "persistent" or pair_plan.design != "persistent":
-            raise AssertionError(f"{kind} H={h} B={b}: planned {planned}, pair {pair_plan}")
-        runs = {d: (lambda d=d: wrapper(*args, reverse=reverse, design=d)) for d in DESIGNS}
-        # a second chain walking the other way over the same lengths
-        if lstm_bwd:
-            other = walk_operands(uni(h, 4 * h).to(torch.bfloat16))
-            runs["pair"] = lambda: lstm_cuda.lstm_bwd_scan_pair(args, other, reverse,
+    dev_info = gru_cuda.device_info(lens.device)
+    plan_fn = {"lstm_scan": persist_plan.plan_lstm_forward,
+               "lstm_scan_with_cell": persist_plan.plan_lstm_forward,
+               "lstm_bwd_scan": persist_plan.plan_lstm_backward,
+               "rnn_tanh_scan": persist_plan.plan_rnn_tanh_forward,
+               "rnn_tanh_bwd_scan": persist_plan.plan_rnn_tanh_backward}[kind]
+    planned = plan_fn(h, b, 1, *dev_info)
+    pair_plan = plan_fn(h, b, 2, *dev_info)
+    if planned.design != "persistent" or pair_plan.design != "persistent":
+        raise AssertionError(f"{kind} H={h} B={b}: planned {planned}, pair {pair_plan}")
+    runs = {d: (lambda d=d: wrapper(*args, reverse=reverse, design=d)) for d in DESIGNS}
+    # a second chain walking the other way over the same lengths
+    if lstm_bwd:
+        other = walk_operands(uni(h, 4 * h).to(torch.bfloat16))
+        runs["pair"] = lambda: lstm_cuda.lstm_bwd_scan_pair(args, other, reverse, not reverse)
+    elif lstm_fwd:
+        other = lstm_inputs(gen, t, lengths, h, lens)
+        with_cell = kind == "lstm_scan_with_cell"
+        runs["pair"] = lambda: lstm_cuda.lstm_scan_pair(args, other, reverse, not reverse,
+                                                        with_cell=with_cell)
+    elif kind == "rnn_tanh_scan":
+        other = tanh_operands(uni(h, h).to(torch.bfloat16))
+        runs["pair"] = lambda: rnn_tanh_cuda.rnn_tanh_scan_pair(args, other, reverse,
                                                                 not reverse)
-        else:
-            other = lstm_inputs(gen, t, lengths, h, lens)
-            with_cell = kind == "lstm_scan_with_cell"
-            runs["pair"] = lambda: lstm_cuda.lstm_scan_pair(args, other, reverse, not reverse,
-                                                            with_cell=with_cell)
-        ref_b = plain(*other, reverse=not reverse)
+    else:
+        other = tanh_walk_operands(uni(h, h).to(torch.bfloat16))
+        runs["pair"] = lambda: rnn_tanh_cuda.rnn_tanh_bwd_scan_pair(args, other, reverse,
+                                                                    not reverse)
+    ref_b = plain(*other, reverse=not reverse)
+    # the wrappers with a count of paired launches count chains, lstm_scan and
+    # lstm_scan_with_cell count launches
+    counts_chains = hasattr(wrapper, "pair_launches")
     all_errs, worst = {}, 0.0
     for tag, run in runs.items():
         before = wrapper.launches
-        pairs_before = lstm_cuda.lstm_bwd_scan.pair_launches
+        pairs_before = getattr(wrapper, "pair_launches", 0)
         got = run()
         torch.cuda.synchronize()
         if tag == "pair":
-            # a pair is one launch; the backward walk's wrapper counts chains
-            if lstm_bwd and (wrapper.launches != before + 2
-                             or lstm_cuda.lstm_bwd_scan.pair_launches != pairs_before + 1):
+            if counts_chains and (wrapper.launches != before + 2
+                                  or wrapper.pair_launches != pairs_before + 1):
                 raise AssertionError(f"{name}: a pair must be one launch of two chains")
-            if not lstm_bwd and wrapper.launches != before + 1:
+            if not counts_chains and wrapper.launches != before + 1:
                 raise AssertionError(f"{name}: a pair must be one launch")
             all_errs["pair a"], err_a = hold("pair, one launch, chain a", got[0], ref)
             all_errs["pair b"], err_b = hold("pair, one launch, chain b", got[1], ref_b)
@@ -1094,57 +1126,45 @@ def check_rnn_kernel(kind, gen, label, t, lengths, h, reverse, timed):
     res = {"label": label, "shape": {"T": t, "B": b, "H": h, "reverse": reverse},
            "max_abs_err": worst, "errs": all_errs, "tol": tol,
            "max_abs_ref": {k: float(r.float().abs().max()) for k, r in zip(names, ref)}}
-    if lstm:
-        res["plan"] = {"units": planned.units, "grid": planned.grid,
-                       "row_groups": planned.row_groups, "stages": planned.stages,
-                       "chunk_depth": planned.chunk_depth, "pair_units": pair_plan.units,
-                       "pair_grid": pair_plan.grid, "pair_stages": pair_plan.stages}
+    res["plan"] = {"units": planned.units, "grid": planned.grid,
+                   "row_groups": planned.row_groups, "stages": planned.stages,
+                   "chunk_depth": planned.chunk_depth, "pair_units": pair_plan.units,
+                   "pair_grid": pair_plan.grid, "pair_stages": pair_plan.stages}
     if timed:
-        extra = ""
-        if lstm_fwd:
-            # step, persistent, pair, persistent, step: one card, one run
-            step_a = time_ms(runs["step"], iters=3)
-            first = time_ms(runs["persistent"], iters=5)
-            res["pair_ms_per_chain"] = 0.5 * time_ms(runs["pair"], iters=5)
-            res["ms"] = 0.5 * (first + time_ms(runs["persistent"], iters=5))
-            res["step_design_ms"] = 0.5 * (step_a + time_ms(runs["step"], iters=3))
-            res["design"] = "persistent"
+        # step, persistent, pair, persistent, step: one card, one run
+        step_a = time_ms(runs["step"], iters=3)
+        first = time_ms(runs["persistent"], iters=5)
+        res["pair_ms_per_chain"] = 0.5 * time_ms(runs["pair"], iters=5)
+        res["ms"] = 0.5 * (first + time_ms(runs["persistent"], iters=5))
+        res["step_design_ms"] = 0.5 * (step_a + time_ms(runs["step"], iters=3))
+        res["design"] = "persistent"
+        kernel = PERSIST_KERNELS[kind]
+        split = device_ms_by_kernel(runs["persistent"], need=kernel)
+        res["pair_kernel_ms"] = kernel_ms(device_ms_by_kernel(runs["pair"], need=kernel), kernel)
+        if backward:
+            # the walks take T + 1 steps, the last one only finishes dh0
+            res["walk_ms"] = kernel_ms(split, kernel)
+            res["step_ms"] = res["walk_ms"] / (t + 1)
+            extra = (f" (walk {res['walk_ms']:.3f} = {res['step_ms'] * 1e3:.2f} us a step "
+                     f"over {t + 1}")
+            if lstm_bwd:
+                res["recompute_ms"] = (kernel_ms(split, "gru_proj_wgmma_kernel")
+                                       + kernel_ms(split, "gru_proj_kernel"))
+                res["recompute_tflops"] = (2 * t * b * h * 4 * h
+                                           / max(res["recompute_ms"], 1e-9) / 1e9)
+                extra += (f", recompute {res['recompute_ms']:.3f} = "
+                          f"{res['recompute_tflops']:.0f} TFLOP/s")
+            extra += f"; as a pair {res['pair_ms_per_chain']:.3f} a chain, walk "
+        else:
+            # the forward chains walk only the steps before the longest length
             walked = max(1, min(t, max(lengths)))
-            res["recurrence_ms"] = kernel_ms(device_ms_by_kernel(runs["persistent"]),
-                                             "lstm_persist_kernel")
+            res["recurrence_ms"] = kernel_ms(split, kernel)
             res["step_ms"] = res["recurrence_ms"] / walked
-            res["pair_kernel_ms"] = kernel_ms(device_ms_by_kernel(runs["pair"]),
-                                              "lstm_persist_kernel")
             extra = (f" (kernel {res['recurrence_ms']:.3f} = {res['step_ms'] * 1e3:.2f} us a "
                      f"step over {walked}; as a pair {res['pair_ms_per_chain']:.3f} a chain, "
-                     f"kernel {res['pair_kernel_ms']:.3f} for both) step-design ms="
-                     f"{res['step_design_ms']:.3f}")
-        elif lstm_bwd:
-            # step, persistent, pair, persistent, step: one card, one run
-            step_a = time_ms(runs["step"], iters=3)
-            first = time_ms(runs["persistent"], iters=5)
-            res["pair_ms_per_chain"] = 0.5 * time_ms(runs["pair"], iters=5)
-            res["ms"] = 0.5 * (first + time_ms(runs["persistent"], iters=5))
-            res["step_design_ms"] = 0.5 * (step_a + time_ms(runs["step"], iters=3))
-            res["design"] = "persistent"
-            split = device_ms_by_kernel(runs["persistent"])
-            res["walk_ms"] = kernel_ms(split, "lstm_bwd_persist_kernel")
-            res["recompute_ms"] = (kernel_ms(split, "gru_proj_wgmma_kernel")
-                                   + kernel_ms(split, "gru_proj_kernel"))
-            res["step_ms"] = res["walk_ms"] / (t + 1)
-            res["recompute_tflops"] = (2 * t * b * h * 4 * h
-                                       / max(res["recompute_ms"], 1e-9) / 1e9)
-            res["pair_kernel_ms"] = kernel_ms(device_ms_by_kernel(runs["pair"]),
-                                              "lstm_bwd_persist_kernel")
-            extra = (f" (walk {res['walk_ms']:.3f} = {res['step_ms'] * 1e3:.2f} us a step "
-                     f"over {t + 1}, recompute {res['recompute_ms']:.3f} = "
-                     f"{res['recompute_tflops']:.0f} TFLOP/s; as a pair "
-                     f"{res['pair_ms_per_chain']:.3f} a chain, walk "
-                     f"{res['pair_kernel_ms']:.3f} for both) step-design ms="
-                     f"{res['step_design_ms']:.3f}")
-        else:
-            res["ms"] = time_ms(runs["kernel"], iters=3)
-            res["design"] = "step"  # the only design of this kernel
+                     "kernel ")
+        extra += (f"{res['pair_kernel_ms']:.3f} for both) step-design ms="
+                  f"{res['step_design_ms']:.3f}")
         res["plain_ms"] = time_ms(lambda: plain(*args, reverse=reverse), iters=1)
 
         def lib():
@@ -1160,7 +1180,7 @@ def check_rnn_kernel(kind, gen, label, t, lengths, h, reverse, timed):
             + ("forward+backward less forward" if backward else "forward")
             + f")={res['library_ms']:.3f} (float16: {res['library_fp16_ms']:.3f}) "
             f"bound_ms={res['bound_ms']:.4f} ({res['bound_by']})")
-    del args, ref
+    del args, ref, other, ref_b, runs
     torch.cuda.empty_cache()
     return res
 
@@ -1168,10 +1188,10 @@ def check_rnn_kernel(kind, gen, label, t, lengths, h, reverse, timed):
 def phase_rnn_type_kernels():
     """{kernel: checks} for the three LSTM and two tanh-RNN kernels: ragged
     small shapes (B = 5 with an empty row and B = 1, H = 72, both
-    directions, T = 1; H = 100 and B = 150 for the LSTM kernels), then the
-    layer shapes of LSTM5x800 / Tanh5x800: serving (B = 128) and training
-    (B = 32) for the forward kernels, training for the backward walks (the
-    LSTM's walking both ways)."""
+    directions, T = 1, H = 100, B = 150), then the layer shapes of
+    LSTM5x800 / Tanh5x800: serving (B = 128) and training (B = 32) for the
+    forward kernels, training for the backward walks (the LSTM's walking
+    both ways)."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(5)
     serve = np.random.default_rng(800).integers(1, 402, size=128)
@@ -1197,14 +1217,13 @@ def phase_rnn_type_kernels():
                                              reverse, timed))
         rows.append(check_rnn_kernel(kind, gen, "small T=1", 1, [1, 0], 72,
                                      not forward_chain, False))
-        if kind.startswith("lstm"):
-            # H no multiple of 8 (element copies, scalar epilogue); B above
-            # 128 (two row blocks over the resident slices)
-            rows.append(check_rnn_kernel(kind, gen, "small H=100", 9, [9, 0, 4], 100,
-                                         not forward_chain, False))
-            rows.append(check_rnn_kernel(kind, gen, "small B=150", 7,
-                                         [7, 1] + [1 + (i % 7) for i in range(148)], 72,
-                                         not forward_chain, False))
+        # H no multiple of 8 (element copies of the left operand); B above
+        # 128 (two row blocks over the resident slices)
+        rows.append(check_rnn_kernel(kind, gen, "small H=100", 9, [9, 0, 4], 100,
+                                     not forward_chain, False))
+        rows.append(check_rnn_kernel(kind, gen, "small B=150", 7,
+                                     [7, 1] + [1 + (i % 7) for i in range(148)], 72,
+                                     not forward_chain, False))
         for label, lengths in shapes:
             rows.append(check_rnn_kernel(kind, gen, label, 401, lengths.tolist(), 800,
                                          not forward_chain, True))
@@ -2060,8 +2079,8 @@ def phase_train(card):
 RNN_TYPE_PROFILE_GROUPS = {
     "B7 walk": ("lstm_bwd_persist_kernel", "lstm_bwd_step_kernel"),
     "B5/B6 recurrence": ("lstm_persist_kernel", "lstm_step_kernel"),
-    "B9 walk": ("rnn_tanh_bwd_step_kernel",),
-    "B8 recurrence": ("rnn_tanh_step_kernel",),
+    "B9 walk": ("rnn_tanh_bwd_persist_kernel", "rnn_tanh_bwd_step_kernel"),
+    "B8 recurrence": ("rnn_tanh_persist_kernel", "rnn_tanh_step_kernel"),
     "tensor-core GEMM (B7 recompute)": ("gru_proj_wgmma_kernel", "gru_proj_kernel"),
     "CTC": ("ctc",),
     "optimizer": ("adam", "multi_tensor", "foreach"),
@@ -2073,11 +2092,14 @@ RNN_TYPE_PROFILE_GROUPS = {
 def phase_rnn_type(card, cfg, train_steps, profile, loop):
     """Serve and train one LSTM or tanh-RNN configuration. Returns its
     results with ``launches``, the kernels' counts summed over its main
-    paths (each path driven with the counts at zero and read right after)."""
+    paths (each path driven with the counts at zero and read right after),
+    and ``pair_launches``, the cooperative launches of two chains of the
+    wrappers that count chains, summed the same way."""
     from danspeech_tpu_torch import Recognizer, train as tr
     from danspeech_tpu_torch.audio import load_audio_pcm16
     from danspeech_tpu_torch.models import DeepSpeechConfig, DeepSpeechModel
     from danspeech_tpu_torch.models.deepspeech import get_seq_lens
+    from danspeech_tpu_torch.ops import lstm_cuda, rnn_tanh_cuda
 
     config = DeepSpeechConfig(**cfg)
     name, layers = config.model_name, config.rnn_layers
@@ -2106,7 +2128,8 @@ def phase_rnn_type(card, cfg, train_steps, profile, loop):
     batch = seeded_waveforms(np.random.default_rng(13), 128)
     groups = 1 + len(eng._plan_groups(batch))
     fwd_kernel = "lstm_scan" if lstm else "rnn_tanh_scan"
-    # an LSTM layer's two chains are one launch (lstm_scan_pair)
+    # a layer's two chains are one launch (lstm_scan_pair, rnn_tanh_scan_pair);
+    # lstm_scan counts launches, rnn_tanh_scan chains
     chains = 1 if lstm else 2
     expect = dict(zero, **{fwd_kernel: chains * layers * groups})
     rec.recognize_batch(batch[:4])  # warm-up: cuDNN picks its conv algorithms
@@ -2127,18 +2150,26 @@ def phase_rnn_type(card, cfg, train_steps, profile, loop):
         f"recognize_batch: {audio_s:.2f} audio-s in {wall:.3f} s = "
         f"{audio_s / wall:.1f} audio-s/s; launches "
         + ", ".join(f"{a} {c}" for a, c in counts.items() if c)
-        + f" (expected {fwd_kernel} {expect[fwd_kernel]} = {chains} launch(es) x {layers} "
+        + f" (expected {fwd_kernel} {expect[fwd_kernel]} = {chains} count(s) x {layers} "
         f"layers x {groups} dispatch groups) [{card}]")
     if counts != expect:
         raise AssertionError(f"{name} serve: launches {counts}, expected {expect}")
+    pairs = {}
     if lstm:
-        from danspeech_tpu_torch.ops import lstm_cuda
-
         require_persistent(lstm_cuda.lstm_scan, f"{name} serving")
+    else:
+        require_persistent(rnn_tanh_cuda.rnn_tanh_scan, f"{name} serving")
+        pairs["rnn_tanh_scan"] = rnn_tanh_cuda.rnn_tanh_scan.pair_launches
+        log(f"  {name} serving: {pairs['rnn_tanh_scan']} paired rnn_tanh_scan launches "
+            f"(expected {layers * groups}: both chains of a layer in one)")
+        if pairs["rnn_tanh_scan"] != layers * groups:
+            raise AssertionError(f"{name} serve: {pairs['rnn_tanh_scan']} paired launches, "
+                                 f"expected {layers * groups}")
     add(counts)
     out["serve"] = {"recognize_s": clip_s, "audio_s": audio_s, "wall_s": wall,
                     "audio_s_per_s": audio_s / wall,
-                    "launches": counts, "dispatch_groups": groups}
+                    "launches": counts, "dispatch_groups": groups,
+                    "pair_launches": dict(pairs)}
     if profile:
         out["serve"]["profile"] = profile_call(
             f"one {name} recognize_batch", lambda: rec.recognize_batch(batch),
@@ -2170,6 +2201,8 @@ def phase_rnn_type(card, cfg, train_steps, profile, loop):
         texpect = dict(zero, lstm_scan=layers, lstm_scan_with_cell=layers,
                        lstm_bwd_scan=2 * layers)
     else:
+        # with remat both forwards run every layer's pair of chains (B8), and
+        # one launch walks both chains of a layer (B9); the counts are chains
         texpect = dict(zero, rnn_tanh_scan=4 * layers, rnn_tanh_bwd_scan=2 * layers)
     step_fn = tr.make_wave_train_step(config, optimizer, augment=None,
                                       mixed_precision="auto", remat=True)
@@ -2190,18 +2223,23 @@ def phase_rnn_type(card, cfg, train_steps, profile, loop):
         last_step()
     steps += holder["steps"]
     if lstm:
-        from danspeech_tpu_torch.ops import lstm_cuda
-
         require_persistent(lstm_cuda.lstm_scan, f"{name} training, first forward")
         require_persistent(lstm_cuda.lstm_scan_with_cell, f"{name} training, recomputed forward")
         require_persistent(lstm_cuda.lstm_bwd_scan, f"{name} training, backward walks")
-        pairs = lstm_cuda.lstm_bwd_scan.pair_launches
-        log(f"  {name} training: {pairs} paired lstm_bwd_scan launches over {train_steps} "
-            f"steps (expected {layers} a step: both walks of a layer in one)")
-        if pairs != layers * train_steps:
-            raise AssertionError(f"{name}: {pairs} paired backward launches, expected "
-                                 f"{layers * train_steps}")
-        out["pair_launches"] = pairs
+        paired = {"lstm_bwd_scan": (lstm_cuda.lstm_bwd_scan, layers)}
+    else:
+        require_persistent(rnn_tanh_cuda.rnn_tanh_scan, f"{name} training, both forwards")
+        require_persistent(rnn_tanh_cuda.rnn_tanh_bwd_scan, f"{name} training, backward walks")
+        paired = {"rnn_tanh_scan": (rnn_tanh_cuda.rnn_tanh_scan, 2 * layers),
+                  "rnn_tanh_bwd_scan": (rnn_tanh_cuda.rnn_tanh_bwd_scan, layers)}
+    for kernel, (wrapper, per_step) in paired.items():
+        n = wrapper.pair_launches
+        log(f"  {name} training: {n} paired {kernel} launches over {train_steps} steps "
+            f"(expected {per_step} a step: both chains of a layer in one)")
+        if n != per_step * train_steps:
+            raise AssertionError(f"{name}: {n} paired {kernel} launches, expected "
+                                 f"{per_step * train_steps}")
+        pairs[kernel] = pairs.get(kernel, 0) + n
     peak = torch.cuda.max_memory_allocated()
     log(f"  {name}: peak device memory over {train_steps} steps: {peak / 2**30:.2f} GiB")
     if not steps[-1]["loss"] < steps[0]["loss"]:
@@ -2275,11 +2313,12 @@ def phase_rnn_type(card, cfg, train_steps, profile, loop):
         if counts != want:
             raise AssertionError(f"{name} loop: launches {counts}, expected {want}")
         if lstm:
-            out["pair_launches"] += lstm_cuda.lstm_bwd_scan.pair_launches
+            pairs["lstm_bwd_scan"] += lstm_cuda.lstm_bwd_scan.pair_launches
         add(counts)
         out["loop"] = {"launches": counts, "log": lines}
 
     out["launches"] = total
+    out["pair_launches"] = pairs
     return out
 
 
@@ -2299,19 +2338,22 @@ PHASE_CLOCKS = {1: "grid barrier", 2: "prefetch of the next step's streams", 9: 
 
 
 def phase_clocks(card):
-    """Builds the five persistent kernels' sources with -DPS_PROFILE into a
+    """Builds the seven persistent kernels' sources with -DPS_PROFILE into a
     build directory of their own, runs the persistent kernels once at the
-    flagship, the 2000-wide, the streaming, the bidi batch and the LSTM
-    serving and training shapes, and prints the clocks that thread 0 of
-    block 0 spent per step in each part (the instrumented build is a little
-    slower than the plain one)."""
+    flagship, the 2000-wide, the streaming, the bidi batch and the LSTM and
+    tanh-RNN serving and training shapes, and prints the clocks that thread
+    0 of block 0 spent per step in each part (the instrumented build is a
+    little slower than the plain one). The tanh pairs run once more with
+    wider slices on fewer blocks, the plan's knob, to compare within the
+    call."""
     import ctypes
 
-    from danspeech_tpu_torch.ops import cuda_build, gru_cuda, lstm_cuda
+    from danspeech_tpu_torch.ops import cuda_build, gru_cuda, lstm_cuda, persist_plan, rnn_tanh_cuda
 
     cuda_build.NVCC_FLAGS.append("-DPS_PROFILE")
     cuda_build.BUILD_DIR = os.path.join(cuda_build.BUILD_DIR, "profile")
-    cuda_build.build("gru_bidi_fused", "gru_bwd", "gru_scan", "lstm_scan", "lstm_bwd")
+    cuda_build.build("gru_bidi_fused", "gru_bwd", "gru_scan", "lstm_scan", "lstm_bwd",
+                     "rnn_tanh_scan", "rnn_tanh_bwd")
 
     def read(lib):
         fn = cuda_build.load(lib).persist_prof_read
@@ -2403,6 +2445,44 @@ def phase_clocks(card):
     walk_a, walk_b = walk(), walk()
     report(f"lstm_bwd_scan_pair T={t} B=32 H=800", "lstm_bwd",
            lambda: lstm_cuda.lstm_bwd_scan_pair(walk_a, walk_b, True, False), t + 1)
+    del walk_a, walk_b
+    # B8 as a pair at the tanh serving layer (steps walked: the longest
+    # length), B9 as a pair at the tanh training layer (T + 1 steps)
+    serve_lens = torch.tensor(serve.tolist(), dtype=torch.int32, device="cuda")
+
+    def tanh_weights(h=800):
+        return ((torch.rand(h, h, generator=gen, device="cuda") * 2 - 1) / h ** 0.5).to(
+            torch.bfloat16)
+
+    def tanh_chain():
+        return ((torch.randn(t, 128, 800, generator=gen, device="cuda") * 0.5).to(
+                    torch.bfloat16), serve_lens, tanh_weights())
+
+    def tanh_walk():
+        out = (torch.rand(t, 32, 800, generator=gen, device="cuda") * 2 - 1).to(torch.bfloat16)
+        out[torch.arange(t, device="cuda")[:, None] >= lens[None, :].long()] = 0
+        return (out, torch.randn(t, 32, 800, generator=gen, device="cuda"), lens,
+                tanh_weights())
+
+    # each at the plan's slices (SM budget: the card's), then at the plan's
+    # knob, wider slices on fewer blocks (the plans for 80 and 66 SMs)
+    _, smem_optin = gru_cuda.device_info(torch.device("cuda", torch.cuda.current_device()))
+    budgets = (torch.cuda.get_device_properties(0).multi_processor_count, 80, 66)
+    chain_a, chain_b = tanh_chain(), tanh_chain()
+    for sms in budgets:
+        plan = persist_plan.plan_rnn_tanh_forward(800, 128, 2, sms, smem_optin)
+        report(f"rnn_tanh_scan_pair T={t} B=128 H=800, {plan.units} units x "
+               f"{plan.blocks_per_dir} blocks a chain", "rnn_tanh_scan",
+               lambda: rnn_tanh_cuda._scan_persistent([chain_a, chain_b], [False, True], plan),
+               t)
+    del chain_a, chain_b
+    walk_a, walk_b = tanh_walk(), tanh_walk()
+    for sms in budgets:
+        plan = persist_plan.plan_rnn_tanh_backward(800, 32, 2, sms, smem_optin)
+        report(f"rnn_tanh_bwd_scan_pair T={t} B=32 H=800, {plan.units} units x "
+               f"{plan.blocks_per_dir} blocks a chain", "rnn_tanh_bwd",
+               lambda: rnn_tanh_cuda._bwd_persistent([walk_a, walk_b], [True, False], plan),
+               t + 1)
 
 
 # ---------------------------------------------------------------------------
@@ -2453,7 +2533,7 @@ def main(argv=None) -> int:
     rnn_type_checks = phase_rnn_type_kernels()
 
     launches = {}  # per kernel, summed over the main paths of phases 4-7
-    pair_launches = None  # paired lstm_bwd_scan launches on those paths
+    pair_launches = {}  # paired launches of the wrappers that count chains, on those paths
     if not args.kernels:
         log("phase 4: batch path (Recognizer on the flagship)")
         served = phase_serve(card)
@@ -2463,8 +2543,8 @@ def main(argv=None) -> int:
         trained = phase_train(card)
         log("phase 7: LSTM5x800 and Tanh5x800, served and trained")
         lstm_run = phase_rnn_type(card, LSTM5X800, train_steps=3, profile=True, loop=True)
-        tanh_run = phase_rnn_type(card, TANH5X800, train_steps=2, profile=False, loop=False)
-        pair_launches = lstm_run["pair_launches"]
+        tanh_run = phase_rnn_type(card, TANH5X800, train_steps=2, profile=True, loop=False)
+        pair_launches = {**lstm_run["pair_launches"], **tanh_run["pair_launches"]}
         launches = {
             "gru_bidi_fused": served["launches"] + streamed["bidi_launches"]
             + trained["launches"]["gru_bidi_fused"],
@@ -2508,9 +2588,11 @@ def main(argv=None) -> int:
         entry("lstm_scan", rnn_type_checks["lstm_scan"], "serve layer"),
         entry("lstm_scan_with_cell", rnn_type_checks["lstm_scan_with_cell"], "train layer"),
         dict(entry("lstm_bwd_scan", rnn_type_checks["lstm_bwd_scan"], "train layer"),
-             pair_launches=pair_launches),
-        entry("rnn_tanh_scan", rnn_type_checks["rnn_tanh_scan"], "serve layer"),
-        entry("rnn_tanh_bwd_scan", rnn_type_checks["rnn_tanh_bwd_scan"], "train layer"),
+             pair_launches=pair_launches.get("lstm_bwd_scan")),
+        dict(entry("rnn_tanh_scan", rnn_type_checks["rnn_tanh_scan"], "serve layer"),
+             pair_launches=pair_launches.get("rnn_tanh_scan")),
+        dict(entry("rnn_tanh_bwd_scan", rnn_type_checks["rnn_tanh_bwd_scan"], "train layer"),
+             pair_launches=pair_launches.get("rnn_tanh_bwd_scan")),
     ]
     log(card)  # as nvidia-smi prints it: name, power limit
     print(json.dumps({"kernels": kernels, "barrier_us": barrier["us"]}))

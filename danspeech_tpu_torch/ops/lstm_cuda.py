@@ -340,10 +340,11 @@ def _bwd_step(gx, hprev, cprev, dout, lengths, w_hh, b_hh, reverse):
     dg = torch.zeros((2, batch, 4 * hidden), dtype=torch.bfloat16, device=dev)
     dc = torch.zeros((batch, hidden), dtype=torch.float32, device=dev)
     dg4 = torch.empty((t_max, batch, 4 * hidden), dtype=torch.float32, device=dev)
+    w_hht = transposed(w_hh)  # held until the launch: an inference tensor's copy is not kept
     cuda_build.call(
         launch, "lstm_bwd_scan (step)", dev,
         gx.data_ptr(), hprev.data_ptr(), cprev.data_ptr(), dout.data_ptr(),
-        lengths.data_ptr(), w_hh.data_ptr(), transposed(w_hh).data_ptr(), b_hh.data_ptr(),
+        lengths.data_ptr(), w_hh.data_ptr(), w_hht.data_ptr(), b_hh.data_ptr(),
         part.data_ptr(), dg.data_ptr(), dc.data_ptr(), dg4.data_ptr(),
         t_max, batch, hidden, int(bool(reverse)))
     return dg4, part[(t_max + 1) % 2], dc

@@ -173,6 +173,8 @@ GRU_FWD_MAX_TILES = 18   # csrc/gru_bidi_fused.cu, csrc/gru_scan.cu: 3 gates x u
 GRU_BWD_MAX_TILES = 8    # csrc/gru_bwd.cu: up to 64 units
 LSTM_FWD_MAX_TILES = 8   # csrc/lstm_scan.cu: 4 gates x 8 or 16 units
 LSTM_BWD_MAX_TILES = 3   # csrc/lstm_bwd.cu: up to 24 units
+RNN_TANH_FWD_MAX_TILES = 4  # csrc/rnn_tanh_scan.cu: up to 32 units
+RNN_TANH_BWD_MAX_TILES = 4  # csrc/rnn_tanh_bwd.cu: up to 32 units
 
 
 def plan_gru_forward(hidden, batch, sm_count, smem_optin) -> PersistPlan:
@@ -222,6 +224,21 @@ def plan_lstm_backward(hidden, batch, chains, sm_count, smem_optin) -> PersistPl
     (``lstm_bwd_scan`` and its pair): per chain dg (B, 4H) @ w_hh^T (4H, H)."""
     return plan(hidden, batch, 1, 4 * hidden, chains, sm_count, smem_optin,
                 LSTM_BWD_MAX_TILES)
+
+
+def plan_rnn_tanh_forward(hidden, batch, chains, sm_count, smem_optin) -> PersistPlan:
+    """``chains`` (1 or 2) tanh-RNN chains in one launch (``rnn_tanh_scan``
+    and its pair): per chain h (B, H) @ w_hh (H, H)."""
+    return plan(hidden, batch, 1, hidden, chains, sm_count, smem_optin,
+                RNN_TANH_FWD_MAX_TILES)
+
+
+def plan_rnn_tanh_backward(hidden, batch, chains, sm_count, smem_optin) -> PersistPlan:
+    """The backward walk of ``chains`` (1 or 2) tanh-RNN chains
+    (``rnn_tanh_bwd_scan`` and its pair): per chain dpre (B, H) @ w_hh^T
+    (H, H)."""
+    return plan(hidden, batch, 1, hidden, chains, sm_count, smem_optin,
+                RNN_TANH_BWD_MAX_TILES)
 
 
 def choose(design: str | None, planned: PersistPlan) -> str:

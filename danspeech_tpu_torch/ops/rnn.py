@@ -35,18 +35,20 @@ package: they raise there when a gradient is asked for.
 
 :func:`lstm_layer` and :func:`rnn_tanh_layer` run one chain per direction
 (:func:`lstm_cuda.lstm_scan`, :func:`rnn_tanh_cuda.rnn_tanh_scan`; the
-reverse-time chain reads time backwards, no reversed copy is made; the two
-LSTM chains of a bidirectional layer go through
-:func:`lstm_cuda.lstm_scan_pair`, one launch on the card, chain by chain on
-the CPU) over a projection that already holds the input bias (both biases
-for the tanh RNN), start from zero states and return the outputs only.
-Every shape of them (one or two directions, summed or concatenated) is
-differentiable: the backward is :func:`lstm_cuda.lstm_bwd_scan` /
-:func:`rnn_tanh_cuda.rnn_tanh_bwd_scan` per direction (the two LSTM walks of
-a bidirectional layer through :func:`lstm_cuda.lstm_bwd_scan_pair`, one
-launch on the card) followed by the same plain matrix products. An LSTM forward that will be differentiated runs
-:func:`lstm_cuda.lstm_scan_with_cell`, which also keeps the cell stream the
-walk needs; one that will not runs :func:`lstm_cuda.lstm_scan`.
+reverse-time chain reads time backwards, no reversed copy is made) over a
+projection that already holds the input bias (both biases for the tanh RNN),
+start from zero states and return the outputs only. The two chains of a
+bidirectional layer go through :func:`lstm_cuda.lstm_scan_pair` /
+:func:`rnn_tanh_cuda.rnn_tanh_scan_pair`: one launch on the card, chain by
+chain on the CPU. Every shape of them (one or two directions, summed or
+concatenated) is differentiable: the backward is
+:func:`lstm_cuda.lstm_bwd_scan` / :func:`rnn_tanh_cuda.rnn_tanh_bwd_scan` per
+direction (the two walks of a bidirectional layer through
+:func:`lstm_cuda.lstm_bwd_scan_pair` / :func:`rnn_tanh_cuda.rnn_tanh_bwd_scan_pair`,
+one launch on the card) followed by the same plain matrix products. An LSTM
+forward that will be differentiated runs :func:`lstm_cuda.lstm_scan_with_cell`,
+which also keeps the cell stream the walk needs; one that will not runs
+:func:`lstm_cuda.lstm_scan`. ``impl="plain"`` runs one plain call per chain.
 """
 
 from __future__ import annotations
@@ -395,15 +397,24 @@ def _lstm_grads(x, lengths, dirs, outs, cells, douts, impl: str):
             for o, walk, (w, _) in zip(ops, walks, dirs)]
 
 
-def _rnn_dir_grads(x, lengths, w: RNNWeights, out_dir, dout,
-                   chain_reverse: bool, impl: str):
-    """Gradients of one tanh-RNN direction: the backward walk over the
-    output stream, then :func:`_stream_grads`."""
-    run = (rnn_tanh_cuda.rnn_tanh_bwd_scan if impl == "auto"
-           else rnn_tanh_cuda.rnn_tanh_bwd_scan_plain)
-    dpre, _ = run(out_dir, dout.float().contiguous(), lengths, w.w_hh,
-                  reverse=not chain_reverse)
-    return _stream_grads(x, _shift_chain(out_dir, chain_reverse), dpre, w)
+def _rnn_grads(x, lengths, dirs, outs, douts, impl: str):
+    """Gradients of every direction of a tanh-RNN layer: the backward walks
+    over the output streams, then :func:`_stream_grads` per direction. On the
+    kernel path the two walks of a bidirectional layer share one launch where
+    the plan allows (``rnn_tanh_cuda.rnn_tanh_bwd_scan_pair``). Returns
+    [(dx, grads)] per direction."""
+    ops = [(outs[k], douts[k].float().contiguous(), lengths, w.w_hh)
+           for k, (w, _) in enumerate(dirs)]
+    if impl == "auto" and len(ops) == 2:
+        # the walks run opposite the chains' own order
+        walks = rnn_tanh_cuda.rnn_tanh_bwd_scan_pair(ops[0], ops[1], reverse_a=True,
+                                                     reverse_b=False)
+    else:
+        run = (rnn_tanh_cuda.rnn_tanh_bwd_scan if impl == "auto"
+               else rnn_tanh_cuda.rnn_tanh_bwd_scan_plain)
+        walks = [run(*o, reverse=not rev) for o, (_, rev) in zip(ops, dirs)]
+    return [_stream_grads(x, _shift_chain(outs[k], rev), walk[0], w)
+            for k, (walk, (w, rev)) in enumerate(zip(walks, dirs))]
 
 
 def _directions(cls, weights):
@@ -494,12 +505,16 @@ class _RNNTanhLayer(torch.autograd.Function):
     @staticmethod
     def forward(ctx, impl, sum_directions, x, lengths, *weights):
         dirs = _directions(RNNWeights, weights)
-        run = (rnn_tanh_cuda.rnn_tanh_scan if impl == "auto"
-               else rnn_tanh_cuda.rnn_tanh_scan_plain)
-        outs = [
-            run(_rnn_project(x, w), lengths, w.w_hh, reverse=chain_reverse)[0]
-            for w, chain_reverse in dirs
-        ]
+        chains = [((_rnn_project(x, w), lengths, w.w_hh), chain_reverse)
+                  for w, chain_reverse in dirs]
+        if impl == "auto" and len(chains) == 2:
+            results = rnn_tanh_cuda.rnn_tanh_scan_pair(chains[0][0], chains[1][0], False, True)
+        else:
+            run = (rnn_tanh_cuda.rnn_tanh_scan if impl == "auto"
+                   else rnn_tanh_cuda.rnn_tanh_scan_plain)
+            results = [run(*ops, reverse=chain_reverse) for ops, chain_reverse in chains]
+        del chains
+        outs = [res[0] for res in results]
         ctx.impl, ctx.sum_directions = impl, sum_directions
         ctx.save_for_backward(x, lengths, *outs, *weights)
         return _merge_directions(outs, sum_directions)
@@ -510,10 +525,9 @@ class _RNNTanhLayer(torch.autograd.Function):
         x, lengths, *rest = ctx.saved_tensors
         ndir = len(rest) // 5
         dirs = _directions(RNNWeights, rest[ndir:])
-        douts = _cotangents(d_out, dirs, ctx.sum_directions)
-        dx, grads = _gather(x, [
-            _rnn_dir_grads(x, lengths, w, rest[k], douts[k], rev, ctx.impl)
-            for k, (w, rev) in enumerate(dirs)])
+        dx, grads = _gather(x, _rnn_grads(
+            x, lengths, dirs, rest[:ndir], _cotangents(d_out, dirs, ctx.sum_directions),
+            ctx.impl))
         return (None, None, dx, None, *grads)
 
 

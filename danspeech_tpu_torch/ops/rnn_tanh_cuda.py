@@ -4,15 +4,21 @@ The ports of two kernels of ``danspeech_tpu/ops/pallas_gru.py``:
 
 - :func:`rnn_tanh_scan` (``rnn_tanh_scan``, ``csrc/rnn_tanh_scan.cu``): one
   chain ``h' = tanh(gx + h @ w_hh)`` from h = 0, with a ``reverse`` flag
-  (serving and the training forward);
+  (serving and the training forward); :func:`rnn_tanh_scan_pair` runs both
+  chains of a bidirectional layer in one launch;
 - :func:`rnn_tanh_bwd_scan` (``rnn_tanh_bwd_scan``,
   ``csrc/rnn_tanh_bwd.cu``): the backward walk of one chain, which reads
-  tanh' off the stored output stream.
+  tanh' off the stored output stream; :func:`rnn_tanh_bwd_scan_pair` walks
+  both chains of a bidirectional layer in one launch.
 
 These take a projection ``gx`` that already holds ``b_ih + b_hh`` (added in
 f32, then rounded to the stream dtype, as the JAX package's
 ``_rnn_project``); the kernels have no bias. Each source's header note says
-what bounds it on an H100 and what the design does about it. A wrapper
+what bounds it on an H100 and what the design does about it. Both kernels
+have two designs, as the GRU and LSTM ones: "persistent" (one cooperative
+launch walks every step, ``csrc/persist.cuh``) and "step" (one launch per
+time step), chosen by :func:`persist_plan.plan_rnn_tanh_forward` /
+:func:`persist_plan.plan_rnn_tanh_backward` or by ``design=``. A wrapper
 launches its kernel for CUDA tensors and raises on anything the kernel does
 not take; for CPU tensors, and only for those, it runs the plain version.
 There is no fallback from a failed build or launch to the plain version.
@@ -22,8 +28,10 @@ from __future__ import annotations
 
 import torch
 
-from . import cuda_build
+from . import cuda_build, persist_plan
+from .cuda_build import chain_ptrs
 from .cuda_checks import check_stream_shape, check_tensors, time_order
+from .gru_cuda import device_info, transposed
 
 
 def rnn_tanh_scan_plain(gx, lengths, w_hh, reverse: bool = False):
@@ -64,22 +72,9 @@ def _check_operands(seq_name, seq, lengths, w_hh):
     })
 
 
-def rnn_tanh_scan(gx, lengths, w_hh, reverse: bool = False):
-    """One tanh-RNN chain over a precomputed projection, from h = 0.
-
-    Same contract and return values as :func:`rnn_tanh_scan_plain`. A CUDA
-    ``gx`` launches the kernel (bf16 gx and w_hh, int32 lengths, all
-    contiguous on gx's device) or raises; a CPU ``gx`` runs the plain
-    version. ``rnn_tanh_scan.launches`` counts kernel launches (one per
-    call: the T step kernels of one chain).
-    """
-    if gx.device.type == "cpu":
-        return rnn_tanh_scan_plain(gx, lengths, w_hh, reverse)
-    if gx.device.type != "cuda":
-        raise ValueError(f"unsupported device {gx.device}")
-    _check_operands("gx", gx, lengths, w_hh)
+def _scan_step(gx, lengths, w_hh, reverse):
+    """T launches of the step kernel."""
     launch = cuda_build.bind("rnn_tanh_scan", "rnn_tanh_scan_launch", 6, 4)
-
     t_max, batch, hidden = gx.shape
     dev = gx.device
     h32 = torch.empty((2, batch, hidden), dtype=torch.float32, device=dev)
@@ -87,20 +82,116 @@ def rnn_tanh_scan(gx, lengths, w_hh, reverse: bool = False):
     h32[0].zero_()
     h16[0].zero_()
     out = torch.empty((t_max, batch, hidden), dtype=torch.bfloat16, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = launch(
-            gx.data_ptr(), lengths.data_ptr(), w_hh.data_ptr(),
-            h32.data_ptr(), h16.data_ptr(), out.data_ptr(),
-            t_max, batch, hidden, int(bool(reverse)), stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"rnn_tanh_scan launch failed: CUDA error {rc}")
-    rnn_tanh_scan.launches += 1
+    cuda_build.call(launch, "rnn_tanh_scan (step)", dev,
+                    gx.data_ptr(), lengths.data_ptr(), w_hh.data_ptr(),
+                    h32.data_ptr(), h16.data_ptr(), out.data_ptr(),
+                    t_max, batch, hidden, int(bool(reverse)))
     return out, h32[t_max % 2]  # the buffer the final step wrote
 
 
+def _scan_persistent(chains, reverses, planned):
+    """One or two chains that share T, B, H and lengths in one cooperative
+    launch. ``chains`` holds (gx, lengths, w_hh) tuples; returns one (out,
+    h_last) per chain."""
+    launch = cuda_build.bind("rnn_tanh_scan", "rnn_tanh_scan_persist_launch", 11, 12)
+    gx, lengths, w_hh = chains[0]
+    t_max, batch, hidden = gx.shape
+    dev = gx.device
+    n = len(chains)
+    # buffer 0 holds bf16(h0) = 0; h is carried in place and ends as h_last
+    h16 = torch.zeros((2, n, batch, hidden), dtype=torch.bfloat16, device=dev)
+    outs = [(torch.empty((t_max, batch, hidden), dtype=torch.bfloat16, device=dev),
+             torch.zeros((batch, hidden), dtype=torch.float32, device=dev)) for _ in chains]
+    barrier = torch.zeros((n,), dtype=torch.int32, device=dev)
+    w_hht = [transposed(c[2]) for c in chains]  # the resident slices are rows of w_hh^T
+    cuda_build.call(
+        launch, "rnn_tanh_scan (persistent)", dev,
+        *chain_ptrs([c[0] for c in chains]), lengths.data_ptr(), *chain_ptrs(w_hht),
+        *chain_ptrs([o[1] for o in outs]), h16.data_ptr(),
+        *chain_ptrs([o[0] for o in outs]), barrier.data_ptr(),
+        t_max, batch, hidden, int(bool(reverses[0])), int(bool(reverses[-1])), n,
+        planned.units, planned.row_groups, planned.stages, planned.chunk_depth,
+        planned.blocks_per_dir, planned.smem_bytes)
+    return outs
+
+
+def rnn_tanh_scan(gx, lengths, w_hh, reverse: bool = False, design: str | None = None):
+    """One tanh-RNN chain over a precomputed projection, from h = 0.
+
+    Same contract and return values as :func:`rnn_tanh_scan_plain`. A CUDA
+    ``gx`` launches the kernel (bf16 gx and w_hh, int32 lengths, all
+    contiguous on gx's device) or raises; a CPU ``gx`` runs the plain
+    version. ``design`` is None (the plan of
+    :func:`persist_plan.plan_rnn_tanh_forward` decides), "persistent" or
+    "step"; ``rnn_tanh_scan.design_counts`` counts the chains by the design
+    taken. ``rnn_tanh_scan.launches`` counts chains (one per call),
+    ``rnn_tanh_scan.pair_launches`` the cooperative launches that walked two
+    chains (:func:`rnn_tanh_scan_pair`).
+    """
+    if gx.device.type == "cpu":
+        return rnn_tanh_scan_plain(gx, lengths, w_hh, reverse)
+    if gx.device.type != "cuda":
+        raise ValueError(f"unsupported device {gx.device}")
+    _check_operands("gx", gx, lengths, w_hh)
+    planned = persist_plan.plan_rnn_tanh_forward(w_hh.shape[0], gx.shape[1], 1,
+                                                 *device_info(gx.device))
+    design = persist_plan.choose(design, planned)
+    if design == "persistent":
+        result = _scan_persistent([(gx, lengths, w_hh)], [reverse], planned)[0]
+    else:
+        result = _scan_step(gx, lengths, w_hh, reverse)
+    rnn_tanh_scan.launches += 1
+    rnn_tanh_scan.design_counts[design] += 1
+    return result
+
+
 rnn_tanh_scan.launches = 0
+rnn_tanh_scan.pair_launches = 0
+rnn_tanh_scan.design_counts = {"persistent": 0, "step": 0}
+
+
+def _check_pair(chain_a, chain_b):
+    """The two chains of a pair must share their shapes and lengths tensor
+    (in the operand tuples of both wrappers lengths comes second to last and
+    w_hh last)."""
+    if (tuple(chain_a[0].shape) != tuple(chain_b[0].shape)
+            or tuple(chain_a[-1].shape) != tuple(chain_b[-1].shape)
+            or chain_a[-2] is not chain_b[-2]):
+        raise ValueError("the two chains must share their shapes and lengths")
+
+
+def rnn_tanh_scan_pair(chain_a, chain_b, reverse_a: bool, reverse_b: bool,
+                       design: str | None = None):
+    """Both chains of a bidirectional tanh-RNN layer.
+
+    ``chain_a`` and ``chain_b`` are the operand tuples (gx, lengths, w_hh) of
+    :func:`rnn_tanh_scan`, of the same shapes and over the same lengths
+    tensor (else ValueError, on any device). Returns ((out, h_last) of a,
+    the same of b), each as :func:`rnn_tanh_scan` would return it. On CUDA
+    both chains share one persistent launch when the plan for two chains
+    fits (each chain with its own barrier, so the two never wait for each
+    other) and ``rnn_tanh_scan.pair_launches`` grows by one; otherwise, for
+    ``design="step"``, and on the CPU, they run one after the other as two
+    :func:`rnn_tanh_scan` calls. Either way ``rnn_tanh_scan.launches`` grows
+    by two: it counts chains.
+    """
+    _check_pair(chain_a, chain_b)
+    if chain_a[0].device.type != "cuda":
+        return (rnn_tanh_scan(*chain_a, reverse=reverse_a),
+                rnn_tanh_scan(*chain_b, reverse=reverse_b))
+    _check_operands("gx", *chain_a)
+    _check_operands("gx", *chain_b)
+    planned = persist_plan.plan_rnn_tanh_forward(
+        chain_a[2].shape[0], chain_a[0].shape[1], 2, *device_info(chain_a[0].device))
+    if design == "step" or planned.design != "persistent":
+        return (rnn_tanh_scan(*chain_a, reverse=reverse_a, design=design),
+                rnn_tanh_scan(*chain_b, reverse=reverse_b, design=design))
+    persist_plan.choose(design, planned)
+    outs = _scan_persistent([chain_a, chain_b], [reverse_a, reverse_b], planned)
+    rnn_tanh_scan.launches += 2
+    rnn_tanh_scan.design_counts["persistent"] += 2
+    rnn_tanh_scan.pair_launches += 1
+    return outs[0], outs[1]
 
 
 def rnn_tanh_bwd_scan_plain(out, dout, lengths, w_hh, reverse: bool = True):
@@ -131,45 +222,122 @@ def rnn_tanh_bwd_scan_plain(out, dout, lengths, w_hh, reverse: bool = True):
     return dpre, dh
 
 
-def rnn_tanh_bwd_scan(out, dout, lengths, w_hh, reverse: bool = True):
-    """The backward walk of one tanh-RNN chain.
-
-    Same contract and return values as :func:`rnn_tanh_bwd_scan_plain`. A
-    CUDA ``out`` launches the kernel (bf16 out and w_hh, f32 dout, int32
-    lengths, all contiguous on out's device) or raises; a CPU ``out`` runs
-    the plain version. ``rnn_tanh_bwd_scan.launches`` counts kernel launches
-    (one per call: the T + 1 step kernels of one chain).
-    """
-    if out.device.type == "cpu":
-        return rnn_tanh_bwd_scan_plain(out, dout, lengths, w_hh, reverse)
-    if out.device.type != "cuda":
-        raise ValueError(f"unsupported device {out.device}")
+def _check_bwd_operands(out, dout, lengths, w_hh):
     _check_operands("out", out, lengths, w_hh)
     check_tensors("out", {
         "out": (out, tuple(out.shape), torch.bfloat16),
         "dout": (dout, tuple(out.shape), torch.float32),
     })
-    launch = cuda_build.bind("rnn_tanh_bwd", "rnn_tanh_bwd_launch", 7, 4)
 
+
+def _bwd_step(out, dout, lengths, w_hh, reverse):
+    """T + 1 launches of the step kernel."""
+    launch = cuda_build.bind("rnn_tanh_bwd", "rnn_tanh_bwd_launch", 7, 4)
     t_max, batch, hidden = out.shape
     dev = out.device
-    w_hht = w_hh.t().contiguous()
-    part = torch.empty((2, batch, hidden), dtype=torch.float32, device=dev)
-    part[0].zero_()
-    dp = torch.empty((2, batch, hidden), dtype=torch.bfloat16, device=dev)
-    dp[0].zero_()
+    part = torch.zeros((2, batch, hidden), dtype=torch.float32, device=dev)
+    dp = torch.zeros((2, batch, hidden), dtype=torch.bfloat16, device=dev)
     dpre = torch.empty((t_max, batch, hidden), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = launch(
-            out.data_ptr(), dout.data_ptr(), lengths.data_ptr(), w_hht.data_ptr(),
-            part.data_ptr(), dp.data_ptr(), dpre.data_ptr(),
-            t_max, batch, hidden, int(bool(reverse)), stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"rnn_tanh_bwd_scan launch failed: CUDA error {rc}")
-    rnn_tanh_bwd_scan.launches += 1
+    w_hht = transposed(w_hh)  # the step product reads w_hh^T
+    cuda_build.call(launch, "rnn_tanh_bwd_scan (step)", dev,
+                    out.data_ptr(), dout.data_ptr(), lengths.data_ptr(),
+                    w_hht.data_ptr(), part.data_ptr(), dp.data_ptr(),
+                    dpre.data_ptr(), t_max, batch, hidden, int(bool(reverse)))
     return dpre, part[(t_max + 1) % 2]
 
 
+def _bwd_persistent(chains, reverses, planned):
+    """The persistent walk of one or two chains that share T, B, H and
+    lengths, in one launch. ``chains`` holds the operand tuples (out, dout,
+    lengths, w_hh) of :func:`rnn_tanh_bwd_scan`; returns one (dpre, dh0) per
+    chain. The resident slices are rows of w_hh as it lies: no transpose."""
+    launch = cuda_build.bind("rnn_tanh_bwd", "rnn_tanh_bwd_persist_launch", 13, 12)
+    out, _, lengths, _ = chains[0]
+    t_max, batch, hidden = out.shape
+    dev = out.device
+    n = len(chains)
+    # dh starts at zero, is carried in place and ends as dh0
+    outs = [(torch.empty((t_max, batch, hidden), dtype=torch.float32, device=dev),
+             torch.zeros((batch, hidden), dtype=torch.float32, device=dev)) for _ in chains]
+    dp = torch.empty((2, n, batch, hidden), dtype=torch.bfloat16, device=dev)
+    barrier = torch.zeros((n,), dtype=torch.int32, device=dev)
+    cuda_build.call(
+        launch, "rnn_tanh_bwd_scan (persistent)", dev,
+        *chain_ptrs([c[0] for c in chains]), *chain_ptrs([c[1] for c in chains]),
+        lengths.data_ptr(), *chain_ptrs([c[3] for c in chains]),
+        *chain_ptrs([o[1] for o in outs]), dp.data_ptr(),
+        *chain_ptrs([o[0] for o in outs]), barrier.data_ptr(),
+        t_max, batch, hidden, int(bool(reverses[0])), int(bool(reverses[-1])), n,
+        planned.units, planned.row_groups, planned.stages, planned.chunk_depth,
+        planned.blocks_per_dir, planned.smem_bytes)
+    return outs
+
+
+def rnn_tanh_bwd_scan(out, dout, lengths, w_hh, reverse: bool = True,
+                      design: str | None = None):
+    """The backward walk of one tanh-RNN chain.
+
+    Same contract and return values as :func:`rnn_tanh_bwd_scan_plain`. A
+    CUDA ``out`` launches the kernel (bf16 out and w_hh, f32 dout, int32
+    lengths, all contiguous on out's device) or raises; a CPU ``out`` runs
+    the plain version. ``design`` is None (the plan of
+    :func:`persist_plan.plan_rnn_tanh_backward` decides), "persistent" or
+    "step"; ``rnn_tanh_bwd_scan.design_counts`` counts the chains by the
+    design taken. ``rnn_tanh_bwd_scan.launches`` counts chains (one per
+    call), ``rnn_tanh_bwd_scan.pair_launches`` the cooperative launches that
+    walked two chains (:func:`rnn_tanh_bwd_scan_pair`).
+    """
+    if out.device.type == "cpu":
+        return rnn_tanh_bwd_scan_plain(out, dout, lengths, w_hh, reverse)
+    if out.device.type != "cuda":
+        raise ValueError(f"unsupported device {out.device}")
+    _check_bwd_operands(out, dout, lengths, w_hh)
+    planned = persist_plan.plan_rnn_tanh_backward(w_hh.shape[0], out.shape[1], 1,
+                                                  *device_info(out.device))
+    design = persist_plan.choose(design, planned)
+    if design == "persistent":
+        result = _bwd_persistent([(out, dout, lengths, w_hh)], [reverse], planned)[0]
+    else:
+        result = _bwd_step(out, dout, lengths, w_hh, reverse)
+    rnn_tanh_bwd_scan.launches += 1
+    rnn_tanh_bwd_scan.design_counts[design] += 1
+    return result
+
+
 rnn_tanh_bwd_scan.launches = 0
+rnn_tanh_bwd_scan.pair_launches = 0
+rnn_tanh_bwd_scan.design_counts = {"persistent": 0, "step": 0}
+
+
+def rnn_tanh_bwd_scan_pair(chain_a, chain_b, reverse_a: bool, reverse_b: bool,
+                           design: str | None = None):
+    """The backward walks of the two chains of a bidirectional tanh-RNN
+    layer.
+
+    ``chain_a`` and ``chain_b`` are the operand tuples (out, dout, lengths,
+    w_hh) of :func:`rnn_tanh_bwd_scan`, of the same shapes and over the same
+    lengths tensor (else ValueError, on any device). Returns ((dpre, dh0) of
+    a, the same of b), each as :func:`rnn_tanh_bwd_scan` would return it. On
+    CUDA both walks share one persistent launch when the plan for two chains
+    fits and ``rnn_tanh_bwd_scan.pair_launches`` grows by one; otherwise, for
+    ``design="step"``, and on the CPU, they run one after the other as two
+    :func:`rnn_tanh_bwd_scan` calls. Either way
+    ``rnn_tanh_bwd_scan.launches`` grows by two: it counts chains.
+    """
+    _check_pair(chain_a, chain_b)
+    if chain_a[0].device.type != "cuda":
+        return (rnn_tanh_bwd_scan(*chain_a, reverse=reverse_a),
+                rnn_tanh_bwd_scan(*chain_b, reverse=reverse_b))
+    _check_bwd_operands(*chain_a)
+    _check_bwd_operands(*chain_b)
+    planned = persist_plan.plan_rnn_tanh_backward(
+        chain_a[3].shape[0], chain_a[0].shape[1], 2, *device_info(chain_a[0].device))
+    if design == "step" or planned.design != "persistent":
+        return (rnn_tanh_bwd_scan(*chain_a, reverse=reverse_a, design=design),
+                rnn_tanh_bwd_scan(*chain_b, reverse=reverse_b, design=design))
+    persist_plan.choose(design, planned)
+    outs = _bwd_persistent([chain_a, chain_b], [reverse_a, reverse_b], planned)
+    rnn_tanh_bwd_scan.launches += 2
+    rnn_tanh_bwd_scan.design_counts["persistent"] += 2
+    rnn_tanh_bwd_scan.pair_launches += 1
+    return outs[0], outs[1]

@@ -36,6 +36,13 @@ LSTM_BWD_FITS = [(800, 32, 1), (800, 32, 2), (800, 128, 2), (800, 150, 1), (800,
                  (72, 5, 1), (72, 5, 2), (72, 1, 2), (100, 3, 1), (72, 150, 2),
                  (1200, 32, 1)]
 
+# (hidden, batch, chains): tanh-RNN chains and backward walks (rnn_tanh_scan,
+# rnn_tanh_bwd_scan and their pairs): Tanh5x800 serving and training, small
+# and odd shapes
+RNN_TANH_FITS = [(800, 128, 1), (800, 128, 2), (800, 32, 1), (800, 32, 2), (100, 3, 1),
+                 (100, 3, 2), (72, 150, 1), (72, 150, 2), (72, 5, 2), (72, 1, 2),
+                 (1200, 128, 2), (2000, 32, 1)]
+
 
 def _plans():
     for h, b in FORWARD_FITS:
@@ -56,6 +63,11 @@ def _plans():
     for h, b, c in LSTM_BWD_FITS:
         yield pytest.param(pp.plan_lstm_backward(h, b, c, SMS, SMEM), h, b, 1, 4 * h, c,
                            id=f"lstm-backward-H{h}-B{b}-chains{c}")
+    for h, b, c in RNN_TANH_FITS:
+        yield pytest.param(pp.plan_rnn_tanh_forward(h, b, c, SMS, SMEM), h, b, 1, h, c,
+                           id=f"tanh-H{h}-B{b}-chains{c}")
+        yield pytest.param(pp.plan_rnn_tanh_backward(h, b, c, SMS, SMEM), h, b, 1, h, c,
+                           id=f"tanh-backward-H{h}-B{b}-chains{c}")
 
 
 @pytest.mark.parametrize("plan,hidden,batch,gates,depth,directions", _plans())
@@ -192,6 +204,29 @@ def test_lstm_backward_plan_at_the_lstm5x800_shapes(batch, chains, units, grid, 
     assert plan.depth_padded == 3200 and plan.slice_bytes == units * 3200 * 2
 
 
+@pytest.mark.parametrize("plan_fn", [pp.plan_rnn_tanh_forward, pp.plan_rnn_tanh_backward])
+@pytest.mark.parametrize("batch,chains,units,grid,row_groups,slice_bytes,smem", [
+    # serving: one chain 100 blocks of 8 units (13 KB slices); both chains of
+    # a layer 50 blocks a chain of 16 (26.6 KB): six 128-deep stages either way
+    (128, 1, 8, 100, 2, 13312, 209920),
+    (128, 2, 16, 100, 2, 26624, 223232),
+    # training: the two warpgroups split the depth, chunks 256 deep
+    (32, 1, 8, 100, 1, 13312, 209920),
+    (32, 2, 16, 100, 1, 26624, 223232),
+])
+def test_rnn_tanh_plans_at_the_tanh5x800_shapes(plan_fn, batch, chains, units, grid,
+                                                row_groups, slice_bytes, smem):
+    """One gate, depth H = 800 (832 padded) for the chain and the walk: the
+    slice is U columns of w_hh (the chain) or of w_hh^T (the walk)."""
+    plan = plan_fn(800, batch, chains, SMS, SMEM)
+    assert (plan.design, plan.units, plan.grid, plan.blocks_per_dir, plan.row_groups,
+            plan.k_splits, plan.stages, plan.chunk_depth, plan.slice_bytes, plan.smem_bytes,
+            plan.product) \
+        == ("persistent", units, grid, grid // chains, row_groups, 2 // row_groups, 6, 128,
+            slice_bytes, smem, "wgmma")
+    assert plan.depth_padded == 832 and plan.slice_bytes == units * 832 * 2
+
+
 @pytest.mark.parametrize("batch,row_groups", [(128, 2), (32, 1)])
 def test_scan_pair_plan_is_the_fused_forward_plan(batch, row_groups):
     """Two gru_scan chains at H = 1200 (gru_scan_bidi) are cut as B3's
@@ -231,6 +266,9 @@ def test_scan_pair_at_h2000_does_not_fit_but_one_chain_does():
     pytest.param(pp.plan_gru_scan(6000, 8, SMS, SMEM), id="scan-H6000"),
     pytest.param(pp.plan_lstm_forward(1200, 32, 2, SMS, SMEM), id="lstm-H1200-pair"),
     pytest.param(pp.plan_lstm_forward(2000, 32, 1, SMS, SMEM), id="lstm-H2000"),
+    # 40 units a block: five tiles, the tanh kernels hold four
+    pytest.param(pp.plan_rnn_tanh_forward(2200, 128, 2, SMS, SMEM), id="tanh-H2200-pair"),
+    pytest.param(pp.plan_rnn_tanh_backward(4300, 32, 1, SMS, SMEM), id="tanh-backward-H4300"),
 ])
 def test_a_width_that_cannot_fit_takes_the_step_design(plan):
     assert plan.design == "step"

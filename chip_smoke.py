@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # every phase, needs one CUDA card
     python3 chip_smoke.py --kernels  # phases 1-3 only (build + kernel checks)
+    python3 chip_smoke.py --lm-serving  # phases 1, 2 and 8 only
     python3 chip_smoke.py --phase-clocks  # where a persistent kernel's step
                                           # spends its clocks (-DPS_PROFILE build)
 
@@ -60,7 +61,26 @@ Phases, in order; any failure exits non-zero:
    the plain path, a profile of one batch and of one step; for the LSTM
    ``train.train`` + ``export_model`` + ``Recognizer.recognize`` on a
    2-layer cut;
-8. one ``{"kernels": [...]}`` line of nine entries, then the device line as
+8. serving with a language model: a seeded synthetic 3-gram LM (20,000
+   words, 100,000 bigrams and 100,000 trigrams, as ARPA text; its load time,
+   and the pack time and bytes of its device tables); the beam searches on
+   speech-like probabilities spelling word sequences of the LM (B=128,
+   T=401, C=33, beam 64, alpha 1.3, beta 0.2): the device beam on the card
+   against the device beam on the CPU and the C++ host beam, top-1 on
+   every row (a row that differs must be a float32 near tie: the same
+   search with float64 scores picks the host beam's transcript, and the
+   scores lie within BEAM_GAP_REL); the decode alone, host against device, at batches of 1 to
+   128 and the crossover that ``decode/beam_auto.py:DEFAULT_CROSSOVER``
+   takes; ``Recognizer.recognize_batch`` of 128 waveforms of 1-8 s and
+   ``recognize`` of a 1 s clip on the flagship for greedy and
+   ``backend="host"``, ``"device"`` and ``"auto"`` (audio-s/s, 9
+   ``gru_bidi_fused`` launches a dispatch group, a profile of one
+   device-beam batch; the backends' transcripts equal row for row or near
+   ties); ``streaming_transcribe`` on GPUStreamingRNN with the LM and no
+   secondary model (the final chunk's time; the final string against the
+   device beam's decode of the same probabilities); one ``{"lm_serving":
+   ...}`` line;
+9. one ``{"kernels": [...]}`` line of nine entries, then the device line as
    the last line.
 
 Imports no JAX and nothing of ``danspeech_tpu``.
@@ -2323,6 +2343,446 @@ def phase_rnn_type(card, cfg, train_steps, profile, loop):
 
 
 # ---------------------------------------------------------------------------
+# Phase 8: serving with a language model
+# ---------------------------------------------------------------------------
+
+# a stand-in for the DSL 3-gram until the zoo's LM files are in the
+# repository: seeded words of 2-10 letters of the model's labels, seeded
+# bigrams and trigrams over them
+LM_WORDS, LM_BIGRAMS, LM_TRIGRAMS = 20000, 100000, 100000
+# the published serving settings, the engine's defaults: alpha, beta, beam
+LM_ALPHA, LM_BETA, LM_BEAM = 1.3, 0.2, 64
+# where two decoders' best transcripts differ, the row passes as a float32
+# near tie only if the device beam on the card, searching the same
+# probabilities with float64 scores, picks the host beam's transcript (or,
+# between two float32 searches, one of the two), and the two best scores
+# lie within this share of their size: the host beam sums in float64, the
+# device beam in float32 over up to 700 frames of scores in the thousands
+BEAM_GAP_REL = 1e-3
+CROSSOVER_BATCHES = (1, 2, 4, 8, 16, 32, 64, 128)
+LM_PROFILE_GROUPS = {
+    "B3 recurrence": ("gru_persist_kernel", "gru_step_kernel"),
+    "tensor-core GEMM (B3 projection)": ("gru_proj",),
+    "sort (beam top-k)": ("sort", "radix"),
+    "gather / scatter (LM probes, pointers)": ("gather", "scatter", "index"),
+    "convolution": ("conv", "cudnn", "wgrad", "dgrad", "fprop"),
+    "library GEMM": ("gemm", "cutlass", "nvjet", "cublas"),
+    "elementwise": ("elementwise", "vectorized", "reduce"),
+}
+
+
+def synthetic_lm_arpa(path, labels, seed):
+    """Write a seeded 3-gram LM as ARPA text: LM_WORDS distinct words of
+    2-10 letters (no blank, no space), Zipf-like unigram probabilities by
+    rank, LM_BIGRAMS and LM_TRIGRAMS distinct random n-grams; log10 values
+    with four decimals. Returns the number of lines written."""
+    rng = np.random.default_rng(seed)
+    letters = [c for c in labels if c not in "_ "]
+    words: dict = {}
+    while len(words) < LM_WORDS:
+        for n in rng.integers(2, 11, size=LM_WORDS):
+            words.setdefault("".join(letters[i] for i in rng.integers(0, len(letters), n)))
+            if len(words) == LM_WORDS:
+                break
+    words = list(words)
+    ranks = np.arange(1, LM_WORDS + 1)
+    uni = -np.log10(ranks) - np.log10((1.0 / ranks).sum())
+
+    def distinct(order, count):
+        out: dict = {}
+        while len(out) < count:
+            for row in rng.integers(0, LM_WORDS, size=(count, order)):
+                out.setdefault(tuple(int(i) for i in row))
+                if len(out) == count:
+                    break
+        return list(out)
+
+    bigrams, trigrams = distinct(2, LM_BIGRAMS), distinct(3, LM_TRIGRAMS)
+    lines = ["\\data\\", f"ngram 1={LM_WORDS + 1}", f"ngram 2={len(bigrams)}",
+             f"ngram 3={len(trigrams)}", "", "\\1-grams:", "-6.0000\t<unk>\t0.0000"]
+    lines += [f"{p:.4f}\t{w}\t{b:.4f}"
+              for w, p, b in zip(words, uni, rng.uniform(-1.0, 0.0, LM_WORDS))]
+    lines += ["", "\\2-grams:"]
+    lines += [f"{p:.4f}\t{words[a]} {words[b]}\t{bo:.4f}" for (a, b), p, bo in zip(
+        bigrams, rng.uniform(-2.0, -0.1, len(bigrams)), rng.uniform(-1.0, 0.0, len(bigrams)))]
+    lines += ["", "\\3-grams:"]
+    lines += [f"{p:.4f}\t{words[a]} {words[b]} {words[c]}" for (a, b, c), p in zip(
+        trigrams, rng.uniform(-1.5, -0.05, len(trigrams)))]
+    lines += ["", "\\end\\", ""]
+    with open(path, "w", encoding="utf-8") as f:
+        f.write("\n".join(lines))
+    return len(lines)
+
+
+def peaky_probs(rng, lm, labels, rows, t_max):
+    """Speech-like (rows, t_max, C) CTC posteriors: each row spells a
+    seeded word sequence of the LM (a walk along its bigrams from a word
+    drawn by Zipf weights), each label for 1-2 frames followed by 0-2 blank
+    frames (one at least between two equal labels). A letter frame gives
+    its letter 0.35-0.95 of the mass, a blank frame 0.9-0.995 and a space
+    frame 0.999-0.99999, as a CTC model is surest at word boundaries; a
+    Dirichlet draw spreads the rest, so that the beam has choices and the
+    LM scores decide some of them."""
+    index = {ch: i for i, ch in enumerate(labels)}
+    blank, c = index["_"], len(labels)
+    succ: dict = {}
+    for a, b in lm.tables[1]:
+        succ.setdefault(a, []).append(b)
+    # a word opens a walk with Zipf weights by its rank (its id), as frequent
+    # words open sentences
+    starts = sorted(succ)
+
+    def opening():
+        return starts[min(int(rng.zipf(1.5)), len(starts)) - 1]
+
+    probs = np.empty((rows, t_max, c), np.float32)
+    texts = []
+    for r in range(rows):
+        w = opening()
+        path, spoken = [], []
+        while len(path) < t_max:
+            spoken.append(lm.words[w])
+            for ch in lm.words[w] + " ":
+                k = index[ch]
+                if path and path[-1] == k:
+                    path.append(blank)
+                path += [k] * int(rng.integers(1, 3)) + [blank] * int(rng.integers(0, 3))
+            nxt = succ.get(w)
+            w = nxt[int(rng.integers(len(nxt)))] if nxt else opening()
+        path = np.asarray(path[:t_max])
+        conf = np.select([path == index[" "], path == blank],
+                         [rng.uniform(0.999, 0.99999, t_max), rng.uniform(0.9, 0.995, t_max)],
+                         rng.uniform(0.35, 0.95, t_max))
+        p = rng.dirichlet(np.full(c, 2.0), t_max) * (1.0 - conf)[:, None]
+        p[np.arange(t_max), path] += conf
+        probs[r] = p
+        texts.append(" ".join(spoken))
+    return probs, texts
+
+
+def device_tops(probs, lengths, dlm, labels, keep_pointers=None):
+    """The device beam's best transcript and its score per row (the
+    published settings), on ``probs``' device. ``keep_pointers`` (a list)
+    receives the per-frame pointer tensors of the search."""
+    from danspeech_tpu_torch.decode import device_beam
+
+    real = device_beam.backtrack_beams
+
+    def kept(pb, pnb, parents, chars, t_max, extra_scores=None, top=None):
+        if keep_pointers is not None:
+            keep_pointers.extend([parents, chars])
+        return real(pb, pnb, parents, chars, t_max, extra_scores=extra_scores, top=top)
+
+    device_beam.backtrack_beams = kept
+    try:
+        lab, _, lens, scores = device_beam.ctc_beam_search_device(
+            probs, lengths, beam_width=LM_BEAM, blank=labels.index("_"), lm=dlm,
+            alpha=LM_ALPHA, beta=LM_BETA, space=labels.index(" "), top=1)
+    finally:
+        device_beam.backtrack_beams = real
+    lab, lens, scores = lab.cpu().numpy(), lens.cpu().numpy(), scores.cpu().numpy()
+    return ["".join(labels[i] for i in lab[b, 0, : lens[b, 0]]) for b in range(len(lab))], \
+        scores[:, 0].astype(np.float64)
+
+
+def host_tops(host, probs, lengths, labels):
+    """The C++ host beam's best transcript and its score per row."""
+    rows = host._native.decode_batch(np.ascontiguousarray(probs), np.asarray(lengths, np.int32))
+    return ["".join(labels[i] for i in r[0][0]) for r in rows], \
+        np.array([r[0][1] for r in rows])
+
+
+def compare_tops(label, a, b, probs, lengths, dlm, labels, host_b):
+    """Top-1 transcripts of two decoders, row for row: equal, or a float32
+    near tie (BEAM_GAP_REL). ``a`` and ``b`` are (transcripts, scores) of
+    the rows of ``probs`` / ``lengths``; ``host_b`` says that ``b`` is the
+    host beam's. Returns the number of flips and the largest gap."""
+    flips, worst = 0, 0.0
+    for r, (ta, tb, sa, sb) in enumerate(zip(a[0], b[0], a[1], b[1])):
+        if ta == tb:
+            continue
+        gap = abs(float(sa) - float(sb))
+        rel = gap / max(abs(float(sa)), abs(float(sb)), 1.0)
+        p64 = torch.as_tensor(probs[r : r + 1]).to(dlm.device, torch.float64)
+        ref = device_tops(p64, [int(lengths[r])], dlm, labels)[0][0]
+        agrees = ref == tb if host_b else ref in (ta, tb)
+        flips += 1
+        worst = max(worst, gap)
+        log(f"    {label}: row {r} differs, scores {float(sa):.6f} vs {float(sb):.6f} "
+            f"(gap {gap:.3e}, {rel:.2e} of their size); the float64 search picks "
+            f"{'the host beam' if ref == tb and host_b else 'one of the two' if agrees else 'neither'}")
+        if not agrees or rel > BEAM_GAP_REL:
+            raise AssertionError(f"{label}: row {r} differs beyond a float32 near tie")
+    log(f"  {label}: {len(a[0]) - flips} of {len(a[0])} rows equal, {flips} float32 "
+        f"near-tie flips (largest gap {worst:.3e})")
+    return {"rows": len(a[0]), "flips": flips, "max_gap": worst}
+
+
+def crossover_of(host_ms, dev_ms):
+    """The smallest batch from which the device beam is faster at every
+    measured batch, or None where it never is."""
+    batches = sorted(host_ms)
+    for k, b in enumerate(batches):
+        if all(dev_ms[x] < host_ms[x] for x in batches[k:]):
+            return b
+    return None
+
+
+def group_probs(eng, waves, i):
+    """The probabilities of row ``i`` of ``waves`` as its dispatch group
+    computes them: ((1, T', C) on the card, length)."""
+    for idxs, maxlen in eng._plan_groups(waves):
+        if i in idxs:
+            staged, lengths = eng._stage_group(waves, idxs, maxlen)
+            probs, out_lens = eng._forward(eng._compute_params, staged.to(eng.device),
+                                           torch.from_numpy(lengths).to(eng.device))
+            j = idxs.index(i)
+            return probs[j : j + 1], int(out_lens[j])
+    raise KeyError(i)
+
+
+def phase_lm(card):
+    from danspeech_tpu_torch import Recognizer
+    from danspeech_tpu_torch.audio import load_audio_pcm16
+    from danspeech_tpu_torch.decode import beam_auto
+    from danspeech_tpu_torch.decode.beam import BeamCTCDecoder
+    from danspeech_tpu_torch.decode.device_beam import DeviceBeamDecoder
+    from danspeech_tpu_torch.decode.device_lm import pack_device_lm
+    from danspeech_tpu_torch.decode.lm import load_arpa
+    from danspeech_tpu_torch.models import DeepSpeechConfig, DeepSpeechModel
+    from danspeech_tpu_torch.ops import gru_cuda
+
+    config = DeepSpeechConfig(**FLAGSHIP)
+    labels = config.labels
+    out = {}
+
+    # 8a: the LM, its ARPA load and its device tables
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "synthetic_3gram.arpa")
+        t0 = time.perf_counter()
+        n_lines = synthetic_lm_arpa(path, labels, seed=9)
+        write_s = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        t0 = time.perf_counter()
+        lm = load_arpa(path)
+        load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dlm = pack_device_lm(lm, labels, device="cuda")
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t0
+    if not (dlm.ng_table.is_cuda and dlm.voc_table.is_cuda):
+        raise AssertionError("the device LM's tables are not on the card")
+    t0 = time.perf_counter()
+    host = BeamCTCDecoder(labels, lm_path=lm, alpha=LM_ALPHA, beta=LM_BETA,
+                          beam_width=LM_BEAM, num_processes=6, cutoff_prob=1.0,
+                          cutoff_top_n=40, blank_index=labels.index("_"))
+    host_s = time.perf_counter() - t0
+    if host._native is None:
+        raise AssertionError("the host beam did not take its C++ route")
+    counts = lm.num_ngrams()
+    log(f"  synthetic 3-gram LM: n-gram counts {counts}, ARPA {size / 1e6:.1f} MB "
+        f"({n_lines} lines, written in {write_s:.2f} s), load_arpa {load_s:.2f} s; "
+        f"device tables {tuple(dlm.ng_table.shape)} + {tuple(dlm.voc_table.shape)} "
+        f"int64 = {dlm.nbytes() / 1e6:.1f} MB packed in {pack_s:.2f} s; host C++ "
+        f"decoder set up in {host_s:.2f} s")
+    out["lm"] = {"ngrams": counts, "arpa_bytes": size, "load_s": load_s,
+                 "pack_s": pack_s, "device_bytes": dlm.nbytes(), "host_setup_s": host_s}
+
+    # 8b: the decoders on speech-like probabilities
+    rows, t_max = 128, 401
+    probs, _ = peaky_probs(np.random.default_rng(10), lm, labels, rows, t_max)
+    lengths = np.full(rows, t_max, np.int32)
+    probs_d = torch.from_numpy(probs).cuda()
+    pointers = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dev = device_tops(probs_d, lengths, dlm, labels, keep_pointers=pointers)
+    dev_s = time.perf_counter() - t0
+    if not pointers or not all(p.is_cuda for group in pointers for p in group):
+        raise AssertionError("the device beam's pointers are not on the card")
+    t0 = time.perf_counter()
+    cpu = device_tops(torch.from_numpy(probs), lengths, dlm.to("cpu"), labels)
+    cpu_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    hst = host_tops(host, probs, lengths, labels)
+    hst_s = time.perf_counter() - t0
+    log(f"  decoder check, B={rows} T={t_max} C={len(labels)} W={LM_BEAM}: device "
+        f"beam on the card {dev_s:.2f} s, on the CPU {cpu_s:.2f} s, C++ host beam "
+        f"(6 threads) {hst_s:.2f} s")
+    out["decoders"] = {
+        "card_vs_cpu": compare_tops("device beam: card vs CPU", dev, cpu, probs, lengths,
+                                    dlm, labels, host_b=False),
+        "card_vs_host": compare_tops("device beam on the card vs C++ host beam", dev, hst,
+                                     probs, lengths, dlm, labels, host_b=True),
+        "card_s": dev_s, "cpu_s": cpu_s, "host_threads_s": hst_s}
+    if sum(" " in t for t in dev[0]) < rows // 2:
+        raise AssertionError("the decoded rows hold no words")
+
+    # 8c: the crossover, the decode alone at each batch size
+    dev_dec = DeviceBeamDecoder(labels, beam_width=LM_BEAM, blank_index=labels.index("_"),
+                                lm=dlm, alpha=LM_ALPHA, beta=LM_BETA)
+    if dev_dec.lm is not dlm:
+        raise AssertionError("the device decoder copied its LM")
+    dev_dec.decode(probs_d[:2], lengths[:2], n_best=1)  # warm-up
+    host_ms, dev_ms = {}, {}
+    for b in CROSSOVER_BATCHES:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dev_dec.decode(probs_d[:b], lengths[:b], n_best=1)
+        torch.cuda.synchronize()
+        dev_ms[b] = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        host.decode(probs[:b], lengths[:b])
+        host_ms[b] = (time.perf_counter() - t0) * 1e3
+        log(f"    B={b:3d}: host beam {host_ms[b]:9.1f} ms ({host_ms[b] / b:7.2f} ms a row), "
+            f"device beam {dev_ms[b]:8.1f} ms ({dev_ms[b] / b:7.2f} ms a row) "
+            f"[T={t_max}, {card}]")
+    crossover = crossover_of(host_ms, dev_ms)
+    log(f"  crossover: {crossover if crossover else 'none up to 128'} (the port's "
+        f"DEFAULT_CROSSOVER is {beam_auto.DEFAULT_CROSSOVER}) [{card}]")
+    out["crossover"] = {"host_ms": host_ms, "device_ms": dev_ms, "measured": crossover,
+                        "default": beam_auto.DEFAULT_CROSSOVER}
+    del probs_d, dev_dec
+    torch.cuda.empty_cache()
+
+    # 8d: Recognizer end to end on the flagship, every backend
+    t0 = time.perf_counter()
+    model = DeepSpeechModel.init_random(config, seed=0)
+    rec = Recognizer(model=model)  # device=None: CUDA
+    eng = rec.danspeech_recognizer
+    log(f"  flagship set up in {time.perf_counter() - t0:.1f} s")
+    waves = seeded_waveforms(np.random.default_rng(8), 128)
+    clip = load_audio_pcm16(os.path.join("tests", "data", "clip_mono.wav"))
+    audio_s = sum(len(w) for w in waves) / RATE
+    groups = len(eng._plan_groups(waves))
+    serve, texts = {}, {}
+    launches = 0
+    for backend in ("greedy", "host", "device", "auto"):
+        t0 = time.perf_counter()
+        if backend == "greedy":
+            rec.update_decoder(lm="greedy")
+        else:
+            rec.update_decoder(lm=lm, alpha=LM_ALPHA, beta=LM_BETA,
+                               beam_width=LM_BEAM, backend=backend)
+        setup_s = time.perf_counter() - t0
+        dec = eng.decoder
+        rec.recognize(clip)  # warm-up of this decoder
+        gru_cuda.gru_bidi_fused.launches = 0
+        zero_designs()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one = rec.recognize(clip)
+        one_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        texts[backend] = rec.recognize_batch(waves)
+        wall = time.perf_counter() - t0
+        n = gru_cuda.gru_bidi_fused.launches
+        expected = config.rnn_layers * (groups + 1)
+        if n != expected:
+            raise AssertionError(f"{backend}: {n} gru_bidi_fused launches, expected {expected}")
+        require_persistent(gru_cuda.gru_bidi_fused, f"LM serving, {backend}")
+        launches += n
+        if not isinstance(one, str) or len(texts[backend]) != len(waves):
+            raise AssertionError(f"{backend}: wrong result shape")
+        if backend != "greedy":
+            routes = {type(dec.for_batch(len(i))).__name__ if hasattr(dec, "for_batch")
+                      else type(dec).__name__ for i, _ in eng._plan_groups(waves)}
+            host_side = getattr(dec, "_host", dec)
+            if isinstance(host_side, BeamCTCDecoder) and host_side._native is None:
+                raise AssertionError(f"{backend}: the host beam lost its C++ route")
+            device_side = getattr(dec, "_device", dec)
+            if isinstance(device_side, DeviceBeamDecoder) and not device_side.lm.ng_table.is_cuda:
+                raise AssertionError(f"{backend}: the device LM is not on the card")
+        else:
+            routes = {"GreedyDecoder"}
+        serve[backend] = {"audio_s": audio_s, "wall_s": wall, "audio_s_per_s": audio_s / wall,
+                          "recognize_1s_ms": one_s * 1e3, "decoder_setup_s": setup_s,
+                          "gru_bidi_fused_launches": n, "routes": sorted(routes)}
+        log(f"  {backend}: recognize_batch of {len(waves)} ({audio_s:.1f} audio-s, "
+            f"{groups} dispatch groups) {wall:.3f} s = {audio_s / wall:.1f} audio-s/s; "
+            f"recognize(1 s clip) {one_s * 1e3:.1f} ms; gru_bidi_fused launches {n} "
+            f"(expected {expected} = {config.rnn_layers} x {groups + 1} groups); "
+            f"decoders {sorted(routes)}; set up in {setup_s:.2f} s [{card}]")
+        if backend == "device":
+            out["profile"] = profile_call("one LM recognize_batch, device beam",
+                                          lambda: rec.recognize_batch(waves),
+                                          groups=LM_PROFILE_GROUPS)
+    # host, device and auto agree row for row, or flip at a near tie
+    flips = 0
+    for other in ("device", "auto"):
+        for i, (a, b) in enumerate(zip(texts["host"], texts[other])):
+            if a == b:
+                continue
+            p, n = group_probs(eng, waves, i)
+            compare_tops(f"e2e {other} vs host, row {i}", device_tops(p, [n], dlm, labels),
+                         host_tops(host, p.cpu().numpy(), [n], labels), p, [n], dlm,
+                         labels, host_b=True)
+            flips += 1
+    log(f"  host, device and auto transcripts: {flips} rows differ at near ties")
+    out["serve"] = serve
+    out["e2e_flips"] = flips
+    del rec, eng, model
+    torch.cuda.empty_cache()
+
+    # 8e: streaming with the LM and no secondary model
+    sconfig = DeepSpeechConfig(**GPU_STREAMING)
+    smodel = DeepSpeechModel.init_random(sconfig, seed=2)
+    srec = Recognizer(model=smodel)
+    seng = srec.danspeech_recognizer
+    srec.update_decoder(lm=lm, alpha=LM_ALPHA, beta=LM_BETA, beam_width=LM_BEAM)
+    seng.enable_streaming(secondary_model=None, return_string_parts=True)
+    calls, _ = record_calls(seng)
+    seen = []
+    decode = seng.decoder.decode
+
+    def recorded(p, sizes=None, n_best=None):
+        seen.append((p, sizes))
+        return decode(p, sizes, n_best=n_best)
+
+    seng.decoder.decode = recorded
+    audio = (np.random.default_rng(6).normal(size=8 * RATE) * 3000.0).astype(np.float32)
+    plan = accumulate(audio, sconfig.context)
+    gru_cuda.gru_scan.launches = 0
+    zero_designs()
+    chunk_ms, final = [], ""
+    for chunk, first, last in plan:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        final = seng.streaming_transcribe(chunk, is_last=last, is_first=first)
+        torch.cuda.synchronize()
+        chunk_ms.append((time.perf_counter() - t0) * 1e3)
+    scan = gru_cuda.gru_scan.launches
+    steps = frame_steps(calls, sconfig.audio_conf)
+    if scan != sconfig.rnn_layers * len(steps):
+        raise AssertionError(f"streaming with the LM: {scan} gru_scan launches, expected "
+                             f"{sconfig.rnn_layers * len(steps)}")
+    require_persistent(gru_cuda.gru_scan, "streaming with the LM")
+    if len(seen) != 1:
+        raise AssertionError("the final chunk did not re-decode with the LM")
+    kept, sizes = seen[0]
+    ref = DeviceBeamDecoder(labels, beam_width=LM_BEAM, blank_index=labels.index("_"),
+                            lm=dlm, alpha=LM_ALPHA, beta=LM_BETA)
+    again = ref.decode(kept, sizes, n_best=1)[0][0][0]
+    log(f"  streaming with the LM: {len(plan)} chunks, gru_scan launches {scan}; the "
+        f"final chunk (the LM re-decode of {kept.shape[1]} frames by "
+        f"{type(seng.decoder.for_batch(1)).__name__}) {chunk_ms[-1]:.1f} ms, steady chunk "
+        f"median {sorted(chunk_ms[1:-1])[len(chunk_ms[1:-1]) // 2]:.1f} ms [{card}]")
+    if final != again:
+        d = device_tops(torch.from_numpy(kept).cuda(), [kept.shape[1]], dlm, labels)
+        compare_tops("streaming: the device beam vs the final", d,
+                     host_tops(host, kept, [kept.shape[1]], labels), kept,
+                     [kept.shape[1]], dlm, labels, host_b=True)
+    else:
+        log("  streaming final equals the device beam's decode of the same probabilities")
+    out["stream"] = {"final_chunk_ms": chunk_ms[-1], "chunk_ms": chunk_ms,
+                     "frames": int(kept.shape[1]), "gru_scan_launches": scan,
+                     "equal_to_device_beam": final == again}
+    out["launches"] = {"gru_bidi_fused": launches, "gru_scan": scan}
+    return out
+
+
+# ---------------------------------------------------------------------------
 # --phase-clocks: where a step of the persistent kernels spends its clocks
 # ---------------------------------------------------------------------------
 
@@ -2492,6 +2952,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels", action="store_true",
                     help="run phases 1-3 only (build and kernel checks)")
+    ap.add_argument("--lm-serving", action="store_true",
+                    help="run phases 1, 2 and 8 only (build, then serving with an LM)")
     ap.add_argument("--phase-clocks", action="store_true",
                     help="instead of the phases: build the persistent kernels with "
                          "-DPS_PROFILE and print where a step spends its clocks")
@@ -2522,6 +2984,16 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line or "error" in line:
                 log(f"  {name}: {line.strip()}")
 
+    if args.lm_serving:
+        log("phase 8: serving with a language model (host, device and auto beams)")
+        lm_run = phase_lm(card)
+        log(card)
+        print(json.dumps({"lm_serving": lm_run}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+
     # phase 3
     log("phase 3: the grid barrier alone, then kernels vs plain versions")
     barrier = phase_barrier()
@@ -2544,11 +3016,14 @@ def main(argv=None) -> int:
         log("phase 7: LSTM5x800 and Tanh5x800, served and trained")
         lstm_run = phase_rnn_type(card, LSTM5X800, train_steps=3, profile=True, loop=True)
         tanh_run = phase_rnn_type(card, TANH5X800, train_steps=2, profile=True, loop=False)
+        log("phase 8: serving with a language model (host, device and auto beams)")
+        lm_run = phase_lm(card)
         pair_launches = {**lstm_run["pair_launches"], **tanh_run["pair_launches"]}
         launches = {
             "gru_bidi_fused": served["launches"] + streamed["bidi_launches"]
-            + trained["launches"]["gru_bidi_fused"],
-            "gru_scan": streamed["scan_launches"] + trained["launches"]["gru_scan"],
+            + trained["launches"]["gru_bidi_fused"] + lm_run["launches"]["gru_bidi_fused"],
+            "gru_scan": streamed["scan_launches"] + trained["launches"]["gru_scan"]
+            + lm_run["launches"]["gru_scan"],
             "gru_scan_bidi": routes["launches"],
             "gru_bwd_scan": trained["launches"]["gru_bwd_scan"],
         }
@@ -2594,6 +3069,8 @@ def main(argv=None) -> int:
         dict(entry("rnn_tanh_bwd_scan", rnn_type_checks["rnn_tanh_bwd_scan"], "train layer"),
              pair_launches=pair_launches.get("rnn_tanh_bwd_scan")),
     ]
+    if not args.kernels:
+        print(json.dumps({"lm_serving": lm_run}))
     log(card)  # as nvidia-smi prints it: name, power limit
     print(json.dumps({"kernels": kernels, "barrier_us": barrier["us"]}))
     print(json.dumps({"ok": True, "device": {

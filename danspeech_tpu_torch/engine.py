@@ -3,18 +3,22 @@ transcription.
 
 The port of the batch and streaming paths of ``danspeech_tpu/engine.py``.
 Batch: the device program (int16/float32 waveforms -> spectrogram -> conv
--> RNN stack -> head -> softmax -> argmax) runs on the engine's device;
-waveforms are grouped by length bucket into dispatch groups of at most 128
-rows, every group is staged in pinned host memory, uploaded and enqueued
-before the host collapses the first group's argmax paths, so host decoding
-overlaps the device work of later groups. Streaming: the host parses each
-chunk's spectrogram, pads it to a CHUNK_BUCKET multiple and runs the masked
-chunk step (``models/streaming.py``) on state kept on the device; greedy
-partials per chunk, and on the final chunk an optional secondary model
-re-transcribes the whole stream.
+-> RNN stack -> head -> softmax, and the argmax when the decoder is greedy)
+runs on the engine's device; waveforms are grouped by length bucket into
+dispatch groups of at most 128 rows, every group is staged in pinned host
+memory, uploaded and enqueued before the host decodes the first group, so
+host decoding overlaps the device work of later groups. With a language
+model each group's decoder is resolved by its row count: the device beam
+search reads the probabilities where they are, the host beam gets them
+through a pinned asynchronous copy with the pad rows sliced off.
+Streaming: the host parses each chunk's spectrogram, pads it to a
+CHUNK_BUCKET multiple and runs the masked chunk step
+(``models/streaming.py``) on state kept on the device; greedy partials per
+chunk, and on the final chunk either a secondary model re-transcribes the
+whole stream or the LM decoder re-decodes the stream's probabilities.
 
-The device is CUDA unless the caller passes ``device="cpu"``. Beam/LM
-decoding, mu-law staging and long-form transcription come with later
+The device is CUDA unless the caller passes ``device="cpu"``. Mu-law
+staging, the sharded beam and long-form transcription come with later
 slices.
 """
 
@@ -25,7 +29,12 @@ import warnings
 import numpy as np
 import torch
 
+from .decode.beam import BeamCTCDecoder
+from .decode.beam_auto import AutoBeamDecoder
+from .decode.device_beam import DeviceBeamDecoder
 from .decode.greedy import GreedyDecoder, collapse_batch
+from .decode.lm import coerce_device_lm
+from .device import resolve_device as _resolve_device
 from .errors import ModelNotInitialized, WrongUsageOfListen
 from .features.spectrogram import (
     InferenceSpectrogramAudioParser,
@@ -42,16 +51,6 @@ class NoLmInstantiatedWarning(Warning):
 
 def _bucket(n: int, quantum: int) -> int:
     return max(quantum, ((n + quantum - 1) // quantum) * quantum)
-
-
-def _resolve_device(device=None) -> torch.device:
-    """``None`` means CUDA; a CUDA device raises when no GPU is present."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available; pass device='cpu' to run on the CPU"
-        )
-    return dev
 
 
 def _resolve_compute_dtype(compute_dtype: str, device: torch.device) -> str:
@@ -131,6 +130,7 @@ class DanSpeechRecognizer:
         self.audio_parser = None
         self.lm = None
         self.decoder = None
+        self.decoder_backend = "auto"
         self.alpha = alpha
         self.beta = beta
         self.beam_width = beam_width
@@ -148,6 +148,7 @@ class DanSpeechRecognizer:
         self._stream_state = None
         self.pipeline_depth = 0
         self._stream_queue: list = []
+        self.full_output: list = []
         self.iterating_transcript = ""
         self.spectrograms = []
 
@@ -184,27 +185,99 @@ class DanSpeechRecognizer:
         return ds.params_to(params, self.device)
 
     def update_decoder(self, lm=None, alpha=None, beta=None, labels=None,
-                       beam_width=None):
-        """Decoder swap. Only the greedy decoder is ported; a language
-        model raises until the beam decoders are."""
-        if lm is not None and lm != "greedy":
+                       beam_width=None, backend=None, mesh=None):
+        """Decoder hot-swap with change detection.
+
+        ``lm`` is ``"greedy"``, an ``.arpa(.gz)`` / KenLM ``.klm`` path, an
+        :class:`~.decode.lm.NgramLM` or a KenLM model. ``None`` keeps a
+        value; 0.0 is a real value for ``alpha`` / ``beta``. ``backend``
+        selects where the beam search runs when an LM is active (greedy is
+        always a device argmax + host collapse):
+
+        - "auto" (default) — :class:`~.decode.beam_auto.AutoBeamDecoder`
+          whenever the LM packs into the device hash tables (ARPA, NgramLM,
+          trie .klm): the host beam below the crossover batch size, the
+          device beam at and above it; else (probing .klm binaries) the
+          host beam;
+        - "host" — the C++ prefix beam search (native/ctcbeam) with its
+          Python oracle fallback;
+        - "device" — the beam search on the engine's device with the LM
+          tables there (decode/device_beam.py + device_lm.py).
+
+        "sharded" and ``mesh`` raise: the sharded beam comes with the
+        parallelism slice (ROADMAP A13).
+        """
+        if mesh is not None or backend == "sharded":
             raise NotImplementedError(
-                "beam search with a language model comes with a later slice "
-                "(ROADMAP A7); only greedy decoding is ported"
+                "the sharded beam decoder and mesh= come with the parallelism "
+                "slice (ROADMAP A13)"
             )
-        if alpha is not None:
+        update = False
+        if not self.lm and not self.decoder:
+            update = True
+            self.lm = "greedy"
+        if lm and self.lm != lm:
+            update = True
+            self.lm = lm
+        if alpha is not None and self.alpha != alpha:
+            update = True
             self.alpha = alpha
-        if beta is not None:
+        if beta is not None and self.beta != beta:
+            update = True
             self.beta = beta
-        if beam_width:
-            self.beam_width = beam_width
-        if labels:
+        if labels and labels != self.labels:
+            update = True
             self.labels = labels
-        self.lm = "greedy"
-        if self.labels:
-            self.decoder = GreedyDecoder(
-                labels=self.labels, blank_index=self.labels.index("_")
+        if beam_width and beam_width != self.beam_width:
+            update = True
+            self.beam_width = beam_width
+        if backend and backend != self.decoder_backend:
+            if backend not in ("auto", "host", "device"):
+                raise ValueError(f"unknown decoder backend: {backend!r}")
+            update = True
+            self.decoder_backend = backend
+        if update:
+            self.decoder = self._build_decoder()
+
+    def _build_decoder(self):
+        blank = self.labels.index("_")
+        if self.lm == "greedy":
+            return GreedyDecoder(labels=self.labels, blank_index=blank)
+        backend = self.decoder_backend
+        if backend == "auto":
+            try:
+                device_lm = self._device_lm()
+            except ValueError:
+                backend = "host"  # probing .klm: cannot be re-keyed
+            else:
+                return AutoBeamDecoder(
+                    labels=self.labels, lm=self.lm, device_lm=device_lm,
+                    alpha=self.alpha, beta=self.beta,
+                    beam_width=self.beam_width, blank_index=blank,
+                    device=self.device,
+                )
+        if backend == "device":
+            return DeviceBeamDecoder(
+                labels=self.labels, beam_width=self.beam_width,
+                blank_index=blank, lm=self._device_lm(), alpha=self.alpha,
+                beta=self.beta, device=self.device,
             )
+        return BeamCTCDecoder(
+            labels=self.labels, lm_path=self.lm, alpha=self.alpha,
+            beta=self.beta, beam_width=self.beam_width, num_processes=6,
+            cutoff_prob=1.0, cutoff_top_n=40, blank_index=blank,
+        )
+
+    def _device_lm(self):
+        """Resolve self.lm to a DeviceLM on the engine's device, or None.
+
+        KenLM probing binaries score through per-order 64-bit tables that
+        cannot be re-keyed for the device scheme; those raise ValueError
+        (decode/lm.py:coerce_device_lm).
+        """
+        if self.lm in (None, "greedy"):
+            return None
+        return coerce_device_lm(self.lm, self.labels, device=self.device)
 
     # ------------------------------------------------------------------
     # Device program
@@ -330,45 +403,78 @@ class DanSpeechRecognizer:
             self._staging_used = set()
             raise
 
+    @staticmethod
+    def _decode_kwargs(decoder, show_all: bool) -> dict:
+        """Top-1 serving calls on device decoders backtrack and fetch only
+        the best beam. Computed per RESOLVED decoder — the batch-aware auto
+        decoder hands different backends to different dispatch groups."""
+        if not show_all and getattr(decoder, "supports_n_best", False):
+            return {"n_best": 1}
+        return {}
+
     def _transcribe_pipelined_inner(self, recordings, show_all):
         plans = self._plan_groups(recordings)
         params = self._compute_params
+        greedy = isinstance(self.decoder, GreedyDecoder)
         self._staging_used = set()
 
-        # phase 1: stage, upload and enqueue every group
+        # phase 1: stage, upload and enqueue every group; start the copies
+        # of what the host decodes
         pending = []
         for idxs, maxlen in plans:
             batch, lengths = self._stage_group(recordings, idxs, maxlen)
             wave = batch.to(self.device, non_blocking=True)
             lens = torch.from_numpy(lengths).to(self.device, non_blocking=True)
-            ids, out_lens = self._forward_greedy(params, wave, lens)
-            host_ids, _ = _to_host_async(ids)
+            decoder, on_device = None, False
+            if greedy:
+                out, out_lens = self._forward_greedy(params, wave, lens)
+            else:
+                out, out_lens = self._forward(params, wave, lens)
+                decoder = self.decoder
+                if hasattr(decoder, "for_batch"):  # batch-aware auto
+                    decoder = decoder.for_batch(len(idxs))
+                on_device = getattr(decoder, "supports_n_best", False)
+            if not on_device:
+                # the argmax paths, or the probabilities of the real rows
+                # for the host beam (pad rows would cost real beam work)
+                out, _ = _to_host_async(out if greedy else out[: len(idxs)])
             host_lens, done = _to_host_async(out_lens)
-            pending.append((idxs, host_ids, host_lens, done))
+            pending.append((idxs, decoder, on_device, out, host_lens, done))
 
-        # phase 2: collapse in dispatch order while later groups run
+        # phase 2: decode in dispatch order while later groups run
         results: list = [None] * len(recordings)
         blank = self.decoder.blank_index
-        for idxs, host_ids, host_lens, done in pending:
+        for idxs, decoder, on_device, out, host_lens, done in pending:
             if done is not None:
                 done.synchronize()
-            strings = collapse_batch(
-                host_ids.numpy()[: len(idxs)],
-                host_lens.numpy()[: len(idxs)],
-                self.labels, blank,
-            )
+            lens_np = host_lens.numpy()
+            if decoder is None:
+                strings = collapse_batch(
+                    out.numpy()[: len(idxs)], lens_np[: len(idxs)],
+                    self.labels, blank,
+                )
+                decoded = [[s] for s in strings]
+            elif on_device:
+                # device beam: the probabilities never leave the device;
+                # the pad rows ride the search and are dropped below
+                decoded, _ = decoder.decode(
+                    out, lens_np, **self._decode_kwargs(decoder, show_all)
+                )
+            else:
+                decoded, _ = decoder.decode(out.numpy(), lens_np[: len(idxs)])
             for j, i in enumerate(idxs):
-                results[i] = [strings[j]]
+                results[i] = decoded[j]
         return results
 
     def transcribe(self, recording, show_all: bool = False):
         """One-shot transcription of a waveform."""
         decoded_output = self._transcribe_pipelined([np.asarray(recording)], show_all)
         if show_all:
-            warnings.warn(
-                "You are trying to get all beams but no LM has been instantiated.",
-                NoLmInstantiatedWarning,
-            )
+            if self.lm == "greedy":
+                warnings.warn(
+                    "You are trying to get all beams but no LM has been instantiated.",
+                    NoLmInstantiatedWarning,
+                )
             return decoded_output[0]
         return decoded_output[0][0]
 
@@ -397,6 +503,7 @@ class DanSpeechRecognizer:
         """
         if self.model is not None:
             streaming.require_gru(self.model.config)
+        self.full_output = []
         self.iterating_transcript = ""
         self.secondary_model = secondary_model
         # cast and upload now, not on the latency path of the final chunk
@@ -426,6 +533,7 @@ class DanSpeechRecognizer:
 
     def reset_streaming_params(self):
         self.iterating_transcript = ""
+        self.full_output = []
         self.spectrograms = []
         self._stream_state = None
         self._stream_queue = []
@@ -453,9 +561,9 @@ class DanSpeechRecognizer:
     def streaming_transcribe(self, recording, is_last: bool, is_first: bool):
         """Chunked streaming transcription state machine.
 
-        Greedy partials per chunk; on the final chunk, a secondary model
-        (if any) re-transcribes the concatenated spectrograms. (The LM
-        re-decode of the whole stream comes with the LM decoders.)
+        Greedy partials per chunk; on the final chunk, either a secondary
+        model re-transcribes the concatenated spectrograms, or the LM
+        decoder re-decodes the concatenated probability stream.
         """
         spect = self.audio_parser.parse_audio(recording, is_last)
         out = ""
@@ -509,7 +617,16 @@ class DanSpeechRecognizer:
                     final = np.concatenate(self.spectrograms, axis=1)
                     self.spectrograms = []
                     probs, out_lens = self._run_secondary(final)
+                    if not getattr(self.decoder, "supports_n_best", False):
+                        probs = probs.cpu()  # a host decoder
                     decoded_out, _ = self.decoder.decode(probs, out_lens)
+                    self.reset_streaming_params()
+                    return decoded_out[0][0]
+                if self.lm != "greedy":
+                    final_out = np.concatenate(self.full_output, axis=1)
+                    decoded_out, _ = self.decoder.decode(
+                        final_out, np.array([final_out.shape[1]])
+                    )
                     self.reset_streaming_params()
                     return decoded_out[0][0]
                 out = self.iterating_transcript
@@ -520,13 +637,15 @@ class DanSpeechRecognizer:
         return out
 
     def _absorb_stream_result(self, probs, done) -> str:
-        """Wait for one chunk's probabilities to reach the host, fold its
-        greedy partial into the running transcript (joining a repeated
-        character across the chunk boundary) and return the per-chunk
-        output string."""
+        """Wait for one chunk's probabilities to reach the host, keep them
+        for the final LM re-decode, fold its greedy partial into the running
+        transcript (joining a repeated character across the chunk boundary)
+        and return the per-chunk output string."""
         if done is not None:
             done.synchronize()
-        decoded_out, _ = self.greedy_decoder.decode(probs.numpy())
+        probs = probs.numpy()
+        self.full_output.append(probs)
+        decoded_out, _ = self.greedy_decoder.decode(probs)
         transcript = decoded_out[0][0]
 
         if (

@@ -1,7 +1,8 @@
 """Public Recognizer API: batch recognition and real-time streaming.
 
 The port of ``danspeech_tpu/recognizer.py``: the same constructor, tuning
-attributes, ``recognize`` / ``recognize_batch`` / ``update_model``, the
+attributes, ``recognize`` / ``recognize_batch`` / ``update_model`` /
+``update_decoder`` (greedy or an LM-fused beam on the host or the device), the
 streaming listener (``listen_stream``, ``listen_in_background``, whose
 chunks pass through a thread-safe queue) and real-time chunked streaming
 (``enable_real_time_streaming`` / ``real_time_streaming``). The blocking
@@ -77,9 +78,16 @@ class Recognizer:
         self.danspeech_recognizer.update_model(model)
         print(f"Model updated to: {model.model_name}")
 
-    def update_decoder(self, lm=None, alpha=None, beta=None, beam_width=None):
+    def update_decoder(self, lm=None, alpha=None, beta=None, beam_width=None,
+                       backend=None, mesh=None):
+        """Swap the decoder. ``lm`` is ``"greedy"``, an ARPA / KenLM path or
+        an n-gram model; ``backend`` selects where the beam search runs:
+        "auto" (by batch size), "host" (C++) or "device" (the engine's
+        device). ``"sharded"`` and ``mesh`` raise until the parallelism
+        slice (ROADMAP A13)."""
         self.danspeech_recognizer.update_decoder(
-            lm=lm, alpha=alpha, beta=beta, beam_width=beam_width
+            lm=lm, alpha=alpha, beta=beta, beam_width=beam_width,
+            backend=backend, mesh=mesh,
         )
 
     # ------------------------------------------------------------------

@@ -86,7 +86,9 @@ def test_recognizer_recognize_equals_jax():
 def test_unported_options_raise(engines):
     _, teng = engines
     with pytest.raises(NotImplementedError):
-        teng.update_decoder(lm="some.arpa")
+        teng.update_decoder(backend="sharded")
+    with pytest.raises(NotImplementedError):
+        teng.update_decoder(mesh=object())
     with pytest.raises(NotImplementedError):
         TRecognizerEngine(device="cpu", transfer_format="ulaw")
     with pytest.raises(ValueError):

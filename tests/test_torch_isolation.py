@@ -115,3 +115,31 @@ def test_every_kernel_has_a_source_a_plain_version_and_a_counter():
             sources.add(f"{source}.cu")
     on_disk = {f for f in os.listdir(cuda_build.CSRC_DIR) if f.endswith(".cu")}
     assert on_disk == sources
+
+
+def test_decode_modules_are_walked_and_import_builds_nothing():
+    """The LM and beam modules are part of the walk, and importing them
+    (and the engine) starts no compiler: the C++ beam decoder is built at
+    its first use."""
+    code = (
+        "import subprocess, sys\n"
+        "def refuse(*a, **k):\n"
+        "    raise AssertionError('a process was started at import')\n"
+        "subprocess.run = subprocess.Popen = subprocess.call = refuse\n"
+        "import danspeech_tpu_torch.engine\n"
+        "import danspeech_tpu_torch.decode as d\n"
+        "from danspeech_tpu_torch.decode import (beam, beam_auto, device_beam,\n"
+        "    device_lm, kenlm_reader, kenlm_trie, lm, native_beam)\n"
+        "assert native_beam._lib is None\n"
+        "for name in ('BeamCTCDecoder', 'DeviceBeamDecoder', 'AutoBeamDecoder',\n"
+        "             'NgramLM', 'KenLMProbingModel', 'load_lm'):\n"
+        "    assert hasattr(d, name), name\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'danspeech_tpu')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"

@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py            # every phase, needs one CUDA card
     python3 chip_smoke.py --kernels  # phases 1-3 only (build + kernel checks)
-    python3 chip_smoke.py --lm-serving  # phases 1, 2 and 8 only
+    python3 chip_smoke.py --only 8  # phases 1, 2 and 8 only (or 9)
     python3 chip_smoke.py --phase-clocks  # where a persistent kernel's step
                                           # spends its clocks (-DPS_PROFILE build)
 
@@ -80,7 +80,26 @@ Phases, in order; any failure exits non-zero:
    secondary model (the final chunk's time; the final string against the
    device beam's decode of the same probabilities); one ``{"lm_serving":
    ...}`` line;
-9. one ``{"kernels": [...]}`` line of nine entries, then the device line as
+9. the rest of the single-GPU surface: the flagship written as a zip
+   ``.pth`` package in the original layout and loaded through
+   ``pretrained_models.CustomModel`` (its size and load time; its
+   probabilities bit-equal and its transcripts equal to the in-memory
+   model's over phase 4's 128 waveforms), a small legacy-format package;
+   ``transfer_format="ulaw"``: the engine's decode of all 256 codes on the
+   card against the table, transcripts equal to the int16 path fed the
+   mu-law round-tripped audio, probabilities within PROB_ATOL, the
+   throughput of both; ``MultiStreamTranscriber`` on GPUStreamingRNN in
+   cohorts of S = 1, 8, 9, 64, 65 and 128 streams (seeded chunks of 6240
+   samples), every step's probabilities against the same cohort on the
+   plain GRU, the B1 plan each S takes (the CUDA-core product up to 8
+   rows, the wgmma ring above, a second row block of 64 above 64 rows),
+   the S = 9 streams each against the single-stream engine, the steady
+   step's wall time, its host parse and the streams kept in real time, a
+   profile of 3 steady steps at S = 128, and an S = 8 cohort whose final
+   re-decodes with the synthetic 3-gram; ``Recognizer.streaming`` over
+   phase 5's WAV read at a microphone's pace, the phrase's transcript
+   against ``recognize`` of its samples; one ``{"surface": ...}`` line;
+10. one ``{"kernels": [...]}`` line of nine entries, then the device line as
    the last line.
 
 Imports no JAX and nothing of ``danspeech_tpu``.
@@ -511,21 +530,13 @@ def check_scan(gen, label, t, lengths, h, reverse, carried, timed):
     for tag, run in runs.items():
         got = run()
         torch.cuda.synchronize()
-        errs = {}
-        for name, g, r in zip(("out", "h_last"), got, ref):
-            if g.shape != r.shape or g.dtype != r.dtype:
-                raise AssertionError(f"{name}: {g.shape}/{g.dtype} vs {r.shape}/{r.dtype}")
-            if not torch.isfinite(g.float()).all():
-                raise AssertionError(f"{name} ({tag}): non-finite values from the kernel")
-            errs[name] = float((g.float() - r.float()).abs().max())
         if pad.any() and float(got[0][pad].float().abs().max()) != 0.0:
             raise AssertionError(f"gru_scan ({tag}): non-zero output past a row's length")
+        errs, _ = compare_outputs(f"gru_scan ({tag}) {label}", ("out", "h_last"), got, ref,
+                                  GRU_ATOL)
         log(f"  gru_scan[{tag}] {label} T={t} B={b} H={h} reverse={reverse} "
             f"h0={'carried' if carried else 'zero'}: max|err| "
             + ", ".join(f"{k}={v:.3e}" for k, v in errs.items()) + f" (atol {GRU_ATOL})")
-        if not max(errs.values()) <= GRU_ATOL:
-            raise AssertionError(f"gru_scan ({tag}) disagrees with its plain version: "
-                                 f"{max(errs.values())}")
         all_errs[tag] = errs
         del got
     walked = max(1, min(t, max(lengths)))
@@ -536,7 +547,7 @@ def check_scan(gen, label, t, lengths, h, reverse, carried, timed):
            "errs": all_errs, "atol": GRU_ATOL,
            "plan": {"units": planned.units, "grid": planned.grid,
                     "product": planned.product, "row_groups": planned.row_groups,
-                    "k_splits": planned.k_splits, "stages": planned.stages,
+                    "row_blocks": planned.row_blocks, "k_splits": planned.k_splits, "stages": planned.stages,
                     "chunk_depth": planned.chunk_depth, "smem_bytes": planned.smem_bytes}}
     if timed:
         # step, persistent, persistent, step: both designs on one card in one run
@@ -610,6 +621,15 @@ def phase_scan_kernels():
     checks.append(check_scan(gen, "streaming B=8", STREAM_T,
                              [STREAM_VALID, 20, STREAM_VALID, 1, STREAM_VALID, 0, 12, 34],
                              2000, False, carried=True, timed=False))
+    # the multi-stream cohort's step (phase 9): a carried state on both sides
+    # of the switch to the wgmma ring (B = 9) and of the second row block
+    # (B = 65), every stream at the steady chunk's length but a few short
+    # ones; the last row, alone in its block at B = 65, runs the whole chunk
+    for b in (9, 64, 65, 128):
+        lengths = [STREAM_VALID] * b
+        lengths[1], lengths[b // 2] = 1, 17
+        checks.append(check_scan(gen, f"cohort B={b}", STREAM_T, lengths, 2000, False,
+                                 carried=True, timed=False))
     return checks
 
 
@@ -2783,6 +2803,461 @@ def phase_lm(card):
 
 
 # ---------------------------------------------------------------------------
+# Phase 9: the rest of the single-GPU surface
+# ---------------------------------------------------------------------------
+
+# cohort sizes of the multi-stream step: both sides of the B1 plan's switch
+# from the CUDA-core product to the wgmma ring (DOT_ROWS = 8) and of its
+# second row block of 64 (above 64 rows)
+COHORTS = (1, 8, 9, 64, 65, 128)
+COHORT_CHUNK = 6240  # samples of a steady chunk at context 20: 390 ms of audio
+COHORT_STEADY = 10  # about 400 frames a stream, over which its argmax agreement is held
+# the cohort model's fc weights are scaled by this: a random head's softmax is
+# almost flat (1e-5 flips its argmax), so a wrong state would stay under the
+# probability bound; sharpened, it moves the probabilities by tenths. At
+# 5x2000 a gain of 16 left the mean top probability at 0.039 (33 labels)
+COHORT_HEAD_GAIN = 128.0
+
+
+def reference_package(config, params):
+    """A .pth package in the original layout: the hyperparameters that
+    config_from_package reads beside a state_dict of CPU tensors, BatchNorm's
+    num_batches_tracked included."""
+    from danspeech_tpu_torch.models.checkpoint import state_dict_from_params
+
+    sd = {}
+    for k, v in state_dict_from_params(params, config).items():
+        sd[k] = torch.from_numpy(v)
+        if k.endswith("running_var"):
+            sd[k[: -len("running_var")] + "num_batches_tracked"] = torch.tensor(0)
+    return {"model_name": config.model_name, "rnn_hidden_size": config.rnn_hidden_size,
+            "rnn_layers": config.rnn_layers, "labels": config.labels,
+            "audio_conf": dict(config.audio_conf), "rnn_type": config.rnn_type,
+            "bidirectional": config.bidirectional, "conv_layers": config.conv_layers,
+            "context": config.context, "streaming_model": config.streaming_model,
+            "state_dict": sd}
+
+
+def require_equal_params(label, a, b):
+    from danspeech_tpu_torch.models.checkpoint import state_dict_from_params
+
+    sa, sb = state_dict_from_params(a.params, a.config), state_dict_from_params(b.params, b.config)
+    if a.config.to_dict() != b.config.to_dict() or sorted(sa) != sorted(sb):
+        raise AssertionError(f"{label}: the loaded config or keys differ")
+    bad = [k for k in sa if not np.array_equal(sa[k], sb[k])]
+    if bad:
+        raise AssertionError(f"{label}: parameters differ: {bad[:5]}")
+
+
+def group_forward(eng, waves):
+    """The first dispatch group of ``waves`` staged by ``eng`` and run through
+    its forward on the card: (probs, out_lens, real rows)."""
+    idxs, maxlen = eng._plan_groups(waves)[0]
+    staged, lengths = eng._stage_group(waves, idxs, maxlen)
+    probs, out_lens = eng._forward(eng._compute_params, staged.to("cuda"),
+                                   torch.from_numpy(lengths).to("cuda"))
+    torch.cuda.synchronize()
+    return probs, out_lens, len(idxs), staged
+
+
+def timed_batch(rec, waves):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    texts = rec.recognize_batch(waves)
+    wall = time.perf_counter() - t0
+    return texts, wall
+
+
+def cohort_chunks(n_streams):
+    """Stream s's chunks, the same in every cohort: a first chunk,
+    COHORT_STEADY steady ones and a last one, each COHORT_CHUNK samples of
+    speech-level noise from seed 100 + s."""
+    n = COHORT_STEADY + 2
+    return [(np.random.default_rng(100 + s).normal(size=n * COHORT_CHUNK) * 3000.0)
+            .astype(np.float32).reshape(n, COHORT_CHUNK) for s in range(n_streams)]
+
+
+def record_probs(decoder, sink):
+    """Wrap a greedy decoder's decode so that every host copy of the
+    probabilities it reads is kept."""
+    decode = decoder.decode
+
+    def recorded(probs, *a, **k):
+        sink.append(np.array(probs, copy=True))
+        return decode(probs, *a, **k)
+
+    decoder.decode = recorded
+
+
+def run_cohort(ms, streams, timed=False, parse_ms=None):
+    """One epoch of a cohort: every chunk index stepped once. Returns
+    (the last step's finals, the wall ms of each step)."""
+    if parse_ms is not None:
+        for parser in ms.parsers:
+            parse = parser.parse_audio
+
+            def timed_parse(*a, _parse=parse, **k):
+                t0 = time.perf_counter()
+                out = _parse(*a, **k)
+                parse_ms.append((time.perf_counter() - t0) * 1e3)
+                return out
+
+            parser.parse_audio = timed_parse
+    n = len(streams[0])
+    step_ms, out = [], None
+    for i in range(n):
+        if timed:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = ms.step([st[i] for st in streams], is_last=i == n - 1, is_first=i == 0)
+        if timed:
+            torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    return out, step_ms
+
+
+def step_stats(label, got, ref):
+    """Every step's (S, T, C) probabilities of two runs: the largest
+    difference at any step, and per stream the frames whose argmax agrees
+    over the whole run."""
+    if len(got) != len(ref) or not got:
+        raise AssertionError(f"{label}: {len(got)} steps against {len(ref)}")
+    worst, agree, frames = 0.0, 0, 0
+    for k, (p, r) in enumerate(zip(got, ref)):
+        if p.shape != r.shape or not np.isfinite(p).all():
+            raise AssertionError(f"{label}, step {k}: shapes {p.shape} {r.shape} "
+                                 "or non-finite values")
+        worst = max(worst, float(np.abs(p - r).max()))
+        agree = agree + (p.argmax(-1) == r.argmax(-1)).sum(axis=1)
+        frames += p.shape[1]
+    per_stream = np.asarray(agree) / frames
+    return {"steps": len(got), "streams": len(per_stream), "frames_per_stream": frames,
+            "max_abs_prob_err": worst, "least_stream_argmax_agreement":
+            float(per_stream.min()), "argmax_agreement": float(per_stream.mean())}
+
+
+def require_step_bounds(label, stats):
+    """PROB_ATOL at every step; ARGMAX_AGREEMENT_MIN for every stream over
+    the run's frames (a step of one stream holds about 35 frames, where one
+    near tie moves its share by 3%)."""
+    log(f"  {label}: {stats['steps']} steps, max|dprob|={stats['max_abs_prob_err']:.3e} "
+        f"(<= {PROB_ATOL} at every step), frame argmax agreement of the least of "
+        f"{stats['streams']} streams {stats['least_stream_argmax_agreement']:.5f} over "
+        f"{stats['frames_per_stream']} frames (>= {ARGMAX_AGREEMENT_MIN}; mean "
+        f"{stats['argmax_agreement']:.5f})")
+    if not (stats["max_abs_prob_err"] <= PROB_ATOL
+            and stats["least_stream_argmax_agreement"] >= ARGMAX_AGREEMENT_MIN):
+        raise AssertionError(f"{label}: outside the stated bounds")
+    return stats
+
+
+def phase_surface(card):
+    from danspeech_tpu_torch import MultiStreamTranscriber, Recognizer, pretrained_models
+    from danspeech_tpu_torch.audio.dsp import ulaw_decode_table, ulaw_encode
+    from danspeech_tpu_torch.decode.beam_auto import AutoBeamDecoder
+    from danspeech_tpu_torch.decode.device_lm import pack_device_lm
+    from danspeech_tpu_torch.decode.lm import load_arpa
+    from danspeech_tpu_torch.engine import DanSpeechRecognizer, ulaw_decode
+    from danspeech_tpu_torch.models import DeepSpeechConfig, DeepSpeechModel
+    from danspeech_tpu_torch.ops import gru_cuda, persist_plan
+
+    out = {}
+    config = DeepSpeechConfig(**FLAGSHIP)
+    model = DeepSpeechModel.init_random(config, seed=0)
+    waves = seeded_waveforms(np.random.default_rng(0), 128)  # phase 4's first batch
+    audio_s = sum(len(w) for w in waves) / RATE
+    b3 = gru_cuda.gru_bidi_fused
+    b3_launches = b1_launches = 0
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # 9a: the flagship as a zip .pth package, loaded through the zoo
+        path = os.path.join(tmp, "DanSpeechPrimary.pth")
+        t0 = time.perf_counter()
+        torch.save(reference_package(config, model.params), path)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = pretrained_models.CustomModel(path)
+        load_s = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        require_equal_params(".pth flagship", loaded, model)
+        log(f"  .pth package of the flagship ({model.get_param_size()} params, zip "
+            f"format): {size / 1e6:.1f} MB, written in {save_s:.2f} s, loaded by "
+            f"pretrained_models.CustomModel in {load_s:.2f} s; parameters equal")
+        # a small package in the legacy format
+        small_cfg = DeepSpeechConfig(model_name="small-legacy", rnn_hidden_size=64,
+                                     rnn_layers=2, conv_layers=2)
+        small = DeepSpeechModel.init_random(small_cfg, seed=1)
+        legacy = os.path.join(tmp, "small_legacy.pth")
+        torch.save(reference_package(small_cfg, small.params), legacy,
+                   _use_new_zipfile_serialization=False)
+        t0 = time.perf_counter()
+        small_loaded = DeepSpeechModel.load_model(legacy)
+        legacy_s = time.perf_counter() - t0
+        require_equal_params(".pth legacy", small_loaded, small)
+        small_text = Recognizer(model=small_loaded).recognize(waves[0])
+        if small_text != Recognizer(model=small).recognize(waves[0]):
+            raise AssertionError("the legacy package transcribes otherwise than its model")
+        log(f"  legacy-format package ({small_cfg.rnn_layers}x{small_cfg.rnn_hidden_size}):"
+            f" {os.path.getsize(legacy) / 1e6:.2f} MB, loaded in {legacy_s:.3f} s; "
+            "parameters and transcript equal")
+
+    rec_mem, rec_pth = Recognizer(model=model), Recognizer(model=loaded)
+    texts_mem, _ = timed_batch(rec_mem, waves)
+    b3.launches = 0
+    zero_designs()
+    texts_pth, wall_pth = timed_batch(rec_pth, waves)
+    groups = len(rec_pth.danspeech_recognizer._plan_groups(waves))
+    pth_launches = b3.launches
+    if pth_launches != config.rnn_layers * groups:
+        raise AssertionError(f".pth serving: {pth_launches} gru_bidi_fused launches, "
+                             f"expected {config.rnn_layers * groups}")
+    require_persistent(b3, ".pth serving")
+    b3_launches += pth_launches
+    if texts_pth != texts_mem:
+        raise AssertionError(".pth transcripts differ from the in-memory model's")
+    p_pth, n_pth, rows, _ = group_forward(rec_pth.danspeech_recognizer, waves)
+    p_mem, n_mem, _, _ = group_forward(rec_mem.danspeech_recognizer, waves)
+    if not (torch.equal(p_pth, p_mem) and torch.equal(n_pth, n_mem)):
+        raise AssertionError(".pth probabilities differ from the in-memory model's")
+    log(f"  .pth served: recognize_batch of {len(waves)} waveforms ({audio_s:.2f} audio-s) in "
+        f"{wall_pth:.3f} s = {audio_s / wall_pth:.1f} audio-s/s, {pth_launches} "
+        f"gru_bidi_fused launches; transcripts equal and probabilities ({rows} rows) "
+        f"bit-equal to the in-memory model's [{card}]")
+    out["pth"] = {"bytes": size, "save_s": save_s, "load_s": load_s,
+                  "legacy_load_s": legacy_s, "audio_s": audio_s, "wall_s": wall_pth,
+                  "audio_s_per_s": audio_s / wall_pth, "launches": pth_launches}
+    del p_pth, p_mem
+
+    # 9b: mu-law staging
+    codes = torch.arange(256, dtype=torch.int32, device="cuda").to(torch.uint8)
+    dec = ulaw_decode(codes)
+    if not dec.is_cuda or not np.array_equal(dec.cpu().numpy(),
+                                             ulaw_decode_table().astype(np.float32)):
+        raise AssertionError("the engine's mu-law decode on the card differs from the table")
+    log("  ulaw_decode of all 256 codes on the card equals ulaw_decode_table")
+    rec_ulaw = Recognizer(model=loaded, transfer_format="ulaw")
+    rounded = [ulaw_decode_table()[ulaw_encode(w)] for w in waves]
+    walls = {"auto": [], "ulaw": []}
+    b3.launches = 0
+    zero_designs()
+    for fmt in ("auto", "ulaw", "ulaw", "auto"):
+        texts, wall = timed_batch(rec_pth if fmt == "auto" else rec_ulaw, waves)
+        walls[fmt].append(wall)
+        if fmt == "ulaw":
+            texts_ulaw = texts
+    ulaw_launches = b3.launches
+    require_persistent(b3, "mu-law serving")
+    b3_launches += ulaw_launches
+    texts_round = rec_pth.recognize_batch(rounded)
+    if texts_ulaw != texts_round:
+        raise AssertionError("mu-law transcripts differ from the exact path fed "
+                             "round-tripped audio")
+    p_u, n_u, rows, staged_u = group_forward(rec_ulaw.danspeech_recognizer, waves)
+    p_a, _, _, staged_a = group_forward(rec_pth.danspeech_recognizer, rounded)
+    if staged_u.dtype != torch.uint8 or staged_a.dtype != torch.int16:
+        raise AssertionError(f"staged {staged_u.dtype} / {staged_a.dtype}")
+    check_ulaw = compare_probs("mu-law vs int16 of the round-tripped audio", p_u, p_a,
+                               n_u, rows)
+    rates = {f: [audio_s / w for w in ws] for f, ws in walls.items()}
+    log(f"  recognize_batch of {len(waves)} waveforms: int16 staging "
+        + ", ".join(f"{r:.1f}" for r in rates["auto"]) + " audio-s/s, mu-law "
+        + ", ".join(f"{r:.1f}" for r in rates["ulaw"]) + f" audio-s/s; staged "
+        f"{staged_a.numel() * 2 / 1e6:.1f} MB int16 against {staged_u.numel() / 1e6:.1f} "
+        f"MB mu-law; transcripts equal [{card}]")
+    out["ulaw"] = {"audio_s_per_s": rates, "staged_bytes": {
+        "int16": staged_a.numel() * 2, "ulaw": staged_u.numel()},
+        "vs_round_tripped": check_ulaw, "launches": ulaw_launches}
+    del p_u, p_a, rec_ulaw
+    torch.cuda.empty_cache()
+
+    # 9c: multi-stream serving on GPUStreamingRNN
+    sconfig = DeepSpeechConfig(**GPU_STREAMING)
+    params = DeepSpeechModel.init_random(sconfig, seed=2).params
+    smodel = DeepSpeechModel(sconfig, {**params, "fc": params["fc"]._replace(
+        weight=params["fc"].weight * COHORT_HEAD_GAIN)})
+    scan = gru_cuda.gru_scan
+    sms_smem = gru_cuda.device_info(torch.device("cuda", torch.cuda.current_device()))
+    all_streams = cohort_chunks(max(COHORTS))
+    chunk_s = COHORT_CHUNK / RATE
+    cohorts = []
+    for n_streams in COHORTS:
+        streams = all_streams[:n_streams]
+        plain = MultiStreamTranscriber(smodel, n_streams, rnn_impl="plain")
+        ref_probs = []
+        record_probs(plain.greedy_decoder, ref_probs)
+        run_cohort(plain, streams)
+        del plain
+        ms = MultiStreamTranscriber(smodel, n_streams)
+        got_probs, parse_ms = [], []
+        record_probs(ms.greedy_decoder, got_probs)
+        scan.launches = 0
+        zero_designs()
+        finals, step_ms = run_cohort(ms, streams, timed=True, parse_ms=parse_ms)
+        launches = scan.launches
+        b1_launches += launches
+        expect_launches = sconfig.rnn_layers * len(streams[0])
+        require_persistent(scan, f"cohort S={n_streams}")
+        # every launch took the persistent design, and the plan of this
+        # shape (the wrapper's own choice) is the product and row blocks wanted
+        planned = persist_plan.plan_gru_scan(sconfig.rnn_hidden_size, n_streams, *sms_smem)
+        product = "dot" if n_streams <= persist_plan.DOT_ROWS else "wgmma"
+        blocks = 1 if n_streams <= persist_plan.GROUP_ROWS else 2
+        want = f"{product}/{blocks}x64"
+        if ((planned.product, planned.row_blocks, planned.rows_per_block)
+                != (product, blocks, 64) or launches != expect_launches
+                or scan.design_counts["persistent"] != expect_launches):
+            raise AssertionError(f"cohort S={n_streams}: plan {planned}, {launches} "
+                                 f"launches; expected {want}, {expect_launches}")
+        if len(finals) != n_streams or not all(isinstance(f, str) for f in finals):
+            raise AssertionError(f"cohort S={n_streams}: finals {finals!r}")
+        check = require_step_bounds(f"cohort S={n_streams}: kernel vs plain GRU",
+                                    step_stats("cohort", got_probs, ref_probs))
+        check["mean_top_prob"] = float(np.mean([p.max(-1).mean() for p in got_probs]))
+        steady = sorted(step_ms[1:1 + COHORT_STEADY])
+        median = steady[len(steady) // 2]
+        parse_step = sum(parse_ms[n_streams:n_streams * (1 + COHORT_STEADY)]) / COHORT_STEADY
+        kept = n_streams * chunk_s / (median / 1e3)
+        log(f"  cohort S={n_streams}: B1 plan {want} (units {planned.units}, "
+            f"{planned.stages} stages), {launches} gru_scan launches; steady step "
+            f"median {median:.2f} ms (min {steady[0]:.2f}, max {steady[-1]:.2f}), "
+            f"host parse {parse_step:.2f} ms of it; {kept:.1f} streams kept in real "
+            f"time [{card}]")
+        entry = {"streams": n_streams, "plan": want, "launches": launches,
+                 "step_ms": step_ms, "steady_median_ms": median,
+                 "parse_ms_per_step": parse_step, "streams_in_real_time": kept,
+                 "vs_plain": check}
+        if n_streams == 9:
+            # each stream alone through the single-stream engine
+            eng = DanSpeechRecognizer(model_name=smodel)
+            alone = []  # per stream, its steps' (1, T, C) probabilities
+            for k in range(n_streams):
+                eng.enable_streaming()
+                alone.append([])
+                record_probs(eng.greedy_decoder, alone[-1])
+                for i, chunk in enumerate(streams[k]):
+                    eng.streaming_transcribe(chunk, is_last=i == len(streams[k]) - 1,
+                                             is_first=i == 0)
+            entry["vs_single_streams"] = require_step_bounds(
+                f"cohort S={n_streams}, each stream vs the stream alone (B=1)",
+                step_stats("streams alone", got_probs,
+                           [np.concatenate(step) for step in zip(*alone)]))
+            del eng
+        if n_streams == max(COHORTS):
+            ms.step([st[0] for st in streams], is_last=False, is_first=True)
+            entry["profile"] = profile_call(
+                f"3 steady cohort steps at S={n_streams}",
+                lambda: [ms.step([st[i] for st in streams], is_last=False, is_first=False)
+                         for i in (1, 2, 3)], groups=STREAM_PROFILE_GROUPS)
+            ms.reset()
+        cohorts.append(entry)
+        del ms
+        torch.cuda.empty_cache()
+
+    # the LM final re-decode on a cohort of 8 (the auto router: the host beam)
+    labels = sconfig.labels
+    with tempfile.TemporaryDirectory() as tmp:
+        arpa = os.path.join(tmp, "synthetic_3gram.arpa")
+        synthetic_lm_arpa(arpa, labels, seed=9)
+        lm = load_arpa(arpa)
+    decoder = AutoBeamDecoder(labels=labels, lm=lm,
+                              device_lm=pack_device_lm(lm, labels, device="cuda"),
+                              alpha=LM_ALPHA, beta=LM_BETA, beam_width=LM_BEAM,
+                              blank_index=labels.index("_"), device="cuda")
+    seen = []
+    decode = decoder.decode
+
+    def recorded(probs, sizes=None, **k):
+        seen.append((np.array(probs, copy=True), np.array(sizes, copy=True)))
+        return decode(probs, sizes, **k)
+
+    decoder.decode = recorded
+    streams = all_streams[:8]
+    ms = MultiStreamTranscriber(smodel, 8, final_decoder=decoder)
+    greedy = []  # each stream's greedy transcript when the final is made
+    finalize = ms._finalize
+
+    def kept_finalize():
+        greedy.extend(ms.transcripts)
+        return finalize()
+
+    ms._finalize = kept_finalize
+    scan.launches = 0
+    t0 = time.perf_counter()
+    finals, step_ms = run_cohort(ms, streams, timed=True)
+    lm_wall = time.perf_counter() - t0
+    b1_launches += scan.launches
+    if len(seen) != 1:
+        raise AssertionError("the cohort's final did not re-decode with the LM")
+    cat, sizes = seen[0]
+    alone = [decode(cat[k:k + 1], sizes[k:k + 1])[0][0][0] for k in range(8)]
+    # past the <= 1-character gate the final is the LM's decode of the
+    # stream's slice; before it, empty
+    expect = [a if len(g) > 1 else "" for g, a in zip(greedy, alone)]
+    compared = sum(len(g) > 1 for g in greedy)
+    if len(greedy) != 8 or finals != expect or 2 * compared < len(finals):
+        raise AssertionError(f"cohort LM finals {finals!r} against {expect!r} (greedy "
+                             f"{greedy!r}, {compared} past the gate)")
+    log(f"  cohort S=8 with the synthetic 3-gram as final_decoder "
+        f"({type(decoder.for_batch(8)).__name__}): the final step {step_ms[-1]:.1f} ms "
+        f"({cat.shape[1]} frames a stream), the epoch {lm_wall:.2f} s; {compared} of 8 "
+        f"streams past the 1-character gate, their finals equal the decoder on the "
+        f"stream's slice, the rest empty [{card}]")
+    out["cohorts"] = cohorts
+    out["cohort_lm"] = {"final_step_ms": step_ms[-1], "frames": int(cat.shape[1]),
+                        "finals_compared": compared, "finals_equal": True}
+    del ms, smodel
+    torch.cuda.empty_cache()
+
+    # 9d: silence-segmented streaming over a WAV read at a microphone's pace
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "seeded.wav")
+        n_samples = seeded_wav(path, np.random.default_rng(7))
+        rec = rec_mem
+        items = []
+        listen = rec.listen_in_background
+
+        def recording(source):
+            stopper, get = listen(source)
+
+            def get_data():
+                item = get()
+                items.append(item)
+                return item
+
+            return stopper, get_data
+
+        rec.listen_in_background = recording
+        b3.launches = 0
+        rec.enable_streaming()
+        watchdog = threading.Timer(60.0, lambda: setattr(rec, "stream", False))
+        watchdog.daemon = True
+        watchdog.start()
+        t0 = time.perf_counter()
+        text = next(rec.streaming(paced_speech_file(path)))
+        wall = time.perf_counter() - t0
+        watchdog.cancel()
+        rec.disable_streaming()
+        rec.stream_thread_stopper(wait_for_stop=True)
+        listen_launches = b3.launches
+    end = next(i for i, (last, _) in enumerate(items) if last)
+    phrase = np.concatenate([a for _, a in items[:end + 1]])
+    if not text or text != rec.recognize(phrase):
+        raise AssertionError(f"streaming gave {text!r}, recognize of the phrase differs")
+    if listen_launches != config.rnn_layers:
+        raise AssertionError(f"streaming: {listen_launches} gru_bidi_fused launches, "
+                             f"expected {config.rnn_layers}")
+    b3_launches += listen_launches
+    log(f"  Recognizer.streaming over {n_samples / RATE:.1f} s of WAV at a microphone's "
+        f"pace: the phrase ({len(phrase) / RATE:.2f} s) after {wall:.2f} s, its "
+        f"transcript equal to recognize of the same samples; {listen_launches} "
+        "gru_bidi_fused launches")
+    out["listen"] = {"phrase_s": len(phrase) / RATE, "wall_s": wall,
+                     "launches": listen_launches}
+    out["launches"] = {"gru_bidi_fused": b3_launches, "gru_scan": b1_launches}
+    return out
+
+
+# ---------------------------------------------------------------------------
 # --phase-clocks: where a step of the persistent kernels spends its clocks
 # ---------------------------------------------------------------------------
 
@@ -2952,8 +3427,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels", action="store_true",
                     help="run phases 1-3 only (build and kernel checks)")
-    ap.add_argument("--lm-serving", action="store_true",
-                    help="run phases 1, 2 and 8 only (build, then serving with an LM)")
+    ap.add_argument("--only", type=int, choices=(8, 9),
+                    help="run phases 1, 2 and this one only (build, then 8: serving "
+                         "with an LM, or 9: the rest of the single-GPU surface)")
     ap.add_argument("--phase-clocks", action="store_true",
                     help="instead of the phases: build the persistent kernels with "
                          "-DPS_PROFILE and print where a step spends its clocks")
@@ -2984,11 +3460,15 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line or "error" in line:
                 log(f"  {name}: {line.strip()}")
 
-    if args.lm_serving:
-        log("phase 8: serving with a language model (host, device and auto beams)")
-        lm_run = phase_lm(card)
+    if args.only:
+        if args.only == 8:
+            log("phase 8: serving with a language model (host, device and auto beams)")
+            print(json.dumps({"lm_serving": phase_lm(card)}))
+        else:
+            log("phase 9: the rest of the single-GPU surface (.pth, mu-law, "
+                "multi-stream, listen)")
+            print(json.dumps({"surface": phase_surface(card)}))
         log(card)
-        print(json.dumps({"lm_serving": lm_run}))
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
@@ -3018,12 +3498,16 @@ def main(argv=None) -> int:
         tanh_run = phase_rnn_type(card, TANH5X800, train_steps=2, profile=True, loop=False)
         log("phase 8: serving with a language model (host, device and auto beams)")
         lm_run = phase_lm(card)
+        log("phase 9: the rest of the single-GPU surface (.pth, mu-law, multi-stream, "
+            "listen)")
+        surface = phase_surface(card)
         pair_launches = {**lstm_run["pair_launches"], **tanh_run["pair_launches"]}
         launches = {
             "gru_bidi_fused": served["launches"] + streamed["bidi_launches"]
-            + trained["launches"]["gru_bidi_fused"] + lm_run["launches"]["gru_bidi_fused"],
+            + trained["launches"]["gru_bidi_fused"] + lm_run["launches"]["gru_bidi_fused"]
+            + surface["launches"]["gru_bidi_fused"],
             "gru_scan": streamed["scan_launches"] + trained["launches"]["gru_scan"]
-            + lm_run["launches"]["gru_scan"],
+            + lm_run["launches"]["gru_scan"] + surface["launches"]["gru_scan"],
             "gru_scan_bidi": routes["launches"],
             "gru_bwd_scan": trained["launches"]["gru_bwd_scan"],
         }
@@ -3071,6 +3555,7 @@ def main(argv=None) -> int:
     ]
     if not args.kernels:
         print(json.dumps({"lm_serving": lm_run}))
+        print(json.dumps({"surface": surface}))
     log(card)  # as nvidia-smi prints it: name, power limit
     print(json.dumps({"kernels": kernels, "barrier_us": barrier["us"]}))
     print(json.dumps({"ok": True, "device": {

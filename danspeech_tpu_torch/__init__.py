@@ -5,6 +5,8 @@ Imports torch, numpy and scipy only: never JAX and nothing of
 """
 
 from .engine import DanSpeechRecognizer  # noqa: F401
+from .multistream import MultiStreamTranscriber  # noqa: F401
 from .recognizer import Recognizer  # noqa: F401
+from .utils.cache import clean_cache  # noqa: F401
 
 __version__ = "0.1.0"

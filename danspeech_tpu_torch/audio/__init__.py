@@ -1,5 +1,6 @@
-"""Host-side audio I/O: loaders, PCM containers and DSP (copies of
-``danspeech_tpu.audio``; microphone capture comes with a later slice)."""
+"""Host-side audio I/O: loaders, PCM containers, DSP and capture sources
+(copies of ``danspeech_tpu.audio``). Importing never needs PyAudio;
+constructing a :class:`Microphone` does."""
 
 from .io import (  # noqa: F401
     AudioData,
@@ -9,3 +10,4 @@ from .io import (  # noqa: F401
     load_audio_pcm16,
     load_audio_wavPCM,
 )
+from .microphone import Microphone  # noqa: F401

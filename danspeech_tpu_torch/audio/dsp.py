@@ -1,8 +1,9 @@
 """Host-side PCM helpers (numpy) in place of the removed ``audioop`` module.
 
-A copy of the parts of ``danspeech_tpu.audio.dsp`` that the audio loaders
-use: PCM decode/encode, RMS, byteswap, stereo downmix, bias, sample-width
-and linear sample-rate conversion, each matching ``audioop``.
+A copy of ``danspeech_tpu.audio.dsp``: PCM decode/encode, RMS, byteswap,
+stereo downmix, bias, sample-width and linear sample-rate conversion, each
+matching ``audioop``; polyphase resampling, energy and an energy VAD; and
+the G.711 mu-law codec of the engine's ``transfer_format="ulaw"``.
 """
 
 from __future__ import annotations
@@ -127,3 +128,104 @@ def ratecv_linear(
     frac = (pos - idx)[:, None]
     out = samples[idx] * (1.0 - frac) + samples[nxt] * frac
     return int_array_to_pcm(np.round(out).reshape(-1), sample_width)
+
+
+def resample_poly(x: np.ndarray, inrate: int, outrate: int) -> np.ndarray:
+    """High-quality polyphase resampling of a float waveform.
+
+    Preferred over linear interpolation when loading non-16 kHz files for
+    recognition (the reference only offers audioop's linear ratecv).
+    """
+    from math import gcd
+
+    from scipy.signal import resample_poly as _rp
+
+    g = gcd(inrate, outrate)
+    return _rp(np.asarray(x, dtype=np.float64), outrate // g, inrate // g)
+
+
+def energy(x: np.ndarray) -> float:
+    """RMS energy of a float waveform (video_transcribe_simulation.py:106 parity)."""
+    x = np.asarray(x, dtype=np.float64)
+    if x.size == 0:
+        return 0.0
+    return float(np.sqrt(np.mean(x * x)))
+
+
+def energy_vad_segments(
+    x: np.ndarray,
+    sample_rate: int = 16000,
+    step: int = 1024,
+    energy_threshold: float = 700.0,
+    max_pause_steps: int = 12,
+    min_segment_samples: int | None = None,
+) -> list[tuple[int, int]]:
+    """Energy-endpointed (start, end) sample ranges of speech in a long
+    recording — the hand-rolled VAD loop of the reference's long-form
+    script (video_transcribe_simulation.py:100-143) as a reusable utility.
+
+    Walks ``x`` in ``step``-sample hops; a hop is "speaking" when its RMS
+    exceeds ``energy_threshold``; ``max_pause_steps`` silent hops end a
+    segment; segments shorter than ``min_segment_samples`` (default 1 s)
+    are dropped.
+
+    ``x`` is expected at int16 sample scale — what every loader in
+    :mod:`danspeech_tpu_torch.audio` returns and what the reference's energy
+    loop thresholds (video_transcribe_simulation.py:99-101 computes RMS
+    of raw ``load_audio`` samples against the default 700). A [-1, 1]
+    normalized waveform must be scaled by 32767 by the caller (an earlier
+    version scaled internally, which made every int16-scale hop read as
+    speech and collapsed long recordings into one giant segment).
+    """
+    if min_segment_samples is None:
+        min_segment_samples = sample_rate
+    segments = []
+    start = None
+    pause = 0
+    for it in range(0, max(0, len(x) - step), step):
+        chunk = np.asarray(x[it : it + step], dtype=np.float64)
+        speaking = float(np.sqrt(np.mean(chunk * chunk))) > energy_threshold
+        if start is None:
+            if speaking:
+                start, pause = it, 0
+        elif speaking:
+            pause = 0
+        else:
+            pause += 1
+            if pause > max_pause_steps:
+                if it - start > min_segment_samples:
+                    segments.append((start, it))
+                start = None
+    if start is not None and len(x) - start > min_segment_samples:
+        segments.append((start, len(x)))
+    return segments
+
+
+def ulaw_encode(x: np.ndarray) -> np.ndarray:
+    """G.711 mu-law encode int16 samples -> uint8 codes.
+
+    Bit-exact with CPython's ``audioop.lin2ulaw(..., 2)`` (14-bit internal
+    representation, arithmetic pre-shift). Used by the engine's opt-in
+    ``transfer_format="ulaw"`` serving mode: one byte per sample over the
+    host->device link, decoded on the device with the bit arithmetic of
+    :func:`ulaw_decode_table` (``engine.ulaw_decode``).
+    """
+    x = np.asarray(x, np.int16).astype(np.int32) >> 2  # 14-bit, floor shift
+    mask = np.where(x < 0, 0x7F, 0xFF)
+    mag = np.where(x < 0, -x, x)
+    mag = np.minimum(mag, 8159) + 33
+    exp = np.frexp(mag.astype(np.float64))[1] - 6  # segment 0..8
+    seg = np.minimum(exp, 7)
+    uval = (seg << 4) | ((mag >> (seg + 1)) & 0xF)
+    uval = np.where(exp >= 8, 0x7F, uval)
+    return (uval ^ mask).astype(np.uint8)
+
+
+def ulaw_decode_table() -> np.ndarray:
+    """The 256-entry mu-law -> int16 decode table (audioop.ulaw2lin parity)."""
+    code = (~np.arange(256, dtype=np.int32)) & 0xFF
+    sign = code & 0x80
+    exp = (code >> 4) & 7
+    mant = code & 0x0F
+    mag = (((mant << 3) + 0x84) << exp) - 0x84
+    return np.where(sign, -mag, mag).astype(np.int16)

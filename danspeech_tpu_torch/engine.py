@@ -17,9 +17,11 @@ CHUNK_BUCKET multiple and runs the masked chunk step
 chunk, and on the final chunk either a secondary model re-transcribes the
 whole stream or the LM decoder re-decodes the stream's probabilities.
 
-The device is CUDA unless the caller passes ``device="cpu"``. Mu-law
-staging, the sharded beam and long-form transcription come with later
-slices.
+The device is CUDA unless the caller passes ``device="cpu"``. With
+``transfer_format="ulaw"`` the rows cross as G.711 mu-law bytes, one a
+sample, and :func:`ulaw_decode` turns them back into samples on the device.
+The sharded beam and long-form transcription come with the parallelism
+slice.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import warnings
 import numpy as np
 import torch
 
+from .audio.dsp import ulaw_encode
 from .decode.beam import BeamCTCDecoder
 from .decode.beam_auto import AutoBeamDecoder
 from .decode.device_beam import DeviceBeamDecoder
@@ -71,6 +74,24 @@ def _resolve_compute_dtype(compute_dtype: str, device: torch.device) -> str:
     return compute_dtype
 
 
+# the mu-law code of a zero sample (0xFF): what pads a staged row's tail
+# (code 0 would decode to -32124)
+ULAW_ZERO = int(ulaw_encode(np.zeros(1, np.int16))[0])
+
+
+def ulaw_decode(codes: torch.Tensor) -> torch.Tensor:
+    """G.711 mu-law bytes -> float32 samples, on the tensor's device.
+
+    The int32 bit arithmetic of ``audio/dsp.py:ulaw_decode_table``
+    (``audioop.ulaw2lin`` parity), elementwise rather than a table gather,
+    as the JAX engine decodes."""
+    code = (~codes.to(torch.int32)) & 0xFF
+    exp = (code >> 4) & 7
+    mant = code & 0x0F
+    mag = (((mant << 3) + 0x84) << exp) - 0x84
+    return torch.where((code & 0x80) != 0, -mag, mag).to(torch.float32)
+
+
 def _to_host_async(t: torch.Tensor):
     """Start a device-to-host copy without blocking: (host tensor, event),
     the copy into pinned memory and the CUDA event recorded after it, or
@@ -111,11 +132,12 @@ class DanSpeechRecognizer:
         transfer_format: str = "auto",
         device=None,
     ):
-        if transfer_format == "ulaw":
-            raise NotImplementedError(
-                "transfer_format='ulaw' comes with a later slice"
-            )
-        if transfer_format != "auto":
+        # "auto": int16 PCM rows stage as they are (float32 otherwise), exact.
+        # "ulaw": opt-in and lossy, one byte a sample over the host-device
+        # link (G.711 mu-law, audio/dsp.py), decoded on the device by
+        # ulaw_decode; the output equals the "auto" path fed mu-law
+        # round-tripped audio
+        if transfer_format not in ("auto", "ulaw"):
             raise ValueError(f"unknown transfer_format: {transfer_format!r}")
         self.transfer_format = transfer_format
         self.device = _resolve_device(device)
@@ -285,9 +307,11 @@ class DanSpeechRecognizer:
 
     @torch.inference_mode()
     def _forward(self, params, waveforms, lengths, rnn_impl: str = "auto"):
-        """(rows, n) int16/float32 waveforms on the device -> ((rows, T', C)
-        probabilities, (rows,) output lengths)."""
+        """(rows, n) int16/float32 waveforms, or uint8 mu-law codes, on the
+        device -> ((rows, T', C) probabilities, (rows,) output lengths)."""
         parser = self.audio_parser
+        if waveforms.dtype == torch.uint8:
+            waveforms = ulaw_decode(waveforms)
         spect, frame_lens = stft_ops.batched_log_spectrogram(
             waveforms.float(), lengths, parser.n_fft, parser.hop_length,
             self._window, normalize=parser.normalize,
@@ -374,9 +398,25 @@ class DanSpeechRecognizer:
     def _stage_group(self, recordings, chunk, maxlen):
         """Build the (rows, maxlen) host batch for one dispatch group: rows
         padded to a power of two, int16 when every input is int16 PCM
-        (half the upload bytes; the device casts), else float32. Pad rows
-        take a real row's length; their outputs are dropped."""
+        (half the upload bytes; the device casts), else float32; uint8
+        mu-law codes with ``transfer_format="ulaw"``, float rows rounded to
+        int16 first. Pad rows take a real row's length; their outputs are
+        dropped."""
         rows = self._row_quantum(len(chunk))
+        if self.transfer_format == "ulaw":
+            buf = self._staging_buffer((rows, maxlen), torch.uint8)
+            batch = buf.numpy()
+            lengths = np.empty((rows,), dtype=np.int32)
+            for j, i in enumerate(chunk):
+                r = recordings[i]
+                if r.dtype != np.int16:
+                    r = np.clip(np.round(r), -32768, 32767).astype(np.int16)
+                batch[j, : len(r)] = ulaw_encode(r)
+                batch[j, len(r) :] = ULAW_ZERO
+                lengths[j] = len(r)
+            batch[len(chunk) :] = ULAW_ZERO  # silent pad rows, as int16's zeros
+            lengths[len(chunk) :] = lengths[0]
+            return buf, lengths
         int16 = all(recordings[i].dtype == np.int16 for i in chunk)
         buf = self._staging_buffer(
             (rows, maxlen), torch.int16 if int16 else torch.float32

@@ -48,17 +48,24 @@ class DeepSpeechModel:
 
     @classmethod
     def load_model(cls, path) -> "DeepSpeechModel":
-        """Load a native ``.dsz`` checkpoint."""
-        from .checkpoint import load_checkpoint
+        """Load a native ``.dsz`` checkpoint, or else a zoo ``.pth`` package
+        (zip or legacy format; loading executes no code)."""
+        from .checkpoint import load_checkpoint, load_reference_checkpoint
 
         p = str(path)
-        if not p.endswith(".dsz"):
-            raise NotImplementedError(
-                f"{p}: only .dsz checkpoints load so far; the original .pth "
-                "packages come with a later slice"
-            )
-        config, params = load_checkpoint(p)
+        if p.endswith(".dsz"):
+            config, params = load_checkpoint(p)
+        else:
+            config, params = load_reference_checkpoint(p)
         return cls(config, params)
+
+    @classmethod
+    def load_model_package(cls, package: dict) -> "DeepSpeechModel":
+        """A model from an already loaded package dict."""
+        from .checkpoint import config_from_package, params_from_state_dict
+
+        config = config_from_package(package)
+        return cls(config, params_from_state_dict(package["state_dict"], config))
 
     @classmethod
     def init_random(cls, config: DeepSpeechConfig, seed: int = 0) -> "DeepSpeechModel":
@@ -69,3 +76,6 @@ class DeepSpeechModel:
 
         save_checkpoint(path, self.config, self.params)
 
+
+# the original package exposes the model class as ``DeepSpeech``
+DeepSpeech = DeepSpeechModel

@@ -4,9 +4,15 @@ The port of ``danspeech_tpu/models/checkpoint.py``. Parameters cross
 between the two packages, and to and from disk, as a reference-named
 state_dict of numpy arrays (the original danspeech ``DeepSpeech`` module's
 key names, RNN weights in torch's (G·H, I) layout, G = 3, 4 or 1 for
-``rnn_type`` "gru", "lstm" or "rnn"). The native ``.dsz``
-format is that dict as an ``.npz`` plus a JSON config inside one zip.
-Loading the original ``.pth`` zoo packages waits for a later slice.
+``rnn_type`` "gru", "lstm" or "rnn"). Two formats on disk funnel through
+:func:`params_from_state_dict`:
+
+1. the zoo's ``.pth`` packages (the original ``DeepSpeech.load_model``
+   layout: hyperparameters beside a ``state_dict``), read by
+   :func:`~.torch_pickle.torch_load` (``torch.load`` with
+   ``weights_only=True``);
+2. the native ``.dsz`` format: that dict as an ``.npz`` plus a JSON config
+   inside one zip.
 """
 
 from __future__ import annotations
@@ -21,10 +27,20 @@ import torch
 from ..ops.conv import BatchNormParams, ConvParams, LinearParams, LookaheadParams
 from .config import DeepSpeechConfig
 from .deepspeech import RNN_WEIGHTS_CLS, Params
+from .torch_pickle import torch_load
 
 
 def _t(x, dtype=torch.float32) -> torch.Tensor:
     return torch.from_numpy(np.array(x, dtype=np.float32, copy=True)).to(dtype)
+
+
+def _numpy(v) -> np.ndarray:
+    """A state_dict value as numpy; floating tensors (bf16 included) as
+    float32."""
+    if isinstance(v, torch.Tensor):
+        v = v.detach().cpu()
+        return (v.float() if v.is_floating_point() else v).numpy()
+    return np.asarray(v)
 
 
 def params_from_state_dict(
@@ -38,8 +54,11 @@ def params_from_state_dict(
     ``rnns.k.batch_norm.module.*`` for k >= 1; lookahead at
     ``lookahead.0.conv.weight`` (batch) or ``lookahead.conv.weight``
     (streaming); head at ``fc.0.module.{0,1}``.
+    Values may be numpy arrays or CPU tensors of any floating dtype (a
+    package's tensors); keys nothing reads, such as BatchNorm's
+    ``num_batches_tracked``, are ignored.
     """
-    sd = {k: np.asarray(v) for k, v in state_dict.items()}
+    sd = {k: _numpy(v) for k, v in state_dict.items()}
 
     convs = []
     for i in range(config.conv_layers):
@@ -144,6 +163,33 @@ def state_dict_from_params(params: Params, config: DeepSpeechConfig) -> dict:
     sd["fc.0.module.0.running_var"] = n(params["fc_bn"].var)
     sd["fc.0.module.1.weight"] = n(params["fc"].weight)
     return sd
+
+
+def config_from_package(package: dict) -> DeepSpeechConfig:
+    """A config from a package's hyperparameters (the keys the original
+    ``DeepSpeech.load_model`` reads; labels as a string or a list)."""
+    labels = package["labels"]
+    if isinstance(labels, (list, tuple)):
+        labels = "".join(labels)
+    return DeepSpeechConfig(
+        model_name=str(package["model_name"]),
+        rnn_hidden_size=int(package["rnn_hidden_size"]),
+        rnn_layers=int(package["rnn_layers"]),
+        labels=str(labels),
+        audio_conf=dict(package["audio_conf"]),
+        rnn_type=str(package["rnn_type"]),
+        bidirectional=bool(package["bidirectional"]),
+        conv_layers=int(package["conv_layers"]),
+        context=int(package["context"]),
+        streaming_model=bool(package["streaming_model"]),
+    )
+
+
+def load_reference_checkpoint(path) -> tuple[DeepSpeechConfig, Params]:
+    """Load a zoo ``.pth`` package (zip or legacy format) onto the CPU."""
+    package = torch_load(path)
+    config = config_from_package(package)
+    return config, params_from_state_dict(package["state_dict"], config)
 
 
 # ---------------------------------------------------------------------------

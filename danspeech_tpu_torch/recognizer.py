@@ -1,17 +1,22 @@
-"""Public Recognizer API: batch recognition and real-time streaming.
+"""Public Recognizer API: batch recognition, VAD listen loops and
+real-time streaming.
 
 The port of ``danspeech_tpu/recognizer.py``: the same constructor, tuning
 attributes, ``recognize`` / ``recognize_batch`` / ``update_model`` /
-``update_decoder`` (greedy or an LM-fused beam on the host or the device), the
-streaming listener (``listen_stream``, ``listen_in_background``, whose
-chunks pass through a thread-safe queue) and real-time chunked streaming
-(``enable_real_time_streaming`` / ``real_time_streaming``). The blocking
-``listen``, silence-segmented ``streaming`` and the ``adjust_*``
-calibrations come with a later slice.
+``update_decoder`` (greedy or an LM-fused beam on the host or the device),
+the blocking energy-endpointed ``listen``, the streaming listener
+(``listen_stream``, ``listen_in_background``, whose chunks pass through a
+thread-safe queue), silence-segmented ``streaming``, real-time chunked
+streaming (``enable_real_time_streaming`` / ``real_time_streaming``) and
+the microphone calibrations (``adjust_for_speech``,
+``adjust_for_ambient_noise``, ``update_stream_parameters``).
+``recognize_long_form`` rides the parallelism slice (ROADMAP A13) and
+raises until then.
 """
 
 from __future__ import annotations
 
+import collections
 import math
 import queue
 import threading
@@ -64,6 +69,8 @@ class Recognizer:
                 )
             self.update_decoder(lm=lm)
 
+        self.microphone = None
+
     def recognize(self, audio_data, show_all: bool = False):
         """Transcribe one waveform."""
         return self.danspeech_recognizer.transcribe(audio_data, show_all=show_all)
@@ -89,6 +96,99 @@ class Recognizer:
             lm=lm, alpha=alpha, beta=beta, beam_width=beam_width,
             backend=backend, mesh=mesh,
         )
+
+    def recognize_long_form(self, audio_data, mesh=None):
+        """Transcribe one long utterance with its time axis sharded over
+        devices: not ported yet."""
+        raise NotImplementedError(
+            "recognize_long_form rides the time-sharded forward of the "
+            "parallelism slice (ROADMAP A13)"
+        )
+
+    # ------------------------------------------------------------------
+    # Blocking listen
+    # ------------------------------------------------------------------
+
+    def listen(self, source, timeout=None, phrase_time_limit=None) -> AudioData:
+        """Block until one energy-endpointed phrase is captured."""
+        assert isinstance(source, SpeechSource), "Source must be an audio source"
+        assert source.stream is not None, (
+            "Audio source must be entered before listening: use it inside a "
+            "``with`` statement"
+        )
+        assert self.pause_threshold >= self.non_speaking_duration >= 0
+
+        seconds_per_buffer = float(source.chunk) / source.sampling_rate
+        pause_buffer_count = int(math.ceil(self.pause_threshold / seconds_per_buffer))
+        phrase_buffer_count = int(math.ceil(self.phrase_threshold / seconds_per_buffer))
+        non_speaking_buffer_count = int(
+            math.ceil(self.non_speaking_duration / seconds_per_buffer)
+        )
+
+        elapsed_time = 0.0
+        while True:
+            frames = collections.deque()
+
+            # wait for the phrase to start
+            while True:
+                elapsed_time += seconds_per_buffer
+                if timeout and elapsed_time > timeout:
+                    raise WaitTimeoutError(
+                        "listening timed out while waiting for phrase to start"
+                    )
+                buffer = source.stream.read(source.chunk)
+                if len(buffer) == 0:
+                    break
+                frames.append(buffer)
+                if len(frames) > non_speaking_buffer_count:
+                    frames.popleft()
+
+                energy = rms(buffer, source.sampling_width)
+                if energy > self.energy_threshold:
+                    break
+
+                if self.dynamic_energy_threshold:
+                    damping = (
+                        self.dynamic_energy_adjustment_damping ** seconds_per_buffer
+                    )
+                    target_energy = energy * self.dynamic_energy_ratio
+                    self.energy_threshold = (
+                        self.energy_threshold * damping
+                        + target_energy * (1 - damping)
+                    )
+
+            # capture until the phrase ends
+            pause_count, phrase_count = 0, 0
+            phrase_start_time = elapsed_time
+            while True:
+                elapsed_time += seconds_per_buffer
+                if (
+                    phrase_time_limit
+                    and elapsed_time - phrase_start_time > phrase_time_limit
+                ):
+                    break
+                buffer = source.stream.read(source.chunk)
+                if len(buffer) == 0:
+                    break
+                frames.append(buffer)
+                phrase_count += 1
+
+                energy = rms(buffer, source.sampling_width)
+                if energy > self.energy_threshold:
+                    pause_count = 0
+                else:
+                    pause_count += 1
+                if pause_count > pause_buffer_count:
+                    break
+
+            phrase_count -= pause_count
+            if phrase_count >= phrase_buffer_count or len(buffer) == 0:
+                break
+
+        for _ in range(pause_count - non_speaking_buffer_count):
+            frames.pop()
+        frame_data = b"".join(frames)
+        return AudioData(frame_data, source.sampling_rate, source.sampling_width)
 
     # ------------------------------------------------------------------
     # Streaming listener
@@ -223,6 +323,63 @@ class Recognizer:
         return stopper, get_data
 
     # ------------------------------------------------------------------
+    # Silence-segmented streaming
+    # ------------------------------------------------------------------
+
+    def enable_streaming(self):
+        if self.stream:
+            print("Streaming already enabled...")
+        else:
+            self.stream = True
+
+    def disable_streaming(self):
+        """Stop a silence-segmented stream. As in the JAX package (and the
+        original), on a recognizer that is not streaming this *enables*
+        streaming instead (ROADMAP C17); a stream whose listener never
+        started stops without calling a stopper."""
+        if self.stream:
+            self.stream = False
+            if self.stream_thread_stopper is not None:  # a listener was started
+                self.stream_thread_stopper(wait_for_stop=False)
+        else:
+            self.stream = True
+
+    def streaming(self, source):
+        """Generator: one transcript per phrase between detected silences
+        of ``source``, each ``recognize`` of the phrase's samples; phrases no
+        longer than ``mininum_required_speaking_seconds`` are skipped."""
+        stopper, data_getter = self.listen_in_background(source)
+        self.stream_thread_stopper = stopper
+
+        is_last = False
+        is_first_data = False
+        data_array = []
+
+        while self.stream:
+            while True:
+                if is_last:
+                    is_first_data = True
+                    break
+                try:
+                    if is_first_data:
+                        is_last, data_array = data_getter()
+                        is_first_data = False
+                    else:
+                        is_last, temp = data_getter()
+                        data_array = np.concatenate((data_array, temp))
+                except NoDataInBuffer:
+                    time.sleep(0.2)
+
+            if (
+                len(data_array)
+                > self.mininum_required_speaking_seconds * source.sampling_rate
+            ):
+                yield self.recognize(data_array)
+
+            is_last = False
+            data_array = []
+
+    # ------------------------------------------------------------------
     # Real-time chunked streaming
     # ------------------------------------------------------------------
 
@@ -336,3 +493,69 @@ class Recognizer:
                 is_first_pass = True
                 is_last = False
                 output = None
+
+    # ------------------------------------------------------------------
+    # Microphone calibration
+    # ------------------------------------------------------------------
+
+    def adjust_for_speech(self, source, duration=4):
+        """Calibrate the energy threshold while the user talks: the mean
+        RMS of ``duration`` seconds of buffers, less 80 where it exceeds 80."""
+        assert isinstance(source, SpeechSource), "Source must be an audio source"
+        assert source.stream is not None
+        assert self.pause_threshold >= self.non_speaking_duration >= 0
+
+        seconds_per_buffer = (source.chunk + 0.0) / source.sampling_rate
+        elapsed_time = 0.0
+        energy_levels = []
+        while True:
+            elapsed_time += seconds_per_buffer
+            if elapsed_time > duration:
+                break
+            buffer = source.stream.read(source.chunk)
+            energy_levels.append(rms(buffer, source.sampling_width))
+
+        energy_average = sum(energy_levels) / len(energy_levels)
+        if energy_average > 80:
+            self.energy_threshold = energy_average - 80
+        else:
+            self.energy_threshold = energy_average
+
+    def adjust_for_ambient_noise(self, source, duration=2):
+        """Calibrate the energy threshold from background noise only: the
+        dynamic threshold's damped update over ``duration`` seconds."""
+        assert isinstance(source, SpeechSource), "Source must be an audio source"
+        assert source.stream is not None
+        assert self.pause_threshold >= self.non_speaking_duration >= 0
+
+        seconds_per_buffer = (source.chunk + 0.0) / source.sampling_rate
+        elapsed_time = 0.0
+        while True:
+            elapsed_time += seconds_per_buffer
+            if elapsed_time > duration:
+                break
+            buffer = source.stream.read(source.chunk)
+            energy = rms(buffer, source.sampling_width)
+            damping = self.dynamic_energy_adjustment_damping ** seconds_per_buffer
+            target_energy = energy * self.dynamic_energy_ratio
+            self.energy_threshold = (
+                self.energy_threshold * damping + target_energy * (1 - damping)
+            )
+
+    def update_stream_parameters(
+        self,
+        energy_threshold=None,
+        pause_threshold=None,
+        phrase_threshold=None,
+        non_speaing_duration=None,
+    ):
+        """Tune the VAD parameters (the original's argument names, its
+        misspelling included); ``None`` or 0 keeps a value."""
+        if energy_threshold:
+            self.energy_threshold = energy_threshold
+        if pause_threshold:
+            self.pause_threshold = pause_threshold
+        if phrase_threshold:
+            self.phrase_threshold = phrase_threshold
+        if non_speaing_duration:
+            self.non_speaking_duration = non_speaing_duration

@@ -4,7 +4,7 @@ The flags of ``python -m danspeech_tpu.train`` plus ``--device``. Three
 modes mirror the three wrappers:
 
   train:     python -m danspeech_tpu_torch.train --manifest train.csv
-  finetune:  ... --finetune-from model.dsz --freeze-layers 2
+  finetune:  ... --finetune-from model.pth --freeze-layers 2
   continue:  ... --resume-dir ckpts/
 
 Training runs on CUDA unless ``--device cpu`` is given.
@@ -43,7 +43,7 @@ def main(argv=None):
     ap.add_argument("--conv-layers", type=int, default=2)
     ap.add_argument("--unidirectional", action="store_true")
     ap.add_argument("--finetune-from", default=None,
-                    help="inference checkpoint (.dsz) to start from")
+                    help="inference checkpoint (.pth or .dsz) to start from")
     ap.add_argument("--freeze-layers", type=int, default=0)
     ap.add_argument("--resume-dir", default=None,
                     help="checkpoint dir to continue from")

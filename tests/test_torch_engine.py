@@ -89,7 +89,7 @@ def test_unported_options_raise(engines):
         teng.update_decoder(backend="sharded")
     with pytest.raises(NotImplementedError):
         teng.update_decoder(mesh=object())
-    with pytest.raises(NotImplementedError):
-        TRecognizerEngine(device="cpu", transfer_format="ulaw")
+    with pytest.raises(ValueError):
+        TRecognizerEngine(device="cpu", transfer_format="alaw")
     with pytest.raises(ValueError):
         TRecognizerEngine(device="cpu", compute_dtype="float16")

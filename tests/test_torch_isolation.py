@@ -28,8 +28,12 @@ def test_package_imports_no_jax():
         "missing = [n for n in need if 'danspeech_tpu_torch.train.' + n "
         "not in sys.modules]\n"
         "assert not missing, missing\n"
+        "for n in ('audio.microphone', 'utils.profiling', 'utils.cache', "
+        "'utils.logging', 'multistream', 'pretrained_models', "
+        "'language_models', 'models.torch_pickle'):\n"
+        "    assert 'danspeech_tpu_torch.' + n in sys.modules, n\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'optax', 'orbax', 'danspeech_tpu')]\n"
+        "('jax', 'jaxlib', 'optax', 'orbax', 'danspeech_tpu', 'pyaudio')]\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )
@@ -48,6 +52,25 @@ def test_default_device_is_cuda():
             TRecognizerEngine()
         with pytest.raises(RuntimeError, match="no CUDA device"):
             TRecognizer()
+
+
+def test_model_entry_points_default_to_cuda():
+    """A recognizer given a model and the multi-stream transcriber run on
+    CUDA when no device is named: without a GPU both raise."""
+    from danspeech_tpu_torch import MultiStreamTranscriber
+    from danspeech_tpu_torch.models import DeepSpeechModel
+    from danspeech_tpu_torch.models.config import DeepSpeechConfig
+
+    model = DeepSpeechModel.init_random(DeepSpeechConfig(
+        rnn_hidden_size=8, rnn_layers=1, conv_layers=2, bidirectional=False))
+    if torch.cuda.is_available():
+        assert MultiStreamTranscriber(model, n_streams=2).device.type == "cuda"
+        assert TRecognizer(model=model).danspeech_recognizer.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            MultiStreamTranscriber(model, n_streams=2)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            TRecognizer(model=model)
 
 
 FOREIGN = {"jax", "jaxlib", "optax", "orbax", "danspeech_tpu"}

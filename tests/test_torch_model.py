@@ -107,7 +107,8 @@ def test_dsz_checkpoints_cross_both_ways(tmp_path):
     ):
         for k in ref:
             np.testing.assert_array_equal(np.asarray(sd[k]), np.asarray(ref[k]), err_msg=k)
-    with pytest.raises(NotImplementedError):
+    # a name that does not end in .dsz is read as a .pth package
+    with pytest.raises(FileNotFoundError):
         TModel.load_model(str(tmp_path / "x.pth"))
 
 

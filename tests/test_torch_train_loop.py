@@ -238,6 +238,30 @@ def test_cli_trains_and_exports_on_the_cpu(corpus, tmp_path, capsys):
         cli_main(["--manifest", corpus, "--data-parallel", "--device", "cpu"])
 
 
+def test_cli_finetunes_from_a_pth_package(corpus, tmp_path, capsys):
+    """--finetune-from takes a zoo .pth package (the original key layout,
+    written with torch.save): the run starts from its weights and exports
+    a model of its shape."""
+    from danspeech_tpu.models.config import DeepSpeechConfig as JConfig
+    from test_checkpoint import make_package
+
+    package = make_package(JConfig(model_name="zoo", rnn_hidden_size=16,
+                                   rnn_layers=1, conv_layers=1), seed=2)
+    pth, out = tmp_path / "zoo.pth", tmp_path / "tuned.dsz"
+    torch.save(package, str(pth), _use_new_zipfile_serialization=False)
+    start = TModel.load_model(str(pth))
+    cli_main(["--manifest", corpus, "--epochs", "1", "--batch-size", "8",
+              "--finetune-from", str(pth), "--freeze-layers", "1", "--no-augment",
+              "--export", str(out), "--device", "cpu"])
+    assert "exported" in capsys.readouterr().out
+    tuned = TModel.load_model(str(out))
+    assert tuned.config.to_dict() == start.config.to_dict()
+    # the frozen conv layer kept the package's weights; the head moved
+    torch.testing.assert_close(tuned.params["conv"][0].weight,
+                               start.params["conv"][0].weight, rtol=0, atol=0)
+    assert not torch.equal(tuned.params["fc"].weight, start.params["fc"].weight)
+
+
 def test_train_refusals(corpus):
     config = TConfig(**SMALL)
     if not torch.cuda.is_available():

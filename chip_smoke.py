@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py            # every phase, needs one CUDA card
     python3 chip_smoke.py --kernels  # phases 1-3 only (build + kernel checks)
-    python3 chip_smoke.py --only 8  # phases 1, 2 and 8 only (or 9)
+    python3 chip_smoke.py --only 8  # phases 1, 2 and 8 only (or 9, or 10)
     python3 chip_smoke.py --phase-clocks  # where a persistent kernel's step
                                           # spends its clocks (-DPS_PROFILE build)
 
@@ -99,7 +99,25 @@ Phases, in order; any failure exits non-zero:
    re-decodes with the synthetic 3-gram; ``Recognizer.streaming`` over
    phase 5's WAV read at a microphone's pace, the phrase's transcript
    against ``recognize`` of its samples; one ``{"surface": ...}`` line;
-10. one ``{"kernels": [...]}`` line of nine entries, then the device line as
+10. parallelism (``danspeech_tpu_torch/parallel``, ``decode/dist_beam.py``):
+    at world size 1 (``make_mesh()``: this process alone, NCCL on cuda:0),
+    ``ShardedTranscriber`` on the flagship over phase 4's 128 waveforms
+    (transcripts equal ``recognize_batch``'s in one dispatch group, every
+    row against the plain GRU), ``PipelinedTranscriber`` with three stages
+    on cuda:0 against it, ``Recognizer.recognize_long_form`` on a seeded
+    60 s waveform on the flagship (9 ``gru_scan_bidi`` launches) and on
+    GPUStreamingRNN (5 ``gru_scan``), each against ``forward`` on the plain
+    GRU, and the sharded beam (phase 8's 3-gram, B=8, T=401, beam 64)
+    against the device beam; then two spawned gloo ranks on cuda:0
+    (exchanges staged through host memory): the same long forms (per rank
+    18 and 5 ``gru_scan`` launches) against world size 1, TP direction mode
+    (9 ``gru_scan`` a rank) and hidden mode against ``forward``, the sharded
+    beam against world size 1, and one data-parallel train step of the
+    flagship at B=32 (16 rows a rank) against one rank on all 32 rows (loss
+    within 1e-3 relative, gradients within 5e-2 relative L2 per group). The
+    fc weights are scaled x128 (``COHORT_HEAD_GAIN``) and every row is held
+    on its own; one ``{"parallel": ...}`` line;
+11. one ``{"kernels": [...]}`` line of nine entries, then the device line as
    the last line.
 
 Imports no JAX and nothing of ``danspeech_tpu``.
@@ -3258,6 +3276,560 @@ def phase_surface(card):
 
 
 # ---------------------------------------------------------------------------
+# Phase 10: parallelism (danspeech_tpu_torch/parallel, decode/dist_beam.py)
+# ---------------------------------------------------------------------------
+
+LONG_FORM_S = 60.0  # the long-form utterance: T' = 3000 frames
+TP_ROWS = 4  # the TP check's batch, 2-4 s a row
+PAR_RANKS = 2  # gloo ranks that share the card
+PAR_DEADLINE_S = 420.0
+PIPE_STAGES, PIPE_MICRO = 3, 32
+TRAIN_LOSS_REL = 1e-3
+
+
+def sharpened(model):
+    """``model`` with its fc weight scaled by COHORT_HEAD_GAIN (the other
+    tensors shared), so a wrong state moves the probabilities by tenths."""
+    from danspeech_tpu_torch.models import DeepSpeechModel
+
+    params = dict(model.params)
+    params["fc"] = params["fc"]._replace(weight=params["fc"].weight * COHORT_HEAD_GAIN)
+    return DeepSpeechModel(model.config, params)
+
+
+PAR_FAILURES: list = []
+
+
+def fail(msg: str) -> None:
+    """Record a failed check of phase 10 and go on with the next one; the
+    phase raises at its end when any failed."""
+    log(f"  FAILED: {msg}")
+    PAR_FAILURES.append(msg)
+
+
+def compare_rows(label, probs, ref, lens):
+    """Each row over its valid frames: max|dprob| <= PROB_ATOL and frame
+    argmax agreement >= ARGMAX_AGREEMENT_MIN, row by row, never pooled."""
+    probs, ref = torch.as_tensor(probs).float().cpu(), torch.as_tensor(ref).float().cpu()
+    lens = [int(n) for n in torch.as_tensor(lens).cpu().tolist()]
+    worst, least, frames, top = 0.0, 1.0, 0, []
+    for r, n in enumerate(lens):
+        p, q = probs[r, :n], ref[r, :n]
+        if not torch.isfinite(p).all():
+            fail(f"{label}: row {r}: non-finite probabilities")
+        diff = float((p - q).abs().max())
+        agree = float((p.argmax(-1) == q.argmax(-1)).float().mean())
+        worst, least, frames = max(worst, diff), min(least, agree), frames + n
+        top.append(float(q.max(-1).values.mean()))
+        if diff > PROB_ATOL or agree < ARGMAX_AGREEMENT_MIN:
+            fail(f"{label}: row {r} ({n} frames): max|dprob| {diff:.3e}, argmax "
+                 f"agreement {agree:.5f}")
+    log(f"  {label}: {len(lens)} rows, {frames} frames, each row: max|dprob| <= "
+        f"{worst:.3e} (<= {PROB_ATOL}), argmax agreement >= {least:.5f} (>= "
+        f"{ARGMAX_AGREEMENT_MIN}); mean top probability {np.mean(top):.4f}")
+    return {"rows": len(lens), "frames": frames, "max_abs_prob_err": worst,
+            "least_row_argmax_agreement": least}
+
+
+def long_wave(seed=30):
+    rng = np.random.default_rng(seed)
+    return np.clip(rng.normal(size=int(LONG_FORM_S * RATE)) * 3000, -32768,
+                   32767).astype(np.int16)
+
+
+def tp_waves(seed=31):
+    return seeded_waveforms(np.random.default_rng(seed), TP_ROWS, 2.0, 4.0)
+
+
+def padded_spect(model, waves, device):
+    """(spect (B, 1, F, T), frame lengths) of int16 waveforms padded to one
+    16000-sample bucket, on ``device``."""
+    from danspeech_tpu_torch.features.spectrogram import SpectrogramAudioParser
+    from danspeech_tpu_torch.ops import stft as stft_ops
+
+    parser = SpectrogramAudioParser(model.audio_conf)
+    maxlen = -(-max(len(w) for w in waves) // 16000) * 16000
+    batch = np.zeros((len(waves), maxlen), np.float32)
+    for r, w in enumerate(waves):
+        batch[r, : len(w)] = w
+    spect, frames = stft_ops.batched_log_spectrogram(
+        torch.from_numpy(batch).to(device), torch.tensor([len(w) for w in waves]).to(device),
+        parser.n_fft, parser.hop_length, parser.window.to(device), normalize=parser.normalize)
+    return spect[:, None], frames
+
+
+def par_lm(path):
+    from danspeech_tpu_torch.decode.device_lm import pack_device_lm
+    from danspeech_tpu_torch.decode.lm import load_arpa
+
+    labels = _labels()
+    lm = load_arpa(path)
+    return lm, pack_device_lm(lm, labels, device="cuda")
+
+
+def _labels():
+    from danspeech_tpu_torch.models import DeepSpeechConfig
+
+    return DeepSpeechConfig(**FLAGSHIP).labels
+
+
+def sharded_tops(probs, lengths, dlm, mesh):
+    """The beam-sharded search's best transcript per row (the published
+    settings), and its wall time."""
+    from danspeech_tpu_torch.decode.dist_beam import ctc_beam_search_beam_sharded
+
+    labels = _labels()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lab, _, lens, _ = ctc_beam_search_beam_sharded(
+        probs, lengths, mesh, beam_width=LM_BEAM, blank=labels.index("_"), lm=dlm,
+        alpha=LM_ALPHA, beta=LM_BETA, space=labels.index(" "), top=1)
+    lab, lens = lab.cpu().numpy(), lens.cpu().numpy()
+    wall = time.perf_counter() - t0
+    return ["".join(labels[i] for i in lab[b, 0, : lens[b, 0]]) for b in range(len(lab))], wall
+
+
+def gloo_cuda_probe(mesh):
+    """Which gloo collectives take CUDA tensors on this torch (the mesh's
+    helpers stage every exchange of a gloo group on CUDA through host
+    memory): a collective that refuses them raises on every rank before it
+    communicates. Point to point is not probed: torch 2.11's gloo takes a
+    CUDA tensor in ``send`` and its TCP transport then aborts the process
+    (``writev ... Bad address``)."""
+    import torch.distributed as dist
+
+    x = torch.ones(4, device=mesh.device)
+    calls = {
+        "all_reduce": lambda: dist.all_reduce(x.clone()),
+        "all_gather": lambda: dist.all_gather([torch.empty_like(x) for _ in range(
+            mesh.world_size)], x),
+        "broadcast": lambda: dist.broadcast(x.clone(), 0),
+    }
+    took = {}
+    for name, call in calls.items():
+        try:
+            call()
+            torch.cuda.synchronize()
+            took[name] = True
+        except RuntimeError as e:
+            took[name] = str(e).splitlines()[0][:120]
+    return took
+
+
+def _par_rank(rank, n, store, workdir):
+    """One of the gloo ranks on cuda:0: the long form of both models, TP
+    direction and hidden mode on the flagship, the sharded beam, and one
+    data-parallel train step; results pickled to ``workdir``."""
+    import pickle
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    out = {}
+    try:
+        torch.set_num_threads(max(1, (os.cpu_count() or n) // n))
+        torch.cuda.set_device(0)
+        dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                                world_size=n, timeout=timedelta(seconds=300))
+        out = _par_rank_work(rank, workdir)
+    except BaseException:
+        import traceback
+
+        out["error"] = traceback.format_exc()
+    finally:
+        with open(os.path.join(workdir, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(out, f)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _par_rank_work(rank, workdir):
+    import pickle
+
+    from danspeech_tpu_torch import Recognizer
+    from danspeech_tpu_torch.models import DeepSpeechConfig, DeepSpeechModel
+    from danspeech_tpu_torch.parallel import make_mesh, pack_tp_params, tp_forward
+    from danspeech_tpu_torch.parallel.batch import device_params
+    from danspeech_tpu_torch.parallel.time_shard import long_form_probs
+    from danspeech_tpu_torch.train import data as tdata
+    from danspeech_tpu_torch.train import step as tstep
+
+    with open(os.path.join(workdir, "inputs.pkl"), "rb") as f:
+        inp = pickle.load(f)
+    try:
+        make_mesh(device="cuda:0")  # NCCL is the default on CUDA: the gloo group refuses
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("make_mesh on cuda:0 took the gloo group without backend=")
+    mesh = make_mesh(device="cuda:0", backend="gloo")
+    out = {"mesh": repr(mesh), "transport": mesh.transport,
+           "gloo_cuda": gloo_cuda_probe(mesh)}
+
+    base = DeepSpeechModel.init_random(DeepSpeechConfig(**FLAGSHIP), seed=0)
+    flag = sharpened(base)
+    for key, cfg, seed in (("flagship", FLAGSHIP, 0), ("uni", GPU_STREAMING, 2)):
+        model = flag if key == "flagship" else sharpened(
+            DeepSpeechModel.init_random(DeepSpeechConfig(**cfg), seed=seed))
+        rec = Recognizer(model=model, device="cuda:0")
+        rec.recognize_long_form(inp["long"][: 4 * RATE], mesh=mesh)  # warm-up
+        zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        text = rec.recognize_long_form(inp["long"], mesh=mesh)
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        probs, lens = long_form_probs(model, inp["long"], mesh,
+                                      params=rec.danspeech_recognizer._compute_params)
+        out[key] = {"text": text, "wall_s": wall, "launches": launches,
+                    "probs": probs.cpu().numpy(), "lens": lens.cpu().numpy()}
+        del rec, model, probs
+        torch.cuda.empty_cache()
+
+    n = mesh.world_size
+    tp_mesh = make_mesh(n_data=1, n_model=n, device="cuda:0", backend="gloo")
+    spect, frames = padded_spect(flag, inp["tp_waves"], mesh.device)
+    for mode in ("direction", "hidden"):
+        src = pack_tp_params(flag.params, n) if mode == "hidden" else flag.params
+        params = device_params(src, mesh.device)
+        tp_forward(params, flag.config, spect, frames, tp_mesh, mode=mode)  # warm-up
+        zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        probs, lens = tp_forward(params, flag.config, spect, frames, tp_mesh, mode=mode)
+        torch.cuda.synchronize()
+        out[f"tp_{mode}"] = {"probs": probs.cpu().numpy(), "lens": lens.cpu().numpy(),
+                             "wall_s": time.perf_counter() - t0, "launches": read_launches()}
+        del params
+    del flag
+    torch.cuda.empty_cache()
+
+    _, dlm = par_lm(inp["arpa"])
+    probs = torch.from_numpy(inp["beam_probs"]).cuda()
+    sharded_tops(probs[:1], inp["beam_lengths"][:1], dlm, mesh)  # warm-up
+    tops, wall = sharded_tops(probs, inp["beam_lengths"], dlm, mesh)
+    out["beam"] = {"tops": tops, "wall_s": wall}
+    del dlm, probs
+
+    config, params = base.config, base.params
+    spec = tstep.make_optimizer(TRAIN_LR)
+    state = tstep.train_state_from_params(params, spec, mesh=mesh)
+    step = tstep.make_wave_train_step(config, spec, augment=False, mesh=mesh)
+    local = tdata.shard_batch(tdata.Batch(*inp["train_batch"]), mesh)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, loss = step(state, *local)
+    loss = float(loss)
+    wall = time.perf_counter() - t0
+    grads = grad_groups(state.params)
+    out["train"] = {"loss": loss, "wall_s": wall, "rows": len(local.waves),
+                    "checksum": {k: float(g.double().square().sum()) for k, g in grads.items()}}
+    del state, step
+    torch.cuda.empty_cache()
+    if rank == 0:
+        # one rank on all rows, the reference of the data-parallel step
+        ref_state = tstep.train_state_from_params(params, spec, device="cuda:0")
+        ref_step = tstep.make_wave_train_step(config, spec, augment=False)
+        ref_state, ref_loss = ref_step(ref_state, *inp["train_batch"])
+        ref = grad_groups(ref_state.params)
+        out["train"]["ref_loss"] = float(ref_loss)
+        out["train"]["grad_rel"] = {k: float((grads[k] - ref[k]).norm() / ref[k].norm())
+                                    for k in ref}
+    return out
+
+
+def run_par_ranks(workdir):
+    """PAR_RANKS spawned processes on cuda:0, joined with a deadline."""
+    import multiprocessing
+    import pickle
+
+    ctx = multiprocessing.get_context("spawn")
+    store = os.path.join(workdir, "store")
+    procs = [ctx.Process(target=_par_rank, args=(r, PAR_RANKS, store, workdir))
+             for r in range(PAR_RANKS)]
+    for p in procs:
+        p.start()
+    end = time.perf_counter() + PAR_DEADLINE_S
+    for p in procs:
+        p.join(max(0.0, end - time.perf_counter()))
+    hung = [r for r, p in enumerate(procs) if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join(30)
+    if hung:
+        raise AssertionError(f"ranks {hung} ran past {PAR_DEADLINE_S} s and were killed")
+    results = []
+    for r, p in enumerate(procs):
+        path = os.path.join(workdir, f"rank{r}.pkl")
+        if not os.path.exists(path):
+            raise AssertionError(f"rank {r} died with exit code {p.exitcode} "
+                                 "before it wrote its results")
+        with open(path, "rb") as f:
+            res = pickle.load(f)
+        if "error" in res:
+            raise AssertionError(f"rank {r} failed:\n{res['error']}")
+        results.append(res)
+    return results
+
+
+def phase_parallel(card):
+    import pickle
+
+    from danspeech_tpu_torch import Recognizer
+    from danspeech_tpu_torch.decode.greedy import GreedyDecoder
+    from danspeech_tpu_torch.models import DeepSpeechConfig, DeepSpeechModel
+    from danspeech_tpu_torch.models import deepspeech as ds
+    from danspeech_tpu_torch.parallel import PipelinedTranscriber, ShardedTranscriber, make_mesh
+    from danspeech_tpu_torch.parallel.time_shard import long_form_probs, pad_time_for_mesh
+
+    out = {}
+    launches = {"gru_bidi_fused": 0, "gru_scan": 0, "gru_scan_bidi": 0}
+    mesh = make_mesh()  # no launcher: this process alone, NCCL on cuda:0
+    log(f"  {mesh}")
+    if (mesh.backend, mesh.world_size, mesh.device.type) != ("nccl", 1, "cuda"):
+        fail(f"make_mesh() gave {mesh}")
+    fconfig = DeepSpeechConfig(**FLAGSHIP)
+    flag = sharpened(DeepSpeechModel.init_random(fconfig, seed=0))
+    waves = seeded_waveforms(np.random.default_rng(0), 128)  # phase 4's first batch
+    audio_s = sum(len(w) for w in waves) / RATE
+
+    # 10a: the data-parallel transcriber at world size 1 against recognize_batch
+    rec = Recognizer(model=flag)
+    eng = rec.danspeech_recognizer
+    default_texts, default_wall = timed_batch(rec, waves)
+    default_texts, default_wall = timed_batch(rec, waves)
+    eng.MERGE_INFLATION = float("inf")  # one dispatch group: the transcriber's shape
+    plan = eng._plan_groups(waves)
+    if len(plan) != 1:
+        fail("the engine did not plan one dispatch group")
+    # the transcriber gets the rows in the group's order, so that every row
+    # sits where it sits in the engine's launch
+    order = plan[0][0]
+    inverse = np.argsort(order)
+    one_texts, _ = timed_batch(rec, waves)
+    waves = [waves[i] for i in order]
+    default_texts = [default_texts[i] for i in order]
+    one_texts = [one_texts[i] for i in order]
+    tr = ShardedTranscriber(flag, mesh)
+    dec = GreedyDecoder(flag.labels, blank_index=flag.labels.index("_"))
+    tr.transcribe(waves[:8], dec)  # warm-up
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    texts = tr.transcribe(waves, dec)
+    dp_wall = time.perf_counter() - t0
+    dp_launches = read_launches()
+    if dp_launches["gru_bidi_fused"] != fconfig.rnn_layers:
+        fail(f"ShardedTranscriber: launches {dp_launches}")
+    launches["gru_bidi_fused"] += dp_launches["gru_bidi_fused"]
+    group_probs, _, _, _ = group_forward(eng, [waves[i] for i in inverse])
+    bad = [i for i, (a, b) in enumerate(zip(texts, one_texts)) if a != b]
+    same_default = sum(a == b for a, b in zip(texts, default_texts))
+    probs, lens = tr.acoustic_probs(waves)
+    maxlen = -(-max(len(w) for w in waves) // 16000) * 16000
+    staged = np.zeros((len(waves), maxlen), np.float32)
+    for r, w in enumerate(waves):
+        staged[r, : len(w)] = w
+    ref, _ = eng._forward(eng._compute_params, torch.from_numpy(staged).cuda(),
+                          torch.tensor([len(w) for w in waves]).cuda(), rnn_impl="plain")
+    check_dp = compare_rows("ShardedTranscriber (world 1) vs the plain GRU", probs, ref, lens)
+    same = float((torch.from_numpy(probs).cuda() - group_probs).abs().max())
+    log(f"  ShardedTranscriber vs the engine's dispatch group, same rows in the same "
+        f"places: max|dprob| {same:.3e}; transcripts differ on rows {bad[:8]}")
+    if bad:
+        fail(f"ShardedTranscriber and recognize_batch (one group) differ on rows {bad[:8]}")
+    del ref, staged, group_probs
+    log(f"  ShardedTranscriber over {len(waves)} waveforms ({audio_s:.2f} audio-s): "
+        f"{audio_s / dp_wall:.1f} audio-s/s ({fconfig.rnn_layers} gru_bidi_fused "
+        f"launches), transcripts equal recognize_batch's in one group; recognize_batch "
+        f"in its own groups {audio_s / default_wall:.1f} audio-s/s, {same_default} of "
+        f"{len(waves)} transcripts the same there [{card}]")
+    out["dp"] = {"audio_s": audio_s, "audio_s_per_s": audio_s / dp_wall,
+                 "recognize_batch_audio_s_per_s": audio_s / default_wall,
+                 "rows_equal_default_groups": same_default, "vs_plain": check_dp,
+                 "launches": dp_launches["gru_bidi_fused"]}
+
+    # 10b: the pipeline, 3 stages on the card, against the transcriber
+    pp = PipelinedTranscriber(flag, devices=["cuda:0"] * PIPE_STAGES, micro_batch=PIPE_MICRO)
+    pp.acoustic_probs(waves[:PIPE_MICRO])  # warm-up
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pp_probs, pp_lens = pp.acoustic_probs(waves)
+    pp_wall = time.perf_counter() - t0
+    pp_launches = read_launches()["gru_bidi_fused"]
+    expect = fconfig.rnn_layers * -(-len(waves) // PIPE_MICRO)
+    if pp_launches != expect:
+        fail(f"pipeline: {pp_launches} gru_bidi_fused launches, expected {expect}")
+    launches["gru_bidi_fused"] += pp_launches
+    if not np.array_equal(pp_lens, lens):
+        fail("the pipeline's output lengths differ from the transcriber's")
+    check_pp = compare_rows(f"PipelinedTranscriber ({PIPE_STAGES} stages on cuda:0, "
+                            f"microbatch {PIPE_MICRO}) vs ShardedTranscriber",
+                            pp_probs, probs, lens)
+    log(f"  PipelinedTranscriber: {audio_s / pp_wall:.1f} audio-s/s, stages "
+        f"{[len(r) for r in pp.stage_layers]} layers, {pp_launches} launches [{card}]")
+    out["pipeline"] = {"stages": PIPE_STAGES, "micro_batch": PIPE_MICRO,
+                       "audio_s_per_s": audio_s / pp_wall, "vs_sharded": check_pp,
+                       "launches": pp_launches}
+    del pp, tr, probs, pp_probs, rec, eng
+    torch.cuda.empty_cache()
+
+    # 10c: the long form at world size 1 (B2 on the flagship, B1 on the uni model)
+    wave = long_wave()
+    out["long_form"] = {}
+    world1 = {}
+    for key, cfg, seed, kernel in (("flagship", FLAGSHIP, 0, "gru_scan_bidi"),
+                                   ("uni", GPU_STREAMING, 2, "gru_scan")):
+        config = DeepSpeechConfig(**cfg)
+        model = flag if key == "flagship" else sharpened(
+            DeepSpeechModel.init_random(config, seed=seed))
+        rec = Recognizer(model=model)
+        params = rec.danspeech_recognizer._compute_params
+        rec.recognize_long_form(wave[: 4 * RATE], mesh=mesh)  # warm-up
+        zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        text = rec.recognize_long_form(wave, mesh=mesh)
+        wall = time.perf_counter() - t0
+        got = read_launches()
+        expect = {kernel: config.rnn_layers}
+        if {k: v for k, v in got.items() if v} != expect:
+            fail(f"long form {key}: launches {got}, expected {expect}")
+        launches[kernel] += got[kernel]
+        probs, lens = long_form_probs(model, wave, mesh, params=params)
+        spect, frames = padded_spect(model, [wave], mesh.device)
+        with torch.inference_mode():
+            ref, _ = ds.forward(params, config, pad_time_for_mesh(spect, 1), frames,
+                                rnn_impl="plain")
+        check = compare_rows(f"long form {cfg['model_name']} ({LONG_FORM_S:.0f} s, "
+                             "world 1) vs forward on the plain GRU", probs, ref, lens)
+        log(f"  recognize_long_form {cfg['model_name']}: {LONG_FORM_S:.0f} s of audio "
+            f"(T' = {int(lens[0])}) in {wall:.3f} s = {LONG_FORM_S / wall:.1f} audio-s/s, "
+            f"{config.rnn_layers} {kernel} launches [{card}]")
+        world1[key] = {"text": text, "probs": probs.cpu().numpy(), "lens": lens.cpu().numpy()}
+        out["long_form"][key] = {"world1_wall_s": wall, "world1_audio_s_per_s":
+                                 LONG_FORM_S / wall, "frames": int(lens[0]),
+                                 "world1_vs_plain": check, "world1_launches": got}
+        del rec, probs, ref, model
+        torch.cuda.empty_cache()
+
+    # 10d: the sharded beam at world size 1 against the device beam
+    with tempfile.TemporaryDirectory() as workdir:
+        arpa = os.path.join(workdir, "synthetic_3gram.arpa")
+        synthetic_lm_arpa(arpa, _labels(), seed=9)
+        lm, dlm = par_lm(arpa)
+        rows, t_max = 8, 401
+        beam_probs, _ = peaky_probs(np.random.default_rng(10), lm, _labels(), rows, t_max)
+        beam_lengths = np.full(rows, t_max, np.int32)
+        probs_d = torch.from_numpy(beam_probs).cuda()
+        dev_tops, _ = device_tops(probs_d, beam_lengths, dlm, _labels())
+        sharded_tops(probs_d[:1], beam_lengths[:1], dlm, mesh)  # warm-up
+        w1_tops, w1_beam_s = sharded_tops(probs_d, beam_lengths, dlm, mesh)
+        if w1_tops != dev_tops:
+            fail("the sharded beam (world 1) differs from the device beam")
+        log(f"  sharded beam, world 1: B={rows}, T={t_max}, beam {LM_BEAM}: top-1 equal to "
+            f"the device beam on every row; {w1_beam_s * 1e3:.1f} ms [{card}]")
+        del dlm, lm, probs_d
+
+        # 10e: two gloo ranks on the card
+        rng = np.random.default_rng(6)
+        batch, train_audio_s = train_batch(rng, fconfig, TRAIN_BATCH)
+        with open(os.path.join(workdir, "inputs.pkl"), "wb") as f:
+            pickle.dump({"long": wave, "tp_waves": tp_waves(), "arpa": arpa,
+                         "beam_probs": beam_probs, "beam_lengths": beam_lengths,
+                         "train_batch": batch}, f)
+        del flag
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = run_par_ranks(workdir)
+        ranks_s = time.perf_counter() - t0
+    log(f"  {PAR_RANKS} gloo ranks on cuda:0 ({ranks[0]['transport']}) ran in "
+        f"{ranks_s:.1f} s; gloo collectives on CUDA tensors: {ranks[0]['gloo_cuda']}")
+    out["ranks"] = {"n": PAR_RANKS, "transport": ranks[0]["transport"],
+                    "gloo_cuda_tensors": ranks[0]["gloo_cuda"], "wall_s": ranks_s}
+    for key, cfg in (("flagship", FLAGSHIP), ("uni", GPU_STREAMING)):
+        config = DeepSpeechConfig(**cfg)
+        expect = {"gru_scan": 2 * config.rnn_layers} if key == "flagship" else \
+            {"gru_scan": config.rnn_layers}
+        for r, res in enumerate(ranks):
+            got = {k: v for k, v in res[key]["launches"].items() if v}
+            if got != expect:
+                fail(f"long form {key}, rank {r}: launches {got}, "
+                                     f"expected {expect}")
+            if res[key]["text"] != world1[key]["text"]:
+                fail(f"long form {key}, rank {r}: the transcript differs "
+                                     "from world size 1's")
+        check = compare_rows(f"long form {cfg['model_name']}, {PAR_RANKS} ranks vs world 1",
+                             ranks[0][key]["probs"], world1[key]["probs"], world1[key]["lens"])
+        walls = [res[key]["wall_s"] for res in ranks]
+        log(f"  recognize_long_form {cfg['model_name']} over {PAR_RANKS} ranks: "
+            f"{max(walls):.3f} s = {LONG_FORM_S / max(walls):.1f} audio-s/s, per rank "
+            f"{expect}, transcript equal to world 1's [{card}]")
+        out["long_form"][key].update({
+            "ranks_wall_s": walls, "ranks_audio_s_per_s": LONG_FORM_S / max(walls),
+            "ranks_vs_world1": check, "ranks_launches": [res[key]["launches"] for res in ranks]})
+
+    tp_flag = sharpened(DeepSpeechModel.init_random(fconfig, seed=0))
+    spect, frames = padded_spect(tp_flag, tp_waves(), torch.device("cuda", 0))
+    with torch.inference_mode():
+        tp_ref, tp_lens = ds.forward(
+            Recognizer(model=tp_flag).danspeech_recognizer._compute_params, fconfig,
+            spect, frames)
+    out["tp"] = {}
+    for mode in ("direction", "hidden"):
+        for r, res in enumerate(ranks):
+            got = {k: v for k, v in res[f"tp_{mode}"]["launches"].items() if v}
+            expect = {"gru_scan": fconfig.rnn_layers} if mode == "direction" else {}
+            if got != expect:
+                fail(f"TP {mode}, rank {r}: launches {got}, expected {expect}")
+        check = compare_rows(f"TP {mode} mode ({PAR_RANKS} ranks) vs forward",
+                             ranks[0][f"tp_{mode}"]["probs"], tp_ref, tp_lens)
+        wall = max(res[f"tp_{mode}"]["wall_s"] for res in ranks)
+        log(f"  TP {mode} mode on the flagship, {TP_ROWS} rows of 2-4 s: {wall * 1e3:.1f} ms "
+            f"[{card}]")
+        out["tp"][mode] = {"wall_s": wall, "vs_forward": check,
+                           "launches": ranks[0][f"tp_{mode}"]["launches"]}
+    del tp_flag, tp_ref
+    torch.cuda.empty_cache()
+
+    for r, res in enumerate(ranks):
+        if res["beam"]["tops"] != w1_tops:
+            fail(f"sharded beam, rank {r}: top-1 differs from world 1's")
+    beam_s = max(res["beam"]["wall_s"] for res in ranks)
+    log(f"  sharded beam over {PAR_RANKS} ranks: top-1 equal to world 1's on all {rows} rows; "
+        f"{beam_s * 1e3:.1f} ms [{card}]")
+    out["beam"] = {"rows": rows, "t": t_max, "beam": LM_BEAM, "world1_ms": w1_beam_s * 1e3,
+                   "ranks_ms": beam_s * 1e3}
+
+    tr0 = ranks[0]["train"]
+    for r, res in enumerate(ranks[1:], 1):
+        if res["train"]["checksum"] != tr0["checksum"]:
+            fail(f"DP step: rank {r}'s gradients differ from rank 0's")
+    loss_rel = abs(tr0["loss"] - tr0["ref_loss"]) / abs(tr0["ref_loss"])
+    worst = max(tr0["grad_rel"].values())
+    log(f"  DP train step of the flagship, B={TRAIN_BATCH} over {PAR_RANKS} ranks "
+        f"({tr0['rows']} rows a rank): loss {tr0['loss']:.5f} against one rank's "
+        f"{tr0['ref_loss']:.5f} (rel {loss_rel:.2e} <= {TRAIN_LOSS_REL}); gradients per group "
+        + ", ".join(f"{k} {v:.2e}" for k, v in tr0["grad_rel"].items())
+        + f" (<= {GRAD_REL_TOL}); step {max(res['train']['wall_s'] for res in ranks):.3f} s "
+        f"[{card}]")
+    if loss_rel > TRAIN_LOSS_REL or worst > GRAD_REL_TOL:
+        fail("the data-parallel step differs from the one-rank step")
+    out["train"] = {"loss": tr0["loss"], "ref_loss": tr0["ref_loss"], "loss_rel": loss_rel,
+                    "grad_rel": tr0["grad_rel"], "audio_s": train_audio_s,
+                    "wall_s": [res["train"]["wall_s"] for res in ranks]}
+    out["launches"] = launches
+    import torch.distributed as dist
+
+    dist.destroy_process_group()  # the mesh's one-rank NCCL group
+    if PAR_FAILURES:
+        raise AssertionError(f"phase 10: {len(PAR_FAILURES)} checks failed: {PAR_FAILURES}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # --phase-clocks: where a step of the persistent kernels spends its clocks
 # ---------------------------------------------------------------------------
 
@@ -3427,9 +3999,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels", action="store_true",
                     help="run phases 1-3 only (build and kernel checks)")
-    ap.add_argument("--only", type=int, choices=(8, 9),
+    ap.add_argument("--only", type=int, choices=(8, 9, 10),
                     help="run phases 1, 2 and this one only (build, then 8: serving "
-                         "with an LM, or 9: the rest of the single-GPU surface)")
+                         "with an LM, 9: the rest of the single-GPU surface, or 10: "
+                         "parallelism)")
     ap.add_argument("--phase-clocks", action="store_true",
                     help="instead of the phases: build the persistent kernels with "
                          "-DPS_PROFILE and print where a step spends its clocks")
@@ -3464,10 +4037,14 @@ def main(argv=None) -> int:
         if args.only == 8:
             log("phase 8: serving with a language model (host, device and auto beams)")
             print(json.dumps({"lm_serving": phase_lm(card)}))
-        else:
+        elif args.only == 9:
             log("phase 9: the rest of the single-GPU surface (.pth, mu-law, "
                 "multi-stream, listen)")
             print(json.dumps({"surface": phase_surface(card)}))
+        else:
+            log("phase 10: parallelism (mesh, data parallelism, long form, sharded "
+                "beam, tensor and pipeline parallelism)")
+            print(json.dumps({"parallel": phase_parallel(card)}))
         log(card)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3484,7 +4061,7 @@ def main(argv=None) -> int:
     routes = phase_gru_layer_routes()
     rnn_type_checks = phase_rnn_type_kernels()
 
-    launches = {}  # per kernel, summed over the main paths of phases 4-7
+    launches = {}  # per kernel, summed over the main paths of phases 4-10
     pair_launches = {}  # paired launches of the wrappers that count chains, on those paths
     if not args.kernels:
         log("phase 4: batch path (Recognizer on the flagship)")
@@ -3501,14 +4078,18 @@ def main(argv=None) -> int:
         log("phase 9: the rest of the single-GPU surface (.pth, mu-law, multi-stream, "
             "listen)")
         surface = phase_surface(card)
+        log("phase 10: parallelism (mesh, data parallelism, long form, sharded beam, "
+            "tensor and pipeline parallelism)")
+        parallel = phase_parallel(card)
         pair_launches = {**lstm_run["pair_launches"], **tanh_run["pair_launches"]}
         launches = {
             "gru_bidi_fused": served["launches"] + streamed["bidi_launches"]
             + trained["launches"]["gru_bidi_fused"] + lm_run["launches"]["gru_bidi_fused"]
-            + surface["launches"]["gru_bidi_fused"],
+            + surface["launches"]["gru_bidi_fused"] + parallel["launches"]["gru_bidi_fused"],
             "gru_scan": streamed["scan_launches"] + trained["launches"]["gru_scan"]
-            + lm_run["launches"]["gru_scan"] + surface["launches"]["gru_scan"],
-            "gru_scan_bidi": routes["launches"],
+            + lm_run["launches"]["gru_scan"] + surface["launches"]["gru_scan"]
+            + parallel["launches"]["gru_scan"],
+            "gru_scan_bidi": routes["launches"] + parallel["launches"]["gru_scan_bidi"],
             "gru_bwd_scan": trained["launches"]["gru_bwd_scan"],
         }
         for name in ("lstm_scan", "lstm_scan_with_cell", "lstm_bwd_scan"):
@@ -3556,6 +4137,7 @@ def main(argv=None) -> int:
     if not args.kernels:
         print(json.dumps({"lm_serving": lm_run}))
         print(json.dumps({"surface": surface}))
+        print(json.dumps({"parallel": parallel}))
     log(card)  # as nvidia-smi prints it: name, power limit
     print(json.dumps({"kernels": kernels, "barrier_us": barrier["us"]}))
     print(json.dumps({"ok": True, "device": {

@@ -20,8 +20,9 @@ whole stream or the LM decoder re-decodes the stream's probabilities.
 The device is CUDA unless the caller passes ``device="cpu"``. With
 ``transfer_format="ulaw"`` the rows cross as G.711 mu-law bytes, one a
 sample, and :func:`ulaw_decode` turns them back into samples on the device.
-The sharded beam and long-form transcription come with the parallelism
-slice.
+Over a mesh of ranks (``parallel/``): the beam front sharded over the data
+axis (``update_decoder(backend="sharded", mesh=...)``) and one long
+utterance's time axis sharded over it (:meth:`transcribe_long_form`).
 """
 
 from __future__ import annotations
@@ -153,6 +154,8 @@ class DanSpeechRecognizer:
         self.lm = None
         self.decoder = None
         self.decoder_backend = "auto"
+        self.decoder_mesh = None
+        self.long_form_mesh = None  # transcribe_long_form's default, made once
         self.alpha = alpha
         self.beta = beta
         self.beam_width = beam_width
@@ -224,16 +227,11 @@ class DanSpeechRecognizer:
         - "host" — the C++ prefix beam search (native/ctcbeam) with its
           Python oracle fallback;
         - "device" — the beam search on the engine's device with the LM
-          tables there (decode/device_beam.py + device_lm.py).
-
-        "sharded" and ``mesh`` raise: the sharded beam comes with the
-        parallelism slice (ROADMAP A13).
+          tables there (decode/device_beam.py + device_lm.py);
+        - "sharded" — the beam front sharded over ``mesh``'s data axis with
+          one all_gather a frame (decode/dist_beam.py); ``mesh`` (from
+          ``parallel.make_mesh``) is required and remembered across swaps.
         """
-        if mesh is not None or backend == "sharded":
-            raise NotImplementedError(
-                "the sharded beam decoder and mesh= come with the parallelism "
-                "slice (ROADMAP A13)"
-            )
         update = False
         if not self.lm and not self.decoder:
             update = True
@@ -254,10 +252,13 @@ class DanSpeechRecognizer:
             update = True
             self.beam_width = beam_width
         if backend and backend != self.decoder_backend:
-            if backend not in ("auto", "host", "device"):
+            if backend not in ("auto", "host", "device", "sharded"):
                 raise ValueError(f"unknown decoder backend: {backend!r}")
             update = True
             self.decoder_backend = backend
+        if mesh is not None and mesh is not self.decoder_mesh:
+            update = True
+            self.decoder_mesh = mesh
         if update:
             self.decoder = self._build_decoder()
 
@@ -278,6 +279,19 @@ class DanSpeechRecognizer:
                     beam_width=self.beam_width, blank_index=blank,
                     device=self.device,
                 )
+        if backend == "sharded":
+            if self.decoder_mesh is None:
+                raise ValueError(
+                    "backend='sharded' needs a mesh: "
+                    "update_decoder(..., mesh=make_mesh(...))"
+                )
+            from .decode.dist_beam import ShardedBeamDecoder
+
+            return ShardedBeamDecoder(
+                labels=self.labels, mesh=self.decoder_mesh,
+                beam_width=self.beam_width, blank_index=blank, lm=self.lm,
+                alpha=self.alpha, beta=self.beta,
+            )
         if backend == "device":
             return DeviceBeamDecoder(
                 labels=self.labels, beam_width=self.beam_width,
@@ -526,6 +540,29 @@ class DanSpeechRecognizer:
         if show_all:
             return decoded_output
         return [d[0] for d in decoded_output]
+
+    def transcribe_long_form(self, recording, mesh=None) -> str:
+        """Transcribe one long utterance with its time axis sharded over
+        ``mesh``'s data axis (parallel/time_shard.py: halo-exchanged convs,
+        the wavefront of ``gru_scan`` launches for unidirectional models,
+        the two-direction ring of ``gru_scan`` / ``gru_scan_bidi`` launches
+        for bidirectional ones), decoded by the engine's decoder.
+        ``mesh=None`` uses one that ``parallel.make_mesh`` builds on the
+        engine's device at the first such call (a group of this process
+        alone when no launcher started it) and the engine keeps."""
+        if self.model is None:
+            raise ModelNotInitialized("No acoustic model loaded")
+        from .parallel.mesh import make_mesh
+        from .parallel.time_shard import transcribe_long_form
+
+        if mesh is None:
+            if self.long_form_mesh is None:
+                self.long_form_mesh = make_mesh(device=self.device)
+            mesh = self.long_form_mesh
+        held = self._compute_params["fc"].weight.device
+        params = self._compute_params if held == mesh.device else None
+        return transcribe_long_form(self.model, np.asarray(recording), mesh,
+                                    decoder=self.decoder, params=params)
 
     # ------------------------------------------------------------------
     # Streaming

@@ -9,9 +9,8 @@ the blocking energy-endpointed ``listen``, the streaming listener
 thread-safe queue), silence-segmented ``streaming``, real-time chunked
 streaming (``enable_real_time_streaming`` / ``real_time_streaming``) and
 the microphone calibrations (``adjust_for_speech``,
-``adjust_for_ambient_noise``, ``update_stream_parameters``).
-``recognize_long_form`` rides the parallelism slice (ROADMAP A13) and
-raises until then.
+``adjust_for_ambient_noise``, ``update_stream_parameters``), and
+``recognize_long_form``, one utterance's time axis sharded over a mesh.
 """
 
 from __future__ import annotations
@@ -89,21 +88,19 @@ class Recognizer:
                        backend=None, mesh=None):
         """Swap the decoder. ``lm`` is ``"greedy"``, an ARPA / KenLM path or
         an n-gram model; ``backend`` selects where the beam search runs:
-        "auto" (by batch size), "host" (C++) or "device" (the engine's
-        device). ``"sharded"`` and ``mesh`` raise until the parallelism
-        slice (ROADMAP A13)."""
+        "auto" (by batch size), "host" (C++), "device" (the engine's
+        device) or "sharded" (the beam front sharded over ``mesh``'s data
+        axis, decode/dist_beam.py)."""
         self.danspeech_recognizer.update_decoder(
             lm=lm, alpha=alpha, beta=beta, beam_width=beam_width,
             backend=backend, mesh=mesh,
         )
 
     def recognize_long_form(self, audio_data, mesh=None):
-        """Transcribe one long utterance with its time axis sharded over
-        devices: not ported yet."""
-        raise NotImplementedError(
-            "recognize_long_form rides the time-sharded forward of the "
-            "parallelism slice (ROADMAP A13)"
-        )
+        """Transcribe one long utterance with its time axis sharded over the
+        ranks of ``mesh`` (parallel/time_shard.py); ``mesh=None`` makes one
+        on the engine's device."""
+        return self.danspeech_recognizer.transcribe_long_form(audio_data, mesh=mesh)
 
     # ------------------------------------------------------------------
     # Blocking listen

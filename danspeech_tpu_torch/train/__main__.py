@@ -51,7 +51,8 @@ def main(argv=None):
     ap.add_argument("--export", default=None,
                     help="write the final params as a .dsz model here")
     ap.add_argument("--data-parallel", action="store_true",
-                    help="not ported: raises (ROADMAP A13)")
+                    help="shard batch rows over the ranks' 'data' axis (one "
+                         "process a rank: torchrun, or one rank alone)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda, raising without a GPU)")
@@ -77,11 +78,11 @@ def main(argv=None):
             bidirectional=not args.unidirectional,
         )
 
+    mesh = None
     if args.data_parallel:
-        raise NotImplementedError(
-            "--data-parallel comes with the port of the parallel package "
-            "(ROADMAP A13)"
-        )
+        from ..parallel.mesh import make_mesh
+
+        mesh = make_mesh(device=args.device)
 
     state = train(
         config,
@@ -100,9 +101,10 @@ def main(argv=None):
         checkpoint_dir=args.checkpoint_dir,
         val_manifest=args.val_manifest,
         seed=args.seed,
-        device=args.device,
+        device=None if mesh is not None else args.device,
+        mesh=mesh,
     )
-    if args.export:
+    if args.export and (mesh is None or mesh.rank == 0):
         print(f"exported {export_model(state, config, args.export)}")
 
 

@@ -22,13 +22,19 @@ def _step_dir(ckpt_dir: str, step: int) -> str:
     return os.path.join(os.path.abspath(ckpt_dir), f"step_{step:08d}")
 
 
-def save_train_state(ckpt_dir: str, state: TrainState, step: int) -> str:
-    """Write ``state`` under ``ckpt_dir/step_<N>``; returns the path."""
+def save_train_state(ckpt_dir: str, state: TrainState, step: int,
+                     write: bool = True) -> str:
+    """Write ``state`` under ``ckpt_dir/step_<N>``; returns the path. Over a
+    mesh every rank calls it (an optimizer sharded over the model axis
+    gathers its state) and only the one with ``write`` writes."""
     path = _step_dir(ckpt_dir, step)
+    opt_state = state.opt_state.state_dict()
+    if not write:
+        return path
     os.makedirs(path, exist_ok=True)
     payload = {
         "params": {k: torch.from_numpy(v) for k, v in flatten_tree(state.params).items()},
-        "opt_state": state.opt_state.state_dict(),
+        "opt_state": opt_state,
         "step": int(state.step),
     }
     tmp = os.path.join(path, _FILE + ".tmp")

@@ -221,11 +221,18 @@ def steps_per_epoch(
 
 
 def shard_batch(batch: Batch, mesh=None) -> Batch:
-    """The batch itself: without a mesh there is nothing to shard. Sharding
-    rows over several cards comes with the parallel package (ROADMAP A13)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "sharding a batch over a mesh comes with the port of the parallel "
-            "package (ROADMAP A13)"
-        )
-    return batch
+    """This rank's rows of a batch: the ``mesh.index("data")``-th of
+    ``n_data`` equal slices (the batch itself without a mesh). Row counts
+    are always the full ``batch_size`` (padding rows weigh 0), so the one
+    constraint is ``batch_size % n_data == 0``."""
+    if mesh is None:
+        return batch
+    from ..parallel.mesh import DATA_AXIS
+
+    n = mesh.size(DATA_AXIS)
+    rows = len(batch.waves)
+    if rows % n:
+        raise ValueError(f"batch of {rows} rows does not split over {n} data ranks")
+    per = rows // n
+    lo = mesh.index(DATA_AXIS) * per
+    return Batch(*(np.asarray(x)[lo : lo + per] for x in batch))

@@ -21,7 +21,7 @@ from ..engine import _resolve_device
 from ..models import deepspeech as ds
 from ..models.config import DeepSpeechConfig
 from .checkpoint import restore_train_state, save_train_state
-from .data import SpeechDataset, batches, steps_per_epoch
+from .data import SpeechDataset, batches, shard_batch, steps_per_epoch
 from .step import (
     TrainState,
     _resolve_mixed_precision,
@@ -138,16 +138,23 @@ def train(
     - ``mixed_precision`` / ``remat``: the make_wave_train_step knobs: bf16
       matmul weights (f32 masters; "auto" = on for CUDA, where False is
       refused) and per-layer recomputation of the RNN activations.
-    - ``mesh``: not ported; raises (ROADMAP A13).
+    - ``mesh`` (``parallel.make_mesh``): every rank runs this loop; the
+      batch rows split over the data axis (``batch_size`` must divide by
+      its size), the gradients are summed over it, the optimizer's state is
+      sharded over the model axis, and only rank 0 writes checkpoints. The
+      mesh's device is the training device.
     - ``stop_fn(epoch, state, train_loss, val_wer) -> bool``: early-stop
       hook (also how tests bound runtime).
     """
     if mesh is not None:
-        raise NotImplementedError(
-            "training over a mesh comes with the port of the parallel package "
-            "(ROADMAP A13)"
-        )
-    dev = _resolve_device(device)
+        from ..parallel.mesh import DATA_AXIS
+
+        if device is not None and _resolve_device(device) != mesh.device:
+            raise ValueError(f"device {device} is not the mesh's {mesh.device}")
+        if batch_size % mesh.size(DATA_AXIS):
+            raise ValueError(f"batch_size {batch_size} does not divide over "
+                             f"{mesh.size(DATA_AXIS)} data ranks")
+    dev = mesh.device if mesh is not None else _resolve_device(device)
     _resolve_mixed_precision(mixed_precision, dev)  # refuses float32 on CUDA
 
     dataset = SpeechDataset.from_manifest(train_manifest, config.labels)
@@ -157,9 +164,9 @@ def train(
         anneal=anneal, steps_per_epoch=spe if anneal else None,
     )
     if init_params is not None:
-        state = train_state_from_params(init_params, optimizer, dev)
+        state = train_state_from_params(init_params, optimizer, dev, mesh)
     else:
-        state = init_train_state(config, optimizer, seed=seed, device=dev)
+        state = init_train_state(config, optimizer, seed=seed, device=dev, mesh=mesh)
     start_epoch = 0
     if resume_dir is not None:
         state, restored_step = restore_train_state(resume_dir, state)
@@ -172,20 +179,24 @@ def train(
     )
     step_fn = make_wave_train_step(
         config, optimizer, frozen_mask=frozen, augment=augment,
-        mixed_precision=mixed_precision, remat=remat,
+        mixed_precision=mixed_precision, remat=remat, mesh=mesh,
     )
     val_set = (
         SpeechDataset.from_manifest(val_manifest, config.labels)
         if val_manifest else None
     )
     evaluator = GreedyEvaluator(config) if val_set is not None else None
-    rng = torch.Generator().manual_seed(seed)
+    # SpecAugment draws: each data rank its own stream (rank 0's is the
+    # unsharded run's)
+    data_index = mesh.index("data") if mesh is not None else 0
+    rng = torch.Generator().manual_seed(seed + data_index)
+    writer = mesh is None or mesh.rank == 0
 
     for epoch in range(start_epoch, epochs):
         t0 = time.time()
         losses = []
         for batch in batches(dataset, batch_size, epoch=epoch, seed=seed):
-            state, loss = step_fn(state, *batch, rng)
+            state, loss = step_fn(state, *shard_batch(batch, mesh), rng)
             losses.append(loss)
         # one transfer per epoch: the steps above never wait for the device
         losses = [float(x) for x in torch.stack(losses).cpu()] if losses else []
@@ -199,7 +210,7 @@ def train(
             + f"  ({time.time() - t0:.1f}s, {len(losses)} steps)"
         )
         if checkpoint_dir is not None:
-            save_train_state(checkpoint_dir, state, int(state.step))
+            save_train_state(checkpoint_dir, state, int(state.step), write=writer)
         if stop_fn is not None and stop_fn(epoch, state, train_loss, val_wer):
             log(f"early stop after epoch {epoch}")
             break

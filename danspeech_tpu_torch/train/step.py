@@ -52,7 +52,14 @@ class OptimizerSpec(NamedTuple):
             return self.learning_rate
         return self.learning_rate * (1.0 / self.anneal) ** (step // self.steps_per_epoch)
 
-    def build(self, leaves: list[torch.Tensor]) -> torch.optim.Optimizer:
+    def build(self, leaves: list[torch.Tensor], mesh=None):
+        """The optimizer over ``leaves``; on a mesh with a model axis of
+        more than one rank, one whose state that axis shards
+        (``parallel.sharding.ShardedOptimizer``)."""
+        if mesh is not None and mesh.size("model") > 1:
+            from ..parallel.sharding import ShardedOptimizer
+
+            return ShardedOptimizer(leaves, self.build, mesh)
         if self.weight_decay:
             return torch.optim.AdamW(leaves, lr=self.learning_rate,
                                      weight_decay=self.weight_decay)
@@ -80,23 +87,28 @@ def param_leaves(params) -> list[torch.Tensor]:
     return leaves
 
 
-def train_state_from_params(params, optimizer: OptimizerSpec, device=None) -> TrainState:
+def train_state_from_params(params, optimizer: OptimizerSpec, device=None,
+                            mesh=None) -> TrainState:
     """A fresh state from a parameter tree: float32 copies of its leaves on
-    ``device`` (None: CUDA, raising without a GPU) that require grad, and the
-    optimizer over them. The tree passed in is not modified by training."""
-    dev = _resolve_device(device)
+    ``device`` (None: CUDA, raising without a GPU; the mesh's device when a
+    mesh is given) that require grad, and the optimizer over them (its state
+    sharded over the mesh's model axis, :meth:`OptimizerSpec.build`). The
+    tree passed in is not modified by training."""
+    dev = mesh.device if mesh is not None and device is None else _resolve_device(device)
     masters = ds.map_params(
         lambda t: t.detach().to(device=dev, dtype=torch.float32, copy=True)
         .requires_grad_(True),
         params,
     )
-    return TrainState(masters, optimizer.build(param_leaves(masters)), 0)
+    return TrainState(masters, optimizer.build(param_leaves(masters), mesh), 0)
 
 
 def init_train_state(
-    config: DeepSpeechConfig, optimizer: OptimizerSpec, seed: int = 0, device=None
+    config: DeepSpeechConfig, optimizer: OptimizerSpec, seed: int = 0, device=None,
+    mesh=None,
 ) -> TrainState:
-    return train_state_from_params(ds.init_params(config, seed=seed), optimizer, device)
+    return train_state_from_params(ds.init_params(config, seed=seed), optimizer,
+                                   device, mesh)
 
 
 def _resolve_mixed_precision(mixed_precision, device: torch.device) -> bool:
@@ -130,12 +142,29 @@ def loss_fn(
     )
 
 
-def _update(state: TrainState, optimizer: OptimizerSpec, loss, frozen_mask) -> TrainState:
-    """Backward, then one optimizer update in place."""
+def _sum_grads(leaves: list[torch.Tensor], mesh) -> None:
+    """Sum the leaves' gradients over the mesh's data axis, in place: one
+    psum of all of them flattened into one buffer."""
+    from ..parallel.mesh import DATA_AXIS, psum
+
+    grads = [p.grad for p in leaves if p.grad is not None]
+    if mesh.size(DATA_AXIS) == 1 or not grads:
+        return
+    flat = psum(torch.cat([g.reshape(-1) for g in grads]), mesh, DATA_AXIS)
+    for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+        g.copy_(part.view_as(g))
+
+
+def _update(state: TrainState, optimizer: OptimizerSpec, loss, frozen_mask,
+            mesh=None) -> TrainState:
+    """Backward, the gradients summed over the mesh's data axis, then one
+    optimizer update in place."""
     leaves = param_leaves(state.params)
     for p in leaves:
         p.grad = None
     loss.backward()
+    if mesh is not None:
+        _sum_grads(leaves, mesh)
     if frozen_mask is not None:
         for p, frozen in zip(leaves, frozen_mask):
             if frozen:
@@ -179,6 +208,7 @@ def make_wave_train_step(
     mixed_precision: bool | str = "auto",
     remat: bool = True,
     rnn_impl: str = "auto",
+    mesh=None,
 ):
     """Train step from PADDED WAVEFORMS, the data pipeline's entry point.
 
@@ -198,6 +228,15 @@ def make_wave_train_step(
     RNN layer so the backward recomputes its forward instead of keeping its
     residuals. ``rnn_impl="plain"`` runs the recurrent kernels' plain versions,
     forward and backward, to check the kernels against them.
+
+    ``mesh`` (``parallel.make_mesh``): data parallelism. The step is given
+    this rank's rows (``data.shard_batch``); the loss stays the weighted
+    mean over the GLOBAL batch, ``sum(per * w) / max(sum(w), 1e-6)``: each
+    rank divides its numerator by the psum of the weights, the gradients are
+    summed over the data axis, and the returned loss is the psum of the
+    ranks' shares. A plain mean of per-rank means would weigh a rank of
+    padding rows like a full one. The optimizer's state is sharded over the
+    model axis (:func:`train_state_from_params`).
 
     The step takes (state, waves, wave_lengths, labels, label_lengths,
     row_weights, rng=None) as numpy arrays or tensors, updates the state in
@@ -237,8 +276,14 @@ def make_wave_train_step(
                        blank_id=config.blank_index)
         per = nll / label_lengths.clamp(min=1)
         w = row_weights.to(per.dtype)
-        loss = (per * w).sum() / w.sum().clamp(min=1e-6)
-        return _update(state, optimizer, loss, frozen_mask), loss.detach()
+        if mesh is None:
+            loss = (per * w).sum() / w.sum().clamp(min=1e-6)
+            return _update(state, optimizer, loss, frozen_mask), loss.detach()
+        from ..parallel.mesh import DATA_AXIS, psum
+
+        share = (per * w).sum() / psum(w.sum(), mesh, DATA_AXIS).clamp(min=1e-6)
+        state = _update(state, optimizer, share, frozen_mask, mesh)
+        return state, psum(share.detach(), mesh, DATA_AXIS)
 
     return train_step
 

@@ -84,11 +84,19 @@ def test_recognizer_recognize_equals_jax():
 
 
 def test_unported_options_raise(engines):
-    _, teng = engines
-    with pytest.raises(NotImplementedError):
-        teng.update_decoder(backend="sharded")
-    with pytest.raises(NotImplementedError):
-        teng.update_decoder(mesh=object())
+    """backend="sharded" and mesh= are taken as the JAX engine takes them:
+    with no LM the decoder stays greedy, and the mesh is remembered for the
+    sharded beam. Unknown options raise."""
+    jeng, teng = engines
+    mesh = object()
+    for kw in (dict(backend="sharded"), dict(mesh=mesh)):
+        jeng.update_decoder(**kw)
+        teng.update_decoder(**kw)
+        assert type(teng.decoder).__name__ == type(jeng.decoder).__name__ == "GreedyDecoder"
+    assert teng.decoder_backend == jeng.decoder_backend == "sharded"
+    assert teng.decoder_mesh is mesh and jeng.decoder_mesh is mesh
+    for eng in engines:  # as the other tests of the module expect them
+        eng.update_decoder(backend="auto")
     with pytest.raises(ValueError):
         TRecognizerEngine(device="cpu", transfer_format="alaw")
     with pytest.raises(ValueError):

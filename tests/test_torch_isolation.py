@@ -30,7 +30,9 @@ def test_package_imports_no_jax():
         "assert not missing, missing\n"
         "for n in ('audio.microphone', 'utils.profiling', 'utils.cache', "
         "'utils.logging', 'multistream', 'pretrained_models', "
-        "'language_models', 'models.torch_pickle'):\n"
+        "'language_models', 'models.torch_pickle', 'parallel.mesh', "
+        "'parallel.sharding', 'parallel.batch', 'parallel.time_shard', "
+        "'parallel.tp', 'parallel.pipeline', 'decode.dist_beam'):\n"
         "    assert 'danspeech_tpu_torch.' + n in sys.modules, n\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'optax', 'orbax', 'danspeech_tpu', 'pyaudio')]\n"
@@ -97,6 +99,10 @@ def test_sources_name_no_foreign_import():
     assert any(p.endswith(os.path.join("train", "loop.py")) for p in sources)
     for module in ("lstm_cuda.py", "rnn_tanh_cuda.py", "cuda_checks.py"):
         assert any(p.endswith(os.path.join("ops", module)) for p in sources), module
+    for module in ("mesh.py", "sharding.py", "batch.py", "time_shard.py", "tp.py",
+                   "pipeline.py"):
+        assert any(p.endswith(os.path.join("parallel", module)) for p in sources), module
+    assert any(p.endswith(os.path.join("decode", "dist_beam.py")) for p in sources)
     for path in sources:
         assert not (_imported_roots(path) & FOREIGN), path
 
@@ -162,6 +168,59 @@ def test_decode_modules_are_walked_and_import_builds_nothing():
         "assert not bad, bad\n"
         "print('ok')\n"
     )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_parallel_entry_points_default_to_cuda():
+    """make_mesh() and initialize_multihost default to CUDA (NCCL): without a
+    GPU they raise and build no group, rather than a CPU group; a CPU group
+    is made only when device="cpu" is passed. A CUDA mesh over a gloo group
+    that the caller did not ask for by backend= raises. The pipeline's
+    devices default to the CUDA cards. Run in a fresh process: a group lives
+    per process."""
+    code = (
+        "import torch, torch.distributed as dist\n"
+        "from danspeech_tpu_torch.parallel import (PipelinedTranscriber, "
+        "initialize_multihost, make_mesh)\n"
+        "from danspeech_tpu_torch.models import DeepSpeechModel, DeepSpeechConfig\n"
+        "assert not torch.cuda.is_available()\n"
+        "for call in (make_mesh, lambda: initialize_multihost('127.0.0.1:1', 1, 0)):\n"
+        "    try:\n"
+        "        call()\n"
+        "    except RuntimeError as e:\n"
+        "        assert 'no CUDA device' in str(e), e\n"
+        "    else:\n"
+        "        raise AssertionError('no error without a GPU')\n"
+        "    assert not dist.is_initialized()\n"
+        "try:\n"
+        "    make_mesh(device='cpu', backend='nccl')\n"
+        "except ValueError as e:\n"
+        "    assert 'needs a CUDA device' in str(e), e\n"
+        "assert not dist.is_initialized()\n"
+        "m = DeepSpeechModel.init_random(DeepSpeechConfig(rnn_hidden_size=8, "
+        "rnn_layers=1, conv_layers=1))\n"
+        "try:\n"
+        "    PipelinedTranscriber(m)\n"
+        "except RuntimeError as e:\n"
+        "    assert 'no CUDA device' in str(e), e\n"
+        "mesh = make_mesh(device='cpu')\n"
+        "assert (mesh.backend, mesh.world_size, mesh.transport) == ('gloo', 1, 'gloo')\n"
+        "import danspeech_tpu_torch.parallel.mesh as pm\n"
+        "pm._pick_device = lambda d: torch.device('cuda', 0)  # as on a card\n"
+        "torch.cuda.set_device = lambda d: None\n"
+        "try:\n"
+        "    make_mesh()\n"
+        "except ValueError as e:\n"
+        "    assert 'runs gloo, not the nccl' in str(e), e\n"
+        "else:\n"
+        "    raise AssertionError('a CUDA mesh took the gloo group without backend=')\n"
+        "print('ok')\n"
+    )
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour without a GPU")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr

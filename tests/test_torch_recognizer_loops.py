@@ -265,6 +265,19 @@ def test_update_stream_parameters():
 
 
 def test_recognize_long_form_names_its_slice(models):
-    trec, _ = recognizers(models)
-    with pytest.raises(NotImplementedError, match="A13"):
-        trec.recognize_long_form(silence(1.0))
+    """recognize_long_form with no mesh makes one (here a group of this
+    process alone on the CPU), keeps it for later calls, and transcribes as
+    recognize, and as the JAX package's over its CPU mesh."""
+    import torch.distributed as dist
+
+    trec, jrec = recognizers(models)
+    audio = speech(3.0, seed=4)
+    try:
+        assert trec.recognize_long_form(audio) == trec.recognize(audio)
+        mesh = trec.danspeech_recognizer.long_form_mesh
+        assert mesh is not None and mesh.world_size == 1
+        assert trec.recognize_long_form(audio) == jrec.recognize_long_form(audio)
+        assert trec.danspeech_recognizer.long_form_mesh is mesh
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()

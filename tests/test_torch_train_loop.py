@@ -6,8 +6,11 @@ WAVs; nothing outside the repository is read. A model exported by the port
 is loaded by the JAX package and both give the same greedy transcript.
 """
 
+import contextlib
 import os
 import wave
+
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -44,6 +47,18 @@ from danspeech_tpu_torch.train.checkpoint import (
 DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
 SMALL = dict(model_name="loop", rnn_hidden_size=32, rnn_layers=2, conv_layers=2)
 QUIET = dict(log=lambda *a: None)
+
+
+@contextlib.contextmanager
+def one_rank_group():
+    """Whatever process group the block makes is gone after it."""
+    import torch.distributed as dist
+
+    try:
+        yield
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 def _write_wav(path, samples):
@@ -93,8 +108,10 @@ def test_manifest_and_batches_equal_the_jax_module(corpus):
         jdata.encode_transcript("Hej, Verden! æøå", labels))
     batch = next(tdata.batches(tset, 2))
     assert tdata.shard_batch(batch) is batch  # no mesh: the batch itself
-    with pytest.raises(NotImplementedError, match="A13"):
-        tdata.shard_batch(batch, mesh=object())
+    two = SimpleNamespace(size=lambda axis: 2, index=lambda axis: 1)
+    half = tdata.shard_batch(batch, mesh=two)  # rank 1 of 2: the second row
+    for field, a, b in zip(batch._fields, half, batch):
+        np.testing.assert_array_equal(a, b[1:], err_msg=field)
     with pytest.raises(ValueError, match="STFT frame"):
         short = os.path.join(os.path.dirname(corpus), "short.wav")
         _write_wav(short, np.zeros(100))
@@ -234,8 +251,12 @@ def test_cli_trains_and_exports_on_the_cpu(corpus, tmp_path, capsys):
               "--hidden", "32", "--rnn-layers", "1", "--conv-layers", "1",
               "--resume-dir", str(ckpt), "--no-augment", "--device", "cpu"])
     assert "resumed step 2 (epoch 2)" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="A13"):
-        cli_main(["--manifest", corpus, "--data-parallel", "--device", "cpu"])
+    # --data-parallel: a mesh of this process alone (no launcher) on the CPU
+    with one_rank_group():
+        cli_main(["--manifest", corpus, "--epochs", "1", "--batch-size", "8",
+                  "--hidden", "8", "--rnn-layers", "1", "--conv-layers", "1",
+                  "--no-augment", "--data-parallel", "--device", "cpu"])
+    assert "epoch 0: loss" in capsys.readouterr().out
 
 
 def test_cli_finetunes_from_a_pth_package(corpus, tmp_path, capsys):
@@ -268,13 +289,20 @@ def test_train_refusals(corpus):
         # device=None means CUDA: without a GPU the loop raises
         with pytest.raises(RuntimeError, match="no CUDA device"):
             train(config, corpus, epochs=1, **QUIET)
-    with pytest.raises(NotImplementedError, match="A13"):
-        train(config, corpus, epochs=1, mesh=object(), device="cpu", **QUIET)
-    # the mesh refusal holds for every rnn_type, and none is refused itself
-    for rnn_type in ("lstm", "rnn"):
-        other = TConfig(**dict(SMALL, rnn_type=rnn_type, rnn_hidden_size=8))
-        with pytest.raises(NotImplementedError, match="A13"):
-            train(other, corpus, epochs=1, mesh=object(), device="cpu", **QUIET)
-        state = train(other, corpus, epochs=1, batch_size=8, augment=False,
-                      device="cpu", **QUIET)
-        assert state.step == 1
+    # a mesh of one rank trains every rnn_type as no mesh does
+    from danspeech_tpu_torch.models.checkpoint import flatten_tree
+    from danspeech_tpu_torch.parallel import make_mesh
+
+    with one_rank_group():
+        mesh = make_mesh(device="cpu")
+        with pytest.raises(ValueError, match="not the mesh's"):
+            train(config, corpus, epochs=1, mesh=mesh, device="meta", **QUIET)
+        for rnn_type in ("gru", "lstm", "rnn"):
+            other = TConfig(**dict(SMALL, rnn_type=rnn_type, rnn_hidden_size=8))
+            kw = dict(epochs=1, batch_size=8, augment=False, **QUIET)
+            state = train(other, corpus, mesh=mesh, **kw)
+            ref = train(other, corpus, device="cpu", **kw)
+            assert state.step == ref.step == 1
+            got, want = flatten_tree(state.params), flatten_tree(ref.params)
+            for name in want:
+                np.testing.assert_allclose(got[name], want[name], atol=1e-6, err_msg=name)

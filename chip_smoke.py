@@ -3,13 +3,15 @@
 
     python3 chip_smoke.py            # every phase, needs one CUDA card
     python3 chip_smoke.py --kernels  # phases 1-3 only (build + kernel checks)
-    python3 chip_smoke.py --only 8  # phases 1, 2 and 8 only (or 9, or 10)
+    python3 chip_smoke.py --only 8  # phases 1, 2 and 8 only (or 9, 10, 11)
     python3 chip_smoke.py --phase-clocks  # where a persistent kernel's step
                                           # spends its clocks (-DPS_PROFILE build)
 
 Phases, in order; any failure exits non-zero:
 
-1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
+1. the card's name and power limit (nvidia-smi; no power limit fails the
+   run), torch and CUDA versions; every JSON line that carries times also
+   carries them as ``"card"``;
 2. build every CUDA kernel from ``danspeech_tpu_torch/csrc`` (one nvcc per
    source, all started together), timed;
 3. the grid barrier of ``csrc/persist.cuh`` alone (timed, and a grid too
@@ -117,7 +119,25 @@ Phases, in order; any failure exits non-zero:
     within 1e-3 relative, gradients within 5e-2 relative L2 per group). The
     fc weights are scaled x128 (``COHORT_HEAD_GAIN``) and every row is held
     on its own; one ``{"parallel": ...}`` line;
-11. one ``{"kernels": [...]}`` line of nine entries, then the device line as
+11. the gallery: (a) ``batched_log_spectrogram`` of phase 4's 128
+    waveforms with the rFFT and with the matmul DFT (C4: the share beyond
+    5e-4, the 99.9th percentile and the largest difference bounded; the DFT
+    bit-equal with TF32 allowed in the process), ``magnitude_stft`` and
+    ``streaming_log_spectrogram`` on one row, each timed; the three conv
+    layouts of ``ops/conv.py`` against ``F.conv2d`` (cuDNN) at the
+    flagship's conv shapes, B=128, 801 input frames, in bf16 and in float32
+    with TF32 allowed and off, each checked and timed; (b) the eight twins
+    of ``danspeech_tpu_torch/examples`` through ``main(argv)`` on CUDA over seeded inputs in a temp dir (phase
+    4's 128 waveforms as WAVs, phase 9's flagship ``.pth`` with fc x128,
+    phase 8's 3-gram as ARPA, a 60 s recording of bursts, a 32-row
+    manifest): ``batch_serving``, ``run_recognize``,
+    ``video_transcribe_simulation`` and ``train_finetune`` (2 layers frozen,
+    one epoch at B=32, then ``run_recognize`` of the export) on the
+    flagship, the others at their demo widths; each twin's output equal to
+    the port's API called directly on the same model and rows, its wall time
+    and the launches read around it (B1, B2, B3 and B4 must each be
+    launched); one ``{"gallery": ...}`` line;
+12. one ``{"kernels": [...]}`` line of nine entries, then the device line as
    the last line.
 
 Imports no JAX and nothing of ``danspeech_tpu``.
@@ -185,11 +205,20 @@ def log(msg: str) -> None:
 
 
 def card_line() -> str:
+    """The card's name and power limit as nvidia-smi prints them; raises
+    when the query returns no power limit, since every time this script
+    prints is tied to it."""
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()
-    return out[torch.cuda.current_device()] if out else ""
+    line = out[torch.cuda.current_device()] if out else ""
+    limit = line.rpartition(",")[2].split()
+    try:
+        float(limit[0])
+    except (IndexError, ValueError):
+        raise AssertionError(f"nvidia-smi returned no power limit: {line!r}") from None
+    return line
 
 
 def kernel_wrappers() -> dict:
@@ -1654,15 +1683,21 @@ def paced_speech_file(path):
     return PacedSpeechFile(path)
 
 
-def seeded_wav(path, rng):
-    """1 s silence, 4 s speech-level noise, 2 s silence: 16-bit mono PCM."""
-    speech = np.clip(rng.normal(size=4 * RATE) * 3000.0, -32768, 32767)
-    pcm = np.concatenate([np.zeros(RATE), speech, np.zeros(2 * RATE)]).astype("<i2")
+def write_pcm(path, pcm):
+    """Write samples at int16 scale as a 16 kHz 16-bit mono WAV."""
     with wave.open(path, "wb") as w:
         w.setnchannels(1)
         w.setsampwidth(2)
         w.setframerate(RATE)
-        w.writeframes(pcm.tobytes())
+        w.writeframes(np.clip(pcm, -32768, 32767).astype("<i2").tobytes())
+    return path
+
+
+def seeded_wav(path, rng):
+    """1 s silence, 4 s speech-level noise, 2 s silence: 16-bit mono PCM."""
+    speech = rng.normal(size=4 * RATE) * 3000.0
+    pcm = np.concatenate([np.zeros(RATE), speech, np.zeros(2 * RATE)])
+    write_pcm(path, pcm)
     return len(pcm)
 
 
@@ -1951,18 +1986,13 @@ def sum_launches(*step_lists):
     return total
 
 
-def seeded_manifest(tmp, rng, labels, n):
-    """``n`` seeded WAVs of 1-3 s with seeded transcripts, and their
-    manifest."""
+def seeded_manifest(tmp, rng, labels, n, hi_s=3.0):
+    """``n`` seeded WAVs of 1 to ``hi_s`` s with seeded transcripts, and
+    their manifest."""
     letters = [c for c in labels if c not in "_ "]
     lines = []
-    for i, pcm in enumerate(seeded_waveforms(rng, n, 1.0, 3.0)):
-        path = os.path.join(tmp, f"utt{i}.wav")
-        with wave.open(path, "wb") as w:
-            w.setnchannels(1)
-            w.setsampwidth(2)
-            w.setframerate(RATE)
-            w.writeframes(pcm.astype("<i2").tobytes())
+    for i, pcm in enumerate(seeded_waveforms(rng, n, 1.0, hi_s)):
+        path = write_pcm(os.path.join(tmp, f"utt{i}.wav"), pcm)
         words = ["".join(rng.choice(letters, size=rng.integers(2, 6)))
                  for _ in range(rng.integers(1, 4))]
         lines.append(f"{path},{' '.join(words)}")
@@ -2498,10 +2528,12 @@ def peaky_probs(rng, lm, labels, rows, t_max):
     return probs, texts
 
 
-def device_tops(probs, lengths, dlm, labels, keep_pointers=None):
+def device_tops(probs, lengths, dlm, labels, keep_pointers=None, beam=LM_BEAM,
+                alpha=LM_ALPHA, beta=LM_BETA):
     """The device beam's best transcript and its score per row (the
-    published settings), on ``probs``' device. ``keep_pointers`` (a list)
-    receives the per-frame pointer tensors of the search."""
+    published settings unless given), on ``probs``' device.
+    ``keep_pointers`` (a list) receives the per-frame pointer tensors of the
+    search."""
     from danspeech_tpu_torch.decode import device_beam
 
     real = device_beam.backtrack_beams
@@ -2514,8 +2546,8 @@ def device_tops(probs, lengths, dlm, labels, keep_pointers=None):
     device_beam.backtrack_beams = kept
     try:
         lab, _, lens, scores = device_beam.ctc_beam_search_device(
-            probs, lengths, beam_width=LM_BEAM, blank=labels.index("_"), lm=dlm,
-            alpha=LM_ALPHA, beta=LM_BETA, space=labels.index(" "), top=1)
+            probs, lengths, beam_width=beam, blank=labels.index("_"), lm=dlm,
+            alpha=alpha, beta=beta, space=labels.index(" "), top=1)
     finally:
         device_beam.backtrack_beams = real
     lab, lens, scores = lab.cpu().numpy(), lens.cpu().numpy(), scores.cpu().numpy()
@@ -3830,6 +3862,442 @@ def phase_parallel(card):
 
 
 # ---------------------------------------------------------------------------
+# Phase 11: the gallery (danspeech_tpu_torch/examples), the spectrogram's two
+# DFTs and the conv layouts
+# ---------------------------------------------------------------------------
+
+N_FFT, HOP = 320, 160
+# rFFT against the matmul DFT, normalised log units (ROADMAP C4): its 5e-4
+# holds for all but a few near-zero bins (the Nyquist bin of a frame), whose
+# log1p magnifies the absolute rounding: on the CPU, 6 and 16 of phase 4's
+# rows gave a largest 4.4e-3 and 2.7e-3, a share of 1.0e-5 and 3.4e-6
+# beyond 5e-4. So the share beyond C4_ATOL is held to C4_SHARE, the 99.9th
+# percentile to C4_P999 and the largest to C4_MAX
+C4_ATOL, C4_SHARE, C4_P999, C4_MAX = 5e-4, 1e-4, 2e-5, 1e-2
+# one row's magnitudes, relative to the frame's largest bin: the two float32
+# DFTs met within 9.7e-7 on the CPU (tests/test_torch_stft.py)
+MAG_RTOL = 1e-5
+# one chunk's log spectrogram with a caller's mean and std: a near-zero bin
+# magnifies the absolute rounding (tests/test_torch_stft.py LOG_MAX)
+STREAM_LOG_ATOL = 2e-3
+# a conv layout against F.conv2d, relative to the output's largest
+# magnitude: bf16 outputs round to bf16 (C5), float32 ones may meet TF32
+LAYOUT_REL = 1e-2
+CONV_BATCH, CONV_T = 128, 801  # the flagship's serving batch, 8 s of input frames
+# (layer, C_in, C_out, F_in, kernel, stride, padding, layouts): the flagship's
+# convs (models/config.py CONV_SPECS)
+CONV_LAYERS = (
+    ("conv1", 1, 32, 161, (41, 11), (2, 2), (20, 5),
+     ("conv2d_banded_cin1", "conv2d_s2d_cin1")),
+    ("conv2", 32, 32, 81, (21, 11), (2, 1), (10, 5), ("conv2d_s2d_freq",)),
+    ("conv3", 32, 96, 41, (21, 11), (2, 1), (10, 5), ("conv2d_s2d_freq",)),
+)
+VIDEO_S = 60.0  # the long recording of video_transcribe_simulation
+GALLERY_WATCHDOG_S = 120.0  # a streaming twin waiting longer is interrupted
+GALLERY_TITLE = ("phase 11: the gallery (the spectrogram's two DFTs, the conv layouts, "
+                 "the eight twins of examples/)")
+
+
+def phase_spectra(card, waves):
+    """11a: ``batched_log_spectrogram`` of ``waves`` with the rFFT and the
+    matmul DFT (also with TF32 allowed in the process), ``magnitude_stft``
+    and ``streaming_log_spectrogram`` on one row, and the three conv layouts
+    against ``F.conv2d`` at the flagship's conv shapes, in bf16 and float32;
+    each checked and timed."""
+    from danspeech_tpu_torch.features.windows import get_window
+    from danspeech_tpu_torch.ops import conv as conv_ops
+    from danspeech_tpu_torch.ops import stft
+
+    out = {}
+    batch = torch.zeros(len(waves), max(len(w) for w in waves))
+    for i, w in enumerate(waves):
+        batch[i, : len(w)] = torch.from_numpy(w.astype(np.float32))
+    batch = batch.cuda()
+    lens = torch.tensor([len(w) for w in waves], device="cuda")
+    win = torch.from_numpy(get_window("hamming", N_FFT).astype(np.float32)).cuda()
+
+    def spect(use_fft):
+        return stft.batched_log_spectrogram(batch, lens, N_FFT, HOP, win, use_fft=use_fft)
+
+    fft, frame_lens = spect(True)
+    dft, _ = spect(False)
+    valid = torch.arange(fft.shape[-1], device="cuda")[None, :] < frame_lens[:, None].long()
+    d = (fft - dft).abs().transpose(1, 2)[valid].flatten().sort().values
+    diff, p999 = float(d[-1]), float(d[int(0.999 * (d.numel() - 1))])
+    share = float((d > C4_ATOL).float().mean())
+    del d
+    saved = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")  # TF32 allowed for float32 products
+    try:
+        dft_tf32_allowed, _ = spect(False)
+        # the same product with TF32 taken, on the longest row
+        row = int(lens.argmax())
+        frames = stft.frame_signal(batch[row, : int(lens[row])], N_FFT, HOP, True) * win
+        cos_m, sin_m = stft._dft_matrices(N_FFT, torch.float32, frames.device)
+        re, im = frames @ cos_m, frames @ sin_m
+        mag_tf32 = torch.sqrt(re * re + im * im).T
+    finally:
+        torch.set_float32_matmul_precision(saved)
+    guarded = torch.equal(dft_tf32_allowed, dft)
+    y = batch[row, : int(lens[row])]
+    mag_fft = stft.magnitude_stft(y, N_FFT, HOP, win, use_fft=True)
+    mag_dft = stft.magnitude_stft(y, N_FFT, HOP, win, use_fft=False)
+    scale = mag_fft.max(dim=0).values
+    mag_rel = float(((mag_dft - mag_fft).abs() / scale).max())
+    tf32_rel = float(((mag_tf32 - mag_fft).abs() / scale).max())
+    chunk = y[: 6240 + N_FFT]
+    mean, std = torch.tensor(4.0, device="cuda"), torch.tensor(2.0, device="cuda")
+    s_fft = stft.streaming_log_spectrogram(chunk, N_FFT, HOP, win, mean, std, use_fft=True)
+    s_dft = stft.streaming_log_spectrogram(chunk, N_FFT, HOP, win, mean, std, use_fft=False)
+    stream_diff = float((s_fft - s_dft).abs().max())
+    times = {
+        "batched_rfft_ms": time_ms(lambda: spect(True), 10),
+        "batched_matmul_dft_ms": time_ms(lambda: spect(False), 10),
+        "magnitude_stft_rfft_ms": time_ms(
+            lambda: stft.magnitude_stft(y, N_FFT, HOP, win, use_fft=True), 20),
+        "magnitude_stft_matmul_dft_ms": time_ms(
+            lambda: stft.magnitude_stft(y, N_FFT, HOP, win, use_fft=False), 20),
+        "streaming_rfft_ms": time_ms(lambda: stft.streaming_log_spectrogram(
+            chunk, N_FFT, HOP, win, mean, std, use_fft=True), 20),
+        "streaming_matmul_dft_ms": time_ms(lambda: stft.streaming_log_spectrogram(
+            chunk, N_FFT, HOP, win, mean, std, use_fft=False), 20),
+    }
+    log(f"  batched_log_spectrogram of {len(waves)} waveforms {tuple(fft.shape)}: rFFT "
+        f"against the matmul DFT over the valid frames: {share:.2e} of the elements beyond "
+        f"{C4_ATOL} (<= {C4_SHARE}), 99.9th percentile {p999:.2e} (<= {C4_P999}), largest "
+        f"{diff:.3e} (<= {C4_MAX}); with TF32 allowed in "
+        f"the process the DFT is {'bit-equal' if guarded else 'NOT equal'} (a TF32 product "
+        f"would move a magnitude by {tf32_rel:.2e} of its frame's largest bin, the guarded "
+        f"one {mag_rel:.2e}, <= {MAG_RTOL}); one {y.numel() / RATE:.2f} s row's "
+        f"streaming_log_spectrogram chunk max|d| {stream_diff:.3e} (<= {STREAM_LOG_ATOL}) [{card}]")
+    log("  " + ", ".join(f"{k} {v:.3f}" for k, v in times.items()))
+    if not (share <= C4_SHARE and p999 <= C4_P999 and diff <= C4_MAX and guarded
+            and mag_rel <= MAG_RTOL and stream_diff <= STREAM_LOG_ATOL):
+        raise AssertionError("phase 11a: the spectrograms' two DFTs differ beyond their bounds")
+    out["spectrogram"] = {"rows": len(waves), "shape": list(fft.shape), "max_abs_diff": diff,
+                          "p999_abs_diff": p999, "share_beyond_c4": share,
+                          "tf32_guarded": guarded, "magnitude_rel": mag_rel,
+                          "tf32_magnitude_rel": tf32_rel, "streaming_max_abs_diff": stream_diff,
+                          **times}
+    del fft, dft, dft_tf32_allowed, batch
+
+    # float32 both ways: TF32 allowed (PyTorch's default for cuDNN, what a
+    # user's process runs) and off (what phase 3 leaves for the rest of a
+    # whole run)
+    settings = (("bf16", torch.bfloat16, None), ("float32, TF32", torch.float32, True),
+                ("float32, no TF32", torch.float32, False))
+    saved = torch.backends.cudnn.allow_tf32, torch.get_float32_matmul_precision()
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    layouts, t_in = [], CONV_T
+    try:
+        for layer, cin, cout, f, (kf, kt), stride, pad, names in CONV_LAYERS:
+            x = torch.randn(CONV_BATCH, cin, f, t_in, generator=gen, device="cuda")
+            w = (torch.randn(cout, cin, kf, kt, generator=gen, device="cuda")
+                 / (cin * kf * kt) ** 0.5)
+            b = torch.randn(cout, generator=gen, device="cuda")
+            for label, dtype, tf32 in settings:
+                if tf32 is not None:
+                    torch.backends.cudnn.allow_tf32 = tf32
+                    torch.set_float32_matmul_precision("high" if tf32 else "highest")
+                wd = w.to(dtype)
+                ref = conv_ops.conv2d(x, wd, b, stride, pad)
+                cudnn_ms = time_ms(lambda: conv_ops.conv2d(x, wd, b, stride, pad), 5)
+                for name in names:
+                    fn = getattr(conv_ops, name)
+                    got = fn(x, wd, b, stride, pad)
+                    rel = float((got - ref).abs().max() / ref.abs().max())
+                    ms = time_ms(lambda: fn(x, wd, b, stride, pad), 5)
+                    ok = tuple(got.shape) == tuple(ref.shape) and rel <= LAYOUT_REL
+                    log(f"  {layer} {tuple(x.shape)} -> {tuple(ref.shape)} {label}: {name} "
+                        f"{ms:.3f} ms, cuDNN conv2d {cudnn_ms:.3f} ms; max|d| {rel:.2e} of the "
+                        f"largest output (<= {LAYOUT_REL}) [{card}]")
+                    layouts.append({"layer": layer, "dtype": label, "layout": name,
+                                    "input": list(x.shape), "output": list(ref.shape),
+                                    "ms": ms, "library_ms": cudnn_ms, "max_rel_err": rel})
+                    if not ok:
+                        raise AssertionError(f"phase 11a: {name} differs from F.conv2d at {layer}")
+                    del got
+                del ref
+            t_in = (t_in + 2 * pad[1] - kt) // stride[1] + 1
+            del x
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved[0]
+        torch.set_float32_matmul_precision(saved[1])
+    torch.cuda.empty_cache()
+    out["conv_layouts"] = layouts
+    return out
+
+
+def burst_recording(rng, seconds=VIDEO_S):
+    """Quiet stretches of 1.5-3 s between bursts of speech-level noise of 2-6
+    s, ``seconds`` long: what energy_vad_segments cuts into utterances."""
+    parts, n, total = [], 0, int(seconds * RATE)
+    while n < total:
+        quiet, loud = int(rng.uniform(1.5, 3.0) * RATE), int(rng.uniform(2.0, 6.0) * RATE)
+        parts += [np.zeros(quiet), rng.normal(size=loud) * 3000.0]
+        n += quiet + loud
+    return np.concatenate(parts)[:total]
+
+
+class Recorded:
+    """Record every call of a class's method (its arguments and result)
+    while in the ``with`` block."""
+
+    def __init__(self, cls, name):
+        self.cls, self.name, self.calls = cls, name, []
+
+    def __enter__(self):
+        inner = self.inner = getattr(self.cls, self.name)
+        calls = self.calls
+
+        def wrapper(obj, *args, **kw):
+            res = inner(obj, *args, **kw)
+            calls.append((args, kw, res))
+            return res
+
+        setattr(self.cls, self.name, wrapper)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.cls, self.name, self.inner)
+
+
+def phase_gallery(card):
+    """11b: the eight twins of ``danspeech_tpu_torch/examples`` through
+    ``main(argv)`` on CUDA over seeded inputs written to a temp dir, each
+    against the port's API called directly on the same model and rows."""
+    import _thread
+    import contextlib
+    import io
+
+    import torch.distributed as dist
+
+    from danspeech_tpu_torch import MultiStreamTranscriber, Recognizer
+    from danspeech_tpu_torch.audio import load_audio, load_audio_pcm16, load_audio_wavPCM
+    from danspeech_tpu_torch.audio.dsp import energy_vad_segments
+    from danspeech_tpu_torch.decode.device_lm import pack_device_lm
+    from danspeech_tpu_torch.decode.lm import load_arpa
+    from danspeech_tpu_torch.engine import DanSpeechRecognizer
+    from danspeech_tpu_torch.examples import (
+        batch_serving, device_beam_and_long_form, multi_stream_server,
+        real_time_streaming_example, run_recognize, stream_example, train_finetune,
+        video_transcribe_simulation)
+    from danspeech_tpu_torch.models import DeepSpeechConfig, DeepSpeechModel
+    from danspeech_tpu_torch.models.checkpoint import flatten_tree
+    from danspeech_tpu_torch.pretrained_models import CustomModel
+
+    failures, twins = [], {}
+
+    def check(name, ok, msg):
+        twins[name].setdefault("checks", []).append(msg if ok else f"FAILED: {msg}")
+        log(f"    {'ok' if ok else 'FAILED'}: {msg}")
+        if not ok:
+            failures.append(f"{name}: {msg}")
+
+    def run(name, module, argv):
+        """One twin through main(argv) on CUDA: its wall time and the kernel
+        launches read around it; what it prints is kept out of the log."""
+        zero_launches()
+        buf = io.StringIO()
+        watchdog = threading.Timer(GALLERY_WATCHDOG_S, _thread.interrupt_main)
+        watchdog.daemon = True
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        watchdog.start()
+        try:
+            with contextlib.redirect_stdout(buf):
+                res = module.main([*argv, "--device", "cuda"])
+            torch.cuda.synchronize()
+        finally:
+            watchdog.cancel()
+        wall = time.perf_counter() - t0
+        counts = {k: v for k, v in read_launches().items() if v}
+        printed = buf.getvalue().splitlines()
+        twins[name] = {"wall_s": wall, "launches": counts, "lines_printed": len(printed)}
+        log(f"  {name}: {wall:.2f} s, launches {counts}, {len(printed)} lines printed, the "
+            f"first: {printed[0][:80] if printed else ''!r} [{card}]")
+        return res
+
+    t_phase = time.perf_counter()
+    waves = seeded_waveforms(np.random.default_rng(0), 128)  # phase 4's first batch
+    out = phase_spectra(card, waves)
+    config = DeepSpeechConfig(**FLAGSHIP)
+    labels = config.labels
+    with tempfile.TemporaryDirectory() as tmp:
+        # the inputs, from the seeds of the phases that made them before
+        wav_dir = os.path.join(tmp, "wavs")
+        os.makedirs(wav_dir)
+        paths = [write_pcm(os.path.join(wav_dir, f"w{i:03d}.wav"), w) for i, w in enumerate(waves)]
+        pth = os.path.join(tmp, "DanSpeechPrimary.pth")
+        torch.save(reference_package(config, sharpened(
+            DeepSpeechModel.init_random(config, seed=0)).params), pth)  # phase 9's, fc x128
+        arpa = os.path.join(tmp, "synthetic_3gram.arpa")
+        synthetic_lm_arpa(arpa, labels, seed=9)  # phase 8's
+        rng = np.random.default_rng(12)
+        video = write_pcm(os.path.join(tmp, "long.wav"), burst_recording(rng))
+        phrases = write_pcm(os.path.join(tmp, "phrases.wav"), np.concatenate(
+            [np.zeros(RATE), rng.normal(size=3 * RATE) * 3000.0, np.zeros(2 * RATE),
+             rng.normal(size=2 * RATE) * 3000.0, np.zeros(2 * RATE)]))
+        one = os.path.join(tmp, "seeded.wav")
+        seeded_wav(one, np.random.default_rng(7))  # phase 5's
+        manifest = seeded_manifest(tmp, rng, labels, TRAIN_BATCH, hi_s=8.0)
+        model = CustomModel(pth)
+        audio0 = load_audio(paths[0])
+
+        # batch_serving: the flagship package over the 128 WAVs
+        res = run("batch_serving", batch_serving, ["--wav-dir", wav_dir, "--pth", pth])
+        rec = Recognizer(model=model)
+        groups = len(rec.danspeech_recognizer._plan_groups(waves))
+        b3 = twins["batch_serving"]["launches"].get("gru_bidi_fused", 0)
+        check("batch_serving", res["texts"] == rec.recognize_batch(
+            [load_audio_pcm16(p) for p in paths]), "transcripts equal recognize_batch's")
+        check("batch_serving", b3 == 2 * config.rnn_layers * groups,
+              f"{b3} gru_bidi_fused launches = {config.rnn_layers} a dispatch group x "
+              f"{groups} groups x 2 calls")
+        twins["batch_serving"].update(audio_s=res["audio_s"], timed_wall_s=res["wall_s"],
+                                      audio_s_per_s=res["audio_s_per_s"], groups=groups)
+        log(f"    timed recognize_batch: {res['audio_s']:.2f} audio-s in {res['wall_s']:.3f} s "
+            f"= {res['audio_s_per_s']:.1f} audio-s/s [{card}]")
+
+        # run_recognize: greedy, the LM beam and every beam of one row
+        res = run("run_recognize", run_recognize, ["--wav", paths[0], "--pth", pth,
+                                                   "--arpa", arpa])
+        greedy = rec.recognize(audio0)
+        rec.update_decoder(lm=arpa)
+        check("run_recognize", res["greedy"] == greedy and res["beam"] == rec.recognize(audio0)
+              and res["all_beams"] == rec.recognize(audio0, show_all=True),
+              f"greedy, beam and {len(res['all_beams'] or [])} beams equal recognize's")
+        del rec
+
+        # device_beam_and_long_form at its demo width (2x96) with phase 8's LM
+        res = run("device_beam_and_long_form", device_beam_and_long_form,
+                  ["--wav", paths[0], "--arpa", arpa])
+        demo = DeepSpeechModel.init_random(DeepSpeechConfig(**device_beam_and_long_form.DEMO),
+                                           seed=3)
+        rec = Recognizer(model=demo, lm=arpa, alpha=1.0, beta=0.3)
+        rec.update_decoder(beam_width=16)
+        host = rec.recognize(audio0)
+        rec.update_decoder(backend="device")
+        dev = rec.recognize(audio0)
+        check("device_beam_and_long_form", (res["host"], res["device"]) == (host, dev),
+              "host and device beams equal recognize's")
+        check("device_beam_and_long_form", res["sharded"] == res["device"],
+              "the sharded beam equals the device beam (world size 1)")
+        if host != dev:  # a float32 near tie, settled as phase 8 settles them (C16)
+            probs, out_lens, _, _ = group_forward(rec.danspeech_recognizer, [audio0])
+            dlm = pack_device_lm(load_arpa(arpa), labels, device="cuda")
+            ref = device_tops(probs[:1].double(), [int(out_lens[0])], dlm, labels, beam=16,
+                              alpha=1.0, beta=0.3)[0][0]
+            check("device_beam_and_long_form", ref == host,
+                  "host and device beams differ; the float64 search picks the host's")
+        else:
+            check("device_beam_and_long_form", True, "host and device beams agree")
+        long_form = Recognizer(model=demo).recognize_long_form(np.concatenate([audio0] * 4))
+        dist.destroy_process_group()
+        check("device_beam_and_long_form", res["long_form"] == long_form,
+              "the long form equals recognize_long_form's")
+        del rec
+
+        # multi_stream_server at its demo width (5x800 uni), 8 streams of 1 s chunks
+        res = run("multi_stream_server", multi_stream_server, ["--wav-dir", wav_dir])
+        chunk = 16 * 1000
+        streams = multi_stream_server.session_streams(
+            [load_audio_wavPCM(p) for p in paths], 8, chunk)
+        ms = MultiStreamTranscriber(multi_stream_server.demo_stream_model(), n_streams=8)
+        ref = [ms.step([s[i * chunk:(i + 1) * chunk] for s in streams], is_first=i == 0,
+                       is_last=i == multi_stream_server.N_CHUNKS - 1)
+               for i in range(multi_stream_server.N_CHUNKS)]
+        check("multi_stream_server", res == ref, "every step's transcripts equal "
+              "MultiStreamTranscriber.step's on the same cohorts")
+        del ms
+
+        # stream_example: two phrases at TestModel's shape (5x400)
+        with Recorded(Recognizer, "recognize") as calls:
+            res = run("stream_example", stream_example,
+                      ["--wav", phrases, "--phrases", "2", "--random-weights"])
+        rec = Recognizer(model=DeepSpeechModel.init_random(
+            DeepSpeechConfig(**stream_example.TEST_MODEL), seed=0))
+        check("stream_example", len(res) == 2 and res == [rec.recognize(a[0]) for a, _, _
+                                                           in calls.calls],
+              f"{len(res)} phrases, each equal to recognize of its samples")
+
+        # real_time_streaming_example: CPUStreamingRNN's and TestModel's shapes
+        with Recorded(DanSpeechRecognizer, "streaming_transcribe") as calls:
+            res = run("real_time_streaming_example", real_time_streaming_example,
+                      ["--wav", one, "--phrases", "1", "--random-weights"])
+        smodel = DeepSpeechModel.init_random(
+            DeepSpeechConfig(**real_time_streaming_example.CPU_STREAMING), seed=0)
+        sec = DeepSpeechModel.init_random(
+            DeepSpeechConfig(**real_time_streaming_example.TEST_MODEL), seed=1)
+        rec = Recognizer(model=smodel)
+        rec.enable_real_time_streaming(smodel, string_parts=False, secondary_model=sec)
+        replay = [rec.danspeech_recognizer.streaming_transcribe(*a, **kw)
+                  for a, kw, _ in calls.calls]
+        check("real_time_streaming_example",
+              bool(res) and res[-1][0] and replay == [r for _, _, r in calls.calls],
+              f"{len(res) - 1} partials and a final; {len(calls.calls)} chunks sent again "
+              "through streaming_transcribe give the same outputs")
+        del rec
+
+        # video_transcribe_simulation: the flagship package and phase 8's LM
+        res = run("video_transcribe_simulation", video_transcribe_simulation,
+                  [video, "--pth", pth, "--arpa", arpa])
+        audio = load_audio(video)
+        ranges = energy_vad_segments(audio, step=1024, energy_threshold=700.0,
+                                     max_pause_steps=12, min_segment_samples=16000)
+        rec = Recognizer(model=model, lm=arpa, alpha=video_transcribe_simulation.ALPHA,
+                         beta=video_transcribe_simulation.BETA,
+                         beam_width=video_transcribe_simulation.BEAM)
+        ref = []
+        for i in range(0, len(ranges), 16):
+            ref += rec.recognize_batch([audio[a:b] for a, b in ranges[i:i + 16]])
+        check("video_transcribe_simulation", res["ranges"] == ranges and len(ranges) > 1
+              and res["segments"] == ref,
+              f"{len(ranges)} segments of {VIDEO_S:.0f} s, each transcript equal to "
+              "recognize_batch's")
+        twins["video_transcribe_simulation"]["segments"] = len(ranges)
+        del rec
+
+        # train_finetune: the flagship package, 2 layers frozen, one epoch of 32 rows
+        export = os.path.join(tmp, "finetuned.dsz")
+        res = run("train_finetune", train_finetune,
+                  [manifest, "--finetune-from", pth, "--freeze-layers", "2", "--epochs", "1",
+                   "--batch-size", str(TRAIN_BATCH), "--checkpoint-dir",
+                   os.path.join(tmp, "ckpt"), "--export", export])
+        tuned, start = flatten_tree(CustomModel(export).params), flatten_tree(model.params)
+        frozen = [k for k in start if k.startswith(("conv.0.", "conv.1."))]
+        loss = float(res["log"][0].split("loss ")[1].split()[0])
+        check("train_finetune", np.isfinite(loss) and frozen
+              and all(np.array_equal(tuned[k], start[k]) for k in frozen)
+              and all(not np.array_equal(tuned[k], start[k]) for k in tuned
+                      if k.startswith("rnns.") and k.endswith("w_hh")),
+              f"loss {loss:.4f}; the frozen conv blocks equal the package's, every "
+              "recurrent weight moved")
+        twins["train_finetune"]["loss"] = loss
+        res = run("run_recognize (finetuned)", run_recognize, ["--wav", paths[0], "--pth",
+                                                               export])
+        check("run_recognize (finetuned)", res["greedy"] == Recognizer(
+            model=CustomModel(export)).recognize(audio0) and res["beam"] is None,
+              "the exported model's greedy transcript equals recognize's; the zoo LM not "
+              "in the cache, the beam skipped")
+    torch.cuda.empty_cache()
+
+    totals: dict = {}
+    for t in twins.values():
+        for k, v in t["launches"].items():
+            totals[k] = totals.get(k, 0) + v
+    for name in ("gru_scan", "gru_scan_bidi", "gru_bidi_fused", "gru_bwd_scan"):
+        if not totals.get(name):
+            failures.append(f"{name} was launched no time through the gallery")
+    out.update(card=card, twins=twins, launches=totals,
+               wall_s=time.perf_counter() - t_phase)
+    log(f"  phase 11: {out['wall_s']:.1f} s; launches through the twins {totals} [{card}]")
+    if failures:
+        raise AssertionError(f"phase 11: {len(failures)} checks failed: {failures}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # --phase-clocks: where a step of the persistent kernels spends its clocks
 # ---------------------------------------------------------------------------
 
@@ -3999,10 +4467,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels", action="store_true",
                     help="run phases 1-3 only (build and kernel checks)")
-    ap.add_argument("--only", type=int, choices=(8, 9, 10),
+    ap.add_argument("--only", type=int, choices=(8, 9, 10, 11),
                     help="run phases 1, 2 and this one only (build, then 8: serving "
-                         "with an LM, 9: the rest of the single-GPU surface, or 10: "
-                         "parallelism)")
+                         "with an LM, 9: the rest of the single-GPU surface, 10: "
+                         "parallelism, or 11: the gallery)")
     ap.add_argument("--phase-clocks", action="store_true",
                     help="instead of the phases: build the persistent kernels with "
                          "-DPS_PROFILE and print where a step spends its clocks")
@@ -4036,15 +4504,18 @@ def main(argv=None) -> int:
     if args.only:
         if args.only == 8:
             log("phase 8: serving with a language model (host, device and auto beams)")
-            print(json.dumps({"lm_serving": phase_lm(card)}))
+            print(json.dumps({"lm_serving": phase_lm(card), "card": card}))
         elif args.only == 9:
             log("phase 9: the rest of the single-GPU surface (.pth, mu-law, "
                 "multi-stream, listen)")
-            print(json.dumps({"surface": phase_surface(card)}))
-        else:
+            print(json.dumps({"surface": phase_surface(card), "card": card}))
+        elif args.only == 10:
             log("phase 10: parallelism (mesh, data parallelism, long form, sharded "
                 "beam, tensor and pipeline parallelism)")
-            print(json.dumps({"parallel": phase_parallel(card)}))
+            print(json.dumps({"parallel": phase_parallel(card), "card": card}))
+        else:
+            log(GALLERY_TITLE)
+            print(json.dumps({"gallery": phase_gallery(card), "card": card}))
         log(card)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4061,7 +4532,7 @@ def main(argv=None) -> int:
     routes = phase_gru_layer_routes()
     rnn_type_checks = phase_rnn_type_kernels()
 
-    launches = {}  # per kernel, summed over the main paths of phases 4-10
+    launches = {}  # per kernel, summed over the main paths of phases 4-11
     pair_launches = {}  # paired launches of the wrappers that count chains, on those paths
     if not args.kernels:
         log("phase 4: batch path (Recognizer on the flagship)")
@@ -4081,6 +4552,8 @@ def main(argv=None) -> int:
         log("phase 10: parallelism (mesh, data parallelism, long form, sharded beam, "
             "tensor and pipeline parallelism)")
         parallel = phase_parallel(card)
+        log(GALLERY_TITLE)
+        gallery = phase_gallery(card)
         pair_launches = {**lstm_run["pair_launches"], **tanh_run["pair_launches"]}
         launches = {
             "gru_bidi_fused": served["launches"] + streamed["bidi_launches"]
@@ -4096,6 +4569,8 @@ def main(argv=None) -> int:
             launches[name] = lstm_run["launches"][name]
         for name in ("rnn_tanh_scan", "rnn_tanh_bwd_scan"):
             launches[name] = tanh_run["launches"][name]
+        for name, n in gallery["launches"].items():
+            launches[name] += n
         for name, n in launches.items():
             if not n:
                 raise AssertionError(f"{name} was launched no time on the main paths")
@@ -4116,6 +4591,7 @@ def main(argv=None) -> int:
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": main["library_ms"],
+            "card": card,
             "shapes": checks,
         }
 
@@ -4135,11 +4611,12 @@ def main(argv=None) -> int:
              pair_launches=pair_launches.get("rnn_tanh_bwd_scan")),
     ]
     if not args.kernels:
-        print(json.dumps({"lm_serving": lm_run}))
-        print(json.dumps({"surface": surface}))
-        print(json.dumps({"parallel": parallel}))
+        print(json.dumps({"lm_serving": lm_run, "card": card}))
+        print(json.dumps({"surface": surface, "card": card}))
+        print(json.dumps({"parallel": parallel, "card": card}))
+        print(json.dumps({"gallery": gallery, "card": card}))
     log(card)  # as nvidia-smi prints it: name, power limit
-    print(json.dumps({"kernels": kernels, "barrier_us": barrier["us"]}))
+    print(json.dumps({"kernels": kernels, "barrier_us": barrier["us"], "card": card}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -47,3 +47,8 @@ class FreezingMoreLayersThanExist(Exception):
 
 class InvalidDataError(Exception):
     pass
+
+
+class NotInCacheError(FileNotFoundError):
+    """A zoo artifact was asked for with downloads off and is not in the
+    cache (a port-only addition: ``utils/cache.get_model(download=False)``)."""

@@ -3,7 +3,9 @@ format (the port of ``danspeech_tpu/language_models``).
 
 Each constructor returns a local *path* to the ``.klm`` file
 (md5-validated, in the shared cache of ``utils/cache.py``), which
-``Recognizer(lm=...)`` and ``update_decoder(lm=...)`` accept.
+``Recognizer(lm=...)`` and ``update_decoder(lm=...)`` accept. With
+``download=False`` (the port's addition) a constructor only looks in the
+cache and raises ``errors.NotInCacheError`` on a miss.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ _ZOO = {
 }
 
 
-def _fetch(name: str, cache_dir=None) -> str:
+def _fetch(name: str, cache_dir=None, download: bool = True) -> str:
     filename, md5 = _ZOO[name]
     return get_model(
         model_name=filename,
@@ -39,52 +41,53 @@ def _fetch(name: str, cache_dir=None) -> str:
         file_hash=md5,
         cache_dir=cache_dir,
         file_type="language_model",
+        download=download,
     )
 
 
-def DSL3gram(cache_dir=None) -> str:
+def DSL3gram(cache_dir=None, download: bool = True) -> str:
     """DSL 3-gram LM — best performing along with DSL 5-gram."""
-    return _fetch("DSL3gram", cache_dir)
+    return _fetch("DSL3gram", cache_dir, download)
 
 
-def DSL5gram(cache_dir=None) -> str:
+def DSL5gram(cache_dir=None, download: bool = True) -> str:
     """DSL 5-gram LM (not pruned) — used for the published WER numbers."""
-    return _fetch("DSL5gram", cache_dir)
+    return _fetch("DSL5gram", cache_dir, download)
 
 
-def DSL3gramWithNames(cache_dir=None) -> str:
+def DSL3gramWithNames(cache_dir=None, download: bool = True) -> str:
     """DSL 3-gram LM augmented with Danish first names."""
-    return _fetch("DSL3gramWithNames", cache_dir)
+    return _fetch("DSL3gramWithNames", cache_dir, download)
 
 
-def DSLWiki3gram(cache_dir=None) -> str:
+def DSLWiki3gram(cache_dir=None, download: bool = True) -> str:
     """DSL + Wikipedia 3-gram LM."""
-    return _fetch("DSLWiki3gram", cache_dir)
+    return _fetch("DSLWiki3gram", cache_dir, download)
 
 
-def DSLWiki5gram(cache_dir=None) -> str:
+def DSLWiki5gram(cache_dir=None, download: bool = True) -> str:
     """DSL + Wikipedia 5-gram LM."""
-    return _fetch("DSLWiki5gram", cache_dir)
+    return _fetch("DSLWiki5gram", cache_dir, download)
 
 
-def DSLWikiLeipzig3gram(cache_dir=None) -> str:
+def DSLWikiLeipzig3gram(cache_dir=None, download: bool = True) -> str:
     """DSL + Wikipedia + Leipzig 3-gram LM."""
-    return _fetch("DSLWikiLeipzig3gram", cache_dir)
+    return _fetch("DSLWikiLeipzig3gram", cache_dir, download)
 
 
-def Wiki3gram(cache_dir=None) -> str:
+def Wiki3gram(cache_dir=None, download: bool = True) -> str:
     """Wikipedia 3-gram LM."""
-    return _fetch("Wiki3gram", cache_dir)
+    return _fetch("Wiki3gram", cache_dir, download)
 
 
-def Wiki5gram(cache_dir=None) -> str:
+def Wiki5gram(cache_dir=None, download: bool = True) -> str:
     """Wikipedia 5-gram LM."""
-    return _fetch("Wiki5gram", cache_dir)
+    return _fetch("Wiki5gram", cache_dir, download)
 
 
-def Folketinget3gram(cache_dir=None) -> str:
+def Folketinget3gram(cache_dir=None, download: bool = True) -> str:
     """Folketinget (parliament) 3-gram LM."""
-    return _fetch("Folketinget3gram", cache_dir)
+    return _fetch("Folketinget3gram", cache_dir, download)
 
 
 def CustomLanguageModel(path: str) -> str:

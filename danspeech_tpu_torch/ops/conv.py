@@ -1,10 +1,16 @@
 """Conv stack ops: masked 2D convs, eval-mode batchnorm, hardtanh, lookahead.
 
 The port of ``danspeech_tpu/ops/conv.py``. The convolutions are
-``torch.nn.functional.conv2d`` (the JAX package leaves them to XLA); the
-TPU layout variants of the reference (banded and space-to-depth convs) have
-no counterpart here. Layouts are the JAX package's: NCHW activations,
-(O, I, Kf, Kt) kernels, (T, B, H) sequences.
+``torch.nn.functional.conv2d`` (the JAX package leaves them to XLA).
+The JAX package's TPU layouts of the same convolutions are here too
+(``conv2d_banded_cin1``, ``conv2d_s2d_cin1``, ``conv2d_s2d_freq``): the
+same phase split or band, then one ``F.conv2d`` or matmul. ``conv_block``
+keeps ``conv2d`` for every layer (the JAX one takes ``conv2d_s2d_cin1`` for
+the C_in=1 stride-(2,2) first conv); ``chip_smoke.py`` phase 11a times
+each layout against cuDNN. As in ``conv2d``, a bf16 product rounds its
+output to bf16 before the float32 bias add (ROADMAP C5). Layouts are the
+JAX package's: NCHW activations, (O, I, Kf, Kt) kernels, (T, B, H)
+sequences.
 """
 
 from __future__ import annotations
@@ -65,6 +71,121 @@ def conv2d(
     if bias is not None:
         out = out + bias.float()[None, :, None, None]
     return out
+
+
+def _out_size(n: int, kernel: int, stride: int, pad: int) -> int:
+    return (n + 2 * pad - kernel) // stride + 1
+
+
+def _add_bias(out: torch.Tensor, bias: torch.Tensor | None) -> torch.Tensor:
+    out = out.float()
+    if bias is not None:
+        out = out + bias.float()[None, :, None, None]
+    return out
+
+
+def conv2d_banded_cin1(
+    x: torch.Tensor,
+    weight: torch.Tensor,
+    bias: torch.Tensor | None,
+    stride: tuple[int, int],
+    padding: tuple[int, int],
+) -> torch.Tensor:
+    """The C_in=1 Conv2d as one dense banded matmul: the time taps become
+    KT strided views of the input, the frequency kernel a banded
+    (KT*F_pad, F_out*O) matrix, and the layer one (B*T_out, KT*F_pad) x
+    (KT*F_pad, F_out*O) product (about 5x the operations of the direct
+    convolution, the band's zeros, but dense)."""
+    b, cin, f, t = x.shape
+    if cin != 1:
+        raise ValueError("the banded form applies to the C_in=1 first conv only")
+    o, _, kf, kt = weight.shape
+    sf, st = stride
+    pf, pt = padding
+    f_out, t_out = _out_size(f, kf, sf, pf), _out_size(t, kt, st, pt)
+    fp = f + 2 * pf
+    dev = x.device
+
+    xpad = F.pad(x[:, 0], (pt, pt, pf, pf))  # (B, Fp, Tp)
+    # the band: m[ktap, fi, f', oc] = w[oc, 0, fi - sf*f', ktap]
+    kf_idx = (torch.arange(fp, device=dev)[:, None]
+              - sf * torch.arange(f_out, device=dev)[None, :])  # (Fp, F_out)
+    valid = (kf_idx >= 0) & (kf_idx < kf)
+    w_g = weight[:, 0][:, kf_idx.clamp(0, kf - 1), :]  # (O, Fp, F_out, KT)
+    m = torch.where(valid[None, :, :, None], w_g, torch.zeros((), dtype=w_g.dtype,
+                                                              device=dev))
+    m = m.permute(3, 1, 2, 0).reshape(kt * fp, f_out * o)
+    # z[b, t', k, fi] = xpad[b, fi, st*t' + k]
+    z = torch.stack([xpad[:, :, k : k + st * (t_out - 1) + 1 : st] for k in range(kt)],
+                    dim=1)  # (B, KT, Fp, T_out)
+    z = z.permute(0, 3, 1, 2).reshape(b * t_out, kt * fp)
+    out = torch.matmul(z.to(weight.dtype), m)  # (B*T_out, F_out*O)
+    out = out.reshape(b, t_out, f_out, o).permute(0, 3, 2, 1)  # NCHW
+    return _add_bias(out, bias)
+
+
+def conv2d_s2d_cin1(
+    x: torch.Tensor,
+    weight: torch.Tensor,
+    bias: torch.Tensor | None,
+    stride: tuple[int, int],
+    padding: tuple[int, int],
+) -> torch.Tensor:
+    """The C_in=1 stride-(2,2) Conv2d by space-to-depth: the four 2x2 input
+    phases become four channels and the convolution runs at stride 1 on
+    the half-resolution grid with each phase's kernel taps."""
+    b, cin, f, t = x.shape
+    if cin != 1 or tuple(stride) != (2, 2):
+        raise ValueError("space-to-depth here needs C_in=1 and stride (2, 2)")
+    o, _, kf, kt = weight.shape
+    pf, pt = padding
+    dev = x.device
+    # one more on the high sides so that every phase slice has equal length
+    xp = F.pad(x, (pt, pt + 1, pf, pf + 1))
+    phases = [xp[:, :, i::2, j::2] for i in range(2) for j in range(2)]
+    fmin = min(p.shape[2] for p in phases)
+    tmin = min(p.shape[3] for p in phases)
+    xs = torch.cat([p[:, :, :fmin, :tmin] for p in phases], dim=1)
+    # tap (i, j) lands in channel 2*(i%2) + j%2 at (i//2, j//2)
+    wp = torch.zeros((o, 4, (kf + 1) // 2, (kt + 1) // 2), dtype=weight.dtype, device=dev)
+    ii, jj = torch.meshgrid(torch.arange(kf, device=dev), torch.arange(kt, device=dev),
+                            indexing="ij")
+    wp[:, (ii % 2) * 2 + jj % 2, ii // 2, jj // 2] = weight[:, 0]
+    out = F.conv2d(xs.to(weight.dtype), wp)
+    f_out, t_out = _out_size(f, kf, 2, pf), _out_size(t, kt, 2, pt)
+    return _add_bias(out[:, :, :f_out, :t_out], bias)
+
+
+def conv2d_s2d_freq(
+    x: torch.Tensor,
+    weight: torch.Tensor,
+    bias: torch.Tensor | None,
+    stride: tuple[int, int],
+    padding: tuple[int, int],
+) -> torch.Tensor:
+    """The stride-(2,1) Conv2d by space-to-depth on the frequency axis only:
+    the two frequency phases become channel blocks (C_in doubles) and the
+    convolution runs at stride 1 on the half-resolution frequency grid; the
+    counterpart of :func:`conv2d_s2d_cin1` for the second and third convs."""
+    b, cin, f, t = x.shape
+    if tuple(stride) != (2, 1):
+        raise ValueError("frequency space-to-depth needs stride (2, 1)")
+    o, _, kf, kt = weight.shape
+    pf, pt = padding
+    dev = x.device
+    # one more on the high frequency side so both phase slices have equal length
+    xp = F.pad(x, (pt, pt, pf, pf + 1))
+    ph0, ph1 = xp[:, :, 0::2], xp[:, :, 1::2]
+    fmin = min(ph0.shape[2], ph1.shape[2])
+    xs = torch.cat([ph0[:, :, :fmin], ph1[:, :, :fmin]], dim=1)
+    # tap fi of input channel c lands in channel (fi%2)*C + c at tap fi//2
+    wp = torch.zeros((o, 2 * cin, (kf + 1) // 2, kt), dtype=weight.dtype, device=dev)
+    ii = torch.arange(kf, device=dev)
+    wp[:, (ii % 2)[:, None] * cin + torch.arange(cin, device=dev)[None, :],
+       (ii // 2)[:, None], :] = weight.permute(0, 2, 1, 3)
+    out = F.conv2d(xs.to(weight.dtype), wp)
+    f_out, t_out = _out_size(f, kf, 2, pf), _out_size(t, kt, 1, pt)
+    return _add_bias(out[:, :, :f_out, :t_out], bias)
 
 
 def batchnorm_eval(

@@ -4,7 +4,9 @@ A copy of ``danspeech_tpu/utils/cache.py`` with the same root: artifacts
 live under ``~/.danspeech_tpu/{models,lms}/``, so a file that either
 package fetched is found by the other. They are validated by md5 on every
 load and downloaded again on a mismatch; a download that fails leaves no
-partial file. Uses urllib.
+partial file. Uses urllib. ``download=False`` (the port's addition) only
+looks: a missing or invalid file raises ``errors.NotInCacheError`` and
+nothing is fetched or created.
 """
 
 from __future__ import annotations
@@ -14,6 +16,8 @@ import os
 import shutil
 import urllib.request
 import warnings
+
+from ..errors import NotInCacheError
 
 SUBDIR = {"acoustic_model": "models", "language_model": "lms"}
 
@@ -41,17 +45,24 @@ def get_model(
     file_type: str = "acoustic_model",
     file_hash: str | None = None,
     cache_dir: str | None = None,
+    download: bool = True,
 ) -> str:
     """Return a local path to ``model_name``, downloading from ``origin`` on miss.
 
     A cached file failing md5 validation is re-downloaded; a download that
-    raises leaves no partial file behind.
+    raises leaves no partial file behind. With ``download=False`` a miss
+    raises :class:`NotInCacheError` instead.
     """
     if cache_dir is None:
         cache_dir = os.path.join(default_cache_root(), SUBDIR[file_type])
+    fpath = os.path.join(cache_dir, model_name)
+    if not download:
+        if os.path.exists(fpath) and (not file_hash or validate_file(fpath, file_hash)):
+            return fpath
+        raise NotInCacheError(f"{model_name} is not in the cache {cache_dir} "
+                              "and downloads are off")
     os.makedirs(cache_dir, exist_ok=True)
 
-    fpath = os.path.join(cache_dir, model_name)
     download = True
     if os.path.exists(fpath):
         if file_hash and not validate_file(fpath, file_hash):

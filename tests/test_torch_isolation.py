@@ -225,3 +225,51 @@ def test_parallel_entry_points_default_to_cuda():
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+def test_gallery_imports_no_jax():
+    """The gallery's twins import neither JAX nor anything of
+    danspeech_tpu, and importing them starts no process."""
+    code = (
+        "import importlib, subprocess, sys\n"
+        "def refuse(*a, **k):\n"
+        "    raise AssertionError('a process was started at import')\n"
+        "subprocess.run = subprocess.Popen = subprocess.call = refuse\n"
+        "from danspeech_tpu_torch import examples\n"
+        "assert len(examples.TWINS) == 8\n"
+        "for name in examples.TWINS:\n"
+        "    m = importlib.import_module('danspeech_tpu_torch.examples.' + name)\n"
+        "    assert callable(m.main), name\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'optax', 'orbax', 'danspeech_tpu', 'pyaudio')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+@pytest.mark.parametrize("name", [
+    "batch_serving", "device_beam_and_long_form", "multi_stream_server",
+    "real_time_streaming_example", "run_recognize", "stream_example", "train_finetune",
+    "video_transcribe_simulation"])
+def test_gallery_twin_defaults_to_cuda(name):
+    """Every twin resolves ``--device`` before it reads anything: without
+    ``--device cpu`` and without a GPU it raises at once."""
+    import argparse
+    import importlib
+
+    from danspeech_tpu_torch import examples
+
+    module = importlib.import_module(f"danspeech_tpu_torch.examples.{name}")
+    argv = {"train_finetune": ["train.csv"],
+            "video_transcribe_simulation": ["long.wav"]}.get(name, [])
+    if torch.cuda.is_available():
+        ap = argparse.ArgumentParser()
+        examples.add_device(ap)
+        assert examples.parse(ap, []).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            module.main(argv)

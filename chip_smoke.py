@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py            # every phase, needs one CUDA card
     python3 chip_smoke.py --kernels  # phases 1-3 only (build + kernel checks)
-    python3 chip_smoke.py --only 8  # phases 1, 2 and 8 only (or 9, 10, 11)
+    python3 chip_smoke.py --only 8  # phases 1, 2 and 8 only (or 9, 10, 11, 12)
     python3 chip_smoke.py --phase-clocks  # where a persistent kernel's step
                                           # spends its clocks (-DPS_PROFILE build)
 
@@ -25,7 +25,8 @@ Phases, in order; any failure exits non-zero:
    pair of chains in one launch), and every main path below must take the
    persistent one; and
    ``gru_layer`` with concatenated directions and with a carried h0, the two
-   routes that reach ``gru_scan_bidi``;
+   routes that reach ``gru_scan_bidi``; phase 3 runs with TF32 off (the plain
+   versions in full float32) and puts the process's flags back after it;
 4. the batch path: ``Recognizer.recognize`` / ``recognize_batch`` on the
    flagship DanSpeechPrimary (3 conv, 9x1200 bidirectional GRU, random
    weights from a seed), with the kernels' launch counts read around it,
@@ -137,8 +138,32 @@ Phases, in order; any failure exits non-zero:
     the port's API called directly on the same model and rows, its wall time
     and the launches read around it (B1, B2, B3 and B4 must each be
     launched); one ``{"gallery": ...}`` line;
-12. one ``{"kernels": [...]}`` line of nine entries, then the device line as
-   the last line.
+12. float32 on the card, in a process that allows TF32 (matmul precision
+    "high", cuDNN TF32 on, as a user's may): a product and a convolution
+    whose results TF32 would change show that ``ops/precision.py`` turns it
+    off; (a) each float32 entry of B1-B4 (``csrc/gru_f32.cu``) against its
+    plain version (TF32 off) at ragged small shapes and at the layer shapes
+    (B3 T=401 B=128 H=1200 D=2016 and 1200; B1 T=401 B=128 H=2000 and the
+    T=55 B=1 chunk; B2 H=1200 with carried states; B4 T=401 B=32 H=1200, one
+    chain and the pair), within F32_ATOL, the layer shapes timed beside the
+    plain version, one cuDNN float32 ``nn.GRU`` call (TF32 off) and the FP32
+    bound; (b) ``Recognizer(compute_dtype="float32")`` on the flagship over
+    phase 4's 128 waveforms (9 float32 B3 launches a dispatch group,
+    audio-s/s beside bf16, every row against the plain GRU on the card, a few
+    rows against the port on the CPU, transcripts equal up to near ties);
+    (c) GPUStreamingRNN in float32: ``recognize_batch`` and
+    ``streaming_transcribe`` over 8 s, every chunk against the plain GRU,
+    and a ``MultiStreamTranscriber`` cohort of F32_COHORT streams (B1's
+    float32 variant at B = S), every step against the same cohort on the
+    plain GRU;
+    (d) a 60 s long form of the flagship (9 float32 B2 launches); (e) two
+    ``mixed_precision=False`` train steps of the flagship at B=32 (loss, wall
+    time, peak memory) and the gradients of an 8-row batch against the plain
+    path; (f) LSTM5x800 in float32 on CUDA refused when loaded (ROADMAP
+    A6b-2). Every float32 path is checked to run with TF32 off (its entry
+    points record the flags); one ``{"float32": ...}`` line;
+13. one ``{"kernels": [...]}`` line of nine entries (B1-B4 each with a
+    ``float32`` object), then the device line as the last line.
 
 Imports no JAX and nothing of ``danspeech_tpu``.
 """
@@ -365,16 +390,17 @@ def phase_barrier():
 # ---------------------------------------------------------------------------
 
 
-def gru_layer_inputs(gen, t, b, d, h, lengths):
+def gru_layer_inputs(gen, t, b, d, h, lengths, dtype=torch.bfloat16):
+    """Seeded operands of gru_bidi_fused: x and the weights in ``dtype``."""
     dev = "cuda"
     bound = 1.0 / h ** 0.5
 
     def uni(*shape):
         return (torch.rand(*shape, generator=gen, device=dev) * 2 - 1) * bound
 
-    x = torch.randn(t, b, d, generator=gen, device=dev).to(torch.bfloat16)
-    w_ih = [uni(d, 3 * h).to(torch.bfloat16) for _ in range(2)]
-    w_hh = [uni(h, 3 * h).to(torch.bfloat16) for _ in range(2)]
+    x = torch.randn(t, b, d, generator=gen, device=dev).to(dtype)
+    w_ih = [uni(d, 3 * h).to(dtype) for _ in range(2)]
+    w_hh = [uni(h, 3 * h).to(dtype) for _ in range(2)]
     b_ih = [uni(3 * h) for _ in range(2)]
     b_hh = [uni(3 * h) for _ in range(2)]
     lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
@@ -382,13 +408,15 @@ def gru_layer_inputs(gen, t, b, d, h, lengths):
             b_ih[0], b_ih[1], b_hh[0], b_hh[1])
 
 
-def gru_bound(t, b, d, h):
+def gru_bound(t, b, d, h, lengths):
     """(bound_ms, bound_by): the larger of the operations over the bf16
     peak and the bytes (each input read once, each output written once)
-    over the memory rate."""
-    flops = 2 * 2 * t * b * (d + h) * 3 * h  # 2 directions, multiply-add = 2
+    over the memory rate, over the valid steps: a row past its length
+    emits exact zeros and needs no projection or product."""
+    valid = int(sum(lengths))
+    flops = 2 * 2 * valid * (d + h) * 3 * h  # 2 directions, multiply-add = 2
     nbytes = (
-        t * b * d * 2                  # x bf16
+        valid * d * 2                  # x bf16, the valid steps
         + 2 * (d + h) * 3 * h * 2      # w_ih, w_hh bf16, both directions
         + 4 * 3 * h * 4 + b * 4        # biases f32, lengths int32
         + 2 * t * b * h * 2            # out_f, out_b bf16
@@ -474,7 +502,7 @@ def check_gru(gen, t, b, d, h, lengths, timed: bool):
             with torch.no_grad():
                 res[key] = time_ms(lambda: gru(xd), iters=3)
             del gru, xd
-        res["bound_ms"], res["bound_by"] = gru_bound(t, b, d, h)
+        res["bound_ms"], res["bound_by"] = gru_bound(t, b, d, h, lengths)
         log(f"    persistent ms={res['ms']:.3f} (recurrence {res['recurrence_ms']:.3f} = "
             f"{res['step_ms'] * 1e3:.2f} us a step, projection {res['projection_ms']:.3f} = "
             f"{res['projection_tflops']:.0f} TFLOP/s) step-design ms="
@@ -490,8 +518,6 @@ def check_gru(gen, t, b, d, h, lengths, timed: bool):
 def phase_kernels():
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    torch.backends.cuda.matmul.allow_tf32 = False  # plain version in full f32
-    torch.backends.cudnn.allow_tf32 = False
     small = [
         check_gru(gen, 37, 5, 96, 64, [37, 1, 20, 36, 5], timed=False),
         # H and D no multiples of 8 (scalar load paths), a lone row, T = 1
@@ -537,8 +563,9 @@ def scan_bound(lengths, t, b, h):
     return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
 
 
-def scan_inputs(gen, t, lengths, h, carried):
-    """Seeded operands of gru_scan: (gx, lengths, w_hh, b_ih, b_hh, h0)."""
+def scan_inputs(gen, t, lengths, h, carried, dtype=torch.bfloat16):
+    """Seeded operands of gru_scan: (gx, lengths, w_hh, b_ih, b_hh, h0), gx
+    and w_hh in ``dtype``."""
     dev = "cuda"
     b = len(lengths)
     bound = 1.0 / h ** 0.5
@@ -546,9 +573,9 @@ def scan_inputs(gen, t, lengths, h, carried):
     def uni(*shape):
         return (torch.rand(*shape, generator=gen, device=dev) * 2 - 1) * bound
 
-    gx = (torch.randn(t, b, 3 * h, generator=gen, device=dev) * 0.5).to(torch.bfloat16)
+    gx = (torch.randn(t, b, 3 * h, generator=gen, device=dev) * 0.5).to(dtype)
     lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
-    w_hh = uni(h, 3 * h).to(torch.bfloat16)
+    w_hh = uni(h, 3 * h).to(dtype)
     b_ih, b_hh = uni(3 * h), uni(3 * h)
     h0 = torch.zeros(b, h, device=dev)
     if carried:
@@ -858,9 +885,10 @@ def bwd_bound(lengths, t, b, h):
 
 
 def cudnn_rnn_ms(module, gen, t, b, h, backward: bool, dtype=torch.bfloat16):
-    """One cuDNN recurrent module (nn.GRU, nn.LSTM or nn.RNN of (H, H)) in
-    ``dtype`` at (T, B, H): the time of its forward, or with ``backward`` the
-    time of forward plus backward less the time of the forward alone. It
+    """One cuDNN recurrent module (nn.GRU, nn.LSTM or nn.RNN of width H) in
+    ``dtype`` on a (T, B, its input width) input: the time of its forward,
+    or (unidirectional) with ``backward`` the time of forward plus backward
+    less the time of the forward alone. It
     also computes the input projection, and its backward the weight and
     input gradients, which the port's kernels leave to their caller.
 
@@ -870,7 +898,7 @@ def cudnn_rnn_ms(module, gen, t, b, h, backward: bool, dtype=torch.bfloat16):
     every time and warns: the bf16 time is an upper bound of the library's."""
     rnn = module.to("cuda", dtype)
     rnn.flatten_parameters()
-    x = torch.randn(t, b, h, generator=gen, device="cuda").to(dtype)
+    x = torch.randn(t, b, rnn.input_size, generator=gen, device="cuda").to(dtype)
     if not backward:
         with torch.no_grad():
             return time_ms(lambda: rnn(x), iters=3)
@@ -885,7 +913,8 @@ def cudnn_rnn_ms(module, gen, t, b, h, backward: bool, dtype=torch.bfloat16):
     return max(both - fwd, 0.0)
 
 
-def bwd_inputs(gen, t, lengths, h, lens=None):
+def bwd_inputs(gen, t, lengths, h, lens=None, dtype=torch.bfloat16):
+    """Seeded operands of gru_bwd_scan: gx, hprev and w_hh in ``dtype``."""
     dev = "cuda"
     b = len(lengths)
     bound = 1.0 / h ** 0.5
@@ -893,12 +922,12 @@ def bwd_inputs(gen, t, lengths, h, lens=None):
     def uni(*shape):
         return (torch.rand(*shape, generator=gen, device=dev) * 2 - 1) * bound
 
-    gx = (torch.randn(t, b, 3 * h, generator=gen, device=dev) * 0.5).to(torch.bfloat16)
-    hprev = (torch.rand(t, b, h, generator=gen, device=dev) * 2 - 1).to(torch.bfloat16)
+    gx = (torch.randn(t, b, 3 * h, generator=gen, device=dev) * 0.5).to(dtype)
+    hprev = (torch.rand(t, b, h, generator=gen, device=dev) * 2 - 1).to(dtype)
     dout = torch.randn(t, b, h, generator=gen, device=dev)
     if lens is None:
         lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
-    w_hh = uni(h, 3 * h).to(torch.bfloat16)
+    w_hh = uni(h, 3 * h).to(dtype)
     b_ih, b_hh = uni(3 * h), uni(3 * h)
     dh_last = torch.randn(b, h, generator=gen, device=dev)
     return (gx, hprev, dout, lens, w_hh, b_ih, b_hh, dh_last)
@@ -3894,6 +3923,8 @@ CONV_LAYERS = (
 )
 VIDEO_S = 60.0  # the long recording of video_transcribe_simulation
 GALLERY_WATCHDOG_S = 120.0  # a streaming twin waiting longer is interrupted
+FLOAT32_TITLE = ("phase 12: float32 on the card (the GRU kernels' float32 variants: "
+                 "entries, serving, streaming, long form, training, the LSTM refusal)")
 GALLERY_TITLE = ("phase 11: the gallery (the spectrogram's two DFTs, the conv layouts, "
                  "the eight twins of examples/)")
 
@@ -4298,6 +4329,749 @@ def phase_gallery(card):
 
 
 # ---------------------------------------------------------------------------
+# Phase 12: float32 on the card (the GRU kernels' float32 variants)
+# ---------------------------------------------------------------------------
+
+# H100 SXM, float32 on the CUDA cores (NVIDIA data sheet): the tensor cores
+# have no float32 x float32 shape, and TF32 is not float32
+PEAK_FP32_FLOPS = 67e12
+# a float32 entry against its plain version on the card, TF32 off for the
+# plain one: the same float32 operands, FFMA sums against cuBLAS's, so the
+# two differ by the order of the sums only (about 1e-7 of a value a
+# product), carried on through the recurrence; held, as the bf16 checks
+# are, to this times max(1, max|ref|)
+F32_ATOL = 1e-4
+# probabilities of the float32 paths, the card's kernels against the plain
+# GRU on the card and against the port on the CPU (other conv, FFT and GEMM
+# orders besides): the same rounding through 9 layers and the head. A frame's
+# argmax flips only where two classes lie within that of each other
+F32_PROB_ATOL = 1e-4
+F32_ARGMAX_MIN = 0.999
+# a transcript that differs between the card and the CPU passes only where
+# every frame whose argmax differs is a near tie on the CPU: its two largest
+# probabilities within F32_TIE of each other
+F32_TIE = 1e-4
+# the float32 train step's gradients, kernel path against plain path: the
+# relative L2 error of each parameter group (float32 throughout)
+F32_GRAD_REL = 1e-3
+F32_ROWS_ON_CPU = 4
+F32_STREAM_ROWS = 32
+# the float32 cohort: S streams stepped through B1's float32 variant at B = S
+F32_COHORT = 64
+F32_FLAGS = ("highest", False)  # what the float32 modes run with: no TF32
+USER_FLAGS = ("high", True)     # a user's process that allows TF32 everywhere
+
+
+def f32_flags():
+    return torch.get_float32_matmul_precision(), torch.backends.cudnn.allow_tf32
+
+
+def set_f32_flags(flags):
+    torch.set_float32_matmul_precision(flags[0])
+    torch.backends.cudnn.allow_tf32 = flags[1]
+
+
+class FlagsSeen:
+    """Patches the entry points of a float32 path to record the float32
+    flags in force when each is called: what a product under them runs
+    with. ``targets`` are (module, attribute) pairs."""
+
+    def __init__(self, targets):
+        self.targets, self.seen, self._saved = targets, [], []
+
+    def __enter__(self):
+        for mod, name in self.targets:
+            fn = getattr(mod, name)
+
+            def wrapped(*a, _fn=fn, _name=name, **k):
+                self.seen.append((_name, *f32_flags()))
+                return _fn(*a, **k)
+
+            self._saved.append((mod, name, fn))
+            setattr(mod, name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+
+    def require(self, label):
+        """Every recorded call ran with TF32 off, and there was one."""
+        bad = [s for s in self.seen if tuple(s[1:]) != F32_FLAGS]
+        log(f"  {label}: {len(self.seen)} calls of "
+            f"{sorted({s[0] for s in self.seen})} under the float32 flags "
+            f"(matmul precision, cuDNN TF32) = {F32_FLAGS}; the process holds {f32_flags()}")
+        if not self.seen or bad:
+            raise AssertionError(f"{label}: a float32 path ran under TF32: {bad[:3]}")
+        return len(self.seen)
+
+
+def tf32_probe(scope):
+    """A product and a convolution whose results TF32 would change, against
+    float64, inside ``scope()`` and outside it (where the process allows
+    TF32). TF32's 10 mantissa bits move them by about 1e-4 of their largest
+    value, full float32 by about 1e-7."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    a = torch.randn(512, 4096, generator=gen, device="cuda")
+    b = torch.randn(4096, 512, generator=gen, device="cuda")
+    x = torch.randn(8, 32, 64, 64, generator=gen, device="cuda")
+    w = torch.randn(32, 32, 5, 5, generator=gen, device="cuda")
+    ref_mm = a.double() @ b.double()
+    ref_conv = F.conv2d(x.double(), w.double(), padding=2)
+
+    def errs():
+        mm = (a @ b).double()
+        cv = F.conv2d(x, w, padding=2).double()
+        return {"matmul": float((mm - ref_mm).abs().max() / ref_mm.abs().max()),
+                "conv": float((cv - ref_conv).abs().max() / ref_conv.abs().max())}
+
+    outside = errs()
+    with scope():
+        inside = errs()
+    return inside, outside
+
+
+def f32_bound(flops, nbytes):
+    """(bound_ms, bound_by): float32 operations over the FP32 peak against
+    bytes over the memory rate."""
+    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    t_mem = nbytes / PEAK_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
+
+
+def f32_bounds(kind, t, b, h, lengths, d=0, chains=1):
+    """(bound_ms, bound_by) of one float32 call, as phase 3 counts the bf16
+    ones with 4-byte elements, over the valid steps: B3's projection and
+    both recurrences, B1 and B2 one product a chain, B4 two products a
+    chain."""
+    valid = int(sum(lengths))
+    if kind == "gru_bidi_fused":
+        return f32_bound(2 * 2 * valid * (d + h) * 3 * h,
+                         4 * (valid * d + 2 * (d + h) * 3 * h + 12 * h + 2 * t * b * h
+                              + 2 * b * h) + 4 * b)
+    if kind in ("gru_scan", "gru_scan_bidi"):
+        return f32_bound(chains * 2 * valid * h * 3 * h,
+                         chains * 4 * (valid * 3 * h + 3 * h * h + 6 * h + t * b * h
+                                       + 2 * b * h) + 4 * b)
+    return f32_bound(chains * 2 * 2 * valid * h * 3 * h,
+                     chains * 4 * (valid * (3 * h + 2 * h) + 3 * h * h + 6 * h
+                                   + t * b * 4 * h + 2 * b * h) + 4 * b)
+
+
+def check_f32(name, label, run, plain, names, pad_of, lens, t):
+    """One float32 entry against its plain version (TF32 off) on the same
+    inputs: every output held to F32_ATOL x max(1, max|ref|), float32, finite,
+    exact zeros past a row's length (``pad_of`` outputs). Returns the result
+    and the kernel's outputs' errors."""
+    from danspeech_tpu_torch.ops import gru_cuda, precision
+
+    wrapper = getattr(gru_cuda, name)
+    with precision.full_float32("cuda"):
+        ref = plain()
+    torch.cuda.synchronize()
+    before = (wrapper.launches, wrapper.dtype_counts["float32"], dict(wrapper.design_counts))
+    got = run()
+    torch.cuda.synchronize()
+    n = wrapper.launches - before[0]
+    if n < 1 or wrapper.dtype_counts["float32"] - before[1] != n \
+            or wrapper.design_counts["step"] - before[2]["step"] != n:
+        raise AssertionError(f"{name} {label}: the call did not take the float32 variant")
+    errs, worst = compare_outputs(f"{name} (float32) {label}", names, got, ref, F32_ATOL)
+    if any(g.dtype != torch.float32 for g in got):
+        raise AssertionError(f"{name} {label}: outputs not float32")
+    pad = torch.arange(t, device="cuda")[:, None] >= lens[None, :].long()
+    for g in got[:pad_of]:
+        if pad.any() and float(g[pad].abs().max()) != 0.0:
+            raise AssertionError(f"{name} (float32) {label}: non-zero past a row's length")
+    log(f"  {name}[float32] {label}: max|err| "
+        + ", ".join(f"{k}={v:.3e}" for k, v in errs.items())
+        + f" (atol {F32_ATOL} x max(1, max|ref|))")
+    return {"label": label, "max_abs_err": worst, "errs": errs, "atol": F32_ATOL}
+
+
+def time_f32(res, run, plain, library, bound, steps):
+    """Kernel, plain version (TF32 off) and one cuDNN float32 call (TF32
+    off), in the order kernel, plain, library, kernel; the bound; and the
+    device time of the step kernels over ``steps`` launches. The rest of the
+    kernel's time is B3's projection or B4's recompute (the FFMA GEMM) and
+    the gaps between the launches: the profiler's record of a call of some
+    400 launches holds the step kernels but not the short kernels before
+    them."""
+    from danspeech_tpu_torch.ops import precision
+
+    a = time_ms(run, iters=2)
+    with precision.full_float32("cuda"):
+        res["plain_ms"] = time_ms(plain, iters=1)
+        res["library_ms"] = library()
+    res["ms"] = 0.5 * (a + time_ms(run, iters=2))
+    res["bound_ms"], res["bound_by"] = bound
+    # the profiler names some kernels mangled: match on the name anywhere
+    split = device_ms_by_kernel(run, need="_step_kernel")
+    res["step_kernel_ms"] = sum(ms for k, ms in split.items()
+                                if "gru_f32" in k and "step_kernel" in k)
+    res["us_a_step"] = res["step_kernel_ms"] * 1e3 / steps
+    log(f"    float32 ms={res['ms']:.3f} (step kernels {res['step_kernel_ms']:.3f} = "
+        f"{res['us_a_step']:.1f} us a step over {steps}; the rest "
+        f"{res['ms'] - res['step_kernel_ms']:.3f}) plain_ms={res['plain_ms']:.3f} "
+        f"library_ms(cuDNN nn.GRU float32, TF32 off)={res['library_ms']:.3f} "
+        f"bound_ms={res['bound_ms']:.4f} ({res['bound_by']}, FP32 "
+        f"{PEAK_FP32_FLOPS / 1e12:.0f} TFLOP/s)")
+    return res
+
+
+def phase_f32_kernels(card):
+    """12a: each float32 entry against its plain version on the card at
+    ragged small shapes and at the layer shapes, the layer shapes timed."""
+    from danspeech_tpu_torch.ops import gru_cuda
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(120)
+    out = {k: [] for k in ("gru_bidi_fused", "gru_scan", "gru_scan_bidi", "gru_bwd_scan")}
+
+    # B3: the fused layer
+    fused_names = ("out_f", "out_b", "h_last_f", "h_last_b")
+    for t, b, d, h, lengths, timed in (
+            (37, 5, 96, 64, [37, 1, 20, 36, 5], False),
+            (9, 3, 50, 100, [9, 1, 4], False),  # H, D no multiples of 4 or 8
+            (7, 150, 64, 72, [7, 1] + [1 + (i % 7) for i in range(148)], False),
+            (401, 128, 2016, 1200, "flag", True), (401, 128, 1200, 1200, "flag", True)):
+        if lengths == "flag":
+            lengths = np.random.default_rng(d).integers(1, 402, size=b)
+            lengths[0], lengths[1] = 401, 1
+            lengths = lengths.tolist()
+        args = gru_layer_inputs(gen, t, b, d, h, lengths, dtype=torch.float32)
+        label = f"T={t} B={b} D={d} H={h}"
+        res = check_f32("gru_bidi_fused", label, lambda: gru_cuda.gru_bidi_fused(*args),
+                        lambda: gru_cuda.gru_bidi_fused_plain(*args), fused_names, 2,
+                        args[1], t)
+        if timed and d == 2016:
+            res["label"] = "flagship layer 0"
+            time_f32(res, lambda: gru_cuda.gru_bidi_fused(*args),
+                     lambda: gru_cuda.gru_bidi_fused_plain(*args),
+                     lambda: cudnn_rnn_ms(torch.nn.GRU(d, h, bidirectional=True), gen, t,
+                                          b, h, backward=False, dtype=torch.float32),
+                     f32_bounds("gru_bidi_fused", t, b, h, lengths, d=d), t)
+        elif timed:
+            res["ms"] = time_ms(lambda: gru_cuda.gru_bidi_fused(*args), iters=2)
+            res["bound_ms"], res["bound_by"] = f32_bounds("gru_bidi_fused", t, b, h,
+                                                          lengths, d=d)
+            log(f"    float32 ms={res['ms']:.3f} bound_ms={res['bound_ms']:.4f}")
+        out["gru_bidi_fused"].append(res)
+        del args
+    torch.cuda.empty_cache()
+
+    # B1: one chain
+    uni = np.random.default_rng(2000).integers(1, 402, size=128)
+    uni[0], uni[1] = 401, 1
+    for t, lengths, h, reverse, label, timed in (
+            (13, [13, 1, 7, 12, 3], 72, False, "small", False),
+            (13, [13, 1, 7, 12, 3], 72, True, "small reverse", False),
+            (9, [9, 0, 4], 100, True, "small H=100", False),
+            (7, [7, 1] + [1 + (i % 7) for i in range(148)], 72, False, "small B=150", False),
+            (401, uni.tolist(), 2000, False, "uni batch layer", True),
+            (STREAM_T, [STREAM_VALID], 2000, False, "streaming step", True)):
+        args = scan_inputs(gen, t, lengths, h, carried=True, dtype=torch.float32)
+        res = check_f32("gru_scan", f"{label} T={t} B={len(lengths)} H={h}",
+                        lambda: gru_cuda.gru_scan(*args, reverse=reverse),
+                        lambda: gru_cuda.gru_scan_plain(*args, reverse=reverse),
+                        ("out", "h_last"), 1, args[1], t)
+        res["label"] = label
+        if timed:
+            time_f32(res, lambda: gru_cuda.gru_scan(*args, reverse=reverse),
+                     lambda: gru_cuda.gru_scan_plain(*args, reverse=reverse),
+                     lambda: cudnn_rnn_ms(torch.nn.GRU(h, h), gen, t, len(lengths), h,
+                                          backward=False, dtype=torch.float32),
+                     f32_bounds("gru_scan", t, len(lengths), h, lengths), t)
+        out["gru_scan"].append(res)
+        del args
+    torch.cuda.empty_cache()
+
+    # B2: both chains, carried states
+    bidi = np.random.default_rng(1200).integers(1, 402, size=128)
+    bidi[0], bidi[1] = 401, 1
+    for t, lengths, h, label, timed in (
+            (13, [13, 1, 7, 12, 3], 72, "small", False),
+            (9, [9, 0, 4], 100, "small H=100", False),
+            (401, bidi.tolist(), 1200, "bidi batch layer", True)):
+        f = scan_inputs(gen, t, lengths, h, carried=True, dtype=torch.float32)
+        r = scan_inputs(gen, t, lengths, h, carried=True, dtype=torch.float32)
+        args = (f[0], r[0], f[1], f[2], r[2], f[3], r[3], f[4], r[4], f[5], r[5])
+        res = check_f32("gru_scan_bidi", f"{label} T={t} B={len(lengths)} H={h}",
+                        lambda: gru_cuda.gru_scan_bidi(*args),
+                        lambda: gru_cuda.gru_scan_bidi_plain(*args),
+                        ("out_f", "out_b", "h_last_f", "h_last_b"), 2, f[1], t)
+        res["label"] = label
+        if timed:
+            time_f32(res, lambda: gru_cuda.gru_scan_bidi(*args),
+                     lambda: gru_cuda.gru_scan_bidi_plain(*args),
+                     lambda: cudnn_rnn_ms(torch.nn.GRU(h, h, bidirectional=True), gen, t,
+                                          len(lengths), h, backward=False,
+                                          dtype=torch.float32),
+                     f32_bounds("gru_scan_bidi", t, len(lengths), h, lengths, chains=2), t)
+        out["gru_scan_bidi"].append(res)
+        del args, f, r
+    torch.cuda.empty_cache()
+
+    # B4: the backward walks, one chain or the pair of a layer
+    train = np.random.default_rng(1201).integers(1, 402, size=32)
+    train[0], train[1] = 401, 1
+    walk_names = ("dgx", "dghn", "dh0")
+    for t, lengths, h, label, timed in (
+            (13, [13, 0, 1, 7, 12], 72, "small", False),
+            (1, [1, 0], 72, "small T=1", False),
+            (9, [9, 1, 4], 100, "small H=100", False),
+            (7, [7, 0] + [1 + (i % 7) for i in range(148)], 72, "small B=150", False),
+            (401, train.tolist(), 1200, "flagship layer", True)):
+        a = bwd_inputs(gen, t, lengths, h, dtype=torch.float32)
+        for reverse in (True, False):
+            res = check_f32("gru_bwd_scan", f"{label} T={t} B={len(lengths)} H={h} "
+                            f"reverse={reverse}",
+                            lambda: gru_cuda.gru_bwd_scan(*a, reverse=reverse),
+                            lambda: gru_cuda.gru_bwd_scan_plain(*a, reverse=reverse),
+                            walk_names, 2, a[3], t)
+            if timed and reverse:
+                res["label"] = label
+                time_f32(res, lambda: gru_cuda.gru_bwd_scan(*a, reverse=True),
+                         lambda: gru_cuda.gru_bwd_scan_plain(*a, reverse=True),
+                         lambda: cudnn_rnn_ms(torch.nn.GRU(h, h), gen, t, len(lengths), h,
+                                              backward=True, dtype=torch.float32),
+                         f32_bounds("gru_bwd_scan", t, len(lengths), h, lengths), t + 1)
+                main = res
+            out["gru_bwd_scan"].append(res)
+        c = bwd_inputs(gen, t, lengths, h, lens=a[3], dtype=torch.float32)
+
+        def pair():
+            ga, gc = gru_cuda.gru_bwd_scan_pair(a, c, True, False)
+            return (*ga, *gc)
+
+        def pair_plain():
+            return (*gru_cuda.gru_bwd_scan_plain(*a, reverse=True),
+                    *gru_cuda.gru_bwd_scan_plain(*c, reverse=False))
+
+        res = check_f32("gru_bwd_scan", f"{label}, the pair of a layer T={t} "
+                        f"B={len(lengths)} H={h}", pair, pair_plain,
+                        [f"{n} {k}" for k in "ab" for n in walk_names], 2, a[3], t)
+        if timed:
+            main["pair_ms_per_chain"] = 0.5 * time_ms(pair, iters=2)
+            log(f"    float32 pair: {main['pair_ms_per_chain']:.3f} ms a chain")
+        out["gru_bwd_scan"].append(res)
+        del a, c
+    torch.cuda.empty_cache()
+    return out
+
+
+def f32_rows_vs(label, probs, ref, lens, rows):
+    """Row by row over the valid frames: max|dprob| <= F32_PROB_ATOL and
+    frame argmax agreement >= F32_ARGMAX_MIN."""
+    probs, ref = probs[:rows].float().cpu(), ref[:rows].float().cpu()
+    lens = [int(n) for n in torch.as_tensor(lens)[:rows].cpu().tolist()]
+    worst, least = 0.0, 1.0
+    for r, n in enumerate(lens):
+        p, q = probs[r, :n], ref[r, :n]
+        if not torch.isfinite(p).all():
+            raise AssertionError(f"{label}: row {r}: non-finite probabilities")
+        worst = max(worst, float((p - q).abs().max()))
+        least = min(least, float((p.argmax(-1) == q.argmax(-1)).float().mean()))
+    log(f"  {label}: {len(lens)} rows, each row max|dprob| <= {worst:.3e} "
+        f"(<= {F32_PROB_ATOL}), argmax agreement >= {least:.5f} (>= {F32_ARGMAX_MIN})")
+    if worst > F32_PROB_ATOL or least < F32_ARGMAX_MIN:
+        raise AssertionError(f"{label}: outside the stated bounds")
+    return {"rows": len(lens), "max_abs_prob_err": worst, "least_row_argmax_agreement": least}
+
+
+def f32_launches(before):
+    """The float32 launches of B1-B4 since ``before`` (a read of
+    :func:`f32_counts`); every launch of those wrappers since then must have
+    been a float32 one."""
+    now = f32_counts()
+    got = {k: now[k][0] - before[k][0] for k in now}
+    if any(now[k][1] - before[k][1] != got[k] for k in now):
+        raise AssertionError(f"a bf16 launch on a float32 path: {before} -> {now}")
+    return got
+
+
+def f32_counts():
+    from danspeech_tpu_torch.ops import gru_cuda
+
+    return {k: (getattr(gru_cuda, k).dtype_counts["float32"], getattr(gru_cuda, k).launches)
+            for k in ("gru_bidi_fused", "gru_scan", "gru_scan_bidi", "gru_bwd_scan")}
+
+
+def f32_cohort(card, smodel, launches):
+    """12c, cohorts: ``MultiStreamTranscriber(compute_dtype="float32")`` on
+    GPUStreamingRNN with its head sharpened (a wrong state moves the
+    probabilities by tenths), F32_COHORT streams over one epoch of
+    cohort_chunks, against the same cohort on the plain GRU (also float32,
+    TF32 off): every step within F32_PROB_ATOL, and every frame whose argmax
+    differs a near tie of the plain run (its two largest probabilities within
+    F32_TIE). Adds the float32 launches to ``launches``."""
+    from danspeech_tpu_torch import MultiStreamTranscriber
+    from danspeech_tpu_torch.models import streaming
+
+    model = sharpened(smodel)
+    n_layers, n = model.config.rnn_layers, F32_COHORT
+    streams = cohort_chunks(n)
+    plain = MultiStreamTranscriber(model, n, compute_dtype="float32", rnn_impl="plain")
+    ref_probs = []
+    record_probs(plain.greedy_decoder, ref_probs)
+    run_cohort(plain, streams)
+    del plain
+    ms = MultiStreamTranscriber(model, n, compute_dtype="float32")
+    got_probs = []
+    record_probs(ms.greedy_decoder, got_probs)
+    before = f32_counts()
+    with FlagsSeen([(streaming, "streaming_step_masked")]) as seen:
+        finals, step_ms = run_cohort(ms, streams, timed=True)
+    got = f32_launches(before)
+    want = dict(dict.fromkeys(launches, 0), gru_scan=n_layers * len(streams[0]))
+    if got != want or len(finals) != n or not all(isinstance(f, str) for f in finals):
+        raise AssertionError(f"float32 cohort S={n}: launches {got} (expected {want}), "
+                             f"finals {finals!r}")
+    seen.require(f"float32 cohort S={n}")
+    for k, v in got.items():
+        launches[k] += v
+    stats = step_stats("float32 cohort", got_probs, ref_probs)
+    flips = ties = 0
+    for p, r in zip(got_probs, ref_probs):
+        differ = p.argmax(-1) != r.argmax(-1)
+        flips += int(differ.sum())
+        top2 = np.sort(r[differ], axis=-1)[:, -2:]
+        ties += int((top2[:, 1] - top2[:, 0] <= F32_TIE).sum())
+    stats.update(argmax_flips=flips, flips_at_near_ties=ties,
+                 mean_top_prob=float(np.mean([p.max(-1).mean() for p in got_probs])))
+    steady = sorted(step_ms[1:1 + COHORT_STEADY])
+    median = steady[len(steady) // 2]
+    stats.update(launches=got["gru_scan"], step_ms=step_ms, steady_median_ms=median,
+                 streams_in_real_time=n * COHORT_CHUNK / RATE / (median / 1e3))
+    log(f"  float32 cohort S={n}, kernel vs plain GRU: {stats['steps']} steps, "
+        f"max|dprob|={stats['max_abs_prob_err']:.3e} (<= {F32_PROB_ATOL} at every step), "
+        f"{flips} argmax flips over {stats['frames_per_stream']} frames x {n} streams, "
+        f"{ties} of them near ties (<= {F32_TIE}); mean top probability "
+        f"{stats['mean_top_prob']:.3f}; {got['gru_scan']} float32 gru_scan launches; "
+        f"steady step median {median:.2f} ms (min {steady[0]:.2f}, max {steady[-1]:.2f}), "
+        f"{stats['streams_in_real_time']:.1f} streams kept in real time [{card}]")
+    if stats["max_abs_prob_err"] > F32_PROB_ATOL or ties != flips:
+        raise AssertionError(f"float32 cohort S={n}: outside the stated bounds")
+    del ms
+    torch.cuda.empty_cache()
+    return stats
+
+
+def phase_float32(card):
+    """12: the float32 modes on the card, in a process that allows TF32:
+    (a) the entries against their plain versions, (b) the flagship served,
+    (c) GPUStreamingRNN batch, streaming and a cohort, (d) the flagship's
+    long form, (e) mixed_precision=False train steps, (f) the LSTM refusal."""
+    from danspeech_tpu_torch import Recognizer
+    from danspeech_tpu_torch import train as tr
+    from danspeech_tpu_torch.decode.greedy import GreedyDecoder
+    from danspeech_tpu_torch.engine import DanSpeechRecognizer
+    from danspeech_tpu_torch.models import DeepSpeechConfig, DeepSpeechModel
+    from danspeech_tpu_torch.models import deepspeech as ds
+    from danspeech_tpu_torch.models import streaming
+    from danspeech_tpu_torch.ops import precision
+    from danspeech_tpu_torch.parallel import make_mesh
+    from danspeech_tpu_torch.parallel import time_shard
+    from danspeech_tpu_torch.parallel.time_shard import long_form_probs, pad_time_for_mesh
+    from danspeech_tpu_torch.train import step as tstep
+
+    t_phase = time.perf_counter()
+    saved = f32_flags()
+    set_f32_flags(USER_FLAGS)
+    out = {"card": card}
+    launches = dict.fromkeys(("gru_bidi_fused", "gru_scan", "gru_scan_bidi", "gru_bwd_scan"), 0)
+    try:
+        inside, outside = tf32_probe(lambda: precision.full_float32("cuda"))
+        log(f"  TF32 probe, max|err| / max|ref| against float64: inside the float32 "
+            f"scope {inside}, outside it (TF32 allowed) {outside}")
+        if max(inside.values()) > 1e-5 or outside["matmul"] < 1e-5:
+            raise AssertionError("the float32 scope does not turn TF32 off, or the probe "
+                                 "does not see TF32")
+        if f32_flags() != USER_FLAGS:
+            raise AssertionError(f"the scope left the flags at {f32_flags()}")
+        out["tf32_probe"] = {"inside": inside, "outside": outside}
+
+        t0 = time.perf_counter()
+        out["kernels"] = phase_f32_kernels(card)
+        out["kernels_s"] = time.perf_counter() - t0
+
+        # 12b: the flagship served in float32, beside bf16
+        config = DeepSpeechConfig(**FLAGSHIP)
+        model = DeepSpeechModel.init_random(config, seed=0)
+        waves = seeded_waveforms(np.random.default_rng(0), 128)  # phase 4's first batch
+        audio_s = sum(len(w) for w in waves) / RATE
+        rec16 = Recognizer(model=model)
+        rec = Recognizer(model=model, compute_dtype="float32")
+        eng = rec.danspeech_recognizer
+        if eng.compute_dtype != "float32" or eng._compute_params["fc"].weight.dtype != torch.float32:
+            raise AssertionError("the float32 engine holds no float32 weights")
+        groups = eng._plan_groups(waves)
+        rec16.recognize_batch(waves[:4])  # warm-up
+        rec.recognize_batch(waves[:4])
+        walls = {}
+        _, walls["bfloat16"] = timed_batch(rec16, waves)
+        before = f32_counts()
+        with FlagsSeen([(ds, "forward")]) as seen:
+            texts, walls["float32"] = timed_batch(rec, waves)
+        got = f32_launches(before)
+        want = dict(dict.fromkeys(launches, 0), gru_bidi_fused=config.rnn_layers * len(groups))
+        log(f"  float32 recognize_batch: {len(groups)} dispatch groups, float32 launches "
+            f"{got} (expected {want['gru_bidi_fused']} gru_bidi_fused)")
+        if got != want or len(texts) != len(waves):
+            raise AssertionError("the float32 batch did not run every layer on the float32 B3")
+        seen.require("float32 recognize_batch")
+        for k, v in got.items():
+            launches[k] += v
+        _, walls["bfloat16 again"] = timed_batch(rec16, waves)
+        serve = {"audio_s": audio_s, "groups": len(groups),
+                 "float32_audio_s_per_s": audio_s / walls["float32"],
+                 "bfloat16_audio_s_per_s": [audio_s / walls["bfloat16"],
+                                            audio_s / walls["bfloat16 again"]],
+                 "wall_s": walls}
+        log(f"  flagship recognize_batch, 128 rows, {audio_s:.1f} audio-s: float32 "
+            f"{serve['float32_audio_s_per_s']:.1f} audio-s/s; bf16 "
+            f"{serve['bfloat16_audio_s_per_s'][0]:.1f}, "
+            f"{serve['bfloat16_audio_s_per_s'][1]:.1f} audio-s/s [{card}]")
+        # every row against the plain GRU on the card
+        worst = {"max_abs_prob_err": 0.0, "least_row_argmax_agreement": 1.0, "rows": 0}
+        for idxs, maxlen in groups:
+            staged, lengths = eng._stage_group(waves, idxs, maxlen)
+            wave, lens = staged.to("cuda"), torch.from_numpy(lengths).to("cuda")
+            probs, out_lens = eng._forward(eng._compute_params, wave, lens)
+            ref, _ = eng._forward(eng._compute_params, wave, lens, rnn_impl="plain")
+            res = f32_rows_vs(f"float32 group rows={len(idxs)} bucket={maxlen}: kernels "
+                              "vs plain GRU", probs, ref, out_lens, len(idxs))
+            worst = {"max_abs_prob_err": max(worst["max_abs_prob_err"],
+                                             res["max_abs_prob_err"]),
+                     "least_row_argmax_agreement": min(worst["least_row_argmax_agreement"],
+                                                       res["least_row_argmax_agreement"]),
+                     "rows": worst["rows"] + res["rows"]}
+            del probs, ref, wave
+        serve["vs_plain"] = worst
+        # a few rows against the port on the CPU in float32
+        cpu = DanSpeechRecognizer(model_name=model, device="cpu", compute_dtype="float32")
+        few = seeded_waveforms(np.random.default_rng(12), F32_ROWS_ON_CPU, 1.0, 3.0)
+        idxs, maxlen = eng._plan_groups(few)[0]
+        staged, lengths = eng._stage_group(few, idxs, maxlen)
+        probs, out_lens = eng._forward(eng._compute_params, staged.to("cuda"),
+                                       torch.from_numpy(lengths).to("cuda"))
+        t0 = time.perf_counter()
+        ref, ref_lens = cpu._forward(cpu._compute_params, staged.clone(),
+                                     torch.from_numpy(lengths))
+        log(f"  the port on the CPU, {len(idxs)} rows, float32: {time.perf_counter() - t0:.1f} s")
+        serve["vs_cpu"] = f32_rows_vs("float32 rows, card vs the port on the CPU", probs,
+                                      ref, out_lens, len(idxs))
+        greedy = GreedyDecoder(labels=config.labels, blank_index=config.labels.index("_"))
+        card_txt, _ = greedy.decode(probs[: len(idxs)].cpu().numpy(),
+                                    out_lens[: len(idxs)].cpu().numpy())
+        cpu_txt, _ = greedy.decode(ref[: len(idxs)].numpy(), ref_lens[: len(idxs)].numpy())
+        ties = 0
+        for r, (a, b) in enumerate(zip(card_txt, cpu_txt)):
+            if a[0] == b[0]:
+                continue
+            n = int(out_lens[r])
+            p, q = probs[r, :n].cpu(), ref[r, :n]
+            flips = (p.argmax(-1) != q.argmax(-1)).nonzero().flatten()
+            top2 = q[flips].topk(2, dim=-1).values
+            if not bool(((top2[:, 0] - top2[:, 1]) <= F32_TIE).all()):
+                raise AssertionError(f"row {r}: the card's transcript {a[0]!r} differs from "
+                                     f"the CPU's {b[0]!r} beyond near ties")
+            ties += 1
+        log(f"  transcripts, card vs CPU: {len(card_txt) - ties} of {len(card_txt)} equal, "
+            f"{ties} differing only at near ties (<= {F32_TIE})")
+        serve["transcripts_equal"] = len(card_txt) - ties
+        out["serve"] = serve
+        del rec, rec16, eng, cpu, probs, ref
+        torch.cuda.empty_cache()
+
+        # 12c: GPUStreamingRNN in float32: a batch, then streaming chunk by chunk
+        sconfig = DeepSpeechConfig(**GPU_STREAMING)
+        smodel = DeepSpeechModel.init_random(sconfig, seed=2)
+        srec = Recognizer(model=smodel, compute_dtype="float32")
+        seng = srec.danspeech_recognizer
+        swaves = seeded_waveforms(np.random.default_rng(5), F32_STREAM_ROWS)
+        sgroups = seng._plan_groups(swaves)
+        before = f32_counts()
+        with FlagsSeen([(ds, "forward")]) as seen:
+            texts, wall = timed_batch(srec, swaves)
+        got = f32_launches(before)
+        if got["gru_scan"] != sconfig.rnn_layers * len(sgroups) or sum(got.values()) != got["gru_scan"]:
+            raise AssertionError(f"float32 uni batch: launches {got}")
+        seen.require("float32 uni recognize_batch")
+        for k, v in got.items():
+            launches[k] += v
+        s_audio = sum(len(w) for w in swaves) / RATE
+        idxs, maxlen = sgroups[0]
+        staged, lengths = seng._stage_group(swaves, idxs, maxlen)
+        wave, lens = staged.to("cuda"), torch.from_numpy(lengths).to("cuda")
+        probs, out_lens = seng._forward(seng._compute_params, wave, lens)
+        ref, _ = seng._forward(seng._compute_params, wave, lens, rnn_impl="plain")
+        stream = {"batch_audio_s_per_s": s_audio / wall, "batch_launches": got,
+                  "batch_vs_plain": f32_rows_vs(
+                      f"float32 uni group rows={len(idxs)}: kernels vs plain GRU", probs,
+                      ref, out_lens, len(idxs))}
+        log(f"  float32 GPUStreamingRNN recognize_batch: {F32_STREAM_ROWS} rows, "
+            f"{s_audio:.1f} audio-s in {wall:.3f} s = {s_audio / wall:.1f} audio-s/s [{card}]")
+        del probs, ref, wave
+        srec.enable_real_time_streaming(smodel, string_parts=True)
+        calls, _ = record_calls(seng)
+        audio = (np.random.default_rng(6).normal(size=8 * RATE) * 3000.0).astype(np.float32)
+        plan = accumulate(audio, sconfig.context)
+        before = f32_counts()
+        chunk_ms = []
+        with FlagsSeen([(streaming, "streaming_step_masked")]) as seen:
+            for chunk, first, last in plan:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                seng.streaming_transcribe(chunk, is_last=last, is_first=first)
+                torch.cuda.synchronize()
+                chunk_ms.append((time.perf_counter() - t0) * 1e3)
+        got = f32_launches(before)
+        steps = frame_steps(calls, sconfig.audio_conf)
+        if got["gru_scan"] != sconfig.rnn_layers * len(steps) or sum(got.values()) != got["gru_scan"]:
+            raise AssertionError(f"float32 streaming: launches {got}, {len(steps)} steps")
+        seen.require("float32 streaming_transcribe")
+        for k, v in got.items():
+            launches[k] += v
+        with seng._precision():
+            stream["chunks_vs_plain"] = check_stream_chunks(
+                "float32 streaming_transcribe", seng, steps)
+        if stream["chunks_vs_plain"]["worst_chunk_max_abs_prob_err"] > F32_PROB_ATOL:
+            raise AssertionError("float32 streaming chunks outside F32_PROB_ATOL")
+        steady = sorted(chunk_ms[1:-1])
+        stream.update(chunks=len(plan), steps=len(steps), launches=got,
+                      steady_chunk_ms={"min": steady[0], "median": steady[len(steady) // 2],
+                                       "max": steady[-1]})
+        log(f"  float32 streaming_transcribe: {len(plan)} chunks, {len(steps)} with frames, "
+            f"{got['gru_scan']} float32 gru_scan launches; steady chunk min "
+            f"{steady[0]:.2f} ms, median {steady[len(steady) // 2]:.2f} ms [{card}]")
+        seng.reset_streaming_params()
+        del srec, seng
+        torch.cuda.empty_cache()
+        stream["cohort"] = f32_cohort(card, smodel, launches)
+        out["stream"] = stream
+        del smodel
+        torch.cuda.empty_cache()
+
+        # 12d: one 60 s long form of the flagship in float32 (B2)
+        mesh = make_mesh()
+        lrec = Recognizer(model=model, compute_dtype="float32")
+        params = lrec.danspeech_recognizer._compute_params
+        wave = long_wave()
+        before = f32_counts()
+        with FlagsSeen([(time_shard, "transcribe_long_form")]) as seen:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lrec.recognize_long_form(wave, mesh=mesh)
+            wall = time.perf_counter() - t0
+        got = f32_launches(before)
+        if got != dict(dict.fromkeys(launches, 0), gru_scan_bidi=config.rnn_layers):
+            raise AssertionError(f"float32 long form: launches {got}")
+        seen.require("float32 recognize_long_form")
+        for k, v in got.items():
+            launches[k] += v
+        with precision.full_float32("cuda"):
+            probs, lens = long_form_probs(model, wave, mesh, params=params)
+            spect, frames = padded_spect(model, [wave], mesh.device)
+            with torch.inference_mode():
+                ref, _ = ds.forward(params, config, pad_time_for_mesh(spect, 1), frames,
+                                    rnn_impl="plain")
+        out["long_form"] = {"wall_s": wall, "audio_s_per_s": LONG_FORM_S / wall,
+                            "frames": int(lens[0]), "launches": got,
+                            "vs_plain": f32_rows_vs("float32 long form (60 s) vs forward on "
+                                                    "the plain GRU", probs, ref, lens, 1)}
+        log(f"  float32 recognize_long_form, flagship: {LONG_FORM_S:.0f} s (T' = "
+            f"{int(lens[0])}) in {wall:.3f} s, {got['gru_scan_bidi']} float32 gru_scan_bidi "
+            f"[{card}]")
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
+        del lrec, params, probs, ref, spect
+        torch.cuda.empty_cache()
+
+        # 12e: mixed_precision=False train steps of the flagship at B = 32
+        optimizer = tr.make_optimizer(TRAIN_LR)
+        state = tr.init_train_state(config, optimizer, seed=0)
+        batch, t_audio = train_batch(np.random.default_rng(8), config, TRAIN_BATCH)
+        step_fn = tr.make_wave_train_step(config, optimizer, augment=None,
+                                          mixed_precision=False, remat=True)
+        torch.cuda.reset_peak_memory_stats()
+        steps = []
+        for k in range(2):
+            before = f32_counts()
+            with FlagsSeen([(ds, "forward"), (tstep, "_update")]) as seen:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, loss = step_fn(state, *batch, None)
+                loss = float(loss)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            got = f32_launches(before)
+            want = dict(dict.fromkeys(launches, 0), gru_bidi_fused=2 * config.rnn_layers,
+                        gru_bwd_scan=2 * config.rnn_layers)
+            if got != want or not np.isfinite(loss):
+                raise AssertionError(f"float32 train step {k + 1}: loss {loss}, launches {got}")
+            seen.require(f"float32 train step {k + 1}")
+            for name, v in got.items():
+                launches[name] += v
+            steps.append({"loss": loss, "wall_s": wall, "audio_s_per_step_s": t_audio / wall,
+                          "launches": got})
+            log(f"  float32 train step {k + 1} (flagship, B={TRAIN_BATCH}, remat): loss "
+                f"{loss:.4f}, {wall:.3f} s, {t_audio / wall:.1f} audio-s per step-second, "
+                f"launches {got} [{card}]")
+        peak = torch.cuda.max_memory_allocated()
+        log(f"  peak device memory over the float32 steps: {peak / 2**30:.2f} GiB")
+        del state, step_fn
+        torch.cuda.empty_cache()
+        small, _ = train_batch(np.random.default_rng(9), config, 8)
+        grads = {}
+        for impl in ("auto", "plain"):
+            st = tr.init_train_state(config, optimizer, seed=0)
+            fn = tr.make_wave_train_step(config, optimizer, augment=None,
+                                         mixed_precision=False, remat=True, rnn_impl=impl)
+            st, loss = fn(st, *small)
+            grads[impl] = (grad_groups(st.params), float(loss))
+            del st, fn
+            torch.cuda.empty_cache()
+        rel = {g: float((grads["auto"][0][g] - ref).norm() / ref.norm().clamp(min=1e-30))
+               for g, ref in grads["plain"][0].items()}
+        log("  float32 gradients of an 8-row batch, kernels vs plain path, relative L2 "
+            "by group: " + ", ".join(f"{g} {e:.3e}" for g, e in rel.items())
+            + f" (limit {F32_GRAD_REL}); loss {grads['auto'][1]:.6f} vs {grads['plain'][1]:.6f}")
+        if not all(e <= F32_GRAD_REL for e in rel.values()):
+            raise AssertionError("float32 gradients outside the stated limit")
+        out["train"] = {"steps": steps, "peak_memory_bytes": peak, "audio_s": t_audio,
+                        "batch_rows": TRAIN_BATCH, "grad_rel_l2": rel, "limit": F32_GRAD_REL}
+        del grads, model
+        torch.cuda.empty_cache()
+
+        # 12f: an LSTM model in float32 on CUDA is refused when it is loaded
+        lstm = DeepSpeechModel.init_random(DeepSpeechConfig(**LSTM5X800), seed=4)
+        try:
+            Recognizer(model=lstm, compute_dtype="float32")
+        except NotImplementedError as e:
+            if "A6b-2" not in str(e):
+                raise AssertionError(f"the LSTM refusal does not name A6b-2: {e}") from e
+            log(f"  LSTM5x800, compute_dtype='float32' on CUDA: refused when loaded ({e})")
+            out["lstm_refusal"] = str(e)
+        else:
+            raise AssertionError("an LSTM model was loaded in float32 on CUDA")
+    finally:
+        set_f32_flags(saved)
+    out["launches"] = launches
+    out["wall_s"] = time.perf_counter() - t_phase
+    for name, n in launches.items():
+        if not n:
+            raise AssertionError(f"{name}'s float32 variant was launched no time on the "
+                                 "float32 paths")
+    log(f"  phase 12: {out['wall_s']:.1f} s; float32 launches on its paths {launches} "
+        f"[{card}]")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # --phase-clocks: where a step of the persistent kernels spends its clocks
 # ---------------------------------------------------------------------------
 
@@ -4467,10 +5241,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels", action="store_true",
                     help="run phases 1-3 only (build and kernel checks)")
-    ap.add_argument("--only", type=int, choices=(8, 9, 10, 11),
+    ap.add_argument("--only", type=int, choices=(8, 9, 10, 11, 12),
                     help="run phases 1, 2 and this one only (build, then 8: serving "
                          "with an LM, 9: the rest of the single-GPU surface, 10: "
-                         "parallelism, or 11: the gallery)")
+                         "parallelism, 11: the gallery, or 12: float32)")
     ap.add_argument("--phase-clocks", action="store_true",
                     help="instead of the phases: build the persistent kernels with "
                          "-DPS_PROFILE and print where a step spends its clocks")
@@ -4513,24 +5287,34 @@ def main(argv=None) -> int:
             log("phase 10: parallelism (mesh, data parallelism, long form, sharded "
                 "beam, tensor and pipeline parallelism)")
             print(json.dumps({"parallel": phase_parallel(card), "card": card}))
-        else:
+        elif args.only == 11:
             log(GALLERY_TITLE)
             print(json.dumps({"gallery": phase_gallery(card), "card": card}))
+        else:
+            log(FLOAT32_TITLE)
+            print(json.dumps({"float32": phase_float32(card), "card": card}))
         log(card)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return 0
 
-    # phase 3
+    # phase 3, the plain versions in full float32; the process's flags come
+    # back after it, so that phases 4-12 run as a user's process does
     log("phase 3: the grid barrier alone, then kernels vs plain versions")
-    barrier = phase_barrier()
-    gru_checks = phase_kernels()
-    scan_checks = phase_scan_kernels()
-    bidi_checks = phase_scan_bidi_kernels()
-    bwd_checks = phase_bwd_kernels()
-    routes = phase_gru_layer_routes()
-    rnn_type_checks = phase_rnn_type_kernels()
+    saved = f32_flags()
+    set_f32_flags(F32_FLAGS)
+    try:
+        barrier = phase_barrier()
+        gru_checks = phase_kernels()
+        scan_checks = phase_scan_kernels()
+        bidi_checks = phase_scan_bidi_kernels()
+        bwd_checks = phase_bwd_kernels()
+        routes = phase_gru_layer_routes()
+        rnn_type_checks = phase_rnn_type_kernels()
+    finally:
+        set_f32_flags(saved)
+    log(f"  the float32 flags (matmul precision, cuDNN TF32) after phase 3: {f32_flags()}")
 
     launches = {}  # per kernel, summed over the main paths of phases 4-11
     pair_launches = {}  # paired launches of the wrappers that count chains, on those paths
@@ -4554,6 +5338,8 @@ def main(argv=None) -> int:
         parallel = phase_parallel(card)
         log(GALLERY_TITLE)
         gallery = phase_gallery(card)
+        log(FLOAT32_TITLE)
+        float32 = phase_float32(card)
         pair_launches = {**lstm_run["pair_launches"], **tanh_run["pair_launches"]}
         launches = {
             "gru_bidi_fused": served["launches"] + streamed["bidi_launches"]
@@ -4595,12 +5381,34 @@ def main(argv=None) -> int:
             "shapes": checks,
         }
 
+    def with_f32(name, main_label):
+        """The entry of ``name`` with a ``float32`` object: its float32
+        variant at the main shape of phase 12a, launched on phase 12's paths."""
+        e = entry(name, {"gru_bidi_fused": gru_checks, "gru_scan": scan_checks,
+                         "gru_scan_bidi": bidi_checks, "gru_bwd_scan": bwd_checks}[name],
+                  main_label)
+        if args.kernels:
+            return e
+        checks = float32["kernels"][name]
+        main = next(c for c in checks if c["label"] == main_label)
+        e["float32"] = {
+            **{k: main[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+            **({"pair_ms_per_chain": main["pair_ms_per_chain"]}
+               if "pair_ms_per_chain" in main else {}),
+            "source": "danspeech_tpu_torch/csrc/gru_f32.cu", "design": "step",
+            "launches": float32["launches"][name],
+            "max_abs_err": max(c["max_abs_err"] for c in checks), "atol": F32_ATOL,
+            "library": "one cuDNN nn.GRU call in float32, TF32 off",
+            "shape": main["label"], "shapes": checks,
+        }
+        return e
+
     next(c for c in gru_checks if c["shape"]["D"] == 2016)["label"] = "flagship layer 0"
     kernels = [
-        entry("gru_bidi_fused", gru_checks, "flagship layer 0"),
-        entry("gru_scan", scan_checks, "uni batch layer"),
-        entry("gru_scan_bidi", bidi_checks, "bidi batch layer"),
-        entry("gru_bwd_scan", bwd_checks, "flagship layer"),
+        with_f32("gru_bidi_fused", "flagship layer 0"),
+        with_f32("gru_scan", "uni batch layer"),
+        with_f32("gru_scan_bidi", "bidi batch layer"),
+        with_f32("gru_bwd_scan", "flagship layer"),
         entry("lstm_scan", rnn_type_checks["lstm_scan"], "serve layer"),
         entry("lstm_scan_with_cell", rnn_type_checks["lstm_scan_with_cell"], "train layer"),
         dict(entry("lstm_bwd_scan", rnn_type_checks["lstm_bwd_scan"], "train layer"),
@@ -4615,6 +5423,8 @@ def main(argv=None) -> int:
         print(json.dumps({"surface": surface, "card": card}))
         print(json.dumps({"parallel": parallel, "card": card}))
         print(json.dumps({"gallery": gallery, "card": card}))
+        print(json.dumps({"float32": {k: v for k, v in float32.items() if k != "kernels"},
+                          "card": card}))
     log(card)  # as nvidia-smi prints it: name, power limit
     print(json.dumps({"kernels": kernels, "barrier_us": barrier["us"], "card": card}))
     print(json.dumps({"ok": True, "device": {

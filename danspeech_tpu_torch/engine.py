@@ -17,7 +17,11 @@ CHUNK_BUCKET multiple and runs the masked chunk step
 chunk, and on the final chunk either a secondary model re-transcribes the
 whole stream or the LM decoder re-decodes the stream's probabilities.
 
-The device is CUDA unless the caller passes ``device="cpu"``. With
+The device is CUDA unless the caller passes ``device="cpu"``.
+``compute_dtype="float32"`` serves in float32 on either device: on CUDA the
+GRU kernels' float32 variants (``csrc/gru_f32.cu``) and every other product
+in full float32, TF32 off (``ops/precision.py``); LSTM and tanh-RNN models
+are refused in float32 on CUDA when they are loaded (ROADMAP A6b-2). With
 ``transfer_format="ulaw"`` the rows cross as G.711 mu-law bytes, one a
 sample, and :func:`ulaw_decode` turns them back into samples on the device.
 Over a mesh of ranks (``parallel/``): the beam front sharded over the data
@@ -46,6 +50,8 @@ from .features.spectrogram import (
 )
 from .models import deepspeech as ds
 from .models import streaming
+from .ops import precision
+from .ops import rnn as rnn_ops
 from .ops import stft as stft_ops
 
 
@@ -59,19 +65,13 @@ def _bucket(n: int, quantum: int) -> int:
 
 def _resolve_compute_dtype(compute_dtype: str, device: torch.device) -> str:
     """"auto" means bf16 matmul operands with f32 accumulation on CUDA (the
-    recurrent kernels' dtype) and float32 on the CPU. Those kernels take bf16
-    only, so float32 on CUDA is refused here rather than failing inside a
-    kernel wrapper at the first transcription (ROADMAP A6b)."""
+    recurrent kernels' fast path) and float32 on the CPU. "float32" is
+    float32 on either device: on CUDA the GRU kernels' float32 variants, the
+    JAX engine's bit-level parity mode with the reference stack."""
     if compute_dtype == "auto":
         compute_dtype = "bfloat16" if device.type == "cuda" else "float32"
     if compute_dtype not in ("bfloat16", "float32"):
         raise ValueError(f"unknown compute_dtype: {compute_dtype!r}")
-    if compute_dtype == "float32" and device.type == "cuda":
-        raise ValueError(
-            "compute_dtype='float32' is not available on CUDA: the recurrent "
-            "kernels take bf16 only (ROADMAP A6b); use 'bfloat16' on the "
-            "card or device='cpu' for float32"
-        )
     return compute_dtype
 
 
@@ -193,17 +193,22 @@ class DanSpeechRecognizer:
     def update_model(self, model) -> None:
         """Swap the acoustic model: its parameters are cast to the compute
         dtype and moved to the engine's device once, here."""
+        params = self._device_params(model)  # refuses what it cannot serve
         self.model = model
         self.model_name = model.model_name
         self.audio_config = model.audio_conf
         self.audio_parser = SpectrogramAudioParser(self.audio_config)
         self._window = self.audio_parser.window.to(self.device)
         self.labels = model.labels
-        self._compute_params = self._device_params(model)
+        self._compute_params = params
         self.update_decoder(labels=self.labels)
 
     def _device_params(self, model):
-        """The model's parameters cast to the compute dtype, on the device."""
+        """The model's parameters cast to the compute dtype, on the device;
+        a model the compute dtype cannot serve on the device is refused here:
+        an LSTM or tanh-RNN model in float32 on CUDA (ROADMAP A6b-2)."""
+        if self.compute_dtype == "float32":
+            rnn_ops.require_float32_kernels(model.config.rnn_type, self.device)
         params = model.params
         if self.compute_dtype == "bfloat16":
             params = ds.cast_matmul_weights(params, torch.bfloat16)
@@ -319,6 +324,11 @@ class DanSpeechRecognizer:
     # Device program
     # ------------------------------------------------------------------
 
+    def _precision(self):
+        """The scope of a device program: full float32 (TF32 off) on CUDA
+        in float32 mode, nothing otherwise."""
+        return precision.full_float32(self.device, self.compute_dtype == "float32")
+
     @torch.inference_mode()
     def _forward(self, params, waveforms, lengths, rnn_impl: str = "auto"):
         """(rows, n) int16/float32 waveforms, or uint8 mu-law codes, on the
@@ -326,14 +336,15 @@ class DanSpeechRecognizer:
         parser = self.audio_parser
         if waveforms.dtype == torch.uint8:
             waveforms = ulaw_decode(waveforms)
-        spect, frame_lens = stft_ops.batched_log_spectrogram(
-            waveforms.float(), lengths, parser.n_fft, parser.hop_length,
-            self._window, normalize=parser.normalize,
-        )
-        return ds.forward(
-            params, self.model.config, spect[:, None], frame_lens,
-            rnn_impl=rnn_impl,
-        )
+        with self._precision():
+            spect, frame_lens = stft_ops.batched_log_spectrogram(
+                waveforms.float(), lengths, parser.n_fft, parser.hop_length,
+                self._window, normalize=parser.normalize,
+            )
+            return ds.forward(
+                params, self.model.config, spect[:, None], frame_lens,
+                rnn_impl=rnn_impl,
+            )
 
     @torch.inference_mode()
     def _forward_greedy(self, params, waveforms, lengths):
@@ -561,8 +572,9 @@ class DanSpeechRecognizer:
             mesh = self.long_form_mesh
         held = self._compute_params["fc"].weight.device
         params = self._compute_params if held == mesh.device else None
-        return transcribe_long_form(self.model, np.asarray(recording), mesh,
-                                    decoder=self.decoder, params=params)
+        with self._precision():
+            return transcribe_long_form(self.model, np.asarray(recording), mesh,
+                                        decoder=self.decoder, params=params)
 
     # ------------------------------------------------------------------
     # Streaming
@@ -660,10 +672,11 @@ class DanSpeechRecognizer:
             chunk, t_chunk = self._stream_input(spect)
             if self._stream_state is None:
                 self._stream_state = self._new_stream_state(chunk.shape[-1])
-            probs, out_len, self._stream_state = streaming.streaming_step_masked(
-                self._compute_params, self.model.config, chunk, t_chunk,
-                self._stream_state, is_first, is_last,
-            )
+            with self._precision():
+                probs, out_len, self._stream_state = streaming.streaming_step_masked(
+                    self._compute_params, self.model.config, chunk, t_chunk,
+                    self._stream_state, is_first, is_last,
+                )
 
             if is_first:
                 return ""
@@ -744,7 +757,8 @@ class DanSpeechRecognizer:
         secondary model runs the ``gru_bidi_fused`` kernel on CUDA)."""
         x = torch.from_numpy(np.ascontiguousarray(spect))[None, None].to(self.device)
         lengths = torch.tensor([spect.shape[1]], dtype=torch.int32, device=self.device)
-        probs, out_lens = ds.forward(
-            self._secondary_params, self.secondary_model.config, x, lengths
-        )
+        with self._precision():
+            probs, out_lens = ds.forward(
+                self._secondary_params, self.secondary_model.config, x, lengths
+            )
         return probs, out_lens.cpu()

@@ -16,7 +16,8 @@ Two twins: :func:`streaming_step` follows each chunk's exact frame count;
 a bucketed width with its valid column count. Valid counts are host ints
 (the host knows each chunk's width), so the step needs no device sync; the
 state tensors live on the device of the chunk. Every GRU layer goes through
-:func:`ops.rnn.gru_layer_streaming` (the ``gru_scan`` kernel on CUDA).
+:func:`ops.rnn.gru_layer_streaming` (the ``gru_scan`` kernel on CUDA: at
+B = 1, or B = S for a cohort; with float32 parameters, its float32 variant).
 """
 
 from __future__ import annotations

@@ -29,6 +29,7 @@ from .engine import _bucket, _resolve_compute_dtype, _to_host_async
 from .features.spectrogram import InferenceSpectrogramAudioParser
 from .models import deepspeech as ds
 from .models import streaming
+from .ops import precision
 
 
 class MultiStreamTranscriber:
@@ -48,8 +49,9 @@ class MultiStreamTranscriber:
         probability stream on the final chunk. ``None`` keeps the
         accumulated greedy transcript.
     compute_dtype:
-        "auto" is bf16 on CUDA and float32 on the CPU; float32 on CUDA is
-        refused (the recurrent kernels take bf16 only).
+        "auto" is bf16 on CUDA and float32 on the CPU; "float32" on CUDA
+        steps the cohort through the float32 variant of ``gru_scan`` at
+        B = S, every other product in full float32 (TF32 off).
     device:
         ``None`` means CUDA (raising without a GPU); ``"cpu"`` the CPU.
     rnn_impl:
@@ -139,11 +141,12 @@ class MultiStreamTranscriber:
                     device=self.device,
                 )
 
-            probs, out_len, self._state = streaming.streaming_step_masked(
-                self._compute_params, self.model.config,
-                torch.from_numpy(batch).to(self.device), t_chunk, self._state,
-                is_first, is_last, rnn_impl=self.rnn_impl,
-            )
+            with precision.full_float32(self.device, self.compute_dtype == "float32"):
+                probs, out_len, self._state = streaming.streaming_step_masked(
+                    self._compute_params, self.model.config,
+                    torch.from_numpy(batch).to(self.device), t_chunk, self._state,
+                    is_first, is_last, rnn_impl=self.rnn_impl,
+                )
 
             if not is_first:
                 # one synchronising pinned copy for the whole cohort

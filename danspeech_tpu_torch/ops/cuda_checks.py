@@ -11,22 +11,39 @@ import torch
 _MAX_PROJ_ROWS = 65535 * 128
 
 
-def check_tensors(anchor: str, expect: dict) -> None:
+def check_tensors(anchor: str, expect: dict, float32: bool = False) -> torch.dtype:
     """``expect`` maps a name to (tensor, shape, dtype): every tensor must be
-    contiguous, of that shape and dtype, on the device of ``expect[anchor]``."""
+    contiguous, of that shape and dtype, on the device of ``expect[anchor]``.
+    The dtypes given are the bf16 set's: bf16 sequences and weights, f32
+    biases and states, int32 lengths. With ``float32`` (the GRU kernels,
+    which have float32 variants) the all-float32 set is taken too, chosen
+    by the anchor's dtype: every floating tensor f32. A mixed set raises
+    TypeError. Returns the set's dtype, torch.bfloat16 or torch.float32."""
+    family = torch.bfloat16
+    if float32 and expect[anchor][0].dtype == torch.float32:
+        family = torch.float32
     dev = expect[anchor][0].device
     for name, (t, shape, dtype) in expect.items():
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, {anchor} on {dev}")
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+        if dtype.is_floating_point and family == torch.float32:
+            dtype = torch.float32
         if t.dtype != dtype:
-            raise TypeError(
-                f"{name} is {t.dtype}, the kernel takes {dtype} (the recurrent "
-                "kernels take bf16 sequences and weights only, ROADMAP A6b)"
-            )
+            if family == torch.float32:
+                rule = (f"{anchor} is float32, so the kernel takes the all-float32 set: "
+                        "every sequence, weight, bias and state float32")
+            elif float32:
+                rule = ("the GRU kernels take bf16 sequences and weights with f32 "
+                        "biases and states, or everything in float32")
+            else:
+                rule = ("the LSTM and tanh-RNN kernels take bf16 sequences and weights "
+                        "only; their float32 variants are ROADMAP A6b-2")
+            raise TypeError(f"{name} is {t.dtype}, the kernel takes {dtype} ({rule})")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    return family
 
 
 def check_stream_shape(name: str, t: torch.Tensor, gates: int, hidden: int) -> None:

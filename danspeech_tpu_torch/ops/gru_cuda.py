@@ -20,11 +20,20 @@ cooperative launch walks every step, the weights resident in shared memory,
 ``csrc/persist.cuh``) and "step" (one launch per time step).
 ``persist_plan`` chooses between them from the shape
 and the device's SM count and shared memory, never after a failed launch;
-the ``design=`` argument of the wrappers overrides the choice for checks. A
-wrapper launches its kernel for CUDA tensors and raises on anything the
+the ``design=`` argument of the wrappers overrides the choice for checks.
+
+Each wrapper takes two sets of operands, told apart by the dtype of its
+sequence: bf16 sequences and weights with f32 biases and states (the
+designs above), or everything in float32, which runs the float32 variants of
+``csrc/gru_f32.cu`` (step design only: their f32 weights do not stay
+resident; ``design="persistent"`` raises ``NotImplementedError``). A mixed
+set raises ``TypeError``. ``<wrapper>.dtype_counts`` counts the CUDA calls
+by the set taken.
+
+A wrapper launches its kernel for CUDA tensors and raises on anything the
 kernel does not take; for CPU tensors, and only for those, it runs the plain
-version. There is no fallback from a failed build or launch to the plain
-version.
+version (dtype-generic). There is no fallback from a failed build or launch
+to the plain version.
 """
 
 from __future__ import annotations
@@ -161,7 +170,7 @@ def _check_operands(x, lengths, w_ih_f, w_ih_b, w_hh_f, w_hh_b, biases):
     }
     for name, b in zip(("b_ih_f", "b_ih_b", "b_hh_f", "b_hh_b"), biases):
         expect[name] = (b, (3 * hidden,), torch.float32)
-    _check_tensors("x", expect)
+    return _check_tensors("x", expect, float32=True)
 
 
 def gx_row_groups(t_max: int, batch: int, hidden: int,
@@ -186,9 +195,10 @@ def gru_bidi_fused(
 
     Same contract and return values as :func:`gru_bidi_fused_plain`. A CUDA
     ``x`` launches the kernel (bf16 x and weights, f32 biases, int32
-    lengths, all contiguous on x's device) or raises; a CPU ``x`` runs the
-    plain version. ``design`` is None (the plan of
-    :func:`persist_plan.plan_gru_forward` decides), "persistent" or "step";
+    lengths, all contiguous on x's device; or everything float32, the
+    float32 variant) or raises; a CPU ``x`` runs the plain version.
+    ``design`` is None (the plan of :func:`persist_plan.plan_gru_forward`
+    decides), "persistent" or "step";
     ``gru_bidi_fused.design_counts`` counts the CUDA calls by the design taken.
     ``gru_bidi_fused.launches`` counts kernel launches (one per call: the
     projection and the recurrence of one layer). The kernel keeps the
@@ -207,11 +217,17 @@ def gru_bidi_fused(
         return gru_bidi_fused_plain(x, lengths, *args)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    _check_operands(x, lengths, w_ih_f, w_ih_b, w_hh_f, w_hh_b, args[4:])
+    dtype = _check_operands(x, lengths, w_ih_f, w_ih_b, w_hh_f, w_hh_b, args[4:])
 
     t_max, batch, d_in = x.shape
     hidden = w_hh_f.shape[0]
     dev = x.device
+    if dtype == torch.float32:
+        design = persist_plan.choose(
+            design, persist_plan.plan_gru_forward(hidden, batch, dtype="float32"))
+        result = _bidi_fused_f32(x, lengths, *args)
+        _count(gru_bidi_fused, design, dtype)
+        return result
     planned = persist_plan.plan_gru_forward(hidden, batch, *device_info(dev))
     design = persist_plan.choose(design, planned)
     persistent = design == "persistent"
@@ -252,15 +268,44 @@ def gru_bidi_fused(
         )
     if rc != 0:
         raise RuntimeError(f"gru_bidi_fused ({design}) launch failed: CUDA error {rc}")
-    gru_bidi_fused.launches += 1
-    gru_bidi_fused.design_counts[design] += 1
+    _count(gru_bidi_fused, design, dtype)
     # step design: the buffer the final step wrote
     last = h32 if persistent else h32[t_max % 2]
     return out[0], out[1], last[0], last[1]
 
 
+def _count(wrapper, design, dtype, n=1):
+    """``n`` more CUDA calls (or chains) of ``wrapper`` by design and dtype."""
+    wrapper.launches += n
+    wrapper.design_counts[design] += n
+    wrapper.dtype_counts[persist_plan.dtype_name(dtype)] += n
+
+
+def _bidi_fused_f32(x, lengths, w_ih_f, w_ih_b, w_hh_f, w_hh_b, b_ih_f, b_ih_b,
+                    b_hh_f, b_hh_b):
+    """The float32 variant (``csrc/gru_f32.cu``): the FFMA projection of both
+    directions into an f32 gx buffer, then T launches of the step kernel
+    over both chains."""
+    launch = cuda_build.bind("gru_f32", "gru_f32_bidi_fused_launch", 13, 4)
+    t_max, batch, d_in = x.shape
+    hidden = w_hh_f.shape[0]
+    dev = x.device
+    gx = torch.empty((2, t_max, batch, 3 * hidden), dtype=torch.float32, device=dev)
+    h32 = torch.zeros((2, 2, batch, hidden), dtype=torch.float32, device=dev)
+    out = torch.empty((2, t_max, batch, hidden), dtype=torch.float32, device=dev)
+    cuda_build.call(
+        launch, "gru_bidi_fused (float32)", dev,
+        x.data_ptr(), lengths.data_ptr(), w_ih_f.data_ptr(), w_ih_b.data_ptr(),
+        w_hh_f.data_ptr(), w_hh_b.data_ptr(), b_ih_f.data_ptr(), b_ih_b.data_ptr(),
+        b_hh_f.data_ptr(), b_hh_b.data_ptr(), gx.data_ptr(), h32.data_ptr(),
+        out.data_ptr(), t_max, batch, d_in, hidden)
+    last = h32[t_max % 2]  # the buffer the final step wrote
+    return out[0], out[1], last[0], last[1]
+
+
 gru_bidi_fused.launches = 0
 gru_bidi_fused.design_counts = {"persistent": 0, "step": 0}
+gru_bidi_fused.dtype_counts = {"bfloat16": 0, "float32": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -320,7 +365,7 @@ def _check_scan_operands(gx, lengths, w_hh, b_ih, b_hh, h0):
         "b_hh": (b_hh, (3 * hidden,), torch.float32),
         "h0": (h0, (batch, hidden), torch.float32),
     }
-    _check_tensors("gx", expect)
+    return _check_tensors("gx", expect, float32=True)
 
 
 def gru_scan(gx, lengths, w_hh, b_ih, b_hh, h0, reverse: bool = False,
@@ -329,9 +374,10 @@ def gru_scan(gx, lengths, w_hh, b_ih, b_hh, h0, reverse: bool = False,
 
     Same contract and return values as :func:`gru_scan_plain`. A CUDA
     ``gx`` launches the kernel (bf16 gx and w_hh, f32 biases and h0, int32
-    lengths, all contiguous on gx's device) or raises; a CPU ``gx`` runs the
-    plain version. ``design`` is None (the plan of
-    :func:`persist_plan.plan_gru_scan` decides), "persistent" or "step";
+    lengths, all contiguous on gx's device; or everything float32, the
+    float32 variant) or raises; a CPU ``gx`` runs the plain version.
+    ``design`` is None (the plan of :func:`persist_plan.plan_gru_scan`
+    decides), "persistent" or "step";
     ``gru_scan.design_counts`` counts the CUDA calls by the design taken.
     ``gru_scan.launches`` counts kernel launches (one per call).
     """
@@ -339,7 +385,13 @@ def gru_scan(gx, lengths, w_hh, b_ih, b_hh, h0, reverse: bool = False,
         return gru_scan_plain(gx, lengths, w_hh, b_ih, b_hh, h0, reverse)
     if gx.device.type != "cuda":
         raise ValueError(f"unsupported device {gx.device}")
-    _check_scan_operands(gx, lengths, w_hh, b_ih, b_hh, h0)
+    dtype = _check_scan_operands(gx, lengths, w_hh, b_ih, b_hh, h0)
+    if dtype == torch.float32:
+        design = persist_plan.choose(design, persist_plan.plan_gru_scan(
+            w_hh.shape[0], gx.shape[1], dtype="float32"))
+        result = _scan_f32([(gx, lengths, w_hh, b_ih, b_hh, h0)], [reverse])[0]
+        _count(gru_scan, design, dtype)
+        return result
     planned = persist_plan.plan_gru_scan(w_hh.shape[0], gx.shape[1],
                                          *device_info(gx.device))
     design = persist_plan.choose(design, planned)
@@ -348,13 +400,39 @@ def gru_scan(gx, lengths, w_hh, b_ih, b_hh, h0, reverse: bool = False,
                                   planned)[0]
     else:
         result = _scan_step(gx, lengths, w_hh, b_ih, b_hh, h0, reverse)
-    gru_scan.launches += 1
-    gru_scan.design_counts[design] += 1
+    _count(gru_scan, design, dtype)
     return result
 
 
 gru_scan.launches = 0
 gru_scan.design_counts = {"persistent": 0, "step": 0}
+gru_scan.dtype_counts = {"bfloat16": 0, "float32": 0}
+
+
+def _scan_f32(chains, reverses):
+    """The float32 variant (``csrc/gru_f32.cu``) over one or two chains that
+    share T, B, H and lengths: T launches of the step kernel, each chain a
+    slice of the grid. ``chains`` holds (gx, lengths, w_hh, b_ih, b_hh, h0)
+    tuples; returns one (out, h_last) per chain."""
+    launch = cuda_build.bind("gru_f32", "gru_f32_scan_launch", 12, 6)
+    gx, lengths, w_hh = chains[0][:3]
+    t_max, batch, _ = gx.shape
+    hidden = w_hh.shape[0]
+    dev = gx.device
+    n = len(chains)
+    h32 = torch.empty((2, n, batch, hidden), dtype=torch.float32, device=dev)
+    for k, c in enumerate(chains):
+        h32[0, k].copy_(c[5])
+    outs = [torch.empty((t_max, batch, hidden), dtype=torch.float32, device=dev)
+            for _ in chains]
+    cuda_build.call(
+        launch, "gru_scan (float32)", dev,
+        *chain_ptrs([c[0] for c in chains]), lengths.data_ptr(),
+        *chain_ptrs([c[2] for c in chains]), *chain_ptrs([c[3] for c in chains]),
+        *chain_ptrs([c[4] for c in chains]), h32.data_ptr(), *chain_ptrs(outs),
+        t_max, batch, hidden, int(bool(reverses[0])), int(bool(reverses[-1])), n)
+    last = h32[t_max % 2]  # the buffer the final step wrote
+    return [(o, last[k]) for k, o in enumerate(outs)]
 
 
 def _scan_persistent(chains, reverses, planned):
@@ -470,8 +548,9 @@ def gru_scan_bidi(
 
     Same contract and return values as :func:`gru_scan_bidi_plain`. CUDA
     operands launch the kernel (bf16 gx and w_hh, f32 biases and h0, int32
-    lengths, all contiguous on gx_f's device) or raise; CPU operands run the
-    plain version. ``design`` is None (the plans decide), "persistent" or
+    lengths, all contiguous on gx_f's device; or everything float32: the
+    float32 variant, both chains in each of T launches) or raise; CPU
+    operands run the plain version. ``design`` is None (the plans decide), "persistent" or
     "step". The persistent design is :func:`gru_scan`'s kernel
     (``csrc/gru_scan.cu``) over two chains in one launch where the plan of
     :func:`persist_plan.plan_gru_scan` for two chains fits, else one launch a
@@ -488,13 +567,20 @@ def gru_scan_bidi(
         raise ValueError(f"unsupported device {gx_f.device}")
     chains = ((gx_f, lengths, w_hh_f, b_ih_f, b_hh_f, h0_f),
               (gx_b, lengths, w_hh_b, b_ih_b, b_hh_b, h0_b))
-    for chain in chains:
-        _check_scan_operands(*chain)
+    dtype, dtype_b = (_check_scan_operands(*chain) for chain in chains)
     if gx_b.shape != gx_f.shape or gx_b.device != gx_f.device:
         raise ValueError(
             f"gx_b {tuple(gx_b.shape)} on {gx_b.device} does not match gx_f "
             f"{tuple(gx_f.shape)} on {gx_f.device}"
         )
+    if dtype_b != dtype:
+        raise TypeError(f"the chains' operands are {dtype} and {dtype_b}: one set for both")
+    if dtype == torch.float32:
+        design = persist_plan.choose(design, persist_plan.plan_gru_scan(
+            w_hh_f.shape[0], gx_f.shape[1], chains=2, dtype="float32"))
+        (out_f, hl_f), (out_b, hl_b) = _scan_f32(chains, [False, True])
+        _count(gru_scan_bidi, design, dtype)
+        return out_f, out_b, hl_f, hl_b
     pair, single = scan_bidi_plans(w_hh_f.shape[0], gx_f.shape[1], gx_f.device)
     planned = pair if pair.design == "persistent" else single
     design = persist_plan.choose(design, planned)
@@ -507,13 +593,13 @@ def gru_scan_bidi(
         (out_f, hl_f), = _scan_persistent(chains[:1], [False], single)
         (out_b, hl_b), = _scan_persistent(chains[1:], [True], single)
         result = out_f, out_b, hl_f, hl_b
-    gru_scan_bidi.launches += 1
-    gru_scan_bidi.design_counts[design] += 1
+    _count(gru_scan_bidi, design, dtype)
     return result
 
 
 gru_scan_bidi.launches = 0
 gru_scan_bidi.design_counts = {"persistent": 0, "step": 0}
+gru_scan_bidi.dtype_counts = {"bfloat16": 0, "float32": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -573,7 +659,7 @@ def gru_bwd_scan_plain(
 
 
 def _check_bwd_operands(gx, hprev, dout, lengths, w_hh, b_ih, b_hh, dh_last):
-    _check_scan_operands(gx, lengths, w_hh, b_ih, b_hh, dh_last)
+    dtype = _check_scan_operands(gx, lengths, w_hh, b_ih, b_hh, dh_last)
     t_max, batch, _ = gx.shape
     hidden = w_hh.shape[0]
     if (t_max * batch + 127) // 128 > 65535:  # the recompute grid's y limit
@@ -582,7 +668,8 @@ def _check_bwd_operands(gx, hprev, dout, lengths, w_hh, b_ih, b_hh, dh_last):
         "gx": (gx, tuple(gx.shape), torch.bfloat16),
         "hprev": (hprev, (t_max, batch, hidden), torch.bfloat16),
         "dout": (dout, (t_max, batch, hidden), torch.float32),
-    })
+    }, float32=True)
+    return dtype
 
 
 def _bwd_persistent(chains, reverses, planned):
@@ -662,8 +749,9 @@ def gru_bwd_scan(
 
     Same contract and return values as :func:`gru_bwd_scan_plain`. A CUDA
     ``gx`` launches the kernel (bf16 gx, hprev and w_hh, f32 dout, biases
-    and dh_last, int32 lengths, all contiguous on gx's device) or raises; a
-    CPU ``gx`` runs the plain version. ``design`` is None (the plan of
+    and dh_last, int32 lengths, all contiguous on gx's device; or everything
+    float32, the float32 variant) or raises; a CPU ``gx`` runs the plain
+    version. ``design`` is None (the plan of
     :func:`persist_plan.plan_gru_backward` decides), "persistent" or "step";
     ``gru_bwd_scan.design_counts`` counts the chains by the design taken.
     ``gru_bwd_scan.launches`` counts kernel launches (one per chain: the
@@ -674,7 +762,13 @@ def gru_bwd_scan(
         return gru_bwd_scan_plain(*args, reverse)
     if gx.device.type != "cuda":
         raise ValueError(f"unsupported device {gx.device}")
-    _check_bwd_operands(*args)
+    dtype = _check_bwd_operands(*args)
+    if dtype == torch.float32:
+        design = persist_plan.choose(design, persist_plan.plan_gru_backward(
+            w_hh.shape[0], gx.shape[1], 1, dtype="float32"))
+        result = _bwd_f32([args], [reverse])[0]
+        _count(gru_bwd_scan, design, dtype)
+        return result
     planned = persist_plan.plan_gru_backward(
         w_hh.shape[0], gx.shape[1], 1, *device_info(gx.device))
     design = persist_plan.choose(design, planned)
@@ -682,13 +776,45 @@ def gru_bwd_scan(
         result = _bwd_persistent([args], [reverse], planned)[0]
     else:
         result = _bwd_step(*args, reverse)
-    gru_bwd_scan.launches += 1
-    gru_bwd_scan.design_counts[design] += 1
+    _count(gru_bwd_scan, design, dtype)
     return result
 
 
 gru_bwd_scan.launches = 0
 gru_bwd_scan.design_counts = {"persistent": 0, "step": 0}
+gru_bwd_scan.dtype_counts = {"bfloat16": 0, "float32": 0}
+
+
+def _bwd_f32(chains, reverses):
+    """The float32 variant (``csrc/gru_f32.cu``) of one or two walks that
+    share T, B, H and lengths: the FFMA gate recompute of each chain, then
+    T + 1 launches of the step kernel, each chain a slice of the grid.
+    ``chains`` holds the operand tuples of :func:`gru_bwd_scan`; returns one
+    (dgx, dghn, dh0) per chain."""
+    launch = cuda_build.bind("gru_f32", "gru_f32_bwd_launch", 19, 6)
+    gx, _, _, lengths, w_hh = chains[0][:5]
+    t_max, batch, _ = gx.shape
+    hidden = w_hh.shape[0]
+    dev = gx.device
+    n = len(chains)
+    part = torch.empty((2, n, batch, hidden), dtype=torch.float32, device=dev)
+    for k, c in enumerate(chains):
+        part[0, k].copy_(c[7])  # dh_last
+    dgh = torch.zeros((2, n, batch, 3 * hidden), dtype=torch.float32, device=dev)
+    dgx = [torch.empty((t_max, batch, 3 * hidden), dtype=torch.float32, device=dev)
+           for _ in chains]
+    dghn = [torch.empty((t_max, batch, hidden), dtype=torch.float32, device=dev)
+            for _ in chains]
+    cuda_build.call(
+        launch, "gru_bwd_scan (float32)", dev,
+        *chain_ptrs([c[0] for c in chains]), *chain_ptrs([c[1] for c in chains]),
+        *chain_ptrs([c[2] for c in chains]), lengths.data_ptr(),
+        *chain_ptrs([c[4] for c in chains]), *chain_ptrs([c[5] for c in chains]),
+        *chain_ptrs([c[6] for c in chains]), part.data_ptr(), dgh.data_ptr(),
+        *chain_ptrs(dgx), *chain_ptrs(dghn),
+        t_max, batch, hidden, int(bool(reverses[0])), int(bool(reverses[-1])), n)
+    last = part[(t_max + 1) % 2]  # the buffer the final step wrote
+    return [(dgx[k], dghn[k], last[k]) for k in range(n)]
 
 
 def gru_bwd_scan_pair(chain_a, chain_b, reverse_a: bool, reverse_b: bool,
@@ -702,16 +828,24 @@ def gru_bwd_scan_pair(chain_a, chain_b, reverse_a: bool, reverse_b: bool,
     share one persistent launch when the plan for two chains fits (each
     chain has its own barrier: the step count on the critical path halves);
     otherwise, and for ``design="step"``, they run one after the other as two
-    :func:`gru_bwd_scan` calls. Either way ``gru_bwd_scan.launches`` grows by
-    two: it counts chains.
+    :func:`gru_bwd_scan` calls. Float32 chains walk together in each of the
+    T + 1 launches of the float32 variant. Either way ``gru_bwd_scan.launches``
+    grows by two: it counts chains.
     """
     if chain_a[0].device.type != "cuda":
         return (gru_bwd_scan(*chain_a, reverse=reverse_a),
                 gru_bwd_scan(*chain_b, reverse=reverse_b))
-    _check_bwd_operands(*chain_a)
-    _check_bwd_operands(*chain_b)
+    dtype = _check_bwd_operands(*chain_a)
+    if _check_bwd_operands(*chain_b) != dtype:
+        raise TypeError("the two chains' operands must be one set: bf16 or float32")
     if chain_a[0].shape != chain_b[0].shape or chain_a[3] is not chain_b[3]:
         raise ValueError("the two chains must share their shapes and lengths")
+    if dtype == torch.float32:
+        design = persist_plan.choose(design, persist_plan.plan_gru_backward(
+            chain_a[4].shape[0], chain_a[0].shape[1], 2, dtype="float32"))
+        outs = _bwd_f32([chain_a, chain_b], [reverse_a, reverse_b])
+        _count(gru_bwd_scan, design, dtype, 2)
+        return outs[0], outs[1]
     planned = persist_plan.plan_gru_backward(
         chain_a[4].shape[0], chain_a[0].shape[1], 2, *device_info(chain_a[0].device))
     if design == "step" or planned.design != "persistent":
@@ -719,6 +853,5 @@ def gru_bwd_scan_pair(chain_a, chain_b, reverse_a: bool, reverse_b: bool,
                 gru_bwd_scan(*chain_b, reverse=reverse_b, design=design))
     persist_plan.choose(design, planned)
     outs = _bwd_persistent([chain_a, chain_b], [reverse_a, reverse_b], planned)
-    gru_bwd_scan.launches += 2
-    gru_bwd_scan.design_counts["persistent"] += 2
+    _count(gru_bwd_scan, "persistent", dtype, 2)
     return outs[0], outs[1]

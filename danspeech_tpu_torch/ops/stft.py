@@ -16,11 +16,12 @@ signatures and defaults.
 
 from __future__ import annotations
 
-import contextlib
 import functools
 
 import numpy as np
 import torch
+
+from .precision import full_float32
 
 
 def num_frames(n_samples: int, n_fft: int, hop: int, center: bool) -> int:
@@ -42,29 +43,15 @@ def _dft_matrices(n_fft: int, dtype: torch.dtype, device: torch.device):
             torch.from_numpy(np.sin(ang)).to(device=device, dtype=dtype))
 
 
-@contextlib.contextmanager
-def _full_float32(device: torch.device):
-    """Float32 products in full float32 on CUDA, whatever the process's
-    ``torch.set_float32_matmul_precision`` says (TF32 keeps 10 mantissa bits
-    and would move near-zero bins by far more than C4's bound)."""
-    if device.type != "cuda":
-        yield
-        return
-    saved = torch.get_float32_matmul_precision()
-    torch.set_float32_matmul_precision("highest")
-    try:
-        yield
-    finally:
-        torch.set_float32_matmul_precision(saved)
-
-
 def _magnitude(frames: torch.Tensor, use_fft: bool) -> torch.Tensor:
     """(..., T, n_fft) windowed frames -> (..., T, F) |DFT| in float32."""
     frames = frames.float()
     if use_fft:
         return torch.fft.rfft(frames, dim=-1).abs()
     cos_m, sin_m = _dft_matrices(frames.shape[-1], frames.dtype, frames.device)
-    with _full_float32(frames.device):
+    # TF32 keeps 10 mantissa bits and would move near-zero bins by far more
+    # than C4's bound
+    with full_float32(frames.device):
         re = torch.matmul(frames, cos_m)
         im = torch.matmul(frames, sin_m)
     return torch.sqrt(re * re + im * im)

@@ -32,8 +32,8 @@ def main(argv=None):
     ap.add_argument("--no-augment", action="store_true",
                     help="disable SpecAugment")
     ap.add_argument("--no-mixed-precision", action="store_true",
-                    help="keep matmul weights f32 (default: bf16 on CUDA, "
-                         "where f32 is refused)")
+                    help="keep matmul weights f32 (default: bf16 on CUDA); on "
+                         "CUDA the GRU kernels' float32 variants, TF32 off")
     ap.add_argument("--no-remat", action="store_true",
                     help="store RNN activations instead of recomputing "
                          "in backward (costs device memory at large batch)")

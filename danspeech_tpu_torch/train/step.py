@@ -12,10 +12,13 @@ package, which is functional:
 - frozen leaves are left out of the update (their gradient is dropped
   before the optimizer runs), so weight decay does not shrink them; the JAX
   package zeroes their gradients and ``optax.adamw`` still decays them;
-- on CUDA the recurrent kernels take bf16 only, so ``mixed_precision=False`` is
-  refused there; the conv stack stays float32 under mixed precision, as in
-  the JAX package (cuDNN runs float32 convolutions in TF32 unless
-  ``torch.backends.cudnn.allow_tf32`` is turned off).
+- ``mixed_precision=False`` on CUDA runs the GRU kernels' float32 variants
+  (``csrc/gru_f32.cu``) and every product of the step, the convolutions and
+  gradients included, in full float32 with TF32 off (``ops/precision.py``);
+  LSTM and tanh-RNN models are refused there (ROADMAP A6b-2). The conv stack
+  stays float32 under mixed precision, as in the JAX package (cuDNN runs
+  those float32 convolutions in TF32 unless ``torch.backends.cudnn.allow_tf32``
+  is turned off).
 """
 
 from __future__ import annotations
@@ -27,6 +30,8 @@ import torch
 from ..engine import _resolve_device
 from ..models import deepspeech as ds
 from ..models.config import DeepSpeechConfig
+from ..ops import precision
+from ..ops import rnn as rnn_ops
 from .ctc import ctc_loss, mean_ctc_loss
 
 
@@ -111,17 +116,16 @@ def init_train_state(
                                    device, mesh)
 
 
-def _resolve_mixed_precision(mixed_precision, device: torch.device) -> bool:
-    """"auto" -> bf16 matmul weights on CUDA, float32 on the CPU. Float32 on
-    CUDA is refused: the recurrent kernels take bf16 only (ROADMAP A6b)."""
+def _resolve_mixed_precision(mixed_precision, device: torch.device,
+                             config: DeepSpeechConfig) -> bool:
+    """"auto" -> bf16 matmul weights on CUDA, float32 on the CPU. False
+    (float32) on CUDA runs the GRU kernels' float32 variants; a config whose
+    recurrent kernels have none (LSTM, tanh RNN: ROADMAP A6b-2) is refused
+    there. A pure function of the flag, the device and the config."""
     if mixed_precision == "auto":
         return device.type == "cuda"
-    if not mixed_precision and device.type == "cuda":
-        raise ValueError(
-            "mixed_precision=False is not available on CUDA: the recurrent kernels "
-            "take bf16 only (ROADMAP A6b); train in mixed precision on the "
-            "card or on device='cpu' for float32"
-        )
+    if not mixed_precision:
+        rnn_ops.require_float32_kernels(config.rnn_type, device)
     return bool(mixed_precision)
 
 
@@ -186,16 +190,18 @@ def make_train_step(config: DeepSpeechConfig, optimizer: OptimizerSpec,
     ``frozen_mask``: optional list of bools, one per leaf in
     :func:`param_leaves` order (True = frozen), from :func:`freeze_mask`.
     The step updates the state's leaves and optimizer in place and returns
-    (state with its step advanced, loss as a 0-d tensor).
+    (state with its step advanced, loss as a 0-d tensor). It runs in
+    float32 (full float32 on CUDA, the GRU kernels' float32 variants).
     """
 
     def train_step(state: TrainState, spect, frame_lengths, labels, label_lengths):
         dev = param_leaves(state.params)[0].device
         spect, frame_lengths, labels, label_lengths = _to_device(
             (spect, frame_lengths, labels, label_lengths), dev)
-        loss = loss_fn(state.params, config, spect, frame_lengths, labels,
-                       label_lengths)
-        return _update(state, optimizer, loss, frozen_mask), loss.detach()
+        with precision.full_float32(dev):
+            loss = loss_fn(state.params, config, spect, frame_lengths, labels,
+                           label_lengths)
+            return _update(state, optimizer, loss, frozen_mask), loss.detach()
 
     return train_step
 
@@ -224,7 +230,10 @@ def make_wave_train_step(
     ``mixed_precision``: run the RNN and head products on bfloat16 weights
     (float32 masters for the optimizer; the casts are inside the autograd
     graph, so gradients come back in float32); the conv stack stays float32.
-    "auto" = on for CUDA, where False is refused. ``remat``: checkpoint each
+    "auto" = on for CUDA, off on the CPU. False on CUDA trains in float32:
+    the GRU kernels' float32 variants forward (and in the remat replay) and
+    backward, every product in full float32 with TF32 off; LSTM and tanh-RNN
+    configs are refused there (ROADMAP A6b-2). ``remat``: checkpoint each
     RNN layer so the backward recomputes its forward instead of keeping its
     residuals. ``rnn_impl="plain"`` runs the recurrent kernels' plain versions,
     forward and backward, to check the kernels against them.
@@ -253,10 +262,16 @@ def make_wave_train_step(
                    row_weights, rng=None):
         params = state.params
         dev = param_leaves(params)[0].device
-        use_bf16 = _resolve_mixed_precision(mixed_precision, dev)
+        use_bf16 = _resolve_mixed_precision(mixed_precision, dev, config)
         waves, wave_lengths, labels, label_lengths, row_weights = _to_device(
             (waves, wave_lengths, labels, label_lengths, row_weights), dev)
+        with precision.full_float32(dev, not use_bf16):
+            return _wave_step(state, params, dev, use_bf16, waves, wave_lengths,
+                              labels, label_lengths, row_weights, rng)
 
+    def _wave_step(state, params, dev, use_bf16, waves, wave_lengths, labels,
+                   label_lengths, row_weights, rng):
+        """The step on tensors on ``dev``, inside the precision scope."""
         with torch.no_grad():  # the features do not depend on the parameters
             spect, frame_lens = stft_ops.batched_log_spectrogram(
                 waves.float(), wave_lengths, parser.n_fft, parser.hop_length,

@@ -89,6 +89,42 @@ def test_plain_fused_matches_pallas_interpret_bf16(t, lengths, d_in, hidden):
         assert float(out.float().numpy()[pad].__abs__().max(initial=0.0)) == 0.0
 
 
+@pytest.mark.parametrize(
+    "t,lengths,d_in,hidden",
+    [
+        (13, [13, 1, 7, 12], 24, 16),
+        (19, [19, 11, 6, 2, 19], 40, 32),
+        (1, [1, 1], 8, 8),
+    ],
+)
+def test_plain_fused_matches_pallas_interpret_f32(t, lengths, d_in, hidden):
+    """B3 in float32, what compute_dtype="float32" serves: the plain version
+    (the CUDA float32 variant's yardstick) against the Pallas kernel in
+    interpret mode, both in float32 throughout: F32_ATOL (summation order)."""
+    rng = np.random.default_rng(100 + t)
+    x = rng.normal(size=(t, len(lengths), d_in)).astype(np.float32)
+    lens = np.asarray(lengths, np.int32)
+    f, b = _weights(rng, d_in, hidden), _weights(rng, d_in, hidden)
+    jf, jb = _jax_w(f), _jax_w(b)
+    h0 = jnp.zeros((len(lengths), hidden), jnp.float32)
+    ref = gru_scan_bidi_fused(
+        jnp.asarray(x), jnp.asarray(lens),
+        jf.w_ih, jb.w_ih, jf.w_hh, jb.w_hh, jf.b_ih, jb.b_ih, jf.b_hh, jb.b_hh,
+        h0, h0, interpret=True,
+    )
+    tf, tb = _torch_w(f), _torch_w(b)
+    got = gru_cuda.gru_bidi_fused(
+        torch.from_numpy(x), torch.from_numpy(lens),
+        tf.w_ih, tb.w_ih, tf.w_hh, tb.w_hh, tf.b_ih, tb.b_ih, tf.b_hh, tb.b_hh,
+    )
+    for g, r in zip(got, ref):
+        assert g.dtype == torch.float32 and tuple(g.shape) == r.shape
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=F32_ATOL, rtol=0)
+    pad = np.arange(t)[:, None] >= lens[None, :]
+    for out in got[:2]:
+        assert float(np.abs(out.numpy()[pad]).max(initial=0.0)) == 0.0
+
+
 def _layer_inputs(seed, t=11, lengths=(11, 4, 1), d_in=12, hidden=8):
     rng = np.random.default_rng(seed)
     x = rng.normal(size=(t, len(lengths), d_in)).astype(np.float32)
@@ -165,6 +201,8 @@ def _kernel_operands(hidden=8, d_in=12, t=5, batch=3):
 @pytest.mark.parametrize(
     "field,bad,err",
     [
+        # a float32 x with bf16 weights: a mixed set (the all-float32 set is
+        # test_kernel_operand_sets')
         ("x", torch.zeros((5, 3, 12), dtype=torch.float32), TypeError),
         ("w_hh_b", torch.zeros((8, 25), dtype=torch.bfloat16), ValueError),
         ("lengths", torch.full((3,), 5, dtype=torch.int64), TypeError),
@@ -185,6 +223,45 @@ def test_kernel_operand_checks(field, bad, err):
         good["x"], good["lengths"], good["w_ih_f"], good["w_ih_b"],
         good["w_hh_f"], good["w_hh_b"], good["biases"],
     )
+
+
+def _as_set(ops, dtype):
+    """The operands as the set of ``dtype``: bf16 (bf16 x and weights, f32
+    biases) or float32 (everything f32); lengths stay int32."""
+    seq = torch.bfloat16 if dtype == "bf16" else torch.float32
+    out = {k: v.to(seq) for k, v in ops.items() if k not in ("lengths", "biases")}
+    return dict(out, lengths=ops["lengths"], biases=ops["biases"])
+
+
+@pytest.mark.parametrize(
+    "family,field,to,err",
+    [
+        ("bf16", None, None, None),
+        ("float32", None, None, None),
+        # mixed sets: one tensor of the other set's dtype
+        ("float32", "w_hh_b", torch.bfloat16, TypeError),
+        ("float32", "x", torch.bfloat16, TypeError),
+        ("bf16", "w_ih_f", torch.float32, TypeError),
+        ("float32", "lengths", torch.int64, TypeError),
+        ("float32", "biases", torch.bfloat16, TypeError),
+    ],
+)
+def test_kernel_operand_sets(family, field, to, err):
+    """The CUDA branch takes the all-bf16 set or the all-float32 one, told
+    apart by x's dtype, and returns which; a mixed set raises TypeError."""
+    ops = _as_set(_kernel_operands(), family)
+    if field == "biases":
+        ops["biases"] = [b.to(to) for b in ops["biases"]]
+    elif field is not None:
+        ops[field] = ops[field].to(to)
+    args = (ops["x"], ops["lengths"], ops["w_ih_f"], ops["w_ih_b"], ops["w_hh_f"],
+            ops["w_hh_b"], ops["biases"])
+    if err is not None:
+        with pytest.raises(err):
+            gru_cuda._check_operands(*args)
+        return
+    want = torch.bfloat16 if family == "bf16" else torch.float32
+    assert gru_cuda._check_operands(*args) == want
 
 
 def test_wrapper_raises_off_cpu_and_cuda():

@@ -246,10 +246,28 @@ def test_bwd_wrapper_operand_checks_and_devices():
     # the checks the CUDA branch makes before it launches
     gru_cuda._check_scan_operands(good["gx"], good["lengths"], good["w_hh"],
                                   good["b_ih"], good["b_hh"], good["dh_last"])
-    with pytest.raises(TypeError):
+    with pytest.raises(TypeError):  # a float32 hprev in the bf16 set: a mixed set
         gru_cuda._check_tensors("gx", {"gx": (good["gx"], (5, 2, 24), bf),
-                                       "hprev": (good["hprev"].float(), (5, 2, 8), bf)})
+                                       "hprev": (good["hprev"].float(), (5, 2, 8), bf)},
+                                float32=True)
     with pytest.raises(ValueError):
         gru_cuda._check_tensors("gx", {"gx": (good["gx"], (5, 2, 24), bf),
                                        "dout": (good["dout"][:4], (5, 2, 8),
                                                 torch.float32)})
+
+
+@pytest.mark.parametrize("field", [None, "gx", "hprev", "w_hh", "dout", "dh_last"])
+def test_bwd_operand_sets(field):
+    """The walk's CUDA branch takes the all-float32 set (what
+    mixed_precision=False trains with) as well as the bf16 one; a float32
+    set with one bf16 tensor is a mixed set and raises TypeError."""
+    a = _walk_inputs(0, 5, [5, 3], 8)
+    names = ["gx", "hprev", "dout", "lengths", "w_hh", "b_ih", "b_hh", "dh_last"]
+    ops = [torch.from_numpy(a[k]) for k in names]
+    if field is None:
+        assert gru_cuda._check_bwd_operands(*ops) == torch.float32
+        return
+    i = names.index(field)
+    ops[i] = ops[i].to(torch.bfloat16)
+    with pytest.raises(TypeError):
+        gru_cuda._check_bwd_operands(*ops)

@@ -112,6 +112,8 @@ def _scan_operands(t=4, batch=2, hidden=8):
 @pytest.mark.parametrize(
     "field,bad,err",
     [
+        # one float32 tensor in the bf16 set: mixed sets (the all-float32
+        # set is test_scan_operand_sets')
         ("gx", torch.zeros((4, 2, 24), dtype=torch.float32), TypeError),
         ("w_hh", torch.zeros((8, 24), dtype=torch.float32), TypeError),
         ("h0", torch.zeros((2, 8), dtype=torch.bfloat16), TypeError),
@@ -128,6 +130,35 @@ def test_scan_operand_checks(field, bad, err):
     with pytest.raises(err):
         gru_cuda._check_scan_operands(**ops)
     gru_cuda._check_scan_operands(**_scan_operands())
+
+
+@pytest.mark.parametrize(
+    "family,field,to",
+    [
+        ("bf16", None, None),
+        ("float32", None, None),
+        # mixed sets: the float32 set with one bf16 tensor, and a float32
+        # gx with bf16 weights
+        ("float32", "w_hh", torch.bfloat16),
+        ("float32", "h0", torch.bfloat16),
+        ("float32", "b_hh", torch.bfloat16),
+        ("bf16", "gx", torch.float32),
+    ],
+)
+def test_scan_operand_sets(family, field, to):
+    """gru_scan's CUDA branch (and B2's, per chain) takes the all-bf16 set
+    (bf16 gx and w_hh, f32 biases and h0) or the all-float32 one, told apart
+    by gx's dtype, and returns which; a mixed set raises TypeError."""
+    ops = _scan_operands()
+    if family == "float32":
+        ops = {k: v if k == "lengths" else v.float() for k, v in ops.items()}
+    if field is None:
+        want = torch.bfloat16 if family == "bf16" else torch.float32
+        assert gru_cuda._check_scan_operands(**ops) == want
+        return
+    ops[field] = ops[field].to(to)
+    with pytest.raises(TypeError):
+        gru_cuda._check_scan_operands(**ops)
 
 
 def test_scan_wrapper_raises_off_cpu_and_cuda():

@@ -123,8 +123,9 @@ def test_training_default_device_is_cuda():
 
 def test_every_kernel_has_a_source_a_plain_version_and_a_counter():
     """Each of the nine wrappers has its plain version beside it and a
-    ``launches`` counter; the CUDA sources they name exist, and no source
-    lies under csrc/ without a wrapper."""
+    ``launches`` counter; the CUDA sources they name exist (the four GRU
+    wrappers' float32 variants in csrc/gru_f32.cu, counted by dtype), and no
+    source lies under csrc/ without a wrapper."""
     from danspeech_tpu_torch.ops import cuda_build, gru_cuda, lstm_cuda, rnn_tanh_cuda
 
     kernels = {
@@ -142,6 +143,10 @@ def test_every_kernel_has_a_source_a_plain_version_and_a_counter():
             assert isinstance(getattr(module, name).launches, int), name
             assert os.path.isfile(os.path.join(cuda_build.CSRC_DIR, f"{source}.cu")), source
             sources.add(f"{source}.cu")
+    for name in kernels[gru_cuda]:
+        assert set(getattr(gru_cuda, name).dtype_counts) == {"bfloat16", "float32"}, name
+    assert os.path.isfile(os.path.join(cuda_build.CSRC_DIR, "gru_f32.cu"))
+    sources.add("gru_f32.cu")
     on_disk = {f for f in os.listdir(cuda_build.CSRC_DIR) if f.endswith(".cu")}
     assert on_disk == sources
 

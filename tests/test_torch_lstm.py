@@ -343,7 +343,7 @@ def test_wrapper_operand_checks_and_devices():
             torch.from_numpy(a["dout"]), lengths, w_hh, b_hh)))
     # the checks the CUDA branch makes before it launches
     lstm_cuda._check_scan_operands(gx, lengths, w_hh, b_hh, zeros, zeros)
-    with pytest.raises(TypeError, match="A6b"):  # float32 streams are refused
+    with pytest.raises(TypeError, match="A6b-2"):  # float32 streams are refused
         lstm_cuda._check_scan_operands(gx.float(), lengths, w_hh, b_hh, zeros, zeros)
     with pytest.raises(TypeError):
         lstm_cuda._check_scan_operands(gx, lengths.long(), w_hh, b_hh, zeros, zeros)

@@ -311,6 +311,37 @@ def test_plan_refuses_empty_shapes(kwargs):
         pp.plan(**args)
 
 
+@pytest.mark.parametrize("hidden,batch", [(1200, 128), (1200, 32), (2000, 1), (2000, 128),
+                                          (64, 5), (8, 1)])
+@pytest.mark.parametrize("plan_of", [
+    lambda h, b, **kw: pp.plan_gru_forward(h, b, **kw),
+    lambda h, b, **kw: pp.plan_gru_scan(h, b, **kw),
+    lambda h, b, **kw: pp.plan_gru_scan(h, b, chains=2, **kw),
+    lambda h, b, **kw: pp.plan_gru_backward(h, b, 1, **kw),
+    lambda h, b, **kw: pp.plan_gru_backward(h, b, 2, **kw),
+], ids=["forward", "scan", "scan pair", "backward", "backward pair"])
+def test_float32_plans_take_the_step_design_everywhere(plan_of, hidden, batch):
+    """Float32 GRU weights never stay resident (csrc/gru_f32.cu is a step
+    design): "step" at every shape, even where a bf16 slice would fit, with
+    no device figures needed; "persistent" is refused with
+    NotImplementedError, "step" and None take the step design."""
+    import torch
+
+    for dtype in ("float32", torch.float32):
+        plan = plan_of(hidden, batch, dtype=dtype)
+        assert (plan.design, plan.dtype) == ("step", "float32")
+        assert "float32" in plan.reason
+        assert pp.choose(None, plan) == pp.choose("step", plan) == "step"
+        with pytest.raises(NotImplementedError, match="float32"):
+            pp.choose("persistent", plan)
+    bf16 = plan_of(hidden, batch, sm_count=SMS, smem_optin=SMEM)
+    assert bf16.dtype == "bfloat16"
+    with pytest.raises(ValueError, match="SM count"):
+        plan_of(hidden, batch)  # a bf16 plan needs the device's figures
+    with pytest.raises(ValueError, match="dtype"):
+        plan_of(hidden, batch, dtype="float16")
+
+
 def test_wrappers_take_a_design_argument_and_use_the_plain_version_on_the_cpu():
     """On CPU tensors the wrappers run the plain versions whatever the
     design; the design counters only count CUDA calls."""

@@ -283,7 +283,7 @@ def test_wrapper_operand_checks_and_devices():
         rnn_tanh_cuda.rnn_tanh_bwd_scan(*(v.to("meta") for v in (gx, dout, lengths, w_hh)))
     # the checks the CUDA branch makes before it launches
     rnn_tanh_cuda._check_operands("gx", gx, lengths, w_hh)
-    with pytest.raises(TypeError, match="A6b"):  # float32 streams are refused
+    with pytest.raises(TypeError, match="A6b-2"):  # float32 streams are refused
         rnn_tanh_cuda._check_operands("gx", gx.float(), lengths, w_hh)
     with pytest.raises(ValueError, match="contiguous"):
         rnn_tanh_cuda._check_operands(

@@ -45,6 +45,7 @@ from danspeech_tpu_torch.models import checkpoint as tckpt
 from danspeech_tpu_torch.models import deepspeech as tds
 from danspeech_tpu_torch.models import streaming as tst
 from danspeech_tpu_torch.models.config import DeepSpeechConfig as TConfig
+from danspeech_tpu_torch.ops import rnn as trnn
 
 PROB_ATOL = 1e-4
 STATE_ATOL = 1e-4
@@ -434,16 +435,29 @@ def test_uni_forward_bf16_matches_jax_pallas(stream_models):
         ("auto", "cpu", "float32"),
         ("float32", "cpu", "float32"),
         ("bfloat16", "cpu", "bfloat16"),
+        ("float32", "cuda", "float32"),
     ],
 )
 def test_compute_dtype_resolution(requested, device, expected):
     assert _resolve_compute_dtype(requested, torch.device(device)) == expected
 
 
-def test_float32_on_cuda_is_refused():
-    """ROADMAP A6b: the GRU kernels take bf16 only; the engine refuses
-    float32 on CUDA when it is built, not at the first transcription."""
-    with pytest.raises(ValueError, match="A6b"):
-        _resolve_compute_dtype("float32", torch.device("cuda"))
+@pytest.mark.parametrize("rnn_type", ["gru", "lstm", "rnn"])
+def test_float32_on_cuda_is_refused(rnn_type):
+    """Float32 on CUDA serves GRU models through the GRU kernels' float32
+    variants (B1-B4); an LSTM or tanh-RNN model, whose kernels have none yet
+    (ROADMAP A6b-2), is refused when it is loaded, not at its first
+    transcription. The engine's ``_device_params`` asks the pure function
+    of (rnn_type, device type) below for a float32 engine: no card needed."""
+    cfg = TConfig(model_name="x", rnn_type=rnn_type, rnn_hidden_size=8, rnn_layers=1,
+                  conv_layers=2)
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    assert _resolve_compute_dtype("float32", cuda) == "float32"
+    trnn.require_float32_kernels(cfg.rnn_type, cpu)
+    if rnn_type == "gru":
+        trnn.require_float32_kernels(cfg.rnn_type, cuda)
+    else:
+        with pytest.raises(NotImplementedError, match="A6b-2"):
+            trnn.require_float32_kernels(cfg.rnn_type, cuda)
     with pytest.raises(ValueError):
-        _resolve_compute_dtype("float16", torch.device("cpu"))
+        _resolve_compute_dtype("float16", cpu)

@@ -145,9 +145,13 @@ Phases, in order; any failure exits non-zero:
     plain version (TF32 off) at ragged small shapes and at the layer shapes
     (B3 T=401 B=128 H=1200 D=2016 and 1200; B1 T=401 B=128 H=2000 and the
     T=55 B=1 chunk; B2 H=1200 with carried states; B4 T=401 B=32 H=1200, one
-    chain and the pair), within F32_ATOL, the layer shapes timed beside the
-    plain version, one cuDNN float32 ``nn.GRU`` call (TF32 off) and the FP32
-    bound; (b) ``Recognizer(compute_dtype="float32")`` on the flagship over
+    chain and the pair), and of B5-B9 (``csrc/lstm_f32.cu``,
+    ``csrc/rnn_tanh_f32.cu``) at ragged small shapes (H = 70, B = 150) and
+    at LSTM5x800 / Tanh5x800's layer shapes (B5 and B8 T=401 B=128 H=800,
+    B6, B7 and B9 T=401 B=32 H=800), one chain and a pair each, within
+    F32_ATOL, the layer shapes timed beside the plain version, one cuDNN
+    float32 ``nn.GRU`` / ``nn.LSTM`` / ``nn.RNN`` call (TF32 off) and the
+    FP32 bound; (b) ``Recognizer(compute_dtype="float32")`` on the flagship over
     phase 4's 128 waveforms (9 float32 B3 launches a dispatch group,
     audio-s/s beside bf16, every row against the plain GRU on the card, a few
     rows against the port on the CPU, transcripts equal up to near ties);
@@ -159,11 +163,17 @@ Phases, in order; any failure exits non-zero:
     (d) a 60 s long form of the flagship (9 float32 B2 launches); (e) two
     ``mixed_precision=False`` train steps of the flagship at B=32 (loss, wall
     time, peak memory) and the gradients of an 8-row batch against the plain
-    path; (f) LSTM5x800 in float32 on CUDA refused when loaded (ROADMAP
-    A6b-2). Every float32 path is checked to run with TF32 off (its entry
-    points record the flags); one ``{"float32": ...}`` line;
-13. one ``{"kernels": [...]}`` line of nine entries (B1-B4 each with a
-    ``float32`` object), then the device line as the last line.
+    path; (f) LSTM5x800 and Tanh5x800 loaded in float32 on CUDA, every
+    weight float32; (g) each of them served (``recognize_batch`` of (b)'s
+    waveforms, the launches by dtype, audio-s/s beside bf16, every row
+    against the plain recurrence on the card, a few rows against the port
+    on the CPU) and trained (two ``mixed_precision=False`` steps at B=32,
+    8-row gradients against the plain path) as in (b) and (e). Every
+    float32 path is checked to run with TF32 off (its entry points record
+    the flags), and each of the nine wrappers' float32 variants must be
+    launched on phase 12's paths; one ``{"float32": ...}`` line;
+13. one ``{"kernels": [...]}`` line of nine entries, each with a
+    ``float32`` object, then the device line as the last line.
 
 Imports no JAX and nothing of ``danspeech_tpu``.
 """
@@ -201,6 +211,11 @@ SOURCES = {"gru_bidi_fused": "gru_bidi_fused", "gru_scan": "gru_scan",
            "lstm_scan": "lstm_scan", "lstm_scan_with_cell": "lstm_scan",
            "lstm_bwd_scan": "lstm_bwd", "rnn_tanh_scan": "rnn_tanh_scan",
            "rnn_tanh_bwd_scan": "rnn_tanh_bwd"}
+# wrapper name -> the source of its float32 variant and the cuDNN module its
+# float32 time is set beside
+F32_SOURCES = {name: ("gru_f32", "nn.GRU") if name.startswith("gru")
+               else ("lstm_f32", "nn.LSTM") if name.startswith("lstm")
+               else ("rnn_tanh_f32", "nn.RNN(nonlinearity='tanh')") for name in SOURCES}
 # wrapper name -> line of the Pallas function in danspeech_tpu/ops/pallas_gru.py
 REPLACES = {"gru_bidi_fused": 400, "gru_scan": 770, "gru_scan_bidi": 171,
             "gru_bwd_scan": 987, "lstm_scan": 577, "lstm_scan_with_cell": 1136,
@@ -3923,8 +3938,9 @@ CONV_LAYERS = (
 )
 VIDEO_S = 60.0  # the long recording of video_transcribe_simulation
 GALLERY_WATCHDOG_S = 120.0  # a streaming twin waiting longer is interrupted
-FLOAT32_TITLE = ("phase 12: float32 on the card (the GRU kernels' float32 variants: "
-                 "entries, serving, streaming, long form, training, the LSTM refusal)")
+FLOAT32_TITLE = ("phase 12: float32 on the card (the float32 variants of B1-B9: "
+                 "entries, serving, streaming, long form, training; LSTM5x800 and "
+                 "Tanh5x800 served and trained)")
 GALLERY_TITLE = ("phase 11: the gallery (the spectrogram's two DFTs, the conv layouts, "
                  "the eight twins of examples/)")
 
@@ -4329,7 +4345,7 @@ def phase_gallery(card):
 
 
 # ---------------------------------------------------------------------------
-# Phase 12: float32 on the card (the GRU kernels' float32 variants)
+# Phase 12: float32 on the card (the float32 variants of the nine kernels)
 # ---------------------------------------------------------------------------
 
 # H100 SXM, float32 on the CUDA cores (NVIDIA data sheet): the tensor cores
@@ -4359,6 +4375,15 @@ F32_STREAM_ROWS = 32
 # the float32 cohort: S streams stepped through B1's float32 variant at B = S
 F32_COHORT = 64
 F32_FLAGS = ("highest", False)  # what the float32 modes run with: no TF32
+# the LSTM and tanh-RNN kernels' outputs: (names, how many are streams over
+# (T, B, H), the rest final states)
+RNN_F32_STREAMS = {
+    "lstm_scan": (("out", "h_last", "c_last"), 1),
+    "lstm_scan_with_cell": (("out", "c_seq", "h_last", "c_last"), 2),
+    "lstm_bwd_scan": (("dg4", "dh0", "dc0"), 1),
+    "rnn_tanh_scan": (("out", "h_last"), 1),
+    "rnn_tanh_bwd_scan": (("dpre", "dh0"), 1),
+}
 USER_FLAGS = ("high", True)     # a user's process that allows TF32 everywhere
 
 
@@ -4444,9 +4469,24 @@ def f32_bound(flops, nbytes):
 def f32_bounds(kind, t, b, h, lengths, d=0, chains=1):
     """(bound_ms, bound_by) of one float32 call, as phase 3 counts the bf16
     ones with 4-byte elements, over the valid steps: B3's projection and
-    both recurrences, B1 and B2 one product a chain, B4 two products a
-    chain."""
+    both recurrences, B1, B2, B5, B6 and B8 one product a chain, B4 and B7
+    two products a chain (the walk and the gate recompute), B9 one (tanh'
+    comes off the stored stream)."""
     valid = int(sum(lengths))
+    if kind in RNN_F32_STREAMS:
+        gates = 4 if kind.startswith("lstm") else 1
+        g = gates * h
+        products = 2 if kind == "lstm_bwd_scan" else 1
+        # per chain: w_hh, then the streams each kind reads over the valid
+        # steps and writes over all steps, and its states
+        per = h * g + {
+            "lstm_scan": valid * g + g + t * b * h + 4 * b * h,
+            "lstm_scan_with_cell": valid * g + g + 2 * t * b * h + 4 * b * h,
+            "lstm_bwd_scan": valid * (g + 3 * h) + g + t * b * g + 2 * b * h,
+            "rnn_tanh_scan": valid * h + t * b * h + b * h,
+            "rnn_tanh_bwd_scan": valid * 2 * h + t * b * h + b * h,
+        }[kind]
+        return f32_bound(chains * 2 * products * valid * h * g, chains * 4 * per + 4 * b)
     if kind == "gru_bidi_fused":
         return f32_bound(2 * 2 * valid * (d + h) * 3 * h,
                          4 * (valid * d + 2 * (d + h) * 3 * h + 12 * h + 2 * t * b * h
@@ -4465,9 +4505,9 @@ def check_f32(name, label, run, plain, names, pad_of, lens, t):
     inputs: every output held to F32_ATOL x max(1, max|ref|), float32, finite,
     exact zeros past a row's length (``pad_of`` outputs). Returns the result
     and the kernel's outputs' errors."""
-    from danspeech_tpu_torch.ops import gru_cuda, precision
+    from danspeech_tpu_torch.ops import precision
 
-    wrapper = getattr(gru_cuda, name)
+    wrapper = kernel_wrappers()[name]
     with precision.full_float32("cuda"):
         ref = plain()
     torch.cuda.synchronize()
@@ -4491,14 +4531,14 @@ def check_f32(name, label, run, plain, names, pad_of, lens, t):
     return {"label": label, "max_abs_err": worst, "errs": errs, "atol": F32_ATOL}
 
 
-def time_f32(res, run, plain, library, bound, steps):
+def time_f32(res, run, plain, library, bound, steps, library_name="nn.GRU"):
     """Kernel, plain version (TF32 off) and one cuDNN float32 call (TF32
     off), in the order kernel, plain, library, kernel; the bound; and the
     device time of the step kernels over ``steps`` launches. The rest of the
-    kernel's time is B3's projection or B4's recompute (the FFMA GEMM) and
-    the gaps between the launches: the profiler's record of a call of some
-    400 launches holds the step kernels but not the short kernels before
-    them."""
+    kernel's time is B3's projection or B4's and B7's recompute (the FFMA
+    GEMM) and the gaps between the launches: the profiler's record of a call
+    of some 400 launches holds the step kernels but not the short kernels
+    before them."""
     from danspeech_tpu_torch.ops import precision
 
     a = time_ms(run, iters=2)
@@ -4510,12 +4550,12 @@ def time_f32(res, run, plain, library, bound, steps):
     # the profiler names some kernels mangled: match on the name anywhere
     split = device_ms_by_kernel(run, need="_step_kernel")
     res["step_kernel_ms"] = sum(ms for k, ms in split.items()
-                                if "gru_f32" in k and "step_kernel" in k)
+                                if "_f32_" in k and "step_kernel" in k)
     res["us_a_step"] = res["step_kernel_ms"] * 1e3 / steps
     log(f"    float32 ms={res['ms']:.3f} (step kernels {res['step_kernel_ms']:.3f} = "
         f"{res['us_a_step']:.1f} us a step over {steps}; the rest "
         f"{res['ms'] - res['step_kernel_ms']:.3f}) plain_ms={res['plain_ms']:.3f} "
-        f"library_ms(cuDNN nn.GRU float32, TF32 off)={res['library_ms']:.3f} "
+        f"library_ms(cuDNN {library_name} float32, TF32 off)={res['library_ms']:.3f} "
         f"bound_ms={res['bound_ms']:.4f} ({res['bound_by']}, FP32 "
         f"{PEAK_FP32_FLOPS / 1e12:.0f} TFLOP/s)")
     return res
@@ -4662,6 +4702,122 @@ def phase_f32_kernels(card):
     return out
 
 
+def f32_rnn_operands(kind, gen, t, lengths, h, lens):
+    """Seeded float32 operands of one chain of an LSTM or tanh-RNN kernel
+    over ``lens``, drawn as phase 3 draws the bf16 ones."""
+    dev = "cuda"
+    b = len(lengths)
+    bound = 1.0 / h ** 0.5
+
+    def uni(*shape):
+        return (torch.rand(*shape, generator=gen, device=dev) * 2 - 1) * bound
+
+    def normal(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    if kind in ("lstm_scan", "lstm_scan_with_cell"):
+        return (normal(t, b, 4 * h, scale=0.5), lens, uni(h, 4 * h), uni(4 * h),
+                torch.rand(b, h, generator=gen, device=dev) - 0.5,
+                torch.rand(b, h, generator=gen, device=dev) - 0.5)
+    if kind == "lstm_bwd_scan":
+        hprev = torch.rand(t, b, h, generator=gen, device=dev) * 2 - 1
+        return (normal(t, b, 4 * h, scale=0.5), hprev, normal(t, b, h), normal(t, b, h),
+                lens, uni(h, 4 * h), uni(4 * h))
+    if kind == "rnn_tanh_scan":
+        return (normal(t, b, h, scale=0.5), lens, uni(h, h))
+    out = torch.rand(t, b, h, generator=gen, device=dev) * 2 - 1
+    out[torch.arange(t, device=dev)[:, None] >= lens[None, :].long()] = 0  # as the forward's
+    return (out, normal(t, b, h), lens, uni(h, h))
+
+
+def check_f32_rnn(kind, gen, label, t, lengths, h, timed):
+    """One LSTM or tanh-RNN float32 entry against its plain version, one
+    chain (a forward chain, or the walk of one) and the pair of a layer (the
+    second chain walking the other way, both in each step launch); at the
+    layer shapes (``timed``) the chain timed beside the plain version, one
+    cuDNN float32 call and the FP32 bound, and the pair's time a chain.
+    Returns the two checks."""
+    from danspeech_tpu_torch.ops import lstm_cuda, rnn_tanh_cuda
+
+    lstm = kind.startswith("lstm")
+    module = lstm_cuda if lstm else rnn_tanh_cuda
+    wrapper, plain = getattr(module, kind), getattr(module, f"{kind}_plain")
+    backward = kind.endswith("bwd_scan")
+    reverse = backward  # a forward chain, or the walk that undoes one
+    names, streams = RNN_F32_STREAMS[kind]
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    a = f32_rnn_operands(kind, gen, t, lengths, h, lens)
+    c = f32_rnn_operands(kind, gen, t, lengths, h, lens)
+    shape = f"T={t} B={len(lengths)} H={h}"
+
+    def run():
+        return wrapper(*a, reverse=reverse)
+
+    def run_plain():
+        return plain(*a, reverse=reverse)
+
+    def pair():
+        if kind in ("lstm_scan", "lstm_scan_with_cell"):
+            got = lstm_cuda.lstm_scan_pair(a, c, reverse, not reverse,
+                                           with_cell=kind == "lstm_scan_with_cell")
+        else:
+            got = getattr(module, f"{kind}_pair")(a, c, reverse, not reverse)
+        return flat(*got)
+
+    def flat(ra, rc):  # the streams of both chains first
+        return (*ra[:streams], *rc[:streams], *ra[streams:], *rc[streams:])
+
+    res = check_f32(kind, f"{label} {shape}", run, run_plain, names, streams, lens, t)
+    res["label"] = label
+    pair_names = [f"{n} {k}" for part in (names[:streams], names[streams:])
+                  for k in "ab" for n in part]
+    pres = check_f32(kind, f"{label}, the pair of a layer {shape}", pair,
+                     lambda: flat(run_plain(), plain(*c, reverse=not reverse)), pair_names,
+                     2 * streams, lens, t)
+    pres["label"] = f"{label}, pair"
+    if timed:
+        lib = torch.nn.LSTM(h, h) if lstm else torch.nn.RNN(h, h, nonlinearity="tanh")
+        time_f32(res, run, run_plain,
+                 lambda: cudnn_rnn_ms(lib, gen, t, len(lengths), h, backward=backward,
+                                      dtype=torch.float32),
+                 f32_bounds(kind, t, len(lengths), h, lengths), t + 1 if backward else t,
+                 library_name=f"nn.{type(lib).__name__}")
+        res["pair_ms_per_chain"] = 0.5 * time_ms(pair, iters=2)
+        log(f"    float32 pair: {res['pair_ms_per_chain']:.3f} ms a chain")
+    del a, c
+    torch.cuda.empty_cache()
+    return [res, pres]
+
+
+def phase_f32_rnn_kernels():
+    """12a, B5-B9: each LSTM and tanh-RNN float32 entry at ragged small
+    shapes (B = 5 with an empty row, T = 1, H = 70 no multiple of 4 or 8,
+    B = 150 over two row blocks) and at the layer shapes of LSTM5x800 /
+    Tanh5x800: serving (B = 128) for the forward chains B5 and B8, training
+    (B = 32) for B6 and the walks B7 and B9; one chain and a pair each."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(121)
+    serve = np.random.default_rng(800).integers(1, 402, size=128)
+    train = np.random.default_rng(801).integers(1, 402, size=32)
+    for lengths in (serve, train):
+        lengths[0], lengths[1] = 401, 1
+    layer = {"lstm_scan": ("serve layer", serve), "rnn_tanh_scan": ("serve layer", serve),
+             "lstm_scan_with_cell": ("train layer", train),
+             "lstm_bwd_scan": ("train layer", train), "rnn_tanh_bwd_scan": ("train layer", train)}
+    out = {}
+    for kind, (label, lengths) in layer.items():
+        rows = []
+        for t, lens, h, small in ((13, [13, 0, 1, 7, 12], 72, "small"),
+                                  (1, [1, 0], 70, "small T=1"),
+                                  (9, [9, 0, 4], 70, "small H=70"),
+                                  (7, [7, 1] + [1 + (i % 7) for i in range(148)], 72,
+                                   "small B=150")):
+            rows += check_f32_rnn(kind, gen, small, t, lens, h, False)
+        rows += check_f32_rnn(kind, gen, label, 401, lengths.tolist(), 800, True)
+        out[kind] = rows
+    return out
+
+
 def f32_rows_vs(label, probs, ref, lens, rows):
     """Row by row over the valid frames: max|dprob| <= F32_PROB_ATOL and
     frame argmax agreement >= F32_ARGMAX_MIN."""
@@ -4682,7 +4838,7 @@ def f32_rows_vs(label, probs, ref, lens, rows):
 
 
 def f32_launches(before):
-    """The float32 launches of B1-B4 since ``before`` (a read of
+    """The float32 launches of B1-B9 since ``before`` (a read of
     :func:`f32_counts`); every launch of those wrappers since then must have
     been a float32 one."""
     now = f32_counts()
@@ -4693,10 +4849,7 @@ def f32_launches(before):
 
 
 def f32_counts():
-    from danspeech_tpu_torch.ops import gru_cuda
-
-    return {k: (getattr(gru_cuda, k).dtype_counts["float32"], getattr(gru_cuda, k).launches)
-            for k in ("gru_bidi_fused", "gru_scan", "gru_scan_bidi", "gru_bwd_scan")}
+    return {k: (w.dtype_counts["float32"], w.launches) for k, w in kernel_wrappers().items()}
 
 
 def f32_cohort(card, smodel, launches):
@@ -4759,15 +4912,183 @@ def f32_cohort(card, smodel, launches):
     return stats
 
 
-def phase_float32(card):
-    """12: the float32 modes on the card, in a process that allows TF32:
-    (a) the entries against their plain versions, (b) the flagship served,
-    (c) GPUStreamingRNN batch, streaming and a cohort, (d) the flagship's
-    long form, (e) mixed_precision=False train steps, (f) the LSTM refusal."""
+def f32_serve(card, model, waves, launches, per_group):
+    """12b, 12g: ``Recognizer(compute_dtype="float32")`` on ``model`` over
+    ``waves`` beside bf16 (audio-s/s), the float32 launches of each dispatch
+    group held to ``per_group``, every row against the plain recurrence on
+    the card and F32_ROWS_ON_CPU rows against the port on the CPU in
+    float32 (transcripts equal up to near ties). Adds the launches to
+    ``launches``."""
     from danspeech_tpu_torch import Recognizer
-    from danspeech_tpu_torch import train as tr
     from danspeech_tpu_torch.decode.greedy import GreedyDecoder
     from danspeech_tpu_torch.engine import DanSpeechRecognizer
+    from danspeech_tpu_torch.models import deepspeech as ds
+
+    config = model.config
+    name = config.model_name
+    audio_s = sum(len(w) for w in waves) / RATE
+    rec16 = Recognizer(model=model)
+    rec = Recognizer(model=model, compute_dtype="float32")
+    eng = rec.danspeech_recognizer
+    held = [eng._compute_params["fc"].weight.dtype] + [
+        w.w_hh.dtype for e in eng._compute_params["rnns"] for w in (e["fwd"], e["bwd"])
+        if w is not None]
+    if eng.compute_dtype != "float32" or set(held) != {torch.float32}:
+        raise AssertionError(f"{name}: the float32 engine holds no float32 weights: {held}")
+    log(f"  {name} ({config.rnn_type}), compute_dtype='float32' on CUDA: loaded, "
+        "every recurrent and fc weight float32")
+    groups = eng._plan_groups(waves)
+    rec16.recognize_batch(waves[:4])  # warm-up
+    rec.recognize_batch(waves[:4])
+    walls = {}
+    _, walls["bfloat16"] = timed_batch(rec16, waves)
+    before = f32_counts()
+    with FlagsSeen([(ds, "forward")]) as seen:
+        texts, walls["float32"] = timed_batch(rec, waves)
+    got = f32_launches(before)
+    want = dict(dict.fromkeys(launches, 0),
+                **{k: v * len(groups) for k, v in per_group.items()})
+    log(f"  {name} float32 recognize_batch: {len(groups)} dispatch groups, float32 "
+        f"launches {got} (expected {per_group} a group)")
+    if got != want or len(texts) != len(waves):
+        raise AssertionError(f"{name}: the float32 batch did not run every layer on the "
+                             f"float32 kernels: {got}, expected {want}")
+    seen.require(f"{name} float32 recognize_batch")
+    for k, v in got.items():
+        launches[k] += v
+    _, walls["bfloat16 again"] = timed_batch(rec16, waves)
+    serve = {"audio_s": audio_s, "groups": len(groups), "launches": got,
+             "float32_audio_s_per_s": audio_s / walls["float32"],
+             "bfloat16_audio_s_per_s": [audio_s / walls["bfloat16"],
+                                        audio_s / walls["bfloat16 again"]],
+             "wall_s": walls}
+    log(f"  {name} recognize_batch, {len(waves)} rows, {audio_s:.1f} audio-s: float32 "
+        f"{serve['float32_audio_s_per_s']:.1f} audio-s/s; bf16 "
+        f"{serve['bfloat16_audio_s_per_s'][0]:.1f}, "
+        f"{serve['bfloat16_audio_s_per_s'][1]:.1f} audio-s/s [{card}]")
+    # every row against the plain recurrence on the card
+    worst = {"max_abs_prob_err": 0.0, "least_row_argmax_agreement": 1.0, "rows": 0}
+    for idxs, maxlen in groups:
+        staged, lengths = eng._stage_group(waves, idxs, maxlen)
+        wave, lens = staged.to("cuda"), torch.from_numpy(lengths).to("cuda")
+        probs, out_lens = eng._forward(eng._compute_params, wave, lens)
+        ref, _ = eng._forward(eng._compute_params, wave, lens, rnn_impl="plain")
+        res = f32_rows_vs(f"{name} float32 group rows={len(idxs)} bucket={maxlen}: kernels "
+                          "vs plain recurrence", probs, ref, out_lens, len(idxs))
+        worst = {"max_abs_prob_err": max(worst["max_abs_prob_err"], res["max_abs_prob_err"]),
+                 "least_row_argmax_agreement": min(worst["least_row_argmax_agreement"],
+                                                   res["least_row_argmax_agreement"]),
+                 "rows": worst["rows"] + res["rows"]}
+        del probs, ref, wave
+    serve["vs_plain"] = worst
+    # a few rows against the port on the CPU in float32
+    cpu = DanSpeechRecognizer(model_name=model, device="cpu", compute_dtype="float32")
+    few = seeded_waveforms(np.random.default_rng(12), F32_ROWS_ON_CPU, 1.0, 3.0)
+    idxs, maxlen = eng._plan_groups(few)[0]
+    staged, lengths = eng._stage_group(few, idxs, maxlen)
+    probs, out_lens = eng._forward(eng._compute_params, staged.to("cuda"),
+                                   torch.from_numpy(lengths).to("cuda"))
+    t0 = time.perf_counter()
+    ref, ref_lens = cpu._forward(cpu._compute_params, staged.clone(), torch.from_numpy(lengths))
+    log(f"  the port on the CPU, {len(idxs)} rows, float32: {time.perf_counter() - t0:.1f} s")
+    serve["vs_cpu"] = f32_rows_vs(f"{name} float32 rows, card vs the port on the CPU", probs,
+                                  ref, out_lens, len(idxs))
+    greedy = GreedyDecoder(labels=config.labels, blank_index=config.labels.index("_"))
+    card_txt, _ = greedy.decode(probs[: len(idxs)].cpu().numpy(),
+                                out_lens[: len(idxs)].cpu().numpy())
+    cpu_txt, _ = greedy.decode(ref[: len(idxs)].numpy(), ref_lens[: len(idxs)].numpy())
+    ties = 0
+    for r, (a, b) in enumerate(zip(card_txt, cpu_txt)):
+        if a[0] == b[0]:
+            continue
+        n = int(out_lens[r])
+        p, q = probs[r, :n].cpu(), ref[r, :n]
+        flips = (p.argmax(-1) != q.argmax(-1)).nonzero().flatten()
+        top2 = q[flips].topk(2, dim=-1).values
+        if not bool(((top2[:, 0] - top2[:, 1]) <= F32_TIE).all()):
+            raise AssertionError(f"{name} row {r}: the card's transcript {a[0]!r} differs "
+                                 f"from the CPU's {b[0]!r} beyond near ties")
+        ties += 1
+    log(f"  {name} transcripts, card vs CPU: {len(card_txt) - ties} of {len(card_txt)} "
+        f"equal, {ties} differing only at near ties (<= {F32_TIE})")
+    serve["transcripts_equal"] = len(card_txt) - ties
+    del rec, rec16, eng, cpu, probs, ref
+    torch.cuda.empty_cache()
+    return serve
+
+
+def f32_train(card, config, seed, launches, per_step):
+    """12e, 12g: two ``mixed_precision=False`` train steps of ``config`` at
+    B = TRAIN_BATCH (loss, wall time, the float32 launches held to
+    ``per_step``, peak memory), then the gradients of an 8-row batch through
+    the kernels against the plain path within F32_GRAD_REL. Adds the
+    launches to ``launches``."""
+    from danspeech_tpu_torch import train as tr
+    from danspeech_tpu_torch.models import deepspeech as ds
+    from danspeech_tpu_torch.train import step as tstep
+
+    name = config.model_name
+    optimizer = tr.make_optimizer(TRAIN_LR)
+    state = tr.init_train_state(config, optimizer, seed=seed)
+    batch, t_audio = train_batch(np.random.default_rng(8 + seed), config, TRAIN_BATCH)
+    step_fn = tr.make_wave_train_step(config, optimizer, augment=None,
+                                      mixed_precision=False, remat=True)
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    want = dict(dict.fromkeys(launches, 0), **per_step)
+    for k in range(2):
+        before = f32_counts()
+        with FlagsSeen([(ds, "forward"), (tstep, "_update")]) as seen:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, loss = step_fn(state, *batch, None)
+            loss = float(loss)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        got = f32_launches(before)
+        if got != want or not np.isfinite(loss):
+            raise AssertionError(f"{name} float32 train step {k + 1}: loss {loss}, "
+                                 f"launches {got}, expected {want}")
+        seen.require(f"{name} float32 train step {k + 1}")
+        for kernel, v in got.items():
+            launches[kernel] += v
+        steps.append({"loss": loss, "wall_s": wall, "audio_s_per_step_s": t_audio / wall,
+                      "launches": got})
+        log(f"  {name} float32 train step {k + 1} (B={TRAIN_BATCH}, remat): loss "
+            f"{loss:.4f}, {wall:.3f} s, {t_audio / wall:.1f} audio-s per step-second, "
+            f"launches {got} [{card}]")
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  {name}: peak device memory over the float32 steps: {peak / 2**30:.2f} GiB")
+    del state, step_fn
+    torch.cuda.empty_cache()
+    small, _ = train_batch(np.random.default_rng(9 + seed), config, 8)
+    grads = {}
+    for impl in ("auto", "plain"):
+        st = tr.init_train_state(config, optimizer, seed=seed)
+        fn = tr.make_wave_train_step(config, optimizer, augment=None,
+                                     mixed_precision=False, remat=True, rnn_impl=impl)
+        st, loss = fn(st, *small)
+        grads[impl] = (grad_groups(st.params), float(loss))
+        del st, fn
+        torch.cuda.empty_cache()
+    rel = {g: float((grads["auto"][0][g] - ref).norm() / ref.norm().clamp(min=1e-30))
+           for g, ref in grads["plain"][0].items()}
+    log(f"  {name} float32 gradients of an 8-row batch, kernels vs plain path, relative "
+        "L2 by group: " + ", ".join(f"{g} {e:.3e}" for g, e in rel.items())
+        + f" (limit {F32_GRAD_REL}); loss {grads['auto'][1]:.6f} vs {grads['plain'][1]:.6f}")
+    if not all(e <= F32_GRAD_REL for e in rel.values()):
+        raise AssertionError(f"{name}: float32 gradients outside the stated limit")
+    return {"steps": steps, "peak_memory_bytes": peak, "audio_s": t_audio,
+            "batch_rows": TRAIN_BATCH, "grad_rel_l2": rel, "limit": F32_GRAD_REL}
+
+
+def phase_float32(card):
+    """12: the float32 modes on the card, in a process that allows TF32:
+    (a) the entries of B1-B9 against their plain versions, (b) the flagship
+    served, (c) GPUStreamingRNN batch, streaming and a cohort, (d) the
+    flagship's long form, (e) mixed_precision=False train steps, (f, g)
+    LSTM5x800 and Tanh5x800 loaded, served and trained in float32."""
+    from danspeech_tpu_torch import Recognizer
     from danspeech_tpu_torch.models import DeepSpeechConfig, DeepSpeechModel
     from danspeech_tpu_torch.models import deepspeech as ds
     from danspeech_tpu_torch.models import streaming
@@ -4775,13 +5096,12 @@ def phase_float32(card):
     from danspeech_tpu_torch.parallel import make_mesh
     from danspeech_tpu_torch.parallel import time_shard
     from danspeech_tpu_torch.parallel.time_shard import long_form_probs, pad_time_for_mesh
-    from danspeech_tpu_torch.train import step as tstep
 
     t_phase = time.perf_counter()
     saved = f32_flags()
     set_f32_flags(USER_FLAGS)
     out = {"card": card}
-    launches = dict.fromkeys(("gru_bidi_fused", "gru_scan", "gru_scan_bidi", "gru_bwd_scan"), 0)
+    launches = dict.fromkeys(kernel_wrappers(), 0)
     try:
         inside, outside = tf32_probe(lambda: precision.full_float32("cuda"))
         log(f"  TF32 probe, max|err| / max|ref| against float64: inside the float32 "
@@ -4794,96 +5114,15 @@ def phase_float32(card):
         out["tf32_probe"] = {"inside": inside, "outside": outside}
 
         t0 = time.perf_counter()
-        out["kernels"] = phase_f32_kernels(card)
+        out["kernels"] = {**phase_f32_kernels(card), **phase_f32_rnn_kernels()}
         out["kernels_s"] = time.perf_counter() - t0
 
         # 12b: the flagship served in float32, beside bf16
         config = DeepSpeechConfig(**FLAGSHIP)
         model = DeepSpeechModel.init_random(config, seed=0)
         waves = seeded_waveforms(np.random.default_rng(0), 128)  # phase 4's first batch
-        audio_s = sum(len(w) for w in waves) / RATE
-        rec16 = Recognizer(model=model)
-        rec = Recognizer(model=model, compute_dtype="float32")
-        eng = rec.danspeech_recognizer
-        if eng.compute_dtype != "float32" or eng._compute_params["fc"].weight.dtype != torch.float32:
-            raise AssertionError("the float32 engine holds no float32 weights")
-        groups = eng._plan_groups(waves)
-        rec16.recognize_batch(waves[:4])  # warm-up
-        rec.recognize_batch(waves[:4])
-        walls = {}
-        _, walls["bfloat16"] = timed_batch(rec16, waves)
-        before = f32_counts()
-        with FlagsSeen([(ds, "forward")]) as seen:
-            texts, walls["float32"] = timed_batch(rec, waves)
-        got = f32_launches(before)
-        want = dict(dict.fromkeys(launches, 0), gru_bidi_fused=config.rnn_layers * len(groups))
-        log(f"  float32 recognize_batch: {len(groups)} dispatch groups, float32 launches "
-            f"{got} (expected {want['gru_bidi_fused']} gru_bidi_fused)")
-        if got != want or len(texts) != len(waves):
-            raise AssertionError("the float32 batch did not run every layer on the float32 B3")
-        seen.require("float32 recognize_batch")
-        for k, v in got.items():
-            launches[k] += v
-        _, walls["bfloat16 again"] = timed_batch(rec16, waves)
-        serve = {"audio_s": audio_s, "groups": len(groups),
-                 "float32_audio_s_per_s": audio_s / walls["float32"],
-                 "bfloat16_audio_s_per_s": [audio_s / walls["bfloat16"],
-                                            audio_s / walls["bfloat16 again"]],
-                 "wall_s": walls}
-        log(f"  flagship recognize_batch, 128 rows, {audio_s:.1f} audio-s: float32 "
-            f"{serve['float32_audio_s_per_s']:.1f} audio-s/s; bf16 "
-            f"{serve['bfloat16_audio_s_per_s'][0]:.1f}, "
-            f"{serve['bfloat16_audio_s_per_s'][1]:.1f} audio-s/s [{card}]")
-        # every row against the plain GRU on the card
-        worst = {"max_abs_prob_err": 0.0, "least_row_argmax_agreement": 1.0, "rows": 0}
-        for idxs, maxlen in groups:
-            staged, lengths = eng._stage_group(waves, idxs, maxlen)
-            wave, lens = staged.to("cuda"), torch.from_numpy(lengths).to("cuda")
-            probs, out_lens = eng._forward(eng._compute_params, wave, lens)
-            ref, _ = eng._forward(eng._compute_params, wave, lens, rnn_impl="plain")
-            res = f32_rows_vs(f"float32 group rows={len(idxs)} bucket={maxlen}: kernels "
-                              "vs plain GRU", probs, ref, out_lens, len(idxs))
-            worst = {"max_abs_prob_err": max(worst["max_abs_prob_err"],
-                                             res["max_abs_prob_err"]),
-                     "least_row_argmax_agreement": min(worst["least_row_argmax_agreement"],
-                                                       res["least_row_argmax_agreement"]),
-                     "rows": worst["rows"] + res["rows"]}
-            del probs, ref, wave
-        serve["vs_plain"] = worst
-        # a few rows against the port on the CPU in float32
-        cpu = DanSpeechRecognizer(model_name=model, device="cpu", compute_dtype="float32")
-        few = seeded_waveforms(np.random.default_rng(12), F32_ROWS_ON_CPU, 1.0, 3.0)
-        idxs, maxlen = eng._plan_groups(few)[0]
-        staged, lengths = eng._stage_group(few, idxs, maxlen)
-        probs, out_lens = eng._forward(eng._compute_params, staged.to("cuda"),
-                                       torch.from_numpy(lengths).to("cuda"))
-        t0 = time.perf_counter()
-        ref, ref_lens = cpu._forward(cpu._compute_params, staged.clone(),
-                                     torch.from_numpy(lengths))
-        log(f"  the port on the CPU, {len(idxs)} rows, float32: {time.perf_counter() - t0:.1f} s")
-        serve["vs_cpu"] = f32_rows_vs("float32 rows, card vs the port on the CPU", probs,
-                                      ref, out_lens, len(idxs))
-        greedy = GreedyDecoder(labels=config.labels, blank_index=config.labels.index("_"))
-        card_txt, _ = greedy.decode(probs[: len(idxs)].cpu().numpy(),
-                                    out_lens[: len(idxs)].cpu().numpy())
-        cpu_txt, _ = greedy.decode(ref[: len(idxs)].numpy(), ref_lens[: len(idxs)].numpy())
-        ties = 0
-        for r, (a, b) in enumerate(zip(card_txt, cpu_txt)):
-            if a[0] == b[0]:
-                continue
-            n = int(out_lens[r])
-            p, q = probs[r, :n].cpu(), ref[r, :n]
-            flips = (p.argmax(-1) != q.argmax(-1)).nonzero().flatten()
-            top2 = q[flips].topk(2, dim=-1).values
-            if not bool(((top2[:, 0] - top2[:, 1]) <= F32_TIE).all()):
-                raise AssertionError(f"row {r}: the card's transcript {a[0]!r} differs from "
-                                     f"the CPU's {b[0]!r} beyond near ties")
-            ties += 1
-        log(f"  transcripts, card vs CPU: {len(card_txt) - ties} of {len(card_txt)} equal, "
-            f"{ties} differing only at near ties (<= {F32_TIE})")
-        serve["transcripts_equal"] = len(card_txt) - ties
-        out["serve"] = serve
-        del rec, rec16, eng, cpu, probs, ref
+        out["serve"] = f32_serve(card, model, waves, launches,
+                                 {"gru_bidi_fused": config.rnn_layers})
         torch.cuda.empty_cache()
 
         # 12c: GPUStreamingRNN in float32: a batch, then streaming chunk by chunk
@@ -4992,72 +5231,32 @@ def phase_float32(card):
         torch.cuda.empty_cache()
 
         # 12e: mixed_precision=False train steps of the flagship at B = 32
-        optimizer = tr.make_optimizer(TRAIN_LR)
-        state = tr.init_train_state(config, optimizer, seed=0)
-        batch, t_audio = train_batch(np.random.default_rng(8), config, TRAIN_BATCH)
-        step_fn = tr.make_wave_train_step(config, optimizer, augment=None,
-                                          mixed_precision=False, remat=True)
-        torch.cuda.reset_peak_memory_stats()
-        steps = []
-        for k in range(2):
-            before = f32_counts()
-            with FlagsSeen([(ds, "forward"), (tstep, "_update")]) as seen:
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                state, loss = step_fn(state, *batch, None)
-                loss = float(loss)
-                torch.cuda.synchronize()
-                wall = time.perf_counter() - t0
-            got = f32_launches(before)
-            want = dict(dict.fromkeys(launches, 0), gru_bidi_fused=2 * config.rnn_layers,
-                        gru_bwd_scan=2 * config.rnn_layers)
-            if got != want or not np.isfinite(loss):
-                raise AssertionError(f"float32 train step {k + 1}: loss {loss}, launches {got}")
-            seen.require(f"float32 train step {k + 1}")
-            for name, v in got.items():
-                launches[name] += v
-            steps.append({"loss": loss, "wall_s": wall, "audio_s_per_step_s": t_audio / wall,
-                          "launches": got})
-            log(f"  float32 train step {k + 1} (flagship, B={TRAIN_BATCH}, remat): loss "
-                f"{loss:.4f}, {wall:.3f} s, {t_audio / wall:.1f} audio-s per step-second, "
-                f"launches {got} [{card}]")
-        peak = torch.cuda.max_memory_allocated()
-        log(f"  peak device memory over the float32 steps: {peak / 2**30:.2f} GiB")
-        del state, step_fn
-        torch.cuda.empty_cache()
-        small, _ = train_batch(np.random.default_rng(9), config, 8)
-        grads = {}
-        for impl in ("auto", "plain"):
-            st = tr.init_train_state(config, optimizer, seed=0)
-            fn = tr.make_wave_train_step(config, optimizer, augment=None,
-                                         mixed_precision=False, remat=True, rnn_impl=impl)
-            st, loss = fn(st, *small)
-            grads[impl] = (grad_groups(st.params), float(loss))
-            del st, fn
-            torch.cuda.empty_cache()
-        rel = {g: float((grads["auto"][0][g] - ref).norm() / ref.norm().clamp(min=1e-30))
-               for g, ref in grads["plain"][0].items()}
-        log("  float32 gradients of an 8-row batch, kernels vs plain path, relative L2 "
-            "by group: " + ", ".join(f"{g} {e:.3e}" for g, e in rel.items())
-            + f" (limit {F32_GRAD_REL}); loss {grads['auto'][1]:.6f} vs {grads['plain'][1]:.6f}")
-        if not all(e <= F32_GRAD_REL for e in rel.values()):
-            raise AssertionError("float32 gradients outside the stated limit")
-        out["train"] = {"steps": steps, "peak_memory_bytes": peak, "audio_s": t_audio,
-                        "batch_rows": TRAIN_BATCH, "grad_rel_l2": rel, "limit": F32_GRAD_REL}
-        del grads, model
+        out["train"] = f32_train(card, config, 0, launches,
+                                 {"gru_bidi_fused": 2 * config.rnn_layers,
+                                  "gru_bwd_scan": 2 * config.rnn_layers})
+        del model
         torch.cuda.empty_cache()
 
-        # 12f: an LSTM model in float32 on CUDA is refused when it is loaded
-        lstm = DeepSpeechModel.init_random(DeepSpeechConfig(**LSTM5X800), seed=4)
-        try:
-            Recognizer(model=lstm, compute_dtype="float32")
-        except NotImplementedError as e:
-            if "A6b-2" not in str(e):
-                raise AssertionError(f"the LSTM refusal does not name A6b-2: {e}") from e
-            log(f"  LSTM5x800, compute_dtype='float32' on CUDA: refused when loaded ({e})")
-            out["lstm_refusal"] = str(e)
-        else:
-            raise AssertionError("an LSTM model was loaded in float32 on CUDA")
+        # 12f, 12g: LSTM5x800 and Tanh5x800 loaded, served and trained in float32
+        for cfg in (LSTM5X800, TANH5X800):
+            rconfig = DeepSpeechConfig(**cfg)
+            layers = rconfig.rnn_layers
+            if rconfig.rnn_type == "lstm":
+                # a float32 pair counts both chains; with remat the first
+                # forward keeps nothing (B5), the recomputed one the cell
+                # streams (B6), and one walk per chain (B7)
+                serve_want = {"lstm_scan": 2 * layers}
+                step_want = {"lstm_scan": 2 * layers, "lstm_scan_with_cell": 2 * layers,
+                             "lstm_bwd_scan": 2 * layers}
+            else:
+                serve_want = {"rnn_tanh_scan": 2 * layers}
+                step_want = {"rnn_tanh_scan": 4 * layers, "rnn_tanh_bwd_scan": 2 * layers}
+            rmodel = DeepSpeechModel.init_random(rconfig, seed=12)
+            out[rconfig.model_name] = {
+                "serve": f32_serve(card, rmodel, waves, launches, serve_want),
+                "train": f32_train(card, rconfig, 12, launches, step_want)}
+            del rmodel
+            torch.cuda.empty_cache()
     finally:
         set_f32_flags(saved)
     out["launches"] = launches
@@ -5381,42 +5580,45 @@ def main(argv=None) -> int:
             "shapes": checks,
         }
 
-    def with_f32(name, main_label):
-        """The entry of ``name`` with a ``float32`` object: its float32
-        variant at the main shape of phase 12a, launched on phase 12's paths."""
-        e = entry(name, {"gru_bidi_fused": gru_checks, "gru_scan": scan_checks,
-                         "gru_scan_bidi": bidi_checks, "gru_bwd_scan": bwd_checks}[name],
-                  main_label)
+    def with_f32(e, main_label):
+        """The entry ``e`` with a ``float32`` object: its float32 variant at
+        the main shape of phase 12a, launched on phase 12's paths."""
+        name = e["name"]
         if args.kernels:
             return e
         checks = float32["kernels"][name]
         main = next(c for c in checks if c["label"] == main_label)
+        source, library = F32_SOURCES[name]
         e["float32"] = {
-            **{k: main[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+            **{k: main[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                                    "step_kernel_ms", "us_a_step")},
             **({"pair_ms_per_chain": main["pair_ms_per_chain"]}
                if "pair_ms_per_chain" in main else {}),
-            "source": "danspeech_tpu_torch/csrc/gru_f32.cu", "design": "step",
+            "source": f"danspeech_tpu_torch/csrc/{source}.cu", "design": "step",
             "launches": float32["launches"][name],
             "max_abs_err": max(c["max_abs_err"] for c in checks), "atol": F32_ATOL,
-            "library": "one cuDNN nn.GRU call in float32, TF32 off",
+            "library": f"one cuDNN {library} call in float32, TF32 off",
             "shape": main["label"], "shapes": checks,
         }
         return e
 
     next(c for c in gru_checks if c["shape"]["D"] == 2016)["label"] = "flagship layer 0"
     kernels = [
-        with_f32("gru_bidi_fused", "flagship layer 0"),
-        with_f32("gru_scan", "uni batch layer"),
-        with_f32("gru_scan_bidi", "bidi batch layer"),
-        with_f32("gru_bwd_scan", "flagship layer"),
-        entry("lstm_scan", rnn_type_checks["lstm_scan"], "serve layer"),
-        entry("lstm_scan_with_cell", rnn_type_checks["lstm_scan_with_cell"], "train layer"),
-        dict(entry("lstm_bwd_scan", rnn_type_checks["lstm_bwd_scan"], "train layer"),
-             pair_launches=pair_launches.get("lstm_bwd_scan")),
-        dict(entry("rnn_tanh_scan", rnn_type_checks["rnn_tanh_scan"], "serve layer"),
-             pair_launches=pair_launches.get("rnn_tanh_scan")),
-        dict(entry("rnn_tanh_bwd_scan", rnn_type_checks["rnn_tanh_bwd_scan"], "train layer"),
-             pair_launches=pair_launches.get("rnn_tanh_bwd_scan")),
+        with_f32(entry("gru_bidi_fused", gru_checks, "flagship layer 0"), "flagship layer 0"),
+        with_f32(entry("gru_scan", scan_checks, "uni batch layer"), "uni batch layer"),
+        with_f32(entry("gru_scan_bidi", bidi_checks, "bidi batch layer"), "bidi batch layer"),
+        with_f32(entry("gru_bwd_scan", bwd_checks, "flagship layer"), "flagship layer"),
+        with_f32(entry("lstm_scan", rnn_type_checks["lstm_scan"], "serve layer"),
+                 "serve layer"),
+        with_f32(entry("lstm_scan_with_cell", rnn_type_checks["lstm_scan_with_cell"],
+                       "train layer"), "train layer"),
+        with_f32(dict(entry("lstm_bwd_scan", rnn_type_checks["lstm_bwd_scan"], "train layer"),
+                      pair_launches=pair_launches.get("lstm_bwd_scan")), "train layer"),
+        with_f32(dict(entry("rnn_tanh_scan", rnn_type_checks["rnn_tanh_scan"], "serve layer"),
+                      pair_launches=pair_launches.get("rnn_tanh_scan")), "serve layer"),
+        with_f32(dict(entry("rnn_tanh_bwd_scan", rnn_type_checks["rnn_tanh_bwd_scan"],
+                            "train layer"),
+                      pair_launches=pair_launches.get("rnn_tanh_bwd_scan")), "train layer"),
     ]
     if not args.kernels:
         print(json.dumps({"lm_serving": lm_run, "card": card}))

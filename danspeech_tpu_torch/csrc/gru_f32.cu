@@ -35,19 +35,18 @@
 //   (both flagship chains, 34.6 MB, fit the 50 MB L2).
 // - A step block owns F_J = 32 hidden units (the columns j, H+j, 2H+j of
 //   w_hh) for F_BR = 64 batch rows. Its 256 threads each hold 4 rows x 2
-//   units x 3 gates in registers, so the gates, the mask, the out write and
-//   the h update happen in the registers that hold the sums; h ping-pongs
-//   between two f32 buffers (other blocks read the previous step's). The
-//   product walks the depth in chunks of 32 through shared memory, the next
-//   chunk's loads in flight (registers) while the chunk at hand is multiplied.
+//   units x 3 gates in registers (f32_fwd_product<3>, f32_step.cuh), so the
+//   gates, the mask, the out write and the h update happen in the registers
+//   that hold the sums; h ping-pongs between two f32 buffers (other blocks
+//   read the previous step's).
 // - The projection of the fused layer and the backward walk's gate
 //   recompute do not depend on the walk: one tiled FFMA GEMM each, before it
 //   (sgemm.cuh), into the f32 gx buffer and into the dgx output buffer (each
 //   (t, b, j) of gh is read back and overwritten with the gate gradient by
 //   the one thread that owns it).
-// - The backward walk's step product is dgh_prev (B, 3H) @ w_hh^T: a block
-//   owns 32 units (32 rows of w_hh, read as they lie) for 64 batch rows, 4
-//   rows x 2 units a thread; it finishes the previous step's carry
+// - The backward walk's step product is dgh_prev (B, 3H) @ w_hh^T
+//   (f32_bwd_product): a block owns 32 units (32 rows of w_hh, read as they
+//   lie) for 64 batch rows, 4 rows x 2 units a thread; it finishes the previous step's carry
 //   dh = partial + dgh_prev @ w_hh^T[:, j], applies step t's gradient and
 //   leaves dgh_t (f32, ping-pong) and the partial carry. One more step
 //   (t < 0) only finishes the carry: that is dh0.
@@ -56,16 +55,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "f32_step.cuh"
 #include "sgemm.cuh"
-
-#define F_J 32        // hidden units per block
-#define F_BR 64       // batch rows per block
-#define F_KC 32       // depth of one shared-memory chunk
-#define F_THREADS 256
-
-__device__ __forceinline__ float f32_sigmoid(float x) {
-  return 1.0f / (1.0f + expf(-x));
-}
 
 // ---------------------------------------------------------------------------
 // Forward step: one time step of one or two chains
@@ -87,9 +78,6 @@ gru_f32_step_kernel(F32Chains p, const int* __restrict__ lengths,
                     const float* __restrict__ h_in,  // (chains, B, H)
                     float* __restrict__ h_out,       // (chains, B, H)
                     int step, int T, int B, int H) {
-  __shared__ float As[F_KC][F_BR + 1];          // h chunk, depth-major
-  __shared__ __align__(16) float Bs[F_KC][3 * F_J];  // [k][gate * F_J + unit]
-
   const int c = blockIdx.z;
   const int j0 = blockIdx.x * F_J;
   const int b0 = blockIdx.y * F_BR;
@@ -98,70 +86,8 @@ gru_f32_step_kernel(F32Chains p, const int* __restrict__ lengths,
   const int G = 3 * H;
   const int t = p.reverse[c] ? T - 1 - step : step;
   const size_t coff = (size_t)c * B * H;
-  const float* __restrict__ hin = h_in + coff;
-  const float* __restrict__ whh = p.whh[c];
-
-  // a chunk: 64 rows x 32 depths of h (8 a thread, a warp reads one row's
-  // 32 depths) and 32 depths x 96 columns of w_hh (12 a thread, a warp reads
-  // 32 consecutive units of one gate at one depth)
-  float ra[8], rb[12];
-  auto load = [&](int k0) {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int idx = tid + i * F_THREADS;
-      const int gb = b0 + (idx >> 5), gk = k0 + (idx & 31);
-      ra[i] = (gb < B && gk < H) ? hin[(size_t)gb * H + gk] : 0.0f;
-    }
-#pragma unroll
-    for (int i = 0; i < 12; ++i) {
-      const int idx = tid + i * F_THREADS;
-      const int kk = idx / (3 * F_J), col = idx % (3 * F_J);
-      const int gk = k0 + kk, gj = j0 + (col & (F_J - 1));
-      rb[i] = (gk < H && gj < H) ? whh[(size_t)gk * G + (col / F_J) * H + gj] : 0.0f;
-    }
-  };
-  auto store = [&]() {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int idx = tid + i * F_THREADS;
-      As[idx & 31][idx >> 5] = ra[i];
-    }
-#pragma unroll
-    for (int i = 0; i < 12; ++i) {
-      const int idx = tid + i * F_THREADS;
-      Bs[idx / (3 * F_J)][idx % (3 * F_J)] = rb[i];
-    }
-  };
-
   float acc[4][6];  // [row][gate * 2 + unit]
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int q = 0; q < 6; ++q) acc[r][q] = 0.0f;
-
-  load(0);
-  for (int k0 = 0; k0 < H; k0 += F_KC) {
-    store();
-    __syncthreads();
-    if (k0 + F_KC < H) load(k0 + F_KC);  // in flight during the FFMAs below
-#pragma unroll 8
-    for (int kk = 0; kk < F_KC; ++kk) {
-      float a[4], w[6];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) a[r] = As[kk][ty * 4 + r];
-#pragma unroll
-      for (int g = 0; g < 3; ++g) {
-        const float2 v = *reinterpret_cast<const float2*>(&Bs[kk][g * F_J + tx * 2]);
-        w[g * 2] = v.x;
-        w[g * 2 + 1] = v.y;
-      }
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int q = 0; q < 6; ++q) acc[r][q] = fmaf(a[r], w[q], acc[r][q]);
-    }
-    __syncthreads();  // the chunk is read before the next store
-  }
+  f32_fwd_product<3>(h_in + coff, p.whh[c], j0, b0, B, H, acc);
 
   // epilogue: gates, mask, out write and h update, from the registers
   const float* __restrict__ gx = p.gx[c];
@@ -196,9 +122,8 @@ gru_f32_step_kernel(F32Chains p, const int* __restrict__ lengths,
 static int f32_walk(const F32Chains& p, const int* lengths, float* h32, int T, int B,
                     int H, int chains, cudaStream_t s) {
   const size_t hsz = (size_t)chains * B * H;
-  const unsigned gy = (unsigned)((B + F_BR - 1) / F_BR);
-  if (gy > 65535u) return (int)cudaErrorInvalidValue;
-  dim3 grid((H + F_J - 1) / F_J, gy, chains);
+  dim3 grid;
+  if (!f32_step_grid(B, H, chains, &grid)) return (int)cudaErrorInvalidValue;
   for (int step = 0; step < T; ++step) {
     const int src = step & 1;
     gru_f32_step_kernel<<<grid, F_THREADS, 0, s>>>(
@@ -308,9 +233,6 @@ gru_f32_bwd_step_kernel(F32BwdChains p, const int* __restrict__ lengths,
                         float* __restrict__ part_out,
                         float* __restrict__ dgh_out,
                         int step, int T, int B, int H) {
-  __shared__ float As[F_KC][F_BR + 1];  // dgh chunk, depth-major
-  __shared__ float Bs[F_KC][F_J + 1];   // w_hh^T chunk: [k][unit] = w_hh[j0 + unit][k]
-
   const int c = blockIdx.z;
   const int j0 = blockIdx.x * F_J;
   const int b0 = blockIdx.y * F_BR;
@@ -318,62 +240,8 @@ gru_f32_bwd_step_kernel(F32BwdChains p, const int* __restrict__ lengths,
   const int tx = tid & 15, ty = tid >> 4;
   const int G = 3 * H;
   const int t = step == T ? -1 : (p.reverse[c] ? T - 1 - step : step);
-  const float* __restrict__ dgi = dgh_in + (size_t)c * B * G;
-  const float* __restrict__ whh = p.whh[c];
-
-  // a chunk: 64 rows x 32 depths of dgh (8 a thread) and 32 units x 32
-  // depths of w_hh (4 a thread, a warp reads one unit's row along the depth)
-  float ra[8], rb[4];
-  auto load = [&](int k0) {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int idx = tid + i * F_THREADS;
-      const int gb = b0 + (idx >> 5), gk = k0 + (idx & 31);
-      ra[i] = (gb < B && gk < G) ? dgi[(size_t)gb * G + gk] : 0.0f;
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int idx = tid + i * F_THREADS;
-      const int gj = j0 + (idx >> 5), gk = k0 + (idx & 31);
-      rb[i] = (gj < H && gk < G) ? whh[(size_t)gj * G + gk] : 0.0f;
-    }
-  };
-  auto store = [&]() {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int idx = tid + i * F_THREADS;
-      As[idx & 31][idx >> 5] = ra[i];
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int idx = tid + i * F_THREADS;
-      Bs[idx & 31][idx >> 5] = rb[i];
-    }
-  };
-
   float acc[4][2];
-#pragma unroll
-  for (int r = 0; r < 4; ++r) acc[r][0] = acc[r][1] = 0.0f;
-
-  load(0);
-  for (int k0 = 0; k0 < G; k0 += F_KC) {
-    store();
-    __syncthreads();
-    if (k0 + F_KC < G) load(k0 + F_KC);
-#pragma unroll 8
-    for (int kk = 0; kk < F_KC; ++kk) {
-      float a[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) a[r] = As[kk][ty * 4 + r];
-      const float w0 = Bs[kk][tx * 2], w1 = Bs[kk][tx * 2 + 1];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        acc[r][0] = fmaf(a[r], w0, acc[r][0]);
-        acc[r][1] = fmaf(a[r], w1, acc[r][1]);
-      }
-    }
-    __syncthreads();
-  }
+  f32_bwd_product(dgh_in + (size_t)c * B * G, p.whh[c], j0, b0, B, H, G, acc);
 
   // epilogue: finish the carry, then step t's gradients
   const size_t coff = (size_t)c * B * H;
@@ -476,9 +344,8 @@ extern "C" int gru_f32_bwd_launch(
   const size_t gsz = (size_t)chains * B * 3 * H;
   float* pf = static_cast<float*>(part);
   float* dg = static_cast<float*>(dgh);
-  const unsigned gy = (unsigned)((B + F_BR - 1) / F_BR);
-  if (gy > 65535u) return (int)cudaErrorInvalidValue;
-  dim3 grid((H + F_J - 1) / F_J, gy, chains);
+  dim3 grid;
+  if (!f32_step_grid(B, H, chains, &grid)) return (int)cudaErrorInvalidValue;
   for (int step = 0; step <= T; ++step) {
     const int src = step & 1, dst = src ^ 1;
     gru_f32_bwd_step_kernel<<<grid, F_THREADS, 0, s>>>(

@@ -19,9 +19,9 @@ whole stream or the LM decoder re-decodes the stream's probabilities.
 
 The device is CUDA unless the caller passes ``device="cpu"``.
 ``compute_dtype="float32"`` serves in float32 on either device: on CUDA the
-GRU kernels' float32 variants (``csrc/gru_f32.cu``) and every other product
-in full float32, TF32 off (``ops/precision.py``); LSTM and tanh-RNN models
-are refused in float32 on CUDA when they are loaded (ROADMAP A6b-2). With
+recurrent kernels' float32 variants (``csrc/gru_f32.cu``, ``csrc/lstm_f32.cu``,
+``csrc/rnn_tanh_f32.cu``, for every ``rnn_type``) and every other product in
+full float32, TF32 off (``ops/precision.py``). With
 ``transfer_format="ulaw"`` the rows cross as G.711 mu-law bytes, one a
 sample, and :func:`ulaw_decode` turns them back into samples on the device.
 Over a mesh of ranks (``parallel/``): the beam front sharded over the data
@@ -51,7 +51,6 @@ from .features.spectrogram import (
 from .models import deepspeech as ds
 from .models import streaming
 from .ops import precision
-from .ops import rnn as rnn_ops
 from .ops import stft as stft_ops
 
 
@@ -66,8 +65,9 @@ def _bucket(n: int, quantum: int) -> int:
 def _resolve_compute_dtype(compute_dtype: str, device: torch.device) -> str:
     """"auto" means bf16 matmul operands with f32 accumulation on CUDA (the
     recurrent kernels' fast path) and float32 on the CPU. "float32" is
-    float32 on either device: on CUDA the GRU kernels' float32 variants, the
-    JAX engine's bit-level parity mode with the reference stack."""
+    float32 on either device: on CUDA the recurrent kernels' float32
+    variants, the JAX engine's bit-level parity mode with the reference
+    stack."""
     if compute_dtype == "auto":
         compute_dtype = "bfloat16" if device.type == "cuda" else "float32"
     if compute_dtype not in ("bfloat16", "float32"):
@@ -193,22 +193,17 @@ class DanSpeechRecognizer:
     def update_model(self, model) -> None:
         """Swap the acoustic model: its parameters are cast to the compute
         dtype and moved to the engine's device once, here."""
-        params = self._device_params(model)  # refuses what it cannot serve
         self.model = model
         self.model_name = model.model_name
         self.audio_config = model.audio_conf
         self.audio_parser = SpectrogramAudioParser(self.audio_config)
         self._window = self.audio_parser.window.to(self.device)
         self.labels = model.labels
-        self._compute_params = params
+        self._compute_params = self._device_params(model)
         self.update_decoder(labels=self.labels)
 
     def _device_params(self, model):
-        """The model's parameters cast to the compute dtype, on the device;
-        a model the compute dtype cannot serve on the device is refused here:
-        an LSTM or tanh-RNN model in float32 on CUDA (ROADMAP A6b-2)."""
-        if self.compute_dtype == "float32":
-            rnn_ops.require_float32_kernels(model.config.rnn_type, self.device)
+        """The model's parameters cast to the compute dtype, on the device."""
         params = model.params
         if self.compute_dtype == "bfloat16":
             params = ds.cast_matmul_weights(params, torch.bfloat16)

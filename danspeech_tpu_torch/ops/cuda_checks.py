@@ -11,16 +11,16 @@ import torch
 _MAX_PROJ_ROWS = 65535 * 128
 
 
-def check_tensors(anchor: str, expect: dict, float32: bool = False) -> torch.dtype:
+def check_tensors(anchor: str, expect: dict) -> torch.dtype:
     """``expect`` maps a name to (tensor, shape, dtype): every tensor must be
     contiguous, of that shape and dtype, on the device of ``expect[anchor]``.
     The dtypes given are the bf16 set's: bf16 sequences and weights, f32
-    biases and states, int32 lengths. With ``float32`` (the GRU kernels,
-    which have float32 variants) the all-float32 set is taken too, chosen
-    by the anchor's dtype: every floating tensor f32. A mixed set raises
-    TypeError. Returns the set's dtype, torch.bfloat16 or torch.float32."""
+    biases and states, int32 lengths. The all-float32 set, which the float32
+    variants of every kernel take, is taken too, chosen by the anchor's
+    dtype: every floating tensor f32. A mixed set raises TypeError. Returns
+    the set's dtype, torch.bfloat16 or torch.float32."""
     family = torch.bfloat16
-    if float32 and expect[anchor][0].dtype == torch.float32:
+    if expect[anchor][0].dtype == torch.float32:
         family = torch.float32
     dev = expect[anchor][0].device
     for name, (t, shape, dtype) in expect.items():
@@ -34,16 +34,31 @@ def check_tensors(anchor: str, expect: dict, float32: bool = False) -> torch.dty
             if family == torch.float32:
                 rule = (f"{anchor} is float32, so the kernel takes the all-float32 set: "
                         "every sequence, weight, bias and state float32")
-            elif float32:
-                rule = ("the GRU kernels take bf16 sequences and weights with f32 "
-                        "biases and states, or everything in float32")
             else:
-                rule = ("the LSTM and tanh-RNN kernels take bf16 sequences and weights "
-                        "only; their float32 variants are ROADMAP A6b-2")
+                rule = ("the kernels take bf16 sequences and weights with f32 biases "
+                        "and states, or everything in float32")
             raise TypeError(f"{name} is {t.dtype}, the kernel takes {dtype} ({rule})")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     return family
+
+
+def pair_dtype(check, chain_a, chain_b) -> torch.dtype:
+    """The operand set both chains of a pair take (``check`` returns each
+    chain's); chains of two sets raise TypeError."""
+    dtype = check(*chain_a)
+    if check(*chain_b) != dtype:
+        raise TypeError("the two chains' operands must be one set: bf16 or float32")
+    return dtype
+
+
+def count(wrapper, design: str, dtype: torch.dtype, n: int = 1) -> None:
+    """``n`` more CUDA calls (or chains) of ``wrapper``: ``launches``, and
+    ``design_counts`` and ``dtype_counts`` by the design and the operand set
+    taken."""
+    wrapper.launches += n
+    wrapper.design_counts[design] += n
+    wrapper.dtype_counts[str(dtype).rpartition(".")[2]] += n
 
 
 def check_stream_shape(name: str, t: torch.Tensor, gates: int, hidden: int) -> None:

@@ -46,6 +46,7 @@ import torch
 from . import cuda_build, persist_plan
 from .cuda_build import chain_ptrs
 from .cuda_checks import check_tensors as _check_tensors
+from .cuda_checks import count, pair_dtype
 
 _device_info: dict[int, tuple[int, int]] = {}
 
@@ -170,7 +171,7 @@ def _check_operands(x, lengths, w_ih_f, w_ih_b, w_hh_f, w_hh_b, biases):
     }
     for name, b in zip(("b_ih_f", "b_ih_b", "b_hh_f", "b_hh_b"), biases):
         expect[name] = (b, (3 * hidden,), torch.float32)
-    return _check_tensors("x", expect, float32=True)
+    return _check_tensors("x", expect)
 
 
 def gx_row_groups(t_max: int, batch: int, hidden: int,
@@ -223,10 +224,9 @@ def gru_bidi_fused(
     hidden = w_hh_f.shape[0]
     dev = x.device
     if dtype == torch.float32:
-        design = persist_plan.choose(
-            design, persist_plan.plan_gru_forward(hidden, batch, dtype="float32"))
+        design = persist_plan.float32_design(design)
         result = _bidi_fused_f32(x, lengths, *args)
-        _count(gru_bidi_fused, design, dtype)
+        count(gru_bidi_fused, design, dtype)
         return result
     planned = persist_plan.plan_gru_forward(hidden, batch, *device_info(dev))
     design = persist_plan.choose(design, planned)
@@ -268,17 +268,10 @@ def gru_bidi_fused(
         )
     if rc != 0:
         raise RuntimeError(f"gru_bidi_fused ({design}) launch failed: CUDA error {rc}")
-    _count(gru_bidi_fused, design, dtype)
+    count(gru_bidi_fused, design, dtype)
     # step design: the buffer the final step wrote
     last = h32 if persistent else h32[t_max % 2]
     return out[0], out[1], last[0], last[1]
-
-
-def _count(wrapper, design, dtype, n=1):
-    """``n`` more CUDA calls (or chains) of ``wrapper`` by design and dtype."""
-    wrapper.launches += n
-    wrapper.design_counts[design] += n
-    wrapper.dtype_counts[persist_plan.dtype_name(dtype)] += n
 
 
 def _bidi_fused_f32(x, lengths, w_ih_f, w_ih_b, w_hh_f, w_hh_b, b_ih_f, b_ih_b,
@@ -365,7 +358,7 @@ def _check_scan_operands(gx, lengths, w_hh, b_ih, b_hh, h0):
         "b_hh": (b_hh, (3 * hidden,), torch.float32),
         "h0": (h0, (batch, hidden), torch.float32),
     }
-    return _check_tensors("gx", expect, float32=True)
+    return _check_tensors("gx", expect)
 
 
 def gru_scan(gx, lengths, w_hh, b_ih, b_hh, h0, reverse: bool = False,
@@ -387,10 +380,9 @@ def gru_scan(gx, lengths, w_hh, b_ih, b_hh, h0, reverse: bool = False,
         raise ValueError(f"unsupported device {gx.device}")
     dtype = _check_scan_operands(gx, lengths, w_hh, b_ih, b_hh, h0)
     if dtype == torch.float32:
-        design = persist_plan.choose(design, persist_plan.plan_gru_scan(
-            w_hh.shape[0], gx.shape[1], dtype="float32"))
+        design = persist_plan.float32_design(design)
         result = _scan_f32([(gx, lengths, w_hh, b_ih, b_hh, h0)], [reverse])[0]
-        _count(gru_scan, design, dtype)
+        count(gru_scan, design, dtype)
         return result
     planned = persist_plan.plan_gru_scan(w_hh.shape[0], gx.shape[1],
                                          *device_info(gx.device))
@@ -400,7 +392,7 @@ def gru_scan(gx, lengths, w_hh, b_ih, b_hh, h0, reverse: bool = False,
                                   planned)[0]
     else:
         result = _scan_step(gx, lengths, w_hh, b_ih, b_hh, h0, reverse)
-    _count(gru_scan, design, dtype)
+    count(gru_scan, design, dtype)
     return result
 
 
@@ -567,19 +559,16 @@ def gru_scan_bidi(
         raise ValueError(f"unsupported device {gx_f.device}")
     chains = ((gx_f, lengths, w_hh_f, b_ih_f, b_hh_f, h0_f),
               (gx_b, lengths, w_hh_b, b_ih_b, b_hh_b, h0_b))
-    dtype, dtype_b = (_check_scan_operands(*chain) for chain in chains)
+    dtype = pair_dtype(_check_scan_operands, *chains)
     if gx_b.shape != gx_f.shape or gx_b.device != gx_f.device:
         raise ValueError(
             f"gx_b {tuple(gx_b.shape)} on {gx_b.device} does not match gx_f "
             f"{tuple(gx_f.shape)} on {gx_f.device}"
         )
-    if dtype_b != dtype:
-        raise TypeError(f"the chains' operands are {dtype} and {dtype_b}: one set for both")
     if dtype == torch.float32:
-        design = persist_plan.choose(design, persist_plan.plan_gru_scan(
-            w_hh_f.shape[0], gx_f.shape[1], chains=2, dtype="float32"))
+        design = persist_plan.float32_design(design)
         (out_f, hl_f), (out_b, hl_b) = _scan_f32(chains, [False, True])
-        _count(gru_scan_bidi, design, dtype)
+        count(gru_scan_bidi, design, dtype)
         return out_f, out_b, hl_f, hl_b
     pair, single = scan_bidi_plans(w_hh_f.shape[0], gx_f.shape[1], gx_f.device)
     planned = pair if pair.design == "persistent" else single
@@ -593,7 +582,7 @@ def gru_scan_bidi(
         (out_f, hl_f), = _scan_persistent(chains[:1], [False], single)
         (out_b, hl_b), = _scan_persistent(chains[1:], [True], single)
         result = out_f, out_b, hl_f, hl_b
-    _count(gru_scan_bidi, design, dtype)
+    count(gru_scan_bidi, design, dtype)
     return result
 
 
@@ -668,7 +657,7 @@ def _check_bwd_operands(gx, hprev, dout, lengths, w_hh, b_ih, b_hh, dh_last):
         "gx": (gx, tuple(gx.shape), torch.bfloat16),
         "hprev": (hprev, (t_max, batch, hidden), torch.bfloat16),
         "dout": (dout, (t_max, batch, hidden), torch.float32),
-    }, float32=True)
+    })
     return dtype
 
 
@@ -764,10 +753,9 @@ def gru_bwd_scan(
         raise ValueError(f"unsupported device {gx.device}")
     dtype = _check_bwd_operands(*args)
     if dtype == torch.float32:
-        design = persist_plan.choose(design, persist_plan.plan_gru_backward(
-            w_hh.shape[0], gx.shape[1], 1, dtype="float32"))
+        design = persist_plan.float32_design(design)
         result = _bwd_f32([args], [reverse])[0]
-        _count(gru_bwd_scan, design, dtype)
+        count(gru_bwd_scan, design, dtype)
         return result
     planned = persist_plan.plan_gru_backward(
         w_hh.shape[0], gx.shape[1], 1, *device_info(gx.device))
@@ -776,7 +764,7 @@ def gru_bwd_scan(
         result = _bwd_persistent([args], [reverse], planned)[0]
     else:
         result = _bwd_step(*args, reverse)
-    _count(gru_bwd_scan, design, dtype)
+    count(gru_bwd_scan, design, dtype)
     return result
 
 
@@ -835,16 +823,13 @@ def gru_bwd_scan_pair(chain_a, chain_b, reverse_a: bool, reverse_b: bool,
     if chain_a[0].device.type != "cuda":
         return (gru_bwd_scan(*chain_a, reverse=reverse_a),
                 gru_bwd_scan(*chain_b, reverse=reverse_b))
-    dtype = _check_bwd_operands(*chain_a)
-    if _check_bwd_operands(*chain_b) != dtype:
-        raise TypeError("the two chains' operands must be one set: bf16 or float32")
+    dtype = pair_dtype(_check_bwd_operands, chain_a, chain_b)
     if chain_a[0].shape != chain_b[0].shape or chain_a[3] is not chain_b[3]:
         raise ValueError("the two chains must share their shapes and lengths")
     if dtype == torch.float32:
-        design = persist_plan.choose(design, persist_plan.plan_gru_backward(
-            chain_a[4].shape[0], chain_a[0].shape[1], 2, dtype="float32"))
+        design = persist_plan.float32_design(design)
         outs = _bwd_f32([chain_a, chain_b], [reverse_a, reverse_b])
-        _count(gru_bwd_scan, design, dtype, 2)
+        count(gru_bwd_scan, design, dtype, 2)
         return outs[0], outs[1]
     planned = persist_plan.plan_gru_backward(
         chain_a[4].shape[0], chain_a[0].shape[1], 2, *device_info(chain_a[0].device))
@@ -853,5 +838,5 @@ def gru_bwd_scan_pair(chain_a, chain_b, reverse_a: bool, reverse_b: bool,
                 gru_bwd_scan(*chain_b, reverse=reverse_b, design=design))
     persist_plan.choose(design, planned)
     outs = _bwd_persistent([chain_a, chain_b], [reverse_a, reverse_b], planned)
-    _count(gru_bwd_scan, "persistent", dtype, 2)
+    count(gru_bwd_scan, "persistent", dtype, 2)
     return outs[0], outs[1]

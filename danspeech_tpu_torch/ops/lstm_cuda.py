@@ -22,10 +22,20 @@ cooperative launch walks every step, ``csrc/persist.cuh``) and "step" (one
 launch per time step), chosen by :func:`persist_plan.plan_lstm_forward` /
 :func:`persist_plan.plan_lstm_backward` or by ``design=``;
 :func:`lstm_scan_pair` and :func:`lstm_bwd_scan_pair` run both chains of a
-bidirectional layer in one persistent launch. A wrapper launches its kernel
-for CUDA tensors and raises on anything the kernel does not take; for CPU
-tensors, and only for those, it runs the plain version. There is no fallback
-from a failed build or launch to the plain version.
+bidirectional layer in one persistent launch.
+
+Each wrapper takes two sets of operands, told apart by the dtype of its
+sequence: bf16 sequences and weights with f32 biases and states (the
+designs above), or everything in float32, which runs the float32 variants of
+``csrc/lstm_f32.cu`` (step design only; ``design="persistent"`` raises
+``NotImplementedError``; a pair walks both chains in each step launch). A
+mixed set raises ``TypeError``. ``<wrapper>.dtype_counts`` counts the CUDA
+calls (or chains) by the set taken.
+
+A wrapper launches its kernel for CUDA tensors and raises on anything the
+kernel does not take; for CPU tensors, and only for those, it runs the plain
+version (dtype-generic). There is no fallback from a failed build or launch
+to the plain version.
 """
 
 from __future__ import annotations
@@ -34,7 +44,8 @@ import torch
 
 from . import cuda_build, persist_plan
 from .cuda_build import chain_ptrs
-from .cuda_checks import check_proj_rows, check_stream_shape, check_tensors, time_order
+from .cuda_checks import (check_proj_rows, check_stream_shape, check_tensors, count,
+                          pair_dtype, time_order)
 from .gru_cuda import device_info, transposed
 
 
@@ -99,7 +110,7 @@ def _check_scan_operands(gx, lengths, w_hh, b_hh, h0, c0):
     hidden = w_hh.shape[0]
     check_stream_shape("gx", gx, 4, hidden)
     t_max, batch, _ = gx.shape
-    check_tensors("gx", {
+    return check_tensors("gx", {
         "gx": (gx, (t_max, batch, 4 * hidden), torch.bfloat16),
         "lengths": (lengths, (batch,), torch.int32),
         "w_hh": (w_hh, (hidden, 4 * hidden), torch.bfloat16),
@@ -109,19 +120,58 @@ def _check_scan_operands(gx, lengths, w_hh, b_hh, h0, c0):
     })
 
 
-def _scan_cuda(gx, lengths, w_hh, b_hh, h0, c0, reverse, with_cell, design):
-    """One chain on the card in the design the plan (or ``design``) gives.
-    Returns (the design taken, the results)."""
+def _scan_cuda(wrapper, gx, lengths, w_hh, b_hh, h0, c0, reverse, with_cell, design):
+    """One chain on the card: the float32 variant for the float32 set, else
+    the design the plan (or ``design``) gives; counted on ``wrapper``."""
     if gx.device.type != "cuda":
         raise ValueError(f"unsupported device {gx.device}")
-    _check_scan_operands(gx, lengths, w_hh, b_hh, h0, c0)
-    planned = persist_plan.plan_lstm_forward(w_hh.shape[0], gx.shape[1], 1,
-                                             *device_info(gx.device))
-    design = persist_plan.choose(design, planned)
+    dtype = _check_scan_operands(gx, lengths, w_hh, b_hh, h0, c0)
     chain = (gx, lengths, w_hh, b_hh, h0, c0)
-    if design == "persistent":
-        return design, _persistent([chain], [reverse], with_cell, planned)[0]
-    return design, _step(*chain, reverse, with_cell)
+    if dtype == torch.float32:
+        design = persist_plan.float32_design(design)
+        result = _scan_f32([chain], [reverse], with_cell)[0]
+    else:
+        planned = persist_plan.plan_lstm_forward(w_hh.shape[0], gx.shape[1], 1,
+                                                 *device_info(gx.device))
+        design = persist_plan.choose(design, planned)
+        if design == "persistent":
+            result = _persistent([chain], [reverse], with_cell, planned)[0]
+        else:
+            result = _step(*chain, reverse, with_cell)
+    count(wrapper, design, dtype)
+    return result
+
+
+def _scan_f32(chains, reverses, with_cell):
+    """The float32 variant (``csrc/lstm_f32.cu``) over one or two chains that
+    share T, B, H and lengths: T launches of the step kernel, each chain a
+    slice of the grid, the cell streams written only ``with_cell``.
+    ``chains`` holds (gx, lengths, w_hh, b_hh, h0, c0) tuples; returns one
+    result tuple per chain, as :func:`lstm_scan` or
+    :func:`lstm_scan_with_cell` gives it."""
+    launch = cuda_build.bind("lstm_f32", "lstm_f32_scan_launch", 13, 6)
+    gx, lengths, w_hh = chains[0][:3]
+    t_max, batch, _ = gx.shape
+    hidden = w_hh.shape[0]
+    dev = gx.device
+    n = len(chains)
+    h32 = torch.empty((2, n, batch, hidden), dtype=torch.float32, device=dev)
+    for k, c in enumerate(chains):
+        h32[0, k].copy_(c[4])
+    # c0 on entry, updated in place by the thread that owns each (b, j), c_last on exit
+    c32 = torch.stack([c[5] for c in chains])
+    outs = [torch.empty((t_max, batch, hidden), dtype=torch.float32, device=dev)
+            for _ in chains]
+    cseqs = [torch.empty_like(o) if with_cell else None for o in outs]
+    cuda_build.call(
+        launch, "lstm_scan (float32)", dev,
+        *chain_ptrs([c[0] for c in chains]), lengths.data_ptr(),
+        *chain_ptrs([c[2] for c in chains]), *chain_ptrs([c[3] for c in chains]),
+        h32.data_ptr(), c32.data_ptr(), *chain_ptrs(outs), *chain_ptrs(cseqs),
+        t_max, batch, hidden, int(bool(reverses[0])), int(bool(reverses[-1])), n)
+    last = h32[t_max % 2]  # the buffer the final step wrote
+    return [(o, cs, last[k], c32[k]) if with_cell else (o, last[k], c32[k])
+            for k, (o, cs) in enumerate(zip(outs, cseqs))]
 
 
 def _step(gx, lengths, w_hh, b_hh, h0, c0, reverse, with_cell):
@@ -187,22 +237,22 @@ def lstm_scan(gx, lengths, w_hh, b_hh, h0, c0, reverse: bool = False,
 
     Same contract and return values as :func:`lstm_scan_plain`. A CUDA ``gx``
     launches the kernel (bf16 gx and w_hh, f32 b_hh, h0 and c0, int32
-    lengths, all contiguous on gx's device) or raises; a CPU ``gx`` runs the
-    plain version. ``design`` is None (the plan of
-    :func:`persist_plan.plan_lstm_forward` decides), "persistent" or "step";
-    ``lstm_scan.design_counts`` counts the CUDA calls by the design taken.
-    ``lstm_scan.launches`` counts kernel launches (one per call).
+    lengths, all contiguous on gx's device; or everything float32, the
+    float32 variant) or raises; a CPU ``gx`` runs the plain version.
+    ``design`` is None (the plan of :func:`persist_plan.plan_lstm_forward`
+    decides), "persistent" or "step"; ``lstm_scan.design_counts`` and
+    ``lstm_scan.dtype_counts`` count the CUDA calls by the design and the
+    operand set taken. ``lstm_scan.launches`` counts kernel launches (one per
+    call).
     """
     if gx.device.type == "cpu":
         return lstm_scan_plain(gx, lengths, w_hh, b_hh, h0, c0, reverse)
-    design, result = _scan_cuda(gx, lengths, w_hh, b_hh, h0, c0, reverse, False, design)
-    lstm_scan.launches += 1
-    lstm_scan.design_counts[design] += 1
-    return result
+    return _scan_cuda(lstm_scan, gx, lengths, w_hh, b_hh, h0, c0, reverse, False, design)
 
 
 lstm_scan.launches = 0
 lstm_scan.design_counts = {"persistent": 0, "step": 0}
+lstm_scan.dtype_counts = {"bfloat16": 0, "float32": 0}
 
 
 def lstm_scan_with_cell(gx, lengths, w_hh, b_hh, h0, c0, reverse: bool = False,
@@ -215,14 +265,13 @@ def lstm_scan_with_cell(gx, lengths, w_hh, b_hh, h0, c0, reverse: bool = False,
     """
     if gx.device.type == "cpu":
         return lstm_scan_with_cell_plain(gx, lengths, w_hh, b_hh, h0, c0, reverse)
-    design, result = _scan_cuda(gx, lengths, w_hh, b_hh, h0, c0, reverse, True, design)
-    lstm_scan_with_cell.launches += 1
-    lstm_scan_with_cell.design_counts[design] += 1
-    return result
+    return _scan_cuda(lstm_scan_with_cell, gx, lengths, w_hh, b_hh, h0, c0, reverse, True,
+                      design)
 
 
 lstm_scan_with_cell.launches = 0
 lstm_scan_with_cell.design_counts = {"persistent": 0, "step": 0}
+lstm_scan_with_cell.dtype_counts = {"bfloat16": 0, "float32": 0}
 
 
 def lstm_scan_pair(chain_a, chain_b, reverse_a: bool, reverse_b: bool,
@@ -238,14 +287,20 @@ def lstm_scan_pair(chain_a, chain_b, reverse_a: bool, reverse_b: bool,
     never wait for each other), and that wrapper's ``launches`` and
     ``design_counts`` grow by one; otherwise, for ``design="step"``, and on
     the CPU, they run one after the other as two calls of that wrapper.
+    Float32 chains walk together in each of the T launches of the float32
+    variant, and the counts grow by two.
     """
     scan = lstm_scan_with_cell if with_cell else lstm_scan
     if chain_a[0].device.type != "cuda":
         return scan(*chain_a, reverse=reverse_a), scan(*chain_b, reverse=reverse_b)
-    _check_scan_operands(*chain_a)
-    _check_scan_operands(*chain_b)
+    dtype = pair_dtype(_check_scan_operands, chain_a, chain_b)
     if chain_a[0].shape != chain_b[0].shape or chain_a[1] is not chain_b[1]:
         raise ValueError("the two chains must share their shapes and lengths")
+    if dtype == torch.float32:
+        design = persist_plan.float32_design(design)
+        outs = _scan_f32([chain_a, chain_b], [reverse_a, reverse_b], with_cell)
+        count(scan, design, dtype, 2)
+        return outs[0], outs[1]
     planned = persist_plan.plan_lstm_forward(
         chain_a[2].shape[0], chain_a[0].shape[1], 2, *device_info(chain_a[0].device))
     if design == "step" or planned.design != "persistent":
@@ -253,8 +308,7 @@ def lstm_scan_pair(chain_a, chain_b, reverse_a: bool, reverse_b: bool,
                 scan(*chain_b, reverse=reverse_b, design=design))
     persist_plan.choose(design, planned)
     outs = _persistent([chain_a, chain_b], [reverse_a, reverse_b], with_cell, planned)
-    scan.launches += 1
-    scan.design_counts["persistent"] += 1
+    count(scan, "persistent", dtype)
     return outs[0], outs[1]
 
 
@@ -319,7 +373,7 @@ def _check_bwd_operands(gx, hprev, cprev, dout, lengths, w_hh, b_hh):
     check_stream_shape("gx", gx, 4, hidden)
     t_max, batch, _ = gx.shape
     check_proj_rows(t_max, batch)
-    check_tensors("gx", {
+    return check_tensors("gx", {
         "gx": (gx, (t_max, batch, 4 * hidden), torch.bfloat16),
         "hprev": (hprev, (t_max, batch, hidden), torch.bfloat16),
         "cprev": (cprev, (t_max, batch, hidden), torch.bfloat16),
@@ -348,6 +402,32 @@ def _bwd_step(gx, hprev, cprev, dout, lengths, w_hh, b_hh, reverse):
         part.data_ptr(), dg.data_ptr(), dc.data_ptr(), dg4.data_ptr(),
         t_max, batch, hidden, int(bool(reverse)))
     return dg4, part[(t_max + 1) % 2], dc
+
+
+def _bwd_f32(chains, reverses):
+    """The float32 variant (``csrc/lstm_f32.cu``) of one or two walks that
+    share T, B, H and lengths: the FFMA gate recompute of each chain, then
+    T + 1 launches of the step kernel, each chain a slice of the grid.
+    ``chains`` holds the operand tuples of :func:`lstm_bwd_scan`; returns one
+    (dg4, dh0, dc0) per chain."""
+    launch = cuda_build.bind("lstm_f32", "lstm_f32_bwd_launch", 17, 6)
+    gx, _, _, _, lengths, w_hh = chains[0][:6]
+    t_max, batch, _ = gx.shape
+    hidden = w_hh.shape[0]
+    dev = gx.device
+    n = len(chains)
+    # dh and dc start at zero, are carried in place and end as dh0 and dc0
+    dh = torch.zeros((n, batch, hidden), dtype=torch.float32, device=dev)
+    dc = torch.zeros_like(dh)
+    dg4 = [torch.empty((t_max, batch, 4 * hidden), dtype=torch.float32, device=dev)
+           for _ in chains]
+    cuda_build.call(
+        launch, "lstm_bwd_scan (float32)", dev,
+        *(p for i in range(4) for p in chain_ptrs([c[i] for c in chains])),
+        lengths.data_ptr(), *chain_ptrs([c[5] for c in chains]),
+        *chain_ptrs([c[6] for c in chains]), dh.data_ptr(), dc.data_ptr(), *chain_ptrs(dg4),
+        t_max, batch, hidden, int(bool(reverses[0])), int(bool(reverses[-1])), n)
+    return [(dg4[k], dh[k], dc[k]) for k in range(n)]
 
 
 def _bwd_persistent(chains, reverses, planned):
@@ -390,11 +470,13 @@ def lstm_bwd_scan(gx, hprev, cprev, dout, lengths, w_hh, b_hh, reverse: bool = T
 
     Same contract and return values as :func:`lstm_bwd_scan_plain`. A CUDA
     ``gx`` launches the kernel (bf16 gx, hprev, cprev and w_hh, f32 dout and
-    b_hh, int32 lengths, all contiguous on gx's device) or raises; a CPU
-    ``gx`` runs the plain version. ``design`` is None (the plan of
+    b_hh, int32 lengths, all contiguous on gx's device; or everything
+    float32, the float32 variant) or raises; a CPU ``gx`` runs the plain
+    version. ``design`` is None (the plan of
     :func:`persist_plan.plan_lstm_backward` decides), "persistent" or
-    "step"; ``lstm_bwd_scan.design_counts`` counts the chains by the design
-    taken. ``lstm_bwd_scan.launches`` counts chains (one per call: the
+    "step"; ``lstm_bwd_scan.design_counts`` and ``lstm_bwd_scan.dtype_counts``
+    count the chains by the design and the operand set taken.
+    ``lstm_bwd_scan.launches`` counts chains (one per call: the
     gate-recompute product and the walk), ``lstm_bwd_scan.pair_launches``
     the cooperative launches that walked two chains
     (:func:`lstm_bwd_scan_pair`).
@@ -404,22 +486,26 @@ def lstm_bwd_scan(gx, hprev, cprev, dout, lengths, w_hh, b_hh, reverse: bool = T
         return lstm_bwd_scan_plain(*args, reverse)
     if gx.device.type != "cuda":
         raise ValueError(f"unsupported device {gx.device}")
-    _check_bwd_operands(*args)
-    planned = persist_plan.plan_lstm_backward(w_hh.shape[0], gx.shape[1], 1,
-                                              *device_info(gx.device))
-    design = persist_plan.choose(design, planned)
-    if design == "persistent":
-        result = _bwd_persistent([args], [reverse], planned)[0]
+    dtype = _check_bwd_operands(*args)
+    if dtype == torch.float32:
+        design = persist_plan.float32_design(design)
+        result = _bwd_f32([args], [reverse])[0]
     else:
-        result = _bwd_step(*args, reverse)
-    lstm_bwd_scan.launches += 1
-    lstm_bwd_scan.design_counts[design] += 1
+        planned = persist_plan.plan_lstm_backward(w_hh.shape[0], gx.shape[1], 1,
+                                                  *device_info(gx.device))
+        design = persist_plan.choose(design, planned)
+        if design == "persistent":
+            result = _bwd_persistent([args], [reverse], planned)[0]
+        else:
+            result = _bwd_step(*args, reverse)
+    count(lstm_bwd_scan, design, dtype)
     return result
 
 
 lstm_bwd_scan.launches = 0
 lstm_bwd_scan.pair_launches = 0
 lstm_bwd_scan.design_counts = {"persistent": 0, "step": 0}
+lstm_bwd_scan.dtype_counts = {"bfloat16": 0, "float32": 0}
 
 
 def lstm_bwd_scan_pair(chain_a, chain_b, reverse_a: bool, reverse_b: bool,
@@ -435,7 +521,9 @@ def lstm_bwd_scan_pair(chain_a, chain_b, reverse_a: bool, reverse_b: bool,
     own barrier, so the two never wait for each other) and
     ``lstm_bwd_scan.pair_launches`` grows by one; otherwise, for
     ``design="step"``, and on the CPU, they run one after the other as two
-    :func:`lstm_bwd_scan` calls. Either way ``lstm_bwd_scan.launches`` grows
+    :func:`lstm_bwd_scan` calls. Float32 chains walk together in each of the
+    T + 1 launches of the float32 variant; ``pair_launches`` counts only the
+    cooperative (bf16) launches. Either way ``lstm_bwd_scan.launches`` grows
     by two: it counts chains.
     """
     if (tuple(chain_a[0].shape) != tuple(chain_b[0].shape)
@@ -445,8 +533,12 @@ def lstm_bwd_scan_pair(chain_a, chain_b, reverse_a: bool, reverse_b: bool,
     if chain_a[0].device.type != "cuda":
         return (lstm_bwd_scan(*chain_a, reverse=reverse_a),
                 lstm_bwd_scan(*chain_b, reverse=reverse_b))
-    _check_bwd_operands(*chain_a)
-    _check_bwd_operands(*chain_b)
+    dtype = pair_dtype(_check_bwd_operands, chain_a, chain_b)
+    if dtype == torch.float32:
+        design = persist_plan.float32_design(design)
+        outs = _bwd_f32([chain_a, chain_b], [reverse_a, reverse_b])
+        count(lstm_bwd_scan, design, dtype, 2)
+        return outs[0], outs[1]
     planned = persist_plan.plan_lstm_backward(
         chain_a[5].shape[0], chain_a[0].shape[1], 2, *device_info(chain_a[0].device))
     if design == "step" or planned.design != "persistent":
@@ -454,7 +546,6 @@ def lstm_bwd_scan_pair(chain_a, chain_b, reverse_a: bool, reverse_b: bool,
                 lstm_bwd_scan(*chain_b, reverse=reverse_b, design=design))
     persist_plan.choose(design, planned)
     outs = _bwd_persistent([chain_a, chain_b], [reverse_a, reverse_b], planned)
-    lstm_bwd_scan.launches += 2
-    lstm_bwd_scan.design_counts["persistent"] += 2
+    count(lstm_bwd_scan, "persistent", dtype, 2)
     lstm_bwd_scan.pair_launches += 1
     return outs[0], outs[1]

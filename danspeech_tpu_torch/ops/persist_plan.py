@@ -24,12 +24,11 @@ stages beside the slice (one GRU chain at H = 2000), it walks row blocks of
 64 instead, the two warpgroups splitting the depth. Fewer units per block
 would need more blocks than can be co-resident; more would only use fewer SMs.
 
-The resident design keeps bf16 slices. Float32 has the step design only
-(``csrc/gru_f32.cu``): its w_hh is 17.3 MB a GRU chain at H = 1200 and 48 MB
-at H = 2000, against about 30 MB of shared memory on a whole H100 (132 SMs x
-227 KB), so the GRU plans given ``dtype="float32"`` return "step" for every
-shape, and :func:`choose` refuses ``design="persistent"`` for them with
-``NotImplementedError``.
+The plans are those of the bf16 operand set: the resident design keeps bf16
+slices. The float32 variants of every kernel (``csrc/gru_f32.cu``,
+``csrc/lstm_f32.cu``, ``csrc/rnn_tanh_f32.cu``) have the step design only,
+whatever the shape, so a float32 call needs no plan: its wrapper takes
+:func:`float32_design`.
 
 The constants mirror ``csrc/persist.cuh``.
 """
@@ -53,15 +52,6 @@ H100_SMS = 132
 H100_SMEM_OPTIN = 232_448
 
 DESIGNS = ("persistent", "step")
-DTYPES = ("bfloat16", "float32")
-
-
-def dtype_name(dtype) -> str:
-    """"bfloat16" or "float32" from a name or a ``torch.dtype``."""
-    name = str(dtype).rpartition(".")[2]
-    if name not in DTYPES:
-        raise ValueError(f"unknown dtype {dtype!r}: one of {DTYPES}")
-    return name
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,7 +79,6 @@ class PersistPlan:
     smem_bytes: int = 0       # work + slice: dynamic shared memory per block
     product: str = "wgmma"    # "wgmma" (the ring), or "dot": the CUDA cores
     dot_bytes: int = 0        # "dot": the staged left operand and the sums after it
-    dtype: str = "bfloat16"   # of the weights; "float32" has the step design only
 
     def owner(self, unit: int) -> int:
         """The block (within its direction) that owns hidden unit ``unit``."""
@@ -119,8 +108,6 @@ def plan(hidden: int, batch: int, gates: int, depth: int, directions: int,
     the left operand; ``directions`` chains in the launch; ``max_tiles`` the
     widest slice, in tiles of 8 columns, that the kernel is compiled for.
     """
-    if sm_count is None or smem_optin is None:
-        raise ValueError("a bf16 plan needs the device's SM count and shared memory")
     if min(hidden, batch, gates, depth, directions, sm_count) < 1:
         raise ValueError("hidden, batch, gates, depth, directions and sm_count "
                          "must be positive")
@@ -196,40 +183,20 @@ RNN_TANH_FWD_MAX_TILES = 4  # csrc/rnn_tanh_scan.cu: up to 32 units
 RNN_TANH_BWD_MAX_TILES = 4  # csrc/rnn_tanh_bwd.cu: up to 32 units
 
 
-def float32_plan(hidden, batch, gates, depth, chains) -> PersistPlan:
-    """The plan of a float32 GRU recurrence: the step design
-    (``csrc/gru_f32.cu``), for every shape."""
-    if min(hidden, batch, gates, depth, chains) < 1:
-        raise ValueError("hidden, batch, gates, depth and chains must be positive")
-    weights = gates * hidden * depth * 4
-    return PersistPlan(
-        "step", f"float32: w_hh takes {weights} B a chain ({chains} in the launch); "
-        "the resident design keeps bf16 slices, float32 runs the step design "
-        "(csrc/gru_f32.cu)", dtype="float32")
-
-
-def plan_gru_forward(hidden, batch, sm_count=None, smem_optin=None,
-                     dtype="bfloat16") -> PersistPlan:
+def plan_gru_forward(hidden, batch, sm_count, smem_optin) -> PersistPlan:
     """Both chains of a bidirectional GRU layer (``gru_bidi_fused``): per
-    direction h (B, H) @ w_hh (H, 3H). ``dtype`` is the weights' ("bfloat16"
-    or "float32", or a torch dtype); float32 needs no device figures."""
-    if dtype_name(dtype) == "float32":
-        return float32_plan(hidden, batch, 3, hidden, 2)
+    direction h (B, H) @ w_hh (H, 3H)."""
     return plan(hidden, batch, 3, hidden, 2, sm_count, smem_optin,
                 GRU_FWD_MAX_TILES)
 
 
-def plan_gru_scan(hidden, batch, sm_count=None, smem_optin=None, chains=1,
-                  dtype="bfloat16") -> PersistPlan:
+def plan_gru_scan(hidden, batch, sm_count, smem_optin, chains=1) -> PersistPlan:
     """``chains`` (1 or 2) GRU chains over precomputed projections in one
     launch (``gru_scan``; ``gru_scan_bidi``, both directions of a layer): per
     chain h (B, H) @ w_hh (H, 3H). A batch of at most :data:`DOT_ROWS` rows
     (the streaming chunk) takes the product on the CUDA cores where its
     staged operand fits beside the slice: the whole of h in shared memory,
-    the sums after it (``ps_dot_product`` in ``csrc/persist.cuh``). Float32
-    as :func:`plan_gru_forward`."""
-    if dtype_name(dtype) == "float32":
-        return float32_plan(hidden, batch, 3, hidden, chains)
+    the sums after it (``ps_dot_product`` in ``csrc/persist.cuh``)."""
     planned = plan(hidden, batch, 3, hidden, chains, sm_count, smem_optin,
                    GRU_FWD_MAX_TILES)
     if planned.design != "persistent" or batch > DOT_ROWS:
@@ -251,13 +218,9 @@ def plan_lstm_forward(hidden, batch, chains, sm_count, smem_optin) -> PersistPla
                 LSTM_FWD_MAX_TILES)
 
 
-def plan_gru_backward(hidden, batch, chains, sm_count=None, smem_optin=None,
-                      dtype="bfloat16") -> PersistPlan:
+def plan_gru_backward(hidden, batch, chains, sm_count, smem_optin) -> PersistPlan:
     """The backward walk of ``chains`` (1 or 2) GRU chains (``gru_bwd_scan``):
-    per chain dgh (B, 3H) @ w_hh^T (3H, H). Float32 as
-    :func:`plan_gru_forward`."""
-    if dtype_name(dtype) == "float32":
-        return float32_plan(hidden, batch, 1, 3 * hidden, chains)
+    per chain dgh (B, 3H) @ w_hh^T (3H, H)."""
     return plan(hidden, batch, 1, 3 * hidden, chains, sm_count, smem_optin,
                 GRU_BWD_MAX_TILES)
 
@@ -286,16 +249,24 @@ def plan_rnn_tanh_backward(hidden, batch, chains, sm_count, smem_optin) -> Persi
 
 def choose(design: str | None, planned: PersistPlan) -> str:
     """The design a wrapper takes: the plan's when ``design`` is None, else
-    the one asked for, which must be one the plan allows ("step" always is;
-    "persistent" raises ``NotImplementedError`` for a float32 plan)."""
+    the one asked for, which must be one the plan allows ("step" always is)."""
     if design is None:
         return planned.design
     if design not in DESIGNS:
         raise ValueError(f"unknown design {design!r}: one of {DESIGNS} or None")
-    if design == "persistent" and planned.dtype == "float32":
-        raise NotImplementedError(
-            f"float32 has no persistent design (ROADMAP B, a persistent or 3xTF32 "
-            f"float32 design): {planned.reason}")
     if design == "persistent" and planned.design != "persistent":
         raise ValueError(f"the persistent design does not fit: {planned.reason}")
     return design
+
+
+def float32_design(design: str | None) -> str:
+    """The design a wrapper takes for the all-float32 operand set: "step"
+    for None or "step" (the float32 variants are step designs, for every
+    shape); "persistent" raises ``NotImplementedError``."""
+    if design not in (None, *DESIGNS):
+        raise ValueError(f"unknown design {design!r}: one of {DESIGNS} or None")
+    if design == "persistent":
+        raise NotImplementedError(
+            "float32 has no persistent design: the float32 variants keep no weights "
+            "resident (ROADMAP F32++)")
+    return "step"

@@ -61,26 +61,6 @@ from torch.autograd.function import once_differentiable
 from . import gru_cuda, lstm_cuda, rnn_tanh_cuda
 
 
-# the recurrent types whose kernels have float32 variants (csrc/gru_f32.cu)
-FLOAT32_RNN_TYPES = ("gru",)
-
-
-def require_float32_kernels(rnn_type: str, device) -> None:
-    """Raise ``NotImplementedError`` where a model of ``rnn_type`` would run
-    its recurrence in float32 on CUDA without a float32 kernel: only the GRU
-    kernels (B1-B4) have float32 variants; the LSTM and tanh-RNN ones (B5-B9)
-    are ROADMAP A6b-2. A pure function of the type and the device: the
-    engine and the trainer call it when a float32 model is loaded, not at
-    its first transcription or step."""
-    if torch.device(device).type == "cuda" and rnn_type not in FLOAT32_RNN_TYPES:
-        raise NotImplementedError(
-            f"rnn_type={rnn_type!r} in float32 on CUDA: the LSTM and tanh-RNN "
-            "kernels take bf16 only; their float32 variants are ROADMAP A6b-2. "
-            "Use compute_dtype='bfloat16' / mixed precision on the card, or "
-            "device='cpu' for float32"
-        )
-
-
 class GRUWeights(NamedTuple):
     """One direction of one GRU layer."""
 

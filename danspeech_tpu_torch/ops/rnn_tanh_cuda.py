@@ -18,10 +18,19 @@ what bounds it on an H100 and what the design does about it. Both kernels
 have two designs, as the GRU and LSTM ones: "persistent" (one cooperative
 launch walks every step, ``csrc/persist.cuh``) and "step" (one launch per
 time step), chosen by :func:`persist_plan.plan_rnn_tanh_forward` /
-:func:`persist_plan.plan_rnn_tanh_backward` or by ``design=``. A wrapper
-launches its kernel for CUDA tensors and raises on anything the kernel does
-not take; for CPU tensors, and only for those, it runs the plain version.
-There is no fallback from a failed build or launch to the plain version.
+:func:`persist_plan.plan_rnn_tanh_backward` or by ``design=``.
+
+Each wrapper takes two sets of operands, told apart by the dtype of its
+sequence: bf16 sequences and weights (the designs above), or everything in
+float32, which runs the float32 variants of ``csrc/rnn_tanh_f32.cu`` (step
+design only; ``design="persistent"`` raises ``NotImplementedError``; a pair
+walks both chains in each step launch). A mixed set raises ``TypeError``.
+``<wrapper>.dtype_counts`` counts the chains by the set taken.
+
+A wrapper launches its kernel for CUDA tensors and raises on anything the
+kernel does not take; for CPU tensors, and only for those, it runs the plain
+version (dtype-generic). There is no fallback from a failed build or launch
+to the plain version.
 """
 
 from __future__ import annotations
@@ -30,7 +39,7 @@ import torch
 
 from . import cuda_build, persist_plan
 from .cuda_build import chain_ptrs
-from .cuda_checks import check_stream_shape, check_tensors, time_order
+from .cuda_checks import check_stream_shape, check_tensors, count, pair_dtype, time_order
 from .gru_cuda import device_info, transposed
 
 
@@ -65,7 +74,7 @@ def _check_operands(seq_name, seq, lengths, w_hh):
     hidden = w_hh.shape[0]
     check_stream_shape(seq_name, seq, 1, hidden)
     t_max, batch, _ = seq.shape
-    check_tensors(seq_name, {
+    return check_tensors(seq_name, {
         seq_name: (seq, (t_max, batch, hidden), torch.bfloat16),
         "lengths": (lengths, (batch,), torch.int32),
         "w_hh": (w_hh, (hidden, hidden), torch.bfloat16),
@@ -87,6 +96,28 @@ def _scan_step(gx, lengths, w_hh, reverse):
                     h32.data_ptr(), h16.data_ptr(), out.data_ptr(),
                     t_max, batch, hidden, int(bool(reverse)))
     return out, h32[t_max % 2]  # the buffer the final step wrote
+
+
+def _scan_f32(chains, reverses):
+    """The float32 variant (``csrc/rnn_tanh_f32.cu``) over one or two chains
+    that share T, B, H and lengths: T launches of the step kernel, each chain
+    a slice of the grid, from h = 0. ``chains`` holds (gx, lengths, w_hh)
+    tuples; returns one (out, h_last) per chain."""
+    launch = cuda_build.bind("rnn_tanh_f32", "rnn_tanh_f32_scan_launch", 8, 6)
+    gx, lengths, _ = chains[0]
+    t_max, batch, hidden = gx.shape
+    dev = gx.device
+    n = len(chains)
+    h32 = torch.zeros((2, n, batch, hidden), dtype=torch.float32, device=dev)
+    outs = [torch.empty((t_max, batch, hidden), dtype=torch.float32, device=dev)
+            for _ in chains]
+    cuda_build.call(
+        launch, "rnn_tanh_scan (float32)", dev,
+        *chain_ptrs([c[0] for c in chains]), lengths.data_ptr(),
+        *chain_ptrs([c[2] for c in chains]), h32.data_ptr(), *chain_ptrs(outs),
+        t_max, batch, hidden, int(bool(reverses[0])), int(bool(reverses[-1])), n)
+    last = h32[t_max % 2]  # the buffer the final step wrote
+    return [(o, last[k]) for k, o in enumerate(outs)]
 
 
 def _scan_persistent(chains, reverses, planned):
@@ -120,34 +151,39 @@ def rnn_tanh_scan(gx, lengths, w_hh, reverse: bool = False, design: str | None =
 
     Same contract and return values as :func:`rnn_tanh_scan_plain`. A CUDA
     ``gx`` launches the kernel (bf16 gx and w_hh, int32 lengths, all
-    contiguous on gx's device) or raises; a CPU ``gx`` runs the plain
-    version. ``design`` is None (the plan of
-    :func:`persist_plan.plan_rnn_tanh_forward` decides), "persistent" or
-    "step"; ``rnn_tanh_scan.design_counts`` counts the chains by the design
-    taken. ``rnn_tanh_scan.launches`` counts chains (one per call),
-    ``rnn_tanh_scan.pair_launches`` the cooperative launches that walked two
-    chains (:func:`rnn_tanh_scan_pair`).
+    contiguous on gx's device; or float32 gx and w_hh, the float32 variant)
+    or raises; a CPU ``gx`` runs the plain version. ``design`` is None (the
+    plan of :func:`persist_plan.plan_rnn_tanh_forward` decides),
+    "persistent" or "step"; ``rnn_tanh_scan.design_counts`` and
+    ``rnn_tanh_scan.dtype_counts`` count the chains by the design and the
+    operand set taken. ``rnn_tanh_scan.launches`` counts chains (one per
+    call), ``rnn_tanh_scan.pair_launches`` the cooperative launches that
+    walked two chains (:func:`rnn_tanh_scan_pair`).
     """
     if gx.device.type == "cpu":
         return rnn_tanh_scan_plain(gx, lengths, w_hh, reverse)
     if gx.device.type != "cuda":
         raise ValueError(f"unsupported device {gx.device}")
-    _check_operands("gx", gx, lengths, w_hh)
-    planned = persist_plan.plan_rnn_tanh_forward(w_hh.shape[0], gx.shape[1], 1,
-                                                 *device_info(gx.device))
-    design = persist_plan.choose(design, planned)
-    if design == "persistent":
-        result = _scan_persistent([(gx, lengths, w_hh)], [reverse], planned)[0]
+    dtype = _check_operands("gx", gx, lengths, w_hh)
+    if dtype == torch.float32:
+        design = persist_plan.float32_design(design)
+        result = _scan_f32([(gx, lengths, w_hh)], [reverse])[0]
     else:
-        result = _scan_step(gx, lengths, w_hh, reverse)
-    rnn_tanh_scan.launches += 1
-    rnn_tanh_scan.design_counts[design] += 1
+        planned = persist_plan.plan_rnn_tanh_forward(w_hh.shape[0], gx.shape[1], 1,
+                                                     *device_info(gx.device))
+        design = persist_plan.choose(design, planned)
+        if design == "persistent":
+            result = _scan_persistent([(gx, lengths, w_hh)], [reverse], planned)[0]
+        else:
+            result = _scan_step(gx, lengths, w_hh, reverse)
+    count(rnn_tanh_scan, design, dtype)
     return result
 
 
 rnn_tanh_scan.launches = 0
 rnn_tanh_scan.pair_launches = 0
 rnn_tanh_scan.design_counts = {"persistent": 0, "step": 0}
+rnn_tanh_scan.dtype_counts = {"bfloat16": 0, "float32": 0}
 
 
 def _check_pair(chain_a, chain_b):
@@ -172,15 +208,21 @@ def rnn_tanh_scan_pair(chain_a, chain_b, reverse_a: bool, reverse_b: bool,
     fits (each chain with its own barrier, so the two never wait for each
     other) and ``rnn_tanh_scan.pair_launches`` grows by one; otherwise, for
     ``design="step"``, and on the CPU, they run one after the other as two
-    :func:`rnn_tanh_scan` calls. Either way ``rnn_tanh_scan.launches`` grows
+    :func:`rnn_tanh_scan` calls. Float32 chains walk together in each of the
+    T launches of the float32 variant; ``pair_launches`` counts only the
+    cooperative (bf16) launches. Either way ``rnn_tanh_scan.launches`` grows
     by two: it counts chains.
     """
     _check_pair(chain_a, chain_b)
     if chain_a[0].device.type != "cuda":
         return (rnn_tanh_scan(*chain_a, reverse=reverse_a),
                 rnn_tanh_scan(*chain_b, reverse=reverse_b))
-    _check_operands("gx", *chain_a)
-    _check_operands("gx", *chain_b)
+    dtype = pair_dtype(lambda *c: _check_operands("gx", *c), chain_a, chain_b)
+    if dtype == torch.float32:
+        design = persist_plan.float32_design(design)
+        outs = _scan_f32([chain_a, chain_b], [reverse_a, reverse_b])
+        count(rnn_tanh_scan, design, dtype, 2)
+        return outs[0], outs[1]
     planned = persist_plan.plan_rnn_tanh_forward(
         chain_a[2].shape[0], chain_a[0].shape[1], 2, *device_info(chain_a[0].device))
     if design == "step" or planned.design != "persistent":
@@ -188,8 +230,7 @@ def rnn_tanh_scan_pair(chain_a, chain_b, reverse_a: bool, reverse_b: bool,
                 rnn_tanh_scan(*chain_b, reverse=reverse_b, design=design))
     persist_plan.choose(design, planned)
     outs = _scan_persistent([chain_a, chain_b], [reverse_a, reverse_b], planned)
-    rnn_tanh_scan.launches += 2
-    rnn_tanh_scan.design_counts["persistent"] += 2
+    count(rnn_tanh_scan, "persistent", dtype, 2)
     rnn_tanh_scan.pair_launches += 1
     return outs[0], outs[1]
 
@@ -224,7 +265,7 @@ def rnn_tanh_bwd_scan_plain(out, dout, lengths, w_hh, reverse: bool = True):
 
 def _check_bwd_operands(out, dout, lengths, w_hh):
     _check_operands("out", out, lengths, w_hh)
-    check_tensors("out", {
+    return check_tensors("out", {
         "out": (out, tuple(out.shape), torch.bfloat16),
         "dout": (dout, tuple(out.shape), torch.float32),
     })
@@ -244,6 +285,30 @@ def _bwd_step(out, dout, lengths, w_hh, reverse):
                     w_hht.data_ptr(), part.data_ptr(), dp.data_ptr(),
                     dpre.data_ptr(), t_max, batch, hidden, int(bool(reverse)))
     return dpre, part[(t_max + 1) % 2]
+
+
+def _bwd_f32(chains, reverses):
+    """The float32 variant (``csrc/rnn_tanh_f32.cu``) of one or two walks
+    that share T, B, H and lengths: T + 1 launches of the step kernel, each
+    chain a slice of the grid. ``chains`` holds the operand tuples (out,
+    dout, lengths, w_hh) of :func:`rnn_tanh_bwd_scan`; returns one (dpre,
+    dh0) per chain."""
+    launch = cuda_build.bind("rnn_tanh_f32", "rnn_tanh_f32_bwd_launch", 10, 6)
+    out, _, lengths, _ = chains[0]
+    t_max, batch, hidden = out.shape
+    dev = out.device
+    n = len(chains)
+    # dh starts at zero, is carried in place and ends as dh0
+    dh = torch.zeros((n, batch, hidden), dtype=torch.float32, device=dev)
+    dpre = [torch.empty((t_max, batch, hidden), dtype=torch.float32, device=dev)
+            for _ in chains]
+    cuda_build.call(
+        launch, "rnn_tanh_bwd_scan (float32)", dev,
+        *chain_ptrs([c[0] for c in chains]), *chain_ptrs([c[1] for c in chains]),
+        lengths.data_ptr(), *chain_ptrs([c[3] for c in chains]), dh.data_ptr(),
+        *chain_ptrs(dpre), t_max, batch, hidden, int(bool(reverses[0])),
+        int(bool(reverses[-1])), n)
+    return [(dpre[k], dh[k]) for k in range(n)]
 
 
 def _bwd_persistent(chains, reverses, planned):
@@ -279,11 +344,13 @@ def rnn_tanh_bwd_scan(out, dout, lengths, w_hh, reverse: bool = True,
 
     Same contract and return values as :func:`rnn_tanh_bwd_scan_plain`. A
     CUDA ``out`` launches the kernel (bf16 out and w_hh, f32 dout, int32
-    lengths, all contiguous on out's device) or raises; a CPU ``out`` runs
-    the plain version. ``design`` is None (the plan of
+    lengths, all contiguous on out's device; or everything float32, the
+    float32 variant) or raises; a CPU ``out`` runs the plain version.
+    ``design`` is None (the plan of
     :func:`persist_plan.plan_rnn_tanh_backward` decides), "persistent" or
-    "step"; ``rnn_tanh_bwd_scan.design_counts`` counts the chains by the
-    design taken. ``rnn_tanh_bwd_scan.launches`` counts chains (one per
+    "step"; ``rnn_tanh_bwd_scan.design_counts`` and
+    ``rnn_tanh_bwd_scan.dtype_counts`` count the chains by the design and the
+    operand set taken. ``rnn_tanh_bwd_scan.launches`` counts chains (one per
     call), ``rnn_tanh_bwd_scan.pair_launches`` the cooperative launches that
     walked two chains (:func:`rnn_tanh_bwd_scan_pair`).
     """
@@ -291,22 +358,27 @@ def rnn_tanh_bwd_scan(out, dout, lengths, w_hh, reverse: bool = True,
         return rnn_tanh_bwd_scan_plain(out, dout, lengths, w_hh, reverse)
     if out.device.type != "cuda":
         raise ValueError(f"unsupported device {out.device}")
-    _check_bwd_operands(out, dout, lengths, w_hh)
-    planned = persist_plan.plan_rnn_tanh_backward(w_hh.shape[0], out.shape[1], 1,
-                                                  *device_info(out.device))
-    design = persist_plan.choose(design, planned)
-    if design == "persistent":
-        result = _bwd_persistent([(out, dout, lengths, w_hh)], [reverse], planned)[0]
+    dtype = _check_bwd_operands(out, dout, lengths, w_hh)
+    chain = (out, dout, lengths, w_hh)
+    if dtype == torch.float32:
+        design = persist_plan.float32_design(design)
+        result = _bwd_f32([chain], [reverse])[0]
     else:
-        result = _bwd_step(out, dout, lengths, w_hh, reverse)
-    rnn_tanh_bwd_scan.launches += 1
-    rnn_tanh_bwd_scan.design_counts[design] += 1
+        planned = persist_plan.plan_rnn_tanh_backward(w_hh.shape[0], out.shape[1], 1,
+                                                      *device_info(out.device))
+        design = persist_plan.choose(design, planned)
+        if design == "persistent":
+            result = _bwd_persistent([chain], [reverse], planned)[0]
+        else:
+            result = _bwd_step(out, dout, lengths, w_hh, reverse)
+    count(rnn_tanh_bwd_scan, design, dtype)
     return result
 
 
 rnn_tanh_bwd_scan.launches = 0
 rnn_tanh_bwd_scan.pair_launches = 0
 rnn_tanh_bwd_scan.design_counts = {"persistent": 0, "step": 0}
+rnn_tanh_bwd_scan.dtype_counts = {"bfloat16": 0, "float32": 0}
 
 
 def rnn_tanh_bwd_scan_pair(chain_a, chain_b, reverse_a: bool, reverse_b: bool,
@@ -321,15 +393,21 @@ def rnn_tanh_bwd_scan_pair(chain_a, chain_b, reverse_a: bool, reverse_b: bool,
     CUDA both walks share one persistent launch when the plan for two chains
     fits and ``rnn_tanh_bwd_scan.pair_launches`` grows by one; otherwise, for
     ``design="step"``, and on the CPU, they run one after the other as two
-    :func:`rnn_tanh_bwd_scan` calls. Either way
+    :func:`rnn_tanh_bwd_scan` calls. Float32 chains walk together in each of
+    the T + 1 launches of the float32 variant; ``pair_launches`` counts only
+    the cooperative (bf16) launches. Either way
     ``rnn_tanh_bwd_scan.launches`` grows by two: it counts chains.
     """
     _check_pair(chain_a, chain_b)
     if chain_a[0].device.type != "cuda":
         return (rnn_tanh_bwd_scan(*chain_a, reverse=reverse_a),
                 rnn_tanh_bwd_scan(*chain_b, reverse=reverse_b))
-    _check_bwd_operands(*chain_a)
-    _check_bwd_operands(*chain_b)
+    dtype = pair_dtype(_check_bwd_operands, chain_a, chain_b)
+    if dtype == torch.float32:
+        design = persist_plan.float32_design(design)
+        outs = _bwd_f32([chain_a, chain_b], [reverse_a, reverse_b])
+        count(rnn_tanh_bwd_scan, design, dtype, 2)
+        return outs[0], outs[1]
     planned = persist_plan.plan_rnn_tanh_backward(
         chain_a[3].shape[0], chain_a[0].shape[1], 2, *device_info(chain_a[0].device))
     if design == "step" or planned.design != "persistent":
@@ -337,7 +415,6 @@ def rnn_tanh_bwd_scan_pair(chain_a, chain_b, reverse_a: bool, reverse_b: bool,
                 rnn_tanh_bwd_scan(*chain_b, reverse=reverse_b, design=design))
     persist_plan.choose(design, planned)
     outs = _bwd_persistent([chain_a, chain_b], [reverse_a, reverse_b], planned)
-    rnn_tanh_bwd_scan.launches += 2
-    rnn_tanh_bwd_scan.design_counts["persistent"] += 2
+    count(rnn_tanh_bwd_scan, "persistent", dtype, 2)
     rnn_tanh_bwd_scan.pair_launches += 1
     return outs[0], outs[1]

@@ -33,7 +33,7 @@ def main(argv=None):
                     help="disable SpecAugment")
     ap.add_argument("--no-mixed-precision", action="store_true",
                     help="keep matmul weights f32 (default: bf16 on CUDA); on "
-                         "CUDA the GRU kernels' float32 variants, TF32 off")
+                         "CUDA the recurrent kernels' float32 variants, TF32 off")
     ap.add_argument("--no-remat", action="store_true",
                     help="store RNN activations instead of recomputing "
                          "in backward (costs device memory at large batch)")

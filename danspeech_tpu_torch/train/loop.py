@@ -24,7 +24,6 @@ from .checkpoint import restore_train_state, save_train_state
 from .data import SpeechDataset, batches, shard_batch, steps_per_epoch
 from .step import (
     TrainState,
-    _resolve_mixed_precision,
     freeze_mask,
     init_train_state,
     make_optimizer,
@@ -137,9 +136,8 @@ def train(
     - ``freeze_layers``: freeze the first N layers, the finetune knob.
     - ``mixed_precision`` / ``remat``: the make_wave_train_step knobs: bf16
       matmul weights (f32 masters; "auto" = on for CUDA; False trains in
-      float32, on CUDA through the GRU kernels' float32 variants, an LSTM or
-      tanh-RNN config refused there) and per-layer recomputation of the RNN
-      activations.
+      float32, on CUDA through the recurrent kernels' float32 variants) and
+      per-layer recomputation of the RNN activations.
     - ``mesh`` (``parallel.make_mesh``): every rank runs this loop; the
       batch rows split over the data axis (``batch_size`` must divide by
       its size), the gradients are summed over it, the optimizer's state is
@@ -157,8 +155,6 @@ def train(
             raise ValueError(f"batch_size {batch_size} does not divide over "
                              f"{mesh.size(DATA_AXIS)} data ranks")
     dev = mesh.device if mesh is not None else _resolve_device(device)
-    # refuses float32 on CUDA for the types without float32 kernels (A6b-2)
-    _resolve_mixed_precision(mixed_precision, dev, config)
 
     dataset = SpeechDataset.from_manifest(train_manifest, config.labels)
     spe = steps_per_epoch(len(dataset), batch_size)

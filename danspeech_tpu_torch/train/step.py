@@ -12,10 +12,10 @@ package, which is functional:
 - frozen leaves are left out of the update (their gradient is dropped
   before the optimizer runs), so weight decay does not shrink them; the JAX
   package zeroes their gradients and ``optax.adamw`` still decays them;
-- ``mixed_precision=False`` on CUDA runs the GRU kernels' float32 variants
-  (``csrc/gru_f32.cu``) and every product of the step, the convolutions and
-  gradients included, in full float32 with TF32 off (``ops/precision.py``);
-  LSTM and tanh-RNN models are refused there (ROADMAP A6b-2). The conv stack
+- ``mixed_precision=False`` on CUDA runs the recurrent kernels' float32
+  variants (for every ``rnn_type``) and every product of the step, the
+  convolutions and gradients included, in full float32 with TF32 off
+  (``ops/precision.py``). The conv stack
   stays float32 under mixed precision, as in the JAX package (cuDNN runs
   those float32 convolutions in TF32 unless ``torch.backends.cudnn.allow_tf32``
   is turned off).
@@ -31,7 +31,6 @@ from ..engine import _resolve_device
 from ..models import deepspeech as ds
 from ..models.config import DeepSpeechConfig
 from ..ops import precision
-from ..ops import rnn as rnn_ops
 from .ctc import ctc_loss, mean_ctc_loss
 
 
@@ -116,16 +115,11 @@ def init_train_state(
                                    device, mesh)
 
 
-def _resolve_mixed_precision(mixed_precision, device: torch.device,
-                             config: DeepSpeechConfig) -> bool:
+def _resolve_mixed_precision(mixed_precision, device: torch.device) -> bool:
     """"auto" -> bf16 matmul weights on CUDA, float32 on the CPU. False
-    (float32) on CUDA runs the GRU kernels' float32 variants; a config whose
-    recurrent kernels have none (LSTM, tanh RNN: ROADMAP A6b-2) is refused
-    there. A pure function of the flag, the device and the config."""
+    (float32) on CUDA runs the recurrent kernels' float32 variants."""
     if mixed_precision == "auto":
         return device.type == "cuda"
-    if not mixed_precision:
-        rnn_ops.require_float32_kernels(config.rnn_type, device)
     return bool(mixed_precision)
 
 
@@ -191,7 +185,7 @@ def make_train_step(config: DeepSpeechConfig, optimizer: OptimizerSpec,
     :func:`param_leaves` order (True = frozen), from :func:`freeze_mask`.
     The step updates the state's leaves and optimizer in place and returns
     (state with its step advanced, loss as a 0-d tensor). It runs in
-    float32 (full float32 on CUDA, the GRU kernels' float32 variants).
+    float32 (full float32 on CUDA, the recurrent kernels' float32 variants).
     """
 
     def train_step(state: TrainState, spect, frame_lengths, labels, label_lengths):
@@ -231,9 +225,9 @@ def make_wave_train_step(
     (float32 masters for the optimizer; the casts are inside the autograd
     graph, so gradients come back in float32); the conv stack stays float32.
     "auto" = on for CUDA, off on the CPU. False on CUDA trains in float32:
-    the GRU kernels' float32 variants forward (and in the remat replay) and
-    backward, every product in full float32 with TF32 off; LSTM and tanh-RNN
-    configs are refused there (ROADMAP A6b-2). ``remat``: checkpoint each
+    the recurrent kernels' float32 variants forward (and in the remat replay)
+    and backward, every product in full float32 with TF32 off. ``remat``:
+    checkpoint each
     RNN layer so the backward recomputes its forward instead of keeping its
     residuals. ``rnn_impl="plain"`` runs the recurrent kernels' plain versions,
     forward and backward, to check the kernels against them.
@@ -262,7 +256,7 @@ def make_wave_train_step(
                    row_weights, rng=None):
         params = state.params
         dev = param_leaves(params)[0].device
-        use_bf16 = _resolve_mixed_precision(mixed_precision, dev, config)
+        use_bf16 = _resolve_mixed_precision(mixed_precision, dev)
         waves, wave_lengths, labels, label_lengths, row_weights = _to_device(
             (waves, wave_lengths, labels, label_lengths, row_weights), dev)
         with precision.full_float32(dev, not use_bf16):

@@ -122,10 +122,12 @@ def test_training_default_device_is_cuda():
 
 
 def test_every_kernel_has_a_source_a_plain_version_and_a_counter():
-    """Each of the nine wrappers has its plain version beside it and a
-    ``launches`` counter; the CUDA sources they name exist (the four GRU
-    wrappers' float32 variants in csrc/gru_f32.cu, counted by dtype), and no
-    source lies under csrc/ without a wrapper."""
+    """Each of the nine wrappers has its plain version beside it, a
+    ``launches`` counter and ``dtype_counts`` by operand set; the CUDA
+    sources they name exist (the bf16 kernel and the float32 variant: B1-B4
+    in csrc/gru_f32.cu, B5-B7 in csrc/lstm_f32.cu, B8-B9 in
+    csrc/rnn_tanh_f32.cu), and no source lies under csrc/ without a
+    wrapper."""
     from danspeech_tpu_torch.ops import cuda_build, gru_cuda, lstm_cuda, rnn_tanh_cuda
 
     kernels = {
@@ -136,17 +138,17 @@ def test_every_kernel_has_a_source_a_plain_version_and_a_counter():
         rnn_tanh_cuda: {"rnn_tanh_scan": "rnn_tanh_scan",
                         "rnn_tanh_bwd_scan": "rnn_tanh_bwd"},
     }
+    float32_sources = {gru_cuda: "gru_f32", lstm_cuda: "lstm_f32",
+                       rnn_tanh_cuda: "rnn_tanh_f32"}
     sources = set()
     for module, names in kernels.items():
         for name, source in names.items():
             assert callable(getattr(module, f"{name}_plain")), name
             assert isinstance(getattr(module, name).launches, int), name
-            assert os.path.isfile(os.path.join(cuda_build.CSRC_DIR, f"{source}.cu")), source
-            sources.add(f"{source}.cu")
-    for name in kernels[gru_cuda]:
-        assert set(getattr(gru_cuda, name).dtype_counts) == {"bfloat16", "float32"}, name
-    assert os.path.isfile(os.path.join(cuda_build.CSRC_DIR, "gru_f32.cu"))
-    sources.add("gru_f32.cu")
+            assert set(getattr(module, name).dtype_counts) == {"bfloat16", "float32"}, name
+            for src in (source, float32_sources[module]):
+                assert os.path.isfile(os.path.join(cuda_build.CSRC_DIR, f"{src}.cu")), src
+                sources.add(f"{src}.cu")
     on_disk = {f for f in os.listdir(cuda_build.CSRC_DIR) if f.endswith(".cu")}
     assert on_disk == sources
 

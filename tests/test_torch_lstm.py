@@ -342,9 +342,15 @@ def test_wrapper_operand_checks_and_devices():
             gx, torch.from_numpy(a["hprev"]).to(bf), torch.from_numpy(a["cprev"]).to(bf),
             torch.from_numpy(a["dout"]), lengths, w_hh, b_hh)))
     # the checks the CUDA branch makes before it launches
-    lstm_cuda._check_scan_operands(gx, lengths, w_hh, b_hh, zeros, zeros)
-    with pytest.raises(TypeError, match="A6b-2"):  # float32 streams are refused
+    assert lstm_cuda._check_scan_operands(gx, lengths, w_hh, b_hh, zeros,
+                                          zeros) == torch.bfloat16
+    # the all-float32 set is taken (the float32 variant, csrc/lstm_f32.cu)
+    assert lstm_cuda._check_scan_operands(gx.float(), lengths, w_hh.float(), b_hh, zeros,
+                                          zeros) == torch.float32
+    with pytest.raises(TypeError, match="all-float32"):  # a mixed set is refused
         lstm_cuda._check_scan_operands(gx.float(), lengths, w_hh, b_hh, zeros, zeros)
+    with pytest.raises(TypeError, match="bf16 sequences"):
+        lstm_cuda._check_scan_operands(gx, lengths, w_hh.float(), b_hh, zeros, zeros)
     with pytest.raises(TypeError):
         lstm_cuda._check_scan_operands(gx, lengths.long(), w_hh, b_hh, zeros, zeros)
     with pytest.raises(ValueError, match="contiguous"):

@@ -311,35 +311,127 @@ def test_plan_refuses_empty_shapes(kwargs):
         pp.plan(**args)
 
 
-@pytest.mark.parametrize("hidden,batch", [(1200, 128), (1200, 32), (2000, 1), (2000, 128),
-                                          (64, 5), (8, 1)])
-@pytest.mark.parametrize("plan_of", [
-    lambda h, b, **kw: pp.plan_gru_forward(h, b, **kw),
-    lambda h, b, **kw: pp.plan_gru_scan(h, b, **kw),
-    lambda h, b, **kw: pp.plan_gru_scan(h, b, chains=2, **kw),
-    lambda h, b, **kw: pp.plan_gru_backward(h, b, 1, **kw),
-    lambda h, b, **kw: pp.plan_gru_backward(h, b, 2, **kw),
-], ids=["forward", "scan", "scan pair", "backward", "backward pair"])
-def test_float32_plans_take_the_step_design_everywhere(plan_of, hidden, batch):
-    """Float32 GRU weights never stay resident (csrc/gru_f32.cu is a step
-    design): "step" at every shape, even where a bf16 slice would fit, with
-    no device figures needed; "persistent" is refused with
-    NotImplementedError, "step" and None take the step design."""
+class _OnCuda:
+    """A CPU tensor that reports a CUDA device: it takes a wrapper's CUDA
+    branch up to its launch, with no card."""
+
+    def __init__(self, t):
+        self._t = t
+
+    def __getattr__(self, name):
+        if name == "device":
+            import torch
+
+            return torch.device("cuda")
+        return getattr(self._t, name)
+
+
+# wrapper -> (its module, the wrapper that counts its calls, its float32
+# route, the chains one call counts)
+F32_ENTRIES = {
+    "gru_bidi_fused": ("gru_cuda", "gru_bidi_fused", "_bidi_fused_f32", 1),
+    "gru_scan": ("gru_cuda", "gru_scan", "_scan_f32", 1),
+    "gru_scan_bidi": ("gru_cuda", "gru_scan_bidi", "_scan_f32", 1),
+    "gru_bwd_scan": ("gru_cuda", "gru_bwd_scan", "_bwd_f32", 1),
+    "gru_bwd_scan_pair": ("gru_cuda", "gru_bwd_scan", "_bwd_f32", 2),
+    "lstm_scan": ("lstm_cuda", "lstm_scan", "_scan_f32", 1),
+    "lstm_scan_with_cell": ("lstm_cuda", "lstm_scan_with_cell", "_scan_f32", 1),
+    "lstm_scan_pair": ("lstm_cuda", "lstm_scan_with_cell", "_scan_f32", 2),
+    "lstm_bwd_scan": ("lstm_cuda", "lstm_bwd_scan", "_bwd_f32", 1),
+    "lstm_bwd_scan_pair": ("lstm_cuda", "lstm_bwd_scan", "_bwd_f32", 2),
+    "rnn_tanh_scan": ("rnn_tanh_cuda", "rnn_tanh_scan", "_scan_f32", 1),
+    "rnn_tanh_scan_pair": ("rnn_tanh_cuda", "rnn_tanh_scan", "_scan_f32", 2),
+    "rnn_tanh_bwd_scan": ("rnn_tanh_cuda", "rnn_tanh_bwd_scan", "_bwd_f32", 1),
+    "rnn_tanh_bwd_scan_pair": ("rnn_tanh_cuda", "rnn_tanh_bwd_scan", "_bwd_f32", 2),
+}
+
+
+def _f32_call(name, hidden, batch):
+    """A call of wrapper ``name`` on float32 operands that report CUDA (T = 2,
+    allocated and never read), taking ``design``."""
     import torch
 
-    for dtype in ("float32", torch.float32):
-        plan = plan_of(hidden, batch, dtype=dtype)
-        assert (plan.design, plan.dtype) == ("step", "float32")
-        assert "float32" in plan.reason
-        assert pp.choose(None, plan) == pp.choose("step", plan) == "step"
-        with pytest.raises(NotImplementedError, match="float32"):
-            pp.choose("persistent", plan)
-    bf16 = plan_of(hidden, batch, sm_count=SMS, smem_optin=SMEM)
-    assert bf16.dtype == "bfloat16"
-    with pytest.raises(ValueError, match="SM count"):
-        plan_of(hidden, batch)  # a bf16 plan needs the device's figures
-    with pytest.raises(ValueError, match="dtype"):
-        plan_of(hidden, batch, dtype="float16")
+    from danspeech_tpu_torch.ops import gru_cuda, lstm_cuda, rnn_tanh_cuda
+
+    t, h = 2, hidden
+
+    def e(*shape):
+        return _OnCuda(torch.empty(*shape))
+
+    lens = _OnCuda(torch.full((batch,), t, dtype=torch.int32))
+    gru_chain = (e(t, batch, 3 * h), lens, e(h, 3 * h), e(3 * h), e(3 * h), e(batch, h))
+    gru_walk = (e(t, batch, 3 * h), e(t, batch, h), e(t, batch, h), lens, e(h, 3 * h),
+                e(3 * h), e(3 * h), e(batch, h))
+    lstm_chain = (e(t, batch, 4 * h), lens, e(h, 4 * h), e(4 * h), e(batch, h), e(batch, h))
+    lstm_walk = (e(t, batch, 4 * h), e(t, batch, h), e(t, batch, h), e(t, batch, h), lens,
+                 e(h, 4 * h), e(4 * h))
+    tanh_chain = (e(t, batch, h), lens, e(h, h))
+    tanh_walk = (e(t, batch, h), e(t, batch, h), lens, e(h, h))
+    fused = (e(t, batch, 16), lens, e(16, 3 * h), e(16, 3 * h), e(h, 3 * h), e(h, 3 * h),
+             e(3 * h), e(3 * h), e(3 * h), e(3 * h))
+    bidi = (gru_chain[0], e(t, batch, 3 * h), lens, gru_chain[2], e(h, 3 * h),
+            *gru_chain[3:5], e(3 * h), e(3 * h), gru_chain[5], e(batch, h))
+    return {
+        "gru_bidi_fused": lambda d: gru_cuda.gru_bidi_fused(*fused, design=d),
+        "gru_scan": lambda d: gru_cuda.gru_scan(*gru_chain, design=d),
+        "gru_scan_bidi": lambda d: gru_cuda.gru_scan_bidi(*bidi, design=d),
+        "gru_bwd_scan": lambda d: gru_cuda.gru_bwd_scan(*gru_walk, design=d),
+        "gru_bwd_scan_pair": lambda d: gru_cuda.gru_bwd_scan_pair(
+            gru_walk, gru_walk, True, False, design=d),
+        "lstm_scan": lambda d: lstm_cuda.lstm_scan(*lstm_chain, design=d),
+        "lstm_scan_with_cell": lambda d: lstm_cuda.lstm_scan_with_cell(*lstm_chain, design=d),
+        "lstm_scan_pair": lambda d: lstm_cuda.lstm_scan_pair(
+            lstm_chain, lstm_chain, False, True, with_cell=True, design=d),
+        "lstm_bwd_scan": lambda d: lstm_cuda.lstm_bwd_scan(*lstm_walk, design=d),
+        "lstm_bwd_scan_pair": lambda d: lstm_cuda.lstm_bwd_scan_pair(
+            lstm_walk, lstm_walk, True, False, design=d),
+        "rnn_tanh_scan": lambda d: rnn_tanh_cuda.rnn_tanh_scan(*tanh_chain, design=d),
+        "rnn_tanh_scan_pair": lambda d: rnn_tanh_cuda.rnn_tanh_scan_pair(
+            tanh_chain, tanh_chain, False, True, design=d),
+        "rnn_tanh_bwd_scan": lambda d: rnn_tanh_cuda.rnn_tanh_bwd_scan(*tanh_walk, design=d),
+        "rnn_tanh_bwd_scan_pair": lambda d: rnn_tanh_cuda.rnn_tanh_bwd_scan_pair(
+            tanh_walk, tanh_walk, True, False, design=d),
+    }[name]
+
+
+@pytest.mark.parametrize("hidden,batch", [(1200, 128), (1200, 32), (2000, 1), (2000, 128),
+                                          (64, 5), (8, 1)])
+@pytest.mark.parametrize("name", list(F32_ENTRIES))
+def test_float32_plans_take_the_step_design_everywhere(monkeypatch, name, hidden, batch):
+    """Float32 weights never stay resident: a wrapper's float32 branch needs
+    no plan and no device figures. At every shape, even where a bf16 slice
+    would fit, None and "step" take the step design (the float32 route runs,
+    the counts by design and by dtype grow by the call's chains);
+    "persistent" raises NotImplementedError naming ROADMAP F32++ and an
+    unknown design ValueError, before any route runs or anything is
+    counted."""
+    import importlib
+
+    module_name, counted, route, chains = F32_ENTRIES[name]
+    module = importlib.import_module(f"danspeech_tpu_torch.ops.{module_name}")
+    wrapper = getattr(module, counted)
+    monkeypatch.setattr(wrapper, "launches", 0)
+    monkeypatch.setattr(wrapper, "design_counts", {"persistent": 0, "step": 0})
+    monkeypatch.setattr(wrapper, "dtype_counts", {"bfloat16": 0, "float32": 0})
+    routed = []
+
+    def fake_route(*args):
+        routed.append(args)
+        return [(None, None)] * len(args[0]) if route != "_bidi_fused_f32" else (None,) * 4
+
+    monkeypatch.setattr(module, route, fake_route)
+    call = _f32_call(name, hidden, batch)
+    for k, design in enumerate((None, "step"), 1):
+        call(design)
+        assert len(routed) == k
+        assert (wrapper.launches, wrapper.design_counts, wrapper.dtype_counts) == (
+            k * chains, {"persistent": 0, "step": k * chains},
+            {"bfloat16": 0, "float32": k * chains})
+    with pytest.raises(NotImplementedError, match="F32\\+\\+"):
+        call("persistent")
+    with pytest.raises(ValueError, match="unknown design"):
+        call("fused")
+    assert len(routed) == 2 and wrapper.launches == 2 * chains
 
 
 def test_wrappers_take_a_design_argument_and_use_the_plain_version_on_the_cpu():

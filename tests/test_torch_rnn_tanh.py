@@ -282,9 +282,16 @@ def test_wrapper_operand_checks_and_devices():
     with pytest.raises(ValueError, match="unsupported device"):
         rnn_tanh_cuda.rnn_tanh_bwd_scan(*(v.to("meta") for v in (gx, dout, lengths, w_hh)))
     # the checks the CUDA branch makes before it launches
-    rnn_tanh_cuda._check_operands("gx", gx, lengths, w_hh)
-    with pytest.raises(TypeError, match="A6b-2"):  # float32 streams are refused
+    assert rnn_tanh_cuda._check_operands("gx", gx, lengths, w_hh) == torch.bfloat16
+    # the all-float32 set is taken (the float32 variant, csrc/rnn_tanh_f32.cu)
+    assert rnn_tanh_cuda._check_operands("gx", gx.float(), lengths,
+                                         w_hh.float()) == torch.float32
+    assert rnn_tanh_cuda._check_bwd_operands(gx.float(), dout, lengths,
+                                             w_hh.float()) == torch.float32
+    with pytest.raises(TypeError, match="all-float32"):  # a mixed set is refused
         rnn_tanh_cuda._check_operands("gx", gx.float(), lengths, w_hh)
+    with pytest.raises(TypeError, match="bf16 sequences"):
+        rnn_tanh_cuda._check_bwd_operands(gx, dout, lengths, w_hh.float())
     with pytest.raises(ValueError, match="contiguous"):
         rnn_tanh_cuda._check_operands(
             "gx", gx.transpose(0, 1).contiguous().transpose(0, 1), lengths, w_hh)

@@ -45,7 +45,6 @@ from danspeech_tpu_torch.models import checkpoint as tckpt
 from danspeech_tpu_torch.models import deepspeech as tds
 from danspeech_tpu_torch.models import streaming as tst
 from danspeech_tpu_torch.models.config import DeepSpeechConfig as TConfig
-from danspeech_tpu_torch.ops import rnn as trnn
 
 PROB_ATOL = 1e-4
 STATE_ATOL = 1e-4
@@ -443,21 +442,22 @@ def test_compute_dtype_resolution(requested, device, expected):
 
 
 @pytest.mark.parametrize("rnn_type", ["gru", "lstm", "rnn"])
-def test_float32_on_cuda_is_refused(rnn_type):
-    """Float32 on CUDA serves GRU models through the GRU kernels' float32
-    variants (B1-B4); an LSTM or tanh-RNN model, whose kernels have none yet
-    (ROADMAP A6b-2), is refused when it is loaded, not at its first
-    transcription. The engine's ``_device_params`` asks the pure function
-    of (rnn_type, device type) below for a float32 engine: no card needed."""
+def test_float32_on_cuda_is_refused(rnn_type, monkeypatch):
+    """Float32 on CUDA resolves, and serves every rnn_type through the
+    recurrent kernels' float32 variants (GRU B1-B4, LSTM B5-B7, tanh B8-B9):
+    no type is refused. A float32 engine on CUDA holds the model's weights
+    in float32 for the device (the move to the device is recorded here, no
+    card needed)."""
     cfg = TConfig(model_name="x", rnn_type=rnn_type, rnn_hidden_size=8, rnn_layers=1,
                   conv_layers=2)
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
     assert _resolve_compute_dtype("float32", cuda) == "float32"
-    trnn.require_float32_kernels(cfg.rnn_type, cpu)
-    if rnn_type == "gru":
-        trnn.require_float32_kernels(cfg.rnn_type, cuda)
-    else:
-        with pytest.raises(NotImplementedError, match="A6b-2"):
-            trnn.require_float32_kernels(cfg.rnn_type, cuda)
+    moved = []
+    monkeypatch.setattr(tds, "params_to", lambda params, dev: moved.append(dev) or params)
+    eng = TEngine(device="cpu", compute_dtype="float32")
+    eng.device = cuda  # as a float32 engine on the card holds it
+    model = TModel.init_random(cfg, seed=0)
+    params = eng._device_params(model)
+    assert moved == [cuda] and params["rnns"][0]["fwd"].w_hh.dtype == torch.float32
     with pytest.raises(ValueError):
         _resolve_compute_dtype("float16", cpu)

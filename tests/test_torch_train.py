@@ -353,18 +353,14 @@ def test_train_state_copies_and_device_rules():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             tstep.init_train_state(cfg, opt)
     cpu, cuda = torch.device("cpu"), torch.device("cuda")
-    assert tstep._resolve_mixed_precision("auto", cpu, cfg) is False
-    assert tstep._resolve_mixed_precision("auto", cuda, cfg) is True
-    assert tstep._resolve_mixed_precision(True, cpu, cfg) is True
-    # float32 training on CUDA: the GRU kernels' float32 variants (B3, B4)
-    assert tstep._resolve_mixed_precision(False, cuda, cfg) is False
-    for rnn_type in ("lstm", "rnn"):  # no float32 kernels yet: refused there
-        other = TConfig(model_name="d", rnn_type=rnn_type, rnn_hidden_size=8,
-                        rnn_layers=1, conv_layers=1)
-        assert tstep._resolve_mixed_precision(False, cpu, other) is False
-        assert tstep._resolve_mixed_precision("auto", cuda, other) is True
-        with pytest.raises(NotImplementedError, match="A6b-2"):
-            tstep._resolve_mixed_precision(False, cuda, other)
+    assert tstep._resolve_mixed_precision("auto", cpu) is False
+    assert tstep._resolve_mixed_precision("auto", cuda) is True
+    assert tstep._resolve_mixed_precision(True, cpu) is True
+    assert tstep._resolve_mixed_precision(False, cpu) is False
+    # float32 training on CUDA, for every rnn_type: the recurrent kernels'
+    # float32 variants (GRU B3, B4; LSTM B5-B7; tanh B8, B9). The flag no
+    # longer depends on the config: no type is refused
+    assert tstep._resolve_mixed_precision(False, cuda) is False
 
 
 # ---------------------------------------------------------------------------

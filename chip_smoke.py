@@ -142,10 +142,21 @@ Phases, in order; any failure exits non-zero:
     "high", cuDNN TF32 on, as a user's may): a product and a convolution
     whose results TF32 would change show that ``ops/precision.py`` turns it
     off; (a) each float32 entry of B1-B4 (``csrc/gru_f32.cu``) against its
-    plain version (TF32 off) at ragged small shapes and at the layer shapes
+    plain version (TF32 off) at ragged small shapes (H = 72 and 100, T = 1,
+    a row of length 0, B = 150, reverse) and at the layer shapes
     (B3 T=401 B=128 H=1200 D=2016 and 1200; B1 T=401 B=128 H=2000 and the
     T=55 B=1 chunk; B2 H=1200 with carried states; B4 T=401 B=32 H=1200, one
-    chain and the pair), and of B5-B9 (``csrc/lstm_f32.cu``,
+    chain and the pair), B1, B2 and B3 in both designs (the persistent walk
+    ``gru_f32_persist_kernel`` and the step kernel) and also at B = 8, 9,
+    63, 64, 65, 128 (both sides of the plan's small-B switch and its tile
+    and pass boundaries; T=55, carried states for B1 and B2), their layer
+    shapes timed in both designs with µs a step by CUDA events (B3's walk
+    alone through B2's entry on its projected gx), the profiler's kernel
+    time with the launches it kept (none where it kept fewer than the call
+    made), and the resident share, and one B1 call at the chunk split by
+    the profiler (device time in the kernel against wall time) in each
+    design; and of
+    B5-B9 (``csrc/lstm_f32.cu``,
     ``csrc/rnn_tanh_f32.cu``) at ragged small shapes (H = 70, B = 150) and
     at LSTM5x800 / Tanh5x800's layer shapes (B5 and B8 T=401 B=128 H=800,
     B6, B7 and B9 T=401 B=32 H=800), one chain and a pair each, within
@@ -170,8 +181,10 @@ Phases, in order; any failure exits non-zero:
     on the CPU) and trained (two ``mixed_precision=False`` steps at B=32,
     8-row gradients against the plain path) as in (b) and (e). Every
     float32 path is checked to run with TF32 off (its entry points record
-    the flags), and each of the nine wrappers' float32 variants must be
-    launched on phase 12's paths; one ``{"float32": ...}`` line;
+    the flags), every float32 B1, B2 and B3 call on (b)-(e) to take the
+    persistent design (``design_counts``), and each of the nine wrappers'
+    float32 variants must be launched on phase 12's paths; one
+    ``{"float32": ...}`` line;
 13. one ``{"kernels": [...]}`` line of nine entries, each with a
     ``float32`` object, then the device line as the last line.
 
@@ -300,30 +313,44 @@ def time_ms(fn, iters: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms_by_kernel(fn, need: str | None = None, tries: int = 3) -> dict:
-    """Device time of one call of ``fn`` by kernel name (torch.profiler), ms.
-    Now and then the profiler returns a call without its device events (a
-    persistent walk read 0 ms beside its 6 ms by CUDA events): a reading
-    with no device time, or none for the kernel ``need`` names, is taken
-    again, up to ``tries`` calls in all."""
+def profile_events(fn, kernel: str | None = None, launches: int | None = None,
+                   tries: int = 3) -> dict:
+    """One call of ``fn`` under torch.profiler, as read: its wall time on
+    the host (ms), its device events as (name, start µs, end µs), how many
+    of them hold ``kernel`` in their name (all where it is None) and whether
+    the reading is whole. Now and then the profiler loses some or all of a
+    call's device events (a persistent walk read 0 ms beside its 6 ms by
+    CUDA events; a call of 401 step launches kept 361 of them): a reading
+    with no such event, or with other than ``launches`` of them where that
+    is given, is taken again, up to ``tries`` calls in all. The last reading
+    is returned as it is, ``whole`` False where it still falls short."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(tries):
-        out = {}
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
-        for e in prof.key_averages():
-            if e.device_type != DeviceType.CUDA:
-                continue
-            us = getattr(e, "device_time_total", None)
-            if us is None:
-                us = e.cuda_time_total
-            out[e.key] = out.get(e.key, 0.0) + us / 1e3
-        if out and (need is None or kernel_ms(out, need) > 0):
+            wall = (time.perf_counter() - t0) * 1e3
+        events = [(e.name, e.time_range.start, e.time_range.end) for e in prof.events()
+                  if e.device_type == DeviceType.CUDA
+                  and e.time_range.end > e.time_range.start]
+        count = len(events) if kernel is None else sum(kernel in e[0] for e in events)
+        whole = count > 0 and (launches is None or count == launches)
+        if whole:
             break
+    return {"wall_ms": wall, "events": events, "count": count, "whole": whole}
+
+
+def device_ms_by_kernel(fn, need: str | None = None, tries: int = 3) -> dict:
+    """Device time of one call of ``fn`` by kernel name, ms, as
+    :func:`profile_events` reads it (``need``: a kernel the reading must
+    hold)."""
+    out = {}
+    for name, start, end in profile_events(fn, need, tries=tries)["events"]:
+        out[name] = out.get(name, 0.0) + (end - start) / 1e3
     return out
 
 
@@ -4500,24 +4527,28 @@ def f32_bounds(kind, t, b, h, lengths, d=0, chains=1):
                                    + t * b * 4 * h + 2 * b * h) + 4 * b)
 
 
-def check_f32(name, label, run, plain, names, pad_of, lens, t):
+def check_f32(name, label, run, plain, names, pad_of, lens, t, design="step", ref=None):
     """One float32 entry against its plain version (TF32 off) on the same
-    inputs: every output held to F32_ATOL x max(1, max|ref|), float32, finite,
-    exact zeros past a row's length (``pad_of`` outputs). Returns the result
-    and the kernel's outputs' errors."""
+    inputs (``ref``, its outputs, where already computed): every output held
+    to F32_ATOL x max(1, max|ref|), float32, finite, exact zeros past a
+    row's length (``pad_of`` outputs); the call must take the float32
+    variant in ``design``. Returns the result and the kernel's outputs'
+    errors."""
     from danspeech_tpu_torch.ops import precision
 
     wrapper = kernel_wrappers()[name]
-    with precision.full_float32("cuda"):
-        ref = plain()
+    if ref is None:
+        with precision.full_float32("cuda"):
+            ref = plain()
     torch.cuda.synchronize()
     before = (wrapper.launches, wrapper.dtype_counts["float32"], dict(wrapper.design_counts))
     got = run()
     torch.cuda.synchronize()
     n = wrapper.launches - before[0]
     if n < 1 or wrapper.dtype_counts["float32"] - before[1] != n \
-            or wrapper.design_counts["step"] - before[2]["step"] != n:
-        raise AssertionError(f"{name} {label}: the call did not take the float32 variant")
+            or wrapper.design_counts[design] - before[2][design] != n:
+        raise AssertionError(f"{name} {label}: the call did not take the float32 variant's "
+                             f"{design} design")
     errs, worst = compare_outputs(f"{name} (float32) {label}", names, got, ref, F32_ATOL)
     if any(g.dtype != torch.float32 for g in got):
         raise AssertionError(f"{name} {label}: outputs not float32")
@@ -4525,105 +4556,260 @@ def check_f32(name, label, run, plain, names, pad_of, lens, t):
     for g in got[:pad_of]:
         if pad.any() and float(g[pad].abs().max()) != 0.0:
             raise AssertionError(f"{name} (float32) {label}: non-zero past a row's length")
-    log(f"  {name}[float32] {label}: max|err| "
+    log(f"  {name}[float32, {design}] {label}: max|err| "
         + ", ".join(f"{k}={v:.3e}" for k, v in errs.items())
         + f" (atol {F32_ATOL} x max(1, max|ref|))")
-    return {"label": label, "max_abs_err": worst, "errs": errs, "atol": F32_ATOL}
+    return {"label": label, "max_abs_err": worst, "errs": errs, "atol": F32_ATOL,
+            "design": design}
 
 
-def time_f32(res, run, plain, library, bound, steps, library_name="nn.GRU"):
-    """Kernel, plain version (TF32 off) and one cuDNN float32 call (TF32
-    off), in the order kernel, plain, library, kernel; the bound; and the
-    device time of the step kernels over ``steps`` launches. The rest of the
-    kernel's time is B3's projection or B4's and B7's recompute (the FFMA
-    GEMM) and the gaps between the launches: the profiler's record of a call
-    of some 400 launches holds the step kernels but not the short kernels
-    before them."""
+def check_f32_designs(name, label, run, plain, names, pad_of, lens, t):
+    """A float32 GRU forward entry (B1, B2, B3) in both designs against one
+    result of its plain version: ``run(design)`` calls it. Returns the
+    persistent design's result with the step design's inside."""
     from danspeech_tpu_torch.ops import precision
 
+    with precision.full_float32("cuda"):
+        ref = plain()
+    res = {d: check_f32(name, label, lambda d=d: run(d), None, names, pad_of, lens, t,
+                        design=d, ref=ref) for d in DESIGNS}
+    main = res["persistent"]
+    main["step_design"] = res["step"]
+    main["max_abs_err"] = max(r["max_abs_err"] for r in res.values())
+    return main
+
+
+def as_read(x, spec: str) -> str:
+    """``x`` in ``spec``, or "not read" where it is None."""
+    return "not read" if x is None else format(x, spec)
+
+
+def call_split(label, fn, kernel, launches):
+    """One call of ``fn`` under torch.profiler (:func:`profile_events`): its
+    wall time on the host, the device time of the kernels whose name holds
+    ``kernel`` and of all device events, their count, and the device's span
+    from the first one's start to the last one's end; what the span holds
+    beyond the events is the device idle between launches, what the wall
+    time holds beyond the span is the host before the first launch and
+    after the last. Where the reading holds other than ``launches`` of
+    ``kernel``, every device number is None: a trace that lost events says
+    nothing of the device."""
+    r = profile_events(fn, kernel, launches)
+    events, wall = r["events"], r["wall_ms"]
+    res = {"wall_ms": wall, "kernel_launches": r["count"], "launches": len(events),
+           "whole": r["whole"], "device_busy_ms": None, "device_span_ms": None,
+           "kernel_ms": None, "idle_between_launches_ms": None, "host_outside_span_ms": None}
+    if r["whole"]:
+        busy = sum(e - s for _, s, e in events) / 1e3
+        span = (max(e for *_, e in events) - min(s for _, s, _ in events)) / 1e3
+        res.update(device_busy_ms=busy, device_span_ms=span,
+                   kernel_ms=sum(e - s for n, s, e in events if kernel in n) / 1e3,
+                   idle_between_launches_ms=span - busy, host_outside_span_ms=wall - span)
+    log(f"    one call, {label}: wall {wall:.3f} ms; device busy "
+        f"{as_read(res['device_busy_ms'], '.3f')} ms over {len(events)} launches, "
+        f"{as_read(res['kernel_ms'], '.3f')} ms of it in {r['count']} (of {launches}) launches "
+        f"of {kernel}; device span {as_read(res['device_span_ms'], '.3f')} ms, idle between "
+        f"launches {as_read(res['idle_between_launches_ms'], '.3f')} ms, host outside the span "
+        f"{as_read(res['host_outside_span_ms'], '.3f')} ms")
+    return res
+
+
+def kernel_reading(fn, kernel, launches, steps):
+    """The profiler's device time of ``kernel`` in one call of ``fn``, which
+    launches it ``launches`` times, and that over ``steps`` in µs a step:
+    both None where the reading kept another count of its launches (a
+    reading short of them is not scaled up). Returns them with the count
+    the reading kept and all the device events it kept."""
+    r = profile_events(fn, kernel, launches)
+    ms = sum(e - s for n, s, e in r["events"] if kernel in n) / 1e3 if r["whole"] else None
+    return {"kernel_ms": ms, "kernel_us_a_step": None if ms is None else ms * 1e3 / steps,
+            "launches_profiled": r["count"], "device_events_profiled": len(r["events"])}
+
+
+def time_f32(res, designs, plain, library, bound, library_name="nn.GRU"):
+    """A float32 entry timed by CUDA events: the first design of
+    ``designs`` before the plain version (TF32 off) and one cuDNN float32
+    call (TF32 off) and again after them, each other design once in
+    between; the bound; and each design's :func:`kernel_reading`.
+    ``designs`` maps a design to (call, its walk's kernel as the profiler
+    names it, that kernel's launches a call, the steps it walks). The first
+    design's numbers go under their own keys, another's under
+    ``{design}_design_`` and the key."""
+    from danspeech_tpu_torch.ops import precision
+
+    (main, (run, *_)), *others = designs.items()
     a = time_ms(run, iters=2)
+    for d, (fn, *_) in others:
+        res[f"{d}_design_ms"] = time_ms(fn, iters=2)
     with precision.full_float32("cuda"):
         res["plain_ms"] = time_ms(plain, iters=1)
         res["library_ms"] = library()
     res["ms"] = 0.5 * (a + time_ms(run, iters=2))
     res["bound_ms"], res["bound_by"] = bound
-    # the profiler names some kernels mangled: match on the name anywhere
-    split = device_ms_by_kernel(run, need="_step_kernel")
-    res["step_kernel_ms"] = sum(ms for k, ms in split.items()
-                                if "_f32_" in k and "step_kernel" in k)
-    res["us_a_step"] = res["step_kernel_ms"] * 1e3 / steps
-    log(f"    float32 ms={res['ms']:.3f} (step kernels {res['step_kernel_ms']:.3f} = "
-        f"{res['us_a_step']:.1f} us a step over {steps}; the rest "
-        f"{res['ms'] - res['step_kernel_ms']:.3f}) plain_ms={res['plain_ms']:.3f} "
-        f"library_ms(cuDNN {library_name} float32, TF32 off)={res['library_ms']:.3f} "
-        f"bound_ms={res['bound_ms']:.4f} ({res['bound_by']}, FP32 "
-        f"{PEAK_FP32_FLOPS / 1e12:.0f} TFLOP/s)")
+    for d, (fn, kernel, launches, steps) in designs.items():
+        tag = "" if d == main else f"{d}_design_"
+        got = kernel_reading(fn, kernel, launches, steps)
+        res.update({tag + k: v for k, v in got.items()})
+        log(f"    float32 {d} design: ms={res[tag + 'ms']:.3f}; the profiler's "
+            f"{kernel}: {as_read(got['kernel_ms'], '.3f')} ms = "
+            f"{as_read(got['kernel_us_a_step'], '.1f')} us a step over {steps} "
+            f"({got['launches_profiled']} of {launches} launches kept, "
+            f"{got['device_events_profiled']} device events)")
+    log(f"    plain_ms={res['plain_ms']:.3f} library_ms(cuDNN {library_name} float32, "
+        f"TF32 off)={res['library_ms']:.3f} bound_ms={res['bound_ms']:.4f} "
+        f"({res['bound_by']}, FP32 {PEAK_FP32_FLOPS / 1e12:.0f} TFLOP/s)")
     return res
+
+
+# the float32 GRU forward walk's kernels by design, as the profiler names them
+F32_FORWARD_KERNELS = {"persistent": "gru_f32_persist_kernel",
+                       "step": "gru_f32_step_kernel"}
+
+
+def time_f32_forward(res, run, plain, library, bound, plan, t, steps, walk=None):
+    """B1, B2, B3 in float32 by :func:`time_f32`: the persistent design
+    (one launch of its walk over ``steps``) first, then the step design
+    (``t`` launches); µs a step by CUDA events over each design's walk: the
+    call's time for B1 and B2, for B3 that of ``walk(design)``, its
+    recurrence without the projection (B2's entry on the layer's projected
+    gx, which plans and launches the same walk); the plan's resident
+    share."""
+    runs = {d: (lambda d=d: run(d)) for d in DESIGNS}
+    time_f32(res, {"persistent": (runs["persistent"], F32_FORWARD_KERNELS["persistent"], 1,
+                                  steps),
+                   "step": (runs["step"], F32_FORWARD_KERNELS["step"], t, t)},
+             plain, library, bound)
+    for d, walked in (("persistent", steps), ("step", t)):
+        tag = "" if d == "persistent" else "step_design_"
+        ms = res[f"{tag}ms"]
+        if walk is not None:
+            ms = res[f"{tag}walk_ms"] = time_ms(lambda d=d: walk(d), iters=2)
+        res[f"{tag}us_a_step"] = ms * 1e3 / walked
+    res.update(design="persistent", resident_share=plan.resident_share,
+               plan={k: getattr(plan, k) for k in (
+                   "product", "chains", "units", "grid", "threads", "k_splits",
+                   "rows_per_pass", "chunk_depth", "stages", "resident_depth",
+                   "padded_depth", "smem_bytes")})
+    log(f"    float32 persistent: {res['us_a_step']:.1f} us a step by CUDA events over "
+        f"{steps} walked{' (the walk alone)' if walk else ''}, {plan.product} product, "
+        f"{plan.grid} blocks of {plan.threads}, resident share {plan.resident_share:.3f}; "
+        f"step design {res['step_design_us_a_step']:.1f} us a step over {t} launches")
+    return res
+
+
+# the float32 GRU forward walk's batches around the plan's switch from the
+# small-B product to the tiled one (persist_plan.F32_DOT_ROWS = 8) and its
+# tile and pass boundaries, each with carried states where the entry takes
+# them
+F32_BOUNDARY_BATCHES = (8, 9, 63, 64, 65, 128)
+
+
+def boundary_lengths(b, t):
+    """Ragged lengths over ``b`` rows: the first row the whole of ``t``,
+    the others spread over 0 .. t."""
+    return [t] + [(7 * i) % (t + 1) for i in range(1, b)]
 
 
 def phase_f32_kernels(card):
     """12a: each float32 entry against its plain version on the card at
-    ragged small shapes and at the layer shapes, the layer shapes timed."""
-    from danspeech_tpu_torch.ops import gru_cuda
+    ragged small shapes and at the layer shapes, the layer shapes timed; B1,
+    B2 and B3 in both designs, also at batches around the plan's switch and
+    boundaries, and one B1 call at the streaming chunk split by the
+    profiler in each design."""
+    from danspeech_tpu_torch.ops import gru_cuda, persist_plan, precision
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(120)
     out = {k: [] for k in ("gru_bidi_fused", "gru_scan", "gru_scan_bidi", "gru_bwd_scan")}
+    info = gru_cuda.device_info(torch.device("cuda", torch.cuda.current_device()))
 
-    # B3: the fused layer
+    # B3: the fused layer, h0 = 0
     fused_names = ("out_f", "out_b", "h_last_f", "h_last_b")
-    for t, b, d, h, lengths, timed in (
-            (37, 5, 96, 64, [37, 1, 20, 36, 5], False),
-            (9, 3, 50, 100, [9, 1, 4], False),  # H, D no multiples of 4 or 8
-            (7, 150, 64, 72, [7, 1] + [1 + (i % 7) for i in range(148)], False),
-            (401, 128, 2016, 1200, "flag", True), (401, 128, 1200, 1200, "flag", True)):
+    cases = [(37, 5, 96, 64, [37, 1, 20, 36, 5], False),
+             (9, 3, 50, 100, [9, 1, 4], False),  # H, D no multiples of 4 or 8
+             (1, 2, 50, 72, [1, 0], False),      # T = 1, a row of length 0
+             (7, 150, 64, 72, [7, 1] + [1 + (i % 7) for i in range(148)], False)]
+    cases += [(STREAM_T, b, 1200, 1200, boundary_lengths(b, STREAM_T), False)
+              for b in F32_BOUNDARY_BATCHES]
+    cases += [(401, 128, 2016, 1200, "flag", True), (401, 128, 1200, 1200, "flag", True)]
+    for t, b, d, h, lengths, timed in cases:
         if lengths == "flag":
             lengths = np.random.default_rng(d).integers(1, 402, size=b)
             lengths[0], lengths[1] = 401, 1
             lengths = lengths.tolist()
         args = gru_layer_inputs(gen, t, b, d, h, lengths, dtype=torch.float32)
         label = f"T={t} B={b} D={d} H={h}"
-        res = check_f32("gru_bidi_fused", label, lambda: gru_cuda.gru_bidi_fused(*args),
-                        lambda: gru_cuda.gru_bidi_fused_plain(*args), fused_names, 2,
-                        args[1], t)
+
+        def run(design, args=args):
+            return gru_cuda.gru_bidi_fused(*args, design=design)
+
+        res = check_f32_designs("gru_bidi_fused", label, run,
+                                lambda: gru_cuda.gru_bidi_fused_plain(*args), fused_names, 2,
+                                args[1], t)
         if timed and d == 2016:
             res["label"] = "flagship layer 0"
-            time_f32(res, lambda: gru_cuda.gru_bidi_fused(*args),
-                     lambda: gru_cuda.gru_bidi_fused_plain(*args),
-                     lambda: cudnn_rnn_ms(torch.nn.GRU(d, h, bidirectional=True), gen, t,
-                                          b, h, backward=False, dtype=torch.float32),
-                     f32_bounds("gru_bidi_fused", t, b, h, lengths, d=d), t)
+            x, lens, w_ih_f, w_ih_b, *rest = args
+            with precision.full_float32("cuda"):  # the projection, bias-free
+                gx = [x @ w for w in (w_ih_f, w_ih_b)]
+            h0 = torch.zeros(b, h, device="cuda")
+
+            def walk(design, gx=gx, lens=lens, rest=rest, h0=h0):
+                return gru_cuda.gru_scan_bidi(*gx, lens, *rest, h0, h0, design=design)
+
+            time_f32_forward(res, run, lambda: gru_cuda.gru_bidi_fused_plain(*args),
+                             lambda: cudnn_rnn_ms(torch.nn.GRU(d, h, bidirectional=True), gen,
+                                                  t, b, h, backward=False, dtype=torch.float32),
+                             f32_bounds("gru_bidi_fused", t, b, h, lengths, d=d),
+                             persist_plan.plan_gru_f32_forward(h, b, 2, *info), t,
+                             max(lengths), walk=walk)
+            del gx, walk
         elif timed:
-            res["ms"] = time_ms(lambda: gru_cuda.gru_bidi_fused(*args), iters=2)
+            res["ms"] = time_ms(lambda: run("persistent"), iters=2)
+            res["step_design_ms"] = time_ms(lambda: run("step"), iters=2)
             res["bound_ms"], res["bound_by"] = f32_bounds("gru_bidi_fused", t, b, h,
                                                           lengths, d=d)
-            log(f"    float32 ms={res['ms']:.3f} bound_ms={res['bound_ms']:.4f}")
+            log(f"    float32 persistent ms={res['ms']:.3f} step design "
+                f"ms={res['step_design_ms']:.3f} bound_ms={res['bound_ms']:.4f}")
         out["gru_bidi_fused"].append(res)
         del args
     torch.cuda.empty_cache()
 
-    # B1: one chain
+    # B1: one chain, carried h0
     uni = np.random.default_rng(2000).integers(1, 402, size=128)
     uni[0], uni[1] = 401, 1
-    for t, lengths, h, reverse, label, timed in (
-            (13, [13, 1, 7, 12, 3], 72, False, "small", False),
-            (13, [13, 1, 7, 12, 3], 72, True, "small reverse", False),
-            (9, [9, 0, 4], 100, True, "small H=100", False),
-            (7, [7, 1] + [1 + (i % 7) for i in range(148)], 72, False, "small B=150", False),
-            (401, uni.tolist(), 2000, False, "uni batch layer", True),
-            (STREAM_T, [STREAM_VALID], 2000, False, "streaming step", True)):
+    cases = [(13, [13, 1, 7, 12, 3], 72, False, "small", False),
+             (13, [13, 1, 7, 12, 3], 72, True, "small reverse", False),
+             (9, [9, 0, 4], 100, True, "small H=100", False),
+             (1, [1, 0], 72, False, "small T=1", False),
+             (7, [7, 1] + [1 + (i % 7) for i in range(148)], 72, False, "small B=150", False)]
+    cases += [(STREAM_T, boundary_lengths(b, STREAM_T), 2000, b % 2 == 1, f"boundary B={b}",
+               False) for b in F32_BOUNDARY_BATCHES]
+    cases += [(401, uni.tolist(), 2000, False, "uni batch layer", True),
+              (STREAM_T, [STREAM_VALID], 2000, False, "streaming step", True)]
+    for t, lengths, h, reverse, label, timed in cases:
         args = scan_inputs(gen, t, lengths, h, carried=True, dtype=torch.float32)
-        res = check_f32("gru_scan", f"{label} T={t} B={len(lengths)} H={h}",
-                        lambda: gru_cuda.gru_scan(*args, reverse=reverse),
-                        lambda: gru_cuda.gru_scan_plain(*args, reverse=reverse),
-                        ("out", "h_last"), 1, args[1], t)
+
+        def run(design, args=args, reverse=reverse):
+            return gru_cuda.gru_scan(*args, reverse=reverse, design=design)
+
+        res = check_f32_designs("gru_scan", f"{label} T={t} B={len(lengths)} H={h} "
+                                f"reverse={reverse}", run,
+                                lambda: gru_cuda.gru_scan_plain(*args, reverse=reverse),
+                                ("out", "h_last"), 1, args[1], t)
         res["label"] = label
         if timed:
-            time_f32(res, lambda: gru_cuda.gru_scan(*args, reverse=reverse),
-                     lambda: gru_cuda.gru_scan_plain(*args, reverse=reverse),
-                     lambda: cudnn_rnn_ms(torch.nn.GRU(h, h), gen, t, len(lengths), h,
-                                          backward=False, dtype=torch.float32),
-                     f32_bounds("gru_scan", t, len(lengths), h, lengths), t)
+            time_f32_forward(res, run, lambda: gru_cuda.gru_scan_plain(*args, reverse=reverse),
+                             lambda: cudnn_rnn_ms(torch.nn.GRU(h, h), gen, t, len(lengths), h,
+                                                  backward=False, dtype=torch.float32),
+                             f32_bounds("gru_scan", t, len(lengths), h, lengths),
+                             persist_plan.plan_gru_f32_forward(h, len(lengths), 1, *info), t,
+                             max(lengths))
+        if label == "streaming step":
+            # where one call's time goes, in each design
+            res["split"] = {d: call_split(f"B1 {d} design T={t} B=1 H={h}",
+                                          lambda d=d: run(d), F32_FORWARD_KERNELS[d],
+                                          1 if d == "persistent" else t)
+                            for d in DESIGNS}
         out["gru_scan"].append(res)
         del args
     torch.cuda.empty_cache()
@@ -4631,25 +4817,34 @@ def phase_f32_kernels(card):
     # B2: both chains, carried states
     bidi = np.random.default_rng(1200).integers(1, 402, size=128)
     bidi[0], bidi[1] = 401, 1
-    for t, lengths, h, label, timed in (
-            (13, [13, 1, 7, 12, 3], 72, "small", False),
-            (9, [9, 0, 4], 100, "small H=100", False),
-            (401, bidi.tolist(), 1200, "bidi batch layer", True)):
+    cases = [(13, [13, 1, 7, 12, 3], 72, "small", False),
+             (9, [9, 0, 4], 100, "small H=100", False),
+             (1, [1, 0], 72, "small T=1", False),
+             (7, [7, 1] + [1 + (i % 7) for i in range(148)], 72, "small B=150", False)]
+    cases += [(STREAM_T, boundary_lengths(b, STREAM_T), 1200, f"boundary B={b}", False)
+              for b in F32_BOUNDARY_BATCHES]
+    cases += [(401, bidi.tolist(), 1200, "bidi batch layer", True)]
+    for t, lengths, h, label, timed in cases:
         f = scan_inputs(gen, t, lengths, h, carried=True, dtype=torch.float32)
         r = scan_inputs(gen, t, lengths, h, carried=True, dtype=torch.float32)
         args = (f[0], r[0], f[1], f[2], r[2], f[3], r[3], f[4], r[4], f[5], r[5])
-        res = check_f32("gru_scan_bidi", f"{label} T={t} B={len(lengths)} H={h}",
-                        lambda: gru_cuda.gru_scan_bidi(*args),
-                        lambda: gru_cuda.gru_scan_bidi_plain(*args),
-                        ("out_f", "out_b", "h_last_f", "h_last_b"), 2, f[1], t)
+
+        def run(design, args=args):
+            return gru_cuda.gru_scan_bidi(*args, design=design)
+
+        res = check_f32_designs("gru_scan_bidi", f"{label} T={t} B={len(lengths)} H={h}",
+                                run, lambda: gru_cuda.gru_scan_bidi_plain(*args),
+                                ("out_f", "out_b", "h_last_f", "h_last_b"), 2, f[1], t)
         res["label"] = label
         if timed:
-            time_f32(res, lambda: gru_cuda.gru_scan_bidi(*args),
-                     lambda: gru_cuda.gru_scan_bidi_plain(*args),
-                     lambda: cudnn_rnn_ms(torch.nn.GRU(h, h, bidirectional=True), gen, t,
-                                          len(lengths), h, backward=False,
-                                          dtype=torch.float32),
-                     f32_bounds("gru_scan_bidi", t, len(lengths), h, lengths, chains=2), t)
+            time_f32_forward(res, run, lambda: gru_cuda.gru_scan_bidi_plain(*args),
+                             lambda: cudnn_rnn_ms(torch.nn.GRU(h, h, bidirectional=True), gen,
+                                                  t, len(lengths), h, backward=False,
+                                                  dtype=torch.float32),
+                             f32_bounds("gru_scan_bidi", t, len(lengths), h, lengths,
+                                        chains=2),
+                             persist_plan.plan_gru_f32_forward(h, len(lengths), 2, *info), t,
+                             max(lengths))
         out["gru_scan_bidi"].append(res)
         del args, f, r
     torch.cuda.empty_cache()
@@ -4673,11 +4868,12 @@ def phase_f32_kernels(card):
                             walk_names, 2, a[3], t)
             if timed and reverse:
                 res["label"] = label
-                time_f32(res, lambda: gru_cuda.gru_bwd_scan(*a, reverse=True),
+                time_f32(res, {"step": (lambda: gru_cuda.gru_bwd_scan(*a, reverse=True),
+                                        "gru_f32_bwd_step_kernel", t + 1, t + 1)},
                          lambda: gru_cuda.gru_bwd_scan_plain(*a, reverse=True),
                          lambda: cudnn_rnn_ms(torch.nn.GRU(h, h), gen, t, len(lengths), h,
                                               backward=True, dtype=torch.float32),
-                         f32_bounds("gru_bwd_scan", t, len(lengths), h, lengths), t + 1)
+                         f32_bounds("gru_bwd_scan", t, len(lengths), h, lengths))
                 main = res
             out["gru_bwd_scan"].append(res)
         c = bwd_inputs(gen, t, lengths, h, lens=a[3], dtype=torch.float32)
@@ -4777,10 +4973,12 @@ def check_f32_rnn(kind, gen, label, t, lengths, h, timed):
     pres["label"] = f"{label}, pair"
     if timed:
         lib = torch.nn.LSTM(h, h) if lstm else torch.nn.RNN(h, h, nonlinearity="tanh")
-        time_f32(res, run, run_plain,
+        steps = t + 1 if backward else t
+        kernel = f"{'lstm' if lstm else 'rnn_tanh'}_f32_{'bwd_' if backward else ''}step_kernel"
+        time_f32(res, {"step": (run, kernel, steps, steps)}, run_plain,
                  lambda: cudnn_rnn_ms(lib, gen, t, len(lengths), h, backward=backward,
                                       dtype=torch.float32),
-                 f32_bounds(kind, t, len(lengths), h, lengths), t + 1 if backward else t,
+                 f32_bounds(kind, t, len(lengths), h, lengths),
                  library_name=f"nn.{type(lib).__name__}")
         res["pair_ms_per_chain"] = 0.5 * time_ms(pair, iters=2)
         log(f"    float32 pair: {res['pair_ms_per_chain']:.3f} ms a chain")
@@ -4837,19 +5035,32 @@ def f32_rows_vs(label, probs, ref, lens, rows):
     return {"rows": len(lens), "max_abs_prob_err": worst, "least_row_argmax_agreement": least}
 
 
+# the float32 GRU forward wrappers, whose float32 calls on the paths must
+# take the persistent design
+F32_PERSISTENT = ("gru_bidi_fused", "gru_scan", "gru_scan_bidi")
+
+
 def f32_launches(before):
     """The float32 launches of B1-B9 since ``before`` (a read of
     :func:`f32_counts`); every launch of those wrappers since then must have
-    been a float32 one."""
+    been a float32 one, and every call of B1, B2 and B3 must have taken the
+    persistent design (their ``design_counts``), which is logged."""
     now = f32_counts()
     got = {k: now[k][0] - before[k][0] for k in now}
     if any(now[k][1] - before[k][1] != got[k] for k in now):
         raise AssertionError(f"a bf16 launch on a float32 path: {before} -> {now}")
+    designs = {k: {d: now[k][2][d] - before[k][2][d] for d in DESIGNS}
+               for k in F32_PERSISTENT if got[k]}
+    log(f"    design_counts of the float32 GRU forward calls: {designs}")
+    if any(c["step"] or c["persistent"] != got[k] for k, c in designs.items()):
+        raise AssertionError(f"a float32 GRU forward call on a path did not take the "
+                             f"persistent design: {designs}")
     return got
 
 
 def f32_counts():
-    return {k: (w.dtype_counts["float32"], w.launches) for k, w in kernel_wrappers().items()}
+    return {k: (w.dtype_counts["float32"], w.launches, dict(w.design_counts))
+            for k, w in kernel_wrappers().items()}
 
 
 def f32_cohort(card, smodel, launches):
@@ -5285,15 +5496,26 @@ PHASE_CLOCKS = {1: "grid barrier", 2: "prefetch of the next step's streams", 9: 
                 3: "epilogue", 0: "other"}
 
 
+# the sums gru_f32.cu's persistent walk keeps when built with -DPS_PROFILE:
+# a step is barrier + the first chunks' copies + (per chunk) the wait and the
+# block's barrier + the FFMAs (and thread 0's copies of the next chunk) +
+# the partial sums + the epilogue
+F32_PHASE_CLOCKS = {1: "grid barrier", 2: "copies of the first chunks",
+                    5: "waiting for a chunk (and the block's barrier)",
+                    10: "FFMAs (and thread 0's copies of the next chunk)",
+                    8: "partial sums to shared memory", 3: "epilogue", 0: "other"}
+
+
 def phase_clocks(card):
-    """Builds the seven persistent kernels' sources with -DPS_PROFILE into a
-    build directory of their own, runs the persistent kernels once at the
-    flagship, the 2000-wide, the streaming, the bidi batch and the LSTM and
+    """Builds the seven persistent kernels' sources and ``gru_f32`` with
+    -DPS_PROFILE into a build directory of their own, runs the persistent
+    kernels once at the flagship, the 2000-wide, the streaming, the bidi batch and the LSTM and
     tanh-RNN serving and training shapes, and prints the clocks that thread
     0 of block 0 spent per step in each part (the instrumented build is a
     little slower than the plain one). The tanh pairs run once more with
     wider slices on fewer blocks, the plan's knob, to compare within the
-    call."""
+    call; the float32 GRU forward walk runs at B1's streaming and batch
+    shapes, B2's and B3's flagship layer."""
     import ctypes
 
     from danspeech_tpu_torch.ops import cuda_build, gru_cuda, lstm_cuda, persist_plan, rnn_tanh_cuda
@@ -5301,7 +5523,7 @@ def phase_clocks(card):
     cuda_build.NVCC_FLAGS.append("-DPS_PROFILE")
     cuda_build.BUILD_DIR = os.path.join(cuda_build.BUILD_DIR, "profile")
     cuda_build.build("gru_bidi_fused", "gru_bwd", "gru_scan", "lstm_scan", "lstm_bwd",
-                     "rnn_tanh_scan", "rnn_tanh_bwd")
+                     "rnn_tanh_scan", "rnn_tanh_bwd", "gru_f32")
 
     def read(lib):
         fn = cuda_build.load(lib).persist_prof_read
@@ -5325,9 +5547,44 @@ def phase_clocks(card):
             log(f"    {name:40s} {sums[i] / steps:9.0f} clocks a step "
                 f"{100 * sums[i] / max(step, 1):5.1f}%")
 
+    def report_f32(tag, fn, steps):
+        fn()
+        torch.cuda.synchronize()
+        read("gru_f32")
+        ms = time_ms(fn, iters=1, warmup=0)
+        sums = read("gru_f32")
+        step = sum(sums)
+        log(f"  {tag}: {ms:.3f} ms a call, {step / steps:.0f} clocks a step [{card}]")
+        for i, name in F32_PHASE_CLOCKS.items():
+            log(f"    {name:48s} {sums[i] / steps:9.0f} clocks a step "
+                f"{100 * sums[i] / max(step, 1):5.1f}%")
+
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     t = 401
+    # the float32 GRU forward walk (persistent): B1 at the streaming chunk and
+    # the uni batch, B2 at the bidi batch layer, B3 at the flagship's layer 0
+    for label, tt, lengths in (("streaming step", STREAM_T, [STREAM_VALID]),
+                               ("uni batch layer", t, [t] + [1 + (7 * i) % t
+                                                             for i in range(127)])):
+        args = scan_inputs(gen, tt, lengths, 2000, carried=True, dtype=torch.float32)
+        report_f32(f"gru_scan float32 {label} T={tt} B={len(lengths)} H=2000",
+                   lambda: gru_cuda.gru_scan(*args, design="persistent"), max(lengths))
+        del args
+    flag = np.random.default_rng(2016).integers(1, 402, size=128)
+    flag[0] = 401
+    fwd = scan_inputs(gen, t, flag.tolist(), 1200, carried=True, dtype=torch.float32)
+    bwd = scan_inputs(gen, t, flag.tolist(), 1200, carried=True, dtype=torch.float32)
+    report_f32(f"gru_scan_bidi float32 T={t} B=128 H=1200",
+               lambda: gru_cuda.gru_scan_bidi(fwd[0], bwd[0], fwd[1], fwd[2], bwd[2], fwd[3],
+                                              bwd[3], fwd[4], bwd[4], fwd[5], bwd[5],
+                                              design="persistent"), t)
+    del fwd, bwd
+    args = gru_layer_inputs(gen, t, 128, 2016, 1200, flag.tolist(), dtype=torch.float32)
+    report_f32(f"gru_bidi_fused float32 T={t} B=128 D=2016 H=1200",
+               lambda: gru_cuda.gru_bidi_fused(*args, design="persistent"), t)
+    del args
+    torch.cuda.empty_cache()
     for b in (128, 32):
         lengths = np.random.default_rng(1200).integers(1, 402, size=b)
         lengths[0], lengths[1] = 401, 1
@@ -5470,9 +5727,12 @@ def main(argv=None) -> int:
         f[:-3] for f in os.listdir(cuda_build.CSRC_DIR) if f.endswith(".cu")))
     log(f"build: {time.perf_counter() - t0:.1f} s")
     for name, text in build_logs.items():
+        entry = ""  # the function ptxas reports on
         for line in text.splitlines():
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1] if "'" in line else ""
             if "registers" in line or "spill" in line or "error" in line:
-                log(f"  {name}: {line.strip()}")
+                log(f"  {name}: {entry}: {line.strip()}")
 
     if args.only:
         if args.only == 8:
@@ -5591,10 +5851,15 @@ def main(argv=None) -> int:
         source, library = F32_SOURCES[name]
         e["float32"] = {
             **{k: main[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
-                                    "step_kernel_ms", "us_a_step")},
-            **({"pair_ms_per_chain": main["pair_ms_per_chain"]}
-               if "pair_ms_per_chain" in main else {}),
-            "source": f"danspeech_tpu_torch/csrc/{source}.cu", "design": "step",
+                                    "kernel_ms", "kernel_us_a_step", "launches_profiled")},
+            **{k: main[k] for k in (
+                "us_a_step", "walk_ms", "pair_ms_per_chain", "step_design_ms",
+                "step_design_walk_ms", "step_design_us_a_step", "step_design_kernel_ms",
+                "step_design_kernel_us_a_step", "step_design_launches_profiled",
+                "resident_share", "plan", "split")
+               if k in main},
+            "source": f"danspeech_tpu_torch/csrc/{source}.cu",
+            "design": main.get("design", "step"),
             "launches": float32["launches"][name],
             "max_abs_err": max(c["max_abs_err"] for c in checks), "atol": F32_ATOL,
             "library": f"one cuDNN {library} call in float32, TF32 off",

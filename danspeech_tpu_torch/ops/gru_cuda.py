@@ -25,10 +25,14 @@ the ``design=`` argument of the wrappers overrides the choice for checks.
 Each wrapper takes two sets of operands, told apart by the dtype of its
 sequence: bf16 sequences and weights with f32 biases and states (the
 designs above), or everything in float32, which runs the float32 variants of
-``csrc/gru_f32.cu`` (step design only: their f32 weights do not stay
-resident; ``design="persistent"`` raises ``NotImplementedError``). A mixed
-set raises ``TypeError``. ``<wrapper>.dtype_counts`` counts the CUDA calls
-by the set taken.
+``csrc/gru_f32.cu``. Their forward walk (B1, B2, B3's recurrence) has both
+designs too: "persistent" is one cooperative launch of
+``gru_f32_persist_kernel``, each block keeping what fits of its float32 slice
+resident and streaming the rest from L2 (:func:`persist_plan.plan_gru_f32_forward`
+plans it), "step" one launch per time step. The float32 backward walk (B4) has
+the step design only (``design="persistent"`` raises
+``NotImplementedError``). A mixed set raises ``TypeError``.
+``<wrapper>.dtype_counts`` counts the CUDA calls by the set taken.
 
 A wrapper launches its kernel for CUDA tensors and raises on anything the
 kernel does not take; for CPU tensors, and only for those, it runs the plain
@@ -75,29 +79,50 @@ def device_info(device: torch.device) -> tuple[int, int]:
 
 
 _transposes: dict[int, tuple] = {}
+_f32_slices: dict[tuple, tuple] = {}
 
 
-def transposed(w: torch.Tensor) -> torch.Tensor:
-    """``w.t().contiguous()``, kept per weight tensor for as long as it lives
-    with the same storage and version counter. The persistent ``gru_scan`` and
-    LSTM routes read rows of w_hh^T; remade at every call, the 24 MB copies
-    of GPUStreamingRNN's five layers took 12.7% of a streaming chunk's device
-    time (PERF.md). A tensor written in place (an optimizer step) has a
-    new version and is transposed again; an inference tensor keeps no version
-    and is transposed at every call."""
+def _kept(cache: dict, key, w: torch.Tensor, make):
+    """``make(w)``, kept in ``cache`` under ``key`` for as long as ``w`` lives
+    with the same storage and version counter. A tensor written in place (an
+    optimizer step) has a new version and is made again; an inference tensor
+    keeps no version and is made at every call."""
     try:
         version = w._version
     except RuntimeError:
-        return w.t().contiguous()
-    key = id(w)
-    hit = _transposes.get(key)
+        return make(w)
+    hit = cache.get(key)
     if (hit is not None and hit[0]() is w and hit[1] == version
             and hit[2] == w.data_ptr()):
         return hit[3]
-    wt = w.t().contiguous()
-    _transposes[key] = (weakref.ref(w, lambda _, k=key: _transposes.pop(k, None)),
-                        version, w.data_ptr(), wt)
-    return wt
+    made = make(w)
+    cache[key] = (weakref.ref(w, lambda _, k=key: cache.pop(k, None)),
+                  version, w.data_ptr(), made)
+    return made
+
+
+def transposed(w: torch.Tensor) -> torch.Tensor:
+    """``w.t().contiguous()``, kept per weight tensor (:func:`_kept`). The
+    persistent ``gru_scan`` and LSTM routes read rows of w_hh^T; remade at
+    every call, the 24 MB copies of GPUStreamingRNN's five layers took 12.7%
+    of a streaming chunk's device time (PERF.md)."""
+    return _kept(_transposes, id(w), w, lambda m: m.t().contiguous())
+
+
+def f32_slices(w: torch.Tensor, units: int, blocks: int, depth: int) -> torch.Tensor:
+    """Float32 w_hh (H, 3H) as the persistent float32 walk reads it: (blocks,
+    depth, 3 * units), block k's column g * units + u at depth d holding
+    w_hh[d, g * H + k * units + u], zeros for units past H and depths past H,
+    so that any run of depths of a block's slice is contiguous. Kept per
+    weight tensor and cut (:func:`_kept`)."""
+    def make(m):
+        hidden = m.shape[0]
+        packed = m.new_zeros((depth, 3, blocks * units))
+        packed[:hidden, :, :hidden] = m.reshape(hidden, 3, hidden)
+        return (packed.reshape(depth, 3, blocks, units).permute(2, 0, 1, 3)
+                .reshape(blocks, depth, 3 * units).contiguous())
+
+    return _kept(_f32_slices, (id(w), units, blocks, depth), w, make)
 
 
 def gru_bidi_fused_plain(
@@ -199,7 +224,8 @@ def gru_bidi_fused(
     lengths, all contiguous on x's device; or everything float32, the
     float32 variant) or raises; a CPU ``x`` runs the plain version.
     ``design`` is None (the plan of :func:`persist_plan.plan_gru_forward`
-    decides), "persistent" or "step";
+    decides, :func:`persist_plan.plan_gru_f32_forward` for float32),
+    "persistent" or "step";
     ``gru_bidi_fused.design_counts`` counts the CUDA calls by the design taken.
     ``gru_bidi_fused.launches`` counts kernel launches (one per call: the
     projection and the recurrence of one layer). The kernel keeps the
@@ -224,8 +250,12 @@ def gru_bidi_fused(
     hidden = w_hh_f.shape[0]
     dev = x.device
     if dtype == torch.float32:
-        design = persist_plan.float32_design(design)
-        result = _bidi_fused_f32(x, lengths, *args)
+        planned = persist_plan.plan_gru_f32_forward(hidden, batch, 2, *device_info(dev))
+        design = persist_plan.choose(design, planned)
+        if design == "persistent":
+            result = _bidi_fused_f32_persistent(x, lengths, *args, planned=planned)
+        else:
+            result = _bidi_fused_f32(x, lengths, *args)
         count(gru_bidi_fused, design, dtype)
         return result
     planned = persist_plan.plan_gru_forward(hidden, batch, *device_info(dev))
@@ -293,6 +323,33 @@ def _bidi_fused_f32(x, lengths, w_ih_f, w_ih_b, w_hh_f, w_hh_b, b_ih_f, b_ih_b,
         b_hh_f.data_ptr(), b_hh_b.data_ptr(), gx.data_ptr(), h32.data_ptr(),
         out.data_ptr(), t_max, batch, d_in, hidden)
     last = h32[t_max % 2]  # the buffer the final step wrote
+    return out[0], out[1], last[0], last[1]
+
+
+def _bidi_fused_f32_persistent(x, lengths, w_ih_f, w_ih_b, w_hh_f, w_hh_b, b_ih_f,
+                               b_ih_b, b_hh_f, b_hh_b, planned):
+    """The float32 variant, persistent (``csrc/gru_f32.cu``): the FFMA
+    projection of both directions into an f32 gx buffer, then both chains in
+    one cooperative launch of the planned grid."""
+    launch = cuda_build.bind("gru_f32", "gru_f32_bidi_fused_persist_launch", 15, 15)
+    t_max, batch, d_in = x.shape
+    hidden = w_hh_f.shape[0]
+    dev = x.device
+    slices = [f32_slices(w, planned.units, planned.blocks_per_dir, planned.padded_depth)
+              for w in (w_hh_f, w_hh_b)]
+    gx = torch.empty((2, t_max, batch, 3 * hidden), dtype=torch.float32, device=dev)
+    hx = torch.zeros((2, 2, planned.padded_depth, planned.padded_rows),
+                     dtype=torch.float32, device=dev)
+    last = torch.empty((2, batch, hidden), dtype=torch.float32, device=dev)
+    out = torch.empty((2, t_max, batch, hidden), dtype=torch.float32, device=dev)
+    barrier = torch.zeros((1,), dtype=torch.int32, device=dev)
+    cuda_build.call(
+        launch, "gru_bidi_fused (float32, persistent)", dev,
+        x.data_ptr(), lengths.data_ptr(), w_ih_f.data_ptr(), w_ih_b.data_ptr(),
+        slices[0].data_ptr(), slices[1].data_ptr(), b_ih_f.data_ptr(), b_ih_b.data_ptr(),
+        b_hh_f.data_ptr(), b_hh_b.data_ptr(), gx.data_ptr(), hx.data_ptr(),
+        last.data_ptr(), out.data_ptr(), barrier.data_ptr(),
+        t_max, batch, d_in, hidden, *planned.c_args())
     return out[0], out[1], last[0], last[1]
 
 
@@ -370,7 +427,8 @@ def gru_scan(gx, lengths, w_hh, b_ih, b_hh, h0, reverse: bool = False,
     lengths, all contiguous on gx's device; or everything float32, the
     float32 variant) or raises; a CPU ``gx`` runs the plain version.
     ``design`` is None (the plan of :func:`persist_plan.plan_gru_scan`
-    decides), "persistent" or "step";
+    decides, :func:`persist_plan.plan_gru_f32_forward` for float32),
+    "persistent" or "step";
     ``gru_scan.design_counts`` counts the CUDA calls by the design taken.
     ``gru_scan.launches`` counts kernel launches (one per call).
     """
@@ -380,8 +438,14 @@ def gru_scan(gx, lengths, w_hh, b_ih, b_hh, h0, reverse: bool = False,
         raise ValueError(f"unsupported device {gx.device}")
     dtype = _check_scan_operands(gx, lengths, w_hh, b_ih, b_hh, h0)
     if dtype == torch.float32:
-        design = persist_plan.float32_design(design)
-        result = _scan_f32([(gx, lengths, w_hh, b_ih, b_hh, h0)], [reverse])[0]
+        planned = persist_plan.plan_gru_f32_forward(w_hh.shape[0], gx.shape[1], 1,
+                                                    *device_info(gx.device))
+        design = persist_plan.choose(design, planned)
+        chain = [(gx, lengths, w_hh, b_ih, b_hh, h0)]
+        if design == "persistent":
+            result = _scan_f32_persistent(chain, [reverse], planned)[0]
+        else:
+            result = _scan_f32(chain, [reverse])[0]
         count(gru_scan, design, dtype)
         return result
     planned = persist_plan.plan_gru_scan(w_hh.shape[0], gx.shape[1],
@@ -403,9 +467,9 @@ gru_scan.dtype_counts = {"bfloat16": 0, "float32": 0}
 
 def _scan_f32(chains, reverses):
     """The float32 variant (``csrc/gru_f32.cu``) over one or two chains that
-    share T, B, H and lengths: T launches of the step kernel, each chain a
-    slice of the grid. ``chains`` holds (gx, lengths, w_hh, b_ih, b_hh, h0)
-    tuples; returns one (out, h_last) per chain."""
+    share T, B, H and lengths, step design: T launches of the step kernel,
+    each chain a slice of the grid. ``chains`` holds (gx, lengths, w_hh,
+    b_ih, b_hh, h0) tuples; returns one (out, h_last) per chain."""
     launch = cuda_build.bind("gru_f32", "gru_f32_scan_launch", 12, 6)
     gx, lengths, w_hh = chains[0][:3]
     t_max, batch, _ = gx.shape
@@ -425,6 +489,36 @@ def _scan_f32(chains, reverses):
         t_max, batch, hidden, int(bool(reverses[0])), int(bool(reverses[-1])), n)
     last = h32[t_max % 2]  # the buffer the final step wrote
     return [(o, last[k]) for k, o in enumerate(outs)]
+
+
+def _scan_f32_persistent(chains, reverses, planned):
+    """The float32 variant, persistent (``csrc/gru_f32.cu``): one or two
+    chains that share T, B, H and lengths in one cooperative launch of the
+    planned grid. ``chains`` holds (gx, lengths, w_hh, b_ih, b_hh, h0)
+    tuples; returns one (out, h_last) per chain."""
+    launch = cuda_build.bind("gru_f32", "gru_f32_persist_launch", 15, 17)
+    gx, lengths, w_hh = chains[0][:3]
+    t_max, batch, _ = gx.shape
+    hidden = w_hh.shape[0]
+    dev = gx.device
+    n = len(chains)
+    hx = torch.zeros((2, n, planned.padded_depth, planned.padded_rows),
+                     dtype=torch.float32, device=dev)
+    for k, c in enumerate(chains):
+        hx[0, k, :hidden, :batch].copy_(c[5].t())  # h0 transposed: rows of units
+    slices = [f32_slices(c[2], planned.units, planned.blocks_per_dir, planned.padded_depth)
+              for c in chains]
+    outs = [(torch.empty((t_max, batch, hidden), dtype=torch.float32, device=dev),
+             torch.empty((batch, hidden), dtype=torch.float32, device=dev)) for _ in chains]
+    barrier = torch.zeros((1,), dtype=torch.int32, device=dev)
+    cuda_build.call(
+        launch, "gru_scan (float32, persistent)", dev,
+        *chain_ptrs([c[0] for c in chains]), lengths.data_ptr(), *chain_ptrs(slices),
+        *chain_ptrs([c[3] for c in chains]), *chain_ptrs([c[4] for c in chains]),
+        hx.data_ptr(), *chain_ptrs([o[1] for o in outs]), *chain_ptrs([o[0] for o in outs]),
+        barrier.data_ptr(), t_max, batch, hidden, int(bool(reverses[0])),
+        int(bool(reverses[-1])), n, *planned.c_args())
+    return outs
 
 
 def _scan_persistent(chains, reverses, planned):
@@ -523,10 +617,14 @@ def _scan_bidi_step(gx_f, gx_b, lengths, w_hh_f, w_hh_b, b_ih_f, b_ih_b, b_hh_f,
     return out[0], out[1], last[0], last[1]
 
 
-def scan_bidi_plans(hidden, batch, device) -> tuple[persist_plan.PersistPlan, ...]:
-    """The plans :func:`gru_scan_bidi` chooses among on ``device``: both
-    chains in one persistent launch, else each chain in a launch of its own."""
+def scan_bidi_plans(hidden, batch, device, dtype=torch.bfloat16) -> tuple:
+    """The plans :func:`gru_scan_bidi` chooses among on ``device`` for the
+    operand set ``dtype``: both chains in one persistent launch, else each
+    chain in a launch of its own."""
     info = device_info(device)
+    if dtype == torch.float32:
+        return (persist_plan.plan_gru_f32_forward(hidden, batch, 2, *info),
+                persist_plan.plan_gru_f32_forward(hidden, batch, 1, *info))
     return (persist_plan.plan_gru_scan(hidden, batch, *info, chains=2),
             persist_plan.plan_gru_scan(hidden, batch, *info, chains=1))
 
@@ -540,14 +638,16 @@ def gru_scan_bidi(
 
     Same contract and return values as :func:`gru_scan_bidi_plain`. CUDA
     operands launch the kernel (bf16 gx and w_hh, f32 biases and h0, int32
-    lengths, all contiguous on gx_f's device; or everything float32: the
-    float32 variant, both chains in each of T launches) or raise; CPU
-    operands run the plain version. ``design`` is None (the plans decide), "persistent" or
+    lengths, all contiguous on gx_f's device; or everything float32, the
+    float32 variant) or raise; CPU operands run the plain version.
+    ``design`` is None (the plans decide), "persistent" or
     "step". The persistent design is :func:`gru_scan`'s kernel
-    (``csrc/gru_scan.cu``) over two chains in one launch where the plan of
-    :func:`persist_plan.plan_gru_scan` for two chains fits, else one launch a
-    chain where the plan for one does; the step design is
-    ``csrc/gru_scan_bidi.cu``, T launches with both directions in each.
+    (``csrc/gru_scan.cu``; float32: ``gru_f32_persist_kernel``) over two
+    chains in one launch where the plan of :func:`persist_plan.plan_gru_scan`
+    (:func:`persist_plan.plan_gru_f32_forward`) for two chains fits, else one
+    launch a chain where the plan for one does; the step design is
+    ``csrc/gru_scan_bidi.cu`` (float32: ``gru_f32_step_kernel``), T launches
+    with both directions in each.
     ``gru_scan_bidi.launches`` counts calls (one a call, whatever the
     design); ``gru_scan_bidi.design_counts`` counts them by the design taken.
     """
@@ -566,8 +666,17 @@ def gru_scan_bidi(
             f"{tuple(gx_f.shape)} on {gx_f.device}"
         )
     if dtype == torch.float32:
-        design = persist_plan.float32_design(design)
-        (out_f, hl_f), (out_b, hl_b) = _scan_f32(chains, [False, True])
+        pair, single = scan_bidi_plans(w_hh_f.shape[0], gx_f.shape[1], gx_f.device,
+                                       torch.float32)
+        planned = pair if pair.design == "persistent" else single
+        design = persist_plan.choose(design, planned)
+        if design == "step":
+            (out_f, hl_f), (out_b, hl_b) = _scan_f32(chains, [False, True])
+        elif planned is pair:
+            (out_f, hl_f), (out_b, hl_b) = _scan_f32_persistent(chains, [False, True], pair)
+        else:
+            (out_f, hl_f), = _scan_f32_persistent(chains[:1], [False], single)
+            (out_b, hl_b), = _scan_f32_persistent(chains[1:], [True], single)
         count(gru_scan_bidi, design, dtype)
         return out_f, out_b, hl_f, hl_b
     pair, single = scan_bidi_plans(w_hh_f.shape[0], gx_f.shape[1], gx_f.device)

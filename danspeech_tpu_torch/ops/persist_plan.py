@@ -24,11 +24,15 @@ stages beside the slice (one GRU chain at H = 2000), it walks row blocks of
 64 instead, the two warpgroups splitting the depth. Fewer units per block
 would need more blocks than can be co-resident; more would only use fewer SMs.
 
-The plans are those of the bf16 operand set: the resident design keeps bf16
-slices. The float32 variants of every kernel (``csrc/gru_f32.cu``,
-``csrc/lstm_f32.cu``, ``csrc/rnn_tanh_f32.cu``) have the step design only,
-whatever the shape, so a float32 call needs no plan: its wrapper takes
-:func:`float32_design`.
+These plans are those of the bf16 operand set: the resident design keeps
+bf16 slices. The float32 GRU forward walk (B1, B2 and B3's recurrence in
+``csrc/gru_f32.cu``) has a persistent design of its own, planned by
+:func:`plan_gru_f32_forward`: float32 ``w_hh`` does not fit the card's shared
+memory at the GRU widths, so a block keeps what fits of its slice resident
+and streams the rest from L2 each step. The other float32 variants
+(``gru_f32.cu``'s backward walk, ``csrc/lstm_f32.cu``,
+``csrc/rnn_tanh_f32.cu``) have the step design only, whatever the shape: their
+wrappers take :func:`float32_design`.
 
 The constants mirror ``csrc/persist.cuh``.
 """
@@ -247,7 +251,138 @@ def plan_rnn_tanh_backward(hidden, batch, chains, sm_count, smem_optin) -> Persi
                 RNN_TANH_BWD_MAX_TILES)
 
 
-def choose(design: str | None, planned: PersistPlan) -> str:
+# The persistent float32 GRU forward walk (csrc/gru_f32.cu,
+# gru_f32_persist_kernel); the constants mirror its FP_* ones.
+F32_DOT_ROWS = 8         # FP_DOT_ROWS: the widest batch of the small-B product
+F32_MAX_THREADS = 384    # FP_MAX_THREADS: a block's threads (168 registers each)
+F32_TILE_ROWS = 8        # rows of a thread's tile in the tiled product
+F32_TILE_UNITS = 2       # units of a thread's tile, three gate columns each
+F32_PASS_ROWS = 128      # the most rows of one pass of the tiled product
+F32_MAX_SPLITS = 8       # depth splits of a product, summed in their order
+# depth of one chunk of the ring, by product: a chunk costs a wait and a
+# block-wide barrier, so deep chunks (on an H100, 64 against 32 for the tiled
+# product and 128 against 64 for the small-B one were the faster: PERF.md)
+F32_CHUNK = {"tiled": 64, "dot": 128}
+F32_STAGES = 2           # FP_STAGES: two stages leave the most of the slice resident
+
+
+@dataclasses.dataclass(frozen=True)
+class F32Plan:
+    """How the float32 GRU forward walk of ``chains`` chains is cut over the
+    card. ``design`` is "persistent" or "step"; for "step" the sizes
+    describe the candidate that did not fit (zeros if there was none) and
+    ``reason`` says why. ``product`` is "dot" (the small-B product, at most
+    :data:`F32_DOT_ROWS` rows) or "tiled" (8 rows x 2 units x 3 gates of
+    sums a thread)."""
+
+    design: str
+    reason: str
+    product: str = ""
+    chains: int = 0
+    units: int = 0            # hidden units per block, even
+    blocks_per_dir: int = 0
+    grid: int = 0             # blocks_per_dir * chains: at most the SM count
+    threads: int = 0          # a multiple of 32
+    k_splits: int = 0         # depth splits of the product
+    rows_per_pass: int = 0    # rows of h one pass multiplies
+    passes: int = 0
+    padded_rows: int = 0      # the row stride of the exchanged state: passes * rows
+    chunk_depth: int = 0
+    padded_depth: int = 0     # H rounded up to the chunk depth
+    stages: int = 0
+    resident_depth: int = 0   # depths of the slice kept in shared memory
+    slice_bytes: int = 0      # a block's whole slice: padded_depth x 3 units x 4
+    ring_bytes: int = 0
+    sums_bytes: int = 0       # the partial sums and the new state's tile (over the ring)
+    h_bytes: int = 0          # "dot": the whole of h, staged once a step
+    smem_bytes: int = 0
+
+    @property
+    def resident_share(self) -> float:
+        """The share of each block's slice that stays in shared memory."""
+        return self.resident_depth / self.padded_depth if self.padded_depth else 0.0
+
+    def owner(self, unit: int) -> int:
+        """The block (within its chain) that owns hidden unit ``unit``."""
+        return unit // self.units
+
+    def c_args(self) -> tuple[int, ...]:
+        """The plan's ints in the order ``gru_f32_persist_launch`` takes them."""
+        return (self.units, self.blocks_per_dir, self.rows_per_pass, self.padded_rows,
+                self.padded_depth, self.k_splits, self.chunk_depth, self.resident_depth,
+                self.threads, self.smem_bytes, int(self.product == "dot"))
+
+
+def _up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def plan_gru_f32_forward(hidden, batch, chains, sm_count, smem_optin) -> F32Plan:
+    """The persistent float32 GRU forward walk of ``chains`` (1 or 2) chains
+    of h (B, H) @ w_hh (H, 3H), float32 throughout.
+
+    One block per SM: the units of all chains are cut into blocks of an even
+    number of units, as few per block as keep the grid within the SMs. Up
+    to :data:`F32_DOT_ROWS` rows take the small-B product (no padding rows;
+    a thread owns one gate column and a share of the depth), more the tiled
+    one (passes of at most 128 rows, 8 rows x 2 units x 3 gates of sums a
+    thread). The depth is split over as many slices as keep the block within
+    :data:`F32_MAX_THREADS` threads. Shared memory holds the ring (the
+    chunks of h and of the streamed weights), the partial sums over it, the
+    whole of h for the small-B product, and then as much of the block's
+    slice, from depth 0, as fits: the resident depth. The rest of the slice
+    streams from L2 through the ring each step. "step" where the block would
+    need more threads than that or the ring alone does not fit.
+    """
+    if min(hidden, batch, chains, sm_count) < 1:
+        raise ValueError("hidden, batch, chains and sm_count must be positive")
+    if chains > 2:
+        raise ValueError(f"one or two chains, not {chains}")
+    per_dir = sm_count // chains
+    if per_dir < 1:
+        return F32Plan("step", f"{chains} chains on {sm_count} SMs")
+    units = _up(max(1, -(-hidden // per_dir)), F32_TILE_UNITS)
+    blocks = -(-hidden // units)
+    cols = 3 * units
+    product = "dot" if batch <= F32_DOT_ROWS else "tiled"
+    kc, stages = F32_CHUNK[product], F32_STAGES
+    depth = _up(hidden, kc)
+    if product == "dot":
+        passes, rows, padded = 1, batch, batch
+        work = cols                                   # a thread a column and split
+        h_floats, stage = _up(depth * batch, 4), kc * cols
+    else:
+        passes = -(-batch // F32_PASS_ROWS)
+        rows = _up(-(-batch // passes), F32_TILE_ROWS)
+        padded = passes * rows
+        work = (rows // F32_TILE_ROWS) * (units // F32_TILE_UNITS)  # a thread a tile and split
+        h_floats, stage = 0, kc * (rows + cols)
+    sizes = dict(product=product, chains=chains, units=units, blocks_per_dir=blocks,
+                 grid=blocks * chains, rows_per_pass=rows, passes=passes, padded_rows=padded,
+                 chunk_depth=kc, padded_depth=depth, stages=stages,
+                 slice_bytes=depth * cols * 4, h_bytes=h_floats * 4)
+    if work > F32_MAX_THREADS:
+        return F32Plan("step", f"{work} threads a block for {units} units x {rows} rows, "
+                       f"the kernel takes {F32_MAX_THREADS}", **sizes)
+    splits = 1
+    while splits < F32_MAX_SPLITS and 2 * splits * work <= F32_MAX_THREADS:
+        splits *= 2
+    ring = stages * stage
+    sums = splits * rows * cols + units * rows
+    work_floats = _up(max(ring, sums), 4)
+    budget = (smem_optin - STATIC_RESERVE) // 4 - work_floats - h_floats
+    sizes.update(threads=_up(splits * work, 32), k_splits=splits, ring_bytes=ring * 4,
+                 sums_bytes=sums * 4)
+    if budget < 0:
+        return F32Plan("step", f"ring and sums {work_floats * 4} B + h {h_floats * 4} B of "
+                       f"{smem_optin - STATIC_RESERVE} B a block", **sizes,
+                       smem_bytes=4 * (work_floats + h_floats))
+    resident = min(depth, budget // (cols * kc) * kc)
+    return F32Plan("persistent", "fits", resident_depth=resident,
+                   smem_bytes=4 * (work_floats + h_floats + resident * cols), **sizes)
+
+
+def choose(design: str | None, planned: PersistPlan | F32Plan) -> str:
     """The design a wrapper takes: the plan's when ``design`` is None, else
     the one asked for, which must be one the plan allows ("step" always is)."""
     if design is None:
@@ -260,13 +395,14 @@ def choose(design: str | None, planned: PersistPlan) -> str:
 
 
 def float32_design(design: str | None) -> str:
-    """The design a wrapper takes for the all-float32 operand set: "step"
-    for None or "step" (the float32 variants are step designs, for every
-    shape); "persistent" raises ``NotImplementedError``."""
+    """The design a wrapper of the float32 step variants (B4-B9) takes:
+    "step" for None or "step"; "persistent" raises ``NotImplementedError``.
+    The float32 GRU forward walk (B1-B3) is planned by
+    :func:`plan_gru_f32_forward` instead."""
     if design not in (None, *DESIGNS):
         raise ValueError(f"unknown design {design!r}: one of {DESIGNS} or None")
     if design == "persistent":
         raise NotImplementedError(
-            "float32 has no persistent design: the float32 variants keep no weights "
-            "resident (ROADMAP F32++)")
+            "this float32 variant has no persistent design yet: only the float32 GRU "
+            "forward walk has one (ROADMAP F32++b: B4's pair, then B6/B7)")
     return "step"

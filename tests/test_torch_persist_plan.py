@@ -394,17 +394,45 @@ def _f32_call(name, hidden, batch):
     }[name]
 
 
+# the float32 GRU forward wrappers (B1, B2, B3): their persistent route and
+# the chains one call of it walks
+F32_FORWARD = {"gru_bidi_fused": ("_bidi_fused_f32_persistent", 2),
+               "gru_scan": ("_scan_f32_persistent", 1),
+               "gru_scan_bidi": ("_scan_f32_persistent", 2)}
+
+
+def _fake_routes(monkeypatch, module, names):
+    """Replace the routes ``names`` of ``module`` by recorders; returns the
+    list of (route, args, kwargs) they record."""
+    routed = []
+
+    def fake(name):
+        def route(*args, **kwargs):
+            routed.append((name, args, kwargs))
+            if name in ("_bidi_fused_f32", "_bidi_fused_f32_persistent"):
+                return (None,) * 4
+            return [(None, None)] * len(args[0])
+        return route
+
+    for name in names:
+        monkeypatch.setattr(module, name, fake(name))
+    return routed
+
+
 @pytest.mark.parametrize("hidden,batch", [(1200, 128), (1200, 32), (2000, 1), (2000, 128),
                                           (64, 5), (8, 1)])
 @pytest.mark.parametrize("name", list(F32_ENTRIES))
 def test_float32_plans_take_the_step_design_everywhere(monkeypatch, name, hidden, batch):
-    """Float32 weights never stay resident: a wrapper's float32 branch needs
-    no plan and no device figures. At every shape, even where a bf16 slice
-    would fit, None and "step" take the step design (the float32 route runs,
-    the counts by design and by dtype grow by the call's chains);
-    "persistent" raises NotImplementedError naming ROADMAP F32++ and an
-    unknown design ValueError, before any route runs or anything is
-    counted."""
+    """B4-B9 in float32 keep their weights out of shared memory: their
+    float32 branch needs no plan and no device figures. At every shape, even
+    where a bf16 slice would fit, None and "step" take the step design (the
+    float32 route runs, the counts by design and by dtype grow by the call's
+    chains); "persistent" raises NotImplementedError naming ROADMAP F32++b.
+    B1, B2 and B3 in float32 are planned (plan_gru_f32_forward, an H100's
+    figures): None and "persistent" take the persistent route with the plan
+    of one chain (B1) or two (B2, B3), "step" the step route, each counted
+    by its design. An unknown design raises ValueError, before any route runs
+    or anything is counted."""
     import importlib
 
     module_name, counted, route, chains = F32_ENTRIES[name]
@@ -413,25 +441,70 @@ def test_float32_plans_take_the_step_design_everywhere(monkeypatch, name, hidden
     monkeypatch.setattr(wrapper, "launches", 0)
     monkeypatch.setattr(wrapper, "design_counts", {"persistent": 0, "step": 0})
     monkeypatch.setattr(wrapper, "dtype_counts", {"bfloat16": 0, "float32": 0})
-    routed = []
-
-    def fake_route(*args):
-        routed.append(args)
-        return [(None, None)] * len(args[0]) if route != "_bidi_fused_f32" else (None,) * 4
-
-    monkeypatch.setattr(module, route, fake_route)
+    forward = F32_FORWARD.get(name)
+    if forward:
+        monkeypatch.setattr(module, "device_info", lambda device: (SMS, SMEM))
+    routed = _fake_routes(monkeypatch, module, [route] + ([forward[0]] if forward else []))
     call = _f32_call(name, hidden, batch)
-    for k, design in enumerate((None, "step"), 1):
+    designs = (None, "step", "persistent") if forward else (None, "step")
+    for k, design in enumerate(designs, 1):
         call(design)
         assert len(routed) == k
-        assert (wrapper.launches, wrapper.design_counts, wrapper.dtype_counts) == (
-            k * chains, {"persistent": 0, "step": k * chains},
-            {"bfloat16": 0, "float32": k * chains})
-    with pytest.raises(NotImplementedError, match="F32\\+\\+"):
-        call("persistent")
+        taken = "persistent" if forward and design != "step" else "step"
+        assert routed[-1][0] == (forward[0] if taken == "persistent" else route)
+        if taken == "persistent":
+            planned = routed[-1][2].get("planned", routed[-1][1][-1])
+            assert planned == pp.plan_gru_f32_forward(hidden, batch, forward[1], SMS, SMEM)
+            assert planned.design == "persistent"
+    want = {"persistent": 2 if forward else 0, "step": 1 if forward else 2}
+    assert (wrapper.launches, wrapper.design_counts, wrapper.dtype_counts) == (
+        len(designs) * chains, {k: v * chains for k, v in want.items()},
+        {"bfloat16": 0, "float32": len(designs) * chains})
+    if not forward:
+        with pytest.raises(NotImplementedError, match="F32\\+\\+b"):
+            call("persistent")
     with pytest.raises(ValueError, match="unknown design"):
         call("fused")
-    assert len(routed) == 2 and wrapper.launches == 2 * chains
+    assert len(routed) == len(designs) and wrapper.launches == len(designs) * chains
+
+
+@pytest.mark.parametrize("name", list(F32_FORWARD))
+def test_float32_forward_takes_the_step_design_where_the_plan_does(monkeypatch, name):
+    """On a card of one SM two chains cannot run persistently: B3 and B2's
+    pair plan "step". B3 then takes the step route for None and refuses
+    "persistent" (ValueError naming the reason) before any route runs; B2
+    walks its chains one launch each on the one-chain plan, which fits; B1
+    has one chain and stays persistent."""
+    from danspeech_tpu_torch.ops import gru_cuda
+
+    monkeypatch.setattr(gru_cuda, "device_info", lambda device: (1, SMEM))
+    wrapper = getattr(gru_cuda, name)
+    monkeypatch.setattr(wrapper, "launches", 0)
+    monkeypatch.setattr(wrapper, "design_counts", {"persistent": 0, "step": 0})
+    monkeypatch.setattr(wrapper, "dtype_counts", {"bfloat16": 0, "float32": 0})
+    routed = _fake_routes(monkeypatch, gru_cuda,
+                          ["_bidi_fused_f32", "_bidi_fused_f32_persistent", "_scan_f32",
+                           "_scan_f32_persistent"])
+    call = _f32_call(name, 64, 5)
+    call(None)
+    single = pp.plan_gru_f32_forward(64, 5, 1, 1, SMEM)
+    assert single.design == "persistent" and single.grid == 1
+    assert pp.plan_gru_f32_forward(64, 5, 2, 1, SMEM).design == "step"
+    if name == "gru_bidi_fused":
+        assert [r[0] for r in routed] == ["_bidi_fused_f32"]
+        with pytest.raises(ValueError, match="does not fit: 2 chains on 1 SMs"):
+            call("persistent")
+        assert wrapper.design_counts == {"persistent": 0, "step": 1}
+    elif name == "gru_scan_bidi":
+        assert [r[0] for r in routed] == ["_scan_f32_persistent"] * 2
+        assert [len(r[1][0]) for r in routed] == [1, 1]
+        assert [r[1][1] for r in routed] == [[False], [True]]
+        assert all(r[1][2] == single for r in routed)
+        assert wrapper.design_counts == {"persistent": 1, "step": 0}
+    else:
+        assert [r[0] for r in routed] == ["_scan_f32_persistent"]
+        assert routed[0][1][2] == single
+        assert wrapper.design_counts == {"persistent": 1, "step": 0}
 
 
 def test_wrappers_take_a_design_argument_and_use_the_plain_version_on_the_cpu():

@@ -4564,7 +4564,7 @@ def check_f32(name, label, run, plain, names, pad_of, lens, t, design="step", re
 
 
 def check_f32_designs(name, label, run, plain, names, pad_of, lens, t):
-    """A float32 GRU forward entry (B1, B2, B3) in both designs against one
+    """A float32 entry of a walk with both designs (B1-B6) against one
     result of its plain version: ``run(design)`` calls it. Returns the
     persistent design's result with the step design's inside."""
     from danspeech_tpu_torch.ops import precision
@@ -4630,10 +4630,12 @@ def time_f32(res, designs, plain, library, bound, library_name="nn.GRU"):
     """A float32 entry timed by CUDA events: the first design of
     ``designs`` before the plain version (TF32 off) and one cuDNN float32
     call (TF32 off) and again after them, each other design once in
-    between; the bound; and each design's :func:`kernel_reading`.
-    ``designs`` maps a design to (call, its walk's kernel as the profiler
-    names it, that kernel's launches a call, the steps it walks). The first
-    design's numbers go under their own keys, another's under
+    between; the bound; each design's µs a step by CUDA events (its call's
+    time over the steps it walks, ``us_a_step``) and, beside it, its
+    :func:`kernel_reading` (the profiler's, unscaled: None where it dropped
+    launches). ``designs`` maps a design to (call, its walk's kernel as the
+    profiler names it, that kernel's launches a call, the steps it walks).
+    The first design's numbers go under their own keys, another's under
     ``{design}_design_`` and the key."""
     from danspeech_tpu_torch.ops import precision
 
@@ -4648,9 +4650,11 @@ def time_f32(res, designs, plain, library, bound, library_name="nn.GRU"):
     res["bound_ms"], res["bound_by"] = bound
     for d, (fn, kernel, launches, steps) in designs.items():
         tag = "" if d == main else f"{d}_design_"
+        res[tag + "us_a_step"] = res[tag + "ms"] * 1e3 / steps
         got = kernel_reading(fn, kernel, launches, steps)
         res.update({tag + k: v for k, v in got.items()})
-        log(f"    float32 {d} design: ms={res[tag + 'ms']:.3f}; the profiler's "
+        log(f"    float32 {d} design: ms={res[tag + 'ms']:.3f} = "
+            f"{res[tag + 'us_a_step']:.1f} us a step by CUDA events over {steps}; the profiler's "
             f"{kernel}: {as_read(got['kernel_ms'], '.3f')} ms = "
             f"{as_read(got['kernel_us_a_step'], '.1f')} us a step over {steps} "
             f"({got['launches_profiled']} of {launches} launches kept, "
@@ -4661,9 +4665,14 @@ def time_f32(res, designs, plain, library, bound, library_name="nn.GRU"):
     return res
 
 
-# the float32 GRU forward walk's kernels by design, as the profiler names them
-F32_FORWARD_KERNELS = {"persistent": "gru_f32_persist_kernel",
-                       "step": "gru_f32_step_kernel"}
+# the float32 walks' kernels as the profiler names them: (persistent, step)
+F32_WALK_KERNELS = {
+    **dict.fromkeys(("gru_bidi_fused", "gru_scan", "gru_scan_bidi"),
+                    ("gru_f32_persist_kernel", "gru_f32_step_kernel")),
+    "gru_bwd_scan": ("gru_f32_bwd_persist_kernel", "gru_f32_bwd_step_kernel"),
+    **dict.fromkeys(("lstm_scan", "lstm_scan_with_cell"),
+                    ("lstm_f32_persist_kernel", "lstm_f32_step_kernel")),
+}
 
 
 def time_f32_forward(res, run, plain, library, bound, plan, t, steps, walk=None):
@@ -4675,9 +4684,9 @@ def time_f32_forward(res, run, plain, library, bound, plan, t, steps, walk=None)
     gx, which plans and launches the same walk); the plan's resident
     share."""
     runs = {d: (lambda d=d: run(d)) for d in DESIGNS}
-    time_f32(res, {"persistent": (runs["persistent"], F32_FORWARD_KERNELS["persistent"], 1,
-                                  steps),
-                   "step": (runs["step"], F32_FORWARD_KERNELS["step"], t, t)},
+    persistent, step = F32_WALK_KERNELS["gru_scan"]
+    time_f32(res, {"persistent": (runs["persistent"], persistent, 1, steps),
+                   "step": (runs["step"], step, t, t)},
              plain, library, bound)
     for d, walked in (("persistent", steps), ("step", t)):
         tag = "" if d == "persistent" else "step_design_"
@@ -4685,16 +4694,41 @@ def time_f32_forward(res, run, plain, library, bound, plan, t, steps, walk=None)
         if walk is not None:
             ms = res[f"{tag}walk_ms"] = time_ms(lambda d=d: walk(d), iters=2)
         res[f"{tag}us_a_step"] = ms * 1e3 / walked
-    res.update(design="persistent", resident_share=plan.resident_share,
-               plan={k: getattr(plan, k) for k in (
-                   "product", "chains", "units", "grid", "threads", "k_splits",
-                   "rows_per_pass", "chunk_depth", "stages", "resident_depth",
-                   "padded_depth", "smem_bytes")})
+    res.update(design="persistent", **f32_plan_fields(plan))
     log(f"    float32 persistent: {res['us_a_step']:.1f} us a step by CUDA events over "
         f"{steps} walked{' (the walk alone)' if walk else ''}, {plan.product} product, "
         f"{plan.grid} blocks of {plan.threads}, resident share {plan.resident_share:.3f}; "
         f"step design {res['step_design_us_a_step']:.1f} us a step over {t} launches")
     return res
+
+
+def f32_plan_fields(plan):
+    """A float32 walk's plan as phase 12a records it beside its times."""
+    return {"resident_share": plan.resident_share,
+            "plan": {k: getattr(plan, k) for k in (
+                "walk", "product", "chains", "units", "grid", "threads", "k_splits",
+                "rows_per_pass", "chunk_depth", "stages", "resident_depth", "padded_depth",
+                "smem_bytes")}}
+
+
+def time_f32_pair(res, pair, walked, t_steps, plan):
+    """The pair of a layer of a float32 walk (B4, B5, B6) timed by CUDA
+    events in each design, persistent first, into ``res`` (the chain's
+    entry): ms a chain, and µs a step over the steps the persistent launch
+    walks (``walked``) and the step design's launches (``t_steps``); the
+    pair's plan."""
+    ms = time_ms(lambda: pair("persistent"), iters=2)
+    step_ms = time_ms(lambda: pair("step"), iters=2)
+    ms = 0.5 * (ms + time_ms(lambda: pair("persistent"), iters=2))
+    res.update(pair_ms_per_chain=0.5 * ms, pair_us_a_step=ms * 1e3 / walked,
+               step_design_pair_ms_per_chain=0.5 * step_ms,
+               step_design_pair_us_a_step=step_ms * 1e3 / t_steps,
+               pair_plan=f32_plan_fields(plan))
+    log(f"    float32 pair: persistent {res['pair_ms_per_chain']:.3f} ms a chain "
+        f"({res['pair_us_a_step']:.1f} us a step over {walked}, {plan.grid} blocks of "
+        f"{plan.threads}, resident share {plan.resident_share:.3f}); step design "
+        f"{res['step_design_pair_ms_per_chain']:.3f} ms a chain "
+        f"({res['step_design_pair_us_a_step']:.1f} us a step over {t_steps} launches)")
 
 
 # the float32 GRU forward walk's batches around the plan's switch from the
@@ -4807,7 +4841,8 @@ def phase_f32_kernels(card):
         if label == "streaming step":
             # where one call's time goes, in each design
             res["split"] = {d: call_split(f"B1 {d} design T={t} B=1 H={h}",
-                                          lambda d=d: run(d), F32_FORWARD_KERNELS[d],
+                                          lambda d=d: run(d),
+                                          F32_WALK_KERNELS["gru_scan"][d == "step"],
                                           1 if d == "persistent" else t)
                             for d in DESIGNS}
         out["gru_scan"].append(res)
@@ -4849,7 +4884,7 @@ def phase_f32_kernels(card):
         del args, f, r
     torch.cuda.empty_cache()
 
-    # B4: the backward walks, one chain or the pair of a layer
+    # B4: the backward walks, one chain or the pair of a layer, in both designs
     train = np.random.default_rng(1201).integers(1, 402, size=32)
     train[0], train[1] = 401, 1
     walk_names = ("dgx", "dghn", "dh0")
@@ -4861,37 +4896,46 @@ def phase_f32_kernels(card):
             (401, train.tolist(), 1200, "flagship layer", True)):
         a = bwd_inputs(gen, t, lengths, h, dtype=torch.float32)
         for reverse in (True, False):
-            res = check_f32("gru_bwd_scan", f"{label} T={t} B={len(lengths)} H={h} "
-                            f"reverse={reverse}",
-                            lambda: gru_cuda.gru_bwd_scan(*a, reverse=reverse),
-                            lambda: gru_cuda.gru_bwd_scan_plain(*a, reverse=reverse),
-                            walk_names, 2, a[3], t)
+            def run(design, reverse=reverse):
+                return gru_cuda.gru_bwd_scan(*a, reverse=reverse, design=design)
+
+            def plain(reverse=reverse):
+                return gru_cuda.gru_bwd_scan_plain(*a, reverse=reverse)
+
+            res = check_f32_designs("gru_bwd_scan", f"{label} T={t} B={len(lengths)} H={h} "
+                                    f"reverse={reverse}", run, plain, walk_names, 2, a[3], t)
             if timed and reverse:
                 res["label"] = label
-                time_f32(res, {"step": (lambda: gru_cuda.gru_bwd_scan(*a, reverse=True),
-                                        "gru_f32_bwd_step_kernel", t + 1, t + 1)},
-                         lambda: gru_cuda.gru_bwd_scan_plain(*a, reverse=True),
+                walked = max(lengths) + 1  # and a last pass for dh0
+                time_f32(res, {"persistent": (lambda: run("persistent"),
+                                              F32_WALK_KERNELS["gru_bwd_scan"][0], 1, walked),
+                               "step": (lambda: run("step"), F32_WALK_KERNELS["gru_bwd_scan"][1],
+                                        t + 1, t + 1)},
+                         plain,
                          lambda: cudnn_rnn_ms(torch.nn.GRU(h, h), gen, t, len(lengths), h,
                                               backward=True, dtype=torch.float32),
                          f32_bounds("gru_bwd_scan", t, len(lengths), h, lengths))
+                res.update(design="persistent", **f32_plan_fields(
+                    persist_plan.plan_gru_f32_backward(h, len(lengths), 1, *info)))
                 main = res
             out["gru_bwd_scan"].append(res)
         c = bwd_inputs(gen, t, lengths, h, lens=a[3], dtype=torch.float32)
 
-        def pair():
-            ga, gc = gru_cuda.gru_bwd_scan_pair(a, c, True, False)
+        def pair(design):
+            ga, gc = gru_cuda.gru_bwd_scan_pair(a, c, True, False, design=design)
             return (*ga, *gc)
 
         def pair_plain():
             return (*gru_cuda.gru_bwd_scan_plain(*a, reverse=True),
                     *gru_cuda.gru_bwd_scan_plain(*c, reverse=False))
 
-        res = check_f32("gru_bwd_scan", f"{label}, the pair of a layer T={t} "
-                        f"B={len(lengths)} H={h}", pair, pair_plain,
-                        [f"{n} {k}" for k in "ab" for n in walk_names], 2, a[3], t)
+        res = check_f32_designs("gru_bwd_scan", f"{label}, the pair of a layer T={t} "
+                                f"B={len(lengths)} H={h}", pair, pair_plain,
+                                [f"{n} {k}" for k in "ab" for n in walk_names], 2, a[3], t)
+        res["label"] = f"{label}, pair"
         if timed:
-            main["pair_ms_per_chain"] = 0.5 * time_ms(pair, iters=2)
-            log(f"    float32 pair: {main['pair_ms_per_chain']:.3f} ms a chain")
+            time_f32_pair(main, pair, max(lengths) + 1, t + 1,
+                          persist_plan.plan_gru_f32_backward(h, len(lengths), 2, *info))
         out["gru_bwd_scan"].append(res)
         del a, c
     torch.cuda.empty_cache()
@@ -4929,16 +4973,19 @@ def f32_rnn_operands(kind, gen, t, lengths, h, lens):
 def check_f32_rnn(kind, gen, label, t, lengths, h, timed):
     """One LSTM or tanh-RNN float32 entry against its plain version, one
     chain (a forward chain, or the walk of one) and the pair of a layer (the
-    second chain walking the other way, both in each step launch); at the
-    layer shapes (``timed``) the chain timed beside the plain version, one
-    cuDNN float32 call and the FP32 bound, and the pair's time a chain.
-    Returns the two checks."""
-    from danspeech_tpu_torch.ops import lstm_cuda, rnn_tanh_cuda
+    second chain walking the other way); the LSTM forward chains (B5, B6)
+    in both designs, the others in the step design (both chains in each step
+    launch). At the layer shapes (``timed``) the chain timed beside the
+    plain version, one cuDNN float32 call and the FP32 bound (B5 and B6
+    persistent first, the step design beside), and the pair's time a chain
+    (B5 and B6 in both designs). Returns the two checks."""
+    from danspeech_tpu_torch.ops import gru_cuda, lstm_cuda, persist_plan, rnn_tanh_cuda
 
     lstm = kind.startswith("lstm")
     module = lstm_cuda if lstm else rnn_tanh_cuda
     wrapper, plain = getattr(module, kind), getattr(module, f"{kind}_plain")
     backward = kind.endswith("bwd_scan")
+    walks = kind in F32_WALK_KERNELS  # the two designs
     reverse = backward  # a forward chain, or the walk that undoes one
     names, streams = RNN_F32_STREAMS[kind]
     lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
@@ -4946,42 +4993,63 @@ def check_f32_rnn(kind, gen, label, t, lengths, h, timed):
     c = f32_rnn_operands(kind, gen, t, lengths, h, lens)
     shape = f"T={t} B={len(lengths)} H={h}"
 
-    def run():
-        return wrapper(*a, reverse=reverse)
+    def run(design=None):
+        return wrapper(*a, reverse=reverse, design=design)
 
     def run_plain():
         return plain(*a, reverse=reverse)
 
-    def pair():
+    def pair(design=None):
         if kind in ("lstm_scan", "lstm_scan_with_cell"):
             got = lstm_cuda.lstm_scan_pair(a, c, reverse, not reverse,
-                                           with_cell=kind == "lstm_scan_with_cell")
+                                           with_cell=kind == "lstm_scan_with_cell",
+                                           design=design)
         else:
-            got = getattr(module, f"{kind}_pair")(a, c, reverse, not reverse)
+            got = getattr(module, f"{kind}_pair")(a, c, reverse, not reverse, design=design)
         return flat(*got)
 
     def flat(ra, rc):  # the streams of both chains first
         return (*ra[:streams], *rc[:streams], *ra[streams:], *rc[streams:])
 
-    res = check_f32(kind, f"{label} {shape}", run, run_plain, names, streams, lens, t)
-    res["label"] = label
+    def pair_plain():
+        return flat(run_plain(), plain(*c, reverse=not reverse))
+
     pair_names = [f"{n} {k}" for part in (names[:streams], names[streams:])
                   for k in "ab" for n in part]
-    pres = check_f32(kind, f"{label}, the pair of a layer {shape}", pair,
-                     lambda: flat(run_plain(), plain(*c, reverse=not reverse)), pair_names,
-                     2 * streams, lens, t)
+    if walks:
+        res = check_f32_designs(kind, f"{label} {shape}", run, run_plain, names, streams,
+                                lens, t)
+        pres = check_f32_designs(kind, f"{label}, the pair of a layer {shape}", pair,
+                                 pair_plain, pair_names, 2 * streams, lens, t)
+    else:
+        res = check_f32(kind, f"{label} {shape}", run, run_plain, names, streams, lens, t)
+        pres = check_f32(kind, f"{label}, the pair of a layer {shape}", pair, pair_plain,
+                         pair_names, 2 * streams, lens, t)
+    res["label"] = label
     pres["label"] = f"{label}, pair"
     if timed:
         lib = torch.nn.LSTM(h, h) if lstm else torch.nn.RNN(h, h, nonlinearity="tanh")
         steps = t + 1 if backward else t
         kernel = f"{'lstm' if lstm else 'rnn_tanh'}_f32_{'bwd_' if backward else ''}step_kernel"
-        time_f32(res, {"step": (run, kernel, steps, steps)}, run_plain,
+        designs = {"step": (run, kernel, steps, steps)}
+        if walks:
+            designs = {"persistent": (lambda: run("persistent"), F32_WALK_KERNELS[kind][0], 1,
+                                      max(lengths)),
+                       "step": (lambda: run("step"), kernel, steps, steps)}
+        time_f32(res, designs, run_plain,
                  lambda: cudnn_rnn_ms(lib, gen, t, len(lengths), h, backward=backward,
                                       dtype=torch.float32),
                  f32_bounds(kind, t, len(lengths), h, lengths),
                  library_name=f"nn.{type(lib).__name__}")
-        res["pair_ms_per_chain"] = 0.5 * time_ms(pair, iters=2)
-        log(f"    float32 pair: {res['pair_ms_per_chain']:.3f} ms a chain")
+        if walks:
+            info = gru_cuda.device_info(torch.device("cuda", torch.cuda.current_device()))
+            res.update(design="persistent", **f32_plan_fields(
+                persist_plan.plan_lstm_f32_forward(h, len(lengths), 1, *info)))
+            time_f32_pair(res, pair, max(lengths), t,
+                          persist_plan.plan_lstm_f32_forward(h, len(lengths), 2, *info))
+        else:
+            res["pair_ms_per_chain"] = 0.5 * time_ms(pair, iters=2)
+            log(f"    float32 pair: {res['pair_ms_per_chain']:.3f} ms a chain")
     del a, c
     torch.cuda.empty_cache()
     return [res, pres]
@@ -5035,25 +5103,26 @@ def f32_rows_vs(label, probs, ref, lens, rows):
     return {"rows": len(lens), "max_abs_prob_err": worst, "least_row_argmax_agreement": least}
 
 
-# the float32 GRU forward wrappers, whose float32 calls on the paths must
-# take the persistent design
-F32_PERSISTENT = ("gru_bidi_fused", "gru_scan", "gru_scan_bidi")
+# the float32 wrappers with a persistent walk (B1-B6), whose float32 calls on
+# the paths must take the persistent design
+F32_PERSISTENT = ("gru_bidi_fused", "gru_scan", "gru_scan_bidi", "gru_bwd_scan", "lstm_scan",
+                  "lstm_scan_with_cell")
 
 
 def f32_launches(before):
     """The float32 launches of B1-B9 since ``before`` (a read of
     :func:`f32_counts`); every launch of those wrappers since then must have
-    been a float32 one, and every call of B1, B2 and B3 must have taken the
-    persistent design (their ``design_counts``), which is logged."""
+    been a float32 one, and every call (or chain) of B1-B6 must have taken
+    the persistent design (their ``design_counts``), which is logged."""
     now = f32_counts()
     got = {k: now[k][0] - before[k][0] for k in now}
     if any(now[k][1] - before[k][1] != got[k] for k in now):
         raise AssertionError(f"a bf16 launch on a float32 path: {before} -> {now}")
     designs = {k: {d: now[k][2][d] - before[k][2][d] for d in DESIGNS}
                for k in F32_PERSISTENT if got[k]}
-    log(f"    design_counts of the float32 GRU forward calls: {designs}")
+    log(f"    design_counts of the float32 calls of B1-B6: {designs}")
     if any(c["step"] or c["persistent"] != got[k] for k, c in designs.items()):
-        raise AssertionError(f"a float32 GRU forward call on a path did not take the "
+        raise AssertionError(f"a float32 call of B1-B6 on a path did not take the "
                              f"persistent design: {designs}")
     return got
 
@@ -5507,7 +5576,7 @@ F32_PHASE_CLOCKS = {1: "grid barrier", 2: "copies of the first chunks",
 
 
 def phase_clocks(card):
-    """Builds the seven persistent kernels' sources and ``gru_f32`` with
+    """Builds the seven persistent kernels' sources, ``gru_f32`` and ``lstm_f32`` with
     -DPS_PROFILE into a build directory of their own, runs the persistent
     kernels once at the flagship, the 2000-wide, the streaming, the bidi batch and the LSTM and
     tanh-RNN serving and training shapes, and prints the clocks that thread
@@ -5515,7 +5584,9 @@ def phase_clocks(card):
     little slower than the plain one). The tanh pairs run once more with
     wider slices on fewer blocks, the plan's knob, to compare within the
     call; the float32 GRU forward walk runs at B1's streaming and batch
-    shapes, B2's and B3's flagship layer."""
+    shapes, B2's and B3's flagship layer, its backward walk (B4) as the
+    flagship's training pair, the float32 LSTM forward walk (B5, B6) as
+    LSTM5x800's serving and training pairs."""
     import ctypes
 
     from danspeech_tpu_torch.ops import cuda_build, gru_cuda, lstm_cuda, persist_plan, rnn_tanh_cuda
@@ -5523,7 +5594,7 @@ def phase_clocks(card):
     cuda_build.NVCC_FLAGS.append("-DPS_PROFILE")
     cuda_build.BUILD_DIR = os.path.join(cuda_build.BUILD_DIR, "profile")
     cuda_build.build("gru_bidi_fused", "gru_bwd", "gru_scan", "lstm_scan", "lstm_bwd",
-                     "rnn_tanh_scan", "rnn_tanh_bwd", "gru_f32")
+                     "rnn_tanh_scan", "rnn_tanh_bwd", "gru_f32", "lstm_f32")
 
     def read(lib):
         fn = cuda_build.load(lib).persist_prof_read
@@ -5547,12 +5618,12 @@ def phase_clocks(card):
             log(f"    {name:40s} {sums[i] / steps:9.0f} clocks a step "
                 f"{100 * sums[i] / max(step, 1):5.1f}%")
 
-    def report_f32(tag, fn, steps):
+    def report_f32(tag, fn, steps, lib="gru_f32"):
         fn()
         torch.cuda.synchronize()
-        read("gru_f32")
+        read(lib)
         ms = time_ms(fn, iters=1, warmup=0)
-        sums = read("gru_f32")
+        sums = read(lib)
         step = sum(sums)
         log(f"  {tag}: {ms:.3f} ms a call, {step / steps:.0f} clocks a step [{card}]")
         for i, name in F32_PHASE_CLOCKS.items():
@@ -5584,6 +5655,28 @@ def phase_clocks(card):
     report_f32(f"gru_bidi_fused float32 T={t} B=128 D=2016 H=1200",
                lambda: gru_cuda.gru_bidi_fused(*args, design="persistent"), t)
     del args
+    # the float32 backward walk (persistent) as the pair of the flagship's
+    # training layer (T + 1 steps: the last pass finishes the carry); the
+    # float32 LSTM forward walk as the pairs of LSTM5x800's training and
+    # serving layers
+    train32 = np.random.default_rng(1201).integers(1, 402, size=32)
+    train32[0] = 401
+    wa = bwd_inputs(gen, t, train32.tolist(), 1200, dtype=torch.float32)
+    wb = bwd_inputs(gen, t, train32.tolist(), 1200, lens=wa[3], dtype=torch.float32)
+    report_f32(f"gru_bwd_scan_pair float32 T={t} B=32 H=1200",
+               lambda: gru_cuda.gru_bwd_scan_pair(wa, wb, True, False, design="persistent"),
+               t + 1)
+    del wa, wb
+    for b, seed in ((32, 801), (128, 800)):
+        lengths = np.random.default_rng(seed).integers(1, 402, size=b)
+        lengths[0] = 401
+        lens = torch.tensor(lengths.tolist(), dtype=torch.int32, device="cuda")
+        la = f32_rnn_operands("lstm_scan", gen, t, lengths.tolist(), 800, lens)
+        lb = f32_rnn_operands("lstm_scan", gen, t, lengths.tolist(), 800, lens)
+        report_f32(f"lstm_scan_pair float32 T={t} B={b} H=800{' with c_seq' if b == 32 else ''}",
+                   lambda: lstm_cuda.lstm_scan_pair(la, lb, False, True, with_cell=b == 32,
+                                                    design="persistent"), t, lib="lstm_f32")
+        del la, lb
     torch.cuda.empty_cache()
     for b in (128, 32):
         lengths = np.random.default_rng(1200).integers(1, 402, size=b)
@@ -5853,10 +5946,11 @@ def main(argv=None) -> int:
             **{k: main[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
                                     "kernel_ms", "kernel_us_a_step", "launches_profiled")},
             **{k: main[k] for k in (
-                "us_a_step", "walk_ms", "pair_ms_per_chain", "step_design_ms",
-                "step_design_walk_ms", "step_design_us_a_step", "step_design_kernel_ms",
-                "step_design_kernel_us_a_step", "step_design_launches_profiled",
-                "resident_share", "plan", "split")
+                "us_a_step", "walk_ms", "pair_ms_per_chain", "pair_us_a_step",
+                "step_design_pair_ms_per_chain", "step_design_pair_us_a_step", "pair_plan",
+                "step_design_ms", "step_design_walk_ms", "step_design_us_a_step",
+                "step_design_kernel_ms", "step_design_kernel_us_a_step",
+                "step_design_launches_profiled", "resident_share", "plan", "split")
                if k in main},
             "source": f"danspeech_tpu_torch/csrc/{source}.cu",
             "design": main.get("design", "step"),

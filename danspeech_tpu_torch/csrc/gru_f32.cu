@@ -8,10 +8,12 @@
 //       one chain or two (the chain is the grid's z index);
 //   gru_scan_bidi_fused (B3)              -> gru_f32_bidi_fused_persist_launch,
 //       or the step design gru_f32_bidi_fused_launch;
-//   gru_bwd_scan (B4)                     -> gru_f32_bwd_launch, one chain
-//       or the two chains of a bidirectional layer (step design only).
-// ops/persist_plan.py:plan_gru_f32_forward chooses the forward walk's
-// design and cuts it over the card.
+//   gru_bwd_scan (B4)                     -> gru_f32_bwd_persist_launch (one
+//       cooperative launch after the gate recompute, below), or the step
+//       design gru_f32_bwd_launch, one chain or the two chains of a
+//       bidirectional layer.
+// ops/persist_plan.py (plan_gru_f32_forward, plan_gru_f32_backward) chooses
+// each walk's design and cuts it over the card.
 // The Pallas kernels are dtype-generic: their products take "the two matmuls
 // in the weights' dtype" (pallas_gru.py:21-23), and float32 weights give
 // float32 products there. Same contract as the bf16 kernels of this
@@ -32,11 +34,12 @@
 // - The fully resident design of the bf16 kernels does not fit: float32
 //   w_hh is 17.3 MB a chain at H = 1200 and 48 MB at H = 2000, against
 //   about 30 MB of shared memory on the whole card (132 SMs x 227 KB). The
-//   persistent forward walk (below) keeps what fits of each block's slice
-//   resident and streams the rest from L2 each step. The step design is
-//   one launch per time step from a host loop, the launch boundary as the
-//   barrier between steps, each block rereading its slice of w_hh from L2
-//   (both flagship chains, 34.6 MB, fit the 50 MB L2).
+//   persistent walks (below; the ring and the tiled product in f32_walk.cuh)
+//   keep what fits of each block's slice resident and stream the rest from
+//   L2 each step. The step design is one launch per time step from a host
+//   loop, the launch boundary as the barrier between steps, each block
+//   rereading its slice of w_hh from L2 (both flagship chains, 34.6 MB, fit
+//   the 50 MB L2).
 // - A step block owns F_J = 32 hidden units (the columns j, H+j, 2H+j of
 //   w_hh) for F_BR = 64 batch rows. Its 256 threads each hold 4 rows x 2
 //   units x 3 gates in registers (f32_fwd_product<3>, f32_step.cuh), so the
@@ -48,12 +51,16 @@
 //   (sgemm.cuh), into the f32 gx buffer and into the dgx output buffer (each
 //   (t, b, j) of gh is read back and overwritten with the gate gradient by
 //   the one thread that owns it).
-// - The backward walk's step product is dgh_prev (B, 3H) @ w_hh^T
-//   (f32_bwd_product): a block owns 32 units (32 rows of w_hh, read as they
-//   lie) for 64 batch rows, 4 rows x 2 units a thread; it finishes the previous step's carry
-//   dh = partial + dgh_prev @ w_hh^T[:, j], applies step t's gradient and
-//   leaves dgh_t (f32, ping-pong) and the partial carry. One more step
-//   (t < 0) only finishes the carry: that is dh0.
+// - The backward walk's product is dgh_prev (B, 3H) @ w_hh^T: each unit owns
+//   one row of w_hh, read as it lies, over a depth of 3H. Its step design
+//   (f32_bwd_product: 32 units for 64 batch rows a block, 4 rows x 2 units a
+//   thread) finishes the previous step's carry dh = partial + dgh_prev @
+//   w_hh^T[:, j], applies step t's gradient and leaves dgh_t (f32,
+//   ping-pong) and the partial carry in global memory; one more step (t < 0)
+//   only finishes the carry: that is dh0. Its persistent design keeps the
+//   partial carry in shared memory and exchanges dgh through L2 (below);
+//   there the left operand, not the weights, dominates the L2 traffic: every
+//   block reads all of its chain's dgh (467 KB a step at B = 32, H = 1200).
 // Measured by chip_smoke.py (phase 12): see PERF.md.
 
 #include <cuda_bf16.h>
@@ -64,6 +71,7 @@ typedef __nv_bfloat16 bf16;  // persist.cuh's streams; nothing here is bf16
 
 #include "f32_step.cuh"
 #include "persist.cuh"
+#include "f32_walk.cuh"
 #include "sgemm.cuh"
 
 // ---------------------------------------------------------------------------
@@ -228,7 +236,7 @@ extern "C" int gru_f32_bidi_fused_launch(
 // .. j0 + U - 1 and their 3U columns of w_hh, packed by the wrapper
 // (gru_cuda.f32_slices) as wp[k][d][g U + u] = w_hh[d][g H + j0 + u], zeros
 // past H and past the depth H, so a chunk of depths is one contiguous run.
-// The state is exchanged through hx (2 ping-pong buffers, chains, Hp
+// The state is exchanged through hx (2 ping-pong buffers, chains, Dp
 // depths, Bp rows), transposed, so that a chunk of depths of h is contiguous
 // too: step s reads buffer s % 2 and writes its units of buffer (s + 1) % 2;
 // the grid barrier (persist.cuh) orders the two, and every read of hx goes
@@ -242,7 +250,7 @@ extern "C" int gru_f32_bidi_fused_launch(
 //     product is done,
 //     the partial sums Cs[split][row][col] and the new state's tile
 //     Hn[u][row] from which hx is written in runs of rows;
-//   "dot" only: the whole of h (Hp x B) for the step;
+//   "dot" only: the whole of h (Dp x B) for the step;
 //   the resident slice: depths 0 .. kres - 1 of the block's packed slice,
 //     loaded once. The split is chosen by the plan: the work area and h
 //     first, then as many chunks of the slice as the block's shared memory
@@ -253,10 +261,11 @@ extern "C" int gru_f32_bidi_fused_launch(
 // The products are FFMA in float32 (no TF32), each thread's sums over the
 // depth in order and the splits' partial sums added in split order, so a
 // call repeats bit for bit:
-// - tiled (more than FP_DOT_ROWS rows): passes of RB rows (a multiple of 8;
-//   Bp = passes x RB); thread (split ks, tile) holds 8 rows x 2 units x 3
-//   gates = 48 sums and walks depths ks kc / KS .. of each chunk: per depth
-//   two 16-byte reads of h and three 8-byte reads of w for 48 FFMAs. Every
+// - tiled (more than FP_DOT_ROWS rows; fp_tiled_product<3>, f32_walk.cuh):
+//   passes of RB rows (a multiple of 8; Bp = passes x RB); thread (split ks,
+//   tile) holds 8 rows x 2 units x 3 gates = 48 sums and walks depths
+//   ks kc / KS .. of each chunk: per depth two 16-byte reads of h and three
+//   8-byte reads of w for 48 FFMAs. Every
 //   block reads all of its chain's h each pass (614 KB a step at B=128,
 //   H=1200, 74 MB over B3's 120 blocks): the ring overlaps those reads with
 //   the product of the chunk before (FP_STAGES - 1 chunks in flight); nothing
@@ -264,7 +273,7 @@ extern "C" int gru_f32_bidi_fused_launch(
 // - dot (at most FP_DOT_ROWS rows, the streaming chunk and small cohorts):
 //   no padding rows; thread (split ks, column) owns one gate column for
 //   every row and a share of the depth: kres / KS resident depths, then
-//   kc / KS of each streamed chunk. The whole of h (Hp x B) comes into
+//   kc / KS of each streamed chunk. The whole of h (Dp x B) comes into
 //   shared memory once a step; the streamed chunks' loads are in flight
 //   while the resident depths are multiplied. Every block reads its columns
 //   of w_hh, so all SMs read w_hh.
@@ -277,171 +286,44 @@ extern "C" int gru_f32_bidi_fused_launch(
 // After the walk each block writes its units of the final state to h_last.
 //
 // ptxas (sm_90a, as chip_smoke.py's build log prints it): the tiled instance
-// 145 registers, the small-B instances 127-161, no spill.
+// 145 registers, the small-B instances 127-168, no spill; the backward walk
+// (below) 161.
 
-#define FP_MAX_THREADS 384
 #define FP_DOT_ROWS 8
-#define FP_STAGES 2  // ring stages (persist_plan.F32_STAGES)
 
 struct FpWalk {
   const float* gx[2];   // (T, B, 3H), bias-free
-  const float* wp[2];   // (blocks, Hp, 3U), packed
+  const float* wp[2];   // (blocks, Dp, 3U), packed
   const float* bih[2];  // (3H,)
   const float* bhh[2];  // (3H,)
   float* out[2];        // (T, B, H)
   float* hlast[2];      // (B, H)
   int reverse[2];
   const int* lengths;   // (B,)
-  float* hx;            // (2, chains, Hp, Bp)
+  float* hx;            // (2, chains, Dp, Bp)
   unsigned int* barrier;
-  int T, B, H, chains;
-  int U, blocks, RB, Bp, Hp, KS, kc, kres;
+  int T, B, H, chains, blocks;
+  FpCut q;              // Dp: H padded to the chunk depth
 };
 
-__host__ __device__ __forceinline__ int fp_up4(int n) { return (n + 3) & ~3; }
-
-// floats of the work area (ring, or partial sums and the state tile)
-__host__ __device__ __forceinline__ int fp_work_floats(const FpWalk& p, bool dot) {
-  const int NC = 3 * p.U;
-  const int ring = FP_STAGES * p.kc * ((dot ? 0 : p.RB) + NC);
-  const int sums = p.KS * p.RB * NC + p.U * p.RB;
-  return fp_up4(ring > sums ? ring : sums);
-}
-
-// `bytes` (a multiple of 16) from global memory at src to shared memory at
-// dst, both on 16 bytes, by the copy engine (a bulk copy, through L2), counted
-// on the mbarrier `bar`
-__device__ __forceinline__ void fp_bulk(void* dst, const void* src, uint32_t bytes,
-                                        uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-      :: "r"(ps_smem(dst)), "l"(src), "r"(bytes), "r"(ps_smem(bar)) : "memory");
-}
-
-// The ring: stage g % FP_STAGES holds chunk g (chunks counted over the whole
-// walk, the same count in every thread), filled by thread 0 with bulk copies
-// that complete on the stage's mbarrier; its (g / FP_STAGES)-th phase. Thread 0
-// refills a stage only after the block-wide barrier that follows the wait
-// for the next chunk, so every thread has left it.
-struct FpRing {
-  float* base;
-  uint64_t* bars;  // one mbarrier a stage, then one for the whole of h ("dot")
-  uint32_t fed;    // chunks fed before this product
-  uint32_t hfed;   // loads of the whole of h before this one ("dot")
-};
-
-__device__ __forceinline__ void fp_ring_wait(const FpRing& ring, uint32_t g) {
-  ps_mbar_wait(ring.bars + g % FP_STAGES, (g / FP_STAGES) & 1u);
-}
-
-// Cs[ks][r][c] = the partial sum over split ks's depths of h[r0 + r] .
-// slice[c], for the pass's RB rows (tiled product); Cs lies over the ring.
-// (Tried on an H100: a tile of 8 rows x 4 units was faster only where the
-// block kept 8 warps, and slower at B3's layer, whose 80 such tiles leave 5;
-// an unroll of 8 needs fewer registers than one of 4 and ran faster.)
-__device__ __forceinline__ void fp_tiled_product(const FpWalk& p, const float* hsrc,
-                                                 const float* wp, const float* Ws,
-                                                 FpRing& ring, int r0, long long& ps_t_) {
-  const int tid = threadIdx.x;
-  const int U = p.U, NC = 3 * U, RB = p.RB, kc = p.kc, KS = p.KS;
-  constexpr int S = FP_STAGES;
-  const int nch = p.Hp / kc, kres_ch = p.kres / kc;
-  const int stage_f = kc * (RB + NC);
-  const uint32_t g0 = ring.fed;
-  auto feed = [&](int i) {  // thread 0: chunk i of this product
-    if (i >= nch) return;
-    const uint32_t g = g0 + i;
-    float* st = ring.base + (g % S) * stage_f;
-    uint64_t* bar = ring.bars + g % S;
-    const bool streamed = i >= kres_ch;
-    ps_mbar_expect_tx(bar, 4u * kc * (RB + (streamed ? NC : 0)));
-    if (RB == p.Bp) {  // one pass: kc depths of every row are one run
-      fp_bulk(st, hsrc + (size_t)i * kc * RB, 4u * kc * RB, bar);
-    } else {
-      for (int kk = 0; kk < kc; ++kk)
-        fp_bulk(st + kk * RB, hsrc + (size_t)(i * kc + kk) * p.Bp + r0, 4u * RB, bar);
-    }
-    if (streamed) fp_bulk(st + kc * RB, wp + (size_t)i * kc * NC, 4u * kc * NC, bar);
-  };
-
-  const int tiles = (RB / 8) * (U / 2);
-  const int ks = tid / tiles, tile = tid - ks * tiles;
-  const bool active = ks < KS;
-  const int up = tile % (U / 2), rg = tile / (U / 2);
-  const int dk = kc / KS;
-  float acc[8][6];
-#pragma unroll
-  for (int r = 0; r < 8; ++r)
-#pragma unroll
-    for (int q = 0; q < 6; ++q) acc[r][q] = 0.0f;
-
-  if (tid == 0) {
-    // what other blocks wrote before the grid barrier, and what this block
-    // read and wrote with ordinary accesses, ordered before the copies
-    asm volatile("fence.proxy.async;\n" ::: "memory");
-    for (int i = 0; i < S - 1; ++i) feed(i);
-  }
-  PS_ACC(2);
-  for (int i = 0; i < nch; ++i) {
-    fp_ring_wait(ring, g0 + i);
-    __syncthreads();  // every thread has left chunk i - 1: its stage is free
-    PS_ACC(5);
-    if (tid == 0) {
-      ps_fence_proxy_async();
-      feed(i + S - 1);
-    }
-    if (active) {
-      const float* hs = ring.base + ((g0 + i) % S) * stage_f;
-      const float* ws = i < kres_ch ? Ws + (size_t)i * kc * NC : hs + kc * RB;
-      const float* a = hs + ks * dk * RB + rg * 8;
-      const float* w = ws + ks * dk * NC + 2 * up;
-#pragma unroll 8
-      for (int kk = 0; kk < dk; ++kk) {
-        const float4 a0 = *reinterpret_cast<const float4*>(a + kk * RB);
-        const float4 a1 = *reinterpret_cast<const float4*>(a + kk * RB + 4);
-        const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-        float wv[6];
-#pragma unroll
-        for (int g = 0; g < 3; ++g) {
-          const float2 v = *reinterpret_cast<const float2*>(w + kk * NC + g * U);
-          wv[2 * g] = v.x;
-          wv[2 * g + 1] = v.y;
-        }
-#pragma unroll
-        for (int r = 0; r < 8; ++r)
-#pragma unroll
-          for (int q = 0; q < 6; ++q) acc[r][q] = fmaf(av[r], wv[q], acc[r][q]);
-      }
-    }
-    PS_ACC(10);
-  }
-  ring.fed = g0 + nch;
-  __syncthreads();  // the ring is read: the partial sums go over it
-  if (active) {
-    float* cs = ring.base + ((size_t)ks * RB + rg * 8) * NC + 2 * up;
-#pragma unroll
-    for (int r = 0; r < 8; ++r)
-#pragma unroll
-      for (int g = 0; g < 3; ++g)
-        *reinterpret_cast<float2*>(cs + r * NC + g * U) =
-            make_float2(acc[r][2 * g], acc[r][2 * g + 1]);
-  }
-  __syncthreads();
-  PS_ACC(8);
+// floats of the work area: the ring, or the partial sums and the new state's
+// tile Hn (U x RB) over it
+__host__ __device__ __forceinline__ int fp_fwd_work(const FpCut& q, bool dot) {
+  return fp_work_floats(q, 3 * q.U, dot ? 0 : q.RB, q.U * q.RB);
 }
 
 // Cs[ks][b][c] = the partial sum over split ks's depths of h[b] . slice[c],
 // for the B = ROWS <= FP_DOT_ROWS rows (small-B product, one instance a
 // batch); Cs lies over the ring. hs receives the whole of h.
 template <int ROWS>
-__device__ __forceinline__ void fp_dot_product(const FpWalk& p, const float* hsrc,
+__device__ __forceinline__ void fp_dot_product(const FpCut& q, const float* hsrc,
                                                const float* wp, const float* Ws,
                                                FpRing& ring, float* hs, long long& ps_t_) {
   const int tid = threadIdx.x;
-  const int NC = 3 * p.U, kc = p.kc, KS = p.KS;
+  const int NC = 3 * q.U, kc = q.kc, KS = q.KS;
   constexpr int S = FP_STAGES;
   constexpr int B = ROWS;
-  const int nch = p.Hp / kc, kres_ch = p.kres / kc;
+  const int nch = q.Dp / kc, kres_ch = q.kres / kc;
   const int stage_f = kc * NC;
   const uint32_t g0 = ring.fed - kres_ch;  // streamed chunk i is ring chunk g0 + i
   uint64_t* hbar = ring.bars + FP_STAGES;
@@ -454,8 +336,8 @@ __device__ __forceinline__ void fp_dot_product(const FpWalk& p, const float* hsr
   };
   if (tid == 0) {
     asm volatile("fence.proxy.async;\n" ::: "memory");
-    ps_mbar_expect_tx(hbar, 4u * p.Hp * B);
-    fp_bulk(hs, hsrc, 4u * p.Hp * B, hbar);
+    ps_mbar_expect_tx(hbar, 4u * q.Dp * B);
+    fp_bulk(hs, hsrc, 4u * q.Dp * B, hbar);
     for (int i = kres_ch; i < kres_ch + S - 1; ++i) feed(i);
   }
   const int col = tid % NC, ks = tid / NC;
@@ -468,7 +350,7 @@ __device__ __forceinline__ void fp_dot_product(const FpWalk& p, const float* hsr
   ++ring.hfed;
   PS_ACC(5);
   if (active) {  // the resident depths, in KS runs of kres / KS
-    const int dk = p.kres / KS;
+    const int dk = q.kres / KS;
     const float* w = Ws + (size_t)ks * dk * NC + col;
     const float* hr = hs + (size_t)ks * dk * B;
 #pragma unroll 4
@@ -510,8 +392,6 @@ __device__ __forceinline__ void fp_dot_product(const FpWalk& p, const float* hsr
   PS_ACC(8);
 }
 
-#define FP_EPI 4  // epilogue elements a thread loads before it computes any
-
 // ROWS = 0: the tiled product; 1 .. FP_DOT_ROWS: the small-B product at B = ROWS
 template <int ROWS>
 __global__ void __launch_bounds__(FP_MAX_THREADS, 1)
@@ -521,24 +401,22 @@ gru_f32_persist_kernel(FpWalk p) {
   __shared__ __align__(8) uint64_t fp_bars[FP_STAGES + 1];
   const int tid = threadIdx.x, nthr = blockDim.x;
   const int c = blockIdx.x / p.blocks;
-  const int j0 = (blockIdx.x - c * p.blocks) * p.U;
-  const int U = p.U, NC = 3 * U, H = p.H, B = p.B, T = p.T, RB = p.RB, Bp = p.Bp;
+  const FpCut& fc = p.q;
+  const int j0 = (blockIdx.x - c * p.blocks) * fc.U;
+  const int U = fc.U, NC = 3 * U, H = p.H, B = p.B, T = p.T, RB = fc.RB, Bp = fc.Bp;
   const int uw = min(U, H - j0);
   const int G = 3 * H;
   FpRing ring{fp_smem, fp_bars, 0u, 0u};
-  float* Hn = fp_smem + p.KS * RB * NC;
-  float* hs = fp_smem + fp_work_floats(p, DOT);
-  float* Ws = hs + (DOT ? fp_up4(p.Hp * B) : 0);
-  const float* wp = p.wp[c] + (size_t)(j0 / U) * p.Hp * NC;
+  float* Hn = fp_smem + fc.KS * RB * NC;
+  float* hs = fp_smem + fp_fwd_work(fc, DOT);
+  float* Ws = hs + (DOT ? fp_up4(fc.Dp * B) : 0);
+  const float* wp = p.wp[c] + (size_t)(j0 / U) * fc.Dp * NC;
 
   if (tid == 0) {
     for (int i = 0; i <= FP_STAGES; ++i) ps_mbar_init(fp_bars + i, 1);
     ps_mbar_init_fence();
   }
-  // the resident depths of the slice, once
-  for (int q = tid; q < p.kres * NC / 4; q += nthr) ps_cp_async16(Ws + 4 * q, wp + 4 * q);
-  ps_commit();
-  ps_wait<0>();
+  fp_load_resident(Ws, wp, fc.kres * NC);  // the resident depths of the slice, once
 
   const int n = ps_longest(p.lengths, B, T);  // its __syncthreads covers both
   float* __restrict__ out = p.out[c];
@@ -552,7 +430,7 @@ gru_f32_persist_kernel(FpWalk p) {
   const float* __restrict__ gx = p.gx[c];
   const float* __restrict__ bih = p.bih[c];
   const float* __restrict__ bhh = p.bhh[c];
-  const size_t hbuf = (size_t)p.Hp * Bp;
+  const size_t hbuf = (size_t)fc.Dp * Bp;
   const int passes = Bp / RB;
   const int nel = RB * U;
   long long ps_t_ = 0;
@@ -571,9 +449,9 @@ gru_f32_persist_kernel(FpWalk p) {
         if (b < B) ps_prefetch_l2(gx + ((size_t)t * B + b) * G + (i % 3) * H + j0);
       }
       if constexpr (DOT)
-        fp_dot_product<(DOT ? ROWS : 1)>(p, hsrc, wp, Ws, ring, hs, ps_t_);
+        fp_dot_product<(DOT ? ROWS : 1)>(fc, hsrc, wp, Ws, ring, hs, ps_t_);
       else
-        fp_tiled_product(p, hsrc, wp, Ws, ring, r0, ps_t_);
+        fp_tiled_product<3>(fc, hsrc, wp, Ws, ring, r0, ps_t_);
       // epilogue: (row, unit) pairs, units fastest (gx and out in runs); the
       // loads of FP_EPI pairs first, then their gates
       for (int e0 = tid; e0 < nel; e0 += FP_EPI * nthr) {
@@ -605,7 +483,7 @@ gru_f32_persist_kernel(FpWalk p) {
           if (live[q]) {
             const int b = r0 + r, j = j0 + u;
             float sr = 0.0f, sz = 0.0f, sn = 0.0f;  // the splits in order
-            for (int ks = 0; ks < p.KS; ++ks) {
+            for (int ks = 0; ks < fc.KS; ++ks) {
               const float* cs = ring.base + ((size_t)ks * RB + r) * NC + u;
               sr += cs[0];
               sz += cs[U];
@@ -645,21 +523,18 @@ gru_f32_persist_kernel(FpWalk p) {
 
 // The plan's ints, checked against what the kernel assumes, and the launch.
 static int fp_launch(FpWalk& p, int threads, int smem, int dot, cudaStream_t s) {
-  const int NC = 3 * p.U;
+  const FpCut& q = p.q;
+  const int NC = 3 * q.U;
   bool ok = p.chains >= 1 && p.chains <= 2 && p.T >= 1 && p.B >= 1 && p.H >= 1 &&
-            p.U >= 2 && p.U % 2 == 0 && p.blocks >= 1 && (long long)p.blocks * p.U >= p.H &&
-            (long long)(p.blocks - 1) * p.U < p.H && p.KS >= 1 && p.kc >= 4 &&
-            p.kc % 4 == 0 && p.kc % p.KS == 0 && p.Hp >= p.H && p.Hp % p.kc == 0 &&
-            p.kres >= 0 && p.kres <= p.Hp && p.kres % p.kc == 0 && threads >= 32 && threads <= FP_MAX_THREADS &&
-            threads % 32 == 0 && p.RB >= 1 && p.Bp % p.RB == 0 && p.Bp >= p.B;
+            fp_cut_ok(q, p.H, p.blocks, threads) && q.Dp >= p.H && q.Bp >= p.B;
   if (dot)
-    ok = ok && p.B <= FP_DOT_ROWS && p.RB == p.B && p.Bp == p.B && NC * p.KS <= threads &&
-         p.kres % p.KS == 0;
+    ok = ok && p.B <= FP_DOT_ROWS && q.RB == p.B && q.Bp == p.B && NC * q.KS <= threads &&
+         q.kres % q.KS == 0;
   else
-    ok = ok && p.RB % 8 == 0 && (p.RB / 8) * (p.U / 2) * p.KS <= threads;
+    ok = ok && fp_tiled_ok(q, threads);
   if (!ok) return (int)cudaErrorInvalidValue;
-  const long long need = 4LL * (fp_work_floats(p, dot != 0) +
-                                (dot ? fp_up4(p.Hp * p.B) : 0) + (long long)p.kres * NC);
+  const long long need = 4LL * (fp_fwd_work(q, dot != 0) + (dot ? fp_up4(q.Dp * p.B) : 0) +
+                                (long long)q.kres * NC);
   if (smem < need) return (int)cudaErrorInvalidValue;
   void* args[] = {&p};
   static const void* const kernels[FP_DOT_ROWS + 1] = {
@@ -676,7 +551,7 @@ static int fp_launch(FpWalk& p, int threads, int smem, int dot, cudaStream_t s) 
 // Host entry, B1 / B2, persistent: one or two chains (a, b) over precomputed
 // bias-free projections, sharing T, B, H and lengths, in one cooperative
 // launch of the planned grid on the caller's stream. wp_* are the packed
-// slices (blocks, Hp, 3U); hx holds 2 buffers of (chains, Hp, Bp) f32, buffer
+// slices (blocks, Dp, 3U); hx holds 2 buffers of (chains, Dp, Bp) f32, buffer
 // 0 h0 of each chain transposed (h0[b][j] at [j][b]) and zeros elsewhere;
 // h_last (B, H) of each chain on exit. barrier: one zeroed counter. Returns
 // the CUDA error code (cudaErrorCooperativeLaunchTooLarge where the grid
@@ -710,9 +585,9 @@ extern "C" int gru_f32_persist_launch(
   p.hx = static_cast<float*>(hx);
   p.barrier = static_cast<unsigned int*>(barrier);
   p.T = T; p.B = B; p.H = H; p.chains = chains;
-  p.U = units; p.blocks = blocks; p.RB = rows_per_pass; p.Bp = padded_rows;
-  p.Hp = padded_depth; p.KS = k_splits; p.kc = chunk_depth;
-  p.kres = resident_depth;
+  p.blocks = blocks;
+  p.q = FpCut{units, rows_per_pass, padded_rows, padded_depth, k_splits, chunk_depth,
+              resident_depth};
   return fp_launch(p, threads, smem, dot, reinterpret_cast<cudaStream_t>(stream));
 }
 
@@ -720,7 +595,7 @@ extern "C" int gru_f32_persist_launch(
 // Host entry, B3, persistent: the projection x @ w_ih of both directions
 // into the f32 gx buffer (2, T, B, 3H) (sgemm.cuh, as the step design's),
 // then both chains (the backward one in reverse time), h0 = 0, in one
-// cooperative launch. hx: 2 zeroed buffers of (2, Hp, Bp); h_last (2, B, H)
+// cooperative launch. hx: 2 zeroed buffers of (2, Dp, Bp); h_last (2, B, H)
 // and out (2, T, B, H) f32.
 // ---------------------------------------------------------------------------
 
@@ -895,4 +770,289 @@ extern "C" int gru_f32_bwd_launch(
     if (err != cudaSuccess) return (int)err;
   }
   return 0;
+}
+
+// ---------------------------------------------------------------------------
+// The persistent backward walk (B4): all steps of one or two chains in one
+// cooperative launch, after the gate recompute
+// ---------------------------------------------------------------------------
+//
+// The plan (ops/persist_plan.py:plan_gru_f32_backward) cuts the units of the
+// chains into blocks of U (even) units, one block an SM, chain c's blocks
+// c * blocks .. (c + 1) * blocks - 1, as the forward walk's. Block k of a
+// chain owns units j0 = k U .. j0 + U - 1 and rows j of w_hh (H, 3H), read as
+// they lie (w_hh^T[:, j] = w_hh[j, :]): one column a unit over a depth of
+// 3H, packed by the wrapper (gru_cuda.f32_rows) as wp[k][d][u] =
+// w_hh[j0 + u][d], zeros past H and past 3H.
+//
+// Step s multiplies dgh of the step before (B, 3H), exchanged transposed
+// through dg (2 ping-pong buffers, chains, Dp depths, Bp rows; every block
+// reads all of it, through the ring: f32_walk.cuh, G = 1), by its slice:
+// the carry of its units, dh = partial + dgh_prev @ w_hh^T[:, j]. The
+// epilogue takes (row, unit) pairs over all threads, as the step kernel's
+// (gru_f32_bwd_step_kernel) does: it finishes dh, recomputes r, z and n from
+// gx + b_ih and the gh the recompute left in dgx, applies step t's
+// gradient, writes dgx and dghn, keeps the partial carry dhnew z + (1 - m) dh
+// in shared memory (P, the block's units for every row: no state leaves the
+// block), and writes its units' three depths (j, H + j, 2H + j) of the new
+// dgh into dg through the tile Dn, in runs of rows. A grid barrier a chain
+// (each chain its own counter, so the two never wait for each other) orders
+// the steps. Only the steps with a valid row are walked, t = n - 1 .. 0 for
+// a reverse walk (the backward of a forward chain), 0 .. n - 1 otherwise,
+// n = max(lengths): at t >= n every row is past its length, the gradients
+// are zeros (written first, with no barrier) and the carry passes through
+// unchanged. Step 0 multiplies nothing (dgh before it is zero). One more pass
+// (s = n) only finishes the carry: that is dh0.
+//
+// Shared memory, from its start: the work area (the ring, and over it the
+// partial sums Cs[split][row][unit] and the tile Dn[gate][unit][row]), the
+// partial carry P[unit][Bp], the resident depths of the slice.
+
+struct FbWalk {
+  const float* gx[2];     // (T, B, 3H), bias-free
+  const float* hprev[2];  // (T, B, H)
+  const float* dout[2];   // (T, B, H)
+  const float* wp[2];     // (blocks, Dp, U), packed rows of w_hh
+  const float* bih[2];    // (3H,)
+  const float* bhh[2];    // (3H,)
+  float* dgx[2];          // (T, B, 3H): gh in, dgx out
+  float* dghn[2];         // (T, B, H)
+  float* dh[2];           // (B, H): dh_last in, dh0 out
+  int reverse[2];
+  const int* lengths;     // (B,)
+  float* dg;              // (2, chains, Dp, Bp): dgh exchanged, zeros on entry
+  unsigned int* barrier;  // (chains,): a zeroed counter a chain
+  int T, B, H, chains, blocks;
+  FpCut q;                // Dp: 3H padded to the chunk depth
+};
+
+// floats of the work area: the ring, or the partial sums and the tile Dn
+// (3 x U x RB) of the new dgh over it
+__host__ __device__ __forceinline__ int fb_work(const FpCut& q) {
+  return fp_work_floats(q, q.U, q.RB, 3 * q.U * q.RB);
+}
+
+__global__ void __launch_bounds__(FP_MAX_THREADS, 1)
+gru_f32_bwd_persist_kernel(FbWalk p) {
+  extern __shared__ __align__(16) float fp_smem[];
+  __shared__ __align__(8) uint64_t fp_bars[FP_STAGES];
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int c = blockIdx.x / p.blocks;
+  const FpCut& fc = p.q;
+  const int j0 = (blockIdx.x - c * p.blocks) * fc.U;
+  const int U = fc.U, H = p.H, B = p.B, T = p.T, RB = fc.RB, Bp = fc.Bp;
+  const int uw = min(U, H - j0);
+  const int G = 3 * H;
+  FpRing ring{fp_smem, fp_bars, 0u, 0u};
+  float* Dn = fp_smem + fc.KS * RB * U;
+  float* P = fp_smem + fb_work(fc);
+  float* Ws = P + fp_up4(U * Bp);
+  const float* wp = p.wp[c] + (size_t)(j0 / U) * fc.Dp * U;
+
+  if (tid == 0) {
+    for (int i = 0; i < FP_STAGES; ++i) ps_mbar_init(fp_bars + i, 1);
+    ps_mbar_init_fence();
+  }
+  fp_load_resident(Ws, wp, fc.kres * U);  // the resident depths of the slice, once
+  float* __restrict__ dh = p.dh[c];
+  for (int i = tid; i < U * Bp; i += nthr) {  // the carry starts at dh_last
+    const int u = i / Bp, b = i - u * Bp;
+    P[i] = (u < uw && b < B) ? dh[(size_t)b * H + j0 + u] : 0.0f;
+  }
+
+  const int n = ps_longest(p.lengths, B, T);  // its __syncthreads covers both
+  float* __restrict__ dgx = p.dgx[c];
+  float* __restrict__ dghn = p.dghn[c];
+  {  // steps n .. T - 1: zeros at this block's units
+    const size_t cnt = (size_t)(T - n) * B * uw;
+    for (size_t i = tid; i < cnt; i += nthr) {
+      const size_t row = (size_t)n * B + i / uw;
+      const int j = j0 + (int)(i % uw);
+      dgx[row * G + j] = 0.0f;
+      dgx[row * G + H + j] = 0.0f;
+      dgx[row * G + 2 * H + j] = 0.0f;
+      dghn[row * H + j] = 0.0f;
+    }
+  }
+  const float* __restrict__ gx = p.gx[c];
+  const float* __restrict__ hprev = p.hprev[c];
+  const float* __restrict__ dout = p.dout[c];
+  const float* __restrict__ bih = p.bih[c];
+  const float* __restrict__ bhh = p.bhh[c];
+  const size_t dbuf = (size_t)fc.Dp * Bp;
+  const int passes = Bp / RB;
+  const int nel = RB * U;
+  long long ps_t_ = 0;
+#ifdef PS_PROFILE
+  ps_t_ = clock64();
+#endif
+  for (int s = 0; s <= n; ++s) {
+    const bool last = s == n;  // after the last step: only the carry, dh0
+    const int t = last ? -1 : (p.reverse[c] ? n - 1 - s : s);
+    const float* dsrc = p.dg + ((size_t)(s & 1) * p.chains + c) * dbuf;
+    float* ddst = p.dg + ((size_t)((s & 1) ^ 1) * p.chains + c) * dbuf;
+    for (int pass = 0; pass < passes; ++pass) {
+      const int r0 = pass * RB;
+      if (!last) {  // the pass's rows of gx and gh at this block's units, toward L2
+        for (int i = tid; i < RB * 6; i += nthr) {
+          const int b = r0 + i / 6, g = i % 6;
+          const float* base = g < 3 ? gx : dgx;
+          if (b < B) ps_prefetch_l2(base + ((size_t)t * B + b) * G + (g % 3) * H + j0);
+        }
+      }
+      if (s > 0) fp_tiled_product<1>(fc, dsrc, wp, Ws, ring, r0, ps_t_);
+      // epilogue: (row, unit) pairs, units fastest; the loads of FP_EPI pairs
+      // first, then their gradients
+      for (int e0 = tid; e0 < nel; e0 += FP_EPI * nthr) {
+        float xr[FP_EPI], xz[FP_EPI], xn[FP_EPI], hr[FP_EPI], hz[FP_EPI], hn[FP_EPI];
+        float hp[FP_EPI], dy[FP_EPI];
+        bool live[FP_EPI], valid[FP_EPI];
+#pragma unroll
+        for (int k = 0; k < FP_EPI; ++k) {
+          const int e = e0 + k * nthr;
+          const int r = e / U, u = e - r * U;
+          const int b = r0 + r, j = j0 + u;
+          live[k] = e < nel && b < B && j < H;
+          valid[k] = false;
+          xr[k] = xz[k] = xn[k] = hr[k] = hz[k] = hn[k] = hp[k] = dy[k] = 0.0f;
+          if (live[k] && !last) {
+            const size_t row = (size_t)t * B + b;
+            const float* gxr = gx + row * G;
+            const float* ghr = dgx + row * G;
+            xr[k] = gxr[j];
+            xz[k] = gxr[H + j];
+            xn[k] = gxr[2 * H + j];
+            hr[k] = ghr[j];
+            hz[k] = ghr[H + j];
+            hn[k] = ghr[2 * H + j];
+            hp[k] = hprev[row * H + j];
+            dy[k] = dout[row * H + j];
+            valid[k] = p.lengths[b] > t;
+          }
+        }
+#pragma unroll
+        for (int k = 0; k < FP_EPI; ++k) {
+          const int e = e0 + k * nthr;
+          if (e >= nel) break;
+          const int r = e / U, u = e - r * U;
+          float dr = 0.0f, dz = 0.0f, dn = 0.0f;  // padding rows stay zero
+          if (live[k]) {
+            const int b = r0 + r, j = j0 + u;
+            float acc = 0.0f;  // the splits in order
+            if (s > 0)
+              for (int ks = 0; ks < fc.KS; ++ks) acc += ring.base[((size_t)ks * RB + r) * U + u];
+            const float dhv = P[u * Bp + b] + acc;
+            if (last) {
+              dh[(size_t)b * H + j] = dhv;
+              continue;
+            }
+            const float ghr = hr[k] + bhh[j];
+            const float ghz = hz[k] + bhh[H + j];
+            const float ghn = hn[k] + bhh[2 * H + j];
+            const float rg = f32_sigmoid((xr[k] + bih[j]) + ghr);
+            const float zg = f32_sigmoid((xz[k] + bih[H + j]) + ghz);
+            const float ng = tanhf((xn[k] + bih[2 * H + j]) + rg * ghn);
+
+            const float dhnew = valid[k] ? dhv + dy[k] : 0.0f;
+            const float dnv = dhnew * (1.0f - zg);
+            const float dzv = dhnew * (hp[k] - ng);
+            const float dpre_n = dnv * (1.0f - ng * ng);
+            const float dpre_r = dpre_n * ghn * rg * (1.0f - rg);
+            const float dpre_z = dzv * zg * (1.0f - zg);
+            const size_t row = (size_t)t * B + b;
+            dgx[row * G + j] = dpre_r;
+            dgx[row * G + H + j] = dpre_z;
+            dgx[row * G + 2 * H + j] = dpre_n;
+            dr = dpre_r;
+            dz = dpre_z;
+            dn = dpre_n * rg;
+            dghn[row * H + j] = dn;
+            P[u * Bp + b] = dhnew * zg + (valid[k] ? 0.0f : dhv);
+          }
+          Dn[u * RB + r] = dr;
+          Dn[(U + u) * RB + r] = dz;
+          Dn[(2 * U + u) * RB + r] = dn;
+        }
+      }
+      __syncthreads();
+      if (!last) {
+        for (int e = tid; e < 3 * uw * RB; e += nthr) {  // rows fastest: runs of dg
+          const int gu = e / RB, r = e - gu * RB;
+          const int g = gu / uw, u = gu - g * uw;
+          ddst[(size_t)(g * H + j0 + u) * Bp + r0 + r] = Dn[(g * U + u) * RB + r];
+        }
+      }
+      __syncthreads();  // Dn is read before the next pass's ring
+      PS_ACC(3);
+    }
+    if (!last) ps_grid_barrier(p.barrier + c, (unsigned int)(s + 1) * p.blocks);
+    PS_ACC(1);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Host entry, B4, persistent: the backward walks of one or two chains (a, b)
+// that share T, B, H and lengths, on the caller's stream: the gate recompute
+// gh = hprev @ w_hh of each chain into its dgx buffer (sgemm.cuh, as the step
+// design's), then every step in one cooperative launch of the planned grid.
+// wp_* are the packed rows (blocks, Dp, U); dg holds 2 zeroed buffers of
+// (chains, Dp, Bp) f32; dh_* hold dh_last on entry and dh0 on exit;
+// barrier: one zeroed counter a chain. Returns the CUDA error code
+// (cudaErrorCooperativeLaunchTooLarge where the grid cannot be co-resident),
+// else 0.
+// ---------------------------------------------------------------------------
+
+extern "C" int gru_f32_bwd_persist_launch(
+    const void* gx_a, const void* gx_b, const void* hprev_a, const void* hprev_b,
+    const void* dout_a, const void* dout_b, const void* lengths, const void* w_hh_a,
+    const void* w_hh_b, const void* wp_a, const void* wp_b, const void* b_ih_a,
+    const void* b_ih_b, const void* b_hh_a, const void* b_hh_b, void* dg, void* dh_a,
+    void* dh_b, void* dgx_a, void* dgx_b, void* dghn_a, void* dghn_b, void* barrier,
+    int T, int B, int H, int reverse_a, int reverse_b, int chains, int units, int blocks,
+    int rows_per_pass, int padded_rows, int padded_depth, int k_splits, int chunk_depth,
+    int resident_depth, int threads, int smem, int dot, void* stream) {
+  FbWalk p;
+  p.gx[0] = static_cast<const float*>(gx_a);
+  p.gx[1] = static_cast<const float*>(gx_b);
+  p.hprev[0] = static_cast<const float*>(hprev_a);
+  p.hprev[1] = static_cast<const float*>(hprev_b);
+  p.dout[0] = static_cast<const float*>(dout_a);
+  p.dout[1] = static_cast<const float*>(dout_b);
+  p.wp[0] = static_cast<const float*>(wp_a);
+  p.wp[1] = static_cast<const float*>(wp_b);
+  p.bih[0] = static_cast<const float*>(b_ih_a);
+  p.bih[1] = static_cast<const float*>(b_ih_b);
+  p.bhh[0] = static_cast<const float*>(b_hh_a);
+  p.bhh[1] = static_cast<const float*>(b_hh_b);
+  p.dgx[0] = static_cast<float*>(dgx_a);
+  p.dgx[1] = static_cast<float*>(dgx_b);
+  p.dghn[0] = static_cast<float*>(dghn_a);
+  p.dghn[1] = static_cast<float*>(dghn_b);
+  p.dh[0] = static_cast<float*>(dh_a);
+  p.dh[1] = static_cast<float*>(dh_b);
+  p.reverse[0] = reverse_a;
+  p.reverse[1] = reverse_b;
+  p.lengths = static_cast<const int*>(lengths);
+  p.dg = static_cast<float*>(dg);
+  p.barrier = static_cast<unsigned int*>(barrier);
+  p.T = T; p.B = B; p.H = H; p.chains = chains; p.blocks = blocks;
+  p.q = FpCut{units, rows_per_pass, padded_rows, padded_depth, k_splits, chunk_depth,
+              resident_depth};
+  // the plan's ints, checked before any launch
+  const FpCut& q = p.q;
+  const bool ok = chains >= 1 && chains <= 2 && T >= 1 && B >= 1 && H >= 1 && !dot &&
+                  fp_cut_ok(q, H, blocks, threads) && fp_tiled_ok(q, threads) &&
+                  q.Dp >= 3 * H && q.Bp >= B;
+  if (!ok) return (int)cudaErrorInvalidValue;
+  const long long need = 4LL * (fb_work(q) + fp_up4(q.U * q.Bp) + (long long)q.kres * q.U);
+  if (smem < need) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  // gh = hprev @ w_hh for every step of each chain, into its dgx buffer
+  int rc = sgemm_launch(p.hprev[0], p.hprev[1], static_cast<const float*>(w_hh_a),
+                        static_cast<const float*>(w_hh_b), p.dgx[0], p.dgx[1], T * B, 3 * H,
+                        H, chains, s);
+  if (rc != 0) return rc;
+  void* args[] = {&p};
+  return ps_coop_launch((const void*)gru_f32_bwd_persist_kernel, blocks * chains, threads,
+                        (size_t)smem, args, s);
 }

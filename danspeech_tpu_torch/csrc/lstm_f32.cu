@@ -4,11 +4,14 @@
 // dtype).
 //
 // Replaces, in float32, danspeech_tpu/ops/pallas_gru.py:
-//   lstm_scan (B5) and lstm_scan_with_cell (B6) -> lstm_f32_scan_launch,
-//       one chain or two (the chain is the grid's z index), the cell stream
-//       written only when its pointer is set;
+//   lstm_scan (B5) and lstm_scan_with_cell (B6) -> lstm_f32_persist_launch
+//       (one cooperative launch, below), or the step design
+//       lstm_f32_scan_launch, one chain or two (the chain is the grid's z
+//       index), the cell stream written only when its pointer is set;
 //   lstm_bwd_scan (B7)                         -> lstm_f32_bwd_launch, one
-//       chain or the two chains of a bidirectional layer.
+//       chain or the two chains of a bidirectional layer (step design only).
+// ops/persist_plan.py:plan_lstm_f32_forward chooses the forward walk's
+// design and cuts it over the card.
 // The Pallas kernels are dtype-generic: float32 weights give float32
 // products there. Same contract as the bf16 kernels (lstm_scan.cu,
 // lstm_bwd.cu), gate order i, f, g, o, every stream and weight in float32:
@@ -24,18 +27,23 @@
 // - Float32 products run on the CUDA cores (FFMA) at 67 TFLOP/s (FP32, SXM,
 //   700 W): the forward recurrence at T=401, B=128, H=800 is 263 GFLOP, 3.9
 //   ms at that peak over every step (less over the valid ones).
-// - A resident design would fit at this width (f32 w_hh is 10.24 MB a chain
-//   at H = 800 against about 30 MB of shared memory on the card), but this is
-//   the simple step design of gru_f32.cu: one launch per time step from a
+// - A fully resident slice does not quite fit: f32 w_hh is 10.24 MB a chain
+//   at H = 800, and a pair's 20.5 MB over 116 blocks is 182 KB a block
+//   (depth 832 x 14 units x 4 gates) beside a ring of 44 KB (92 KB at B =
+//   128) and partial sums of 58 KB. The persistent forward walk (below; the
+//   ring and the tiled product in f32_walk.cuh) keeps 85% of each block's
+//   slice resident at B = 32 and 69% at B = 128 and streams the rest from L2
+//   each step; h is exchanged through L2, c stays in the block.
+// - The step design is that of gru_f32.cu: one launch per time step from a
 //   host loop, the launch boundary as the barrier between steps, each block
-//   rereading its slice of w_hh from L2 (f32_step.cuh).
-// - Forward step (lstm_f32_step_kernel): a block owns 32 units (the columns
-//   j, H+j, 2H+j, 3H+j of w_hh) for 64 batch rows; each of its 256 threads
-//   holds 4 rows x 2 units x 4 gates in registers (f32_fwd_product<4>), and
-//   the gates, the c and h updates, the mask and the writes happen in the
-//   registers that hold the sums. c is owned: the thread that owns (b, j)
-//   updates it in place; h ping-pongs between two buffers, since every block
-//   reads all of the previous step's h.
+//   rereading its slice of w_hh from L2 (f32_step.cuh). Forward step
+//   (lstm_f32_step_kernel): a block owns 32 units (the columns j, H+j, 2H+j,
+//   3H+j of w_hh) for 64 batch rows; each of its 256 threads holds 4 rows x 2
+//   units x 4 gates in registers (f32_fwd_product<4>), and the gates, the c
+//   and h updates, the mask and the writes happen in the registers that
+//   hold the sums. c is owned: the thread that owns (b, j) updates it in
+//   place; h ping-pongs between two buffers, since every block reads all of
+//   the previous step's h.
 // - Backward (lstm_f32_bwd_step_kernel): the gate recompute hprev @ w_hh for
 //   every t does not depend on the walk, so it is one FFMA GEMM for both
 //   chains (sgemm.cuh) into the dg4 output buffer; each (t, b, j) of it is
@@ -48,10 +56,15 @@
 //   finishes the carry: dh0; dc0 is the dc after step 0.
 // Measured by chip_smoke.py (phase 12): see PERF.md.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+typedef __nv_bfloat16 bf16;  // persist.cuh's streams; nothing here is bf16
+
 #include "f32_step.cuh"
+#include "persist.cuh"
+#include "f32_walk.cuh"
 #include "sgemm.cuh"
 
 // ---------------------------------------------------------------------------
@@ -164,6 +177,249 @@ extern "C" int lstm_f32_scan_launch(
     if (err != cudaSuccess) return (int)err;
   }
   return 0;
+}
+
+// ---------------------------------------------------------------------------
+// The persistent forward walk (B5, B6): all steps of one or two chains in one
+// cooperative launch
+// ---------------------------------------------------------------------------
+//
+// The plan (ops/persist_plan.py:plan_lstm_f32_forward) cuts the units of the
+// chains into blocks of U (even) units, one block an SM, chain c's blocks
+// c * blocks .. (c + 1) * blocks - 1. Block k of a chain owns units j0 = k U
+// .. j0 + U - 1 and their 4U columns of w_hh (j, H + j, 2H + j, 3H + j: i, f,
+// g, o), packed by the wrapper (gru_cuda.f32_slices) as wp[k][d][g U + u] =
+// w_hh[d][g H + j0 + u]. h is exchanged transposed through hx (2 ping-pong
+// buffers, chains, Dp depths, Bp rows) and read through the ring
+// (f32_walk.cuh, G = 4: 8 rows x 2 units x 4 gates = 64 sums a thread); c
+// never leaves the block: the block's units of it, for every row, stay in
+// shared memory (Cs) for the whole walk, loaded from c0 and written to c_last
+// at the end. The epilogue takes (row, unit) pairs over all threads: the four
+// gate sums (splits in order), gx (b_ih inside) + b_hh, the gates, c and h,
+// the length mask (rows past their length keep h and c and write zeros to
+// out and c_seq), out, c_seq where it is set, and h through the tile Hn into
+// hx in runs of rows. A grid barrier a chain (each chain its own counter)
+// orders the steps. Only t < n = max(lengths) is walked (a reverse chain
+// walks t = n - 1 .. 0, its states h0, c0 until then); the later steps' zeros
+// are written first, with no barrier.
+//
+// Shared memory, from its start: the work area (the ring, and over it the
+// partial sums [split][row][col] and the tile Hn[unit][row]), the cell
+// state Cs[unit][Bp], the resident depths of the slice. ptxas (sm_90a): 167
+// registers (64 sums a thread), no spill.
+
+struct FlWalk {
+  const float* gx[2];   // (T, B, 4H), b_ih inside
+  const float* wp[2];   // (blocks, Dp, 4U), packed
+  const float* bhh[2];  // (4H,)
+  float* out[2];        // (T, B, H)
+  float* cseq[2];       // (T, B, H), or null: no cell stream
+  float* hlast[2];      // (B, H)
+  float* cst[2];        // (B, H): c0 in, c_last out
+  int reverse[2];
+  const int* lengths;   // (B,)
+  float* hx;            // (2, chains, Dp, Bp)
+  unsigned int* barrier;  // (chains,): a zeroed counter a chain
+  int T, B, H, chains, blocks;
+  FpCut q;              // Dp: H padded to the chunk depth
+};
+
+// floats of the work area: the ring, or the partial sums and the new state's
+// tile Hn (U x RB) over it
+__host__ __device__ __forceinline__ int fl_work(const FpCut& q) {
+  return fp_work_floats(q, 4 * q.U, q.RB, q.U * q.RB);
+}
+
+__global__ void __launch_bounds__(FP_MAX_THREADS, 1)
+lstm_f32_persist_kernel(FlWalk p) {
+  extern __shared__ __align__(16) float fp_smem[];
+  __shared__ __align__(8) uint64_t fp_bars[FP_STAGES];
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int c = blockIdx.x / p.blocks;
+  const FpCut& fc = p.q;
+  const int j0 = (blockIdx.x - c * p.blocks) * fc.U;
+  const int U = fc.U, NC = 4 * U, H = p.H, B = p.B, T = p.T, RB = fc.RB, Bp = fc.Bp;
+  const int uw = min(U, H - j0);
+  const int G = 4 * H;
+  FpRing ring{fp_smem, fp_bars, 0u, 0u};
+  float* Hn = fp_smem + fc.KS * RB * NC;
+  float* Cs = fp_smem + fl_work(fc);
+  float* Ws = Cs + fp_up4(U * Bp);
+  const float* wp = p.wp[c] + (size_t)(j0 / U) * fc.Dp * NC;
+
+  if (tid == 0) {
+    for (int i = 0; i < FP_STAGES; ++i) ps_mbar_init(fp_bars + i, 1);
+    ps_mbar_init_fence();
+  }
+  fp_load_resident(Ws, wp, fc.kres * NC);  // the resident depths of the slice, once
+  float* __restrict__ cst = p.cst[c];
+  for (int i = tid; i < U * Bp; i += nthr) {  // c0 of this block's units
+    const int u = i / Bp, b = i - u * Bp;
+    Cs[i] = (u < uw && b < B) ? cst[(size_t)b * H + j0 + u] : 0.0f;
+  }
+
+  const int n = ps_longest(p.lengths, B, T);  // its __syncthreads covers both
+  float* __restrict__ out = p.out[c];
+  float* __restrict__ cseq = p.cseq[c];
+  {  // steps n .. T - 1: zeros at this block's units
+    const size_t cnt = (size_t)(T - n) * B * uw;
+    for (size_t i = tid; i < cnt; i += nthr) {
+      const size_t row = i / uw;
+      const size_t at = ((size_t)n * B + row) * H + j0 + (i - row * uw);
+      out[at] = 0.0f;
+      if (cseq) cseq[at] = 0.0f;
+    }
+  }
+  const float* __restrict__ gx = p.gx[c];
+  const float* __restrict__ bhh = p.bhh[c];
+  const size_t hbuf = (size_t)fc.Dp * Bp;
+  const int passes = Bp / RB;
+  const int nel = RB * U;
+  long long ps_t_ = 0;
+#ifdef PS_PROFILE
+  ps_t_ = clock64();
+#endif
+  for (int s = 0; s < n; ++s) {
+    const int t = p.reverse[c] ? n - 1 - s : s;
+    const float* hsrc = p.hx + ((size_t)(s & 1) * p.chains + c) * hbuf;
+    float* hdst = p.hx + ((size_t)((s & 1) ^ 1) * p.chains + c) * hbuf;
+    for (int pass = 0; pass < passes; ++pass) {
+      const int r0 = pass * RB;
+      // the pass's gx rows at this block's units, toward L2 for the epilogue
+      for (int i = tid; i < RB * 4; i += nthr) {
+        const int b = r0 + i / 4;
+        if (b < B) ps_prefetch_l2(gx + ((size_t)t * B + b) * G + (i % 4) * H + j0);
+      }
+      fp_tiled_product<4>(fc, hsrc, wp, Ws, ring, r0, ps_t_);
+      // epilogue: (row, unit) pairs, units fastest (gx and out in runs); the
+      // loads of FP_EPI pairs first, then their gates
+      for (int e0 = tid; e0 < nel; e0 += FP_EPI * nthr) {
+        float xi[FP_EPI], xf[FP_EPI], xg[FP_EPI], xo[FP_EPI], hp[FP_EPI];
+        bool live[FP_EPI], valid[FP_EPI];
+#pragma unroll
+        for (int k = 0; k < FP_EPI; ++k) {
+          const int e = e0 + k * nthr;
+          const int r = e / U, u = e - r * U;
+          const int b = r0 + r, j = j0 + u;
+          live[k] = e < nel && b < B && j < H;
+          valid[k] = false;
+          xi[k] = xf[k] = xg[k] = xo[k] = hp[k] = 0.0f;
+          if (live[k]) {
+            const float* gxr = gx + ((size_t)t * B + b) * G;
+            xi[k] = gxr[j];
+            xf[k] = gxr[H + j];
+            xg[k] = gxr[2 * H + j];
+            xo[k] = gxr[3 * H + j];
+            hp[k] = __ldcg(hsrc + (size_t)j * Bp + b);
+            valid[k] = p.lengths[b] > t;
+          }
+        }
+#pragma unroll
+        for (int k = 0; k < FP_EPI; ++k) {
+          const int e = e0 + k * nthr;
+          if (e >= nel) break;
+          const int r = e / U, u = e - r * U;
+          float hn = 0.0f;  // padding rows stay zero
+          if (live[k]) {
+            const int b = r0 + r, j = j0 + u;
+            float si = 0.0f, sf = 0.0f, sg = 0.0f, so = 0.0f;  // the splits in order
+            for (int ks = 0; ks < fc.KS; ++ks) {
+              const float* cs = ring.base + ((size_t)ks * RB + r) * NC + u;
+              si += cs[0];
+              sf += cs[U];
+              sg += cs[2 * U];
+              so += cs[3 * U];
+            }
+            const float ig = f32_sigmoid(xi[k] + si + bhh[j]);
+            const float fg = f32_sigmoid(xf[k] + sf + bhh[H + j]);
+            const float gg = tanhf(xg[k] + sg + bhh[2 * H + j]);
+            const float og = f32_sigmoid(xo[k] + so + bhh[3 * H + j]);
+            float* cp = Cs + u * Bp + b;
+            const float cn = fg * *cp + ig * gg;
+            const float hnew = og * tanhf(cn);
+            const size_t at = ((size_t)t * B + b) * H + j;
+            hn = valid[k] ? hnew : hp[k];
+            if (valid[k]) *cp = cn;
+            out[at] = valid[k] ? hnew : 0.0f;
+            if (cseq) cseq[at] = valid[k] ? cn : 0.0f;
+          }
+          Hn[u * RB + r] = hn;
+        }
+      }
+      __syncthreads();
+      for (int e = tid; e < uw * RB; e += nthr) {  // rows fastest: runs of hx
+        const int u = e / RB, r = e - u * RB;
+        hdst[(size_t)(j0 + u) * Bp + r0 + r] = Hn[u * RB + r];
+      }
+      __syncthreads();  // Hn is read before the next pass's ring
+      PS_ACC(3);
+    }
+    ps_grid_barrier(p.barrier + c, (unsigned int)(s + 1) * p.blocks);
+    PS_ACC(1);
+  }
+  // h_last: this block's units of the last buffer written (h0 when n = 0);
+  // c_last from Cs
+  const float* hfin = p.hx + ((size_t)(n & 1) * p.chains + c) * hbuf;
+  for (int i = tid; i < B * uw; i += nthr) {
+    const int b = i / uw, u = i - b * uw;
+    p.hlast[c][(size_t)b * H + j0 + u] = __ldcg(hfin + (size_t)(j0 + u) * Bp + b);
+    cst[(size_t)b * H + j0 + u] = Cs[u * Bp + b];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Host entry, B5 / B6, persistent: one or two chains (a, b) over precomputed
+// projections, sharing T, B, H and lengths, in one cooperative launch of the
+// planned grid on the caller's stream. wp_* are the packed slices (blocks,
+// Dp, 4U); hx holds 2 buffers of (chains, Dp, Bp) f32, buffer 0 h0 of each
+// chain transposed (h0[b][j] at [j][b]) and zeros elsewhere; c_* (B, H) hold
+// c0 on entry and c_last on exit; h_last (B, H) of each chain on exit;
+// cseq_a / cseq_b are null for B5. barrier: one zeroed counter a chain.
+// Returns the CUDA error code (cudaErrorCooperativeLaunchTooLarge where the
+// grid cannot be co-resident), else 0.
+// ---------------------------------------------------------------------------
+
+extern "C" int lstm_f32_persist_launch(
+    const void* gx_a, const void* gx_b, const void* lengths, const void* wp_a,
+    const void* wp_b, const void* b_hh_a, const void* b_hh_b, void* hx, void* c_a, void* c_b,
+    void* h_last_a, void* h_last_b, void* out_a, void* out_b, void* cseq_a, void* cseq_b,
+    void* barrier, int T, int B, int H, int reverse_a, int reverse_b, int chains, int units,
+    int blocks, int rows_per_pass, int padded_rows, int padded_depth, int k_splits,
+    int chunk_depth, int resident_depth, int threads, int smem, int dot, void* stream) {
+  FlWalk p;
+  p.gx[0] = static_cast<const float*>(gx_a);
+  p.gx[1] = static_cast<const float*>(gx_b);
+  p.wp[0] = static_cast<const float*>(wp_a);
+  p.wp[1] = static_cast<const float*>(wp_b);
+  p.bhh[0] = static_cast<const float*>(b_hh_a);
+  p.bhh[1] = static_cast<const float*>(b_hh_b);
+  p.out[0] = static_cast<float*>(out_a);
+  p.out[1] = static_cast<float*>(out_b);
+  p.cseq[0] = static_cast<float*>(cseq_a);
+  p.cseq[1] = static_cast<float*>(cseq_b);
+  p.hlast[0] = static_cast<float*>(h_last_a);
+  p.hlast[1] = static_cast<float*>(h_last_b);
+  p.cst[0] = static_cast<float*>(c_a);
+  p.cst[1] = static_cast<float*>(c_b);
+  p.reverse[0] = reverse_a;
+  p.reverse[1] = reverse_b;
+  p.lengths = static_cast<const int*>(lengths);
+  p.hx = static_cast<float*>(hx);
+  p.barrier = static_cast<unsigned int*>(barrier);
+  p.T = T; p.B = B; p.H = H; p.chains = chains; p.blocks = blocks;
+  p.q = FpCut{units, rows_per_pass, padded_rows, padded_depth, k_splits, chunk_depth,
+              resident_depth};
+  const FpCut& q = p.q;
+  const bool ok = chains >= 1 && chains <= 2 && T >= 1 && B >= 1 && H >= 1 && !dot &&
+                  fp_cut_ok(q, H, blocks, threads) && fp_tiled_ok(q, threads) &&
+                  q.Dp >= H && q.Bp >= B;
+  if (!ok) return (int)cudaErrorInvalidValue;
+  const long long need =
+      4LL * (fl_work(q) + fp_up4(q.U * q.Bp) + (long long)q.kres * 4 * q.U);
+  if (smem < need) return (int)cudaErrorInvalidValue;
+  void* args[] = {&p};
+  return ps_coop_launch((const void*)lstm_f32_persist_kernel, blocks * chains, threads,
+                        (size_t)smem, args, reinterpret_cast<cudaStream_t>(stream));
 }
 
 // ---------------------------------------------------------------------------

@@ -29,9 +29,11 @@ designs above), or everything in float32, which runs the float32 variants of
 designs too: "persistent" is one cooperative launch of
 ``gru_f32_persist_kernel``, each block keeping what fits of its float32 slice
 resident and streaming the rest from L2 (:func:`persist_plan.plan_gru_f32_forward`
-plans it), "step" one launch per time step. The float32 backward walk (B4) has
-the step design only (``design="persistent"`` raises
-``NotImplementedError``). A mixed set raises ``TypeError``.
+plans it), "step" one launch per time step. The float32 backward walk (B4)
+has both too: "persistent" is the FFMA gate recompute, then one cooperative
+launch of ``gru_f32_bwd_persist_kernel`` (:func:`persist_plan.plan_gru_f32_backward`),
+"step" the recompute and T + 1 step launches. A mixed set raises
+``TypeError``.
 ``<wrapper>.dtype_counts`` counts the CUDA calls by the set taken.
 
 A wrapper launches its kernel for CUDA tensors and raises on anything the
@@ -80,6 +82,7 @@ def device_info(device: torch.device) -> tuple[int, int]:
 
 _transposes: dict[int, tuple] = {}
 _f32_slices: dict[tuple, tuple] = {}
+_f32_rows: dict[tuple, tuple] = {}
 
 
 def _kept(cache: dict, key, w: torch.Tensor, make):
@@ -110,19 +113,36 @@ def transposed(w: torch.Tensor) -> torch.Tensor:
 
 
 def f32_slices(w: torch.Tensor, units: int, blocks: int, depth: int) -> torch.Tensor:
-    """Float32 w_hh (H, 3H) as the persistent float32 walk reads it: (blocks,
-    depth, 3 * units), block k's column g * units + u at depth d holding
-    w_hh[d, g * H + k * units + u], zeros for units past H and depths past H,
-    so that any run of depths of a block's slice is contiguous. Kept per
-    weight tensor and cut (:func:`_kept`)."""
+    """Float32 w_hh (H, G H) of G gates (the GRU's 3, the LSTM's 4) as the
+    persistent float32 forward walks read it: (blocks, depth, G * units),
+    block k's column g * units + u at depth d holding w_hh[d, g * H + k *
+    units + u], zeros for units past H and depths past H, so that any run of
+    depths of a block's slice is contiguous. Kept per weight tensor and cut
+    (:func:`_kept`)."""
     def make(m):
         hidden = m.shape[0]
-        packed = m.new_zeros((depth, 3, blocks * units))
-        packed[:hidden, :, :hidden] = m.reshape(hidden, 3, hidden)
-        return (packed.reshape(depth, 3, blocks, units).permute(2, 0, 1, 3)
-                .reshape(blocks, depth, 3 * units).contiguous())
+        gates = m.shape[1] // hidden
+        packed = m.new_zeros((depth, gates, blocks * units))
+        packed[:hidden, :, :hidden] = m.reshape(hidden, gates, hidden)
+        return (packed.reshape(depth, gates, blocks, units).permute(2, 0, 1, 3)
+                .reshape(blocks, depth, gates * units).contiguous())
 
     return _kept(_f32_slices, (id(w), units, blocks, depth), w, make)
+
+
+def f32_rows(w: torch.Tensor, units: int, blocks: int, depth: int) -> torch.Tensor:
+    """Float32 w_hh (H, 3H) as the persistent float32 backward walk reads
+    it, the rows of w_hh being the columns of w_hh^T: (blocks, depth, units),
+    block k's column u at depth d holding w_hh[k * units + u, d], zeros for
+    units past H and depths past 3H. Kept per weight tensor and cut
+    (:func:`_kept`)."""
+    def make(m):
+        hidden, width = m.shape
+        packed = m.new_zeros((blocks * units, depth))
+        packed[:hidden, :width] = m
+        return packed.reshape(blocks, units, depth).transpose(1, 2).contiguous()
+
+    return _kept(_f32_rows, (id(w), units, blocks, depth), w, make)
 
 
 def gru_bidi_fused_plain(
@@ -850,8 +870,10 @@ def gru_bwd_scan(
     and dh_last, int32 lengths, all contiguous on gx's device; or everything
     float32, the float32 variant) or raises; a CPU ``gx`` runs the plain
     version. ``design`` is None (the plan of
-    :func:`persist_plan.plan_gru_backward` decides), "persistent" or "step";
-    ``gru_bwd_scan.design_counts`` counts the chains by the design taken.
+    :func:`persist_plan.plan_gru_backward` decides,
+    :func:`persist_plan.plan_gru_f32_backward` for float32), "persistent" or
+    "step"; ``gru_bwd_scan.design_counts`` counts the chains by the design
+    taken.
     ``gru_bwd_scan.launches`` counts kernel launches (one per chain: the
     gate-recompute product and the walk).
     """
@@ -862,8 +884,13 @@ def gru_bwd_scan(
         raise ValueError(f"unsupported device {gx.device}")
     dtype = _check_bwd_operands(*args)
     if dtype == torch.float32:
-        design = persist_plan.float32_design(design)
-        result = _bwd_f32([args], [reverse])[0]
+        planned = persist_plan.plan_gru_f32_backward(w_hh.shape[0], gx.shape[1], 1,
+                                                     *device_info(gx.device))
+        design = persist_plan.choose(design, planned)
+        if design == "persistent":
+            result = _bwd_f32_persistent([args], [reverse], planned)[0]
+        else:
+            result = _bwd_f32([args], [reverse])[0]
         count(gru_bwd_scan, design, dtype)
         return result
     planned = persist_plan.plan_gru_backward(
@@ -914,6 +941,40 @@ def _bwd_f32(chains, reverses):
     return [(dgx[k], dghn[k], last[k]) for k in range(n)]
 
 
+def _bwd_f32_persistent(chains, reverses, planned):
+    """The float32 variant, persistent (``csrc/gru_f32.cu``): the FFMA gate
+    recompute of each chain, then one or two walks that share T, B, H and
+    lengths in one cooperative launch of the planned grid, each chain with
+    its own barrier. ``chains`` holds the operand tuples of
+    :func:`gru_bwd_scan`; returns one (dgx, dghn, dh0) per chain."""
+    launch = cuda_build.bind("gru_f32", "gru_f32_bwd_persist_launch", 23, 17)
+    gx, _, _, lengths, w_hh = chains[0][:5]
+    t_max, batch, _ = gx.shape
+    hidden = w_hh.shape[0]
+    dev = gx.device
+    n = len(chains)
+    # dgh of each step, exchanged transposed (depths of 3H, then rows); zeros
+    # past 3H and past B are never written
+    dg = torch.zeros((2, n, planned.padded_depth, planned.padded_rows), dtype=torch.float32,
+                     device=dev)
+    rows = [f32_rows(c[4], planned.units, planned.blocks_per_dir, planned.padded_depth)
+            for c in chains]
+    outs = [(torch.empty((t_max, batch, 3 * hidden), dtype=torch.float32, device=dev),
+             torch.empty((t_max, batch, hidden), dtype=torch.float32, device=dev),
+             c[7].clone()) for c in chains]  # dh_last on entry, dh0 on exit
+    barrier = torch.zeros((n,), dtype=torch.int32, device=dev)
+    cuda_build.call(
+        launch, "gru_bwd_scan (float32, persistent)", dev,
+        *(p for i in range(3) for p in chain_ptrs([c[i] for c in chains])),
+        lengths.data_ptr(), *chain_ptrs([c[4] for c in chains]), *chain_ptrs(rows),
+        *chain_ptrs([c[5] for c in chains]), *chain_ptrs([c[6] for c in chains]),
+        dg.data_ptr(), *chain_ptrs([o[2] for o in outs]), *chain_ptrs([o[0] for o in outs]),
+        *chain_ptrs([o[1] for o in outs]), barrier.data_ptr(),
+        t_max, batch, hidden, int(bool(reverses[0])), int(bool(reverses[-1])), n,
+        *planned.c_args())
+    return outs
+
+
 def gru_bwd_scan_pair(chain_a, chain_b, reverse_a: bool, reverse_b: bool,
                       design: str | None = None):
     """The backward walks of the two chains of a bidirectional layer.
@@ -925,9 +986,12 @@ def gru_bwd_scan_pair(chain_a, chain_b, reverse_a: bool, reverse_b: bool,
     share one persistent launch when the plan for two chains fits (each
     chain has its own barrier: the step count on the critical path halves);
     otherwise, and for ``design="step"``, they run one after the other as two
-    :func:`gru_bwd_scan` calls. Float32 chains walk together in each of the
-    T + 1 launches of the float32 variant. Either way ``gru_bwd_scan.launches``
-    grows by two: it counts chains.
+    :func:`gru_bwd_scan` calls. Float32 chains take the plans of
+    :func:`persist_plan.plan_gru_f32_backward`: both in one cooperative
+    launch where the plan for two fits, else one launch a chain where the
+    plan for one does; ``design="step"`` (or no plan that fits) walks both
+    in each of the T + 1 launches of the float32 step kernel. Either way
+    ``gru_bwd_scan.launches`` grows by two: it counts chains.
     """
     if chain_a[0].device.type != "cuda":
         return (gru_bwd_scan(*chain_a, reverse=reverse_a),
@@ -936,8 +1000,19 @@ def gru_bwd_scan_pair(chain_a, chain_b, reverse_a: bool, reverse_b: bool,
     if chain_a[0].shape != chain_b[0].shape or chain_a[3] is not chain_b[3]:
         raise ValueError("the two chains must share their shapes and lengths")
     if dtype == torch.float32:
-        design = persist_plan.float32_design(design)
-        outs = _bwd_f32([chain_a, chain_b], [reverse_a, reverse_b])
+        info = device_info(chain_a[0].device)
+        hidden, batch = chain_a[4].shape[0], chain_a[0].shape[1]
+        pair = persist_plan.plan_gru_f32_backward(hidden, batch, 2, *info)
+        single = persist_plan.plan_gru_f32_backward(hidden, batch, 1, *info)
+        planned = pair if pair.design == "persistent" else single
+        design = persist_plan.choose(design, planned)
+        if design == "step":
+            outs = _bwd_f32([chain_a, chain_b], [reverse_a, reverse_b])
+        elif planned is pair:
+            outs = _bwd_f32_persistent([chain_a, chain_b], [reverse_a, reverse_b], pair)
+        else:
+            outs = (_bwd_f32_persistent([chain_a], [reverse_a], single)
+                    + _bwd_f32_persistent([chain_b], [reverse_b], single))
         count(gru_bwd_scan, design, dtype, 2)
         return outs[0], outs[1]
     planned = persist_plan.plan_gru_backward(

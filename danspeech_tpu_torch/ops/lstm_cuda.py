@@ -27,10 +27,15 @@ bidirectional layer in one persistent launch.
 Each wrapper takes two sets of operands, told apart by the dtype of its
 sequence: bf16 sequences and weights with f32 biases and states (the
 designs above), or everything in float32, which runs the float32 variants of
-``csrc/lstm_f32.cu`` (step design only; ``design="persistent"`` raises
-``NotImplementedError``; a pair walks both chains in each step launch). A
-mixed set raises ``TypeError``. ``<wrapper>.dtype_counts`` counts the CUDA
-calls (or chains) by the set taken.
+``csrc/lstm_f32.cu``. Their forward walk (B5, B6) has both designs:
+"persistent" is one cooperative launch of ``lstm_f32_persist_kernel``, each
+block keeping what fits of its float32 slice resident and streaming the rest
+from L2 (:func:`persist_plan.plan_lstm_f32_forward` plans it), "step" one
+launch per time step. The float32 backward walk (B7) has the step design only
+(``design="persistent"`` raises ``NotImplementedError``; a pair walks both
+chains in each step launch). A mixed set raises ``TypeError``.
+``<wrapper>.dtype_counts`` counts the CUDA calls (or chains) by the set
+taken.
 
 A wrapper launches its kernel for CUDA tensors and raises on anything the
 kernel does not take; for CPU tensors, and only for those, it runs the plain
@@ -46,7 +51,7 @@ from . import cuda_build, persist_plan
 from .cuda_build import chain_ptrs
 from .cuda_checks import (check_proj_rows, check_stream_shape, check_tensors, count,
                           pair_dtype, time_order)
-from .gru_cuda import device_info, transposed
+from .gru_cuda import device_info, f32_slices, transposed
 
 
 def _gates(pre, hidden):
@@ -128,8 +133,13 @@ def _scan_cuda(wrapper, gx, lengths, w_hh, b_hh, h0, c0, reverse, with_cell, des
     dtype = _check_scan_operands(gx, lengths, w_hh, b_hh, h0, c0)
     chain = (gx, lengths, w_hh, b_hh, h0, c0)
     if dtype == torch.float32:
-        design = persist_plan.float32_design(design)
-        result = _scan_f32([chain], [reverse], with_cell)[0]
+        planned = persist_plan.plan_lstm_f32_forward(w_hh.shape[0], gx.shape[1], 1,
+                                                     *device_info(gx.device))
+        design = persist_plan.choose(design, planned)
+        if design == "persistent":
+            result = _scan_f32_persistent([chain], [reverse], with_cell, planned)[0]
+        else:
+            result = _scan_f32([chain], [reverse], with_cell)[0]
     else:
         planned = persist_plan.plan_lstm_forward(w_hh.shape[0], gx.shape[1], 1,
                                                  *device_info(gx.device))
@@ -172,6 +182,44 @@ def _scan_f32(chains, reverses, with_cell):
     last = h32[t_max % 2]  # the buffer the final step wrote
     return [(o, cs, last[k], c32[k]) if with_cell else (o, last[k], c32[k])
             for k, (o, cs) in enumerate(zip(outs, cseqs))]
+
+
+def _scan_f32_persistent(chains, reverses, with_cell, planned):
+    """The float32 variant, persistent (``csrc/lstm_f32.cu``): one or two
+    chains that share T, B, H and lengths in one cooperative launch of the
+    planned grid, each chain with its own barrier, the cell streams written
+    only ``with_cell``. ``chains`` holds (gx, lengths, w_hh, b_hh, h0, c0)
+    tuples; returns one result tuple per chain, as :func:`lstm_scan` or
+    :func:`lstm_scan_with_cell` gives it."""
+    launch = cuda_build.bind("lstm_f32", "lstm_f32_persist_launch", 17, 17)
+    gx, lengths, w_hh = chains[0][:3]
+    t_max, batch, _ = gx.shape
+    hidden = w_hh.shape[0]
+    dev = gx.device
+    n = len(chains)
+    hx = torch.zeros((2, n, planned.padded_depth, planned.padded_rows),
+                     dtype=torch.float32, device=dev)
+    for k, c in enumerate(chains):
+        hx[0, k, :hidden, :batch].copy_(c[4].t())  # h0 transposed: rows of units
+    slices = [f32_slices(c[2], planned.units, planned.blocks_per_dir, planned.padded_depth)
+              for c in chains]
+    outs = []
+    for c in chains:
+        out = torch.empty((t_max, batch, hidden), dtype=torch.float32, device=dev)
+        cseq = torch.empty_like(out) if with_cell else None
+        # c0 on entry, c_last on exit
+        outs.append((out, cseq, torch.empty((batch, hidden), dtype=torch.float32, device=dev),
+                     c[5].clone()))
+    barrier = torch.zeros((n,), dtype=torch.int32, device=dev)
+    cuda_build.call(
+        launch, "lstm_scan (float32, persistent)", dev,
+        *chain_ptrs([c[0] for c in chains]), lengths.data_ptr(), *chain_ptrs(slices),
+        *chain_ptrs([c[3] for c in chains]), hx.data_ptr(), *chain_ptrs([o[3] for o in outs]),
+        *chain_ptrs([o[2] for o in outs]), *chain_ptrs([o[0] for o in outs]),
+        *chain_ptrs([o[1] for o in outs]), barrier.data_ptr(),
+        t_max, batch, hidden, int(bool(reverses[0])), int(bool(reverses[-1])), n,
+        *planned.c_args())
+    return [o if with_cell else (o[0], o[2], o[3]) for o in outs]
 
 
 def _step(gx, lengths, w_hh, b_hh, h0, c0, reverse, with_cell):
@@ -240,7 +288,8 @@ def lstm_scan(gx, lengths, w_hh, b_hh, h0, c0, reverse: bool = False,
     lengths, all contiguous on gx's device; or everything float32, the
     float32 variant) or raises; a CPU ``gx`` runs the plain version.
     ``design`` is None (the plan of :func:`persist_plan.plan_lstm_forward`
-    decides), "persistent" or "step"; ``lstm_scan.design_counts`` and
+    decides, :func:`persist_plan.plan_lstm_f32_forward` for float32),
+    "persistent" or "step"; ``lstm_scan.design_counts`` and
     ``lstm_scan.dtype_counts`` count the CUDA calls by the design and the
     operand set taken. ``lstm_scan.launches`` counts kernel launches (one per
     call).
@@ -287,8 +336,12 @@ def lstm_scan_pair(chain_a, chain_b, reverse_a: bool, reverse_b: bool,
     never wait for each other), and that wrapper's ``launches`` and
     ``design_counts`` grow by one; otherwise, for ``design="step"``, and on
     the CPU, they run one after the other as two calls of that wrapper.
-    Float32 chains walk together in each of the T launches of the float32
-    variant, and the counts grow by two.
+    Float32 chains take the plans of
+    :func:`persist_plan.plan_lstm_f32_forward`: both in one cooperative
+    launch where the plan for two fits, else one launch a chain where the
+    plan for one does; ``design="step"`` (or no plan that fits) walks both
+    in each of the T launches of the float32 step kernel. Either way the
+    float32 counts grow by two: they count chains.
     """
     scan = lstm_scan_with_cell if with_cell else lstm_scan
     if chain_a[0].device.type != "cuda":
@@ -297,8 +350,20 @@ def lstm_scan_pair(chain_a, chain_b, reverse_a: bool, reverse_b: bool,
     if chain_a[0].shape != chain_b[0].shape or chain_a[1] is not chain_b[1]:
         raise ValueError("the two chains must share their shapes and lengths")
     if dtype == torch.float32:
-        design = persist_plan.float32_design(design)
-        outs = _scan_f32([chain_a, chain_b], [reverse_a, reverse_b], with_cell)
+        info = device_info(chain_a[0].device)
+        hidden, batch = chain_a[2].shape[0], chain_a[0].shape[1]
+        pair = persist_plan.plan_lstm_f32_forward(hidden, batch, 2, *info)
+        single = persist_plan.plan_lstm_f32_forward(hidden, batch, 1, *info)
+        planned = pair if pair.design == "persistent" else single
+        design = persist_plan.choose(design, planned)
+        chains, reverses = [chain_a, chain_b], [reverse_a, reverse_b]
+        if design == "step":
+            outs = _scan_f32(chains, reverses, with_cell)
+        elif planned is pair:
+            outs = _scan_f32_persistent(chains, reverses, with_cell, pair)
+        else:
+            outs = [_scan_f32_persistent([c], [r], with_cell, single)[0]
+                    for c, r in zip(chains, reverses)]
         count(scan, design, dtype, 2)
         return outs[0], outs[1]
     planned = persist_plan.plan_lstm_forward(

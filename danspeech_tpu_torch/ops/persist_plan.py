@@ -25,14 +25,16 @@ stages beside the slice (one GRU chain at H = 2000), it walks row blocks of
 would need more blocks than can be co-resident; more would only use fewer SMs.
 
 These plans are those of the bf16 operand set: the resident design keeps
-bf16 slices. The float32 GRU forward walk (B1, B2 and B3's recurrence in
-``csrc/gru_f32.cu``) has a persistent design of its own, planned by
-:func:`plan_gru_f32_forward`: float32 ``w_hh`` does not fit the card's shared
-memory at the GRU widths, so a block keeps what fits of its slice resident
-and streams the rest from L2 each step. The other float32 variants
-(``gru_f32.cu``'s backward walk, ``csrc/lstm_f32.cu``,
-``csrc/rnn_tanh_f32.cu``) have the step design only, whatever the shape: their
-wrappers take :func:`float32_design`.
+bf16 slices. The float32 GRU walks (B1, B2 and B3's recurrence, and the
+backward walk B4, in ``csrc/gru_f32.cu``) and the float32 LSTM forward walk
+(B5, B6, ``csrc/lstm_f32.cu``) have a persistent design of their own
+(``csrc/f32_walk.cuh``), planned by :func:`plan_f32`
+(:func:`plan_gru_f32_forward`, :func:`plan_gru_f32_backward`,
+:func:`plan_lstm_f32_forward`): float32 weights do not fit the card's shared
+memory at these widths, so a block keeps what fits of its slice resident and
+streams the rest from L2 each step. The other float32 variants (the LSTM
+backward walk B7, ``csrc/rnn_tanh_f32.cu``'s B8 and B9) have the step design
+only, whatever the shape: their wrappers take :func:`float32_design`.
 
 The constants mirror ``csrc/persist.cuh``.
 """
@@ -251,12 +253,13 @@ def plan_rnn_tanh_backward(hidden, batch, chains, sm_count, smem_optin) -> Persi
                 RNN_TANH_BWD_MAX_TILES)
 
 
-# The persistent float32 GRU forward walk (csrc/gru_f32.cu,
-# gru_f32_persist_kernel); the constants mirror its FP_* ones.
+# The persistent float32 walks (csrc/f32_walk.cuh, and the kernels of
+# csrc/gru_f32.cu and csrc/lstm_f32.cu that use it); the constants mirror its
+# FP_* ones.
 F32_DOT_ROWS = 8         # FP_DOT_ROWS: the widest batch of the small-B product
 F32_MAX_THREADS = 384    # FP_MAX_THREADS: a block's threads (168 registers each)
 F32_TILE_ROWS = 8        # rows of a thread's tile in the tiled product
-F32_TILE_UNITS = 2       # units of a thread's tile, three gate columns each
+F32_TILE_UNITS = 2       # units of a thread's tile, a column a gate each
 F32_PASS_ROWS = 128      # the most rows of one pass of the tiled product
 F32_MAX_SPLITS = 8       # depth splits of a product, summed in their order
 # depth of one chunk of the ring, by product: a chunk costs a wait and a
@@ -265,15 +268,29 @@ F32_MAX_SPLITS = 8       # depth splits of a product, summed in their order
 F32_CHUNK = {"tiled": 64, "dot": 128}
 F32_STAGES = 2           # FP_STAGES: two stages leave the most of the slice resident
 
+# The walks, by name: (gate columns a unit owns, the product's depth in units
+# of H, whether the small-B product is compiled, the tile the epilogue keeps
+# over the partial sums in units of U x rows a pass, the state the block
+# keeps beside the work area for the whole walk in units of U x padded rows)
+F32_WALKS = {
+    # gru_f32_persist_kernel: h @ w_hh (H, 3H); the new state's tile Hn
+    "gru_forward": (3, 1, True, 1, 0),
+    # gru_f32_bwd_persist_kernel: dgh @ w_hh^T (3H, H); the new dgh's tile Dn
+    # (three gates); the partial carry P
+    "gru_backward": (1, 3, False, 3, 1),
+    # lstm_f32_persist_kernel: h @ w_hh (H, 4H); the tile Hn; the cell state
+    "lstm_forward": (4, 1, False, 1, 1),
+}
+
 
 @dataclasses.dataclass(frozen=True)
 class F32Plan:
-    """How the float32 GRU forward walk of ``chains`` chains is cut over the
-    card. ``design`` is "persistent" or "step"; for "step" the sizes
-    describe the candidate that did not fit (zeros if there was none) and
-    ``reason`` says why. ``product`` is "dot" (the small-B product, at most
-    :data:`F32_DOT_ROWS` rows) or "tiled" (8 rows x 2 units x 3 gates of
-    sums a thread)."""
+    """How a persistent float32 walk (:data:`F32_WALKS`) of ``chains``
+    chains is cut over the card. ``design`` is "persistent" or "step"; for
+    "step" the sizes describe the candidate that did not fit (zeros if there
+    was none) and ``reason`` says why. ``product`` is "dot" (the small-B
+    product of the GRU forward walk, at most :data:`F32_DOT_ROWS` rows) or
+    "tiled" (8 rows x 2 units x the walk's gate columns of sums a thread)."""
 
     design: str
     reason: str
@@ -284,18 +301,20 @@ class F32Plan:
     grid: int = 0             # blocks_per_dir * chains: at most the SM count
     threads: int = 0          # a multiple of 32
     k_splits: int = 0         # depth splits of the product
-    rows_per_pass: int = 0    # rows of h one pass multiplies
+    rows_per_pass: int = 0    # rows of the left operand one pass multiplies
     passes: int = 0
-    padded_rows: int = 0      # the row stride of the exchanged state: passes * rows
+    padded_rows: int = 0      # the row stride of the exchanged operand: passes * rows
     chunk_depth: int = 0
-    padded_depth: int = 0     # H rounded up to the chunk depth
+    padded_depth: int = 0     # the product's depth rounded up to the chunk depth
     stages: int = 0
     resident_depth: int = 0   # depths of the slice kept in shared memory
-    slice_bytes: int = 0      # a block's whole slice: padded_depth x 3 units x 4
+    slice_bytes: int = 0      # a block's whole slice: padded_depth x columns x 4
     ring_bytes: int = 0
-    sums_bytes: int = 0       # the partial sums and the new state's tile (over the ring)
+    sums_bytes: int = 0       # the partial sums and the epilogue's tile (over the ring)
     h_bytes: int = 0          # "dot": the whole of h, staged once a step
     smem_bytes: int = 0
+    walk: str = ""            # a key of F32_WALKS
+    state_bytes: int = 0      # what the block keeps for the whole walk (c, the carry)
 
     @property
     def resident_share(self) -> float:
@@ -307,7 +326,9 @@ class F32Plan:
         return unit // self.units
 
     def c_args(self) -> tuple[int, ...]:
-        """The plan's ints in the order ``gru_f32_persist_launch`` takes them."""
+        """The plan's ints in the order the walks' C entries take them
+        (``gru_f32_persist_launch``, ``gru_f32_bwd_persist_launch``,
+        ``lstm_f32_persist_launch``)."""
         return (self.units, self.blocks_per_dir, self.rows_per_pass, self.padded_rows,
                 self.padded_depth, self.k_splits, self.chunk_depth, self.resident_depth,
                 self.threads, self.smem_bytes, int(self.product == "dot"))
@@ -317,36 +338,43 @@ def _up(n: int, m: int) -> int:
     return -(-n // m) * m
 
 
-def plan_gru_f32_forward(hidden, batch, chains, sm_count, smem_optin) -> F32Plan:
-    """The persistent float32 GRU forward walk of ``chains`` (1 or 2) chains
-    of h (B, H) @ w_hh (H, 3H), float32 throughout.
+def plan_f32(walk, hidden, batch, chains, sm_count, smem_optin) -> F32Plan:
+    """The persistent float32 walk ``walk`` (a key of :data:`F32_WALKS`) of
+    ``chains`` (1 or 2) chains, float32 throughout.
 
     One block per SM: the units of all chains are cut into blocks of an even
-    number of units, as few per block as keep the grid within the SMs. Up
-    to :data:`F32_DOT_ROWS` rows take the small-B product (no padding rows;
-    a thread owns one gate column and a share of the depth), more the tiled
-    one (passes of at most 128 rows, 8 rows x 2 units x 3 gates of sums a
-    thread). The depth is split over as many slices as keep the block within
-    :data:`F32_MAX_THREADS` threads. Shared memory holds the ring (the
-    chunks of h and of the streamed weights), the partial sums over it, the
-    whole of h for the small-B product, and then as much of the block's
-    slice, from depth 0, as fits: the resident depth. The rest of the slice
-    streams from L2 through the ring each step. "step" where the block would
-    need more threads than that or the ring alone does not fit.
+    number of units, as few per block as keep the grid within the SMs; a
+    block owns the walk's gate columns of its units over the product's depth.
+    Up to :data:`F32_DOT_ROWS` rows take the small-B product where the walk
+    has one (no padding rows; a thread owns one gate column and a share of
+    the depth), more (or any, where it has none) the tiled one (passes of at
+    most 128 rows, 8 rows x 2 units x the gate columns of sums a thread).
+    The depth is split over as many slices as keep the block within
+    :data:`F32_MAX_THREADS` threads. Shared memory holds the ring (the chunks
+    of the left operand and of the streamed weights), the partial sums and
+    the epilogue's tile over it, the whole of h for the small-B product, the
+    state the walk keeps (the LSTM's c, the backward walk's carry), and then
+    as much of the block's slice, from depth 0, as fits: the resident depth.
+    The rest of the slice streams from L2 through the ring each step. "step"
+    where the block would need more threads than that or the rest alone does
+    not fit.
     """
+    if walk not in F32_WALKS:
+        raise ValueError(f"unknown walk {walk!r}: one of {tuple(F32_WALKS)}")
+    gates, depth_of, has_dot, tile_of, state_of = F32_WALKS[walk]
     if min(hidden, batch, chains, sm_count) < 1:
         raise ValueError("hidden, batch, chains and sm_count must be positive")
     if chains > 2:
         raise ValueError(f"one or two chains, not {chains}")
     per_dir = sm_count // chains
     if per_dir < 1:
-        return F32Plan("step", f"{chains} chains on {sm_count} SMs")
+        return F32Plan("step", f"{chains} chains on {sm_count} SMs", walk=walk)
     units = _up(max(1, -(-hidden // per_dir)), F32_TILE_UNITS)
     blocks = -(-hidden // units)
-    cols = 3 * units
-    product = "dot" if batch <= F32_DOT_ROWS else "tiled"
+    cols = gates * units
+    product = "dot" if has_dot and batch <= F32_DOT_ROWS else "tiled"
     kc, stages = F32_CHUNK[product], F32_STAGES
-    depth = _up(hidden, kc)
+    depth = _up(depth_of * hidden, kc)
     if product == "dot":
         passes, rows, padded = 1, batch, batch
         work = cols                                   # a thread a column and split
@@ -357,10 +385,12 @@ def plan_gru_f32_forward(hidden, batch, chains, sm_count, smem_optin) -> F32Plan
         padded = passes * rows
         work = (rows // F32_TILE_ROWS) * (units // F32_TILE_UNITS)  # a thread a tile and split
         h_floats, stage = 0, kc * (rows + cols)
+    state = _up(state_of * units * padded, 4)
     sizes = dict(product=product, chains=chains, units=units, blocks_per_dir=blocks,
                  grid=blocks * chains, rows_per_pass=rows, passes=passes, padded_rows=padded,
                  chunk_depth=kc, padded_depth=depth, stages=stages,
-                 slice_bytes=depth * cols * 4, h_bytes=h_floats * 4)
+                 slice_bytes=depth * cols * 4, h_bytes=h_floats * 4, walk=walk,
+                 state_bytes=state * 4)
     if work > F32_MAX_THREADS:
         return F32Plan("step", f"{work} threads a block for {units} units x {rows} rows, "
                        f"the kernel takes {F32_MAX_THREADS}", **sizes)
@@ -368,18 +398,40 @@ def plan_gru_f32_forward(hidden, batch, chains, sm_count, smem_optin) -> F32Plan
     while splits < F32_MAX_SPLITS and 2 * splits * work <= F32_MAX_THREADS:
         splits *= 2
     ring = stages * stage
-    sums = splits * rows * cols + units * rows
+    sums = splits * rows * cols + tile_of * units * rows
     work_floats = _up(max(ring, sums), 4)
-    budget = (smem_optin - STATIC_RESERVE) // 4 - work_floats - h_floats
+    budget = (smem_optin - STATIC_RESERVE) // 4 - work_floats - h_floats - state
     sizes.update(threads=_up(splits * work, 32), k_splits=splits, ring_bytes=ring * 4,
                  sums_bytes=sums * 4)
     if budget < 0:
-        return F32Plan("step", f"ring and sums {work_floats * 4} B + h {h_floats * 4} B of "
-                       f"{smem_optin - STATIC_RESERVE} B a block", **sizes,
-                       smem_bytes=4 * (work_floats + h_floats))
+        kept = f" + state {state * 4} B" if state else ""
+        return F32Plan("step", f"ring and sums {work_floats * 4} B + h {h_floats * 4} B"
+                       f"{kept} of {smem_optin - STATIC_RESERVE} B a block", **sizes,
+                       smem_bytes=4 * (work_floats + h_floats + state))
     resident = min(depth, budget // (cols * kc) * kc)
     return F32Plan("persistent", "fits", resident_depth=resident,
-                   smem_bytes=4 * (work_floats + h_floats + resident * cols), **sizes)
+                   smem_bytes=4 * (work_floats + h_floats + state + resident * cols), **sizes)
+
+
+def plan_gru_f32_forward(hidden, batch, chains, sm_count, smem_optin) -> F32Plan:
+    """The persistent float32 GRU forward walk (B1, B2, B3's recurrence) of
+    ``chains`` (1 or 2) chains of h (B, H) @ w_hh (H, 3H): :func:`plan_f32`."""
+    return plan_f32("gru_forward", hidden, batch, chains, sm_count, smem_optin)
+
+
+def plan_gru_f32_backward(hidden, batch, chains, sm_count, smem_optin) -> F32Plan:
+    """The persistent float32 GRU backward walk (B4) of ``chains`` (1 or 2)
+    chains: per chain the carry dgh (B, 3H) @ w_hh^T (3H, H), a column a unit
+    (the rows of w_hh) over a depth of 3H, and the partial carry kept in the
+    block: :func:`plan_f32`."""
+    return plan_f32("gru_backward", hidden, batch, chains, sm_count, smem_optin)
+
+
+def plan_lstm_f32_forward(hidden, batch, chains, sm_count, smem_optin) -> F32Plan:
+    """The persistent float32 LSTM forward walk (B5, B6) of ``chains`` (1 or
+    2) chains of h (B, H) @ w_hh (H, 4H), the cell state kept in the block:
+    :func:`plan_f32`."""
+    return plan_f32("lstm_forward", hidden, batch, chains, sm_count, smem_optin)
 
 
 def choose(design: str | None, planned: PersistPlan | F32Plan) -> str:
@@ -395,14 +447,15 @@ def choose(design: str | None, planned: PersistPlan | F32Plan) -> str:
 
 
 def float32_design(design: str | None) -> str:
-    """The design a wrapper of the float32 step variants (B4-B9) takes:
-    "step" for None or "step"; "persistent" raises ``NotImplementedError``.
-    The float32 GRU forward walk (B1-B3) is planned by
-    :func:`plan_gru_f32_forward` instead."""
+    """The design a wrapper of the float32 step variants that have no
+    persistent design yet (B7's LSTM backward walk, B8 and B9's tanh-RNN
+    walks) takes: "step" for None or "step"; "persistent" raises
+    ``NotImplementedError``. The float32 GRU walks (B1-B4) and the LSTM
+    forward walk (B5, B6) are planned by :func:`plan_f32` instead."""
     if design not in (None, *DESIGNS):
         raise ValueError(f"unknown design {design!r}: one of {DESIGNS} or None")
     if design == "persistent":
         raise NotImplementedError(
-            "this float32 variant has no persistent design yet: only the float32 GRU "
-            "forward walk has one (ROADMAP F32++b: B4's pair, then B6/B7)")
+            "this float32 variant has no persistent design yet: B7 (the LSTM backward "
+            "walk), B8 and B9 (the tanh-RNN walks) take the step design (ROADMAP F32++b)")
     return "step"

@@ -243,14 +243,19 @@ def _record_launch(monkeypatch, state_shape):
     ("F32_MAX_THREADS", "FP_MAX_THREADS")])
 def test_plan_constants_mirror_the_kernel(constant, define):
     """The plan sizes shared memory, the small-B switch and the threads of a
-    block with the numbers the kernel is compiled with."""
+    block with the numbers the kernel is compiled with: gru_f32.cu's own and
+    those of the walks' shared header it includes."""
     import re
 
     from danspeech_tpu_torch.ops import cuda_build
 
-    with open(f"{cuda_build.CSRC_DIR}/gru_f32.cu") as f:
-        m = re.search(rf"^#define {define} (\d+)", f.read(), re.M)
-    assert m and int(m.group(1)) == getattr(pp, constant)
+    text = ""
+    for name in ("gru_f32.cu", "f32_walk.cuh"):
+        with open(f"{cuda_build.CSRC_DIR}/{name}") as f:
+            text += f.read()
+    assert '#include "f32_walk.cuh"' in text
+    found = re.findall(rf"^#define {define} (\d+)", text, re.M)
+    assert len(found) == 1 and int(found[0]) == getattr(pp, constant)
 
 
 T, B, H, D = 6, 3, 16, 10

@@ -399,6 +399,16 @@ def _f32_call(name, hidden, batch):
 F32_FORWARD = {"gru_bidi_fused": ("_bidi_fused_f32_persistent", 2),
                "gru_scan": ("_scan_f32_persistent", 1),
                "gru_scan_bidi": ("_scan_f32_persistent", 2)}
+# every float32 wrapper with a persistent walk (B1-B6): its persistent route,
+# its planner and the chains one call of the route walks
+F32_PLANNED = {
+    **{k: (route, "plan_gru_f32_forward", n) for k, (route, n) in F32_FORWARD.items()},
+    "gru_bwd_scan": ("_bwd_f32_persistent", "plan_gru_f32_backward", 1),
+    "gru_bwd_scan_pair": ("_bwd_f32_persistent", "plan_gru_f32_backward", 2),
+    "lstm_scan": ("_scan_f32_persistent", "plan_lstm_f32_forward", 1),
+    "lstm_scan_with_cell": ("_scan_f32_persistent", "plan_lstm_f32_forward", 1),
+    "lstm_scan_pair": ("_scan_f32_persistent", "plan_lstm_f32_forward", 2),
+}
 
 
 def _fake_routes(monkeypatch, module, names):
@@ -423,16 +433,18 @@ def _fake_routes(monkeypatch, module, names):
                                           (64, 5), (8, 1)])
 @pytest.mark.parametrize("name", list(F32_ENTRIES))
 def test_float32_plans_take_the_step_design_everywhere(monkeypatch, name, hidden, batch):
-    """B4-B9 in float32 keep their weights out of shared memory: their
+    """B7-B9 in float32 keep their weights out of shared memory: their
     float32 branch needs no plan and no device figures. At every shape, even
     where a bf16 slice would fit, None and "step" take the step design (the
     float32 route runs, the counts by design and by dtype grow by the call's
     chains); "persistent" raises NotImplementedError naming ROADMAP F32++b.
-    B1, B2 and B3 in float32 are planned (plan_gru_f32_forward, an H100's
-    figures): None and "persistent" take the persistent route with the plan
-    of one chain (B1) or two (B2, B3), "step" the step route, each counted
-    by its design. An unknown design raises ValueError, before any route runs
-    or anything is counted."""
+    B1-B6 in float32 are planned (plan_gru_f32_forward for B1-B3,
+    plan_gru_f32_backward for B4, plan_lstm_f32_forward for B5 and B6, an
+    H100's figures): None and "persistent" take the persistent route with
+    the plan of one chain (B1, B4, B5, B6) or two (B2, B3 and the pairs),
+    "step" the step route, each counted by its design and by the chains it
+    walks. An unknown design raises ValueError, before any route runs or
+    anything is counted."""
     import importlib
 
     module_name, counted, route, chains = F32_ENTRIES[name]
@@ -441,7 +453,7 @@ def test_float32_plans_take_the_step_design_everywhere(monkeypatch, name, hidden
     monkeypatch.setattr(wrapper, "launches", 0)
     monkeypatch.setattr(wrapper, "design_counts", {"persistent": 0, "step": 0})
     monkeypatch.setattr(wrapper, "dtype_counts", {"bfloat16": 0, "float32": 0})
-    forward = F32_FORWARD.get(name)
+    forward = F32_PLANNED.get(name)
     if forward:
         monkeypatch.setattr(module, "device_info", lambda device: (SMS, SMEM))
     routed = _fake_routes(monkeypatch, module, [route] + ([forward[0]] if forward else []))
@@ -454,8 +466,10 @@ def test_float32_plans_take_the_step_design_everywhere(monkeypatch, name, hidden
         assert routed[-1][0] == (forward[0] if taken == "persistent" else route)
         if taken == "persistent":
             planned = routed[-1][2].get("planned", routed[-1][1][-1])
-            assert planned == pp.plan_gru_f32_forward(hidden, batch, forward[1], SMS, SMEM)
+            assert planned == getattr(pp, forward[1])(hidden, batch, forward[2], SMS, SMEM)
             assert planned.design == "persistent"
+            if name != "gru_bidi_fused":  # its route takes the layer's operands
+                assert len(routed[-1][1][0]) == forward[2]  # the chains the launch walks
     want = {"persistent": 2 if forward else 0, "step": 1 if forward else 2}
     assert (wrapper.launches, wrapper.design_counts, wrapper.dtype_counts) == (
         len(designs) * chains, {k: v * chains for k, v in want.items()},
@@ -505,6 +519,45 @@ def test_float32_forward_takes_the_step_design_where_the_plan_does(monkeypatch, 
         assert [r[0] for r in routed] == ["_scan_f32_persistent"]
         assert routed[0][1][2] == single
         assert wrapper.design_counts == {"persistent": 1, "step": 0}
+
+
+@pytest.mark.parametrize("name", ["gru_bwd_scan_pair", "lstm_scan_pair", "gru_bwd_scan",
+                                  "lstm_scan"])
+def test_float32_walk_pairs_take_a_launch_a_chain_where_the_pair_does_not_fit(monkeypatch,
+                                                                             name):
+    """On a card of one SM the float32 pair plans of B4 and of B5/B6 are
+    "step" (two chains on one SM) and the one-chain plans fit: a pair then
+    walks its chains in one persistent launch each, on the one-chain plan,
+    and counts two chains; "persistent" is allowed (the one-chain plan fits)
+    and "step" walks both chains in the step launches. A single chain stays
+    persistent."""
+    import importlib
+
+    module_name, counted, route, chains = F32_ENTRIES[name]
+    persistent, planner, _ = F32_PLANNED[name]
+    module = importlib.import_module(f"danspeech_tpu_torch.ops.{module_name}")
+    wrapper = getattr(module, counted)
+    monkeypatch.setattr(module, "device_info", lambda device: (1, SMEM))
+    monkeypatch.setattr(wrapper, "launches", 0)
+    monkeypatch.setattr(wrapper, "design_counts", {"persistent": 0, "step": 0})
+    monkeypatch.setattr(wrapper, "dtype_counts", {"bfloat16": 0, "float32": 0})
+    routed = _fake_routes(monkeypatch, module, [route, persistent])
+    call = _f32_call(name, 64, 5)
+    single = getattr(pp, planner)(64, 5, 1, 1, SMEM)
+    assert single.design == "persistent" and single.grid == 1
+    assert getattr(pp, planner)(64, 5, 2, 1, SMEM).design == "step"
+    call(None)
+    call("persistent")
+    walks = [r for r in routed if r[0] == persistent]
+    assert len(walks) == 2 * chains and len(routed) == 2 * chains
+    assert all(len(r[1][0]) == 1 and r[1][-1] == single for r in walks)
+    if chains == 2:
+        order = [[True], [False]] if name.startswith("gru") else [[False], [True]]
+        assert [r[1][1] for r in walks[:2]] == order
+    call("step")
+    assert routed[-1][0] == route and len(routed[-1][1][0]) == chains
+    assert wrapper.design_counts == {"persistent": 2 * chains, "step": chains}
+    assert wrapper.launches == 3 * chains
 
 
 def test_wrappers_take_a_design_argument_and_use_the_plain_version_on_the_cpu():

@@ -6,6 +6,10 @@
     python3 chip_smoke.py --only 8  # phases 1, 2 and 8 only (or 9, 10, 11, 12)
     python3 chip_smoke.py --phase-clocks  # where a persistent kernel's step
                                           # spends its clocks (-DPS_PROFILE build)
+    python3 chip_smoke.py --f32-train  # phases 1, 2 and phase 12g's float32
+                                       # train steps alone, each step split,
+                                       # unchecked: runs on an older tree too,
+                                       # and prints no device line
 
 Phases, in order; any failure exits non-zero:
 
@@ -160,7 +164,10 @@ Phases, in order; any failure exits non-zero:
     ``csrc/rnn_tanh_f32.cu``) at ragged small shapes (H = 70, B = 150) and
     at LSTM5x800 / Tanh5x800's layer shapes (B5 and B8 T=401 B=128 H=800,
     B6, B7 and B9 T=401 B=32 H=800), one chain and a pair each, within
-    F32_ATOL, the layer shapes timed beside the plain version, one cuDNN
+    F32_ATOL, B5-B8 in both designs (the persistent walks
+    ``lstm_f32_persist_kernel``, ``lstm_f32_bwd_persist_kernel`` and
+    ``rnn_tanh_f32_persist_kernel``, and the step kernels), B9 in its step
+    design, the layer shapes timed beside the plain version, one cuDNN
     float32 ``nn.GRU`` / ``nn.LSTM`` / ``nn.RNN`` call (TF32 off) and the
     FP32 bound; (b) ``Recognizer(compute_dtype="float32")`` on the flagship over
     phase 4's 128 waveforms (9 float32 B3 launches a dispatch group,
@@ -179,9 +186,12 @@ Phases, in order; any failure exits non-zero:
     waveforms, the launches by dtype, audio-s/s beside bf16, every row
     against the plain recurrence on the card, a few rows against the port
     on the CPU) and trained (two ``mixed_precision=False`` steps at B=32,
-    8-row gradients against the plain path) as in (b) and (e). Every
-    float32 path is checked to run with TF32 off (its entry points record
-    the flags), every float32 B1, B2 and B3 call on (b)-(e) to take the
+    8-row gradients against the plain path) as in (b) and (e), each train
+    step split into the host time spent building or loading the kernels'
+    libraries, the device time of the recurrent walks by CUDA events around
+    each call, and the rest (beside them the garbage collector's time).
+    Every float32 path is checked to run with TF32 off (its entry points
+    record the flags), every float32 call of B1-B8 on (b)-(g) to take the
     persistent design (``design_counts``), and each of the nine wrappers'
     float32 variants must be launched on phase 12's paths; one
     ``{"float32": ...}`` line;
@@ -194,6 +204,7 @@ Imports no JAX and nothing of ``danspeech_tpu``.
 from __future__ import annotations
 
 import argparse
+import gc
 import glob
 import json
 import os
@@ -4564,7 +4575,7 @@ def check_f32(name, label, run, plain, names, pad_of, lens, t, design="step", re
 
 
 def check_f32_designs(name, label, run, plain, names, pad_of, lens, t):
-    """A float32 entry of a walk with both designs (B1-B6) against one
+    """A float32 entry of a walk with both designs (B1-B8) against one
     result of its plain version: ``run(design)`` calls it. Returns the
     persistent design's result with the step design's inside."""
     from danspeech_tpu_torch.ops import precision
@@ -4672,6 +4683,8 @@ F32_WALK_KERNELS = {
     "gru_bwd_scan": ("gru_f32_bwd_persist_kernel", "gru_f32_bwd_step_kernel"),
     **dict.fromkeys(("lstm_scan", "lstm_scan_with_cell"),
                     ("lstm_f32_persist_kernel", "lstm_f32_step_kernel")),
+    "lstm_bwd_scan": ("lstm_f32_bwd_persist_kernel", "lstm_f32_bwd_step_kernel"),
+    "rnn_tanh_scan": ("rnn_tanh_f32_persist_kernel", "rnn_tanh_f32_step_kernel"),
 }
 
 
@@ -4712,7 +4725,7 @@ def f32_plan_fields(plan):
 
 
 def time_f32_pair(res, pair, walked, t_steps, plan):
-    """The pair of a layer of a float32 walk (B4, B5, B6) timed by CUDA
+    """The pair of a layer of a float32 walk (B4-B8) timed by CUDA
     events in each design, persistent first, into ``res`` (the chain's
     entry): ms a chain, and µs a step over the steps the persistent launch
     walks (``walked``) and the step design's launches (``t_steps``); the
@@ -4973,12 +4986,12 @@ def f32_rnn_operands(kind, gen, t, lengths, h, lens):
 def check_f32_rnn(kind, gen, label, t, lengths, h, timed):
     """One LSTM or tanh-RNN float32 entry against its plain version, one
     chain (a forward chain, or the walk of one) and the pair of a layer (the
-    second chain walking the other way); the LSTM forward chains (B5, B6)
-    in both designs, the others in the step design (both chains in each step
-    launch). At the layer shapes (``timed``) the chain timed beside the
-    plain version, one cuDNN float32 call and the FP32 bound (B5 and B6
-    persistent first, the step design beside), and the pair's time a chain
-    (B5 and B6 in both designs). Returns the two checks."""
+    second chain walking the other way); B5-B8 in both designs, B9 in the
+    step design (both chains in each step launch). At the layer shapes
+    (``timed``) the chain timed beside the plain version, one cuDNN float32
+    call and the FP32 bound (B5-B8 persistent first, the step design
+    beside), and the pair's time a chain (B5-B8 in both designs). Returns
+    the two checks."""
     from danspeech_tpu_torch.ops import gru_cuda, lstm_cuda, persist_plan, rnn_tanh_cuda
 
     lstm = kind.startswith("lstm")
@@ -5031,10 +5044,13 @@ def check_f32_rnn(kind, gen, label, t, lengths, h, timed):
         lib = torch.nn.LSTM(h, h) if lstm else torch.nn.RNN(h, h, nonlinearity="tanh")
         steps = t + 1 if backward else t
         kernel = f"{'lstm' if lstm else 'rnn_tanh'}_f32_{'bwd_' if backward else ''}step_kernel"
+        # the persistent walks take the longest row's steps, a backward walk
+        # one more (the last pass finishes the carry)
+        walked = max(lengths) + int(backward)
         designs = {"step": (run, kernel, steps, steps)}
         if walks:
             designs = {"persistent": (lambda: run("persistent"), F32_WALK_KERNELS[kind][0], 1,
-                                      max(lengths)),
+                                      walked),
                        "step": (lambda: run("step"), kernel, steps, steps)}
         time_f32(res, designs, run_plain,
                  lambda: cudnn_rnn_ms(lib, gen, t, len(lengths), h, backward=backward,
@@ -5043,10 +5059,11 @@ def check_f32_rnn(kind, gen, label, t, lengths, h, timed):
                  library_name=f"nn.{type(lib).__name__}")
         if walks:
             info = gru_cuda.device_info(torch.device("cuda", torch.cuda.current_device()))
+            walk = persist_plan.F32_WALK_OF[kind]
             res.update(design="persistent", **f32_plan_fields(
-                persist_plan.plan_lstm_f32_forward(h, len(lengths), 1, *info)))
-            time_f32_pair(res, pair, max(lengths), t,
-                          persist_plan.plan_lstm_f32_forward(h, len(lengths), 2, *info))
+                persist_plan.plan_f32(walk, h, len(lengths), 1, *info)))
+            time_f32_pair(res, pair, walked, steps,
+                          persist_plan.plan_f32(walk, h, len(lengths), 2, *info))
         else:
             res["pair_ms_per_chain"] = 0.5 * time_ms(pair, iters=2)
             log(f"    float32 pair: {res['pair_ms_per_chain']:.3f} ms a chain")
@@ -5060,18 +5077,24 @@ def phase_f32_rnn_kernels():
     shapes (B = 5 with an empty row, T = 1, H = 70 no multiple of 4 or 8,
     B = 150 over two row blocks) and at the layer shapes of LSTM5x800 /
     Tanh5x800: serving (B = 128) for the forward chains B5 and B8, training
-    (B = 32) for B6 and the walks B7 and B9; one chain and a pair each."""
+    (B = 32) for B6 and the walks B7 and B9; one chain and a pair each. B8
+    runs at both layer shapes on the paths, each with its own plan (the
+    training one with four times the depth splits), so it is checked at
+    both and timed at the serving one."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(121)
     serve = np.random.default_rng(800).integers(1, 402, size=128)
     train = np.random.default_rng(801).integers(1, 402, size=32)
     for lengths in (serve, train):
         lengths[0], lengths[1] = 401, 1
-    layer = {"lstm_scan": ("serve layer", serve), "rnn_tanh_scan": ("serve layer", serve),
-             "lstm_scan_with_cell": ("train layer", train),
-             "lstm_bwd_scan": ("train layer", train), "rnn_tanh_bwd_scan": ("train layer", train)}
+    # each entry's layer shapes: (label, lengths, timed)
+    layer = {"lstm_scan": [("serve layer", serve, True)],
+             "rnn_tanh_scan": [("serve layer", serve, True), ("train layer", train, False)],
+             "lstm_scan_with_cell": [("train layer", train, True)],
+             "lstm_bwd_scan": [("train layer", train, True)],
+             "rnn_tanh_bwd_scan": [("train layer", train, True)]}
     out = {}
-    for kind, (label, lengths) in layer.items():
+    for kind, shapes in layer.items():
         rows = []
         for t, lens, h, small in ((13, [13, 0, 1, 7, 12], 72, "small"),
                                   (1, [1, 0], 70, "small T=1"),
@@ -5079,7 +5102,8 @@ def phase_f32_rnn_kernels():
                                   (7, [7, 1] + [1 + (i % 7) for i in range(148)], 72,
                                    "small B=150")):
             rows += check_f32_rnn(kind, gen, small, t, lens, h, False)
-        rows += check_f32_rnn(kind, gen, label, 401, lengths.tolist(), 800, True)
+        for label, lengths, timed in shapes:
+            rows += check_f32_rnn(kind, gen, label, 401, lengths.tolist(), 800, timed)
         out[kind] = rows
     return out
 
@@ -5103,16 +5127,16 @@ def f32_rows_vs(label, probs, ref, lens, rows):
     return {"rows": len(lens), "max_abs_prob_err": worst, "least_row_argmax_agreement": least}
 
 
-# the float32 wrappers with a persistent walk (B1-B6), whose float32 calls on
+# the float32 wrappers with a persistent walk (B1-B8), whose float32 calls on
 # the paths must take the persistent design
 F32_PERSISTENT = ("gru_bidi_fused", "gru_scan", "gru_scan_bidi", "gru_bwd_scan", "lstm_scan",
-                  "lstm_scan_with_cell")
+                  "lstm_scan_with_cell", "lstm_bwd_scan", "rnn_tanh_scan")
 
 
 def f32_launches(before):
     """The float32 launches of B1-B9 since ``before`` (a read of
     :func:`f32_counts`); every launch of those wrappers since then must have
-    been a float32 one, and every call (or chain) of B1-B6 must have taken
+    been a float32 one, and every call (or chain) of B1-B8 must have taken
     the persistent design (their ``design_counts``), which is logged."""
     now = f32_counts()
     got = {k: now[k][0] - before[k][0] for k in now}
@@ -5120,9 +5144,9 @@ def f32_launches(before):
         raise AssertionError(f"a bf16 launch on a float32 path: {before} -> {now}")
     designs = {k: {d: now[k][2][d] - before[k][2][d] for d in DESIGNS}
                for k in F32_PERSISTENT if got[k]}
-    log(f"    design_counts of the float32 calls of B1-B6: {designs}")
+    log(f"    design_counts of the float32 calls of B1-B8: {designs}")
     if any(c["step"] or c["persistent"] != got[k] for k, c in designs.items()):
-        raise AssertionError(f"a float32 call of B1-B6 on a path did not take the "
+        raise AssertionError(f"a float32 call of B1-B8 on a path did not take the "
                              f"persistent design: {designs}")
     return got
 
@@ -5297,12 +5321,111 @@ def f32_serve(card, model, waves, launches, per_group):
     return serve
 
 
-def f32_train(card, config, seed, launches, per_step):
+class GcClock:
+    """The host time Python's garbage collector takes while it is entered
+    (``gc.callbacks``), and its runs by generation."""
+
+    def __init__(self):
+        self.s, self.runs, self._t0 = 0.0, [0, 0, 0], None
+
+    def _tick(self, phase, info):
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        elif self._t0 is not None:
+            self.s += time.perf_counter() - self._t0
+            self.runs[info["generation"]] += 1
+            self._t0 = None
+
+    def __enter__(self):
+        gc.callbacks.append(self._tick)
+        return self
+
+    def __exit__(self, *exc):
+        gc.callbacks.remove(self._tick)
+
+
+class StepSplit:
+    """Splits one train step's wall time: the host time spent in
+    ``cuda_build.load`` (building or loading a kernel library; the first
+    call in a process opens it), the device time of the recurrent walks by
+    CUDA events recorded on the current stream around each call of the
+    ``walks`` ((module, attribute) pairs) with the host time inside those
+    calls, and the rest of the wall time; beside them the host time in
+    Python's garbage collector (:class:`GcClock`)."""
+
+    def __init__(self, walks):
+        self.walks, self._saved = walks, []
+        self.load_s, self.events, self.walk_host_s = 0.0, [], 0.0
+        self.gc = GcClock()
+
+    def __enter__(self):
+        from danspeech_tpu_torch.ops import cuda_build
+
+        load = cuda_build.load
+
+        def timed_load(name, _load=load):
+            t0 = time.perf_counter()
+            try:
+                return _load(name)
+            finally:
+                self.load_s += time.perf_counter() - t0
+
+        self._saved.append((cuda_build, "load", load))
+        cuda_build.load = timed_load
+        for mod, name in self.walks:
+            fn = getattr(mod, name)
+
+            def timed(*a, _fn=fn, **k):
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                t0 = time.perf_counter()
+                start.record()
+                try:
+                    return _fn(*a, **k)
+                finally:
+                    end.record()
+                    self.walk_host_s += time.perf_counter() - t0
+                    self.events.append((start, end))
+
+            timed.__dict__ = fn.__dict__  # a wrapper's counts stay where they are kept
+            self._saved.append((mod, name, fn))
+            setattr(mod, name, timed)
+        self.gc.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.gc.__exit__()
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+
+    def result(self, wall_s):
+        """The split of a step of ``wall_s`` seconds, after a synchronize."""
+        walks_ms = sum(s.elapsed_time(e) for s, e in self.events)
+        return {"wall_s": wall_s, "load_s": self.load_s,
+                "walk_calls": len(self.events), "walks_device_ms": walks_ms,
+                "walks_host_ms": self.walk_host_s * 1e3,
+                "gc_s": self.gc.s, "gc_runs_by_generation": self.gc.runs,
+                "rest_s": wall_s - self.load_s - walks_ms / 1e3}
+
+
+def f32_walks(config):
+    """The (module, attribute) pairs of the recurrent walks a float32 train
+    step of ``config`` calls: its layers' forward and backward entries."""
+    from danspeech_tpu_torch.ops import gru_cuda, lstm_cuda, rnn_tanh_cuda
+
+    return {"gru": [(gru_cuda, "gru_bidi_fused"), (gru_cuda, "gru_bwd_scan_pair")],
+            "lstm": [(lstm_cuda, "lstm_scan_pair"), (lstm_cuda, "lstm_bwd_scan_pair")],
+            "rnn": [(rnn_tanh_cuda, "rnn_tanh_scan_pair"),
+                    (rnn_tanh_cuda, "rnn_tanh_bwd_scan_pair")]}[config.rnn_type]
+
+
+def f32_train(card, config, seed, launches, per_step, checked=True):
     """12e, 12g: two ``mixed_precision=False`` train steps of ``config`` at
     B = TRAIN_BATCH (loss, wall time, the float32 launches held to
-    ``per_step``, peak memory), then the gradients of an 8-row batch through
-    the kernels against the plain path within F32_GRAD_REL. Adds the
-    launches to ``launches``."""
+    ``per_step``, peak memory), each split by :class:`StepSplit`, then the
+    gradients of an 8-row batch through the kernels against the plain path
+    within F32_GRAD_REL. Adds the launches to ``launches``. With
+    ``checked=False`` (``--f32-train``) the launches, their designs and the
+    flags are not held to anything."""
     from danspeech_tpu_torch import train as tr
     from danspeech_tpu_torch.models import deepspeech as ds
     from danspeech_tpu_torch.train import step as tstep
@@ -5318,25 +5441,35 @@ def f32_train(card, config, seed, launches, per_step):
     want = dict(dict.fromkeys(launches, 0), **per_step)
     for k in range(2):
         before = f32_counts()
-        with FlagsSeen([(ds, "forward"), (tstep, "_update")]) as seen:
+        with FlagsSeen([(ds, "forward"), (tstep, "_update")]) as seen, \
+                StepSplit(f32_walks(config)) as split:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             state, loss = step_fn(state, *batch, None)
             loss = float(loss)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        got = f32_launches(before)
-        if got != want or not np.isfinite(loss):
+        parts = split.result(wall)
+        now = f32_counts()
+        got = f32_launches(before) if checked else {
+            kernel: now[kernel][0] - before[kernel][0] for kernel in now}
+        if not np.isfinite(loss) or (checked and got != want):
             raise AssertionError(f"{name} float32 train step {k + 1}: loss {loss}, "
                                  f"launches {got}, expected {want}")
-        seen.require(f"{name} float32 train step {k + 1}")
+        if checked:
+            seen.require(f"{name} float32 train step {k + 1}")
         for kernel, v in got.items():
             launches[kernel] += v
         steps.append({"loss": loss, "wall_s": wall, "audio_s_per_step_s": t_audio / wall,
-                      "launches": got})
+                      "launches": got, "split": parts})
         log(f"  {name} float32 train step {k + 1} (B={TRAIN_BATCH}, remat): loss "
             f"{loss:.4f}, {wall:.3f} s, {t_audio / wall:.1f} audio-s per step-second, "
             f"launches {got} [{card}]")
+        log(f"    split: building or loading libraries {parts['load_s'] * 1e3:.3f} ms; "
+            f"the walks' {parts['walk_calls']} calls {parts['walks_device_ms']:.3f} ms on the "
+            f"device by CUDA events, {parts['walks_host_ms']:.3f} ms on the host inside them; "
+            f"the rest {parts['rest_s'] * 1e3:.3f} ms; {parts['gc_s'] * 1e3:.3f} ms in the "
+            f"garbage collector (runs by generation {parts['gc_runs_by_generation']})")
     peak = torch.cuda.max_memory_allocated()
     log(f"  {name}: peak device memory over the float32 steps: {peak / 2**30:.2f} GiB")
     del state, step_fn
@@ -5413,7 +5546,7 @@ def phase_float32(card):
         swaves = seeded_waveforms(np.random.default_rng(5), F32_STREAM_ROWS)
         sgroups = seng._plan_groups(swaves)
         before = f32_counts()
-        with FlagsSeen([(ds, "forward")]) as seen:
+        with FlagsSeen([(ds, "forward")]) as seen, GcClock() as collected:
             texts, wall = timed_batch(srec, swaves)
         got = f32_launches(before)
         if got["gru_scan"] != sconfig.rnn_layers * len(sgroups) or sum(got.values()) != got["gru_scan"]:
@@ -5428,11 +5561,14 @@ def phase_float32(card):
         probs, out_lens = seng._forward(seng._compute_params, wave, lens)
         ref, _ = seng._forward(seng._compute_params, wave, lens, rnn_impl="plain")
         stream = {"batch_audio_s_per_s": s_audio / wall, "batch_launches": got,
+                  "batch_gc_s": collected.s, "batch_gc_runs_by_generation": collected.runs,
                   "batch_vs_plain": f32_rows_vs(
                       f"float32 uni group rows={len(idxs)}: kernels vs plain GRU", probs,
                       ref, out_lens, len(idxs))}
         log(f"  float32 GPUStreamingRNN recognize_batch: {F32_STREAM_ROWS} rows, "
-            f"{s_audio:.1f} audio-s in {wall:.3f} s = {s_audio / wall:.1f} audio-s/s [{card}]")
+            f"{s_audio:.1f} audio-s in {wall:.3f} s = {s_audio / wall:.1f} audio-s/s, "
+            f"{collected.s * 1e3:.3f} ms of it in the garbage collector (runs by generation "
+            f"{collected.runs}) [{card}]")
         del probs, ref, wave
         srec.enable_real_time_streaming(smodel, string_parts=True)
         calls, _ = record_calls(seng)
@@ -5576,8 +5712,8 @@ F32_PHASE_CLOCKS = {1: "grid barrier", 2: "copies of the first chunks",
 
 
 def phase_clocks(card):
-    """Builds the seven persistent kernels' sources, ``gru_f32`` and ``lstm_f32`` with
-    -DPS_PROFILE into a build directory of their own, runs the persistent
+    """Builds the seven persistent kernels' sources, ``gru_f32``, ``lstm_f32`` and
+    ``rnn_tanh_f32`` with -DPS_PROFILE into a build directory of their own, runs the persistent
     kernels once at the flagship, the 2000-wide, the streaming, the bidi batch and the LSTM and
     tanh-RNN serving and training shapes, and prints the clocks that thread
     0 of block 0 spent per step in each part (the instrumented build is a
@@ -5586,7 +5722,9 @@ def phase_clocks(card):
     call; the float32 GRU forward walk runs at B1's streaming and batch
     shapes, B2's and B3's flagship layer, its backward walk (B4) as the
     flagship's training pair, the float32 LSTM forward walk (B5, B6) as
-    LSTM5x800's serving and training pairs."""
+    LSTM5x800's serving and training pairs, its backward walk (B7) as
+    LSTM5x800's training pair and the float32 tanh-RNN forward walk (B8) as
+    Tanh5x800's serving pair."""
     import ctypes
 
     from danspeech_tpu_torch.ops import cuda_build, gru_cuda, lstm_cuda, persist_plan, rnn_tanh_cuda
@@ -5594,7 +5732,7 @@ def phase_clocks(card):
     cuda_build.NVCC_FLAGS.append("-DPS_PROFILE")
     cuda_build.BUILD_DIR = os.path.join(cuda_build.BUILD_DIR, "profile")
     cuda_build.build("gru_bidi_fused", "gru_bwd", "gru_scan", "lstm_scan", "lstm_bwd",
-                     "rnn_tanh_scan", "rnn_tanh_bwd", "gru_f32", "lstm_f32")
+                     "rnn_tanh_scan", "rnn_tanh_bwd", "gru_f32", "lstm_f32", "rnn_tanh_f32")
 
     def read(lib):
         fn = cuda_build.load(lib).persist_prof_read
@@ -5677,6 +5815,25 @@ def phase_clocks(card):
                    lambda: lstm_cuda.lstm_scan_pair(la, lb, False, True, with_cell=b == 32,
                                                     design="persistent"), t, lib="lstm_f32")
         del la, lb
+        # the float32 LSTM backward walk (B7) as the pair of the training
+        # layer (T + 1 steps: the last pass finishes the carry), the float32
+        # tanh-RNN forward walk (B8) as the pair of Tanh5x800's serving layer
+        if b == 32:
+            wa = f32_rnn_operands("lstm_bwd_scan", gen, t, lengths.tolist(), 800, lens)
+            wb = f32_rnn_operands("lstm_bwd_scan", gen, t, lengths.tolist(), 800, lens)
+            report_f32(f"lstm_bwd_scan_pair float32 T={t} B={b} H=800",
+                       lambda: lstm_cuda.lstm_bwd_scan_pair(wa, wb, True, False,
+                                                            design="persistent"),
+                       t + 1, lib="lstm_f32")
+            del wa, wb
+        else:
+            ta = f32_rnn_operands("rnn_tanh_scan", gen, t, lengths.tolist(), 800, lens)
+            tb = f32_rnn_operands("rnn_tanh_scan", gen, t, lengths.tolist(), 800, lens)
+            report_f32(f"rnn_tanh_scan_pair float32 T={t} B={b} H=800",
+                       lambda: rnn_tanh_cuda.rnn_tanh_scan_pair(ta, tb, False, True,
+                                                                design="persistent"),
+                       t, lib="rnn_tanh_f32")
+            del ta, tb
     torch.cuda.empty_cache()
     for b in (128, 32):
         lengths = np.random.default_rng(1200).integers(1, 402, size=b)
@@ -5797,6 +5954,13 @@ def main(argv=None) -> int:
     ap.add_argument("--phase-clocks", action="store_true",
                     help="instead of the phases: build the persistent kernels with "
                          "-DPS_PROFILE and print where a step spends its clocks")
+    ap.add_argument("--f32-train", action="store_true",
+                    help="run phases 1, 2 and only phase 12g's float32 train steps of "
+                         "LSTM5x800 and Tanh5x800, each step split (library loads, the "
+                         "walks, the rest, the garbage collector), their launches, designs "
+                         "and flags not held to anything, so that an older tree's steps "
+                         "split the same way (ROADMAP P15); not a smoke check: it prints "
+                         "no device line")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -5826,6 +5990,24 @@ def main(argv=None) -> int:
                 entry = line.split("'")[1] if "'" in line else ""
             if "registers" in line or "spill" in line or "error" in line:
                 log(f"  {name}: {entry}: {line.strip()}")
+
+    if args.f32_train:
+        from danspeech_tpu_torch.models import DeepSpeechConfig
+
+        saved = f32_flags()
+        set_f32_flags(USER_FLAGS)
+        try:
+            runs = {}
+            for cfg in (LSTM5X800, TANH5X800):
+                rconfig = DeepSpeechConfig(**cfg)
+                runs[rconfig.model_name] = f32_train(
+                    card, rconfig, 12, dict.fromkeys(kernel_wrappers(), 0), {},
+                    checked=False)
+                torch.cuda.empty_cache()
+        finally:
+            set_f32_flags(saved)
+        print(json.dumps({"f32_train": runs, "card": card}))
+        return 0
 
     if args.only:
         if args.only == 8:

@@ -1,11 +1,12 @@
 // The persistent float32 walks of the recurrent kernels (gru_f32.cu: the GRU
-// forward walk and its backward walk; lstm_f32.cu: the LSTM forward walk):
+// forward walk and its backward walk; lstm_f32.cu: the LSTM forward walk and
+// its backward walk; rnn_tanh_f32.cu: the tanh-RNN forward walk):
 // all steps of one or two chains in one cooperative launch, one block an SM,
 // each block keeping what fits of its float32 weight slice resident in
 // shared memory and streaming the rest from L2 through a two-stage ring of
 // bulk copies beside the left operand. The plans are those of
-// ops/persist_plan.py (plan_gru_f32_forward, plan_gru_f32_backward,
-// plan_lstm_f32_forward); the constants below mirror its F32_* ones.
+// ops/persist_plan.py (plan_f32 over its walk table F32_WALKS); the
+// constants below mirror its F32_* ones.
 //
 // A block owns U (even) units of one chain and their NC = G U columns of a
 // (depth, G H) matrix, packed by the wrapper (gru_cuda.f32_slices,
@@ -13,8 +14,10 @@
 // so that a chunk of depths of a block's slice is one contiguous run:
 //   G = 3: the GRU forward walk, h (B, H) @ w_hh (H, 3H), gates r, z, n;
 //   G = 4: the LSTM forward walk, h (B, H) @ w_hh (H, 4H), gates i, f, g, o;
-//   G = 1: the GRU backward walk's carry, dgh (B, 3H) @ w_hh^T (3H, H), the
-//          rows j of w_hh read as they lie.
+//   G = 1: the GRU backward walk's carry, dgh (B, 3H) @ w_hh^T (3H, H), and
+//          the LSTM backward walk's, dg4 (B, 4H) @ w_hh^T (4H, H), the rows j
+//          of w_hh read as they lie; the tanh-RNN forward walk, h (B, H) @
+//          w_hh (H, H).
 // The left operand is exchanged through L2 transposed, (Dp depths, Bp rows),
 // so that a chunk of depths of it is contiguous too: each block writes its
 // units' depths of the next step's operand, the grid barrier (persist.cuh)

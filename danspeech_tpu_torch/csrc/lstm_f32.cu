@@ -8,10 +8,12 @@
 //       (one cooperative launch, below), or the step design
 //       lstm_f32_scan_launch, one chain or two (the chain is the grid's z
 //       index), the cell stream written only when its pointer is set;
-//   lstm_bwd_scan (B7)                         -> lstm_f32_bwd_launch, one
-//       chain or the two chains of a bidirectional layer (step design only).
-// ops/persist_plan.py:plan_lstm_f32_forward chooses the forward walk's
-// design and cuts it over the card.
+//   lstm_bwd_scan (B7)                         -> lstm_f32_bwd_persist_launch
+//       (the gate recompute, then one cooperative launch, below), or the step
+//       design lstm_f32_bwd_launch, one chain or the two chains of a
+//       bidirectional layer.
+// ops/persist_plan.py:plan_lstm_f32_forward and plan_lstm_f32_backward
+// choose the walks' design and cut them over the card.
 // The Pallas kernels are dtype-generic: float32 weights give float32
 // products there. Same contract as the bf16 kernels (lstm_scan.cu,
 // lstm_bwd.cu), gate order i, f, g, o, every stream and weight in float32:
@@ -44,11 +46,16 @@
 //   hold the sums. c is owned: the thread that owns (b, j) updates it in
 //   place; h ping-pongs between two buffers, since every block reads all of
 //   the previous step's h.
-// - Backward (lstm_f32_bwd_step_kernel): the gate recompute hprev @ w_hh for
-//   every t does not depend on the walk, so it is one FFMA GEMM for both
-//   chains (sgemm.cuh) into the dg4 output buffer; each (t, b, j) of it is
-//   read back as gh and overwritten with the gate gradient by the one thread
-//   that owns it. Then T + 1 step launches: each finishes the carry of the
+// - Backward: the gate recompute hprev @ w_hh for every t does not depend on
+//   the walk, so it is one FFMA GEMM for both chains (sgemm.cuh) into the dg4
+//   output buffer; each (t, b, j) of it is read back as gh and overwritten
+//   with the gate gradient by the one thread that owns it. The persistent
+//   walk (lstm_f32_bwd_persist_kernel, below) then takes every step in one
+//   launch, each block keeping the rows of w_hh of its units (depth 4H, the
+//   whole slice resident at B = 32: 179 KB a block for a pair) and its
+//   carries dh and dc in shared memory, dg4 exchanged through L2 as the
+//   forward walk's h. The step design (lstm_f32_bwd_step_kernel) instead
+//   takes T + 1 step launches: each finishes the carry of the
 //   previous step, dh = partial + dg4_prev @ w_hh^T[:, j] (depth 4H, read
 //   from the previous step's row of dg4, which the launch before wrote in
 //   full), applies step t's gradient, and leaves the partial carry
@@ -553,4 +560,293 @@ extern "C" int lstm_f32_bwd_launch(
     if (err != cudaSuccess) return (int)err;
   }
   return 0;
+}
+
+// ---------------------------------------------------------------------------
+// The persistent backward walk (B7): all steps of one or two chains in one
+// cooperative launch
+// ---------------------------------------------------------------------------
+//
+// The plan (ops/persist_plan.py:plan_lstm_f32_backward) cuts the units of the
+// chains into blocks of U (even) units, one block an SM, chain c's blocks
+// c * blocks .. (c + 1) * blocks - 1, as the forward walk's. Block k of a
+// chain owns units j0 = k U .. j0 + U - 1 and rows j of w_hh (H, 4H), read as
+// they lie (w_hh^T[:, j] = w_hh[j, :]): one column a unit over a depth of
+// 4H, packed by the wrapper (gru_cuda.f32_rows) as wp[k][d][u] =
+// w_hh[j0 + u][d], zeros past H and past 4H.
+//
+// Step s multiplies dg4 of the step before (B, 4H), exchanged transposed
+// through dg (2 ping-pong buffers, chains, Dp depths, Bp rows; every block
+// reads all of it, through the ring: f32_walk.cuh, G = 1), by its slice: the
+// carry of its units, dh = partial + dg4_prev @ w_hh^T[:, j]. The epilogue
+// takes (row, unit) pairs over all threads with the step kernel's arithmetic
+// (lstm_f32_bwd_step_kernel): it finishes dh, recomputes i, f, g, o from gx
+// (b_ih inside) + b_hh and the gh the recompute left in dg4, applies step t's
+// gradient, writes the four gate gradients over gh in dg4, keeps the partial
+// carry (1 - m) dh and the cell gradient dc in shared memory (P and DC, the
+// block's units for every row: no state leaves the block), and writes its
+// units' four depths (j, H + j, 2H + j, 3H + j) of the new dg4 into dg through
+// the tile Dn, in runs of rows. A grid barrier a chain (each chain its own
+// counter) orders the steps. Only the steps with a valid row are walked,
+// t = n - 1 .. 0 for a reverse walk (the backward of a forward chain), 0 ..
+// n - 1 otherwise, n = max(lengths): at t >= n every row is past its length,
+// the gradients are zeros (written first, with no barrier) and both carries
+// pass through unchanged. Step 0 multiplies nothing (dg4 before it is zero).
+// One more pass (s = n) only finishes the carry: that is dh0; dc0 is DC.
+//
+// Shared memory, from its start: the work area (the ring, and over it the
+// partial sums Cs[split][row][unit] and the tile Dn[gate][unit][row]), the
+// partial carry P[unit][Bp], the cell gradient DC[unit][Bp], the resident
+// depths of the slice.
+
+struct FlbWalk {
+  const float* gx[2];     // (T, B, 4H), b_ih inside
+  const float* cprev[2];  // (T, B, H)
+  const float* dout[2];   // (T, B, H)
+  const float* wp[2];     // (blocks, Dp, U), packed rows of w_hh
+  const float* bhh[2];    // (4H,)
+  float* dg4[2];          // (T, B, 4H): gh in, the gate gradients out
+  float* dh[2];           // (B, H): the carry to start from in, dh0 out
+  float* dc[2];           // (B, H): the cell gradient to start from in, dc0 out
+  int reverse[2];
+  const int* lengths;     // (B,)
+  float* dg;              // (2, chains, Dp, Bp): dg4 exchanged, zeros on entry
+  unsigned int* barrier;  // (chains,): a zeroed counter a chain
+  int T, B, H, chains, blocks;
+  FpCut q;                // Dp: 4H padded to the chunk depth
+};
+
+// floats of the work area: the ring, or the partial sums and the tile Dn
+// (4 x U x RB) of the new dg4 over it
+__host__ __device__ __forceinline__ int flb_work(const FpCut& q) {
+  return fp_work_floats(q, q.U, q.RB, 4 * q.U * q.RB);
+}
+
+__global__ void __launch_bounds__(FP_MAX_THREADS, 1)
+lstm_f32_bwd_persist_kernel(FlbWalk p) {
+  extern __shared__ __align__(16) float fp_smem[];
+  __shared__ __align__(8) uint64_t fp_bars[FP_STAGES];
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int c = blockIdx.x / p.blocks;
+  const FpCut& fc = p.q;
+  const int j0 = (blockIdx.x - c * p.blocks) * fc.U;
+  const int U = fc.U, H = p.H, B = p.B, T = p.T, RB = fc.RB, Bp = fc.Bp;
+  const int uw = min(U, H - j0);
+  const int G = 4 * H;
+  FpRing ring{fp_smem, fp_bars, 0u, 0u};
+  float* Dn = fp_smem + fc.KS * RB * U;
+  float* P = fp_smem + flb_work(fc);
+  float* DC = P + fp_up4(U * Bp);
+  float* Ws = DC + fp_up4(U * Bp);
+  const float* wp = p.wp[c] + (size_t)(j0 / U) * fc.Dp * U;
+
+  if (tid == 0) {
+    for (int i = 0; i < FP_STAGES; ++i) ps_mbar_init(fp_bars + i, 1);
+    ps_mbar_init_fence();
+  }
+  fp_load_resident(Ws, wp, fc.kres * U);  // the resident depths of the slice, once
+  float* __restrict__ dh = p.dh[c];
+  float* __restrict__ dc = p.dc[c];
+  for (int i = tid; i < U * Bp; i += nthr) {  // the carries start at dh, dc
+    const int u = i / Bp, b = i - u * Bp;
+    const bool in = u < uw && b < B;
+    P[i] = in ? dh[(size_t)b * H + j0 + u] : 0.0f;
+    DC[i] = in ? dc[(size_t)b * H + j0 + u] : 0.0f;
+  }
+
+  const int n = ps_longest(p.lengths, B, T);  // its __syncthreads covers both
+  float* __restrict__ dg4 = p.dg4[c];
+  {  // steps n .. T - 1: zeros at this block's units, four gates
+    const size_t cnt = (size_t)(T - n) * B * uw;
+    for (size_t i = tid; i < cnt; i += nthr) {
+      const size_t row = (size_t)n * B + i / uw;
+      const int j = j0 + (int)(i % uw);
+      dg4[row * G + j] = 0.0f;
+      dg4[row * G + H + j] = 0.0f;
+      dg4[row * G + 2 * H + j] = 0.0f;
+      dg4[row * G + 3 * H + j] = 0.0f;
+    }
+  }
+  const float* __restrict__ gx = p.gx[c];
+  const float* __restrict__ cprev = p.cprev[c];
+  const float* __restrict__ dout = p.dout[c];
+  const float* __restrict__ bhh = p.bhh[c];
+  const size_t dbuf = (size_t)fc.Dp * Bp;
+  const int passes = Bp / RB;
+  const int nel = RB * U;
+  long long ps_t_ = 0;
+#ifdef PS_PROFILE
+  ps_t_ = clock64();
+#endif
+  for (int s = 0; s <= n; ++s) {
+    const bool last = s == n;  // after the last step: only the carry, dh0
+    const int t = last ? -1 : (p.reverse[c] ? n - 1 - s : s);
+    const float* dsrc = p.dg + ((size_t)(s & 1) * p.chains + c) * dbuf;
+    float* ddst = p.dg + ((size_t)((s & 1) ^ 1) * p.chains + c) * dbuf;
+    for (int pass = 0; pass < passes; ++pass) {
+      const int r0 = pass * RB;
+      if (!last) {  // the pass's rows of gx and gh at this block's units, toward L2
+        for (int i = tid; i < RB * 8; i += nthr) {
+          const int b = r0 + i / 8, g = i % 8;
+          const float* base = g < 4 ? gx : dg4;
+          if (b < B) ps_prefetch_l2(base + ((size_t)t * B + b) * G + (g % 4) * H + j0);
+        }
+      }
+      if (s > 0) fp_tiled_product<1>(fc, dsrc, wp, Ws, ring, r0, ps_t_);
+      // epilogue: (row, unit) pairs, units fastest; the loads of FP_EPI pairs
+      // first, then their gradients
+      for (int e0 = tid; e0 < nel; e0 += FP_EPI * nthr) {
+        float xi[FP_EPI], xf[FP_EPI], xg[FP_EPI], xo[FP_EPI];
+        float hi[FP_EPI], hf[FP_EPI], hg[FP_EPI], ho[FP_EPI], cp[FP_EPI], dy[FP_EPI];
+        bool live[FP_EPI], valid[FP_EPI];
+#pragma unroll
+        for (int k = 0; k < FP_EPI; ++k) {
+          const int e = e0 + k * nthr;
+          const int r = e / U, u = e - r * U;
+          const int b = r0 + r, j = j0 + u;
+          live[k] = e < nel && b < B && j < H;
+          valid[k] = false;
+          xi[k] = xf[k] = xg[k] = xo[k] = hi[k] = hf[k] = hg[k] = ho[k] = cp[k] = dy[k] = 0.0f;
+          if (live[k] && !last) {
+            const size_t row = (size_t)t * B + b;
+            const float* gxr = gx + row * G;
+            const float* ghr = dg4 + row * G;
+            xi[k] = gxr[j];
+            xf[k] = gxr[H + j];
+            xg[k] = gxr[2 * H + j];
+            xo[k] = gxr[3 * H + j];
+            hi[k] = ghr[j];
+            hf[k] = ghr[H + j];
+            hg[k] = ghr[2 * H + j];
+            ho[k] = ghr[3 * H + j];
+            cp[k] = cprev[row * H + j];
+            dy[k] = dout[row * H + j];
+            valid[k] = p.lengths[b] > t;
+          }
+        }
+#pragma unroll
+        for (int k = 0; k < FP_EPI; ++k) {
+          const int e = e0 + k * nthr;
+          if (e >= nel) break;
+          const int r = e / U, u = e - r * U;
+          float d0 = 0.0f, d1 = 0.0f, d2 = 0.0f, d3 = 0.0f;  // padding rows stay zero
+          if (live[k]) {
+            const int b = r0 + r, j = j0 + u;
+            float acc = 0.0f;  // the splits in order
+            if (s > 0)
+              for (int ks = 0; ks < fc.KS; ++ks) acc += ring.base[((size_t)ks * RB + r) * U + u];
+            const float dhv = P[u * Bp + b] + acc;
+            if (last) {
+              dh[(size_t)b * H + j] = dhv;
+              dc[(size_t)b * H + j] = DC[u * Bp + b];
+              continue;
+            }
+            const float ig = f32_sigmoid(xi[k] + hi[k] + bhh[j]);
+            const float fg = f32_sigmoid(xf[k] + hf[k] + bhh[H + j]);
+            const float gg = tanhf(xg[k] + hg[k] + bhh[2 * H + j]);
+            const float og = f32_sigmoid(xo[k] + ho[k] + bhh[3 * H + j]);
+            const float tc = tanhf(fg * cp[k] + ig * gg);
+            const float dcv = DC[u * Bp + b];
+
+            const float dhnew = valid[k] ? dhv + dy[k] : 0.0f;
+            const float dcn = dhnew * og * (1.0f - tc * tc) + (valid[k] ? dcv : 0.0f);
+            d0 = dcn * gg * ig * (1.0f - ig);
+            d1 = dcn * cp[k] * fg * (1.0f - fg);
+            d2 = dcn * ig * (1.0f - gg * gg);
+            d3 = dhnew * tc * og * (1.0f - og);
+            float* g = dg4 + ((size_t)t * B + b) * G;
+            g[j] = d0;
+            g[H + j] = d1;
+            g[2 * H + j] = d2;
+            g[3 * H + j] = d3;
+            P[u * Bp + b] = valid[k] ? 0.0f : dhv;
+            DC[u * Bp + b] = valid[k] ? dcn * fg : dcv;
+          }
+          Dn[u * RB + r] = d0;
+          Dn[(U + u) * RB + r] = d1;
+          Dn[(2 * U + u) * RB + r] = d2;
+          Dn[(3 * U + u) * RB + r] = d3;
+        }
+      }
+      __syncthreads();
+      if (!last) {
+        for (int e = tid; e < 4 * uw * RB; e += nthr) {  // rows fastest: runs of dg
+          const int gu = e / RB, r = e - gu * RB;
+          const int g = gu / uw, u = gu - g * uw;
+          ddst[(size_t)(g * H + j0 + u) * Bp + r0 + r] = Dn[(g * U + u) * RB + r];
+        }
+      }
+      __syncthreads();  // Dn is read before the next pass's ring
+      PS_ACC(3);
+    }
+    if (!last) ps_grid_barrier(p.barrier + c, (unsigned int)(s + 1) * p.blocks);
+    PS_ACC(1);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Host entry, B7, persistent: the backward walks of one or two chains (a, b)
+// that share T, B, H and lengths, on the caller's stream: the gate recompute
+// gh = hprev @ w_hh of each chain into its dg4 buffer (sgemm.cuh, as the step
+// design's), then every step in one cooperative launch of the planned grid.
+// wp_* are the packed rows (blocks, Dp, U); dg holds 2 zeroed buffers of
+// (chains, Dp, Bp) f32; dh_* and dc_* (B, H) hold the carries to start from
+// on entry (zeros: the layer returns no final state) and dh0, dc0 on exit;
+// barrier: one zeroed counter a chain. Returns the CUDA error code
+// (cudaErrorCooperativeLaunchTooLarge where the grid cannot be co-resident),
+// else 0.
+// ---------------------------------------------------------------------------
+
+extern "C" int lstm_f32_bwd_persist_launch(
+    const void* gx_a, const void* gx_b, const void* hprev_a, const void* hprev_b,
+    const void* cprev_a, const void* cprev_b, const void* dout_a, const void* dout_b,
+    const void* lengths, const void* w_hh_a, const void* w_hh_b, const void* wp_a,
+    const void* wp_b, const void* b_hh_a, const void* b_hh_b, void* dg, void* dh_a,
+    void* dh_b, void* dc_a, void* dc_b, void* dg4_a, void* dg4_b, void* barrier, int T,
+    int B, int H, int reverse_a, int reverse_b, int chains, int units, int blocks,
+    int rows_per_pass, int padded_rows, int padded_depth, int k_splits, int chunk_depth,
+    int resident_depth, int threads, int smem, int dot, void* stream) {
+  FlbWalk p;
+  p.gx[0] = static_cast<const float*>(gx_a);
+  p.gx[1] = static_cast<const float*>(gx_b);
+  p.cprev[0] = static_cast<const float*>(cprev_a);
+  p.cprev[1] = static_cast<const float*>(cprev_b);
+  p.dout[0] = static_cast<const float*>(dout_a);
+  p.dout[1] = static_cast<const float*>(dout_b);
+  p.wp[0] = static_cast<const float*>(wp_a);
+  p.wp[1] = static_cast<const float*>(wp_b);
+  p.bhh[0] = static_cast<const float*>(b_hh_a);
+  p.bhh[1] = static_cast<const float*>(b_hh_b);
+  p.dg4[0] = static_cast<float*>(dg4_a);
+  p.dg4[1] = static_cast<float*>(dg4_b);
+  p.dh[0] = static_cast<float*>(dh_a);
+  p.dh[1] = static_cast<float*>(dh_b);
+  p.dc[0] = static_cast<float*>(dc_a);
+  p.dc[1] = static_cast<float*>(dc_b);
+  p.reverse[0] = reverse_a;
+  p.reverse[1] = reverse_b;
+  p.lengths = static_cast<const int*>(lengths);
+  p.dg = static_cast<float*>(dg);
+  p.barrier = static_cast<unsigned int*>(barrier);
+  p.T = T; p.B = B; p.H = H; p.chains = chains; p.blocks = blocks;
+  p.q = FpCut{units, rows_per_pass, padded_rows, padded_depth, k_splits, chunk_depth,
+              resident_depth};
+  // the plan's ints, checked before any launch
+  const FpCut& q = p.q;
+  const bool ok = chains >= 1 && chains <= 2 && T >= 1 && B >= 1 && H >= 1 && !dot &&
+                  fp_cut_ok(q, H, blocks, threads) && fp_tiled_ok(q, threads) &&
+                  q.Dp >= 4 * H && q.Bp >= B;
+  if (!ok) return (int)cudaErrorInvalidValue;
+  const long long need =
+      4LL * (flb_work(q) + 2LL * fp_up4(q.U * q.Bp) + (long long)q.kres * q.U);
+  if (smem < need) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  // gh = hprev @ w_hh for every step of each chain, into its dg4 buffer
+  int rc = sgemm_launch(static_cast<const float*>(hprev_a), static_cast<const float*>(hprev_b),
+                        static_cast<const float*>(w_hh_a), static_cast<const float*>(w_hh_b),
+                        p.dg4[0], p.dg4[1], T * B, 4 * H, H, chains, s);
+  if (rc != 0) return rc;
+  void* args[] = {&p};
+  return ps_coop_launch((const void*)lstm_f32_bwd_persist_kernel, blocks * chains, threads,
+                        (size_t)smem, args, s);
 }

@@ -113,12 +113,12 @@ def transposed(w: torch.Tensor) -> torch.Tensor:
 
 
 def f32_slices(w: torch.Tensor, units: int, blocks: int, depth: int) -> torch.Tensor:
-    """Float32 w_hh (H, G H) of G gates (the GRU's 3, the LSTM's 4) as the
-    persistent float32 forward walks read it: (blocks, depth, G * units),
-    block k's column g * units + u at depth d holding w_hh[d, g * H + k *
-    units + u], zeros for units past H and depths past H, so that any run of
-    depths of a block's slice is contiguous. Kept per weight tensor and cut
-    (:func:`_kept`)."""
+    """Float32 w_hh (H, G H) of G gates (the GRU's 3, the LSTM's 4, the
+    tanh-RNN's 1) as the persistent float32 forward walks read it: (blocks,
+    depth, G * units), block k's column g * units + u at depth d holding
+    w_hh[d, g * H + k * units + u], zeros for units past H and depths past
+    H, so that any run of depths of a block's slice is contiguous. Kept per
+    weight tensor and cut (:func:`_kept`)."""
     def make(m):
         hidden = m.shape[0]
         gates = m.shape[1] // hidden
@@ -131,11 +131,11 @@ def f32_slices(w: torch.Tensor, units: int, blocks: int, depth: int) -> torch.Te
 
 
 def f32_rows(w: torch.Tensor, units: int, blocks: int, depth: int) -> torch.Tensor:
-    """Float32 w_hh (H, 3H) as the persistent float32 backward walk reads
-    it, the rows of w_hh being the columns of w_hh^T: (blocks, depth, units),
-    block k's column u at depth d holding w_hh[k * units + u, d], zeros for
-    units past H and depths past 3H. Kept per weight tensor and cut
-    (:func:`_kept`)."""
+    """Float32 w_hh (H, G H) as the persistent float32 backward walks read
+    it (the GRU's B4, G = 3; the LSTM's B7, G = 4), the rows of w_hh being
+    the columns of w_hh^T: (blocks, depth, units), block k's column u at
+    depth d holding w_hh[k * units + u, d], zeros for units past H and
+    depths past G H. Kept per weight tensor and cut (:func:`_kept`)."""
     def make(m):
         hidden, width = m.shape
         packed = m.new_zeros((blocks * units, depth))
@@ -1000,19 +1000,10 @@ def gru_bwd_scan_pair(chain_a, chain_b, reverse_a: bool, reverse_b: bool,
     if chain_a[0].shape != chain_b[0].shape or chain_a[3] is not chain_b[3]:
         raise ValueError("the two chains must share their shapes and lengths")
     if dtype == torch.float32:
-        info = device_info(chain_a[0].device)
-        hidden, batch = chain_a[4].shape[0], chain_a[0].shape[1]
-        pair = persist_plan.plan_gru_f32_backward(hidden, batch, 2, *info)
-        single = persist_plan.plan_gru_f32_backward(hidden, batch, 1, *info)
-        planned = pair if pair.design == "persistent" else single
-        design = persist_plan.choose(design, planned)
-        if design == "step":
-            outs = _bwd_f32([chain_a, chain_b], [reverse_a, reverse_b])
-        elif planned is pair:
-            outs = _bwd_f32_persistent([chain_a, chain_b], [reverse_a, reverse_b], pair)
-        else:
-            outs = (_bwd_f32_persistent([chain_a], [reverse_a], single)
-                    + _bwd_f32_persistent([chain_b], [reverse_b], single))
+        outs, design = persist_plan.run_f32_pair(
+            persist_plan.plan_gru_f32_backward, chain_a[4].shape[0], chain_a[0].shape[1],
+            device_info(chain_a[0].device), design, [chain_a, chain_b], [reverse_a, reverse_b],
+            _bwd_f32, _bwd_f32_persistent)
         count(gru_bwd_scan, design, dtype, 2)
         return outs[0], outs[1]
     planned = persist_plan.plan_gru_backward(

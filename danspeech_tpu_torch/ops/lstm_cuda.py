@@ -31,9 +31,11 @@ designs above), or everything in float32, which runs the float32 variants of
 "persistent" is one cooperative launch of ``lstm_f32_persist_kernel``, each
 block keeping what fits of its float32 slice resident and streaming the rest
 from L2 (:func:`persist_plan.plan_lstm_f32_forward` plans it), "step" one
-launch per time step. The float32 backward walk (B7) has the step design only
-(``design="persistent"`` raises ``NotImplementedError``; a pair walks both
-chains in each step launch). A mixed set raises ``TypeError``.
+launch per time step. The float32 backward walk (B7) has both too:
+"persistent" is the FFMA gate recompute, then one cooperative launch of
+``lstm_f32_bwd_persist_kernel`` (:func:`persist_plan.plan_lstm_f32_backward`),
+"step" the recompute and T + 1 step launches. A mixed set raises
+``TypeError``.
 ``<wrapper>.dtype_counts`` counts the CUDA calls (or chains) by the set
 taken.
 
@@ -51,7 +53,7 @@ from . import cuda_build, persist_plan
 from .cuda_build import chain_ptrs
 from .cuda_checks import (check_proj_rows, check_stream_shape, check_tensors, count,
                           pair_dtype, time_order)
-from .gru_cuda import device_info, f32_slices, transposed
+from .gru_cuda import device_info, f32_rows, f32_slices, transposed
 
 
 def _gates(pre, hidden):
@@ -350,20 +352,11 @@ def lstm_scan_pair(chain_a, chain_b, reverse_a: bool, reverse_b: bool,
     if chain_a[0].shape != chain_b[0].shape or chain_a[1] is not chain_b[1]:
         raise ValueError("the two chains must share their shapes and lengths")
     if dtype == torch.float32:
-        info = device_info(chain_a[0].device)
-        hidden, batch = chain_a[2].shape[0], chain_a[0].shape[1]
-        pair = persist_plan.plan_lstm_f32_forward(hidden, batch, 2, *info)
-        single = persist_plan.plan_lstm_f32_forward(hidden, batch, 1, *info)
-        planned = pair if pair.design == "persistent" else single
-        design = persist_plan.choose(design, planned)
-        chains, reverses = [chain_a, chain_b], [reverse_a, reverse_b]
-        if design == "step":
-            outs = _scan_f32(chains, reverses, with_cell)
-        elif planned is pair:
-            outs = _scan_f32_persistent(chains, reverses, with_cell, pair)
-        else:
-            outs = [_scan_f32_persistent([c], [r], with_cell, single)[0]
-                    for c, r in zip(chains, reverses)]
+        outs, design = persist_plan.run_f32_pair(
+            persist_plan.plan_lstm_f32_forward, chain_a[2].shape[0], chain_a[0].shape[1],
+            device_info(chain_a[0].device), design, [chain_a, chain_b], [reverse_a, reverse_b],
+            lambda c, r: _scan_f32(c, r, with_cell),
+            lambda c, r, p: _scan_f32_persistent(c, r, with_cell, p))
         count(scan, design, dtype, 2)
         return outs[0], outs[1]
     planned = persist_plan.plan_lstm_forward(
@@ -495,6 +488,41 @@ def _bwd_f32(chains, reverses):
     return [(dg4[k], dh[k], dc[k]) for k in range(n)]
 
 
+def _bwd_f32_persistent(chains, reverses, planned):
+    """The float32 variant, persistent (``csrc/lstm_f32.cu``): the FFMA gate
+    recompute of each chain, then one or two walks that share T, B, H and
+    lengths in one cooperative launch of the planned grid, each chain with
+    its own barrier. ``chains`` holds the operand tuples of
+    :func:`lstm_bwd_scan`; returns one (dg4, dh0, dc0) per chain."""
+    launch = cuda_build.bind("lstm_f32", "lstm_f32_bwd_persist_launch", 23, 17)
+    gx, _, _, _, lengths, w_hh = chains[0][:6]
+    t_max, batch, _ = gx.shape
+    hidden = w_hh.shape[0]
+    dev = gx.device
+    n = len(chains)
+    # dg4 of each step, exchanged transposed (depths of 4H, then rows); zeros
+    # past 4H and past B are never written
+    dg = torch.zeros((2, n, planned.padded_depth, planned.padded_rows), dtype=torch.float32,
+                     device=dev)
+    rows = [f32_rows(c[5], planned.units, planned.blocks_per_dir, planned.padded_depth)
+            for c in chains]
+    # dg4 gets the recomputed gh first; dh and dc start at zero and end as
+    # dh0 and dc0
+    outs = [(torch.empty((t_max, batch, 4 * hidden), dtype=torch.float32, device=dev),
+             torch.zeros((batch, hidden), dtype=torch.float32, device=dev),
+             torch.zeros((batch, hidden), dtype=torch.float32, device=dev)) for _ in chains]
+    barrier = torch.zeros((n,), dtype=torch.int32, device=dev)
+    cuda_build.call(
+        launch, "lstm_bwd_scan (float32, persistent)", dev,
+        *(p for i in range(4) for p in chain_ptrs([c[i] for c in chains])),
+        lengths.data_ptr(), *chain_ptrs([c[5] for c in chains]), *chain_ptrs(rows),
+        *chain_ptrs([c[6] for c in chains]), dg.data_ptr(), *chain_ptrs([o[1] for o in outs]),
+        *chain_ptrs([o[2] for o in outs]), *chain_ptrs([o[0] for o in outs]),
+        barrier.data_ptr(), t_max, batch, hidden, int(bool(reverses[0])),
+        int(bool(reverses[-1])), n, *planned.c_args())
+    return outs
+
+
 def _bwd_persistent(chains, reverses, planned):
     """The persistent walk of one or two chains that share T, B, H and
     lengths, in one launch. ``chains`` holds the operand tuples of
@@ -538,7 +566,8 @@ def lstm_bwd_scan(gx, hprev, cprev, dout, lengths, w_hh, b_hh, reverse: bool = T
     b_hh, int32 lengths, all contiguous on gx's device; or everything
     float32, the float32 variant) or raises; a CPU ``gx`` runs the plain
     version. ``design`` is None (the plan of
-    :func:`persist_plan.plan_lstm_backward` decides), "persistent" or
+    :func:`persist_plan.plan_lstm_backward` decides,
+    :func:`persist_plan.plan_lstm_f32_backward` for float32), "persistent" or
     "step"; ``lstm_bwd_scan.design_counts`` and ``lstm_bwd_scan.dtype_counts``
     count the chains by the design and the operand set taken.
     ``lstm_bwd_scan.launches`` counts chains (one per call: the
@@ -553,8 +582,13 @@ def lstm_bwd_scan(gx, hprev, cprev, dout, lengths, w_hh, b_hh, reverse: bool = T
         raise ValueError(f"unsupported device {gx.device}")
     dtype = _check_bwd_operands(*args)
     if dtype == torch.float32:
-        design = persist_plan.float32_design(design)
-        result = _bwd_f32([args], [reverse])[0]
+        planned = persist_plan.plan_lstm_f32_backward(w_hh.shape[0], gx.shape[1], 1,
+                                                      *device_info(gx.device))
+        design = persist_plan.choose(design, planned)
+        if design == "persistent":
+            result = _bwd_f32_persistent([args], [reverse], planned)[0]
+        else:
+            result = _bwd_f32([args], [reverse])[0]
     else:
         planned = persist_plan.plan_lstm_backward(w_hh.shape[0], gx.shape[1], 1,
                                                   *device_info(gx.device))
@@ -586,10 +620,13 @@ def lstm_bwd_scan_pair(chain_a, chain_b, reverse_a: bool, reverse_b: bool,
     own barrier, so the two never wait for each other) and
     ``lstm_bwd_scan.pair_launches`` grows by one; otherwise, for
     ``design="step"``, and on the CPU, they run one after the other as two
-    :func:`lstm_bwd_scan` calls. Float32 chains walk together in each of the
-    T + 1 launches of the float32 variant; ``pair_launches`` counts only the
-    cooperative (bf16) launches. Either way ``lstm_bwd_scan.launches`` grows
-    by two: it counts chains.
+    :func:`lstm_bwd_scan` calls. Float32 chains take the plans of
+    :func:`persist_plan.plan_lstm_f32_backward`: both in one cooperative
+    launch where the plan for two fits, else one launch a chain where the
+    plan for one does; ``design="step"`` (or no plan that fits) walks both
+    in each of the T + 1 launches of the float32 step kernel;
+    ``pair_launches`` counts only the cooperative bf16 launches. Either way
+    ``lstm_bwd_scan.launches`` grows by two: it counts chains.
     """
     if (tuple(chain_a[0].shape) != tuple(chain_b[0].shape)
             or tuple(chain_a[5].shape) != tuple(chain_b[5].shape)
@@ -600,8 +637,10 @@ def lstm_bwd_scan_pair(chain_a, chain_b, reverse_a: bool, reverse_b: bool,
                 lstm_bwd_scan(*chain_b, reverse=reverse_b))
     dtype = pair_dtype(_check_bwd_operands, chain_a, chain_b)
     if dtype == torch.float32:
-        design = persist_plan.float32_design(design)
-        outs = _bwd_f32([chain_a, chain_b], [reverse_a, reverse_b])
+        outs, design = persist_plan.run_f32_pair(
+            persist_plan.plan_lstm_f32_backward, chain_a[5].shape[0], chain_a[0].shape[1],
+            device_info(chain_a[0].device), design, [chain_a, chain_b], [reverse_a, reverse_b],
+            _bwd_f32, _bwd_f32_persistent)
         count(lstm_bwd_scan, design, dtype, 2)
         return outs[0], outs[1]
     planned = persist_plan.plan_lstm_backward(

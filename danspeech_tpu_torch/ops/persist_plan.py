@@ -26,15 +26,17 @@ would need more blocks than can be co-resident; more would only use fewer SMs.
 
 These plans are those of the bf16 operand set: the resident design keeps
 bf16 slices. The float32 GRU walks (B1, B2 and B3's recurrence, and the
-backward walk B4, in ``csrc/gru_f32.cu``) and the float32 LSTM forward walk
-(B5, B6, ``csrc/lstm_f32.cu``) have a persistent design of their own
-(``csrc/f32_walk.cuh``), planned by :func:`plan_f32`
+backward walk B4, in ``csrc/gru_f32.cu``), the float32 LSTM walks (B5, B6
+and the backward walk B7, ``csrc/lstm_f32.cu``) and the float32 tanh-RNN
+forward walk (B8, ``csrc/rnn_tanh_f32.cu``) have a persistent design of
+their own (``csrc/f32_walk.cuh``), planned by :func:`plan_f32`
 (:func:`plan_gru_f32_forward`, :func:`plan_gru_f32_backward`,
-:func:`plan_lstm_f32_forward`): float32 weights do not fit the card's shared
-memory at these widths, so a block keeps what fits of its slice resident and
-streams the rest from L2 each step. The other float32 variants (the LSTM
-backward walk B7, ``csrc/rnn_tanh_f32.cu``'s B8 and B9) have the step design
-only, whatever the shape: their wrappers take :func:`float32_design`.
+:func:`plan_lstm_f32_forward`, :func:`plan_lstm_f32_backward`,
+:func:`plan_rnn_tanh_f32_forward`): float32 weights do not fit the card's
+shared memory at these widths, so a block keeps what fits of its slice
+resident and streams the rest from L2 each step. The one other float32
+variant, the tanh-RNN backward walk B9, has the step design only, whatever
+the shape: its wrappers take :func:`float32_design`.
 
 The constants mirror ``csrc/persist.cuh``.
 """
@@ -254,8 +256,8 @@ def plan_rnn_tanh_backward(hidden, batch, chains, sm_count, smem_optin) -> Persi
 
 
 # The persistent float32 walks (csrc/f32_walk.cuh, and the kernels of
-# csrc/gru_f32.cu and csrc/lstm_f32.cu that use it); the constants mirror its
-# FP_* ones.
+# csrc/gru_f32.cu, csrc/lstm_f32.cu and csrc/rnn_tanh_f32.cu that use it); the
+# constants mirror its FP_* ones.
 F32_DOT_ROWS = 8         # FP_DOT_ROWS: the widest batch of the small-B product
 F32_MAX_THREADS = 384    # FP_MAX_THREADS: a block's threads (168 registers each)
 F32_TILE_ROWS = 8        # rows of a thread's tile in the tiled product
@@ -280,6 +282,19 @@ F32_WALKS = {
     "gru_backward": (1, 3, False, 3, 1),
     # lstm_f32_persist_kernel: h @ w_hh (H, 4H); the tile Hn; the cell state
     "lstm_forward": (4, 1, False, 1, 1),
+    # lstm_f32_bwd_persist_kernel: dg4 @ w_hh^T (4H, H); the new dg4's tile Dn
+    # (four gates); the partial carry P and the cell gradient DC
+    "lstm_backward": (1, 4, False, 4, 2),
+    # rnn_tanh_f32_persist_kernel: h @ w_hh (H, H); the tile Hn; no state
+    "rnn_tanh_forward": (1, 1, False, 1, 0),
+}
+# the walk each float32 wrapper with a persistent design launches (B1-B8)
+F32_WALK_OF = {
+    **dict.fromkeys(("gru_scan", "gru_scan_bidi", "gru_bidi_fused"), "gru_forward"),
+    **dict.fromkeys(("gru_bwd_scan", "gru_bwd_scan_pair"), "gru_backward"),
+    **dict.fromkeys(("lstm_scan", "lstm_scan_with_cell", "lstm_scan_pair"), "lstm_forward"),
+    **dict.fromkeys(("lstm_bwd_scan", "lstm_bwd_scan_pair"), "lstm_backward"),
+    **dict.fromkeys(("rnn_tanh_scan", "rnn_tanh_scan_pair"), "rnn_tanh_forward"),
 }
 
 
@@ -328,7 +343,8 @@ class F32Plan:
     def c_args(self) -> tuple[int, ...]:
         """The plan's ints in the order the walks' C entries take them
         (``gru_f32_persist_launch``, ``gru_f32_bwd_persist_launch``,
-        ``lstm_f32_persist_launch``)."""
+        ``lstm_f32_persist_launch``, ``lstm_f32_bwd_persist_launch``,
+        ``rnn_tanh_f32_persist_launch``)."""
         return (self.units, self.blocks_per_dir, self.rows_per_pass, self.padded_rows,
                 self.padded_depth, self.k_splits, self.chunk_depth, self.resident_depth,
                 self.threads, self.smem_bytes, int(self.product == "dot"))
@@ -353,7 +369,7 @@ def plan_f32(walk, hidden, batch, chains, sm_count, smem_optin) -> F32Plan:
     :data:`F32_MAX_THREADS` threads. Shared memory holds the ring (the chunks
     of the left operand and of the streamed weights), the partial sums and
     the epilogue's tile over it, the whole of h for the small-B product, the
-    state the walk keeps (the LSTM's c, the backward walk's carry), and then
+    state the walk keeps (the LSTM's c, the backward walks' carries), and then
     as much of the block's slice, from depth 0, as fits: the resident depth.
     The rest of the slice streams from L2 through the ring each step. "step"
     where the block would need more threads than that or the rest alone does
@@ -434,6 +450,21 @@ def plan_lstm_f32_forward(hidden, batch, chains, sm_count, smem_optin) -> F32Pla
     return plan_f32("lstm_forward", hidden, batch, chains, sm_count, smem_optin)
 
 
+def plan_lstm_f32_backward(hidden, batch, chains, sm_count, smem_optin) -> F32Plan:
+    """The persistent float32 LSTM backward walk (B7) of ``chains`` (1 or 2)
+    chains: per chain the carry dg4 (B, 4H) @ w_hh^T (4H, H), a column a unit
+    (the rows of w_hh) over a depth of 4H, the partial carry and the cell
+    gradient kept in the block: :func:`plan_f32`."""
+    return plan_f32("lstm_backward", hidden, batch, chains, sm_count, smem_optin)
+
+
+def plan_rnn_tanh_f32_forward(hidden, batch, chains, sm_count, smem_optin) -> F32Plan:
+    """The persistent float32 tanh-RNN forward walk (B8) of ``chains`` (1 or
+    2) chains of h (B, H) @ w_hh (H, H), a column a unit, no state kept in
+    the block: :func:`plan_f32`."""
+    return plan_f32("rnn_tanh_forward", hidden, batch, chains, sm_count, smem_optin)
+
+
 def choose(design: str | None, planned: PersistPlan | F32Plan) -> str:
     """The design a wrapper takes: the plan's when ``design`` is None, else
     the one asked for, which must be one the plan allows ("step" always is)."""
@@ -446,16 +477,34 @@ def choose(design: str | None, planned: PersistPlan | F32Plan) -> str:
     return design
 
 
+def run_f32_pair(planner, hidden, batch, info, design, chains, reverses, step, persistent):
+    """Both chains of a layer of a float32 walk with a persistent design, as
+    the pair wrappers take them: planned by ``planner`` (a ``plan_*_f32_*``
+    function) for two chains and for one with the device figures ``info``,
+    both chains in one launch of ``persistent(chains, reverses, plan)``
+    where the pair's plan fits, else one launch a chain on the one-chain
+    plan; ``step(chains, reverses)`` for ``design="step"`` (or where no plan
+    fits). Returns (one result per chain, the design taken)."""
+    pair = planner(hidden, batch, 2, *info)
+    single = planner(hidden, batch, 1, *info)
+    planned = pair if pair.design == "persistent" else single
+    design = choose(design, planned)
+    if design == "step":
+        return step(chains, reverses), design
+    if planned is pair:
+        return persistent(chains, reverses, pair), design
+    return [persistent([c], [r], single)[0] for c, r in zip(chains, reverses)], design
+
+
 def float32_design(design: str | None) -> str:
-    """The design a wrapper of the float32 step variants that have no
-    persistent design yet (B7's LSTM backward walk, B8 and B9's tanh-RNN
-    walks) takes: "step" for None or "step"; "persistent" raises
-    ``NotImplementedError``. The float32 GRU walks (B1-B4) and the LSTM
-    forward walk (B5, B6) are planned by :func:`plan_f32` instead."""
+    """The design a wrapper of the one float32 step variant that has no
+    persistent design yet (B9, the tanh-RNN backward walk) takes: "step" for
+    None or "step"; "persistent" raises ``NotImplementedError``. The other
+    float32 walks (B1-B8) are planned by :func:`plan_f32` instead."""
     if design not in (None, *DESIGNS):
         raise ValueError(f"unknown design {design!r}: one of {DESIGNS} or None")
     if design == "persistent":
         raise NotImplementedError(
-            "this float32 variant has no persistent design yet: B7 (the LSTM backward "
-            "walk), B8 and B9 (the tanh-RNN walks) take the step design (ROADMAP F32++b)")
+            "this float32 variant has no persistent design yet: B9 (the tanh-RNN backward "
+            "walk) takes the step design (ROADMAP F32++b)")
     return "step"

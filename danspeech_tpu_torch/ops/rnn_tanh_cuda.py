@@ -22,9 +22,14 @@ time step), chosen by :func:`persist_plan.plan_rnn_tanh_forward` /
 
 Each wrapper takes two sets of operands, told apart by the dtype of its
 sequence: bf16 sequences and weights (the designs above), or everything in
-float32, which runs the float32 variants of ``csrc/rnn_tanh_f32.cu`` (step
-design only; ``design="persistent"`` raises ``NotImplementedError``; a pair
-walks both chains in each step launch). A mixed set raises ``TypeError``.
+float32, which runs the float32 variants of ``csrc/rnn_tanh_f32.cu``. Their
+forward walk (B8) has both designs: "persistent" is one cooperative launch of
+``rnn_tanh_f32_persist_kernel``, each block keeping its float32 slice of
+w_hh in shared memory (:func:`persist_plan.plan_rnn_tanh_f32_forward` plans
+it), "step" one launch per time step. The float32 backward walk (B9) has the
+step design only (``design="persistent"`` raises ``NotImplementedError``; a
+pair walks both chains in each step launch). A mixed set raises
+``TypeError``.
 ``<wrapper>.dtype_counts`` counts the chains by the set taken.
 
 A wrapper launches its kernel for CUDA tensors and raises on anything the
@@ -40,7 +45,7 @@ import torch
 from . import cuda_build, persist_plan
 from .cuda_build import chain_ptrs
 from .cuda_checks import check_stream_shape, check_tensors, count, pair_dtype, time_order
-from .gru_cuda import device_info, transposed
+from .gru_cuda import device_info, f32_slices, transposed
 
 
 def rnn_tanh_scan_plain(gx, lengths, w_hh, reverse: bool = False):
@@ -120,6 +125,34 @@ def _scan_f32(chains, reverses):
     return [(o, last[k]) for k, o in enumerate(outs)]
 
 
+def _scan_f32_persistent(chains, reverses, planned):
+    """The float32 variant, persistent (``csrc/rnn_tanh_f32.cu``): one or two
+    chains that share T, B, H and lengths in one cooperative launch of the
+    planned grid, each chain with its own barrier, from h = 0. ``chains``
+    holds (gx, lengths, w_hh) tuples; returns one (out, h_last) per chain."""
+    launch = cuda_build.bind("rnn_tanh_f32", "rnn_tanh_f32_persist_launch", 11, 17)
+    gx, lengths, _ = chains[0]
+    t_max, batch, hidden = gx.shape
+    dev = gx.device
+    n = len(chains)
+    # h exchanged transposed (depths, then rows); buffer 0 holds h0 = 0, and
+    # the depths past H stay zero
+    hx = torch.zeros((2, n, planned.padded_depth, planned.padded_rows), dtype=torch.float32,
+                     device=dev)
+    slices = [f32_slices(c[2], planned.units, planned.blocks_per_dir, planned.padded_depth)
+              for c in chains]
+    outs = [(torch.empty((t_max, batch, hidden), dtype=torch.float32, device=dev),
+             torch.empty((batch, hidden), dtype=torch.float32, device=dev)) for _ in chains]
+    barrier = torch.zeros((n,), dtype=torch.int32, device=dev)
+    cuda_build.call(
+        launch, "rnn_tanh_scan (float32, persistent)", dev,
+        *chain_ptrs([c[0] for c in chains]), lengths.data_ptr(), *chain_ptrs(slices),
+        hx.data_ptr(), *chain_ptrs([o[1] for o in outs]), *chain_ptrs([o[0] for o in outs]),
+        barrier.data_ptr(), t_max, batch, hidden, int(bool(reverses[0])),
+        int(bool(reverses[-1])), n, *planned.c_args())
+    return outs
+
+
 def _scan_persistent(chains, reverses, planned):
     """One or two chains that share T, B, H and lengths in one cooperative
     launch. ``chains`` holds (gx, lengths, w_hh) tuples; returns one (out,
@@ -153,7 +186,8 @@ def rnn_tanh_scan(gx, lengths, w_hh, reverse: bool = False, design: str | None =
     ``gx`` launches the kernel (bf16 gx and w_hh, int32 lengths, all
     contiguous on gx's device; or float32 gx and w_hh, the float32 variant)
     or raises; a CPU ``gx`` runs the plain version. ``design`` is None (the
-    plan of :func:`persist_plan.plan_rnn_tanh_forward` decides),
+    plan of :func:`persist_plan.plan_rnn_tanh_forward` decides,
+    :func:`persist_plan.plan_rnn_tanh_f32_forward` for float32),
     "persistent" or "step"; ``rnn_tanh_scan.design_counts`` and
     ``rnn_tanh_scan.dtype_counts`` count the chains by the design and the
     operand set taken. ``rnn_tanh_scan.launches`` counts chains (one per
@@ -166,8 +200,13 @@ def rnn_tanh_scan(gx, lengths, w_hh, reverse: bool = False, design: str | None =
         raise ValueError(f"unsupported device {gx.device}")
     dtype = _check_operands("gx", gx, lengths, w_hh)
     if dtype == torch.float32:
-        design = persist_plan.float32_design(design)
-        result = _scan_f32([(gx, lengths, w_hh)], [reverse])[0]
+        planned = persist_plan.plan_rnn_tanh_f32_forward(w_hh.shape[0], gx.shape[1], 1,
+                                                         *device_info(gx.device))
+        design = persist_plan.choose(design, planned)
+        if design == "persistent":
+            result = _scan_f32_persistent([(gx, lengths, w_hh)], [reverse], planned)[0]
+        else:
+            result = _scan_f32([(gx, lengths, w_hh)], [reverse])[0]
     else:
         planned = persist_plan.plan_rnn_tanh_forward(w_hh.shape[0], gx.shape[1], 1,
                                                      *device_info(gx.device))
@@ -208,10 +247,13 @@ def rnn_tanh_scan_pair(chain_a, chain_b, reverse_a: bool, reverse_b: bool,
     fits (each chain with its own barrier, so the two never wait for each
     other) and ``rnn_tanh_scan.pair_launches`` grows by one; otherwise, for
     ``design="step"``, and on the CPU, they run one after the other as two
-    :func:`rnn_tanh_scan` calls. Float32 chains walk together in each of the
-    T launches of the float32 variant; ``pair_launches`` counts only the
-    cooperative (bf16) launches. Either way ``rnn_tanh_scan.launches`` grows
-    by two: it counts chains.
+    :func:`rnn_tanh_scan` calls. Float32 chains take the plans of
+    :func:`persist_plan.plan_rnn_tanh_f32_forward`: both in one cooperative
+    launch where the plan for two fits, else one launch a chain where the
+    plan for one does; ``design="step"`` (or no plan that fits) walks both
+    in each of the T launches of the float32 step kernel; ``pair_launches``
+    counts only the cooperative bf16 launches. Either way
+    ``rnn_tanh_scan.launches`` grows by two: it counts chains.
     """
     _check_pair(chain_a, chain_b)
     if chain_a[0].device.type != "cuda":
@@ -219,8 +261,10 @@ def rnn_tanh_scan_pair(chain_a, chain_b, reverse_a: bool, reverse_b: bool,
                 rnn_tanh_scan(*chain_b, reverse=reverse_b))
     dtype = pair_dtype(lambda *c: _check_operands("gx", *c), chain_a, chain_b)
     if dtype == torch.float32:
-        design = persist_plan.float32_design(design)
-        outs = _scan_f32([chain_a, chain_b], [reverse_a, reverse_b])
+        outs, design = persist_plan.run_f32_pair(
+            persist_plan.plan_rnn_tanh_f32_forward, chain_a[2].shape[0], chain_a[0].shape[1],
+            device_info(chain_a[0].device), design, [chain_a, chain_b], [reverse_a, reverse_b],
+            _scan_f32, _scan_f32_persistent)
         count(rnn_tanh_scan, design, dtype, 2)
         return outs[0], outs[1]
     planned = persist_plan.plan_rnn_tanh_forward(

@@ -399,7 +399,7 @@ def _f32_call(name, hidden, batch):
 F32_FORWARD = {"gru_bidi_fused": ("_bidi_fused_f32_persistent", 2),
                "gru_scan": ("_scan_f32_persistent", 1),
                "gru_scan_bidi": ("_scan_f32_persistent", 2)}
-# every float32 wrapper with a persistent walk (B1-B6): its persistent route,
+# every float32 wrapper with a persistent walk (B1-B8): its persistent route,
 # its planner and the chains one call of the route walks
 F32_PLANNED = {
     **{k: (route, "plan_gru_f32_forward", n) for k, (route, n) in F32_FORWARD.items()},
@@ -408,7 +408,15 @@ F32_PLANNED = {
     "lstm_scan": ("_scan_f32_persistent", "plan_lstm_f32_forward", 1),
     "lstm_scan_with_cell": ("_scan_f32_persistent", "plan_lstm_f32_forward", 1),
     "lstm_scan_pair": ("_scan_f32_persistent", "plan_lstm_f32_forward", 2),
+    "lstm_bwd_scan": ("_bwd_f32_persistent", "plan_lstm_f32_backward", 1),
+    "lstm_bwd_scan_pair": ("_bwd_f32_persistent", "plan_lstm_f32_backward", 2),
+    "rnn_tanh_scan": ("_scan_f32_persistent", "plan_rnn_tanh_f32_forward", 1),
+    "rnn_tanh_scan_pair": ("_scan_f32_persistent", "plan_rnn_tanh_f32_forward", 2),
 }
+# the reverse flags each pair's call of _f32_call hands its chains
+PAIR_REVERSES = {"gru_bwd_scan_pair": [[True], [False]], "lstm_scan_pair": [[False], [True]],
+                 "lstm_bwd_scan_pair": [[True], [False]],
+                 "rnn_tanh_scan_pair": [[False], [True]]}
 
 
 def _fake_routes(monkeypatch, module, names):
@@ -433,18 +441,19 @@ def _fake_routes(monkeypatch, module, names):
                                           (64, 5), (8, 1)])
 @pytest.mark.parametrize("name", list(F32_ENTRIES))
 def test_float32_plans_take_the_step_design_everywhere(monkeypatch, name, hidden, batch):
-    """B7-B9 in float32 keep their weights out of shared memory: their
-    float32 branch needs no plan and no device figures. At every shape, even
-    where a bf16 slice would fit, None and "step" take the step design (the
-    float32 route runs, the counts by design and by dtype grow by the call's
+    """B9 in float32 keeps its weights out of shared memory: its float32
+    branch needs no plan and no device figures. At every shape, even where a
+    bf16 slice would fit, None and "step" take the step design (the float32
+    route runs, the counts by design and by dtype grow by the call's
     chains); "persistent" raises NotImplementedError naming ROADMAP F32++b.
-    B1-B6 in float32 are planned (plan_gru_f32_forward for B1-B3,
-    plan_gru_f32_backward for B4, plan_lstm_f32_forward for B5 and B6, an
+    B1-B8 in float32 are planned (plan_gru_f32_forward for B1-B3,
+    plan_gru_f32_backward for B4, plan_lstm_f32_forward for B5 and B6,
+    plan_lstm_f32_backward for B7, plan_rnn_tanh_f32_forward for B8, an
     H100's figures): None and "persistent" take the persistent route with
-    the plan of one chain (B1, B4, B5, B6) or two (B2, B3 and the pairs),
-    "step" the step route, each counted by its design and by the chains it
-    walks. An unknown design raises ValueError, before any route runs or
-    anything is counted."""
+    the plan of one chain (B1, B4-B8) or two (B2, B3 and the pairs), "step"
+    the step route, each counted by its design and by the chains it walks.
+    An unknown design raises ValueError, before any route runs or anything
+    is counted."""
     import importlib
 
     module_name, counted, route, chains = F32_ENTRIES[name]
@@ -480,6 +489,20 @@ def test_float32_plans_take_the_step_design_everywhere(monkeypatch, name, hidden
     with pytest.raises(ValueError, match="unknown design"):
         call("fused")
     assert len(routed) == len(designs) and wrapper.launches == len(designs) * chains
+
+
+@pytest.mark.parametrize("name", list(F32_PLANNED))
+def test_f32_walk_of_names_each_wrappers_walk(name):
+    """persist_plan.F32_WALK_OF, which chip_smoke.py plans each float32
+    walk by, names for every wrapper with a persistent design the walk its
+    planner plans, at a training and a serving layer shape."""
+    planner = getattr(pp, F32_PLANNED[name][1])
+    assert set(pp.F32_WALK_OF) == set(F32_PLANNED)
+    for hidden, batch in ((800, 32), (800, 128)):
+        for chains in (1, 2):
+            got = pp.plan_f32(pp.F32_WALK_OF[name], hidden, batch, chains, SMS, SMEM)
+            assert got == planner(hidden, batch, chains, SMS, SMEM)
+            assert got.walk == pp.F32_WALK_OF[name]
 
 
 @pytest.mark.parametrize("name", list(F32_FORWARD))
@@ -522,11 +545,12 @@ def test_float32_forward_takes_the_step_design_where_the_plan_does(monkeypatch, 
 
 
 @pytest.mark.parametrize("name", ["gru_bwd_scan_pair", "lstm_scan_pair", "gru_bwd_scan",
-                                  "lstm_scan"])
+                                  "lstm_scan", "lstm_bwd_scan_pair", "lstm_bwd_scan",
+                                  "rnn_tanh_scan_pair", "rnn_tanh_scan"])
 def test_float32_walk_pairs_take_a_launch_a_chain_where_the_pair_does_not_fit(monkeypatch,
                                                                              name):
-    """On a card of one SM the float32 pair plans of B4 and of B5/B6 are
-    "step" (two chains on one SM) and the one-chain plans fit: a pair then
+    """On a card of one SM the float32 pair plans of B4, B5/B6, B7 and B8
+    are "step" (two chains on one SM) and the one-chain plans fit: a pair then
     walks its chains in one persistent launch each, on the one-chain plan,
     and counts two chains; "persistent" is allowed (the one-chain plan fits)
     and "step" walks both chains in the step launches. A single chain stays
@@ -552,8 +576,7 @@ def test_float32_walk_pairs_take_a_launch_a_chain_where_the_pair_does_not_fit(mo
     assert len(walks) == 2 * chains and len(routed) == 2 * chains
     assert all(len(r[1][0]) == 1 and r[1][-1] == single for r in walks)
     if chains == 2:
-        order = [[True], [False]] if name.startswith("gru") else [[False], [True]]
-        assert [r[1][1] for r in walks[:2]] == order
+        assert [r[1][1] for r in walks[:2]] == PAIR_REVERSES[name]
     call("step")
     assert routed[-1][0] == route and len(routed[-1][1][0]) == chains
     assert wrapper.design_counts == {"persistent": 2 * chains, "step": chains}

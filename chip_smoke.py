@@ -164,12 +164,15 @@ Phases, in order; any failure exits non-zero:
     ``csrc/rnn_tanh_f32.cu``) at ragged small shapes (H = 70, B = 150) and
     at LSTM5x800 / Tanh5x800's layer shapes (B5 and B8 T=401 B=128 H=800,
     B6, B7 and B9 T=401 B=32 H=800), one chain and a pair each, within
-    F32_ATOL, B5-B8 in both designs (the persistent walks
-    ``lstm_f32_persist_kernel``, ``lstm_f32_bwd_persist_kernel`` and
-    ``rnn_tanh_f32_persist_kernel``, and the step kernels), B9 in its step
-    design, the layer shapes timed beside the plain version, one cuDNN
-    float32 ``nn.GRU`` / ``nn.LSTM`` / ``nn.RNN`` call (TF32 off) and the
-    FP32 bound; (b) ``Recognizer(compute_dtype="float32")`` on the flagship over
+    F32_ATOL, in both designs (the persistent walks
+    ``lstm_f32_persist_kernel``, ``lstm_f32_bwd_persist_kernel``,
+    ``rnn_tanh_f32_persist_kernel`` and ``rnn_tanh_f32_bwd_persist_kernel``,
+    and the step kernels), the layer shapes timed beside the plain version,
+    one cuDNN float32 ``nn.GRU`` / ``nn.LSTM`` / ``nn.RNN`` call (TF32 off)
+    and the FP32 bound; and the float32 GEMM of ``csrc/sgemm.cuh`` alone
+    (``gru_cuda.sgemm_f32``) at the shapes of B3's projection and B4's and
+    B7's recompute against ``torch.matmul`` in full float32 (SGEMM_REL), both
+    timed; (b) ``Recognizer(compute_dtype="float32")`` on the flagship over
     phase 4's 128 waveforms (9 float32 B3 launches a dispatch group,
     audio-s/s beside bf16, every row against the plain GRU on the card, a few
     rows against the port on the CPU, transcripts equal up to near ties);
@@ -191,12 +194,13 @@ Phases, in order; any failure exits non-zero:
     libraries, the device time of the recurrent walks by CUDA events around
     each call, and the rest (beside them the garbage collector's time).
     Every float32 path is checked to run with TF32 off (its entry points
-    record the flags), every float32 call of B1-B8 on (b)-(g) to take the
-    persistent design (``design_counts``), and each of the nine wrappers'
-    float32 variants must be launched on phase 12's paths; one
+    record the flags), every float32 call of B1-B9 on (b)-(g) to take the
+    persistent design (``design_counts``), each of the nine wrappers'
+    float32 variants and the GEMM must be launched on phase 12's paths; one
     ``{"float32": ...}`` line;
 13. one ``{"kernels": [...]}`` line of nine entries, each with a
-    ``float32`` object, then the device line as the last line.
+    ``float32`` object, and the float32 GEMM beside them
+    (``"float32_gemm"``), then the device line as the last line.
 
 Imports no JAX and nothing of ``danspeech_tpu``.
 """
@@ -3976,7 +3980,7 @@ CONV_LAYERS = (
 )
 VIDEO_S = 60.0  # the long recording of video_transcribe_simulation
 GALLERY_WATCHDOG_S = 120.0  # a streaming twin waiting longer is interrupted
-FLOAT32_TITLE = ("phase 12: float32 on the card (the float32 variants of B1-B9: "
+FLOAT32_TITLE = ("phase 12: float32 on the card (the float32 variants of B1-B9 and the GEMM: "
                  "entries, serving, streaming, long form, training; LSTM5x800 and "
                  "Tanh5x800 served and trained)")
 GALLERY_TITLE = ("phase 11: the gallery (the spectrogram's two DFTs, the conv layouts, "
@@ -4575,7 +4579,7 @@ def check_f32(name, label, run, plain, names, pad_of, lens, t, design="step", re
 
 
 def check_f32_designs(name, label, run, plain, names, pad_of, lens, t):
-    """A float32 entry of a walk with both designs (B1-B8) against one
+    """A float32 entry of a walk with both designs (B1-B9) against one
     result of its plain version: ``run(design)`` calls it. Returns the
     persistent design's result with the step design's inside."""
     from danspeech_tpu_torch.ops import precision
@@ -4685,6 +4689,7 @@ F32_WALK_KERNELS = {
                     ("lstm_f32_persist_kernel", "lstm_f32_step_kernel")),
     "lstm_bwd_scan": ("lstm_f32_bwd_persist_kernel", "lstm_f32_bwd_step_kernel"),
     "rnn_tanh_scan": ("rnn_tanh_f32_persist_kernel", "rnn_tanh_f32_step_kernel"),
+    "rnn_tanh_bwd_scan": ("rnn_tanh_f32_bwd_persist_kernel", "rnn_tanh_f32_bwd_step_kernel"),
 }
 
 
@@ -4986,19 +4991,17 @@ def f32_rnn_operands(kind, gen, t, lengths, h, lens):
 def check_f32_rnn(kind, gen, label, t, lengths, h, timed):
     """One LSTM or tanh-RNN float32 entry against its plain version, one
     chain (a forward chain, or the walk of one) and the pair of a layer (the
-    second chain walking the other way); B5-B8 in both designs, B9 in the
-    step design (both chains in each step launch). At the layer shapes
-    (``timed``) the chain timed beside the plain version, one cuDNN float32
-    call and the FP32 bound (B5-B8 persistent first, the step design
-    beside), and the pair's time a chain (B5-B8 in both designs). Returns
-    the two checks."""
+    second chain walking the other way), in both designs. At the layer
+    shapes (``timed``) the chain timed beside the plain version, one cuDNN
+    float32 call and the FP32 bound (persistent first, the step design
+    beside), and the pair's time a chain in both designs. Returns the two
+    checks."""
     from danspeech_tpu_torch.ops import gru_cuda, lstm_cuda, persist_plan, rnn_tanh_cuda
 
     lstm = kind.startswith("lstm")
     module = lstm_cuda if lstm else rnn_tanh_cuda
     wrapper, plain = getattr(module, kind), getattr(module, f"{kind}_plain")
     backward = kind.endswith("bwd_scan")
-    walks = kind in F32_WALK_KERNELS  # the two designs
     reverse = backward  # a forward chain, or the walk that undoes one
     names, streams = RNN_F32_STREAMS[kind]
     lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
@@ -5029,15 +5032,10 @@ def check_f32_rnn(kind, gen, label, t, lengths, h, timed):
 
     pair_names = [f"{n} {k}" for part in (names[:streams], names[streams:])
                   for k in "ab" for n in part]
-    if walks:
-        res = check_f32_designs(kind, f"{label} {shape}", run, run_plain, names, streams,
-                                lens, t)
-        pres = check_f32_designs(kind, f"{label}, the pair of a layer {shape}", pair,
-                                 pair_plain, pair_names, 2 * streams, lens, t)
-    else:
-        res = check_f32(kind, f"{label} {shape}", run, run_plain, names, streams, lens, t)
-        pres = check_f32(kind, f"{label}, the pair of a layer {shape}", pair, pair_plain,
-                         pair_names, 2 * streams, lens, t)
+    res = check_f32_designs(kind, f"{label} {shape}", run, run_plain, names, streams,
+                            lens, t)
+    pres = check_f32_designs(kind, f"{label}, the pair of a layer {shape}", pair,
+                             pair_plain, pair_names, 2 * streams, lens, t)
     res["label"] = label
     pres["label"] = f"{label}, pair"
     if timed:
@@ -5047,26 +5045,20 @@ def check_f32_rnn(kind, gen, label, t, lengths, h, timed):
         # the persistent walks take the longest row's steps, a backward walk
         # one more (the last pass finishes the carry)
         walked = max(lengths) + int(backward)
-        designs = {"step": (run, kernel, steps, steps)}
-        if walks:
-            designs = {"persistent": (lambda: run("persistent"), F32_WALK_KERNELS[kind][0], 1,
-                                      walked),
-                       "step": (lambda: run("step"), kernel, steps, steps)}
+        designs = {"persistent": (lambda: run("persistent"), F32_WALK_KERNELS[kind][0], 1,
+                                  walked),
+                   "step": (lambda: run("step"), kernel, steps, steps)}
         time_f32(res, designs, run_plain,
                  lambda: cudnn_rnn_ms(lib, gen, t, len(lengths), h, backward=backward,
                                       dtype=torch.float32),
                  f32_bounds(kind, t, len(lengths), h, lengths),
                  library_name=f"nn.{type(lib).__name__}")
-        if walks:
-            info = gru_cuda.device_info(torch.device("cuda", torch.cuda.current_device()))
-            walk = persist_plan.F32_WALK_OF[kind]
-            res.update(design="persistent", **f32_plan_fields(
-                persist_plan.plan_f32(walk, h, len(lengths), 1, *info)))
-            time_f32_pair(res, pair, walked, steps,
-                          persist_plan.plan_f32(walk, h, len(lengths), 2, *info))
-        else:
-            res["pair_ms_per_chain"] = 0.5 * time_ms(pair, iters=2)
-            log(f"    float32 pair: {res['pair_ms_per_chain']:.3f} ms a chain")
+        info = gru_cuda.device_info(torch.device("cuda", torch.cuda.current_device()))
+        walk = persist_plan.F32_WALK_OF[kind]
+        res.update(design="persistent", **f32_plan_fields(
+            persist_plan.plan_f32(walk, h, len(lengths), 1, *info)))
+        time_f32_pair(res, pair, walked, steps,
+                      persist_plan.plan_f32(walk, h, len(lengths), 2, *info))
     del a, c
     torch.cuda.empty_cache()
     return [res, pres]
@@ -5108,6 +5100,147 @@ def phase_f32_rnn_kernels():
     return out
 
 
+# the float32 GEMM of csrc/sgemm.cuh at the shapes the paths run (label, M,
+# K, N, whether both products share A): B3's projection x @ w_ih of both
+# directions at the flagship's served layer 0 and layers 1-8 (T=401, B=128)
+# and at its layer 0 in the train step (B=32); the gate recompute hprev @
+# w_hh of B4's pair (B=32, H=1200) and of B7's (LSTM5x800, B=32, H=800)
+SGEMM_SHAPES = (("a", "B3 flagship layer 0, served", 401 * 128, 2016, 3600, True),
+                ("b", "B3 layers 1-8, served", 401 * 128, 1200, 3600, True),
+                ("c", "B3 layer 0, train step", 401 * 32, 2016, 3600, True),
+                ("d", "B4 recompute, B=32", 401 * 32, 1200, 3600, False),
+                ("e", "B7 recompute, B=32", 401 * 32, 800, 3200, False))
+# the GEMM against torch.matmul in full float32: max|err| over K x max|a| x
+# max|b|. Two float32 sums of K products in other orders differ by about
+# eps sqrt(K) of a typical product (1e-9 of that scale here); TF32's 10
+# mantissa bits would give about 1e-6
+SGEMM_REL = 1e-7
+
+
+def gemm_operands(gen, m, k, n, shared):
+    """A (M, K) shared by both products, or (2, M, K), and B (2, K, N):
+    activations and weights drawn as the layers' are."""
+    a = torch.randn(m if shared else 2 * m, k, generator=gen, device="cuda")
+    a = a if shared else a.reshape(2, m, k)
+    b = (torch.rand(2, k, n, generator=gen, device="cuda") * 2 - 1) / k ** 0.5
+    return a, b
+
+
+def tree_sgemm(tree):
+    """The GEMM of another tree's ``csrc/sgemm.cuh`` (an older commit's,
+    unpacked beside this one), built here through a C entry of its own: a
+    function (a, b) -> C as :func:`gru_cuda.sgemm_f32` takes them."""
+    import ctypes
+    import hashlib
+
+    from danspeech_tpu_torch.ops import cuda_build
+
+    csrc = os.path.join(os.path.abspath(tree), "danspeech_tpu_torch", "csrc")
+    out_dir = os.path.join(cuda_build.BUILD_DIR, "tree_sgemm",
+                           hashlib.sha256(csrc.encode()).hexdigest()[:12])
+    os.makedirs(out_dir, exist_ok=True)
+    src, lib = os.path.join(out_dir, "tree_sgemm.cu"), os.path.join(out_dir, "libtree_sgemm.so")
+    with open(src, "w") as f:
+        f.write('#include <cuda_bf16.h>\n#include <cuda_runtime.h>\n#include <stdint.h>\n'
+                'typedef __nv_bfloat16 bf16;\n'
+                f'#include "{csrc}/persist.cuh"\n#include "{csrc}/sgemm.cuh"\n'
+                'extern "C" int tree_sgemm_launch(const void* a0, const void* a1, '
+                'const void* b0, const void* b1, void* c0, void* c1, int M, int N, int K, '
+                'int nz, void* s) {\n  return sgemm_launch((const float*)a0, (const float*)a1, '
+                '(const float*)b0, (const float*)b1, (float*)c0, (float*)c1, M, N, K, nz, '
+                '(cudaStream_t)s);\n}\n')
+    done = subprocess.run([cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS, "-o", lib, src],
+                          capture_output=True, text=True)
+    if done.returncode != 0:
+        raise RuntimeError(f"the tree's sgemm.cuh did not build:\n{done.stdout}{done.stderr}")
+    for line in (done.stdout + done.stderr).splitlines():
+        if "registers" in line or "spill" in line:
+            log(f"  {tree}'s sgemm.cuh: {line.strip()}")
+    fn = ctypes.CDLL(lib).tree_sgemm_launch
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def run(a, b):
+        m, k = a.shape[-2:]
+        n = b.shape[-1]
+        out = torch.empty((2, m, n), device="cuda")
+        a0, a1 = (a, a) if a.dim() == 2 else (a[0], a[1])
+        rc = fn(a0.data_ptr(), a1.data_ptr(), b[0].data_ptr(), b[1].data_ptr(),
+                out[0].data_ptr(), out[1].data_ptr(), m, n, k, 2,
+                torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"the tree's sgemm launch failed: CUDA error {rc}")
+        return out
+
+    return run
+
+
+def phase_f32_gemm(card, against=None):
+    """12a, the GEMM of csrc/sgemm.cuh alone (gru_cuda.sgemm_f32) at the
+    shapes of B3's projection and B4's and B7's recompute: against
+    torch.matmul in full float32 (SGEMM_REL), both timed by CUDA events in
+    turns (kernel, matmul, kernel), TFLOP/s and the FP32 bound beside. With
+    ``against`` (another tree's root), that tree's sgemm.cuh is built and
+    timed in the same turns (old, new, new, old) and checked the same way."""
+    from danspeech_tpu_torch.ops import gru_cuda, precision
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(122)
+    old = tree_sgemm(against) if against else None
+    rows = []
+    for tag, label, m, k, n, shared in SGEMM_SHAPES:
+        a, b = gemm_operands(gen, m, k, n, shared)
+        flops = 2.0 * 2 * m * k * n
+        scale = k * float(a.abs().max()) * float(b.abs().max())
+        with precision.full_float32("cuda"):
+            ref = torch.matmul(a, b)
+            torch.cuda.synchronize()
+            before = gru_cuda.sgemm_f32.launches
+            got = gru_cuda.sgemm_f32(a, b)
+            torch.cuda.synchronize()
+            if gru_cuda.sgemm_f32.launches != before + 1:
+                raise AssertionError(f"sgemm ({tag}): the call did not launch the kernel")
+            err = float((got - ref).abs().max()) / scale
+            res = {"shape": tag, "label": label, "M": m, "K": k, "N": n, "z": 2,
+                   "a_shared": shared, "max_abs_err_rel": err, "tolerance": SGEMM_REL}
+            del got
+            if not err <= SGEMM_REL:
+                raise AssertionError(f"sgemm ({tag}) {label}: max|err| / (K max|a| max|b|) = "
+                                     f"{err:.3e} > {SGEMM_REL}")
+
+            def new():
+                return gru_cuda.sgemm_f32(a, b)
+
+            def lib():
+                return torch.matmul(a, b)
+
+            if old is not None:
+                o_err = float((old(a, b) - ref).abs().max()) / scale
+                if not o_err <= SGEMM_REL:
+                    raise AssertionError(f"the tree's sgemm ({tag}): {o_err:.3e} > {SGEMM_REL}")
+                t_old = time_ms(lambda: old(a, b), iters=3)
+            t_new = time_ms(new, iters=3)
+            t_lib = time_ms(lib, iters=3)
+            t_new = 0.5 * (t_new + time_ms(new, iters=3))
+            if old is not None:
+                t_old = 0.5 * (t_old + time_ms(lambda: old(a, b), iters=3))
+                res.update(tree_ms=t_old, tree_tflops=flops / t_old / 1e9,
+                           tree_max_abs_err_rel=o_err)
+        bound, by = f32_bound(flops, 4 * ((1 if shared else 2) * m * k + 2 * k * n + 2 * m * n))
+        res.update(ms=t_new, tflops=flops / t_new / 1e9, library_ms=t_lib,
+                   library_tflops=flops / t_lib / 1e9, bound_ms=bound, bound_by=by)
+        log(f"  sgemm ({tag}) {label}: M={m} K={k} N={n} z=2: {t_new:.3f} ms = "
+            f"{res['tflops']:.2f} TFLOP/s; torch.matmul (full float32) {t_lib:.3f} ms = "
+            f"{res['library_tflops']:.2f}; bound {bound:.3f} ms ({by}); max|err| / (K max|a| "
+            f"max|b|) {err:.2e} (<= {SGEMM_REL})"
+            + (f"; the tree's sgemm {res['tree_ms']:.3f} ms = {res['tree_tflops']:.2f} TFLOP/s"
+               if old is not None else "") + f" [{card}]")
+        rows.append(res)
+        del a, b, ref
+        torch.cuda.empty_cache()
+    return rows
+
+
 def f32_rows_vs(label, probs, ref, lens, rows):
     """Row by row over the valid frames: max|dprob| <= F32_PROB_ATOL and
     frame argmax agreement >= F32_ARGMAX_MIN."""
@@ -5127,26 +5260,26 @@ def f32_rows_vs(label, probs, ref, lens, rows):
     return {"rows": len(lens), "max_abs_prob_err": worst, "least_row_argmax_agreement": least}
 
 
-# the float32 wrappers with a persistent walk (B1-B8), whose float32 calls on
-# the paths must take the persistent design
+# the float32 wrappers (B1-B9), whose float32 calls on the paths must take
+# the persistent design
 F32_PERSISTENT = ("gru_bidi_fused", "gru_scan", "gru_scan_bidi", "gru_bwd_scan", "lstm_scan",
-                  "lstm_scan_with_cell", "lstm_bwd_scan", "rnn_tanh_scan")
+                  "lstm_scan_with_cell", "lstm_bwd_scan", "rnn_tanh_scan", "rnn_tanh_bwd_scan")
 
 
 def f32_launches(before):
     """The float32 launches of B1-B9 since ``before`` (a read of
     :func:`f32_counts`); every launch of those wrappers since then must have
-    been a float32 one, and every call (or chain) of B1-B8 must have taken
-    the persistent design (their ``design_counts``), which is logged."""
+    been a float32 one, and every call (or chain) must have taken the
+    persistent design (their ``design_counts``), which is logged."""
     now = f32_counts()
     got = {k: now[k][0] - before[k][0] for k in now}
     if any(now[k][1] - before[k][1] != got[k] for k in now):
         raise AssertionError(f"a bf16 launch on a float32 path: {before} -> {now}")
     designs = {k: {d: now[k][2][d] - before[k][2][d] for d in DESIGNS}
                for k in F32_PERSISTENT if got[k]}
-    log(f"    design_counts of the float32 calls of B1-B8: {designs}")
+    log(f"    design_counts of the float32 calls of B1-B9: {designs}")
     if any(c["step"] or c["persistent"] != got[k] for k, c in designs.items()):
-        raise AssertionError(f"a float32 call of B1-B8 on a path did not take the "
+        raise AssertionError(f"a float32 call of B1-B9 on a path did not take the "
                              f"persistent design: {designs}")
     return got
 
@@ -5505,7 +5638,7 @@ def phase_float32(card):
     from danspeech_tpu_torch.models import DeepSpeechConfig, DeepSpeechModel
     from danspeech_tpu_torch.models import deepspeech as ds
     from danspeech_tpu_torch.models import streaming
-    from danspeech_tpu_torch.ops import precision
+    from danspeech_tpu_torch.ops import gru_cuda, precision
     from danspeech_tpu_torch.parallel import make_mesh
     from danspeech_tpu_torch.parallel import time_shard
     from danspeech_tpu_torch.parallel.time_shard import long_form_probs, pad_time_for_mesh
@@ -5528,7 +5661,9 @@ def phase_float32(card):
 
         t0 = time.perf_counter()
         out["kernels"] = {**phase_f32_kernels(card), **phase_f32_rnn_kernels()}
+        out["gemm"] = phase_f32_gemm(card)
         out["kernels_s"] = time.perf_counter() - t0
+        gemm_before = gru_cuda.sgemm_f32.launches
 
         # 12b: the flagship served in float32, beside bf16
         config = DeepSpeechConfig(**FLAGSHIP)
@@ -5676,13 +5811,16 @@ def phase_float32(card):
     finally:
         set_f32_flags(saved)
     out["launches"] = launches
+    # the GEMM is launched inside the float32 entries of B3, B4 and B7 (one
+    # launch a call of their C entries), which count it
+    out["gemm_launches"] = gru_cuda.sgemm_f32.launches - gemm_before
     out["wall_s"] = time.perf_counter() - t_phase
-    for name, n in launches.items():
+    for name, n in {**launches, "sgemm": out["gemm_launches"]}.items():
         if not n:
             raise AssertionError(f"{name}'s float32 variant was launched no time on the "
                                  "float32 paths")
-    log(f"  phase 12: {out['wall_s']:.1f} s; float32 launches on its paths {launches} "
-        f"[{card}]")
+    log(f"  phase 12: {out['wall_s']:.1f} s; float32 launches on its paths {launches}, "
+        f"the GEMM {out['gemm_launches']} [{card}]")
     return out
 
 
@@ -5723,8 +5861,9 @@ def phase_clocks(card):
     shapes, B2's and B3's flagship layer, its backward walk (B4) as the
     flagship's training pair, the float32 LSTM forward walk (B5, B6) as
     LSTM5x800's serving and training pairs, its backward walk (B7) as
-    LSTM5x800's training pair and the float32 tanh-RNN forward walk (B8) as
-    Tanh5x800's serving pair."""
+    LSTM5x800's training pair, the float32 tanh-RNN forward walk (B8) as
+    Tanh5x800's serving pair and its backward walk (B9) as Tanh5x800's
+    training pair."""
     import ctypes
 
     from danspeech_tpu_torch.ops import cuda_build, gru_cuda, lstm_cuda, persist_plan, rnn_tanh_cuda
@@ -5815,9 +5954,10 @@ def phase_clocks(card):
                    lambda: lstm_cuda.lstm_scan_pair(la, lb, False, True, with_cell=b == 32,
                                                     design="persistent"), t, lib="lstm_f32")
         del la, lb
-        # the float32 LSTM backward walk (B7) as the pair of the training
-        # layer (T + 1 steps: the last pass finishes the carry), the float32
-        # tanh-RNN forward walk (B8) as the pair of Tanh5x800's serving layer
+        # the float32 LSTM backward walk (B7) and tanh-RNN backward walk (B9)
+        # as the pairs of the training layers (T + 1 steps: the last pass
+        # finishes the carry), the float32 tanh-RNN forward walk (B8) as the
+        # pair of Tanh5x800's serving layer
         if b == 32:
             wa = f32_rnn_operands("lstm_bwd_scan", gen, t, lengths.tolist(), 800, lens)
             wb = f32_rnn_operands("lstm_bwd_scan", gen, t, lengths.tolist(), 800, lens)
@@ -5825,6 +5965,13 @@ def phase_clocks(card):
                        lambda: lstm_cuda.lstm_bwd_scan_pair(wa, wb, True, False,
                                                             design="persistent"),
                        t + 1, lib="lstm_f32")
+            del wa, wb
+            wa = f32_rnn_operands("rnn_tanh_bwd_scan", gen, t, lengths.tolist(), 800, lens)
+            wb = f32_rnn_operands("rnn_tanh_bwd_scan", gen, t, lengths.tolist(), 800, lens)
+            report_f32(f"rnn_tanh_bwd_scan_pair float32 T={t} B={b} H=800",
+                       lambda: rnn_tanh_cuda.rnn_tanh_bwd_scan_pair(wa, wb, True, False,
+                                                                    design="persistent"),
+                       t + 1, lib="rnn_tanh_f32")
             del wa, wb
         else:
             ta = f32_rnn_operands("rnn_tanh_scan", gen, t, lengths.tolist(), 800, lens)
@@ -5954,6 +6101,11 @@ def main(argv=None) -> int:
     ap.add_argument("--phase-clocks", action="store_true",
                     help="instead of the phases: build the persistent kernels with "
                          "-DPS_PROFILE and print where a step spends its clocks")
+    ap.add_argument("--sgemm-against", metavar="TREE",
+                    help="run phases 1, 2 and only phase 12a's float32 GEMM, with the GEMM "
+                         "of TREE's danspeech_tpu_torch/csrc/sgemm.cuh (another commit's "
+                         "tree) built and timed in turns beside this tree's; not a smoke "
+                         "check: it prints no device line")
     ap.add_argument("--f32-train", action="store_true",
                     help="run phases 1, 2 and only phase 12g's float32 train steps of "
                          "LSTM5x800 and Tanh5x800, each step split (library loads, the "
@@ -5990,6 +6142,11 @@ def main(argv=None) -> int:
                 entry = line.split("'")[1] if "'" in line else ""
             if "registers" in line or "spill" in line or "error" in line:
                 log(f"  {name}: {entry}: {line.strip()}")
+
+    if args.sgemm_against:
+        print(json.dumps({"sgemm": phase_f32_gemm(card, against=args.sgemm_against),
+                          "against": args.sgemm_against, "card": card}))
+        return 0
 
     if args.f32_train:
         from danspeech_tpu_torch.models import DeepSpeechConfig
@@ -6169,7 +6326,15 @@ def main(argv=None) -> int:
         print(json.dumps({"float32": {k: v for k, v in float32.items() if k != "kernels"},
                           "card": card}))
     log(card)  # as nvidia-smi prints it: name, power limit
-    print(json.dumps({"kernels": kernels, "barrier_us": barrier["us"], "card": card}))
+    gemm = {}
+    if not args.kernels:  # the GEMM that B3's, B4's and B7's float32 entries launch
+        gemm = {"float32_gemm": {
+            "name": "sgemm_tma_kernel", "route": "cuda",
+            "source": "danspeech_tpu_torch/csrc/sgemm.cuh",
+            "inside": ["gru_bidi_fused", "gru_bwd_scan", "lstm_bwd_scan"],
+            "launches": float32["gemm_launches"], "card": card, "shapes": float32["gemm"]}}
+    print(json.dumps({"kernels": kernels, **gemm, "barrier_us": barrier["us"],
+                      "card": card}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

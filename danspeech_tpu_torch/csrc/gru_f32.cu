@@ -1056,3 +1056,20 @@ extern "C" int gru_f32_bwd_persist_launch(
   return ps_coop_launch((const void*)gru_f32_bwd_persist_kernel, blocks * chains, threads,
                         (size_t)smem, args, s);
 }
+
+// ---------------------------------------------------------------------------
+// Host entry, the float32 GEMM alone (sgemm.cuh), as B3's projection and the
+// recompute of B4 and B7 call it: C[z] (M, N) = A[z] (M, K) @ B[z] (K, N) for
+// z < nz (1 or 2), row-major float32, on the caller's stream (a single
+// product fills both pointers of a pair with its own). Returns the CUDA
+// error code, else 0.
+// ---------------------------------------------------------------------------
+
+extern "C" int sgemm_f32_launch(const void* a_0, const void* a_1, const void* b_0,
+                                const void* b_1, void* c_0, void* c_1, int M, int N, int K,
+                                int nz, void* stream) {
+  return sgemm_launch(static_cast<const float*>(a_0), static_cast<const float*>(a_1),
+                      static_cast<const float*>(b_0), static_cast<const float*>(b_1),
+                      static_cast<float*>(c_0), static_cast<float*>(c_1), M, N, K, nz,
+                      reinterpret_cast<cudaStream_t>(stream));
+}

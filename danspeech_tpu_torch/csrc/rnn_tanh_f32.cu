@@ -8,8 +8,11 @@
 //       launch for every step of one chain or two, below), or the step design
 //       rnn_tanh_f32_scan_launch, one chain or two (the chain is the grid's z
 //       index); ops/persist_plan.py:plan_rnn_tanh_f32_forward chooses;
-//   rnn_tanh_bwd_scan (B9) -> rnn_tanh_f32_bwd_launch, one chain or the two
-//       chains of a bidirectional layer (step design only).
+//   rnn_tanh_bwd_scan (B9) -> rnn_tanh_f32_bwd_persist_launch (one
+//       cooperative launch for every step of one chain or two, below), or
+//       the step design rnn_tanh_f32_bwd_launch, one chain or the two chains
+//       of a bidirectional layer; ops/persist_plan.py:plan_rnn_tanh_f32_backward
+//       chooses.
 // The Pallas kernels are dtype-generic: float32 weights give float32
 // products there. Same contract as the bf16 kernels (rnn_tanh_scan.cu,
 // rnn_tanh_bwd.cu), every stream and weight in float32:
@@ -32,12 +35,18 @@
 //   columns of w_hh of its units in shared memory (the whole slice: 47 KB a
 //   block for a pair at H = 800), h exchanged through L2, a grid barrier a
 //   step instead of a launch.
-// - The step design of gru_f32.cu (f32_step.cuh), B9's only design: one
-//   launch per time step from a host loop, the launch boundary as the
-//   barrier, a block of 256 threads owning 32 units for 64 batch rows, 4 rows
-//   x 2 units a thread in registers, rereading its slice of w_hh from L2. At
-//   H = 800 that is 25 blocks of units a chain: the walk is bound by the
-//   launches, not by the card's FP32 units.
+// - Backward, persistent (rnn_tanh_f32_bwd_persist_kernel, below): the
+//   forward walk's layout with the rows of w_hh as the slices (w_hh^T's
+//   columns, read as they lie: 47 KB a block for a pair at H = 800, all
+//   resident), dpre exchanged through L2, and the partial carry kept in
+//   shared memory for the whole walk; tanh' comes off the stored output, so
+//   unlike the GRU's and the LSTM's backward walks there is no recompute.
+// - The step design of gru_f32.cu (f32_step.cuh): one launch per time step
+//   from a host loop, the launch boundary as the barrier, a block of 256
+//   threads owning 32 units for 64 batch rows, 4 rows x 2 units a thread in
+//   registers, rereading its slice of w_hh from L2. At H = 800 that is 25
+//   blocks of units a chain: the walk is bound by the launches, not by the
+//   card's FP32 units.
 // - Forward, step design (rnn_tanh_f32_step_kernel): h ping-pongs between
 //   two buffers.
 // - Backward (rnn_tanh_f32_bwd_step_kernel): T + 1 launches; each finishes
@@ -434,4 +443,216 @@ extern "C" int rnn_tanh_f32_bwd_launch(
     if (err != cudaSuccess) return (int)err;
   }
   return 0;
+}
+
+// ---------------------------------------------------------------------------
+// The persistent backward walk (B9): all steps of one or two chains in one
+// cooperative launch
+// ---------------------------------------------------------------------------
+//
+// The plan (ops/persist_plan.py:plan_rnn_tanh_f32_backward) cuts the units
+// of the chains into blocks of U (even) units, one block an SM, chain c's
+// blocks c * blocks .. (c + 1) * blocks - 1. Block k of a chain owns units
+// j0 = k U .. j0 + U - 1 and their U rows of w_hh, the columns of w_hh^T,
+// packed by the wrapper (gru_cuda.f32_rows) as wp[k][d][u] = w_hh[j0 + u][d]
+// over a depth of H. Step s walks t (n - 1 - s for a reverse chain, s
+// otherwise; n = max(lengths)): the carry dh = P + dpre_prev @ w_hh^T (the
+// tiled product, f32_walk.cuh, G = 1, of the previous step's dpre exchanged
+// transposed through dx), then dpre_t = m (dh + dout_t) (1 - out_t^2) into
+// the output and, through the tile Dn, into dx for the next step, and the
+// partial carry P = (1 - m) dh, kept in shared memory for the whole walk
+// from P = 0. A row past its length gets dpre = 0, so its product is an
+// exact zero and P + 0 carries dh unchanged, bit for bit, as the plain walk
+// does. A last pass (s = n) only finishes the carry: dh0. The steps t >= n
+// are past every row's length: their dpre is written as zeros first, with
+// no barrier, and they leave the carry as it is. A grid barrier a chain
+// (each chain its own counter) orders the steps.
+//
+// Shared memory, from its start: the work area (the ring, and over it the
+// partial sums [split][row][unit] and the tile Dn[unit][row]), P[unit][row],
+// the resident depths of the slice.
+
+struct FtbWalk {
+  const float* out[2];    // (T, B, H): the forward chain's output
+  const float* dout[2];   // (T, B, H)
+  const float* wp[2];     // (blocks, Dp, U), packed rows of w_hh
+  float* dpre[2];         // (T, B, H)
+  float* dh[2];           // (B, H): dh0 on exit
+  int reverse[2];
+  const int* lengths;     // (B,)
+  float* dx;              // (2, chains, Dp, Bp): dpre exchanged, zeros on entry
+  unsigned int* barrier;  // (chains,): a zeroed counter a chain
+  int T, B, H, chains, blocks;
+  FpCut q;                // Dp: H padded to the chunk depth
+};
+
+// floats of the work area: the ring, or the partial sums and the tile Dn
+// (U x RB) of the new dpre over it
+__host__ __device__ __forceinline__ int ftb_work(const FpCut& q) {
+  return fp_work_floats(q, q.U, q.RB, q.U * q.RB);
+}
+
+__global__ void __launch_bounds__(FP_MAX_THREADS, 1)
+rnn_tanh_f32_bwd_persist_kernel(FtbWalk p) {
+  extern __shared__ __align__(16) float fp_smem[];
+  __shared__ __align__(8) uint64_t fp_bars[FP_STAGES];
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int c = blockIdx.x / p.blocks;
+  const FpCut& fc = p.q;
+  const int j0 = (blockIdx.x - c * p.blocks) * fc.U;
+  const int U = fc.U, H = p.H, B = p.B, T = p.T, RB = fc.RB, Bp = fc.Bp;
+  const int uw = min(U, H - j0);
+  FpRing ring{fp_smem, fp_bars, 0u, 0u};
+  float* Dn = fp_smem + fc.KS * RB * U;
+  float* P = fp_smem + ftb_work(fc);
+  float* Ws = P + fp_up4(U * Bp);
+  const float* wp = p.wp[c] + (size_t)(j0 / U) * fc.Dp * U;
+
+  if (tid == 0) {
+    for (int i = 0; i < FP_STAGES; ++i) ps_mbar_init(fp_bars + i, 1);
+    ps_mbar_init_fence();
+  }
+  fp_load_resident(Ws, wp, fc.kres * U);  // the resident depths of the slice, once
+  for (int i = tid; i < U * Bp; i += nthr) P[i] = 0.0f;  // dL/dh starts at zero
+
+  const int n = ps_longest(p.lengths, B, T);  // its __syncthreads covers all three
+  float* __restrict__ dpre = p.dpre[c];
+  {  // steps n .. T - 1: zeros at this block's units
+    const size_t cnt = (size_t)(T - n) * B * uw;
+    for (size_t i = tid; i < cnt; i += nthr) {
+      const size_t row = i / uw;
+      dpre[((size_t)n * B + row) * H + j0 + (i - row * uw)] = 0.0f;
+    }
+  }
+  const float* __restrict__ out = p.out[c];
+  const float* __restrict__ dout = p.dout[c];
+  float* __restrict__ dh = p.dh[c];
+  const size_t dbuf = (size_t)fc.Dp * Bp;
+  const int passes = Bp / RB;
+  const int nel = RB * U;
+  long long ps_t_ = 0;
+#ifdef PS_PROFILE
+  ps_t_ = clock64();
+#endif
+  for (int s = 0; s <= n; ++s) {
+    const bool last = s == n;  // after the last step: only the carry, dh0
+    const int t = last ? -1 : (p.reverse[c] ? n - 1 - s : s);
+    const float* dsrc = p.dx + ((size_t)(s & 1) * p.chains + c) * dbuf;
+    float* ddst = p.dx + ((size_t)((s & 1) ^ 1) * p.chains + c) * dbuf;
+    for (int pass = 0; pass < passes; ++pass) {
+      const int r0 = pass * RB;
+      if (!last) {  // the pass's rows of out and dout at this block's units, toward L2
+        for (int i = tid; i < 2 * RB; i += nthr) {
+          const int b = r0 + i / 2;
+          if (b < B) ps_prefetch_l2((i & 1 ? dout : out) + ((size_t)t * B + b) * H + j0);
+        }
+      }
+      if (s > 0) fp_tiled_product<1>(fc, dsrc, wp, Ws, ring, r0, ps_t_);
+      // epilogue: (row, unit) pairs, units fastest (out, dout and dpre in
+      // runs); the loads of FP_EPI pairs first, then their gradients
+      for (int e0 = tid; e0 < nel; e0 += FP_EPI * nthr) {
+        float o[FP_EPI], dy[FP_EPI];
+        bool live[FP_EPI], valid[FP_EPI];
+#pragma unroll
+        for (int k = 0; k < FP_EPI; ++k) {
+          const int e = e0 + k * nthr;
+          const int r = e / U, u = e - r * U;
+          const int b = r0 + r, j = j0 + u;
+          live[k] = e < nel && b < B && j < H;
+          valid[k] = false;
+          o[k] = dy[k] = 0.0f;
+          if (live[k] && !last) {
+            const size_t at = ((size_t)t * B + b) * H + j;
+            o[k] = out[at];
+            dy[k] = dout[at];
+            valid[k] = p.lengths[b] > t;
+          }
+        }
+#pragma unroll
+        for (int k = 0; k < FP_EPI; ++k) {
+          const int e = e0 + k * nthr;
+          if (e >= nel) break;
+          const int r = e / U, u = e - r * U;
+          float dp = 0.0f;  // padding rows stay zero
+          if (live[k]) {
+            const int b = r0 + r, j = j0 + u;
+            float acc = 0.0f;  // the splits in order
+            if (s > 0)
+              for (int ks = 0; ks < fc.KS; ++ks) acc += ring.base[((size_t)ks * RB + r) * U + u];
+            const float dhv = P[u * Bp + b] + acc;
+            if (last) {
+              dh[(size_t)b * H + j] = dhv;
+              continue;
+            }
+            dp = valid[k] ? (dhv + dy[k]) * (1.0f - o[k] * o[k]) : 0.0f;
+            dpre[((size_t)t * B + b) * H + j] = dp;
+            P[u * Bp + b] = valid[k] ? 0.0f : dhv;
+          }
+          Dn[u * RB + r] = dp;
+        }
+      }
+      __syncthreads();
+      if (!last) {
+        for (int e = tid; e < uw * RB; e += nthr) {  // rows fastest: runs of dx
+          const int u = e / RB, r = e - u * RB;
+          ddst[(size_t)(j0 + u) * Bp + r0 + r] = Dn[u * RB + r];
+        }
+      }
+      __syncthreads();  // Dn is read before the next pass's ring
+      PS_ACC(3);
+    }
+    if (!last) ps_grid_barrier(p.barrier + c, (unsigned int)(s + 1) * p.blocks);
+    PS_ACC(1);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Host entry, B9, persistent: the backward walks of one or two chains (a, b)
+// that share T, B, H and lengths, in one cooperative launch of the planned
+// grid on the caller's stream. wp_* are the packed rows (blocks, Dp, U); dx
+// holds 2 zeroed buffers of (chains, Dp, Bp) f32; dh_* (B, H) get dh0 (the
+// carry starts at zero: the layer returns no final state); barrier: one
+// zeroed counter a chain. Returns the CUDA error code
+// (cudaErrorCooperativeLaunchTooLarge where the grid cannot be co-resident),
+// else 0.
+// ---------------------------------------------------------------------------
+
+extern "C" int rnn_tanh_f32_bwd_persist_launch(
+    const void* out_a, const void* out_b, const void* dout_a, const void* dout_b,
+    const void* lengths, const void* wp_a, const void* wp_b, void* dx, void* dh_a,
+    void* dh_b, void* dpre_a, void* dpre_b, void* barrier, int T, int B, int H,
+    int reverse_a, int reverse_b, int chains, int units, int blocks, int rows_per_pass,
+    int padded_rows, int padded_depth, int k_splits, int chunk_depth, int resident_depth,
+    int threads, int smem, int dot, void* stream) {
+  FtbWalk p;
+  p.out[0] = static_cast<const float*>(out_a);
+  p.out[1] = static_cast<const float*>(out_b);
+  p.dout[0] = static_cast<const float*>(dout_a);
+  p.dout[1] = static_cast<const float*>(dout_b);
+  p.wp[0] = static_cast<const float*>(wp_a);
+  p.wp[1] = static_cast<const float*>(wp_b);
+  p.dpre[0] = static_cast<float*>(dpre_a);
+  p.dpre[1] = static_cast<float*>(dpre_b);
+  p.dh[0] = static_cast<float*>(dh_a);
+  p.dh[1] = static_cast<float*>(dh_b);
+  p.reverse[0] = reverse_a;
+  p.reverse[1] = reverse_b;
+  p.lengths = static_cast<const int*>(lengths);
+  p.dx = static_cast<float*>(dx);
+  p.barrier = static_cast<unsigned int*>(barrier);
+  p.T = T; p.B = B; p.H = H; p.chains = chains; p.blocks = blocks;
+  p.q = FpCut{units, rows_per_pass, padded_rows, padded_depth, k_splits, chunk_depth,
+              resident_depth};
+  // the plan's ints, checked before any launch
+  const FpCut& q = p.q;
+  const bool ok = chains >= 1 && chains <= 2 && T >= 1 && B >= 1 && H >= 1 && !dot &&
+                  fp_cut_ok(q, H, blocks, threads) && fp_tiled_ok(q, threads) &&
+                  q.Dp >= H && q.Bp >= B;
+  if (!ok) return (int)cudaErrorInvalidValue;
+  const long long need = 4LL * (ftb_work(q) + (long long)fp_up4(q.U * q.Bp) +
+                                (long long)q.kres * q.U);
+  if (smem < need) return (int)cudaErrorInvalidValue;
+  void* args[] = {&p};
+  return ps_coop_launch((const void*)rnn_tanh_f32_bwd_persist_kernel, blocks * chains,
+                        threads, (size_t)smem, args, reinterpret_cast<cudaStream_t>(stream));
 }

@@ -36,6 +36,10 @@ launch of ``gru_f32_bwd_persist_kernel`` (:func:`persist_plan.plan_gru_f32_backw
 ``TypeError``.
 ``<wrapper>.dtype_counts`` counts the CUDA calls by the set taken.
 
+:func:`sgemm_f32` launches on its own the float32 GEMM (``csrc/sgemm.cuh``)
+that B3's float32 projection and the gate recompute of B4 and B7 run inside
+their C entries, so that it can be checked and timed by itself.
+
 A wrapper launches its kernel for CUDA tensors and raises on anything the
 kernel does not take; for CPU tensors, and only for those, it runs the plain
 version (dtype-generic). There is no fallback from a failed build or launch
@@ -53,6 +57,7 @@ from . import cuda_build, persist_plan
 from .cuda_build import chain_ptrs
 from .cuda_checks import check_tensors as _check_tensors
 from .cuda_checks import count, pair_dtype
+from .precision import full_float32
 
 _device_info: dict[int, tuple[int, int]] = {}
 
@@ -342,6 +347,7 @@ def _bidi_fused_f32(x, lengths, w_ih_f, w_ih_b, w_hh_f, w_hh_b, b_ih_f, b_ih_b,
         w_hh_f.data_ptr(), w_hh_b.data_ptr(), b_ih_f.data_ptr(), b_ih_b.data_ptr(),
         b_hh_f.data_ptr(), b_hh_b.data_ptr(), gx.data_ptr(), h32.data_ptr(),
         out.data_ptr(), t_max, batch, d_in, hidden)
+    sgemm_f32.launches += 1  # the entry's GEMM (csrc/sgemm.cuh)
     last = h32[t_max % 2]  # the buffer the final step wrote
     return out[0], out[1], last[0], last[1]
 
@@ -370,6 +376,7 @@ def _bidi_fused_f32_persistent(x, lengths, w_ih_f, w_ih_b, w_hh_f, w_hh_b, b_ih_
         b_hh_f.data_ptr(), b_hh_b.data_ptr(), gx.data_ptr(), hx.data_ptr(),
         last.data_ptr(), out.data_ptr(), barrier.data_ptr(),
         t_max, batch, d_in, hidden, *planned.c_args())
+    sgemm_f32.launches += 1  # the entry's GEMM (csrc/sgemm.cuh)
     return out[0], out[1], last[0], last[1]
 
 
@@ -937,6 +944,7 @@ def _bwd_f32(chains, reverses):
         *chain_ptrs([c[6] for c in chains]), part.data_ptr(), dgh.data_ptr(),
         *chain_ptrs(dgx), *chain_ptrs(dghn),
         t_max, batch, hidden, int(bool(reverses[0])), int(bool(reverses[-1])), n)
+    sgemm_f32.launches += 1  # the entry's GEMM (csrc/sgemm.cuh)
     last = part[(t_max + 1) % 2]  # the buffer the final step wrote
     return [(dgx[k], dghn[k], last[k]) for k in range(n)]
 
@@ -972,6 +980,7 @@ def _bwd_f32_persistent(chains, reverses, planned):
         *chain_ptrs([o[1] for o in outs]), barrier.data_ptr(),
         t_max, batch, hidden, int(bool(reverses[0])), int(bool(reverses[-1])), n,
         *planned.c_args())
+    sgemm_f32.launches += 1  # the entry's GEMM (csrc/sgemm.cuh)
     return outs
 
 
@@ -1015,3 +1024,70 @@ def gru_bwd_scan_pair(chain_a, chain_b, reverse_a: bool, reverse_b: bool,
     outs = _bwd_persistent([chain_a, chain_b], [reverse_a, reverse_b], planned)
     count(gru_bwd_scan, "persistent", dtype, 2)
     return outs[0], outs[1]
+
+
+def sgemm_f32_plain(a, b):
+    """``a @ b`` in full float32 (TF32 off on CUDA), on any device: the
+    function of :func:`sgemm_f32`."""
+    with full_float32(a.device):
+        return a @ b
+
+
+def sgemm_f32(a, b):
+    """The float32 GEMM of ``csrc/sgemm.cuh`` on its own: ``a @ b`` for a (M,
+    K) or (Z, M, K) and b (K, N) or (Z, K, N), Z 1 or 2, a 2-D operand shared
+    by both products (as B3's projection shares x). Returns (M, N), or (Z, M,
+    N) where either operand is 3-D. A CUDA ``a`` launches the kernel
+    (``gru_f32.cu``'s ``sgemm_f32_launch``: float32, contiguous, both on one
+    device) or raises; a CPU ``a`` runs :func:`sgemm_f32_plain`.
+    ``sgemm_f32.launches`` counts the GEMM's launches: its own, and the one
+    each call of the float32 C entries of B3, B4 and B7 makes.
+    """
+    if a.device.type == "cpu":
+        return sgemm_f32_plain(a, b)
+    if a.device.type != "cuda":
+        raise ValueError(f"unsupported device {a.device}")
+    for name, t in (("a", a), ("b", b)):
+        if t.device != a.device:
+            raise ValueError(f"b is on {b.device}, a on {a.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} is {t.dtype}, the kernel takes float32")
+        if t.dim() not in (2, 3) or (t.dim() == 3 and t.shape[0] not in (1, 2)):
+            raise ValueError(f"{name} must be 2-D, or 3-D with 1 or 2 planes; "
+                             f"got shape {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    z = max(t.shape[0] if t.dim() == 3 else 1 for t in (a, b))
+    if a.dim() == 3 and b.dim() == 3 and a.shape[0] != b.shape[0]:
+        raise ValueError(f"a has {a.shape[0]} planes, b {b.shape[0]}")
+    m, k = a.shape[-2:]
+    k_b, n = b.shape[-2:]
+    if k != k_b:
+        raise ValueError(f"a is (.., {m}, {k}), b (.., {k_b}, {n}): depths differ")
+    if min(m, n, k) < 1 or max(m, n, k) > 2**31 - 1:
+        raise ValueError(f"M, N, K = {m}, {n}, {k}: each from 1 to 2**31 - 1")
+    out = _sgemm(a, b, z)
+    return out if a.dim() == 3 or b.dim() == 3 else out[0]
+
+
+def _sgemm(a, b, z):
+    """One launch of ``sgemm_f32_launch`` over ``z`` products: each operand's
+    planes (a 2-D or one-plane operand shared by both), into a new (z, M, N)
+    float32 output on a's device."""
+    m, k = a.shape[-2:]
+    n = b.shape[-1]
+    out = torch.empty((z, m, n), dtype=torch.float32, device=a.device)
+
+    def planes(t):
+        if t.dim() == 3 and t.shape[0] == z:
+            return [t[i] for i in range(z)]
+        return [t.reshape(t.shape[-2:])] * z
+
+    launch = cuda_build.bind("gru_f32", "sgemm_f32_launch", 6, 4)
+    cuda_build.call(launch, "sgemm_f32", a.device, *chain_ptrs(planes(a)),
+                    *chain_ptrs(planes(b)), *chain_ptrs(list(out)), m, n, k, z)
+    sgemm_f32.launches += 1
+    return out
+
+
+sgemm_f32.launches = 0

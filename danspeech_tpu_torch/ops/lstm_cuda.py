@@ -53,7 +53,7 @@ from . import cuda_build, persist_plan
 from .cuda_build import chain_ptrs
 from .cuda_checks import (check_proj_rows, check_stream_shape, check_tensors, count,
                           pair_dtype, time_order)
-from .gru_cuda import device_info, f32_rows, f32_slices, transposed
+from .gru_cuda import device_info, f32_rows, f32_slices, sgemm_f32, transposed
 
 
 def _gates(pre, hidden):
@@ -485,6 +485,7 @@ def _bwd_f32(chains, reverses):
         lengths.data_ptr(), *chain_ptrs([c[5] for c in chains]),
         *chain_ptrs([c[6] for c in chains]), dh.data_ptr(), dc.data_ptr(), *chain_ptrs(dg4),
         t_max, batch, hidden, int(bool(reverses[0])), int(bool(reverses[-1])), n)
+    sgemm_f32.launches += 1  # the entry's GEMM (csrc/sgemm.cuh)
     return [(dg4[k], dh[k], dc[k]) for k in range(n)]
 
 
@@ -520,6 +521,7 @@ def _bwd_f32_persistent(chains, reverses, planned):
         *chain_ptrs([o[2] for o in outs]), *chain_ptrs([o[0] for o in outs]),
         barrier.data_ptr(), t_max, batch, hidden, int(bool(reverses[0])),
         int(bool(reverses[-1])), n, *planned.c_args())
+    sgemm_f32.launches += 1  # the entry's GEMM (csrc/sgemm.cuh)
     return outs
 
 

@@ -28,15 +28,14 @@ These plans are those of the bf16 operand set: the resident design keeps
 bf16 slices. The float32 GRU walks (B1, B2 and B3's recurrence, and the
 backward walk B4, in ``csrc/gru_f32.cu``), the float32 LSTM walks (B5, B6
 and the backward walk B7, ``csrc/lstm_f32.cu``) and the float32 tanh-RNN
-forward walk (B8, ``csrc/rnn_tanh_f32.cu``) have a persistent design of
-their own (``csrc/f32_walk.cuh``), planned by :func:`plan_f32`
-(:func:`plan_gru_f32_forward`, :func:`plan_gru_f32_backward`,
-:func:`plan_lstm_f32_forward`, :func:`plan_lstm_f32_backward`,
-:func:`plan_rnn_tanh_f32_forward`): float32 weights do not fit the card's
+walks (B8 and the backward walk B9, ``csrc/rnn_tanh_f32.cu``) have a
+persistent design of their own (``csrc/f32_walk.cuh``), planned by
+:func:`plan_f32` (:func:`plan_gru_f32_forward`,
+:func:`plan_gru_f32_backward`, :func:`plan_lstm_f32_forward`,
+:func:`plan_lstm_f32_backward`, :func:`plan_rnn_tanh_f32_forward`,
+:func:`plan_rnn_tanh_f32_backward`): float32 weights do not fit the card's
 shared memory at these widths, so a block keeps what fits of its slice
-resident and streams the rest from L2 each step. The one other float32
-variant, the tanh-RNN backward walk B9, has the step design only, whatever
-the shape: its wrappers take :func:`float32_design`.
+resident and streams the rest from L2 each step.
 
 The constants mirror ``csrc/persist.cuh``.
 """
@@ -287,14 +286,18 @@ F32_WALKS = {
     "lstm_backward": (1, 4, False, 4, 2),
     # rnn_tanh_f32_persist_kernel: h @ w_hh (H, H); the tile Hn; no state
     "rnn_tanh_forward": (1, 1, False, 1, 0),
+    # rnn_tanh_f32_bwd_persist_kernel: dpre @ w_hh^T (H, H); the new dpre's
+    # tile Dn; the partial carry P
+    "rnn_tanh_backward": (1, 1, False, 1, 1),
 }
-# the walk each float32 wrapper with a persistent design launches (B1-B8)
+# the walk each float32 wrapper launches (B1-B9)
 F32_WALK_OF = {
     **dict.fromkeys(("gru_scan", "gru_scan_bidi", "gru_bidi_fused"), "gru_forward"),
     **dict.fromkeys(("gru_bwd_scan", "gru_bwd_scan_pair"), "gru_backward"),
     **dict.fromkeys(("lstm_scan", "lstm_scan_with_cell", "lstm_scan_pair"), "lstm_forward"),
     **dict.fromkeys(("lstm_bwd_scan", "lstm_bwd_scan_pair"), "lstm_backward"),
     **dict.fromkeys(("rnn_tanh_scan", "rnn_tanh_scan_pair"), "rnn_tanh_forward"),
+    **dict.fromkeys(("rnn_tanh_bwd_scan", "rnn_tanh_bwd_scan_pair"), "rnn_tanh_backward"),
 }
 
 
@@ -344,7 +347,7 @@ class F32Plan:
         """The plan's ints in the order the walks' C entries take them
         (``gru_f32_persist_launch``, ``gru_f32_bwd_persist_launch``,
         ``lstm_f32_persist_launch``, ``lstm_f32_bwd_persist_launch``,
-        ``rnn_tanh_f32_persist_launch``)."""
+        ``rnn_tanh_f32_persist_launch``, ``rnn_tanh_f32_bwd_persist_launch``)."""
         return (self.units, self.blocks_per_dir, self.rows_per_pass, self.padded_rows,
                 self.padded_depth, self.k_splits, self.chunk_depth, self.resident_depth,
                 self.threads, self.smem_bytes, int(self.product == "dot"))
@@ -465,6 +468,14 @@ def plan_rnn_tanh_f32_forward(hidden, batch, chains, sm_count, smem_optin) -> F3
     return plan_f32("rnn_tanh_forward", hidden, batch, chains, sm_count, smem_optin)
 
 
+def plan_rnn_tanh_f32_backward(hidden, batch, chains, sm_count, smem_optin) -> F32Plan:
+    """The persistent float32 tanh-RNN backward walk (B9) of ``chains`` (1 or
+    2) chains: per chain the carry dpre (B, H) @ w_hh^T (H, H), a column a
+    unit (the rows of w_hh) over a depth of H, the partial carry kept in the
+    block: :func:`plan_f32`."""
+    return plan_f32("rnn_tanh_backward", hidden, batch, chains, sm_count, smem_optin)
+
+
 def choose(design: str | None, planned: PersistPlan | F32Plan) -> str:
     """The design a wrapper takes: the plan's when ``design`` is None, else
     the one asked for, which must be one the plan allows ("step" always is)."""
@@ -495,16 +506,3 @@ def run_f32_pair(planner, hidden, batch, info, design, chains, reverses, step, p
         return persistent(chains, reverses, pair), design
     return [persistent([c], [r], single)[0] for c, r in zip(chains, reverses)], design
 
-
-def float32_design(design: str | None) -> str:
-    """The design a wrapper of the one float32 step variant that has no
-    persistent design yet (B9, the tanh-RNN backward walk) takes: "step" for
-    None or "step"; "persistent" raises ``NotImplementedError``. The other
-    float32 walks (B1-B8) are planned by :func:`plan_f32` instead."""
-    if design not in (None, *DESIGNS):
-        raise ValueError(f"unknown design {design!r}: one of {DESIGNS} or None")
-    if design == "persistent":
-        raise NotImplementedError(
-            "this float32 variant has no persistent design yet: B9 (the tanh-RNN backward "
-            "walk) takes the step design (ROADMAP F32++b)")
-    return "step"

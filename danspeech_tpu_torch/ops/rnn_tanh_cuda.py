@@ -22,14 +22,14 @@ time step), chosen by :func:`persist_plan.plan_rnn_tanh_forward` /
 
 Each wrapper takes two sets of operands, told apart by the dtype of its
 sequence: bf16 sequences and weights (the designs above), or everything in
-float32, which runs the float32 variants of ``csrc/rnn_tanh_f32.cu``. Their
-forward walk (B8) has both designs: "persistent" is one cooperative launch of
-``rnn_tanh_f32_persist_kernel``, each block keeping its float32 slice of
-w_hh in shared memory (:func:`persist_plan.plan_rnn_tanh_f32_forward` plans
-it), "step" one launch per time step. The float32 backward walk (B9) has the
-step design only (``design="persistent"`` raises ``NotImplementedError``; a
-pair walks both chains in each step launch). A mixed set raises
-``TypeError``.
+float32, which runs the float32 variants of ``csrc/rnn_tanh_f32.cu``. Both
+walks have both designs: "persistent" is one cooperative launch of
+``rnn_tanh_f32_persist_kernel`` (B8) or ``rnn_tanh_f32_bwd_persist_kernel``
+(B9), each block keeping its float32 slice of w_hh (B8: columns; B9: rows,
+as w_hh lies) in shared memory (:func:`persist_plan.plan_rnn_tanh_f32_forward`
+and :func:`persist_plan.plan_rnn_tanh_f32_backward` plan them), "step" one
+launch per time step (a pair walks both chains in each step launch). A mixed
+set raises ``TypeError``.
 ``<wrapper>.dtype_counts`` counts the chains by the set taken.
 
 A wrapper launches its kernel for CUDA tensors and raises on anything the
@@ -45,7 +45,7 @@ import torch
 from . import cuda_build, persist_plan
 from .cuda_build import chain_ptrs
 from .cuda_checks import check_stream_shape, check_tensors, count, pair_dtype, time_order
-from .gru_cuda import device_info, f32_slices, transposed
+from .gru_cuda import device_info, f32_rows, f32_slices, transposed
 
 
 def rnn_tanh_scan_plain(gx, lengths, w_hh, reverse: bool = False):
@@ -355,6 +355,36 @@ def _bwd_f32(chains, reverses):
     return [(dpre[k], dh[k]) for k in range(n)]
 
 
+def _bwd_f32_persistent(chains, reverses, planned):
+    """The float32 variant, persistent (``csrc/rnn_tanh_f32.cu``): one or
+    two walks that share T, B, H and lengths in one cooperative launch of the
+    planned grid, each chain with its own barrier, the carry from zero.
+    ``chains`` holds the operand tuples (out, dout, lengths, w_hh) of
+    :func:`rnn_tanh_bwd_scan`; returns one (dpre, dh0) per chain."""
+    launch = cuda_build.bind("rnn_tanh_f32", "rnn_tanh_f32_bwd_persist_launch", 13, 17)
+    out, _, lengths, _ = chains[0]
+    t_max, batch, hidden = out.shape
+    dev = out.device
+    n = len(chains)
+    # dpre of each step, exchanged transposed (depths, then rows); zeros past
+    # H and past B are never written
+    dx = torch.zeros((2, n, planned.padded_depth, planned.padded_rows), dtype=torch.float32,
+                     device=dev)
+    rows = [f32_rows(c[3], planned.units, planned.blocks_per_dir, planned.padded_depth)
+            for c in chains]
+    outs = [(torch.empty((t_max, batch, hidden), dtype=torch.float32, device=dev),
+             torch.empty((batch, hidden), dtype=torch.float32, device=dev)) for _ in chains]
+    barrier = torch.zeros((n,), dtype=torch.int32, device=dev)
+    cuda_build.call(
+        launch, "rnn_tanh_bwd_scan (float32, persistent)", dev,
+        *chain_ptrs([c[0] for c in chains]), *chain_ptrs([c[1] for c in chains]),
+        lengths.data_ptr(), *chain_ptrs(rows), dx.data_ptr(),
+        *chain_ptrs([o[1] for o in outs]), *chain_ptrs([o[0] for o in outs]),
+        barrier.data_ptr(), t_max, batch, hidden, int(bool(reverses[0])),
+        int(bool(reverses[-1])), n, *planned.c_args())
+    return outs
+
+
 def _bwd_persistent(chains, reverses, planned):
     """The persistent walk of one or two chains that share T, B, H and
     lengths, in one launch. ``chains`` holds the operand tuples (out, dout,
@@ -391,8 +421,9 @@ def rnn_tanh_bwd_scan(out, dout, lengths, w_hh, reverse: bool = True,
     lengths, all contiguous on out's device; or everything float32, the
     float32 variant) or raises; a CPU ``out`` runs the plain version.
     ``design`` is None (the plan of
-    :func:`persist_plan.plan_rnn_tanh_backward` decides), "persistent" or
-    "step"; ``rnn_tanh_bwd_scan.design_counts`` and
+    :func:`persist_plan.plan_rnn_tanh_backward` decides,
+    :func:`persist_plan.plan_rnn_tanh_f32_backward` for float32),
+    "persistent" or "step"; ``rnn_tanh_bwd_scan.design_counts`` and
     ``rnn_tanh_bwd_scan.dtype_counts`` count the chains by the design and the
     operand set taken. ``rnn_tanh_bwd_scan.launches`` counts chains (one per
     call), ``rnn_tanh_bwd_scan.pair_launches`` the cooperative launches that
@@ -405,8 +436,13 @@ def rnn_tanh_bwd_scan(out, dout, lengths, w_hh, reverse: bool = True,
     dtype = _check_bwd_operands(out, dout, lengths, w_hh)
     chain = (out, dout, lengths, w_hh)
     if dtype == torch.float32:
-        design = persist_plan.float32_design(design)
-        result = _bwd_f32([chain], [reverse])[0]
+        planned = persist_plan.plan_rnn_tanh_f32_backward(w_hh.shape[0], out.shape[1], 1,
+                                                          *device_info(out.device))
+        design = persist_plan.choose(design, planned)
+        if design == "persistent":
+            result = _bwd_f32_persistent([chain], [reverse], planned)[0]
+        else:
+            result = _bwd_f32([chain], [reverse])[0]
     else:
         planned = persist_plan.plan_rnn_tanh_backward(w_hh.shape[0], out.shape[1], 1,
                                                       *device_info(out.device))
@@ -437,9 +473,12 @@ def rnn_tanh_bwd_scan_pair(chain_a, chain_b, reverse_a: bool, reverse_b: bool,
     CUDA both walks share one persistent launch when the plan for two chains
     fits and ``rnn_tanh_bwd_scan.pair_launches`` grows by one; otherwise, for
     ``design="step"``, and on the CPU, they run one after the other as two
-    :func:`rnn_tanh_bwd_scan` calls. Float32 chains walk together in each of
-    the T + 1 launches of the float32 variant; ``pair_launches`` counts only
-    the cooperative (bf16) launches. Either way
+    :func:`rnn_tanh_bwd_scan` calls. Float32 chains take the plans of
+    :func:`persist_plan.plan_rnn_tanh_f32_backward`: both in one cooperative
+    launch where the plan for two fits, else one launch a chain where the
+    plan for one does; ``design="step"`` (or no plan that fits) walks both
+    in each of the T + 1 launches of the float32 step kernel;
+    ``pair_launches`` counts only the cooperative bf16 launches. Either way
     ``rnn_tanh_bwd_scan.launches`` grows by two: it counts chains.
     """
     _check_pair(chain_a, chain_b)
@@ -448,8 +487,10 @@ def rnn_tanh_bwd_scan_pair(chain_a, chain_b, reverse_a: bool, reverse_b: bool,
                 rnn_tanh_bwd_scan(*chain_b, reverse=reverse_b))
     dtype = pair_dtype(_check_bwd_operands, chain_a, chain_b)
     if dtype == torch.float32:
-        design = persist_plan.float32_design(design)
-        outs = _bwd_f32([chain_a, chain_b], [reverse_a, reverse_b])
+        outs, design = persist_plan.run_f32_pair(
+            persist_plan.plan_rnn_tanh_f32_backward, chain_a[3].shape[0], chain_a[0].shape[1],
+            device_info(chain_a[0].device), design, [chain_a, chain_b], [reverse_a, reverse_b],
+            _bwd_f32, _bwd_f32_persistent)
         count(rnn_tanh_bwd_scan, design, dtype, 2)
         return outs[0], outs[1]
     planned = persist_plan.plan_rnn_tanh_backward(

@@ -1,7 +1,8 @@
 """The plans of the persistent float32 GRU backward walk (B4), LSTM forward
-walk (B5, B6), LSTM backward walk (B7) and tanh-RNN forward walk (B8)
-(ops/persist_plan.py:plan_f32, plan_gru_f32_backward, plan_lstm_f32_forward,
-plan_lstm_f32_backward, plan_rnn_tanh_f32_forward) with an H100's figures
+walk (B5, B6), LSTM backward walk (B7), tanh-RNN forward walk (B8) and
+tanh-RNN backward walk (B9) (ops/persist_plan.py:plan_f32,
+plan_gru_f32_backward, plan_lstm_f32_forward, plan_lstm_f32_backward,
+plan_rnn_tanh_f32_forward, plan_rnn_tanh_f32_backward) with an H100's figures
 passed in, the packed weight slices they read (ops/gru_cuda.py:f32_rows,
 f32_slices), what their routes hand the C entries, and the walks' step
 order: no CUDA device is needed.
@@ -26,14 +27,16 @@ SMS, SMEM = pp.H100_SMS, pp.H100_SMEM_OPTIN
 PLANNERS = {"gru_backward": pp.plan_gru_f32_backward,
             "lstm_forward": pp.plan_lstm_f32_forward,
             "lstm_backward": pp.plan_lstm_f32_backward,
-            "rnn_tanh_forward": pp.plan_rnn_tanh_f32_forward}
+            "rnn_tanh_forward": pp.plan_rnn_tanh_f32_forward,
+            "rnn_tanh_backward": pp.plan_rnn_tanh_f32_backward}
 
 # (walk, hidden, batch, chains): the flagship's training layer (B4) one chain
 # and the pair, at B = 128 and one clip; the 5x2000 model's uni training
 # layer; LSTM5x800's training and serving layers (B5, B6), one chain and the
 # pair, and one clip; LSTM5x800's training layer (B7) and Tanh5x800's serving
-# and training layers (B8), one chain and the pair, and one clip; small and
-# ragged shapes
+# and training layers (B8), one chain and the pair, and one clip; Tanh5x800's
+# training layer (B9), one chain and the pair, its serving width and one clip;
+# small and ragged shapes
 FITS = [("gru_backward", 1200, 32, 2), ("gru_backward", 1200, 32, 1),
         ("gru_backward", 1200, 128, 2), ("gru_backward", 1200, 1, 2),
         ("gru_backward", 2000, 32, 1), ("gru_backward", 2000, 128, 2),
@@ -55,7 +58,15 @@ FITS = [("gru_backward", 1200, 32, 2), ("gru_backward", 1200, 32, 1),
         ("rnn_tanh_forward", 70, 5, 1), ("rnn_tanh_forward", 72, 150, 2),
         ("rnn_tanh_forward", 72, 150, 1), ("rnn_tanh_forward", 8, 1, 1),
         ("rnn_tanh_forward", 8, 5, 2), ("rnn_tanh_forward", 1, 1, 1),
-        ("rnn_tanh_forward", 1, 150, 2), ("rnn_tanh_forward", 2000, 128, 1)]
+        ("rnn_tanh_forward", 1, 150, 2), ("rnn_tanh_forward", 2000, 128, 1),
+        ("rnn_tanh_backward", 800, 32, 2), ("rnn_tanh_backward", 800, 32, 1),
+        ("rnn_tanh_backward", 800, 128, 2), ("rnn_tanh_backward", 800, 128, 1),
+        ("rnn_tanh_backward", 800, 1, 2), ("rnn_tanh_backward", 70, 5, 2),
+        ("rnn_tanh_backward", 70, 5, 1), ("rnn_tanh_backward", 72, 150, 2),
+        ("rnn_tanh_backward", 72, 150, 1), ("rnn_tanh_backward", 8, 1, 1),
+        ("rnn_tanh_backward", 8, 5, 2), ("rnn_tanh_backward", 1, 1, 1),
+        ("rnn_tanh_backward", 1, 150, 2), ("rnn_tanh_backward", 2000, 128, 1),
+        ("rnn_tanh_backward", 2000, 32, 2)]
 
 
 def _id(shape):
@@ -149,6 +160,13 @@ def test_every_unit_of_every_chain_has_one_owner(walk, hidden, batch, chains):
          21504),
         ("rnn_tanh_forward", 800, 32, 2, 14, 116, 224, 8, 32, 832, 832, 70144, 23552, 16128),
         ("rnn_tanh_forward", 800, 128, 1, 8, 100, 256, 4, 128, 832, 832, 96256, 69632, 20480),
+        # Tanh5x800's training pair (B9): rows of w_hh over H, 47 KB of slice
+        # a block, all resident beside the partial carry (14 x 32 floats)
+        ("rnn_tanh_backward", 800, 32, 2, 14, 116, 224, 8, 32, 832, 832, 71936, 23552,
+         16128),
+        ("rnn_tanh_backward", 800, 32, 1, 8, 100, 128, 8, 32, 832, 832, 48128, 20480, 9216),
+        ("rnn_tanh_backward", 800, 128, 2, 14, 116, 224, 2, 128, 832, 832, 126464, 72704,
+         21504),
     ])
 def test_walk_plan_at_the_path_shapes(walk, hidden, batch, chains, units, grid, threads,
                                       k_splits, rows, depth, resident, smem, ring, sums):
@@ -175,6 +193,10 @@ def test_walk_plan_at_the_path_shapes(walk, hidden, batch, chains, units, grid, 
     ("rnn_tanh_forward", (800, 128, 2, SMS, 40 * 1024), "ring and sums 72704 B"),
     ("lstm_backward", (8000, 128, 2, SMS, SMEM), "976 threads"),
     ("rnn_tanh_forward", (8000, 128, 2, SMS, SMEM), "976 threads"),
+    ("rnn_tanh_backward", (800, 32, 2, 1, SMEM), "2 chains on 1 SMs"),
+    # the ring and the carry alone exceed 64 KB
+    ("rnn_tanh_backward", (800, 128, 2, SMS, 64 * 1024), "state 7168 B"),
+    ("rnn_tanh_backward", (8000, 128, 2, SMS, SMEM), "976 threads"),
 ])
 def test_walk_plan_takes_the_step_design_where_it_cannot_fit(walk, args, reason):
     plan = PLANNERS[walk](*args)
@@ -219,6 +241,8 @@ def test_walk_plan_constants_mirror_the_kernel(constant, define):
     ("lstm_backward", "lstm_f32.cu", "lstm_f32_bwd_persist_kernel",
      "fp_work_floats(q, q.U, q.RB, 4 * q.U * q.RB)"),
     ("rnn_tanh_forward", "rnn_tanh_f32.cu", "rnn_tanh_f32_persist_kernel",
+     "fp_work_floats(q, q.U, q.RB, q.U * q.RB)"),
+    ("rnn_tanh_backward", "rnn_tanh_f32.cu", "rnn_tanh_f32_bwd_persist_kernel",
      "fp_work_floats(q, q.U, q.RB, q.U * q.RB)"),
 ])
 def test_walk_table_mirrors_the_kernels(walk, source, kernel, work):
@@ -307,6 +331,25 @@ def test_f32_slices_pack_the_one_tanh_gate(hidden, units, blocks, depth):
             j = k * units + u
             if j < hidden:
                 want[k, :hidden, u] = w[:, j]
+    assert torch.equal(packed, want)
+
+
+@pytest.mark.parametrize("hidden,units,blocks,depth", [(7, 2, 4, 64), (70, 2, 35, 128),
+                                                       (72, 14, 6, 128), (800, 14, 58, 832)])
+def test_f32_rows_pack_each_blocks_rows_of_the_tanh_weights(hidden, units, blocks, depth):
+    """B9's slice: block k's column u at depth d is w_hh[k * units + u, d],
+    the rows of the square w_hh (the columns of w_hh^T) over a depth of H;
+    zeros for units past H and depths past H."""
+    gen = torch.Generator().manual_seed(hidden + 4)
+    w = torch.randn(hidden, hidden, generator=gen)
+    packed = gru_cuda.f32_rows(w, units, blocks, depth)
+    assert packed.shape == (blocks, depth, units) and packed.is_contiguous()
+    want = torch.zeros(blocks, depth, units)
+    for k in range(blocks):
+        for u in range(units):
+            j = k * units + u
+            if j < hidden:
+                want[k, :hidden, u] = w[j]
     assert torch.equal(packed, want)
 
 
@@ -518,6 +561,40 @@ def test_persistent_tanh_route_matches_its_c_entry(monkeypatch, chains, reverses
         assert (args[f"out_{k}"], args[f"h_last_{k}"]) == (out.data_ptr(), h_last.data_ptr())
     for out, h_last in outs:
         assert (tuple(out.shape), tuple(h_last.shape)) == ((T, B, H), (B, H))
+
+
+@pytest.mark.parametrize("chains,reverses", [(1, [True]), (1, [False]), (2, [True, False])])
+def test_persistent_tanh_bwd_route_matches_its_c_entry(monkeypatch, chains, reverses):
+    """B9, persistent: the entry gets each chain's out and dout, lengths and
+    packed rows of w_hh (one chain fills both), a zeroed exchange buffer,
+    the buffers that come back as dh0 and dpre, one zeroed barrier a chain,
+    then (T, B, H, reverse_a, reverse_b, chains) and the plan's ints."""
+    plan = pp.plan_rnn_tanh_f32_backward(H, B, chains, SMS, SMEM)
+    n_ptr, n_int, names = _c_signature("rnn_tanh_f32.cu", "rnn_tanh_f32_bwd_persist_launch")
+    assert (n_ptr, n_int) == (13, 17)
+    rec = _record_launch(monkeypatch, names.index("dx"),
+                         (2, chains, plan.padded_depth, plan.padded_rows))
+    lengths = torch.tensor([6, 2, 0], dtype=torch.int32)
+    ops = [(torch.rand(T, B, H) * 2 - 1, torch.randn(T, B, H), lengths, torch.randn(H, H))
+           for _ in range(chains)]
+    outs = rnn_tanh_cuda._bwd_f32_persistent(ops, reverses, plan)
+    assert rec["bound"] == ("rnn_tanh_f32", "rnn_tanh_f32_bwd_persist_launch", n_ptr, n_int)
+    args = dict(zip(names, rec["args"]))
+    assert len(rec["args"]) == n_ptr + n_int
+    assert list(rec["args"][n_ptr:]) == [T, B, H, int(reverses[0]), int(reverses[-1]), chains,
+                                         *plan.c_args()]
+    rows = [gru_cuda.f32_rows(c[3], plan.units, plan.blocks_per_dir, plan.padded_depth)
+            for c in ops]
+    for i, name in [(0, "out"), (1, "dout")]:
+        assert (args[f"{name}_a"], args[f"{name}_b"]) == (ops[0][i].data_ptr(),
+                                                          ops[-1][i].data_ptr())
+    assert args["lengths"] == lengths.data_ptr()
+    assert (args["wp_a"], args["wp_b"]) == (rows[0].data_ptr(), rows[-1].data_ptr())
+    assert not rec["buffer"].any()
+    for k, (dpre, dh0) in zip("ab", (outs[0], outs[-1])):
+        assert (args[f"dpre_{k}"], args[f"dh_{k}"]) == (dpre.data_ptr(), dh0.data_ptr())
+    for dpre, dh0 in outs:
+        assert (tuple(dpre.shape), tuple(dh0.shape)) == ((T, B, H), (B, H))
 
 
 # ---------------------------------------------------------------------------
@@ -749,5 +826,54 @@ def test_tanh_walk_skipping_the_steps_past_every_length_matches_the_plain_walk(r
     assert plan.blocks_per_dir > 1
     got = _tanh_walk_as_the_kernel_takes_it(*args, reverse, plan)
     want = rnn_tanh_cuda.rnn_tanh_scan_plain(*args, reverse=reverse)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+
+
+def _tanh_bwd_walk_as_the_kernel_takes_it(out, dout, lengths, w_hh, reverse, plan):
+    """rnn_tanh_f32_bwd_persist_kernel's walk in plain tensor ops: the carry
+    through the packed rows and the exchanged, transposed and padded dpre,
+    only the steps before the longest length walked (zeros after it), the
+    partial carry kept per block from zero, one last pass for dh0."""
+    t_max, batch, hidden = out.shape
+    rows = gru_cuda.f32_rows(w_hh, plan.units, plan.blocks_per_dir, plan.padded_depth)
+    dx = torch.zeros(plan.padded_depth, plan.padded_rows)
+    part = torch.zeros(plan.blocks_per_dir * plan.units, plan.padded_rows)
+    dpre = torch.zeros(t_max, batch, hidden)
+    n = int(lengths.max())
+    for s in range(n + 1):
+        # each block's carry: its columns of dx^T @ rows over the whole depth
+        acc = torch.cat([dx.t() @ rows[k] for k in range(plan.blocks_per_dir)], 1).t()
+        dh = part + acc if s > 0 else part.clone()
+        if s == n:
+            return dpre, dh[:hidden, :batch].t()
+        t = n - 1 - s if reverse else s
+        m = (lengths > t).float()[:, None]
+        d = dh[:hidden, :batch].t()
+        dpre[t] = m * (d + dout[t]) * (1 - out[t] * out[t])
+        part = torch.zeros_like(part)
+        part[:hidden, :batch] = ((1 - m) * d).t()
+        dx = torch.zeros_like(dx)
+        dx[:hidden, :batch] = dpre[t].t()
+
+
+@pytest.mark.parametrize("reverse", [True, False])
+@pytest.mark.parametrize("lengths", [[6, 2, 0], [4, 4, 1], [0, 0, 0], [6, 6, 6]])
+def test_tanh_bwd_walk_skipping_the_steps_past_every_length_matches_the_plain_walk(reverse,
+                                                                                   lengths):
+    """The persistent tanh-RNN backward walk walks t < max(lengths) only
+    (reversed or not) and writes zeros at the later steps: there every row
+    is past its length, dL/dh passes through unchanged and dpre is zero, so
+    the carry into the next walked step and dh0 are those of the full walk."""
+    gen = torch.Generator().manual_seed(sum(lengths) + 40 * reverse)
+    lens = torch.tensor(lengths, dtype=torch.int32)
+    out = torch.rand(T, B, H, generator=gen) * 2 - 1
+    out[torch.arange(T)[:, None] >= lens[None, :].long()] = 0  # as the forward's
+    args = (out, torch.randn(T, B, H, generator=gen), lens,
+            torch.randn(H, H, generator=gen) / 3)
+    plan = pp.plan_rnn_tanh_f32_backward(H, B, 1, 4, SMEM)  # several blocks of a few units
+    assert plan.blocks_per_dir > 1
+    got = _tanh_bwd_walk_as_the_kernel_takes_it(*args, reverse, plan)
+    want = rnn_tanh_cuda.rnn_tanh_bwd_scan_plain(*args, reverse=reverse)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)

@@ -399,8 +399,8 @@ def _f32_call(name, hidden, batch):
 F32_FORWARD = {"gru_bidi_fused": ("_bidi_fused_f32_persistent", 2),
                "gru_scan": ("_scan_f32_persistent", 1),
                "gru_scan_bidi": ("_scan_f32_persistent", 2)}
-# every float32 wrapper with a persistent walk (B1-B8): its persistent route,
-# its planner and the chains one call of the route walks
+# every float32 wrapper (B1-B9): its persistent route, its planner and the
+# chains one call of the route walks
 F32_PLANNED = {
     **{k: (route, "plan_gru_f32_forward", n) for k, (route, n) in F32_FORWARD.items()},
     "gru_bwd_scan": ("_bwd_f32_persistent", "plan_gru_f32_backward", 1),
@@ -412,11 +412,14 @@ F32_PLANNED = {
     "lstm_bwd_scan_pair": ("_bwd_f32_persistent", "plan_lstm_f32_backward", 2),
     "rnn_tanh_scan": ("_scan_f32_persistent", "plan_rnn_tanh_f32_forward", 1),
     "rnn_tanh_scan_pair": ("_scan_f32_persistent", "plan_rnn_tanh_f32_forward", 2),
+    "rnn_tanh_bwd_scan": ("_bwd_f32_persistent", "plan_rnn_tanh_f32_backward", 1),
+    "rnn_tanh_bwd_scan_pair": ("_bwd_f32_persistent", "plan_rnn_tanh_f32_backward", 2),
 }
 # the reverse flags each pair's call of _f32_call hands its chains
 PAIR_REVERSES = {"gru_bwd_scan_pair": [[True], [False]], "lstm_scan_pair": [[False], [True]],
                  "lstm_bwd_scan_pair": [[True], [False]],
-                 "rnn_tanh_scan_pair": [[False], [True]]}
+                 "rnn_tanh_scan_pair": [[False], [True]],
+                 "rnn_tanh_bwd_scan_pair": [[True], [False]]}
 
 
 def _fake_routes(monkeypatch, module, names):
@@ -441,19 +444,15 @@ def _fake_routes(monkeypatch, module, names):
                                           (64, 5), (8, 1)])
 @pytest.mark.parametrize("name", list(F32_ENTRIES))
 def test_float32_plans_take_the_step_design_everywhere(monkeypatch, name, hidden, batch):
-    """B9 in float32 keeps its weights out of shared memory: its float32
-    branch needs no plan and no device figures. At every shape, even where a
-    bf16 slice would fit, None and "step" take the step design (the float32
-    route runs, the counts by design and by dtype grow by the call's
-    chains); "persistent" raises NotImplementedError naming ROADMAP F32++b.
-    B1-B8 in float32 are planned (plan_gru_f32_forward for B1-B3,
+    """B1-B9 in float32 are planned (plan_gru_f32_forward for B1-B3,
     plan_gru_f32_backward for B4, plan_lstm_f32_forward for B5 and B6,
-    plan_lstm_f32_backward for B7, plan_rnn_tanh_f32_forward for B8, an
-    H100's figures): None and "persistent" take the persistent route with
-    the plan of one chain (B1, B4-B8) or two (B2, B3 and the pairs), "step"
-    the step route, each counted by its design and by the chains it walks.
-    An unknown design raises ValueError, before any route runs or anything
-    is counted."""
+    plan_lstm_f32_backward for B7, plan_rnn_tanh_f32_forward for B8,
+    plan_rnn_tanh_f32_backward for B9, an H100's figures), and every plan
+    fits at these shapes: None and "persistent" take the persistent route
+    with the plan of one chain (B1, B4-B9) or two (B2, B3 and the pairs),
+    "step" the step route, each counted by its design and by the chains it
+    walks. An unknown design raises ValueError, before any route runs or
+    anything is counted."""
     import importlib
 
     module_name, counted, route, chains = F32_ENTRIES[name]
@@ -462,16 +461,15 @@ def test_float32_plans_take_the_step_design_everywhere(monkeypatch, name, hidden
     monkeypatch.setattr(wrapper, "launches", 0)
     monkeypatch.setattr(wrapper, "design_counts", {"persistent": 0, "step": 0})
     monkeypatch.setattr(wrapper, "dtype_counts", {"bfloat16": 0, "float32": 0})
-    forward = F32_PLANNED.get(name)
-    if forward:
-        monkeypatch.setattr(module, "device_info", lambda device: (SMS, SMEM))
-    routed = _fake_routes(monkeypatch, module, [route] + ([forward[0]] if forward else []))
+    forward = F32_PLANNED[name]
+    monkeypatch.setattr(module, "device_info", lambda device: (SMS, SMEM))
+    routed = _fake_routes(monkeypatch, module, [route, forward[0]])
     call = _f32_call(name, hidden, batch)
-    designs = (None, "step", "persistent") if forward else (None, "step")
+    designs = (None, "step", "persistent")
     for k, design in enumerate(designs, 1):
         call(design)
         assert len(routed) == k
-        taken = "persistent" if forward and design != "step" else "step"
+        taken = "persistent" if design != "step" else "step"
         assert routed[-1][0] == (forward[0] if taken == "persistent" else route)
         if taken == "persistent":
             planned = routed[-1][2].get("planned", routed[-1][1][-1])
@@ -479,13 +477,10 @@ def test_float32_plans_take_the_step_design_everywhere(monkeypatch, name, hidden
             assert planned.design == "persistent"
             if name != "gru_bidi_fused":  # its route takes the layer's operands
                 assert len(routed[-1][1][0]) == forward[2]  # the chains the launch walks
-    want = {"persistent": 2 if forward else 0, "step": 1 if forward else 2}
+    want = {"persistent": 2, "step": 1}
     assert (wrapper.launches, wrapper.design_counts, wrapper.dtype_counts) == (
         len(designs) * chains, {k: v * chains for k, v in want.items()},
         {"bfloat16": 0, "float32": len(designs) * chains})
-    if not forward:
-        with pytest.raises(NotImplementedError, match="F32\\+\\+b"):
-            call("persistent")
     with pytest.raises(ValueError, match="unknown design"):
         call("fused")
     assert len(routed) == len(designs) and wrapper.launches == len(designs) * chains
@@ -546,11 +541,12 @@ def test_float32_forward_takes_the_step_design_where_the_plan_does(monkeypatch, 
 
 @pytest.mark.parametrize("name", ["gru_bwd_scan_pair", "lstm_scan_pair", "gru_bwd_scan",
                                   "lstm_scan", "lstm_bwd_scan_pair", "lstm_bwd_scan",
-                                  "rnn_tanh_scan_pair", "rnn_tanh_scan"])
+                                  "rnn_tanh_scan_pair", "rnn_tanh_scan",
+                                  "rnn_tanh_bwd_scan_pair", "rnn_tanh_bwd_scan"])
 def test_float32_walk_pairs_take_a_launch_a_chain_where_the_pair_does_not_fit(monkeypatch,
                                                                              name):
-    """On a card of one SM the float32 pair plans of B4, B5/B6, B7 and B8
-    are "step" (two chains on one SM) and the one-chain plans fit: a pair then
+    """On a card of one SM the float32 pair plans of B4, B5/B6, B7, B8 and
+    B9 are "step" (two chains on one SM) and the one-chain plans fit: a pair then
     walks its chains in one persistent launch each, on the one-chain plan,
     and counts two chains; "persistent" is allowed (the one-chain plan fits)
     and "step" walks both chains in the step launches. A single chain stays

@@ -27,6 +27,9 @@ sample, and :func:`ulaw_decode` turns them back into samples on the device.
 Over a mesh of ranks (``parallel/``): the beam front sharded over the data
 axis (``update_decoder(backend="sharded", mesh=...)``) and one long
 utterance's time axis sharded over it (:meth:`transcribe_long_form`).
+While a profiler records, each step of a batch call is a span
+(``engine.call`` around ``engine.plan``, ``engine.stage``, ...;
+``utils/profiling.py:annotate``, ``docs/torch_architecture.md``).
 """
 
 from __future__ import annotations
@@ -52,6 +55,7 @@ from .models import deepspeech as ds
 from .models import streaming
 from .ops import precision
 from .ops import stft as stft_ops
+from .utils.profiling import annotate
 
 
 class NoLmInstantiatedWarning(Warning):
@@ -332,10 +336,11 @@ class DanSpeechRecognizer:
         if waveforms.dtype == torch.uint8:
             waveforms = ulaw_decode(waveforms)
         with self._precision():
-            spect, frame_lens = stft_ops.batched_log_spectrogram(
-                waveforms.float(), lengths, parser.n_fft, parser.hop_length,
-                self._window, normalize=parser.normalize,
-            )
+            with annotate("model.features"):
+                spect, frame_lens = stft_ops.batched_log_spectrogram(
+                    waveforms.float(), lengths, parser.n_fft, parser.hop_length,
+                    self._window, normalize=parser.normalize,
+                )
             return ds.forward(
                 params, self.model.config, spect[:, None], frame_lens,
                 rnn_impl=rnn_impl,
@@ -454,14 +459,15 @@ class DanSpeechRecognizer:
     def _transcribe_pipelined(self, recordings: list[np.ndarray], show_all: bool):
         if self.model is None:
             raise ModelNotInitialized("No acoustic model loaded")
-        try:
-            return self._transcribe_pipelined_inner(recordings, show_all)
-        except BaseException:
-            # uploads may still read the pinned buffers: drop the cache so
-            # the next call cannot overwrite an in-flight source
-            self._staging = {}
-            self._staging_used = set()
-            raise
+        with annotate("engine.call"):
+            try:
+                return self._transcribe_pipelined_inner(recordings, show_all)
+            except BaseException:
+                # uploads may still read the pinned buffers: drop the cache
+                # so the next call cannot overwrite an in-flight source
+                self._staging = {}
+                self._staging_used = set()
+                raise
 
     @staticmethod
     def _decode_kwargs(decoder, show_all: bool) -> dict:
@@ -473,7 +479,8 @@ class DanSpeechRecognizer:
         return {}
 
     def _transcribe_pipelined_inner(self, recordings, show_all):
-        plans = self._plan_groups(recordings)
+        with annotate("engine.plan"):
+            plans = self._plan_groups(recordings)
         params = self._compute_params
         greedy = isinstance(self.decoder, GreedyDecoder)
         self._staging_used = set()
@@ -482,23 +489,28 @@ class DanSpeechRecognizer:
         # of what the host decodes
         pending = []
         for idxs, maxlen in plans:
-            batch, lengths = self._stage_group(recordings, idxs, maxlen)
-            wave = batch.to(self.device, non_blocking=True)
-            lens = torch.from_numpy(lengths).to(self.device, non_blocking=True)
+            with annotate("engine.stage"):
+                batch, lengths = self._stage_group(recordings, idxs, maxlen)
+            with annotate("engine.upload"):
+                wave = batch.to(self.device, non_blocking=True)
+                lens = torch.from_numpy(lengths).to(self.device, non_blocking=True)
+            with annotate("engine.forward"):
+                if greedy:
+                    out, out_lens = self._forward_greedy(params, wave, lens)
+                else:
+                    out, out_lens = self._forward(params, wave, lens)
             decoder, on_device = None, False
-            if greedy:
-                out, out_lens = self._forward_greedy(params, wave, lens)
-            else:
-                out, out_lens = self._forward(params, wave, lens)
+            if not greedy:
                 decoder = self.decoder
                 if hasattr(decoder, "for_batch"):  # batch-aware auto
                     decoder = decoder.for_batch(len(idxs))
                 on_device = getattr(decoder, "supports_n_best", False)
-            if not on_device:
-                # the argmax paths, or the probabilities of the real rows
-                # for the host beam (pad rows would cost real beam work)
-                out, _ = _to_host_async(out if greedy else out[: len(idxs)])
-            host_lens, done = _to_host_async(out_lens)
+            with annotate("engine.d2h"):
+                if not on_device:
+                    # the argmax paths, or the probabilities of the real rows
+                    # for the host beam (pad rows would cost real beam work)
+                    out, _ = _to_host_async(out if greedy else out[: len(idxs)])
+                host_lens, done = _to_host_async(out_lens)
             pending.append((idxs, decoder, on_device, out, host_lens, done))
 
         # phase 2: decode in dispatch order while later groups run
@@ -506,22 +518,27 @@ class DanSpeechRecognizer:
         blank = self.decoder.blank_index
         for idxs, decoder, on_device, out, host_lens, done in pending:
             if done is not None:
-                done.synchronize()
+                with annotate("engine.wait"):
+                    done.synchronize()
             lens_np = host_lens.numpy()
             if decoder is None:
-                strings = collapse_batch(
-                    out.numpy()[: len(idxs)], lens_np[: len(idxs)],
-                    self.labels, blank,
-                )
+                with annotate("engine.collapse"):
+                    strings = collapse_batch(
+                        out.numpy()[: len(idxs)], lens_np[: len(idxs)],
+                        self.labels, blank,
+                    )
                 decoded = [[s] for s in strings]
-            elif on_device:
-                # device beam: the probabilities never leave the device;
-                # the pad rows ride the search and are dropped below
-                decoded, _ = decoder.decode(
-                    out, lens_np, **self._decode_kwargs(decoder, show_all)
-                )
             else:
-                decoded, _ = decoder.decode(out.numpy(), lens_np[: len(idxs)])
+                with annotate("engine.decode"):
+                    if on_device:
+                        # device beam: the probabilities never leave the
+                        # device; the pad rows ride the search and are
+                        # dropped below
+                        decoded, _ = decoder.decode(
+                            out, lens_np, **self._decode_kwargs(decoder, show_all)
+                        )
+                    else:
+                        decoded, _ = decoder.decode(out.numpy(), lens_np[: len(idxs)])
             for j, i in enumerate(idxs):
                 results[i] = decoded[j]
         return results

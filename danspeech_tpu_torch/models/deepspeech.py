@@ -29,6 +29,7 @@ from torch.autograd.function import once_differentiable
 from ..ops import conv as conv_ops
 from ..ops import rnn as rnn_ops
 from ..ops.conv import BatchNormParams, ConvParams, LinearParams, LookaheadParams
+from ..utils.profiling import annotate
 from .config import CONV_SPECS, DeepSpeechConfig
 
 Params = dict[str, Any]
@@ -300,19 +301,23 @@ def forward(
     runs the layer's forward again instead of keeping its residuals, so only
     one layer's output streams are alive at a time."""
     out_lengths = get_seq_lens(config, input_lengths)
-    x = conv_stack(params, config, x, out_lengths)
+    with annotate("model.conv"):
+        x = conv_stack(params, config, x, out_lengths)
 
     n, c, f, t = x.shape
     x = x.reshape(n, c * f, t).permute(2, 0, 1)  # (T, N, H)
 
+    layer = _remat_rnn_layer if rnn_remat else _apply_rnn_layer
     for entry in params["rnns"]:
-        layer = _remat_rnn_layer if rnn_remat else _apply_rnn_layer
-        x = layer(config.rnn_type, entry, x, out_lengths, rnn_impl)
+        with annotate("model.rnn"):
+            x = layer(config.rnn_type, entry, x, out_lengths, rnn_impl)
 
     if not config.bidirectional:
-        x = conv_ops.hardtanh(conv_ops.lookahead(x, params["lookahead"]))
+        with annotate("model.lookahead"):
+            x = conv_ops.hardtanh(conv_ops.lookahead(x, params["lookahead"]))
 
-    x = head(params, x).permute(1, 0, 2)  # (N, T, C)
-    if softmax:
-        x = torch.softmax(x, dim=-1)
+    with annotate("model.head"):
+        x = head(params, x).permute(1, 0, 2)  # (N, T, C)
+        if softmax:
+            x = torch.softmax(x, dim=-1)
     return x, out_lengths

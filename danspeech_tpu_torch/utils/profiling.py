@@ -4,18 +4,20 @@
 :func:`device_trace` captures a trace of the host and, on CUDA, the device
 around any pipeline call and writes it under ``log_dir`` (Chrome trace
 JSON, readable in Perfetto and TensorBoard's profiler); :func:`annotate`
-names a range inside it; :func:`amortized_seconds` gives the steady-state
-time of one call, synchronising the card once after many calls rather than
-after each.
+names a range inside it. The engine and the model's forward pass mark
+their steps with :func:`annotate` (``engine.*`` and ``model.*``,
+``docs/torch_architecture.md``); a span exists only while a profiler
+records, so with none it costs one check.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
-import time
 
 import torch
+
+_OFF = contextlib.nullcontext()
 
 
 @contextlib.contextmanager
@@ -38,40 +40,10 @@ def device_trace(log_dir: str):
 
 
 def annotate(name: str):
-    """A named range that shows up inside traces."""
-    return torch.profiler.record_function(name)
-
-
-def amortized_seconds(fn, *args, iters: int = 10, warmup: int = 1) -> float:
-    """Steady-state seconds per call of ``fn``: ``iters`` calls enqueued
-    back to back and one synchronisation at the end (``torch.cuda.synchronize``
-    when the output holds a CUDA tensor), so no per-call round trip is
-    counted."""
-    out = None
-    for _ in range(max(1, warmup)):
-        out = fn(*args)
-    _sync(out)
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        out = fn(*args)
-    _sync(out)
-    return (time.perf_counter() - t0) / iters
-
-
-def _first_tensor(out):
-    if isinstance(out, torch.Tensor):
-        return out
-    if isinstance(out, dict):
-        out = list(out.values())
-    if isinstance(out, (list, tuple)):
-        for v in out:
-            t = _first_tensor(v)
-            if t is not None:
-                return t
-    return None
-
-
-def _sync(out):
-    t = _first_tensor(out)
-    if t is not None and t.device.type == "cuda":
-        torch.cuda.synchronize(t.device)
+    """A named range that shows up inside traces: ``record_function`` while
+    a profiler records, else one shared no-op context (``record_function``
+    alone costs some 10 µs a span even with no profiler, the check under
+    1 µs)."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _OFF

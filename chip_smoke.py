@@ -6,6 +6,7 @@
     python3 chip_smoke.py --only 8  # phases 1, 2 and 8 only (or 9, 10, 11, 12)
     python3 chip_smoke.py --phase-clocks  # where a persistent kernel's step
                                           # spends its clocks (-DPS_PROFILE build)
+    python3 chip_smoke.py --lookahead  # phases 1, 2 and 11c only
     python3 chip_smoke.py --f32-train  # phases 1, 2 and phase 12g's float32
                                        # train steps alone, each step split,
                                        # unchecked: runs on an older tree too,
@@ -141,7 +142,15 @@ Phases, in order; any failure exits non-zero:
     flagship, the others at their demo widths; each twin's output equal to
     the port's API called directly on the same model and rows, its wall time
     and the launches read around it (B1, B2, B3 and B4 must each be
-    launched); one ``{"gallery": ...}`` line;
+    launched); one ``{"gallery": ...}`` line; (c) the lookahead stencil
+    (``csrc/lookahead.cu``) alone at GPUStreamingRNN's batch shape (T=401,
+    B=128, H=2000, C=20), float32 with TF32 off: forward and past walk (dx)
+    against the stacked plain version within LOOKAHEAD_RTOL, timed beside
+    the plain version, one ``F.conv1d(groups=H)`` and the byte bound, the
+    gradient's tap passes (dw) timed, ragged shapes on the scalar path; one
+    ``{"lookahead": ...}`` line, with the stencil's launches in phase 4 (0:
+    the flagship is bidirectional) and phase 5a (one a dispatch group,
+    checked there);
 12. float32 on the card, in a process that allows TF32 (matmul precision
     "high", cuDNN TF32 on, as a user's may): a product and a convolution
     whose results TF32 would change show that ``ops/precision.py`` turns it
@@ -1545,7 +1554,7 @@ def phase_serve(card):
     from danspeech_tpu_torch.engine import DanSpeechRecognizer
     from danspeech_tpu_torch.models import DeepSpeechConfig, DeepSpeechModel
     from danspeech_tpu_torch.models.deepspeech import get_seq_lens
-    from danspeech_tpu_torch.ops import gru_cuda
+    from danspeech_tpu_torch.ops import gru_cuda, lookahead_cuda
 
     config = DeepSpeechConfig(**FLAGSHIP)
     t0 = time.perf_counter()
@@ -1571,6 +1580,7 @@ def phase_serve(card):
     )
 
     gru_cuda.gru_bidi_fused.launches = 0
+    lookahead_cuda.lookahead.launches = 0
     zero_designs()
     calls = []
     for path, wave in zip(clips, clip_audio):
@@ -1594,6 +1604,11 @@ def phase_serve(card):
     if launches != expected:
         raise AssertionError("the main path did not run every GRU layer on the kernel")
     require_persistent(gru_cuda.gru_bidi_fused, "flagship serving")
+    stencils = lookahead_cuda.lookahead.launches
+    log(f"  lookahead stencil launches on the flagship's path: {stencils} (expected 0: "
+        f"bidirectional, no lookahead)")
+    if stencils:
+        raise AssertionError("a bidirectional model launched the lookahead stencil")
     serve = []
     for kind, what, samples, wall in calls:
         audio_s = samples / 16000.0
@@ -1642,7 +1657,7 @@ def phase_serve(card):
     check_small = compare_probs("small model: card vs CPU path", probs.cpu(),
                                 ref, out_lens.cpu(), len(idxs))
     return {"launches": launches, "expected_launches": expected,
-            "profile": profile,
+            "lookahead_launches": stencils, "profile": profile,
             "serve": serve, "flagship_vs_plain": check_flag,
             "small_vs_cpu": check_small}
 
@@ -1789,6 +1804,7 @@ def seeded_wav(path, rng):
 
 STREAM_PROFILE_GROUPS = {
     "B1 recurrence": ("gru_scan_persist_kernel", "gru_scan_step_kernel"),
+    "lookahead": ("lookahead_stencil_kernel",),
     "B3 (secondary model)": ("gru_persist_kernel", "gru_step_kernel", "gru_proj"),
     "convolution": ("conv", "cudnn", "wgrad", "dgrad", "fprop"),
     "library GEMM": ("gemm", "cutlass", "nvjet", "cublas"),
@@ -1812,7 +1828,7 @@ def transpose_share(eng, chunk_busy_ms, card):
 def phase_stream(card):
     from danspeech_tpu_torch import Recognizer
     from danspeech_tpu_torch.models import DeepSpeechConfig, DeepSpeechModel
-    from danspeech_tpu_torch.ops import gru_cuda
+    from danspeech_tpu_torch.ops import gru_cuda, lookahead_cuda
 
     config = DeepSpeechConfig(**GPU_STREAMING)
     t0 = time.perf_counter()
@@ -1833,8 +1849,10 @@ def phase_stream(card):
     # 5a: recognize_batch on the unidirectional model
     rng = np.random.default_rng(5)
     batches = [seeded_waveforms(rng, 128) for _ in range(2)]
-    expected = layers * sum(len(eng._plan_groups(b)) for b in batches)
+    groups = sum(len(eng._plan_groups(b)) for b in batches)
+    expected = layers * groups
     gru_cuda.gru_scan.launches = 0
+    stencils0 = lookahead_cuda.lookahead.design_counts["stencil"]
     zero_designs()
     serve = []
     for k, batch in enumerate(batches):
@@ -1855,7 +1873,14 @@ def phase_stream(card):
     if batch_launches != expected:
         raise AssertionError("the uni batch path did not run every GRU layer on gru_scan")
     require_persistent(gru_cuda.gru_scan, "uni batch")
-    out["batch"] = {"launches": batch_launches, "serve": serve}
+    stencils = lookahead_cuda.lookahead.design_counts["stencil"] - stencils0
+    log(f"  lookahead stencil launches on the uni batch path: {stencils} (expected "
+        f"{groups}, one a forward: a dispatch group)")
+    if stencils != groups:
+        raise AssertionError("the uni batch path did not run each forward's lookahead "
+                             "on the stencil")
+    out["batch"] = {"launches": batch_launches, "lookahead_launches": stencils,
+                    "forwards": groups, "serve": serve}
     out["batch"]["profile"] = profile_call(
         "one uni recognize_batch", lambda: rec.recognize_batch(batches[1]),
         groups=STREAM_PROFILE_GROUPS)
@@ -4117,6 +4142,87 @@ def phase_spectra(card, waves):
     return out
 
 
+# the lookahead at GPUStreamingRNN's batch shape (T, B, H, C): one dispatch
+# group of 128 rows of 8 s, context 20
+LOOKAHEAD_SHAPE = (401, 128, 2000, 20)
+# the stencil against its plain version, relative to the largest output:
+# float32 sums of the same 20 products in another order (20 * 2^-24 = 1.2e-6)
+LOOKAHEAD_RTOL = 1e-5
+LOOKAHEAD_TITLE = "phase 11c: the lookahead stencil alone (csrc/lookahead.cu)"
+
+
+def phase_lookahead(card):
+    """11c: the lookahead stencil (``csrc/lookahead.cu``) alone at
+    GPUStreamingRNN's batch shape, float32 with TF32 off: the forward and
+    the past-tap walk (dx) against the stacked plain version, each timed
+    beside the plain version, one ``F.conv1d(groups=H)`` on the
+    (B, H, T + C - 1) layout (the library's depthwise convolution, which the
+    port never calls), the gradient's tap pass (dw) and the byte bound; then
+    ragged shapes on the scalar path (H = 667, and x one float off 16-byte
+    alignment)."""
+    import torch.nn.functional as F
+
+    from danspeech_tpu_torch.ops import lookahead_cuda as la
+
+    t, b, h, c = LOOKAHEAD_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    x = torch.randn(t, b, h, generator=gen, device="cuda")
+    w = torch.randn(h, c, generator=gen, device="cuda")
+    g = torch.randn(t, b, h, generator=gen, device="cuda")
+    saved = f32_flags()
+    set_f32_flags(F32_FLAGS)
+    n0 = la.lookahead.launches
+    try:
+        def rel(got, ref):
+            return float((got - ref).abs().max() / ref.abs().max())
+
+        ref = la.lookahead_plain(x, w)
+        fwd_rel = rel(la.stencil(x, w), ref)
+        past_rel = rel(la.stencil(g, w, reverse=True), la.lookahead_past_plain(g, w))
+        x_ncl = F.pad(x.permute(1, 2, 0), (0, c - 1)).contiguous()  # (B, H, T + C - 1)
+        w_conv = w[:, None, :].contiguous()
+        lib_rel = rel(F.conv1d(x_ncl, w_conv, groups=h).permute(2, 0, 1), ref)
+        del ref
+        times = {
+            "ms": time_ms(lambda: la.stencil(x, w), 20),
+            "dx_ms": time_ms(lambda: la.stencil(g, w, reverse=True), 20),
+            "library_ms": time_ms(lambda: F.conv1d(x_ncl, w_conv, groups=h), 20),
+            "dw_ms": time_ms(lambda: la.tap_grads(x, g, c), 3),
+            "plain_ms": time_ms(lambda: la.lookahead_plain(x, w), 3),
+        }
+        del x_ncl
+        ragged = []
+        for rt, rb, rh, offset in ((57, 3, 667, 0), (401, 128, 2000, 1), (21, 5, 64, 0)):
+            flat = torch.randn(rt * rb * rh + offset, generator=gen, device="cuda")
+            rx = flat[offset:].view(rt, rb, rh)
+            rw = torch.randn(rh, c, generator=gen, device="cuda")
+            e = rel(la.stencil(rx, rw), la.lookahead_plain(rx, rw))
+            ragged.append({"T": rt, "B": rb, "H": rh, "x_offset_floats": offset,
+                           "max_rel_err": e})
+            log(f"  lookahead T={rt} B={rb} H={rh}, x {offset} float(s) off its "
+                f"allocation: max|d| {e:.2e} of the largest output (<= {LOOKAHEAD_RTOL})")
+    finally:
+        set_f32_flags(saved)
+    torch.cuda.synchronize()
+    bound_ms = 2 * t * b * h * 4 / PEAK_BYTES_PER_S * 1e3
+    launches = la.lookahead.launches - n0
+    log(f"  lookahead T={t} B={b} H={h} C={c}: stencil {times['ms']:.4f} ms against the "
+        f"byte bound {bound_ms:.4f} ms ({100 * bound_ms / times['ms']:.1f}%); past walk "
+        f"(dx) {times['dx_ms']:.4f} ms; plain (stacked) {times['plain_ms']:.3f} ms; "
+        f"F.conv1d(groups=H) {times['library_ms']:.4f} ms; dw (C passes) "
+        f"{times['dw_ms']:.3f} ms; max|d| of the largest output: forward {fwd_rel:.2e}, "
+        f"dx {past_rel:.2e}, conv1d {lib_rel:.2e} (<= {LOOKAHEAD_RTOL}) [{card}]")
+    errors = [fwd_rel, past_rel] + [r["max_rel_err"] for r in ragged]
+    if not all(e <= LOOKAHEAD_RTOL for e in errors):
+        raise AssertionError(f"phase 11c: the stencil differs from its plain version: {errors}")
+    return {"name": "lookahead_stencil_kernel", "source": "danspeech_tpu_torch/csrc/lookahead.cu",
+            "replaces": "none (danspeech_tpu/ops/conv.py:lookahead, fused by XLA)",
+            "shape": {"T": t, "B": b, "H": h, "C": c}, **times, "bound_ms": bound_ms,
+            "bound_by": "bytes", "max_rel_err": max(fwd_rel, past_rel),
+            "library": "F.conv1d(groups=H), TF32 off", "library_max_rel_err": lib_rel,
+            "ragged": ragged, "launches": launches, "card": card}
+
+
 def burst_recording(rng, seconds=VIDEO_S):
     """Quiet stretches of 1.5-3 s between bursts of speech-level noise of 2-6
     s, ``seconds`` long: what energy_vad_segments cuts into utterances."""
@@ -6113,6 +6219,9 @@ def main(argv=None) -> int:
                          "and flags not held to anything, so that an older tree's steps "
                          "split the same way (ROADMAP P15); not a smoke check: it prints "
                          "no device line")
+    ap.add_argument("--lookahead", action="store_true",
+                    help="run phases 1, 2 and 11c only (build, then the lookahead "
+                         "stencil alone against its plain version and F.conv1d)")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -6166,6 +6275,14 @@ def main(argv=None) -> int:
         print(json.dumps({"f32_train": runs, "card": card}))
         return 0
 
+    if args.lookahead:
+        log(LOOKAHEAD_TITLE)
+        print(json.dumps({"lookahead": phase_lookahead(card), "card": card}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+
     if args.only:
         if args.only == 8:
             log("phase 8: serving with a language model (host, device and auto beams)")
@@ -6181,6 +6298,8 @@ def main(argv=None) -> int:
         elif args.only == 11:
             log(GALLERY_TITLE)
             print(json.dumps({"gallery": phase_gallery(card), "card": card}))
+            log(LOOKAHEAD_TITLE)
+            print(json.dumps({"lookahead": phase_lookahead(card), "card": card}))
         else:
             log(FLOAT32_TITLE)
             print(json.dumps({"float32": phase_float32(card), "card": card}))
@@ -6229,6 +6348,8 @@ def main(argv=None) -> int:
         parallel = phase_parallel(card)
         log(GALLERY_TITLE)
         gallery = phase_gallery(card)
+        log(LOOKAHEAD_TITLE)
+        lookahead = phase_lookahead(card)
         log(FLOAT32_TITLE)
         float32 = phase_float32(card)
         pair_launches = {**lstm_run["pair_launches"], **tanh_run["pair_launches"]}
@@ -6323,6 +6444,11 @@ def main(argv=None) -> int:
         print(json.dumps({"surface": surface, "card": card}))
         print(json.dumps({"parallel": parallel, "card": card}))
         print(json.dumps({"gallery": gallery, "card": card}))
+        print(json.dumps({"lookahead": {
+            **lookahead, "serve_launches": {"phase 4": served["lookahead_launches"],
+                                            "phase 5a": streamed["batch"]["lookahead_launches"],
+                                            "phase 5a forwards": streamed["batch"]["forwards"]}},
+            "card": card}))
         print(json.dumps({"float32": {k: v for k, v in float32.items() if k != "kernels"},
                           "card": card}))
     log(card)  # as nvidia-smi prints it: name, power limit

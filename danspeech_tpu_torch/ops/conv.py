@@ -10,7 +10,8 @@ the C_in=1 stride-(2,2) first conv); ``chip_smoke.py`` phase 11a times
 each layout against cuDNN. As in ``conv2d``, a bf16 product rounds its
 output to bf16 before the float32 bias add (ROADMAP C5). Layouts are the
 JAX package's: NCHW activations, (O, I, Kf, Kt) kernels, (T, B, H)
-sequences.
+sequences. The lookahead is :mod:`.lookahead_cuda`'s stencil, a kernel of
+its own on CUDA (``csrc/lookahead.cu``).
 """
 
 from __future__ import annotations
@@ -19,6 +20,8 @@ from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
+
+from . import lookahead_cuda
 
 
 class ConvParams(NamedTuple):
@@ -245,10 +248,8 @@ def conv_out_length(length, kernel: int, stride: int, padding: int, dilation: in
 
 
 def lookahead(x: torch.Tensor, p: LookaheadParams) -> torch.Tensor:
-    """Lookahead convolution over future context on (T, B, H):
-    out[t] = sum_k w[:, k] * x[t + k], right-padded with context-1 zeros."""
-    t = x.shape[0]
-    context = p.weight.shape[1]
-    x_pad = F.pad(x.float(), (0, 0, 0, 0, 0, context - 1))
-    stacked = torch.stack([x_pad[k : k + t] for k in range(context)])
-    return torch.einsum("ctbh,hc->tbh", stacked, p.weight.float())
+    """Lookahead convolution over future context on (T, B, H), in float32:
+    out[t] = sum_k w[:, k] * x[t + k], right-padded with context-1 zeros.
+    The stencil kernel on CUDA, the stacked plain version on the CPU
+    (:mod:`.lookahead_cuda`)."""
+    return lookahead_cuda.lookahead(x.float(), p.weight.float())

@@ -126,9 +126,11 @@ def test_every_kernel_has_a_source_a_plain_version_and_a_counter():
     ``launches`` counter and ``dtype_counts`` by operand set; the CUDA
     sources they name exist (the bf16 kernel and the float32 variant: B1-B4
     in csrc/gru_f32.cu, B5-B7 in csrc/lstm_f32.cu, B8-B9 in
-    csrc/rnn_tanh_f32.cu), and no source lies under csrc/ without a
-    wrapper."""
-    from danspeech_tpu_torch.ops import cuda_build, gru_cuda, lstm_cuda, rnn_tanh_cuda
+    csrc/rnn_tanh_f32.cu); the lookahead stencil (float32 only,
+    csrc/lookahead.cu) has the same; and no source lies under csrc/ without
+    a wrapper."""
+    from danspeech_tpu_torch.ops import (cuda_build, gru_cuda, lookahead_cuda, lstm_cuda,
+                                         rnn_tanh_cuda)
 
     kernels = {
         gru_cuda: {"gru_bidi_fused": "gru_bidi_fused", "gru_scan": "gru_scan",
@@ -149,6 +151,11 @@ def test_every_kernel_has_a_source_a_plain_version_and_a_counter():
             for src in (source, float32_sources[module]):
                 assert os.path.isfile(os.path.join(cuda_build.CSRC_DIR, f"{src}.cu")), src
                 sources.add(f"{src}.cu")
+    assert callable(lookahead_cuda.lookahead_plain)
+    assert isinstance(lookahead_cuda.lookahead.launches, int)
+    assert set(lookahead_cuda.lookahead.dtype_counts) == {"float32"}
+    assert os.path.isfile(os.path.join(cuda_build.CSRC_DIR, "lookahead.cu"))
+    sources.add("lookahead.cu")
     on_disk = {f for f in os.listdir(cuda_build.CSRC_DIR) if f.endswith(".cu")}
     assert on_disk == sources
 

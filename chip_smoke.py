@@ -7,6 +7,7 @@
     python3 chip_smoke.py --phase-clocks  # where a persistent kernel's step
                                           # spends its clocks (-DPS_PROFILE build)
     python3 chip_smoke.py --lookahead  # phases 1, 2 and 11c only
+    python3 chip_smoke.py --b5-h1024  # phases 1, 2 and 3b only
     python3 chip_smoke.py --f32-train  # phases 1, 2 and phase 12g's float32
                                        # train steps alone, each step split,
                                        # unchecked: runs on an older tree too,
@@ -30,7 +31,10 @@ Phases, in order; any failure exits non-zero:
    pair of chains in one launch), and every main path below must take the
    persistent one; and
    ``gru_layer`` with concatenated directions and with a carried h0, the two
-   routes that reach ``gru_scan_bidi``; phase 3 runs with TF32 off (the plain
+   routes that reach ``gru_scan_bidi``; then (3b) ``lstm_scan`` at the LSTM
+   layer of deepspeech.pytorch's bidirectional DeepSpeech2, H = 1024, T =
+   1000 and B = 16, 32 and 128, as a pair beside cuDNN's bidirectional
+   ``nn.LSTM``; phase 3 runs with TF32 off (the plain
    versions in full float32) and puts the process's flags back after it;
 4. the batch path: ``Recognizer.recognize`` / ``recognize_batch`` on the
    flagship DanSpeechPrimary (3 conv, 9x1200 bidirectional GRU, random
@@ -1414,6 +1418,41 @@ def phase_rnn_type_kernels():
                                          train.tolist(), 800, False, False))
         checks[kind] = rows
     return checks
+
+
+# B5 at the LSTM layer of deepspeech.pytorch's bidirectional DeepSpeech2 (H =
+# 1024) and the dispatch groups of 2-20 s utterances: up to 1,000 frames, 16,
+# 32 or 128 rows
+B5_H1024 = (1000, 1024, (16, 32, 128))
+B5_H1024_TITLE = "phase 3b: B5 (lstm_scan) at H = 1024, T = 1000, as a pair"
+
+
+def phase_b5_h1024(card):
+    """B5 (``lstm_scan``) at H = 1024, T = 1000 and B = 16, 32 and 128, each
+    batch with ragged lengths (the longest T, one of 1): held to its plain
+    version in both designs and as a pair of chains in one launch, the
+    served path (:func:`check_rnn_kernel`), timed beside the plain version
+    and cuDNN's ``nn.LSTM`` in bf16, one direction and both (with its
+    projection, as the library computes it); µs a step of the pair over the
+    steps walked."""
+    t, h, batches = B5_H1024
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1024)
+    rows = []
+    for b in batches:
+        lengths = np.random.default_rng(1024 + b).integers(1, t + 1, size=b)
+        lengths[0], lengths[1] = t, 1
+        res = check_rnn_kernel("lstm_scan", gen, f"H=1024 B={b}", t, lengths.tolist(), h,
+                               False, True)
+        res["pair_us_a_step"] = 1e3 * res["pair_kernel_ms"] / t
+        res["library_bidi_ms"] = cudnn_rnn_ms(torch.nn.LSTM(h, h, bidirectional=True), gen,
+                                              t, b, h, backward=False)
+        log(f"  B5 H={h} T={t} B={b}: a pair {res['pair_kernel_ms']:.3f} ms = "
+            f"{res['pair_us_a_step']:.2f} us a step (one chain {res['step_ms'] * 1e3:.2f}); "
+            f"cuDNN nn.LSTM bf16 one direction {res['library_ms']:.3f} ms, both "
+            f"{res['library_bidi_ms']:.3f} ms; plain {res['plain_ms']:.1f} ms [{card}]")
+        rows.append(res)
+    return rows
 
 
 def phase_gru_layer_routes():
@@ -6222,6 +6261,9 @@ def main(argv=None) -> int:
     ap.add_argument("--lookahead", action="store_true",
                     help="run phases 1, 2 and 11c only (build, then the lookahead "
                          "stencil alone against its plain version and F.conv1d)")
+    ap.add_argument("--b5-h1024", action="store_true",
+                    help="run phases 1, 2 and 3b only (build, then B5 at H = 1024, T = "
+                         "1000, B = 16, 32 and 128 against its plain version and cuDNN)")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -6283,6 +6325,19 @@ def main(argv=None) -> int:
             "count": torch.cuda.device_count()}}))
         return 0
 
+    if args.b5_h1024:
+        log(B5_H1024_TITLE)
+        saved = f32_flags()
+        set_f32_flags(F32_FLAGS)
+        try:
+            print(json.dumps({"b5_h1024": phase_b5_h1024(card), "card": card}))
+        finally:
+            set_f32_flags(saved)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+
     if args.only:
         if args.only == 8:
             log("phase 8: serving with a language model (host, device and auto beams)")
@@ -6322,6 +6377,8 @@ def main(argv=None) -> int:
         bwd_checks = phase_bwd_kernels()
         routes = phase_gru_layer_routes()
         rnn_type_checks = phase_rnn_type_kernels()
+        log(B5_H1024_TITLE)
+        b5_h1024 = phase_b5_h1024(card)
     finally:
         set_f32_flags(saved)
     log(f"  the float32 flags (matmul precision, cuDNN TF32) after phase 3: {f32_flags()}")
@@ -6461,6 +6518,7 @@ def main(argv=None) -> int:
             "launches": float32["gemm_launches"], "card": card, "shapes": float32["gemm"]}}
     print(json.dumps({"kernels": kernels, **gemm, "barrier_us": barrier["us"],
                       "card": card}))
+    print(json.dumps({"b5_h1024": b5_h1024, "card": card}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

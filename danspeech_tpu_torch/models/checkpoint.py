@@ -31,7 +31,11 @@ from .torch_pickle import torch_load
 
 
 def _t(x, dtype=torch.float32) -> torch.Tensor:
-    return torch.from_numpy(np.array(x, dtype=np.float32, copy=True)).to(dtype)
+    """A contiguous copy of ``x`` as a CPU tensor of ``dtype``. Contiguous
+    whatever the layout it came in: the transpose of a contiguous (G·H, I)
+    recurrent weight, as ``nn.GRU`` and ``nn.LSTM`` save it, would otherwise
+    keep its strides, and the CUDA kernels take contiguous weights only."""
+    return torch.from_numpy(np.array(x, dtype=np.float32, copy=True, order="C")).to(dtype)
 
 
 def _numpy(v) -> np.ndarray:

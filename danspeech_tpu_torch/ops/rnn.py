@@ -58,6 +58,7 @@ from typing import NamedTuple
 import torch
 from torch.autograd.function import once_differentiable
 
+from ..utils.profiling import annotate
 from . import gru_cuda, lstm_cuda, rnn_tanh_cuda
 
 
@@ -458,7 +459,9 @@ class _LSTMLayer(torch.autograd.Function):
     """One or two LSTM chains from zero states (JAX ``_pallas_lstm``).
     ``keep_cell`` picks the forward that also writes the cell streams; the
     residuals are then x, lengths, the weights and each direction's output
-    and cell stream in the stream dtype."""
+    and cell stream in the stream dtype. The forward marks the projections
+    (``model.rnn.project``: the products, the bias and the cast) and the
+    walk (``model.rnn.walk``) as spans inside the caller's ``model.rnn``."""
 
     @staticmethod
     def forward(ctx, impl, sum_directions, keep_cell, x, lengths, *weights):
@@ -470,13 +473,15 @@ class _LSTMLayer(torch.autograd.Function):
                    else lstm_cuda.lstm_scan_with_cell_plain)
         else:
             run = lstm_cuda.lstm_scan if impl == "auto" else lstm_cuda.lstm_scan_plain
-        chains = [((_lstm_project(x, w), lengths, w.w_hh, w.b_hh.float(), zeros, zeros),
-                   chain_reverse) for w, chain_reverse in dirs]
-        if impl == "auto" and len(chains) == 2:
-            results = lstm_cuda.lstm_scan_pair(chains[0][0], chains[1][0], False, True,
-                                               with_cell=keep_cell)
-        else:
-            results = [run(*ops, reverse=chain_reverse) for ops, chain_reverse in chains]
+        with annotate("model.rnn.project"):
+            chains = [((_lstm_project(x, w), lengths, w.w_hh, w.b_hh.float(), zeros, zeros),
+                       chain_reverse) for w, chain_reverse in dirs]
+        with annotate("model.rnn.walk"):
+            if impl == "auto" and len(chains) == 2:
+                results = lstm_cuda.lstm_scan_pair(chains[0][0], chains[1][0], False, True,
+                                                   with_cell=keep_cell)
+            else:
+                results = [run(*ops, reverse=chain_reverse) for ops, chain_reverse in chains]
         del chains
         outs = [res[0] for res in results]
         cells = [res[1] for res in results] if keep_cell else []

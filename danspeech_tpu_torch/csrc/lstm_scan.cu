@@ -3,10 +3,11 @@
 //
 // Replaces danspeech_tpu/ops/pallas_gru.py:lstm_scan (kernel body
 // _lstm_step_kernel) and :lstm_scan_with_cell (_lstm_step_kernel_cell).
-// Same contract, gate order i, f, g, o:
-//   gx (T, B, 4H) bf16, the projection x @ w_ih + b_ih (the bias is already
-//   inside, rounded with it); lengths (B,) int32; w_hh (H, 4H) bf16; b_hh
-//   (4H,) f32; h0, c0 (B, H) f32;
+// Same contract, gate order i, f, g, o, but for the bias:
+//   gx (T, B, 4H) bf16, the bias-free projection x @ w_ih as the GEMM
+//   rounded it; lengths (B,) int32; w_hh (H, 4H) bf16; b_hh (4H,) f32, the
+//   per-step bias, which ops/rnn.py hands as b_ih + b_hh (the JAX kernel
+//   reads b_ih inside gx); h0, c0 (B, H) f32;
 //   gh = bf16(h) @ w_hh accumulated in f32, pre = gx + gh + b_hh,
 //   c' = f c + i g, h' = o tanh(c'), gates and both carried states in f32;
 //   out (T, B, H) bf16 = h' where t < length, exact zeros elsewhere, and the

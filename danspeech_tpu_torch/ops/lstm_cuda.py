@@ -13,11 +13,13 @@ order i, f, g, o:
   backward walk of one chain; :func:`lstm_bwd_scan_pair` walks both chains
   of a bidirectional layer in one launch.
 
-Unlike the GRU kernels, these take a projection ``gx`` that already holds
-``b_ih`` (added in f32, then rounded to the stream dtype, as the JAX
-package's ``_lstm_project``); the kernel adds ``b_hh`` only. Each source's
-header note says what bounds it on an H100 and what the design does about
-it. All three have two designs, as the GRU ones: "persistent" (one
+Each takes an input projection ``gx`` and one f32 bias vector, which it
+adds at every step: ``ops/rnn.py`` hands the bias-free product ``x @
+w_ih`` in the stream dtype and ``b_ih + b_hh`` as that vector (the operand
+named ``b_hh`` here), so no pass touches the gate stream between the GEMM
+and the walk (the JAX package's ``_lstm_project`` puts ``b_ih`` inside the
+projection instead). Each source's header note says what bounds it on an
+H100 and what the design does about it. All three have two designs, as the GRU ones: "persistent" (one
 cooperative launch walks every step, ``csrc/persist.cuh``) and "step" (one
 launch per time step), chosen by :func:`persist_plan.plan_lstm_forward` /
 :func:`persist_plan.plan_lstm_backward` or by ``design=``;
@@ -93,8 +95,9 @@ def _scan_plain(gx, lengths, w_hh, b_hh, h0, c0, reverse, with_cell):
 def lstm_scan_plain(gx, lengths, w_hh, b_hh, h0, c0, reverse: bool = False):
     """The kernel's arithmetic in plain tensor ops, on any device.
 
-    gx (T, B, 4H) is the projection ``x @ w_ih + b_ih`` in the stream dtype,
-    w_hh (H, 4H) in the weights' dtype, b_hh (4H,) f32, h0 and c0 (B, H) f32,
+    gx (T, B, 4H) is the input projection in the stream dtype, w_hh (H, 4H)
+    in the weights' dtype, b_hh (4H,) f32 the bias added at every step (the
+    layers hand ``x @ w_ih`` and ``b_ih + b_hh``), h0 and c0 (B, H) f32,
     lengths (B,). Returns (out (T, B, H) in gx's dtype with exact zeros where
     t >= length, h_last, c_last (B, H) f32). ``reverse`` walks t = T-1 .. 0
     and holds the states until t < length. The product takes h rounded to
@@ -379,16 +382,16 @@ def lstm_bwd_scan_plain(gx, hprev, cprev, dout, lengths, w_hh, b_hh,
                         reverse: bool = True):
     """The kernel's arithmetic in plain tensor ops, on any device.
 
-    gx (T, B, 4H) is the projection ``x @ w_ih + b_ih``, hprev and cprev
+    gx (T, B, 4H) is the input projection the forward read, hprev and cprev
     (T, B, H) the states before each step in chain order, all in the stream
     dtype and natural time order (cprev is the cell stream as
     :func:`lstm_scan_with_cell` rounded it); dout (T, B, H) f32 is dL/d out;
-    w_hh (H, 4H) in the weights' dtype; b_hh (4H,) f32. dL/dh and dL/dc start
-    at zero. ``reverse=True`` walks t = T-1 .. 0 (the backward of a forward
-    chain), ``reverse=False`` 0 .. T-1 (the backward of a reverse-time
-    chain). Returns (dg4 (T, B, 4H) f32, the gradient of the gate
-    pre-activations, which is that of gx and of gh alike; dh0, dc0 (B, H)
-    f32). Steps past a row's length give zeros and pass dL/dh and dL/dc
+    w_hh (H, 4H) in the weights' dtype; b_hh (4H,) f32, the forward's
+    per-step bias. dL/dh and dL/dc start at zero. ``reverse=True`` walks
+    t = T-1 .. 0 (the backward of a forward chain), ``reverse=False``
+    0 .. T-1 (the backward of a reverse-time chain). Returns (dg4 (T, B,
+    4H) f32, the gradient of the gate pre-activations, which is that of gx
+    and of gh alike; dh0, dc0 (B, H) f32). Steps past a row's length give zeros and pass dL/dh and dL/dc
     through. Both products take operands rounded to w_hh's dtype and
     accumulate in f32.
     """

@@ -35,10 +35,12 @@ package: they raise there when a gradient is asked for.
 
 :func:`lstm_layer` and :func:`rnn_tanh_layer` run one chain per direction
 (:func:`lstm_cuda.lstm_scan`, :func:`rnn_tanh_cuda.rnn_tanh_scan`; the
-reverse-time chain reads time backwards, no reversed copy is made) over a
-projection that already holds the input bias (both biases for the tanh RNN),
-start from zero states and return the outputs only. The two chains of a
-bidirectional layer go through :func:`lstm_cuda.lstm_scan_pair` /
+reverse-time chain reads time backwards, no reversed copy is made), start
+from zero states and return the outputs only. The LSTM chain reads the
+bias-free projection in the stream dtype and adds b_ih + b_hh in f32 at
+every step; the tanh chain, whose kernels have no bias operand, reads a
+projection that holds both biases. The two chains of a bidirectional layer
+go through :func:`lstm_cuda.lstm_scan_pair` /
 :func:`rnn_tanh_cuda.rnn_tanh_scan_pair`: one launch on the card, chain by
 chain on the CPU. Every shape of them (one or two directions, summed or
 concatenated) is differentiable: the backward is
@@ -329,22 +331,36 @@ class RNNWeights(NamedTuple):
     b_hh: torch.Tensor  # (H,)
 
 
-def _project(x, w_ih, bias):
-    """x @ w_ih + bias in f32, rounded to the weights' dtype: the stream the
-    LSTM and tanh kernels read, bias inside (JAX ``_lstm_project`` and
-    ``_rnn_project``). On CUDA the bf16 product is rounded once before the
-    bias is added (see :func:`_mm`), where the JAX package rounds only the
-    sum (ROADMAP C12)."""
-    mm_dtype = w_ih.dtype
-    return (_mm(x.to(mm_dtype), w_ih) + bias.float()).to(mm_dtype).contiguous()
+def _lstm_product(x, w: LSTMWeights):
+    """x @ w_ih in the weights' dtype, no bias: the stream the LSTM walks
+    read (x is cast to the weights' dtype, a no-op where the caller did).
+    On CUDA the product as cuBLAS returns it: bf16 accumulated in f32 and
+    rounded once, float32 in full float32 inside the float32 modes' scope.
+    On the CPU the f32 product of the upcast operands (see :func:`_mm`),
+    rounded once to the weights' dtype."""
+    x_mm = x.to(w.w_ih.dtype)
+    if x_mm.device.type == "cpu":
+        return _mm(x_mm, w.w_ih).to(w.w_ih.dtype)
+    return torch.matmul(x_mm, w.w_ih)
 
 
-def _lstm_project(x, w: LSTMWeights):
-    return _project(x, w.w_ih, w.b_ih)
+def _lstm_bias(w: LSTMWeights):
+    """b_ih + b_hh in f32: the LSTM walks' per-step bias, which they add to
+    the bias-free projection and the recurrent product in f32. JAX
+    ``_lstm_project`` puts b_ih inside a projection rounded once; here only
+    the product is rounded (ROADMAP C12)."""
+    return w.b_ih.float() + w.b_hh.float()
 
 
 def _rnn_project(x, w: RNNWeights):
-    return _project(x, w.w_ih, w.b_ih.float() + w.b_hh.float())
+    """x @ w_ih + b_ih + b_hh in f32, rounded to the weights' dtype: the
+    stream the tanh kernels read, both biases inside, as B8 and B9 have no
+    bias operand (JAX ``_rnn_project``). On CUDA the bf16 product is rounded
+    once before the biases are added (see :func:`_mm`), where the JAX
+    package rounds only the sum (ROADMAP C12)."""
+    mm_dtype = w.w_ih.dtype
+    bias = w.b_ih.float() + w.b_hh.float()
+    return (_mm(x.to(mm_dtype), w.w_ih) + bias).to(mm_dtype).contiguous()
 
 
 def _stream_grads(x, hprev, dpre, w):
@@ -374,11 +390,11 @@ def _stream_grads(x, hprev, dpre, w):
 def _lstm_walk_operands(x, lengths, w: LSTMWeights, out_dir, c_dir, dout,
                         chain_reverse: bool):
     """The operands of one LSTM direction's backward walk
-    (``lstm_bwd_scan``): the recomputed projection and the shifted output and
-    cell streams."""
-    return (_lstm_project(x, w), _shift_chain(out_dir, chain_reverse),
+    (``lstm_bwd_scan``): the recomputed bias-free projection, the shifted
+    output and cell streams and the summed bias, as the forward read them."""
+    return (_lstm_product(x, w), _shift_chain(out_dir, chain_reverse),
             _shift_chain(c_dir, chain_reverse), dout.float().contiguous(), lengths,
-            w.w_hh, w.b_hh.float())
+            w.w_hh, _lstm_bias(w))
 
 
 def _lstm_grads(x, lengths, dirs, outs, cells, douts, impl: str):
@@ -387,6 +403,7 @@ def _lstm_grads(x, lengths, dirs, outs, cells, douts, impl: str):
     walks of a bidirectional layer share one launch where the plan allows
     (``lstm_cuda.lstm_bwd_scan_pair``). Returns [(dx, grads)] per
     direction."""
+    x = x.to(dirs[0][0].w_ih.dtype)  # once for both directions' products
     ops = [_lstm_walk_operands(x, lengths, w, outs[k], cells[k], douts[k], rev)
            for k, (w, rev) in enumerate(dirs)]
     if impl == "auto" and len(ops) == 2:
@@ -459,9 +476,13 @@ class _LSTMLayer(torch.autograd.Function):
     """One or two LSTM chains from zero states (JAX ``_pallas_lstm``).
     ``keep_cell`` picks the forward that also writes the cell streams; the
     residuals are then x, lengths, the weights and each direction's output
-    and cell stream in the stream dtype. The forward marks the projections
-    (``model.rnn.project``: the products, the bias and the cast) and the
-    walk (``model.rnn.walk``) as spans inside the caller's ``model.rnn``."""
+    and cell stream in the stream dtype. Each chain reads the bias-free
+    projection as the product gives it (x cast once for both directions)
+    and adds b_ih + b_hh in f32 at every step: no pass touches the gate
+    stream between the GEMM and the walk. The forward marks the projections
+    (``model.rnn.project``: the cast of x, the products and the summed
+    biases) and the walk (``model.rnn.walk``) as spans inside the caller's
+    ``model.rnn``."""
 
     @staticmethod
     def forward(ctx, impl, sum_directions, keep_cell, x, lengths, *weights):
@@ -474,7 +495,8 @@ class _LSTMLayer(torch.autograd.Function):
         else:
             run = lstm_cuda.lstm_scan if impl == "auto" else lstm_cuda.lstm_scan_plain
         with annotate("model.rnn.project"):
-            chains = [((_lstm_project(x, w), lengths, w.w_hh, w.b_hh.float(), zeros, zeros),
+            x_mm = x.to(weights[0].dtype)
+            chains = [((_lstm_product(x_mm, w), lengths, w.w_hh, _lstm_bias(w), zeros, zeros),
                        chain_reverse) for w, chain_reverse in dirs]
         with annotate("model.rnn.walk"):
             if impl == "auto" and len(chains) == 2:

@@ -393,12 +393,14 @@ def test_float32_gru_gradients_keep_float32_c10(bidi):
 @pytest.mark.parametrize("rnn_type", ["lstm", "rnn"])
 def test_float32_lstm_and_tanh_gradients_keep_float32_c10_c12(rnn_type, bidi):
     """C12: under bf16 on CUDA the projection x @ w_ih is rounded to bf16
-    before its bias is added, where the JAX package rounds only the sum; C10
-    as for the GRU. In float32 mode the projection is x @ w_ih + bias in
-    float32, rounded once (to float32), and the walks and the dW / dx
-    products run in float32: the port's layer (the float32 walks' plain
-    versions here, their kernels on the card) meets jax.grad through the
-    JAX Pallas route in float32 within GRAD_TOL."""
+    before its bias is added (the LSTM's in the walk, with b_hh, in f32),
+    where the JAX package rounds x @ w_ih + b_ih; C10 as for the GRU. In
+    float32 mode the LSTM's projection is x @ w_ih in float32, its walk
+    adding b_ih + b_hh, the tanh RNN's x @ w_ih + b_ih + b_hh in float32;
+    nothing is rounded below float32, and the walks and the dW / dx products
+    run in float32: the port's layer (the float32 walks' plain versions
+    here, their kernels on the card) meets jax.grad through the JAX Pallas
+    route in float32 within GRAD_TOL."""
     lstm = rnn_type == "lstm"
     gates = 4 if lstm else 1
     rng = np.random.default_rng(17 + bidi + 2 * lstm)
@@ -417,14 +419,19 @@ def test_float32_lstm_and_tanh_gradients_keep_float32_c10_c12(rnn_type, bidi):
     tcls, tlayer = ((trnn.LSTMWeights, trnn.lstm_layer) if lstm
                     else (trnn.RNNWeights, trnn.rnn_tanh_layer))
 
-    # the projection the kernels read: float32, one rounding of the sum
+    # the projection the kernels read, in float32: the LSTM's the bare
+    # product (its walk adds b_ih + b_hh), the tanh RNN's with both biases
     w0 = tcls(*map(torch.from_numpy, ws[0]))
     xt = torch.from_numpy(x)
-    proj = trnn._lstm_project(xt, w0) if lstm else trnn._rnn_project(xt, w0)
-    bias = w0.b_ih if lstm else w0.b_ih + w0.b_hh
+    proj = trnn._lstm_product(xt, w0) if lstm else trnn._rnn_project(xt, w0)
+    bias = torch.zeros(gates * hidden) if lstm else w0.b_ih + w0.b_hh
     assert proj.dtype == torch.float32 and torch.equal(proj, xt @ w0.w_ih + bias)
     exact = x.astype(np.float64) @ ws[0][0].astype(np.float64) + bias.double().numpy()
     np.testing.assert_allclose(proj.numpy(), exact, rtol=1e-6, atol=1e-6)
+    if lstm:
+        walk_bias = trnn._lstm_bias(w0)
+        assert walk_bias.dtype == torch.float32
+        assert torch.equal(walk_bias, w0.b_ih + w0.b_hh)
 
     def jloss(x, *flat):
         dirs = [jcls(*flat[4 * k:4 * k + 4]) for k in range(len(ws))]

@@ -11,16 +11,20 @@ runs it.
 
 Tolerances: float32 differs by summation order only (F32_ATOL). With bf16
 streams and weights both sides round the same operands at the same places
-(gx with its bias inside, the bf16 copy of h, out, c_seq): BF16_ATOL on
-values of order 1, one or two bf16 ulps. In the backward walk one flipped
-rounding of a dg4 element moves the carried dL/dh from there on:
-BF16_BWD_ATOL. Layer gradients: GRAD_TOL, the bound of the JAX package's own
+(the bf16 copy of h, out, c_seq), but for gx: the JAX package rounds
+x @ w_ih + b_ih, the port x @ w_ih alone and adds b_ih + b_hh in f32 at
+each step (ROADMAP C12): BF16_ATOL on values of order 1, one or two bf16
+ulps. In the backward walk one flipped rounding of a dg4 element moves the
+carried dL/dh from there on: BF16_BWD_ATOL. Layer gradients: GRAD_TOL, the bound of the JAX package's own
 gradient test.
 """
+
+import contextlib
 
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 import jax
 import jax.numpy as jnp
@@ -279,9 +283,10 @@ def test_lstm_layer_grads_match_autograd_through_the_plain_recurrence():
 @pytest.mark.parametrize("direction,sum_directions", SHAPES)
 def test_lstm_layer_bf16_close_to_jax_pallas(direction, sum_directions):
     """The dispatch of mixed precision: float32 x, bf16 weights cast inside
-    the graph, float32 gradients back at the masters. Both packages round gx
-    (bias inside), h, out and c_seq to bf16 at the same places; a gradient of
-    order 1-10 may differ by a few bf16 ulps of its largest terms."""
+    the graph, float32 gradients back at the masters. Both packages round
+    gx (the JAX package's with b_ih inside, the port's the bare product), h,
+    out and c_seq to bf16 at the same places; a gradient of order 1-10 may
+    differ by a few bf16 ulps of its largest terms."""
     x, lens, fwd, bwd, r_out = _layer_case(direction, sum_directions, [13, 7, 4], seed=5)
     run, args = _jax_layer(x, lens, fwd, bwd, sum_directions, "pallas",
                            cast=jnp.bfloat16)
@@ -403,7 +408,8 @@ def test_pair_equals_two_single_chains(dtype, with_cell):
 def test_bidi_layer_takes_the_pair_route(monkeypatch, dtype, sum_directions):
     """A bidirectional lstm_layer runs its two chains through lstm_scan_pair
     (one launch on the card): the result equals the two chains run by hand
-    through the plain version, and matches the JAX package's lstm_layer
+    through the plain version over the bias-free product with b_ih + b_hh
+    as the per-step bias, and matches the JAX package's lstm_layer
     (float32: ``impl="xla"``, F32_ATOL; bf16 weights: the Pallas kernel in
     interpret mode, the bound of test_lstm_layer_bf16_close_to_jax_pallas)."""
     pairs = []
@@ -423,7 +429,7 @@ def test_bidi_layer_takes_the_pair_route(monkeypatch, dtype, sum_directions):
         if cast is not None:
             w = w._replace(w_ih=w.w_ih.to(cast), w_hh=w.w_hh.to(cast))
         by_hand.append(lstm_cuda.lstm_scan_plain(
-            trnn._lstm_project(leaves[0], w), tl, w.w_hh, w.b_hh.float(), zeros, zeros,
+            trnn._lstm_product(leaves[0], w), tl, w.w_hh, trnn._lstm_bias(w), zeros, zeros,
             reverse=reverse)[0].float())
     want = by_hand[0] + by_hand[1] if sum_directions else torch.cat(by_hand, -1)
     assert torch.equal(out, want)
@@ -432,6 +438,104 @@ def test_bidi_layer_takes_the_pair_route(monkeypatch, dtype, sum_directions):
                            cast=None if cast is None else jnp.bfloat16)
     atol = F32_ATOL if cast is None else 2 * BF16_ATOL
     np.testing.assert_allclose(out.numpy(), np.asarray(run(*args)), atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize("direction", ["bidi", "uni"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_walks_read_the_bare_product_and_the_summed_bias(monkeypatch, dtype, direction):
+    """What the layer hands each chain, forward and backward: gx the product
+    x @ w_ih in the stream dtype, rounded once and holding no bias, and
+    b_ih + b_hh in f32 as the per-step bias; the backward walk
+    (``_lstm_walk_operands``) recomputes exactly the forward's operands
+    (the plain routes add that bias as the kernels do)."""
+    seen = {}
+
+    def spy(kind, orig):
+        def run(gx, *rest, reverse):
+            # (gx, the per-step bias), wherever each signature puts the bias
+            seen[kind, reverse] = (gx, rest[-3] if kind == "fwd" else rest[-1])
+            return orig(gx, *rest, reverse=reverse)
+        return run
+
+    monkeypatch.setattr(lstm_cuda, "lstm_scan_with_cell",
+                        spy("fwd", lstm_cuda.lstm_scan_with_cell))
+    monkeypatch.setattr(lstm_cuda, "lstm_bwd_scan", spy("bwd", lstm_cuda.lstm_bwd_scan))
+    x, lens, fwd, bwd, r_out = _layer_case(direction, True, [9, 6, 0, 3], seed=41)
+    cast = None if dtype == "float32" else torch.bfloat16
+    leaves = _torch_leaves(x, fwd, bwd)
+    out = _torch_layer(leaves, lens, True, "auto", cast=cast)
+    (out * torch.from_numpy(r_out)).sum().backward()
+    stream = torch.float32 if cast is None else cast
+    for k, reverse in enumerate((False, True)[: 1 + (bwd is not None)]):
+        w_ih, _, b_ih, b_hh = (t.detach() for t in leaves[1 + 4 * k : 5 + 4 * k])
+        gx, bias = seen["fwd", reverse]
+        product = (leaves[0].detach().to(stream).float() @ w_ih.to(stream).float()).to(stream)
+        assert gx.dtype == stream and torch.equal(gx, product)
+        assert bias.dtype == torch.float32 and torch.equal(bias, b_ih + b_hh)
+        # the backward of a chain walks opposite its order
+        gx_b, bias_b = seen["bwd", not reverse]
+        assert torch.equal(gx_b, gx) and torch.equal(bias_b, bias)
+
+
+class _Ops(TorchDispatchMode):
+    """The aten operations run under it, views left out."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if not func._schema.name.endswith(("view", "_unsafe_view")):
+            self.ops.append((func._schema.name, args, out))
+        return out
+
+
+@pytest.mark.parametrize("direction", ["bidi", "uni"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_projection_span_runs_one_cast_and_the_products(monkeypatch, dtype, direction):
+    """The operations inside ``model.rnn.project`` on the route the card
+    takes (any device but the CPU: meta tensors here, the walk stubbed):
+    one cast of x for the layer (none when x is already in the weights'
+    dtype), one product per direction, and on the gate stream nothing else:
+    no add, ``.float()``, cast or copy. The summed biases are 4H-wide."""
+    counter = _Ops()
+
+    @contextlib.contextmanager
+    def spans(name):
+        if name != "model.rnn.project":
+            yield
+            return
+        with counter:
+            yield
+
+    def walk(gx, lengths, w_hh, b_hh, h0, c0, reverse=False):
+        return gx.new_zeros(gx.shape[:2] + (w_hh.shape[0],)), h0, c0
+
+    monkeypatch.setattr(trnn, "annotate", spans)
+    monkeypatch.setattr(lstm_cuda, "lstm_scan", walk)
+    monkeypatch.setattr(lstm_cuda, "lstm_scan_pair",
+                        lambda a, b, ra, rb, with_cell: (walk(*a), walk(*b)))
+    x, lens, fwd, bwd, _ = _layer_case(direction, True, [9, 6, 0, 3], seed=43)
+    stream = torch.float32 if dtype == "float32" else torch.bfloat16
+    dirs = [trnn.LSTMWeights(*(torch.from_numpy(a).to("meta") for a in w))
+            for w in (fwd, bwd) if w is not None]
+    dirs = [w._replace(w_ih=w.w_ih.to(stream), w_hh=w.w_hh.to(stream)) for w in dirs]
+    xm = torch.from_numpy(x).to("meta")
+    with torch.no_grad():
+        out = trnn.lstm_layer(xm, torch.from_numpy(lens), *dirs)
+    assert out.shape == (x.shape[0], x.shape[1], 8)
+    names = [name for name, _, _ in counter.ops]
+    assert names.count("aten::mm") == len(dirs)
+    casts = [args[0] for name, args, _ in counter.ops if name == "aten::_to_copy"]
+    assert len(casts) == (stream != torch.float32) and all(c is xm for c in casts)
+    gate_elems = x.shape[0] * x.shape[1] * 4 * 8
+    on_stream = [name for name, _, res in counter.ops if res.numel() == gate_elems]
+    assert on_stream == ["aten::mm"] * len(dirs)
+    assert sorted(names) == sorted(["aten::mm", "aten::add"] * len(dirs)
+                                   + ["aten::_to_copy"] * len(casts))
+    assert all(tuple(res.shape) == (32,) for name, _, res in counter.ops
+               if name == "aten::add")
 
 
 # ---------------------------------------------------------------------------

@@ -3,10 +3,11 @@
 // Replaces danspeech_tpu/ops/pallas_gru.py:lstm_bwd_scan (kernel body
 // _lstm_bwd_kernel). Same contract, gate order i, f, g, o, all streams in
 // natural time order:
-//   gx (T, B, 4H) bf16, the projection x @ w_ih + b_ih; hprev, cprev
+//   gx (T, B, 4H) bf16, the bias-free projection x @ w_ih; hprev, cprev
 //   (T, B, H) bf16, the states before each step in chain order; dout
 //   (T, B, H) f32; lengths (B,) int32; w_hh (H, 4H) and its transpose
-//   (4H, H) bf16; b_hh (4H,) f32.
+//   (4H, H) bf16; b_hh (4H,) f32, the per-step bias, which ops/rnn.py
+//   hands as b_ih + b_hh.
 //   Per step t, with m = length > t:
 //     pre = gx_t + hprev_t @ w_hh + b_hh, i, f, g, o recomputed as in the
 //     forward; c' = f cprev_t + i g;
@@ -216,12 +217,12 @@ extern "C" int lstm_bwd_launch(
 // ---------------------------------------------------------------------------
 
 struct LstmBwdPersistArgs {
-  const bf16* gx[2];      // (T, B, 4H), b_ih inside
+  const bf16* gx[2];      // (T, B, 4H), bias-free
   const bf16* cprev[2];   // (T, B, H)
   const float* dout[2];   // (T, B, H)
   const int* lengths;     // (B,)
   const bf16* whh[2];     // (H, 4H): row j is column j of w_hh^T, 4H deep
-  const float* bhh[2];    // (4H,)
+  const float* bhh[2];    // (4H,): b_ih + b_hh, added at every step
   float* part[2];         // (B, H) f32: zeros on entry, dh0 on exit
   float* dc[2];           // (B, H) f32: zeros on entry, dc0 on exit
   bf16* dg;               // (2 buffers, chains, B, 4H) bf16 (step 0 reads none)

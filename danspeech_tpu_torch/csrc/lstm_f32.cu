@@ -17,7 +17,8 @@
 // The Pallas kernels are dtype-generic: float32 weights give float32
 // products there. Same contract as the bf16 kernels (lstm_scan.cu,
 // lstm_bwd.cu), gate order i, f, g, o, every stream and weight in float32:
-//   gx (T, B, 4H), the projection x @ w_ih + b_ih; the kernel adds b_hh;
+//   gx (T, B, 4H), the bias-free projection x @ w_ih; the kernel adds
+//   b_hh, the per-step bias, which ops/rnn.py hands as b_ih + b_hh;
 //   gh = h @ w_hh with h the float32 state itself (the bf16 kernels round h
 //   to bf16 first; here nothing is rounded); c' = f c + i g, h' = o tanh(c');
 //   rows past their length freeze h and c and emit exact zeros to out and
@@ -79,7 +80,7 @@ typedef __nv_bfloat16 bf16;  // persist.cuh's streams; nothing here is bf16
 // ---------------------------------------------------------------------------
 
 struct LstmF32Chains {
-  const float* gx[2];   // (T, B, 4H), b_ih inside
+  const float* gx[2];   // (T, B, 4H), bias-free
   const float* whh[2];  // (H, 4H)
   const float* bhh[2];  // (4H,)
   float* out[2];        // (T, B, H)
@@ -202,7 +203,7 @@ extern "C" int lstm_f32_scan_launch(
 // never leaves the block: the block's units of it, for every row, stay in
 // shared memory (Cs) for the whole walk, loaded from c0 and written to c_last
 // at the end. The epilogue takes (row, unit) pairs over all threads: the four
-// gate sums (splits in order), gx (b_ih inside) + b_hh, the gates, c and h,
+// gate sums (splits in order), gx + b_hh (b_ih + b_hh), the gates, c and h,
 // the length mask (rows past their length keep h and c and write zeros to
 // out and c_seq), out, c_seq where it is set, and h through the tile Hn into
 // hx in runs of rows. A grid barrier a chain (each chain its own counter)
@@ -216,7 +217,7 @@ extern "C" int lstm_f32_scan_launch(
 // registers (64 sums a thread), no spill.
 
 struct FlWalk {
-  const float* gx[2];   // (T, B, 4H), b_ih inside
+  const float* gx[2];   // (T, B, 4H), bias-free
   const float* wp[2];   // (blocks, Dp, 4U), packed
   const float* bhh[2];  // (4H,)
   float* out[2];        // (T, B, H)
@@ -581,7 +582,7 @@ extern "C" int lstm_f32_bwd_launch(
 // carry of its units, dh = partial + dg4_prev @ w_hh^T[:, j]. The epilogue
 // takes (row, unit) pairs over all threads with the step kernel's arithmetic
 // (lstm_f32_bwd_step_kernel): it finishes dh, recomputes i, f, g, o from gx
-// (b_ih inside) + b_hh and the gh the recompute left in dg4, applies step t's
+// + b_hh (b_ih + b_hh) and the gh the recompute left in dg4, applies step t's
 // gradient, writes the four gate gradients over gh in dg4, keeps the partial
 // carry (1 - m) dh and the cell gradient dc in shared memory (P and DC, the
 // block's units for every row: no state leaves the block), and writes its
@@ -600,7 +601,7 @@ extern "C" int lstm_f32_bwd_launch(
 // depths of the slice.
 
 struct FlbWalk {
-  const float* gx[2];     // (T, B, 4H), b_ih inside
+  const float* gx[2];     // (T, B, 4H), bias-free
   const float* cprev[2];  // (T, B, H)
   const float* dout[2];   // (T, B, H)
   const float* wp[2];     // (blocks, Dp, U), packed rows of w_hh

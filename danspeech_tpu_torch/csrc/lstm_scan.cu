@@ -167,7 +167,7 @@ extern "C" int lstm_scan_with_cell_launch(
 // ---------------------------------------------------------------------------
 
 struct LstmPersistArgs {
-  const bf16* gx[2];      // (T, B, 4H) bf16, b_ih inside
+  const bf16* gx[2];      // (T, B, 4H) bf16, bias-free
   const int* lengths;     // (B,)
   const bf16* whht[2];    // (4H, H): w_hh transposed, depth contiguous
   const float* bhh[2];    // (4H,)

@@ -43,19 +43,9 @@ def check_tensors(anchor: str, expect: dict) -> torch.dtype:
     return family
 
 
-def pair_dtype(check, chain_a, chain_b) -> torch.dtype:
-    """The operand set both chains of a pair take (``check`` returns each
-    chain's); chains of two sets raise TypeError."""
-    dtype = check(*chain_a)
-    if check(*chain_b) != dtype:
-        raise TypeError("the two chains' operands must be one set: bf16 or float32")
-    return dtype
-
-
 def count(wrapper, design: str, dtype: torch.dtype, n: int = 1) -> None:
-    """``n`` more CUDA calls (or chains) of ``wrapper``: ``launches``, and
-    ``design_counts`` and ``dtype_counts`` by the design and the operand set
-    taken."""
+    """``n`` more launches of ``wrapper``: ``launches``, and ``design_counts``
+    and ``dtype_counts`` by the design and the operand set taken."""
     wrapper.launches += n
     wrapper.design_counts[design] += n
     wrapper.dtype_counts[str(dtype).rpartition(".")[2]] += n

@@ -12,54 +12,46 @@ The ports of four kernels of ``danspeech_tpu/ops/pallas_gru.py``:
   bidirectional layer over precomputed projections, with carried h0
   (concatenated directions, carried state);
 - :func:`gru_bwd_scan` (``gru_bwd_scan``, ``csrc/gru_bwd.cu``): the backward
-  walk of one chain for training.
+  walk of one chain for training; :func:`gru_bwd_scan_pair` walks both
+  chains of a bidirectional layer.
 
 Each source's header note says what bounds it on an H100 and what the
 design does about it. Each kernel has two designs: "persistent" (one
 cooperative launch walks every step, the weights resident in shared memory,
-``csrc/persist.cuh``) and "step" (one launch per time step).
-``persist_plan`` chooses between them from the shape
-and the device's SM count and shared memory, never after a failed launch;
-the ``design=`` argument of the wrappers overrides the choice for checks.
+``csrc/persist.cuh``) and "step" (one launch per time step). Each wrapper
+takes two sets of operands, told apart by the dtype of its sequence: bf16
+sequences and weights with f32 biases and states, or everything in float32,
+which runs the float32 variants of ``csrc/gru_f32.cu`` (B1, B2 and B3's
+recurrence: ``gru_f32_persist_kernel``, each block keeping what fits of its
+float32 slice resident and streaming the rest from L2, or one launch a
+step; B4: the FFMA gate recompute, then ``gru_f32_bwd_persist_kernel`` or
+T + 1 step launches). A mixed set raises ``TypeError``.
 
-Each wrapper takes two sets of operands, told apart by the dtype of its
-sequence: bf16 sequences and weights with f32 biases and states (the
-designs above), or everything in float32, which runs the float32 variants of
-``csrc/gru_f32.cu``. Their forward walk (B1, B2, B3's recurrence) has both
-designs too: "persistent" is one cooperative launch of
-``gru_f32_persist_kernel``, each block keeping what fits of its float32 slice
-resident and streaming the rest from L2 (:func:`persist_plan.plan_gru_f32_forward`
-plans it), "step" one launch per time step. The float32 backward walk (B4)
-has both too: "persistent" is the FFMA gate recompute, then one cooperative
-launch of ``gru_f32_bwd_persist_kernel`` (:func:`persist_plan.plan_gru_f32_backward`),
-"step" the recompute and T + 1 step launches. A mixed set raises
-``TypeError``.
-``<wrapper>.dtype_counts`` counts the CUDA calls by the set taken.
+Every wrapper describes its kernel once (:data:`GRU_SCAN`, ...) and hands
+its chains to :func:`walks.run`, which runs the plain version for CPU
+tensors, and only for those, and on the card checks the operands (bf16 or
+float32 as above, int32 lengths, contiguous, on one device), plans the
+design from the shape and the card, never after a failed launch, takes
+``design=`` ("persistent" or "step") as an override for checks, launches and
+counts. There is no fallback from a failed build or launch to the plain
+version.
 
 :func:`sgemm_f32` launches on its own the float32 GEMM (``csrc/sgemm.cuh``)
 that B3's float32 projection and the gate recompute of B4 and B7 run inside
 their C entries, so that it can be checked and timed by itself.
-
-A wrapper launches its kernel for CUDA tensors and raises on anything the
-kernel does not take; for CPU tensors, and only for those, it runs the plain
-version (dtype-generic). There is no fallback from a failed build or launch
-to the plain version.
 """
 
 from __future__ import annotations
 
-import ctypes
+import dataclasses
 import weakref
 
 import torch
 
-from . import cuda_build, persist_plan
+from . import cuda_build, persist_plan, walks
 from .cuda_build import chain_ptrs
 from .cuda_checks import check_tensors as _check_tensors
-from .cuda_checks import count, pair_dtype
 from .precision import full_float32
-
-_device_info: dict[int, tuple[int, int]] = {}
 
 # The most bytes gru_bidi_fused's f32 projection buffer (2, T, rows, 3H) may
 # take: a larger batch runs in groups of rows, one launch each. The flagship's
@@ -68,53 +60,46 @@ _device_info: dict[int, tuple[int, int]] = {}
 GX_BUDGET_BYTES = 2 << 30
 
 
-def device_info(device: torch.device) -> tuple[int, int]:
-    """(SM count, bytes of shared memory one block may opt in to) of a CUDA
-    device, as the CUDA runtime reports them."""
-    index = device.index if device.index is not None else torch.cuda.current_device()
-    if index not in _device_info:
-        fn = cuda_build.load("gru_bwd").persist_device_info
-        fn.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
-        fn.restype = ctypes.c_int
-        sms, smem = ctypes.c_int(0), ctypes.c_int(0)
-        with torch.cuda.device(index):
-            rc = fn(ctypes.byref(sms), ctypes.byref(smem))
-        if rc != 0:
-            raise RuntimeError(f"persist_device_info failed: CUDA error {rc}")
-        _device_info[index] = (sms.value, smem.value)
-    return _device_info[index]
-
-
 _transposes: dict[int, tuple] = {}
+_stacked: dict[tuple, tuple] = {}
 _f32_slices: dict[tuple, tuple] = {}
 _f32_rows: dict[tuple, tuple] = {}
 
 
-def _kept(cache: dict, key, w: torch.Tensor, make):
-    """``make(w)``, kept in ``cache`` under ``key`` for as long as ``w`` lives
-    with the same storage and version counter. A tensor written in place (an
-    optimizer step) has a new version and is made again; an inference tensor
-    keeps no version and is made at every call."""
+def _kept(cache: dict, key, ws, make):
+    """``make(*ws)`` for a tensor or a tuple of them, kept in ``cache`` under
+    ``key`` for as long as each lives with the same storage and version
+    counter. A tensor written in place (an optimizer step) has a new version
+    and the result is made again, and a tensor freed drops it; an inference
+    tensor keeps no version and is made at every call."""
+    ws = ws if isinstance(ws, tuple) else (ws,)
     try:
-        version = w._version
+        stamp = tuple((w._version, w.data_ptr()) for w in ws)
     except RuntimeError:
-        return make(w)
+        return make(*ws)
     hit = cache.get(key)
-    if (hit is not None and hit[0]() is w and hit[1] == version
-            and hit[2] == w.data_ptr()):
-        return hit[3]
-    made = make(w)
-    cache[key] = (weakref.ref(w, lambda _, k=key: cache.pop(k, None)),
-                  version, w.data_ptr(), made)
+    if hit is not None and all(r() is w for r, w in zip(hit[0], ws)) and hit[1] == stamp:
+        return hit[2]
+    made = make(*ws)
+    cache[key] = (tuple(weakref.ref(w, lambda _, k=key: cache.pop(k, None)) for w in ws),
+                  stamp, made)
     return made
 
 
 def transposed(w: torch.Tensor) -> torch.Tensor:
     """``w.t().contiguous()``, kept per weight tensor (:func:`_kept`). The
-    persistent ``gru_scan`` and LSTM routes read rows of w_hh^T; remade at
-    every call, the 24 MB copies of GPUStreamingRNN's five layers took 12.7%
-    of a streaming chunk's device time (PERF.md)."""
+    persistent routes of B1, B2, B3 and the LSTM read rows of w_hh^T; remade
+    at every call, the 24 MB copies of GPUStreamingRNN's five layers took
+    12.7% of a streaming chunk's device time (PERF.md)."""
     return _kept(_transposes, id(w), w, lambda m: m.t().contiguous())
+
+
+def stacked_transposes(w_f: torch.Tensor, w_b: torch.Tensor) -> torch.Tensor:
+    """``torch.stack([w_f.t(), w_b.t()]).contiguous()``: the w_ih^T of both
+    directions that B3's persistent projection reads, kept per pair of
+    tensors (:func:`_kept`)."""
+    return _kept(_stacked, (id(w_f), id(w_b)), (w_f, w_b),
+                 lambda f, b: torch.stack([f.t(), b.t()]).contiguous())
 
 
 def f32_slices(w: torch.Tensor, units: int, blocks: int, depth: int) -> torch.Tensor:
@@ -242,22 +227,14 @@ def gru_bidi_fused(
     x, lengths, w_ih_f, w_ih_b, w_hh_f, w_hh_b, b_ih_f, b_ih_b, b_hh_f, b_hh_b,
     design: str | None = None,
 ):
-    """Both directions of one GRU layer from its raw input, h0 = 0.
-
-    Same contract and return values as :func:`gru_bidi_fused_plain`. A CUDA
-    ``x`` launches the kernel (bf16 x and weights, f32 biases, int32
-    lengths, all contiguous on x's device; or everything float32, the
-    float32 variant) or raises; a CPU ``x`` runs the plain version.
-    ``design`` is None (the plan of :func:`persist_plan.plan_gru_forward`
-    decides, :func:`persist_plan.plan_gru_f32_forward` for float32),
-    "persistent" or "step";
-    ``gru_bidi_fused.design_counts`` counts the CUDA calls by the design taken.
-    ``gru_bidi_fused.launches`` counts kernel launches (one per call: the
-    projection and the recurrence of one layer). The kernel keeps the
-    projection in an f32 buffer of 2 * T * B * 3H * 4 bytes; where that
-    would exceed :data:`GX_BUDGET_BYTES` (2 GiB) the batch runs in groups of
-    rows (:func:`gx_row_groups`), one call each, on either device.
-    """
+    """Both directions of one GRU layer from its raw input, h0 = 0:
+    :func:`gru_bidi_fused_plain`, one launch a call on the card (the
+    projection and the recurrence), planned by
+    :func:`persist_plan.plan_gru_forward` (float32:
+    :func:`persist_plan.plan_gru_f32_forward`). The kernel keeps the
+    projection in an f32 buffer of 2 * T * B * 3H * 4 bytes; where that would
+    exceed :data:`GX_BUDGET_BYTES` (2 GiB) the batch runs in groups of rows
+    (:func:`gx_row_groups`), one call each, on either device."""
     args = (w_ih_f, w_ih_b, w_hh_f, w_hh_b, b_ih_f, b_ih_b, b_hh_f, b_hh_b)
     groups = gx_row_groups(x.shape[0], x.shape[1], w_hh_f.shape[0])
     if len(groups) > 1:
@@ -265,39 +242,29 @@ def gru_bidi_fused(
                  for g in groups]
         return (torch.cat([p[0] for p in parts], 1), torch.cat([p[1] for p in parts], 1),
                 torch.cat([p[2] for p in parts]), torch.cat([p[3] for p in parts]))
-    if x.device.type == "cpu":
-        return gru_bidi_fused_plain(x, lengths, *args)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
-    dtype = _check_operands(x, lengths, w_ih_f, w_ih_b, w_hh_f, w_hh_b, args[4:])
+    return walks.run(GRU_BIDI_FUSED, [(x, lengths, *args)], [False], design)[0]
 
+
+def _bidi_fused(x, lengths, w_ih_f, w_ih_b, w_hh_f, w_hh_b, b_ih_f, b_ih_b, b_hh_f,
+                b_hh_b, planned=None):
+    """The bf16 kernel: the projection of both directions into an f32 gx
+    buffer, then both chains in one cooperative launch of the ``planned``
+    grid, or (``planned`` None) T launches of the step kernel."""
     t_max, batch, d_in = x.shape
     hidden = w_hh_f.shape[0]
     dev = x.device
-    if dtype == torch.float32:
-        planned = persist_plan.plan_gru_f32_forward(hidden, batch, 2, *device_info(dev))
-        design = persist_plan.choose(design, planned)
-        if design == "persistent":
-            result = _bidi_fused_f32_persistent(x, lengths, *args, planned=planned)
-        else:
-            result = _bidi_fused_f32(x, lengths, *args)
-        count(gru_bidi_fused, design, dtype)
-        return result
-    planned = persist_plan.plan_gru_forward(hidden, batch, *device_info(dev))
-    design = persist_plan.choose(design, planned)
-    persistent = design == "persistent"
     # gx in f32 for both directions: 1.5 GB at T=401, B=128, H=1200
     gx = torch.empty((2, t_max, batch, 3 * hidden), dtype=torch.float32, device=dev)
     out = torch.empty((2, t_max, batch, hidden), dtype=torch.bfloat16, device=dev)
-    if persistent:
+    if planned is not None:
         launch = cuda_build.bind("gru_bidi_fused", "gru_bidi_fused_persist_launch", 16, 10)
         # the resident slices are rows of w_hh^T; f32 h is updated in place
-        w_f, w_b = w_hh_f.t().contiguous(), w_hh_b.t().contiguous()
+        w_f, w_b = transposed(w_hh_f), transposed(w_hh_b)
         # rows of x that start on 16 bytes: the projection reads both operands
         # depth-contiguous through the copy engine (wgmma), else as they lie
         w_iht = None
         if d_in % 8 == 0 and x.data_ptr() % 16 == 0:
-            w_iht = torch.stack([w_ih_f.t(), w_ih_b.t()]).contiguous()
+            w_iht = stacked_transposes(w_ih_f, w_ih_b)
         h32 = torch.zeros((2, batch, hidden), dtype=torch.float32, device=dev)
         h16 = torch.empty((2, 2, batch, hidden), dtype=torch.bfloat16, device=dev)
         barrier = torch.zeros((2,), dtype=torch.int32, device=dev)
@@ -311,21 +278,14 @@ def gru_bidi_fused(
         h32 = torch.zeros((2, 2, batch, hidden), dtype=torch.float32, device=dev)
         h16 = torch.zeros((2, 2, batch, hidden), dtype=torch.bfloat16, device=dev)
         tail = (t_max, batch, d_in, hidden)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = launch(
-            x.data_ptr(), lengths.data_ptr(),
-            w_ih_f.data_ptr(), w_ih_b.data_ptr(), w_f.data_ptr(), w_b.data_ptr(),
-            b_ih_f.data_ptr(), b_ih_b.data_ptr(),
-            b_hh_f.data_ptr(), b_hh_b.data_ptr(),
-            gx.data_ptr(), h32.data_ptr(), h16.data_ptr(), out.data_ptr(),
-            *tail, stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"gru_bidi_fused ({design}) launch failed: CUDA error {rc}")
-    count(gru_bidi_fused, design, dtype)
+    cuda_build.call(
+        launch, f"gru_bidi_fused ({'step' if planned is None else 'persistent'})", dev,
+        x.data_ptr(), lengths.data_ptr(),
+        w_ih_f.data_ptr(), w_ih_b.data_ptr(), w_f.data_ptr(), w_b.data_ptr(),
+        b_ih_f.data_ptr(), b_ih_b.data_ptr(), b_hh_f.data_ptr(), b_hh_b.data_ptr(),
+        gx.data_ptr(), h32.data_ptr(), h16.data_ptr(), out.data_ptr(), *tail)
     # step design: the buffer the final step wrote
-    last = h32 if persistent else h32[t_max % 2]
+    last = h32 if planned is not None else h32[t_max % 2]
     return out[0], out[1], last[0], last[1]
 
 
@@ -380,9 +340,17 @@ def _bidi_fused_f32_persistent(x, lengths, w_ih_f, w_ih_b, w_hh_f, w_hh_b, b_ih_
     return out[0], out[1], last[0], last[1]
 
 
-gru_bidi_fused.launches = 0
-gru_bidi_fused.design_counts = {"persistent": 0, "step": 0}
-gru_bidi_fused.dtype_counts = {"bfloat16": 0, "float32": 0}
+GRU_BIDI_FUSED = walks.Walk(
+    check=lambda x, lengths, *w: _check_operands(x, lengths, *w[:4], w[4:]),
+    plain=lambda *layer, reverse: gru_bidi_fused_plain(*layer),
+    plan=lambda h, b, chains, *info: persist_plan.plan_gru_forward(h, b, *info),
+    plan_f32=lambda h, b, chains, *info: persist_plan.plan_gru_f32_forward(h, b, 2, *info),
+    persistent=lambda layers, r, planned: [_bidi_fused(*layers[0], planned=planned)],
+    step=lambda layers, r: [_bidi_fused(*layers[0])],
+    persistent_f32=lambda layers, r, planned: [
+        _bidi_fused_f32_persistent(*layers[0], planned=planned)],
+    step_f32=lambda layers, r: [_bidi_fused_f32(*layers[0])],
+    counter=walks.counted(gru_bidi_fused), w_at=4)
 
 
 # ---------------------------------------------------------------------------
@@ -447,49 +415,11 @@ def _check_scan_operands(gx, lengths, w_hh, b_ih, b_hh, h0):
 
 def gru_scan(gx, lengths, w_hh, b_ih, b_hh, h0, reverse: bool = False,
              design: str | None = None):
-    """One GRU chain over a precomputed projection, with a carried h0.
-
-    Same contract and return values as :func:`gru_scan_plain`. A CUDA
-    ``gx`` launches the kernel (bf16 gx and w_hh, f32 biases and h0, int32
-    lengths, all contiguous on gx's device; or everything float32, the
-    float32 variant) or raises; a CPU ``gx`` runs the plain version.
-    ``design`` is None (the plan of :func:`persist_plan.plan_gru_scan`
-    decides, :func:`persist_plan.plan_gru_f32_forward` for float32),
-    "persistent" or "step";
-    ``gru_scan.design_counts`` counts the CUDA calls by the design taken.
-    ``gru_scan.launches`` counts kernel launches (one per call).
-    """
-    if gx.device.type == "cpu":
-        return gru_scan_plain(gx, lengths, w_hh, b_ih, b_hh, h0, reverse)
-    if gx.device.type != "cuda":
-        raise ValueError(f"unsupported device {gx.device}")
-    dtype = _check_scan_operands(gx, lengths, w_hh, b_ih, b_hh, h0)
-    if dtype == torch.float32:
-        planned = persist_plan.plan_gru_f32_forward(w_hh.shape[0], gx.shape[1], 1,
-                                                    *device_info(gx.device))
-        design = persist_plan.choose(design, planned)
-        chain = [(gx, lengths, w_hh, b_ih, b_hh, h0)]
-        if design == "persistent":
-            result = _scan_f32_persistent(chain, [reverse], planned)[0]
-        else:
-            result = _scan_f32(chain, [reverse])[0]
-        count(gru_scan, design, dtype)
-        return result
-    planned = persist_plan.plan_gru_scan(w_hh.shape[0], gx.shape[1],
-                                         *device_info(gx.device))
-    design = persist_plan.choose(design, planned)
-    if design == "persistent":
-        result = _scan_persistent([(gx, lengths, w_hh, b_ih, b_hh, h0)], [reverse],
-                                  planned)[0]
-    else:
-        result = _scan_step(gx, lengths, w_hh, b_ih, b_hh, h0, reverse)
-    count(gru_scan, design, dtype)
-    return result
-
-
-gru_scan.launches = 0
-gru_scan.design_counts = {"persistent": 0, "step": 0}
-gru_scan.dtype_counts = {"bfloat16": 0, "float32": 0}
+    """One GRU chain over a precomputed projection, with a carried h0:
+    :func:`gru_scan_plain`, planned by :func:`persist_plan.plan_gru_scan`
+    (float32: :func:`persist_plan.plan_gru_f32_forward`). Its counters also
+    count :func:`gru_scan_bidi`'s bf16 persistent launches, this kernel's."""
+    return walks.run(GRU_SCAN, [(gx, lengths, w_hh, b_ih, b_hh, h0)], [reverse], design)[0]
 
 
 def _scan_f32(chains, reverses):
@@ -621,18 +551,20 @@ def gru_scan_bidi_plain(
     return out_f, out_b, hl_f, hl_b
 
 
-def _scan_bidi_step(gx_f, gx_b, lengths, w_hh_f, w_hh_b, b_ih_f, b_ih_b, b_hh_f,
-                    b_hh_b, h0_f, h0_b):
-    """T launches of the step kernel, both directions in each."""
+def _scan_bidi_step(chains, reverses):
+    """T launches of the step kernel, both directions in each: the forward
+    chain, then the reverse-time one. ``chains`` holds two (gx, lengths,
+    w_hh, b_ih, b_hh, h0) tuples; returns one (out, h_last) per chain."""
     launch = cuda_build.bind("gru_scan_bidi", "gru_scan_bidi_launch", 12, 3)
+    (gx_f, lengths, w_hh_f, b_ih_f, b_hh_f, _), (gx_b, _, w_hh_b, b_ih_b, b_hh_b, _) = chains
     t_max, batch, _ = gx_f.shape
     hidden = w_hh_f.shape[0]
     dev = gx_f.device
     h32 = torch.empty((2, 2, batch, hidden), dtype=torch.float32, device=dev)
     h16 = torch.empty((2, 2, batch, hidden), dtype=torch.bfloat16, device=dev)
-    for d, h0 in enumerate((h0_f, h0_b)):
-        h32[0, d].copy_(h0)
-        h16[0, d].copy_(h0)  # round to nearest even, as __float2bfloat16
+    for d, c in enumerate(chains):
+        h32[0, d].copy_(c[5])
+        h16[0, d].copy_(c[5])  # round to nearest even, as __float2bfloat16
     out = torch.empty((2, t_max, batch, hidden), dtype=torch.bfloat16, device=dev)
     cuda_build.call(
         launch, "gru_scan_bidi (step)", dev,
@@ -641,19 +573,7 @@ def _scan_bidi_step(gx_f, gx_b, lengths, w_hh_f, w_hh_b, b_ih_f, b_ih_b, b_hh_f,
         b_hh_f.data_ptr(), b_hh_b.data_ptr(), h32.data_ptr(), h16.data_ptr(),
         out.data_ptr(), t_max, batch, hidden)
     last = h32[t_max % 2]  # the buffer the final step wrote
-    return out[0], out[1], last[0], last[1]
-
-
-def scan_bidi_plans(hidden, batch, device, dtype=torch.bfloat16) -> tuple:
-    """The plans :func:`gru_scan_bidi` chooses among on ``device`` for the
-    operand set ``dtype``: both chains in one persistent launch, else each
-    chain in a launch of its own."""
-    info = device_info(device)
-    if dtype == torch.float32:
-        return (persist_plan.plan_gru_f32_forward(hidden, batch, 2, *info),
-                persist_plan.plan_gru_f32_forward(hidden, batch, 1, *info))
-    return (persist_plan.plan_gru_scan(hidden, batch, *info, chains=2),
-            persist_plan.plan_gru_scan(hidden, batch, *info, chains=1))
+    return [(out[0], last[0]), (out[1], last[1])]
 
 
 def gru_scan_bidi(
@@ -661,70 +581,32 @@ def gru_scan_bidi(
     design: str | None = None,
 ):
     """Both chains of a bidirectional GRU layer over precomputed
-    projections, with carried initial states.
-
-    Same contract and return values as :func:`gru_scan_bidi_plain`. CUDA
-    operands launch the kernel (bf16 gx and w_hh, f32 biases and h0, int32
-    lengths, all contiguous on gx_f's device; or everything float32, the
-    float32 variant) or raise; CPU operands run the plain version.
-    ``design`` is None (the plans decide), "persistent" or
-    "step". The persistent design is :func:`gru_scan`'s kernel
-    (``csrc/gru_scan.cu``; float32: ``gru_f32_persist_kernel``) over two
-    chains in one launch where the plan of :func:`persist_plan.plan_gru_scan`
-    (:func:`persist_plan.plan_gru_f32_forward`) for two chains fits, else one
-    launch a chain where the plan for one does; the step design is
-    ``csrc/gru_scan_bidi.cu`` (float32: ``gru_f32_step_kernel``), T launches
-    with both directions in each.
-    ``gru_scan_bidi.launches`` counts calls (one a call, whatever the
-    design); ``gru_scan_bidi.design_counts`` counts them by the design taken.
-    """
-    args = (gx_f, gx_b, lengths, w_hh_f, w_hh_b, b_ih_f, b_ih_b, b_hh_f, b_hh_b,
-            h0_f, h0_b)
-    if gx_f.device.type == "cpu":
-        return gru_scan_bidi_plain(*args)
-    if gx_f.device.type != "cuda":
-        raise ValueError(f"unsupported device {gx_f.device}")
-    chains = ((gx_f, lengths, w_hh_f, b_ih_f, b_hh_f, h0_f),
-              (gx_b, lengths, w_hh_b, b_ih_b, b_hh_b, h0_b))
-    dtype = pair_dtype(_check_scan_operands, *chains)
+    projections, with carried initial states: :func:`gru_scan_bidi_plain`.
+    The persistent design is :func:`gru_scan`'s kernel (float32:
+    ``gru_f32_persist_kernel``), planned as it is, its bf16 launches counted
+    on :func:`gru_scan`; the step design is ``csrc/gru_scan_bidi.cu``
+    (float32: ``gru_f32_step_kernel``), both directions in each step."""
     if gx_b.shape != gx_f.shape or gx_b.device != gx_f.device:
         raise ValueError(
             f"gx_b {tuple(gx_b.shape)} on {gx_b.device} does not match gx_f "
             f"{tuple(gx_f.shape)} on {gx_f.device}"
         )
-    if dtype == torch.float32:
-        pair, single = scan_bidi_plans(w_hh_f.shape[0], gx_f.shape[1], gx_f.device,
-                                       torch.float32)
-        planned = pair if pair.design == "persistent" else single
-        design = persist_plan.choose(design, planned)
-        if design == "step":
-            (out_f, hl_f), (out_b, hl_b) = _scan_f32(chains, [False, True])
-        elif planned is pair:
-            (out_f, hl_f), (out_b, hl_b) = _scan_f32_persistent(chains, [False, True], pair)
-        else:
-            (out_f, hl_f), = _scan_f32_persistent(chains[:1], [False], single)
-            (out_b, hl_b), = _scan_f32_persistent(chains[1:], [True], single)
-        count(gru_scan_bidi, design, dtype)
-        return out_f, out_b, hl_f, hl_b
-    pair, single = scan_bidi_plans(w_hh_f.shape[0], gx_f.shape[1], gx_f.device)
-    planned = pair if pair.design == "persistent" else single
-    design = persist_plan.choose(design, planned)
-    if design == "step":
-        result = _scan_bidi_step(*args)
-    elif planned is pair:
-        (out_f, hl_f), (out_b, hl_b) = _scan_persistent(chains, [False, True], pair)
-        result = out_f, out_b, hl_f, hl_b
-    else:
-        (out_f, hl_f), = _scan_persistent(chains[:1], [False], single)
-        (out_b, hl_b), = _scan_persistent(chains[1:], [True], single)
-        result = out_f, out_b, hl_f, hl_b
-    count(gru_scan_bidi, design, dtype)
-    return result
+    (out_f, hl_f), (out_b, hl_b) = walks.run(
+        GRU_SCAN_BIDI, [(gx_f, lengths, w_hh_f, b_ih_f, b_hh_f, h0_f),
+                        (gx_b, lengths, w_hh_b, b_ih_b, b_hh_b, h0_b)], [False, True], design)
+    return out_f, out_b, hl_f, hl_b
 
 
-gru_scan_bidi.launches = 0
-gru_scan_bidi.design_counts = {"persistent": 0, "step": 0}
-gru_scan_bidi.dtype_counts = {"bfloat16": 0, "float32": 0}
+GRU_SCAN = walks.Walk(
+    check=_check_scan_operands, plain=gru_scan_plain,
+    plan=lambda h, b, chains, *info: persist_plan.plan_gru_scan(h, b, *info, chains=chains),
+    plan_f32=persist_plan.plan_gru_f32_forward,
+    persistent=_scan_persistent, step=walks.each(_scan_step),
+    persistent_f32=_scan_f32_persistent, step_f32=_scan_f32,
+    counter=walks.counted(gru_scan))
+GRU_SCAN_BIDI = dataclasses.replace(
+    GRU_SCAN, step=_scan_bidi_step, step_chains=2, counter=walks.counted(gru_scan_bidi),
+    owner=gru_scan)
 
 
 # ---------------------------------------------------------------------------
@@ -870,50 +752,12 @@ def gru_bwd_scan(
     gx, hprev, dout, lengths, w_hh, b_ih, b_hh, dh_last, reverse: bool = True,
     design: str | None = None,
 ):
-    """The backward walk of one GRU chain.
-
-    Same contract and return values as :func:`gru_bwd_scan_plain`. A CUDA
-    ``gx`` launches the kernel (bf16 gx, hprev and w_hh, f32 dout, biases
-    and dh_last, int32 lengths, all contiguous on gx's device; or everything
-    float32, the float32 variant) or raises; a CPU ``gx`` runs the plain
-    version. ``design`` is None (the plan of
-    :func:`persist_plan.plan_gru_backward` decides,
-    :func:`persist_plan.plan_gru_f32_backward` for float32), "persistent" or
-    "step"; ``gru_bwd_scan.design_counts`` counts the chains by the design
-    taken.
-    ``gru_bwd_scan.launches`` counts kernel launches (one per chain: the
-    gate-recompute product and the walk).
-    """
-    args = (gx, hprev, dout, lengths, w_hh, b_ih, b_hh, dh_last)
-    if gx.device.type == "cpu":
-        return gru_bwd_scan_plain(*args, reverse)
-    if gx.device.type != "cuda":
-        raise ValueError(f"unsupported device {gx.device}")
-    dtype = _check_bwd_operands(*args)
-    if dtype == torch.float32:
-        planned = persist_plan.plan_gru_f32_backward(w_hh.shape[0], gx.shape[1], 1,
-                                                     *device_info(gx.device))
-        design = persist_plan.choose(design, planned)
-        if design == "persistent":
-            result = _bwd_f32_persistent([args], [reverse], planned)[0]
-        else:
-            result = _bwd_f32([args], [reverse])[0]
-        count(gru_bwd_scan, design, dtype)
-        return result
-    planned = persist_plan.plan_gru_backward(
-        w_hh.shape[0], gx.shape[1], 1, *device_info(gx.device))
-    design = persist_plan.choose(design, planned)
-    if design == "persistent":
-        result = _bwd_persistent([args], [reverse], planned)[0]
-    else:
-        result = _bwd_step(*args, reverse)
-    count(gru_bwd_scan, design, dtype)
-    return result
-
-
-gru_bwd_scan.launches = 0
-gru_bwd_scan.design_counts = {"persistent": 0, "step": 0}
-gru_bwd_scan.dtype_counts = {"bfloat16": 0, "float32": 0}
+    """The backward walk of one GRU chain: :func:`gru_bwd_scan_plain`, the
+    gate-recompute product and the walk in one C call, planned by
+    :func:`persist_plan.plan_gru_backward` (float32:
+    :func:`persist_plan.plan_gru_f32_backward`)."""
+    ops = (gx, hprev, dout, lengths, w_hh, b_ih, b_hh, dh_last)
+    return walks.run(GRU_BWD_SCAN, [ops], [reverse], design)[0]
 
 
 def _bwd_f32(chains, reverses):
@@ -986,44 +830,21 @@ def _bwd_f32_persistent(chains, reverses, planned):
 
 def gru_bwd_scan_pair(chain_a, chain_b, reverse_a: bool, reverse_b: bool,
                       design: str | None = None):
-    """The backward walks of the two chains of a bidirectional layer.
+    """The backward walks of the two chains of a bidirectional layer:
+    ``chain_a`` and ``chain_b`` are operand tuples of :func:`gru_bwd_scan`
+    over the same lengths tensor; returns its result for each. On the card
+    both share one launch where the plan allows (each chain has its own
+    barrier: the step count on the critical path halves)."""
+    a, b = walks.run(GRU_BWD_SCAN, [chain_a, chain_b], [reverse_a, reverse_b], design)
+    return a, b
 
-    ``chain_a`` and ``chain_b`` are the operand tuples (gx, hprev, dout,
-    lengths, w_hh, b_ih, b_hh, dh_last) of :func:`gru_bwd_scan`, over the
-    same lengths tensor and shapes. Returns ((dgx, dghn, dh0) of a, the same
-    of b), each as :func:`gru_bwd_scan` would return it. On CUDA both walks
-    share one persistent launch when the plan for two chains fits (each
-    chain has its own barrier: the step count on the critical path halves);
-    otherwise, and for ``design="step"``, they run one after the other as two
-    :func:`gru_bwd_scan` calls. Float32 chains take the plans of
-    :func:`persist_plan.plan_gru_f32_backward`: both in one cooperative
-    launch where the plan for two fits, else one launch a chain where the
-    plan for one does; ``design="step"`` (or no plan that fits) walks both
-    in each of the T + 1 launches of the float32 step kernel. Either way
-    ``gru_bwd_scan.launches`` grows by two: it counts chains.
-    """
-    if chain_a[0].device.type != "cuda":
-        return (gru_bwd_scan(*chain_a, reverse=reverse_a),
-                gru_bwd_scan(*chain_b, reverse=reverse_b))
-    dtype = pair_dtype(_check_bwd_operands, chain_a, chain_b)
-    if chain_a[0].shape != chain_b[0].shape or chain_a[3] is not chain_b[3]:
-        raise ValueError("the two chains must share their shapes and lengths")
-    if dtype == torch.float32:
-        outs, design = persist_plan.run_f32_pair(
-            persist_plan.plan_gru_f32_backward, chain_a[4].shape[0], chain_a[0].shape[1],
-            device_info(chain_a[0].device), design, [chain_a, chain_b], [reverse_a, reverse_b],
-            _bwd_f32, _bwd_f32_persistent)
-        count(gru_bwd_scan, design, dtype, 2)
-        return outs[0], outs[1]
-    planned = persist_plan.plan_gru_backward(
-        chain_a[4].shape[0], chain_a[0].shape[1], 2, *device_info(chain_a[0].device))
-    if design == "step" or planned.design != "persistent":
-        return (gru_bwd_scan(*chain_a, reverse=reverse_a, design=design),
-                gru_bwd_scan(*chain_b, reverse=reverse_b, design=design))
-    persist_plan.choose(design, planned)
-    outs = _bwd_persistent([chain_a, chain_b], [reverse_a, reverse_b], planned)
-    count(gru_bwd_scan, "persistent", dtype, 2)
-    return outs[0], outs[1]
+
+GRU_BWD_SCAN = walks.Walk(
+    check=_check_bwd_operands, plain=gru_bwd_scan_plain,
+    plan=persist_plan.plan_gru_backward, plan_f32=persist_plan.plan_gru_f32_backward,
+    persistent=_bwd_persistent, step=walks.each(_bwd_step),
+    persistent_f32=_bwd_f32_persistent, step_f32=_bwd_f32,
+    counter=walks.counted(gru_bwd_scan), lengths_at=3, w_at=4)
 
 
 def sgemm_f32_plain(a, b):

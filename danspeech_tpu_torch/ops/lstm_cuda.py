@@ -19,43 +19,36 @@ w_ih`` in the stream dtype and ``b_ih + b_hh`` as that vector (the operand
 named ``b_hh`` here), so no pass touches the gate stream between the GEMM
 and the walk (the JAX package's ``_lstm_project`` puts ``b_ih`` inside the
 projection instead). Each source's header note says what bounds it on an
-H100 and what the design does about it. All three have two designs, as the GRU ones: "persistent" (one
-cooperative launch walks every step, ``csrc/persist.cuh``) and "step" (one
-launch per time step), chosen by :func:`persist_plan.plan_lstm_forward` /
-:func:`persist_plan.plan_lstm_backward` or by ``design=``;
+H100 and what the design does about it. All three have two designs, as the
+GRU ones: "persistent" (one cooperative launch walks every step,
+``csrc/persist.cuh``) and "step" (one launch per time step);
 :func:`lstm_scan_pair` and :func:`lstm_bwd_scan_pair` run both chains of a
-bidirectional layer in one persistent launch.
+bidirectional layer in one persistent launch where the plan allows.
 
 Each wrapper takes two sets of operands, told apart by the dtype of its
-sequence: bf16 sequences and weights with f32 biases and states (the
-designs above), or everything in float32, which runs the float32 variants of
-``csrc/lstm_f32.cu``. Their forward walk (B5, B6) has both designs:
-"persistent" is one cooperative launch of ``lstm_f32_persist_kernel``, each
-block keeping what fits of its float32 slice resident and streaming the rest
-from L2 (:func:`persist_plan.plan_lstm_f32_forward` plans it), "step" one
-launch per time step. The float32 backward walk (B7) has both too:
-"persistent" is the FFMA gate recompute, then one cooperative launch of
-``lstm_f32_bwd_persist_kernel`` (:func:`persist_plan.plan_lstm_f32_backward`),
-"step" the recompute and T + 1 step launches. A mixed set raises
-``TypeError``.
-``<wrapper>.dtype_counts`` counts the CUDA calls (or chains) by the set
-taken.
-
-A wrapper launches its kernel for CUDA tensors and raises on anything the
-kernel does not take; for CPU tensors, and only for those, it runs the plain
-version (dtype-generic). There is no fallback from a failed build or launch
-to the plain version.
+sequence: bf16 sequences and weights with f32 biases and states, or
+everything in float32, which runs the float32 variants of
+``csrc/lstm_f32.cu`` (B5, B6: ``lstm_f32_persist_kernel``, each block
+keeping what fits of its float32 slice resident and streaming the rest from
+L2, or one launch a step; B7: the FFMA gate recompute, then
+``lstm_f32_bwd_persist_kernel`` or T + 1 step launches). A mixed set raises
+``TypeError``. Every wrapper hands its chains to :func:`walks.run`, which
+runs the plain version (dtype-generic) for CPU tensors and only for those,
+and on the card checks the operands, plans, takes ``design=``, launches and
+counts, with no fallback from a failed build or launch to the plain
+version.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
-from . import cuda_build, persist_plan
+from . import cuda_build, persist_plan, walks
 from .cuda_build import chain_ptrs
-from .cuda_checks import (check_proj_rows, check_stream_shape, check_tensors, count,
-                          pair_dtype, time_order)
-from .gru_cuda import device_info, f32_rows, f32_slices, sgemm_f32, transposed
+from .cuda_checks import check_proj_rows, check_stream_shape, check_tensors, time_order
+from .gru_cuda import f32_rows, f32_slices, sgemm_f32, transposed
 
 
 def _gates(pre, hidden):
@@ -128,33 +121,6 @@ def _check_scan_operands(gx, lengths, w_hh, b_hh, h0, c0):
         "h0": (h0, (batch, hidden), torch.float32),
         "c0": (c0, (batch, hidden), torch.float32),
     })
-
-
-def _scan_cuda(wrapper, gx, lengths, w_hh, b_hh, h0, c0, reverse, with_cell, design):
-    """One chain on the card: the float32 variant for the float32 set, else
-    the design the plan (or ``design``) gives; counted on ``wrapper``."""
-    if gx.device.type != "cuda":
-        raise ValueError(f"unsupported device {gx.device}")
-    dtype = _check_scan_operands(gx, lengths, w_hh, b_hh, h0, c0)
-    chain = (gx, lengths, w_hh, b_hh, h0, c0)
-    if dtype == torch.float32:
-        planned = persist_plan.plan_lstm_f32_forward(w_hh.shape[0], gx.shape[1], 1,
-                                                     *device_info(gx.device))
-        design = persist_plan.choose(design, planned)
-        if design == "persistent":
-            result = _scan_f32_persistent([chain], [reverse], with_cell, planned)[0]
-        else:
-            result = _scan_f32([chain], [reverse], with_cell)[0]
-    else:
-        planned = persist_plan.plan_lstm_forward(w_hh.shape[0], gx.shape[1], 1,
-                                                 *device_info(gx.device))
-        design = persist_plan.choose(design, planned)
-        if design == "persistent":
-            result = _persistent([chain], [reverse], with_cell, planned)[0]
-        else:
-            result = _step(*chain, reverse, with_cell)
-    count(wrapper, design, dtype)
-    return result
 
 
 def _scan_f32(chains, reverses, with_cell):
@@ -286,91 +252,50 @@ def _persistent(chains, reverses, with_cell, planned):
 
 def lstm_scan(gx, lengths, w_hh, b_hh, h0, c0, reverse: bool = False,
               design: str | None = None):
-    """One LSTM chain over a precomputed projection, with carried h0, c0.
-
-    Same contract and return values as :func:`lstm_scan_plain`. A CUDA ``gx``
-    launches the kernel (bf16 gx and w_hh, f32 b_hh, h0 and c0, int32
-    lengths, all contiguous on gx's device; or everything float32, the
-    float32 variant) or raises; a CPU ``gx`` runs the plain version.
-    ``design`` is None (the plan of :func:`persist_plan.plan_lstm_forward`
-    decides, :func:`persist_plan.plan_lstm_f32_forward` for float32),
-    "persistent" or "step"; ``lstm_scan.design_counts`` and
-    ``lstm_scan.dtype_counts`` count the CUDA calls by the design and the
-    operand set taken. ``lstm_scan.launches`` counts kernel launches (one per
-    call).
-    """
-    if gx.device.type == "cpu":
-        return lstm_scan_plain(gx, lengths, w_hh, b_hh, h0, c0, reverse)
-    return _scan_cuda(lstm_scan, gx, lengths, w_hh, b_hh, h0, c0, reverse, False, design)
-
-
-lstm_scan.launches = 0
-lstm_scan.design_counts = {"persistent": 0, "step": 0}
-lstm_scan.dtype_counts = {"bfloat16": 0, "float32": 0}
+    """One LSTM chain over a precomputed projection, with carried h0, c0:
+    :func:`lstm_scan_plain`, planned by :func:`persist_plan.plan_lstm_forward`
+    (float32: :func:`persist_plan.plan_lstm_f32_forward`)."""
+    return walks.run(LSTM_SCAN, [(gx, lengths, w_hh, b_hh, h0, c0)], [reverse], design)[0]
 
 
 def lstm_scan_with_cell(gx, lengths, w_hh, b_hh, h0, c0, reverse: bool = False,
                         design: str | None = None):
-    """One LSTM chain that also writes its cell sequence.
-
-    Same contract and return values as :func:`lstm_scan_with_cell_plain`; a
-    CUDA ``gx`` launches the kernel or raises, a CPU ``gx`` runs the plain
-    version, and ``design`` and the counters are those of :func:`lstm_scan`.
-    """
-    if gx.device.type == "cpu":
-        return lstm_scan_with_cell_plain(gx, lengths, w_hh, b_hh, h0, c0, reverse)
-    return _scan_cuda(lstm_scan_with_cell, gx, lengths, w_hh, b_hh, h0, c0, reverse, True,
-                      design)
-
-
-lstm_scan_with_cell.launches = 0
-lstm_scan_with_cell.design_counts = {"persistent": 0, "step": 0}
-lstm_scan_with_cell.dtype_counts = {"bfloat16": 0, "float32": 0}
+    """One LSTM chain that also writes its cell sequence:
+    :func:`lstm_scan_with_cell_plain`, planned as :func:`lstm_scan`. Its
+    bf16 persistent launches are ``lstm_persist_kernel``'s, counted on
+    :func:`lstm_scan`."""
+    chain = (gx, lengths, w_hh, b_hh, h0, c0)
+    return walks.run(LSTM_SCAN_WITH_CELL, [chain], [reverse], design)[0]
 
 
 def lstm_scan_pair(chain_a, chain_b, reverse_a: bool, reverse_b: bool,
                    with_cell: bool = False, design: str | None = None):
-    """Both chains of a bidirectional LSTM layer.
+    """Both chains of a bidirectional LSTM layer: ``chain_a`` and
+    ``chain_b`` are operand tuples of :func:`lstm_scan` over the same
+    lengths tensor; returns the result of :func:`lstm_scan` (with
+    ``with_cell``, :func:`lstm_scan_with_cell`) for each. On the card both
+    share one launch where the plan allows, each chain with its own barrier,
+    so the two never wait for each other."""
+    walk = LSTM_SCAN_WITH_CELL if with_cell else LSTM_SCAN
+    a, b = walks.run(walk, [chain_a, chain_b], [reverse_a, reverse_b], design)
+    return a, b
 
-    ``chain_a`` and ``chain_b`` are the operand tuples (gx, lengths, w_hh,
-    b_hh, h0, c0) of :func:`lstm_scan`, over the same lengths tensor and
-    shapes. Returns (the results of a, the results of b), each as
-    :func:`lstm_scan` (or, with ``with_cell``, :func:`lstm_scan_with_cell`)
-    would return it. On CUDA both chains share one persistent launch when the
-    plan for two chains fits (each chain with its own barrier, so the two
-    never wait for each other), and that wrapper's ``launches`` and
-    ``design_counts`` grow by one; otherwise, for ``design="step"``, and on
-    the CPU, they run one after the other as two calls of that wrapper.
-    Float32 chains take the plans of
-    :func:`persist_plan.plan_lstm_f32_forward`: both in one cooperative
-    launch where the plan for two fits, else one launch a chain where the
-    plan for one does; ``design="step"`` (or no plan that fits) walks both
-    in each of the T launches of the float32 step kernel. Either way the
-    float32 counts grow by two: they count chains.
-    """
-    scan = lstm_scan_with_cell if with_cell else lstm_scan
-    if chain_a[0].device.type != "cuda":
-        return scan(*chain_a, reverse=reverse_a), scan(*chain_b, reverse=reverse_b)
-    dtype = pair_dtype(_check_scan_operands, chain_a, chain_b)
-    if chain_a[0].shape != chain_b[0].shape or chain_a[1] is not chain_b[1]:
-        raise ValueError("the two chains must share their shapes and lengths")
-    if dtype == torch.float32:
-        outs, design = persist_plan.run_f32_pair(
-            persist_plan.plan_lstm_f32_forward, chain_a[2].shape[0], chain_a[0].shape[1],
-            device_info(chain_a[0].device), design, [chain_a, chain_b], [reverse_a, reverse_b],
-            lambda c, r: _scan_f32(c, r, with_cell),
-            lambda c, r, p: _scan_f32_persistent(c, r, with_cell, p))
-        count(scan, design, dtype, 2)
-        return outs[0], outs[1]
-    planned = persist_plan.plan_lstm_forward(
-        chain_a[2].shape[0], chain_a[0].shape[1], 2, *device_info(chain_a[0].device))
-    if design == "step" or planned.design != "persistent":
-        return (scan(*chain_a, reverse=reverse_a, design=design),
-                scan(*chain_b, reverse=reverse_b, design=design))
-    persist_plan.choose(design, planned)
-    outs = _persistent([chain_a, chain_b], [reverse_a, reverse_b], with_cell, planned)
-    count(scan, "persistent", dtype)
-    return outs[0], outs[1]
+
+LSTM_SCAN = walks.Walk(
+    check=_check_scan_operands, plain=lstm_scan_plain,
+    plan=persist_plan.plan_lstm_forward, plan_f32=persist_plan.plan_lstm_f32_forward,
+    persistent=lambda c, r, planned: _persistent(c, r, False, planned),
+    step=walks.each(lambda *chain: _step(*chain, False)),
+    persistent_f32=lambda c, r, planned: _scan_f32_persistent(c, r, False, planned),
+    step_f32=lambda c, r: _scan_f32(c, r, False),
+    counter=walks.counted(lstm_scan))
+LSTM_SCAN_WITH_CELL = dataclasses.replace(
+    LSTM_SCAN, plain=lstm_scan_with_cell_plain,
+    persistent=lambda c, r, planned: _persistent(c, r, True, planned),
+    step=walks.each(lambda *chain: _step(*chain, True)),
+    persistent_f32=lambda c, r, planned: _scan_f32_persistent(c, r, True, planned),
+    step_f32=lambda c, r: _scan_f32(c, r, True),
+    counter=walks.counted(lstm_scan_with_cell), owner=lstm_scan)
 
 
 # ---------------------------------------------------------------------------
@@ -564,97 +489,27 @@ def _bwd_persistent(chains, reverses, planned):
 
 def lstm_bwd_scan(gx, hprev, cprev, dout, lengths, w_hh, b_hh, reverse: bool = True,
                   design: str | None = None):
-    """The backward walk of one LSTM chain.
-
-    Same contract and return values as :func:`lstm_bwd_scan_plain`. A CUDA
-    ``gx`` launches the kernel (bf16 gx, hprev, cprev and w_hh, f32 dout and
-    b_hh, int32 lengths, all contiguous on gx's device; or everything
-    float32, the float32 variant) or raises; a CPU ``gx`` runs the plain
-    version. ``design`` is None (the plan of
-    :func:`persist_plan.plan_lstm_backward` decides,
-    :func:`persist_plan.plan_lstm_f32_backward` for float32), "persistent" or
-    "step"; ``lstm_bwd_scan.design_counts`` and ``lstm_bwd_scan.dtype_counts``
-    count the chains by the design and the operand set taken.
-    ``lstm_bwd_scan.launches`` counts chains (one per call: the
-    gate-recompute product and the walk), ``lstm_bwd_scan.pair_launches``
-    the cooperative launches that walked two chains
-    (:func:`lstm_bwd_scan_pair`).
-    """
-    args = (gx, hprev, cprev, dout, lengths, w_hh, b_hh)
-    if gx.device.type == "cpu":
-        return lstm_bwd_scan_plain(*args, reverse)
-    if gx.device.type != "cuda":
-        raise ValueError(f"unsupported device {gx.device}")
-    dtype = _check_bwd_operands(*args)
-    if dtype == torch.float32:
-        planned = persist_plan.plan_lstm_f32_backward(w_hh.shape[0], gx.shape[1], 1,
-                                                      *device_info(gx.device))
-        design = persist_plan.choose(design, planned)
-        if design == "persistent":
-            result = _bwd_f32_persistent([args], [reverse], planned)[0]
-        else:
-            result = _bwd_f32([args], [reverse])[0]
-    else:
-        planned = persist_plan.plan_lstm_backward(w_hh.shape[0], gx.shape[1], 1,
-                                                  *device_info(gx.device))
-        design = persist_plan.choose(design, planned)
-        if design == "persistent":
-            result = _bwd_persistent([args], [reverse], planned)[0]
-        else:
-            result = _bwd_step(*args, reverse)
-    count(lstm_bwd_scan, design, dtype)
-    return result
-
-
-lstm_bwd_scan.launches = 0
-lstm_bwd_scan.pair_launches = 0
-lstm_bwd_scan.design_counts = {"persistent": 0, "step": 0}
-lstm_bwd_scan.dtype_counts = {"bfloat16": 0, "float32": 0}
+    """The backward walk of one LSTM chain: :func:`lstm_bwd_scan_plain`,
+    the gate-recompute product and the walk in one C call, planned by
+    :func:`persist_plan.plan_lstm_backward` (float32:
+    :func:`persist_plan.plan_lstm_f32_backward`)."""
+    ops = (gx, hprev, cprev, dout, lengths, w_hh, b_hh)
+    return walks.run(LSTM_BWD_SCAN, [ops], [reverse], design)[0]
 
 
 def lstm_bwd_scan_pair(chain_a, chain_b, reverse_a: bool, reverse_b: bool,
                        design: str | None = None):
-    """The backward walks of the two chains of a bidirectional LSTM layer.
+    """The backward walks of the two chains of a bidirectional LSTM layer:
+    ``chain_a`` and ``chain_b`` are operand tuples of :func:`lstm_bwd_scan`
+    over the same lengths tensor; returns its result for each. On the card
+    both share one launch where the plan allows."""
+    a, b = walks.run(LSTM_BWD_SCAN, [chain_a, chain_b], [reverse_a, reverse_b], design)
+    return a, b
 
-    ``chain_a`` and ``chain_b`` are the operand tuples (gx, hprev, cprev,
-    dout, lengths, w_hh, b_hh) of :func:`lstm_bwd_scan`, of the same shapes
-    and over the same lengths tensor (else ValueError, on any device).
-    Returns ((dg4, dh0, dc0) of a, the same of b), each as
-    :func:`lstm_bwd_scan` would return it. On CUDA both walks share one
-    persistent launch when the plan for two chains fits (each chain has its
-    own barrier, so the two never wait for each other) and
-    ``lstm_bwd_scan.pair_launches`` grows by one; otherwise, for
-    ``design="step"``, and on the CPU, they run one after the other as two
-    :func:`lstm_bwd_scan` calls. Float32 chains take the plans of
-    :func:`persist_plan.plan_lstm_f32_backward`: both in one cooperative
-    launch where the plan for two fits, else one launch a chain where the
-    plan for one does; ``design="step"`` (or no plan that fits) walks both
-    in each of the T + 1 launches of the float32 step kernel;
-    ``pair_launches`` counts only the cooperative bf16 launches. Either way
-    ``lstm_bwd_scan.launches`` grows by two: it counts chains.
-    """
-    if (tuple(chain_a[0].shape) != tuple(chain_b[0].shape)
-            or tuple(chain_a[5].shape) != tuple(chain_b[5].shape)
-            or chain_a[4] is not chain_b[4]):
-        raise ValueError("the two chains must share their shapes and lengths")
-    if chain_a[0].device.type != "cuda":
-        return (lstm_bwd_scan(*chain_a, reverse=reverse_a),
-                lstm_bwd_scan(*chain_b, reverse=reverse_b))
-    dtype = pair_dtype(_check_bwd_operands, chain_a, chain_b)
-    if dtype == torch.float32:
-        outs, design = persist_plan.run_f32_pair(
-            persist_plan.plan_lstm_f32_backward, chain_a[5].shape[0], chain_a[0].shape[1],
-            device_info(chain_a[0].device), design, [chain_a, chain_b], [reverse_a, reverse_b],
-            _bwd_f32, _bwd_f32_persistent)
-        count(lstm_bwd_scan, design, dtype, 2)
-        return outs[0], outs[1]
-    planned = persist_plan.plan_lstm_backward(
-        chain_a[5].shape[0], chain_a[0].shape[1], 2, *device_info(chain_a[0].device))
-    if design == "step" or planned.design != "persistent":
-        return (lstm_bwd_scan(*chain_a, reverse=reverse_a, design=design),
-                lstm_bwd_scan(*chain_b, reverse=reverse_b, design=design))
-    persist_plan.choose(design, planned)
-    outs = _bwd_persistent([chain_a, chain_b], [reverse_a, reverse_b], planned)
-    count(lstm_bwd_scan, "persistent", dtype, 2)
-    lstm_bwd_scan.pair_launches += 1
-    return outs[0], outs[1]
+
+LSTM_BWD_SCAN = walks.Walk(
+    check=_check_bwd_operands, plain=lstm_bwd_scan_plain,
+    plan=persist_plan.plan_lstm_backward, plan_f32=persist_plan.plan_lstm_f32_backward,
+    persistent=_bwd_persistent, step=walks.each(_bwd_step),
+    persistent_f32=_bwd_f32_persistent, step_f32=_bwd_f32,
+    counter=walks.counted(lstm_bwd_scan), lengths_at=4, w_at=5)

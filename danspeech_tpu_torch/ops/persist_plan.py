@@ -475,34 +475,3 @@ def plan_rnn_tanh_f32_backward(hidden, batch, chains, sm_count, smem_optin) -> F
     block: :func:`plan_f32`."""
     return plan_f32("rnn_tanh_backward", hidden, batch, chains, sm_count, smem_optin)
 
-
-def choose(design: str | None, planned: PersistPlan | F32Plan) -> str:
-    """The design a wrapper takes: the plan's when ``design`` is None, else
-    the one asked for, which must be one the plan allows ("step" always is)."""
-    if design is None:
-        return planned.design
-    if design not in DESIGNS:
-        raise ValueError(f"unknown design {design!r}: one of {DESIGNS} or None")
-    if design == "persistent" and planned.design != "persistent":
-        raise ValueError(f"the persistent design does not fit: {planned.reason}")
-    return design
-
-
-def run_f32_pair(planner, hidden, batch, info, design, chains, reverses, step, persistent):
-    """Both chains of a layer of a float32 walk with a persistent design, as
-    the pair wrappers take them: planned by ``planner`` (a ``plan_*_f32_*``
-    function) for two chains and for one with the device figures ``info``,
-    both chains in one launch of ``persistent(chains, reverses, plan)``
-    where the pair's plan fits, else one launch a chain on the one-chain
-    plan; ``step(chains, reverses)`` for ``design="step"`` (or where no plan
-    fits). Returns (one result per chain, the design taken)."""
-    pair = planner(hidden, batch, 2, *info)
-    single = planner(hidden, batch, 1, *info)
-    planned = pair if pair.design == "persistent" else single
-    design = choose(design, planned)
-    if design == "step":
-        return step(chains, reverses), design
-    if planned is pair:
-        return persistent(chains, reverses, pair), design
-    return [persistent([c], [r], single)[0] for c, r in zip(chains, reverses)], design
-

@@ -17,35 +17,30 @@ f32, then rounded to the stream dtype, as the JAX package's
 what bounds it on an H100 and what the design does about it. Both kernels
 have two designs, as the GRU and LSTM ones: "persistent" (one cooperative
 launch walks every step, ``csrc/persist.cuh``) and "step" (one launch per
-time step), chosen by :func:`persist_plan.plan_rnn_tanh_forward` /
-:func:`persist_plan.plan_rnn_tanh_backward` or by ``design=``.
+time step).
 
 Each wrapper takes two sets of operands, told apart by the dtype of its
-sequence: bf16 sequences and weights (the designs above), or everything in
-float32, which runs the float32 variants of ``csrc/rnn_tanh_f32.cu``. Both
-walks have both designs: "persistent" is one cooperative launch of
-``rnn_tanh_f32_persist_kernel`` (B8) or ``rnn_tanh_f32_bwd_persist_kernel``
-(B9), each block keeping its float32 slice of w_hh (B8: columns; B9: rows,
-as w_hh lies) in shared memory (:func:`persist_plan.plan_rnn_tanh_f32_forward`
-and :func:`persist_plan.plan_rnn_tanh_f32_backward` plan them), "step" one
-launch per time step (a pair walks both chains in each step launch). A mixed
-set raises ``TypeError``.
-``<wrapper>.dtype_counts`` counts the chains by the set taken.
-
-A wrapper launches its kernel for CUDA tensors and raises on anything the
-kernel does not take; for CPU tensors, and only for those, it runs the plain
-version (dtype-generic). There is no fallback from a failed build or launch
-to the plain version.
+sequence: bf16 sequences and weights, or everything in float32, which runs
+the float32 variants of ``csrc/rnn_tanh_f32.cu``: "persistent" is one
+cooperative launch of ``rnn_tanh_f32_persist_kernel`` (B8) or
+``rnn_tanh_f32_bwd_persist_kernel`` (B9), each block keeping its float32
+slice of w_hh (B8: columns; B9: rows, as w_hh lies) in shared memory, "step"
+one launch per time step (a pair walks both chains in each step launch). A
+mixed set raises ``TypeError``. Every wrapper hands its chains to
+:func:`walks.run`, which runs the plain version (dtype-generic) for CPU
+tensors and only for those, and on the card checks the operands, plans,
+takes ``design=``, launches and counts, with no fallback from a failed
+build or launch to the plain version.
 """
 
 from __future__ import annotations
 
 import torch
 
-from . import cuda_build, persist_plan
+from . import cuda_build, persist_plan, walks
 from .cuda_build import chain_ptrs
-from .cuda_checks import check_stream_shape, check_tensors, count, pair_dtype, time_order
-from .gru_cuda import device_info, f32_rows, f32_slices, transposed
+from .cuda_checks import check_stream_shape, check_tensors, time_order
+from .gru_cuda import f32_rows, f32_slices, transposed
 
 
 def rnn_tanh_scan_plain(gx, lengths, w_hh, reverse: bool = False):
@@ -180,103 +175,29 @@ def _scan_persistent(chains, reverses, planned):
 
 
 def rnn_tanh_scan(gx, lengths, w_hh, reverse: bool = False, design: str | None = None):
-    """One tanh-RNN chain over a precomputed projection, from h = 0.
-
-    Same contract and return values as :func:`rnn_tanh_scan_plain`. A CUDA
-    ``gx`` launches the kernel (bf16 gx and w_hh, int32 lengths, all
-    contiguous on gx's device; or float32 gx and w_hh, the float32 variant)
-    or raises; a CPU ``gx`` runs the plain version. ``design`` is None (the
-    plan of :func:`persist_plan.plan_rnn_tanh_forward` decides,
-    :func:`persist_plan.plan_rnn_tanh_f32_forward` for float32),
-    "persistent" or "step"; ``rnn_tanh_scan.design_counts`` and
-    ``rnn_tanh_scan.dtype_counts`` count the chains by the design and the
-    operand set taken. ``rnn_tanh_scan.launches`` counts chains (one per
-    call), ``rnn_tanh_scan.pair_launches`` the cooperative launches that
-    walked two chains (:func:`rnn_tanh_scan_pair`).
-    """
-    if gx.device.type == "cpu":
-        return rnn_tanh_scan_plain(gx, lengths, w_hh, reverse)
-    if gx.device.type != "cuda":
-        raise ValueError(f"unsupported device {gx.device}")
-    dtype = _check_operands("gx", gx, lengths, w_hh)
-    if dtype == torch.float32:
-        planned = persist_plan.plan_rnn_tanh_f32_forward(w_hh.shape[0], gx.shape[1], 1,
-                                                         *device_info(gx.device))
-        design = persist_plan.choose(design, planned)
-        if design == "persistent":
-            result = _scan_f32_persistent([(gx, lengths, w_hh)], [reverse], planned)[0]
-        else:
-            result = _scan_f32([(gx, lengths, w_hh)], [reverse])[0]
-    else:
-        planned = persist_plan.plan_rnn_tanh_forward(w_hh.shape[0], gx.shape[1], 1,
-                                                     *device_info(gx.device))
-        design = persist_plan.choose(design, planned)
-        if design == "persistent":
-            result = _scan_persistent([(gx, lengths, w_hh)], [reverse], planned)[0]
-        else:
-            result = _scan_step(gx, lengths, w_hh, reverse)
-    count(rnn_tanh_scan, design, dtype)
-    return result
-
-
-rnn_tanh_scan.launches = 0
-rnn_tanh_scan.pair_launches = 0
-rnn_tanh_scan.design_counts = {"persistent": 0, "step": 0}
-rnn_tanh_scan.dtype_counts = {"bfloat16": 0, "float32": 0}
-
-
-def _check_pair(chain_a, chain_b):
-    """The two chains of a pair must share their shapes and lengths tensor
-    (in the operand tuples of both wrappers lengths comes second to last and
-    w_hh last)."""
-    if (tuple(chain_a[0].shape) != tuple(chain_b[0].shape)
-            or tuple(chain_a[-1].shape) != tuple(chain_b[-1].shape)
-            or chain_a[-2] is not chain_b[-2]):
-        raise ValueError("the two chains must share their shapes and lengths")
+    """One tanh-RNN chain over a precomputed projection, from h = 0:
+    :func:`rnn_tanh_scan_plain`, planned by
+    :func:`persist_plan.plan_rnn_tanh_forward` (float32:
+    :func:`persist_plan.plan_rnn_tanh_f32_forward`)."""
+    return walks.run(RNN_TANH_SCAN, [(gx, lengths, w_hh)], [reverse], design)[0]
 
 
 def rnn_tanh_scan_pair(chain_a, chain_b, reverse_a: bool, reverse_b: bool,
                        design: str | None = None):
-    """Both chains of a bidirectional tanh-RNN layer.
+    """Both chains of a bidirectional tanh-RNN layer: ``chain_a`` and
+    ``chain_b`` are operand tuples of :func:`rnn_tanh_scan` over the same
+    lengths tensor; returns its result for each. On the card both share one
+    launch where the plan allows, each chain with its own barrier."""
+    a, b = walks.run(RNN_TANH_SCAN, [chain_a, chain_b], [reverse_a, reverse_b], design)
+    return a, b
 
-    ``chain_a`` and ``chain_b`` are the operand tuples (gx, lengths, w_hh) of
-    :func:`rnn_tanh_scan`, of the same shapes and over the same lengths
-    tensor (else ValueError, on any device). Returns ((out, h_last) of a,
-    the same of b), each as :func:`rnn_tanh_scan` would return it. On CUDA
-    both chains share one persistent launch when the plan for two chains
-    fits (each chain with its own barrier, so the two never wait for each
-    other) and ``rnn_tanh_scan.pair_launches`` grows by one; otherwise, for
-    ``design="step"``, and on the CPU, they run one after the other as two
-    :func:`rnn_tanh_scan` calls. Float32 chains take the plans of
-    :func:`persist_plan.plan_rnn_tanh_f32_forward`: both in one cooperative
-    launch where the plan for two fits, else one launch a chain where the
-    plan for one does; ``design="step"`` (or no plan that fits) walks both
-    in each of the T launches of the float32 step kernel; ``pair_launches``
-    counts only the cooperative bf16 launches. Either way
-    ``rnn_tanh_scan.launches`` grows by two: it counts chains.
-    """
-    _check_pair(chain_a, chain_b)
-    if chain_a[0].device.type != "cuda":
-        return (rnn_tanh_scan(*chain_a, reverse=reverse_a),
-                rnn_tanh_scan(*chain_b, reverse=reverse_b))
-    dtype = pair_dtype(lambda *c: _check_operands("gx", *c), chain_a, chain_b)
-    if dtype == torch.float32:
-        outs, design = persist_plan.run_f32_pair(
-            persist_plan.plan_rnn_tanh_f32_forward, chain_a[2].shape[0], chain_a[0].shape[1],
-            device_info(chain_a[0].device), design, [chain_a, chain_b], [reverse_a, reverse_b],
-            _scan_f32, _scan_f32_persistent)
-        count(rnn_tanh_scan, design, dtype, 2)
-        return outs[0], outs[1]
-    planned = persist_plan.plan_rnn_tanh_forward(
-        chain_a[2].shape[0], chain_a[0].shape[1], 2, *device_info(chain_a[0].device))
-    if design == "step" or planned.design != "persistent":
-        return (rnn_tanh_scan(*chain_a, reverse=reverse_a, design=design),
-                rnn_tanh_scan(*chain_b, reverse=reverse_b, design=design))
-    persist_plan.choose(design, planned)
-    outs = _scan_persistent([chain_a, chain_b], [reverse_a, reverse_b], planned)
-    count(rnn_tanh_scan, "persistent", dtype, 2)
-    rnn_tanh_scan.pair_launches += 1
-    return outs[0], outs[1]
+
+RNN_TANH_SCAN = walks.Walk(
+    check=lambda *chain: _check_operands("gx", *chain), plain=rnn_tanh_scan_plain,
+    plan=persist_plan.plan_rnn_tanh_forward, plan_f32=persist_plan.plan_rnn_tanh_f32_forward,
+    persistent=_scan_persistent, step=walks.each(_scan_step),
+    persistent_f32=_scan_f32_persistent, step_f32=_scan_f32,
+    counter=walks.counted(rnn_tanh_scan))
 
 
 def rnn_tanh_bwd_scan_plain(out, dout, lengths, w_hh, reverse: bool = True):
@@ -414,92 +335,27 @@ def _bwd_persistent(chains, reverses, planned):
 
 def rnn_tanh_bwd_scan(out, dout, lengths, w_hh, reverse: bool = True,
                       design: str | None = None):
-    """The backward walk of one tanh-RNN chain.
-
-    Same contract and return values as :func:`rnn_tanh_bwd_scan_plain`. A
-    CUDA ``out`` launches the kernel (bf16 out and w_hh, f32 dout, int32
-    lengths, all contiguous on out's device; or everything float32, the
-    float32 variant) or raises; a CPU ``out`` runs the plain version.
-    ``design`` is None (the plan of
-    :func:`persist_plan.plan_rnn_tanh_backward` decides,
-    :func:`persist_plan.plan_rnn_tanh_f32_backward` for float32),
-    "persistent" or "step"; ``rnn_tanh_bwd_scan.design_counts`` and
-    ``rnn_tanh_bwd_scan.dtype_counts`` count the chains by the design and the
-    operand set taken. ``rnn_tanh_bwd_scan.launches`` counts chains (one per
-    call), ``rnn_tanh_bwd_scan.pair_launches`` the cooperative launches that
-    walked two chains (:func:`rnn_tanh_bwd_scan_pair`).
-    """
-    if out.device.type == "cpu":
-        return rnn_tanh_bwd_scan_plain(out, dout, lengths, w_hh, reverse)
-    if out.device.type != "cuda":
-        raise ValueError(f"unsupported device {out.device}")
-    dtype = _check_bwd_operands(out, dout, lengths, w_hh)
-    chain = (out, dout, lengths, w_hh)
-    if dtype == torch.float32:
-        planned = persist_plan.plan_rnn_tanh_f32_backward(w_hh.shape[0], out.shape[1], 1,
-                                                          *device_info(out.device))
-        design = persist_plan.choose(design, planned)
-        if design == "persistent":
-            result = _bwd_f32_persistent([chain], [reverse], planned)[0]
-        else:
-            result = _bwd_f32([chain], [reverse])[0]
-    else:
-        planned = persist_plan.plan_rnn_tanh_backward(w_hh.shape[0], out.shape[1], 1,
-                                                      *device_info(out.device))
-        design = persist_plan.choose(design, planned)
-        if design == "persistent":
-            result = _bwd_persistent([chain], [reverse], planned)[0]
-        else:
-            result = _bwd_step(out, dout, lengths, w_hh, reverse)
-    count(rnn_tanh_bwd_scan, design, dtype)
-    return result
-
-
-rnn_tanh_bwd_scan.launches = 0
-rnn_tanh_bwd_scan.pair_launches = 0
-rnn_tanh_bwd_scan.design_counts = {"persistent": 0, "step": 0}
-rnn_tanh_bwd_scan.dtype_counts = {"bfloat16": 0, "float32": 0}
+    """The backward walk of one tanh-RNN chain:
+    :func:`rnn_tanh_bwd_scan_plain`, planned by
+    :func:`persist_plan.plan_rnn_tanh_backward` (float32:
+    :func:`persist_plan.plan_rnn_tanh_f32_backward`)."""
+    return walks.run(RNN_TANH_BWD_SCAN, [(out, dout, lengths, w_hh)], [reverse], design)[0]
 
 
 def rnn_tanh_bwd_scan_pair(chain_a, chain_b, reverse_a: bool, reverse_b: bool,
                            design: str | None = None):
     """The backward walks of the two chains of a bidirectional tanh-RNN
-    layer.
+    layer: ``chain_a`` and ``chain_b`` are operand tuples of
+    :func:`rnn_tanh_bwd_scan` over the same lengths tensor; returns its
+    result for each. On the card both share one launch where the plan
+    allows."""
+    a, b = walks.run(RNN_TANH_BWD_SCAN, [chain_a, chain_b], [reverse_a, reverse_b], design)
+    return a, b
 
-    ``chain_a`` and ``chain_b`` are the operand tuples (out, dout, lengths,
-    w_hh) of :func:`rnn_tanh_bwd_scan`, of the same shapes and over the same
-    lengths tensor (else ValueError, on any device). Returns ((dpre, dh0) of
-    a, the same of b), each as :func:`rnn_tanh_bwd_scan` would return it. On
-    CUDA both walks share one persistent launch when the plan for two chains
-    fits and ``rnn_tanh_bwd_scan.pair_launches`` grows by one; otherwise, for
-    ``design="step"``, and on the CPU, they run one after the other as two
-    :func:`rnn_tanh_bwd_scan` calls. Float32 chains take the plans of
-    :func:`persist_plan.plan_rnn_tanh_f32_backward`: both in one cooperative
-    launch where the plan for two fits, else one launch a chain where the
-    plan for one does; ``design="step"`` (or no plan that fits) walks both
-    in each of the T + 1 launches of the float32 step kernel;
-    ``pair_launches`` counts only the cooperative bf16 launches. Either way
-    ``rnn_tanh_bwd_scan.launches`` grows by two: it counts chains.
-    """
-    _check_pair(chain_a, chain_b)
-    if chain_a[0].device.type != "cuda":
-        return (rnn_tanh_bwd_scan(*chain_a, reverse=reverse_a),
-                rnn_tanh_bwd_scan(*chain_b, reverse=reverse_b))
-    dtype = pair_dtype(_check_bwd_operands, chain_a, chain_b)
-    if dtype == torch.float32:
-        outs, design = persist_plan.run_f32_pair(
-            persist_plan.plan_rnn_tanh_f32_backward, chain_a[3].shape[0], chain_a[0].shape[1],
-            device_info(chain_a[0].device), design, [chain_a, chain_b], [reverse_a, reverse_b],
-            _bwd_f32, _bwd_f32_persistent)
-        count(rnn_tanh_bwd_scan, design, dtype, 2)
-        return outs[0], outs[1]
-    planned = persist_plan.plan_rnn_tanh_backward(
-        chain_a[3].shape[0], chain_a[0].shape[1], 2, *device_info(chain_a[0].device))
-    if design == "step" or planned.design != "persistent":
-        return (rnn_tanh_bwd_scan(*chain_a, reverse=reverse_a, design=design),
-                rnn_tanh_bwd_scan(*chain_b, reverse=reverse_b, design=design))
-    persist_plan.choose(design, planned)
-    outs = _bwd_persistent([chain_a, chain_b], [reverse_a, reverse_b], planned)
-    count(rnn_tanh_bwd_scan, "persistent", dtype, 2)
-    rnn_tanh_bwd_scan.pair_launches += 1
-    return outs[0], outs[1]
+
+RNN_TANH_BWD_SCAN = walks.Walk(
+    check=_check_bwd_operands, plain=rnn_tanh_bwd_scan_plain,
+    plan=persist_plan.plan_rnn_tanh_backward, plan_f32=persist_plan.plan_rnn_tanh_f32_backward,
+    persistent=_bwd_persistent, step=walks.each(_bwd_step),
+    persistent_f32=_bwd_f32_persistent, step_f32=_bwd_f32,
+    counter=walks.counted(rnn_tanh_bwd_scan), lengths_at=2, w_at=3)

@@ -20,7 +20,7 @@ import numpy as np
 import pytest
 import torch
 
-from danspeech_tpu_torch.ops import cuda_build, gru_cuda, lstm_cuda, rnn_tanh_cuda
+from danspeech_tpu_torch.ops import cuda_build, gru_cuda, lstm_cuda, rnn_tanh_cuda, walks
 from danspeech_tpu_torch.ops import persist_plan as pp
 
 SMS, SMEM = pp.H100_SMS, pp.H100_SMEM_OPTIN
@@ -201,9 +201,9 @@ def test_walk_plan_at_the_path_shapes(walk, hidden, batch, chains, units, grid, 
 def test_walk_plan_takes_the_step_design_where_it_cannot_fit(walk, args, reason):
     plan = PLANNERS[walk](*args)
     assert plan.design == "step" and reason in plan.reason and plan.walk == walk
-    assert pp.choose(None, plan) == "step" and pp.choose("step", plan) == "step"
+    assert walks.choose(None, plan) == "step" and walks.choose("step", plan) == "step"
     with pytest.raises(ValueError, match="does not fit"):
-        pp.choose("persistent", plan)
+        walks.choose("persistent", plan)
 
 
 @pytest.mark.parametrize("args", [("gru_backward", 0, 1, 1), ("lstm_forward", 8, 0, 1),

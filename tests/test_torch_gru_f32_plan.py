@@ -13,7 +13,7 @@ csrc/gru_f32.cu lays them out; a shape that cannot fit is reported as
 import pytest
 import torch
 
-from danspeech_tpu_torch.ops import gru_cuda
+from danspeech_tpu_torch.ops import gru_cuda, walks
 from danspeech_tpu_torch.ops import persist_plan as pp
 
 SMS, SMEM = pp.H100_SMS, pp.H100_SMEM_OPTIN
@@ -143,9 +143,9 @@ def test_f32_plan_at_the_path_shapes(hidden, batch, chains, product, units, grid
 def test_f32_plan_takes_the_step_design_where_it_cannot_fit(args, reason):
     plan = pp.plan_gru_f32_forward(*args)
     assert plan.design == "step" and reason in plan.reason
-    assert pp.choose(None, plan) == "step" and pp.choose("step", plan) == "step"
+    assert walks.choose(None, plan) == "step" and walks.choose("step", plan) == "step"
     with pytest.raises(ValueError, match="does not fit"):
-        pp.choose("persistent", plan)
+        walks.choose("persistent", plan)
 
 
 @pytest.mark.parametrize("args", [(0, 1, 1), (8, 0, 1), (8, 1, 0), (8, 1, 3)])

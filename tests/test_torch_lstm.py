@@ -31,7 +31,7 @@ import jax.numpy as jnp
 
 from danspeech_tpu.ops import pallas_gru as jk
 from danspeech_tpu.ops import rnn as jrnn
-from danspeech_tpu_torch.ops import lstm_cuda
+from danspeech_tpu_torch.ops import lstm_cuda, walks
 from danspeech_tpu_torch.ops import rnn as trnn
 
 F32_ATOL = 1e-5
@@ -304,30 +304,46 @@ def test_lstm_layer_bf16_close_to_jax_pallas(direction, sum_directions):
         np.testing.assert_allclose(g.numpy(), r, atol=3e-2 * scale, rtol=0)
 
 
+def _spy_walks(monkeypatch):
+    """Records each chain walks.run is handed, as (the wrapper whose Walk it
+    is, the chain, its reverse flag, its result); on CPU tensors the plain
+    version runs once a chain."""
+    kinds = {"lstm_scan": lstm_cuda.LSTM_SCAN,
+             "lstm_scan_with_cell": lstm_cuda.LSTM_SCAN_WITH_CELL,
+             "lstm_bwd_scan": lstm_cuda.LSTM_BWD_SCAN}
+    seen, run = [], walks.run
+
+    def spy(walk, chains, reverses, design=None):
+        results = run(walk, chains, reverses, design)
+        kind, = (k for k, w in kinds.items() if w is walk)
+        seen.extend((kind, c, r, res) for c, r, res in zip(chains, reverses, results))
+        return results
+
+    monkeypatch.setattr(walks, "run", spy)
+    return seen
+
+
 def test_forward_keeps_the_cell_stream_only_when_differentiated(monkeypatch):
     """What jax.custom_vjp decides by tracing: ``lstm_scan`` for a forward
     that no gradient will follow, ``lstm_scan_with_cell`` for one that a
-    gradient will, and one backward walk per direction."""
-    calls = []
-    for name in ("lstm_scan", "lstm_scan_with_cell", "lstm_bwd_scan"):
-        orig = getattr(lstm_cuda, name)
-        monkeypatch.setattr(
-            lstm_cuda, name,
-            lambda *a, _orig=orig, _name=name, **kw: calls.append(_name) or _orig(*a, **kw))
+    gradient will, and one backward walk per direction (each chain of the
+    dispatcher's, walks.run)."""
+    seen = _spy_walks(monkeypatch)
     x, lens, fwd, bwd, r_out = _layer_case("bidi", True, [6, 3], seed=2)
     leaves = _torch_leaves(x, fwd, bwd)
     with torch.no_grad():
         quiet = _torch_layer(leaves, lens, True, "auto")
-    assert calls == ["lstm_scan"] * 2
+    assert [k for k, _, _, _ in seen] == ["lstm_scan"] * 2
     frozen = [t.detach() for t in leaves]  # grad mode on, nothing requires it
     _torch_layer(frozen, lens, True, "auto")
-    assert calls == ["lstm_scan"] * 4
-    del calls[:]
+    assert [k for k, _, _, _ in seen] == ["lstm_scan"] * 4
+    del seen[:]
     out = _torch_layer(leaves, lens, True, "auto")
-    assert calls == ["lstm_scan_with_cell"] * 2
+    assert [k for k, _, _, _ in seen] == ["lstm_scan_with_cell"] * 2
     assert torch.equal(out.detach(), quiet)
     out.sum().backward()
-    assert calls == ["lstm_scan_with_cell"] * 2 + ["lstm_bwd_scan"] * 2
+    assert [k for k, _, _, _ in seen] == ["lstm_scan_with_cell"] * 2 + ["lstm_bwd_scan"] * 2
+    assert [r for _, _, r, _ in seen] == [False, True, True, False]
     with pytest.raises(ValueError, match="unknown RNN impl"):
         _torch_layer(leaves, lens, True, "pallas")
 
@@ -398,9 +414,10 @@ def test_pair_equals_two_single_chains(dtype, with_cell):
         assert len(got_chain) == len(want) == (4 if with_cell else 3)
         for g, w in zip(got_chain, want):
             assert torch.equal(g, w)
+    meta_lens = lens.to("meta")
+    meta = [tuple(meta_lens if v is lens else v.to("meta") for v in c) for c in chains]
     with pytest.raises(ValueError, match="unsupported device"):
-        lstm_cuda.lstm_scan_pair(*([tuple(v.to("meta") for v in c) for c in chains]),
-                                 False, True, with_cell=with_cell)
+        lstm_cuda.lstm_scan_pair(*meta, False, True, with_cell=with_cell)
 
 
 @pytest.mark.parametrize("sum_directions", [True, False])
@@ -448,23 +465,16 @@ def test_walks_read_the_bare_product_and_the_summed_bias(monkeypatch, dtype, dir
     b_ih + b_hh in f32 as the per-step bias; the backward walk
     (``_lstm_walk_operands``) recomputes exactly the forward's operands
     (the plain routes add that bias as the kernels do)."""
-    seen = {}
-
-    def spy(kind, orig):
-        def run(gx, *rest, reverse):
-            # (gx, the per-step bias), wherever each signature puts the bias
-            seen[kind, reverse] = (gx, rest[-3] if kind == "fwd" else rest[-1])
-            return orig(gx, *rest, reverse=reverse)
-        return run
-
-    monkeypatch.setattr(lstm_cuda, "lstm_scan_with_cell",
-                        spy("fwd", lstm_cuda.lstm_scan_with_cell))
-    monkeypatch.setattr(lstm_cuda, "lstm_bwd_scan", spy("bwd", lstm_cuda.lstm_bwd_scan))
+    walked = _spy_walks(monkeypatch)
     x, lens, fwd, bwd, r_out = _layer_case(direction, True, [9, 6, 0, 3], seed=41)
     cast = None if dtype == "float32" else torch.bfloat16
     leaves = _torch_leaves(x, fwd, bwd)
     out = _torch_layer(leaves, lens, True, "auto", cast=cast)
     (out * torch.from_numpy(r_out)).sum().backward()
+    # (gx, the per-step bias), wherever each signature puts the bias
+    seen = {("fwd" if kind == "lstm_scan_with_cell" else "bwd", r):
+            (c[0], c[3] if kind == "lstm_scan_with_cell" else c[6])
+            for kind, c, r, _ in walked}
     stream = torch.float32 if cast is None else cast
     for k, reverse in enumerate((False, True)[: 1 + (bwd is not None)]):
         w_ih, _, b_ih, b_hh = (t.detach() for t in leaves[1 + 4 * k : 5 + 4 * k])
@@ -559,10 +569,10 @@ def test_bwd_pair_matches_two_jax_walks(dtype):
     lengths = [13, 0, 1, 7, 12]
     tl = torch.tensor(lengths, dtype=torch.int32)
     inputs = [_walk_inputs(seed, 13, lengths, 16) for seed in (31, 32)]
-    before = (lstm_cuda.lstm_bwd_scan.launches, lstm_cuda.lstm_bwd_scan.pair_launches)
+    before = (lstm_cuda.lstm_bwd_scan.launches, lstm_cuda.lstm_bwd_scan.chains)
     got = lstm_cuda.lstm_bwd_scan_pair(_walk_chain(inputs[0], tdt, tl),
                                        _walk_chain(inputs[1], tdt, tl), True, False)
-    assert (lstm_cuda.lstm_bwd_scan.launches, lstm_cuda.lstm_bwd_scan.pair_launches) == before
+    assert (lstm_cuda.lstm_bwd_scan.launches, lstm_cuda.lstm_bwd_scan.chains) == before
     atol = F32_ATOL if dtype == "float32" else BF16_BWD_ATOL
     pad = np.arange(13)[:, None] >= np.asarray(lengths)[None, :]
     for a, got_chain, reverse in zip(inputs, got, (True, False)):
@@ -614,19 +624,19 @@ def test_bidi_layer_backward_takes_the_bwd_pair_route(monkeypatch, dtype, sum_di
     gradients equal jax.grad through the JAX package's lstm_layer (float32:
     ``impl="xla"`` to GRAD_TOL; bf16 weights: the Pallas kernels in
     interpret mode, the bound of test_lstm_layer_bf16_close_to_jax_pallas)."""
-    pairs, walks = [], []
-    orig_pair, orig_walk = lstm_cuda.lstm_bwd_scan_pair, lstm_cuda.lstm_bwd_scan
+    pairs = []
+    orig_pair = lstm_cuda.lstm_bwd_scan_pair
     monkeypatch.setattr(lstm_cuda, "lstm_bwd_scan_pair",
                         lambda a, b, **kw: pairs.append((kw["reverse_a"], kw["reverse_b"]))
                         or orig_pair(a, b, **kw))
-    monkeypatch.setattr(lstm_cuda, "lstm_bwd_scan",
-                        lambda *a, **kw: walks.append(kw["reverse"]) or orig_walk(*a, **kw))
+    seen = _spy_walks(monkeypatch)
     x, lens, fwd, bwd, r_out = _layer_case("bidi", sum_directions, [13, 7, 0, 4], seed=23)
     cast = None if dtype == "float32" else torch.bfloat16
     leaves = _torch_leaves(x, fwd, bwd)
     out = _torch_layer(leaves, lens, sum_directions, "auto", cast=cast)
     got = torch.autograd.grad((out * torch.from_numpy(r_out)).sum(), leaves)
-    assert pairs == [(True, False)] and walks == [True, False]
+    walked = [r for kind, _, r, _ in seen if kind == "lstm_bwd_scan"]
+    assert pairs == [(True, False)] and walked == [True, False]
     run, args = _jax_layer(x, lens, fwd, bwd, sum_directions,
                            "xla" if cast is None else "pallas",
                            cast=None if cast is None else jnp.bfloat16)

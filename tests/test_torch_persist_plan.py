@@ -10,6 +10,7 @@ per SM; a width that cannot fit is reported as "step".
 import pytest
 
 from danspeech_tpu_torch.ops import persist_plan as pp
+from danspeech_tpu_torch.ops import walks
 
 SMS, SMEM = pp.H100_SMS, pp.H100_SMEM_OPTIN
 
@@ -273,10 +274,10 @@ def test_scan_pair_at_h2000_does_not_fit_but_one_chain_does():
 def test_a_width_that_cannot_fit_takes_the_step_design(plan):
     assert plan.design == "step"
     assert plan.reason and plan.reason != "fits"
-    assert pp.choose(None, plan) == "step"
-    assert pp.choose("step", plan) == "step"
+    assert walks.choose(None, plan) == "step"
+    assert walks.choose("step", plan) == "step"
     with pytest.raises(ValueError, match="does not fit"):
-        pp.choose("persistent", plan)
+        walks.choose("persistent", plan)
 
 
 @pytest.mark.parametrize("batch,groups", [(1, 1), (32, 1), (64, 1), (65, 2), (128, 2),
@@ -292,12 +293,12 @@ def test_row_groups_follow_the_batch(batch, groups):
 @pytest.mark.parametrize("design", [None, "persistent", "step"])
 def test_choose_follows_the_request_where_the_plan_allows(design):
     plan = pp.plan_gru_forward(1200, 128, SMS, SMEM)
-    assert pp.choose(design, plan) == (design or "persistent")
+    assert walks.choose(design, plan) == (design or "persistent")
 
 
 def test_choose_refuses_an_unknown_design():
     with pytest.raises(ValueError, match="unknown design"):
-        pp.choose("fused", pp.plan_gru_forward(64, 4, SMS, SMEM))
+        walks.choose("fused", pp.plan_gru_forward(64, 4, SMS, SMEM))
 
 
 @pytest.mark.parametrize("kwargs", [
@@ -326,51 +327,75 @@ class _OnCuda:
         return getattr(self._t, name)
 
 
-# wrapper -> (its module, the wrapper that counts its calls, its float32
-# route, the chains one call counts)
-F32_ENTRIES = {
-    "gru_bidi_fused": ("gru_cuda", "gru_bidi_fused", "_bidi_fused_f32", 1),
-    "gru_scan": ("gru_cuda", "gru_scan", "_scan_f32", 1),
-    "gru_scan_bidi": ("gru_cuda", "gru_scan_bidi", "_scan_f32", 1),
-    "gru_bwd_scan": ("gru_cuda", "gru_bwd_scan", "_bwd_f32", 1),
-    "gru_bwd_scan_pair": ("gru_cuda", "gru_bwd_scan", "_bwd_f32", 2),
-    "lstm_scan": ("lstm_cuda", "lstm_scan", "_scan_f32", 1),
-    "lstm_scan_with_cell": ("lstm_cuda", "lstm_scan_with_cell", "_scan_f32", 1),
-    "lstm_scan_pair": ("lstm_cuda", "lstm_scan_with_cell", "_scan_f32", 2),
-    "lstm_bwd_scan": ("lstm_cuda", "lstm_bwd_scan", "_bwd_f32", 1),
-    "lstm_bwd_scan_pair": ("lstm_cuda", "lstm_bwd_scan", "_bwd_f32", 2),
-    "rnn_tanh_scan": ("rnn_tanh_cuda", "rnn_tanh_scan", "_scan_f32", 1),
-    "rnn_tanh_scan_pair": ("rnn_tanh_cuda", "rnn_tanh_scan", "_scan_f32", 2),
-    "rnn_tanh_bwd_scan": ("rnn_tanh_cuda", "rnn_tanh_bwd_scan", "_bwd_f32", 1),
-    "rnn_tanh_bwd_scan_pair": ("rnn_tanh_cuda", "rnn_tanh_bwd_scan", "_bwd_f32", 2),
+# wrapper -> (its module, the Walk it hands walks.run, the chains of a call)
+WRAPPERS = {
+    "gru_bidi_fused": ("gru_cuda", "GRU_BIDI_FUSED", 1),
+    "gru_scan": ("gru_cuda", "GRU_SCAN", 1),
+    "gru_scan_bidi": ("gru_cuda", "GRU_SCAN_BIDI", 2),
+    "gru_bwd_scan": ("gru_cuda", "GRU_BWD_SCAN", 1),
+    "gru_bwd_scan_pair": ("gru_cuda", "GRU_BWD_SCAN", 2),
+    "lstm_scan": ("lstm_cuda", "LSTM_SCAN", 1),
+    "lstm_scan_with_cell": ("lstm_cuda", "LSTM_SCAN_WITH_CELL", 1),
+    "lstm_scan_pair": ("lstm_cuda", "LSTM_SCAN_WITH_CELL", 2),
+    "lstm_bwd_scan": ("lstm_cuda", "LSTM_BWD_SCAN", 1),
+    "lstm_bwd_scan_pair": ("lstm_cuda", "LSTM_BWD_SCAN", 2),
+    "rnn_tanh_scan": ("rnn_tanh_cuda", "RNN_TANH_SCAN", 1),
+    "rnn_tanh_scan_pair": ("rnn_tanh_cuda", "RNN_TANH_SCAN", 2),
+    "rnn_tanh_bwd_scan": ("rnn_tanh_cuda", "RNN_TANH_BWD_SCAN", 1),
+    "rnn_tanh_bwd_scan_pair": ("rnn_tanh_cuda", "RNN_TANH_BWD_SCAN", 2),
 }
+# the wrapper whose counters a wrapper's calls grow, and the kernel's owner
+# that counts its bf16 persistent launches where that is another wrapper
+COUNTED_ON = {name: name.removesuffix("_pair") for name in WRAPPERS}
+COUNTED_ON.update(lstm_scan_pair="lstm_scan_with_cell")
+OWNER = {"gru_scan_bidi": "gru_scan", "lstm_scan_with_cell": "lstm_scan",
+         "lstm_scan_pair": "lstm_scan"}
+# every float32 wrapper (B1-B9): its planner
+F32_PLANNER = {
+    **dict.fromkeys(("gru_bidi_fused", "gru_scan", "gru_scan_bidi"), "plan_gru_f32_forward"),
+    **dict.fromkeys(("gru_bwd_scan", "gru_bwd_scan_pair"), "plan_gru_f32_backward"),
+    **dict.fromkeys(("lstm_scan", "lstm_scan_with_cell", "lstm_scan_pair"),
+                    "plan_lstm_f32_forward"),
+    **dict.fromkeys(("lstm_bwd_scan", "lstm_bwd_scan_pair"), "plan_lstm_f32_backward"),
+    **dict.fromkeys(("rnn_tanh_scan", "rnn_tanh_scan_pair"), "plan_rnn_tanh_f32_forward"),
+    **dict.fromkeys(("rnn_tanh_bwd_scan", "rnn_tanh_bwd_scan_pair"),
+                    "plan_rnn_tanh_f32_backward"),
+}
+# the reverse flags each call hands its chains
+REVERSES = {"gru_scan_bidi": [False, True], "gru_bwd_scan_pair": [True, False],
+            "lstm_scan_pair": [False, True], "lstm_bwd_scan_pair": [True, False],
+            "rnn_tanh_scan_pair": [False, True], "rnn_tanh_bwd_scan_pair": [True, False]}
 
 
-def _f32_call(name, hidden, batch):
-    """A call of wrapper ``name`` on float32 operands that report CUDA (T = 2,
-    allocated and never read), taking ``design``."""
+def _call(name, hidden, batch, dtype="float32"):
+    """A call of wrapper ``name`` on operands of the set ``dtype`` that report
+    CUDA (T = 2, allocated and never read), taking ``design``."""
     import torch
 
     from danspeech_tpu_torch.ops import gru_cuda, lstm_cuda, rnn_tanh_cuda
 
     t, h = 2, hidden
+    seq = getattr(torch, dtype)
 
-    def e(*shape):
+    def e(*shape):  # a sequence or a weight
+        return _OnCuda(torch.empty(*shape, dtype=seq))
+
+    def f(*shape):  # a bias, a state or a cotangent: f32 in either set
         return _OnCuda(torch.empty(*shape))
 
     lens = _OnCuda(torch.full((batch,), t, dtype=torch.int32))
-    gru_chain = (e(t, batch, 3 * h), lens, e(h, 3 * h), e(3 * h), e(3 * h), e(batch, h))
-    gru_walk = (e(t, batch, 3 * h), e(t, batch, h), e(t, batch, h), lens, e(h, 3 * h),
-                e(3 * h), e(3 * h), e(batch, h))
-    lstm_chain = (e(t, batch, 4 * h), lens, e(h, 4 * h), e(4 * h), e(batch, h), e(batch, h))
-    lstm_walk = (e(t, batch, 4 * h), e(t, batch, h), e(t, batch, h), e(t, batch, h), lens,
-                 e(h, 4 * h), e(4 * h))
+    gru_chain = (e(t, batch, 3 * h), lens, e(h, 3 * h), f(3 * h), f(3 * h), f(batch, h))
+    gru_walk = (e(t, batch, 3 * h), e(t, batch, h), f(t, batch, h), lens, e(h, 3 * h),
+                f(3 * h), f(3 * h), f(batch, h))
+    lstm_chain = (e(t, batch, 4 * h), lens, e(h, 4 * h), f(4 * h), f(batch, h), f(batch, h))
+    lstm_walk = (e(t, batch, 4 * h), e(t, batch, h), e(t, batch, h), f(t, batch, h), lens,
+                 e(h, 4 * h), f(4 * h))
     tanh_chain = (e(t, batch, h), lens, e(h, h))
-    tanh_walk = (e(t, batch, h), e(t, batch, h), lens, e(h, h))
+    tanh_walk = (e(t, batch, h), f(t, batch, h), lens, e(h, h))
     fused = (e(t, batch, 16), lens, e(16, 3 * h), e(16, 3 * h), e(h, 3 * h), e(h, 3 * h),
-             e(3 * h), e(3 * h), e(3 * h), e(3 * h))
+             f(3 * h), f(3 * h), f(3 * h), f(3 * h))
     bidi = (gru_chain[0], e(t, batch, 3 * h), lens, gru_chain[2], e(h, 3 * h),
-            *gru_chain[3:5], e(3 * h), e(3 * h), gru_chain[5], e(batch, h))
+            *gru_chain[3:5], f(3 * h), f(3 * h), gru_chain[5], f(batch, h))
     return {
         "gru_bidi_fused": lambda d: gru_cuda.gru_bidi_fused(*fused, design=d),
         "gru_scan": lambda d: gru_cuda.gru_scan(*gru_chain, design=d),
@@ -394,105 +419,144 @@ def _f32_call(name, hidden, batch):
     }[name]
 
 
-# the float32 GRU forward wrappers (B1, B2, B3): their persistent route and
-# the chains one call of it walks
-F32_FORWARD = {"gru_bidi_fused": ("_bidi_fused_f32_persistent", 2),
-               "gru_scan": ("_scan_f32_persistent", 1),
-               "gru_scan_bidi": ("_scan_f32_persistent", 2)}
-# every float32 wrapper (B1-B9): its persistent route, its planner and the
-# chains one call of the route walks
-F32_PLANNED = {
-    **{k: (route, "plan_gru_f32_forward", n) for k, (route, n) in F32_FORWARD.items()},
-    "gru_bwd_scan": ("_bwd_f32_persistent", "plan_gru_f32_backward", 1),
-    "gru_bwd_scan_pair": ("_bwd_f32_persistent", "plan_gru_f32_backward", 2),
-    "lstm_scan": ("_scan_f32_persistent", "plan_lstm_f32_forward", 1),
-    "lstm_scan_with_cell": ("_scan_f32_persistent", "plan_lstm_f32_forward", 1),
-    "lstm_scan_pair": ("_scan_f32_persistent", "plan_lstm_f32_forward", 2),
-    "lstm_bwd_scan": ("_bwd_f32_persistent", "plan_lstm_f32_backward", 1),
-    "lstm_bwd_scan_pair": ("_bwd_f32_persistent", "plan_lstm_f32_backward", 2),
-    "rnn_tanh_scan": ("_scan_f32_persistent", "plan_rnn_tanh_f32_forward", 1),
-    "rnn_tanh_scan_pair": ("_scan_f32_persistent", "plan_rnn_tanh_f32_forward", 2),
-    "rnn_tanh_bwd_scan": ("_bwd_f32_persistent", "plan_rnn_tanh_f32_backward", 1),
-    "rnn_tanh_bwd_scan_pair": ("_bwd_f32_persistent", "plan_rnn_tanh_f32_backward", 2),
-}
-# the reverse flags each pair's call of _f32_call hands its chains
-PAIR_REVERSES = {"gru_bwd_scan_pair": [[True], [False]], "lstm_scan_pair": [[False], [True]],
-                 "lstm_bwd_scan_pair": [[True], [False]],
-                 "rnn_tanh_scan_pair": [[False], [True]],
-                 "rnn_tanh_bwd_scan_pair": [[True], [False]]}
+def _fake_launchers(monkeypatch, name, sms):
+    """Replace the four launchers of wrapper ``name``'s Walk by recorders, the
+    card by one of ``sms`` SMs and every counter by zeros; returns the list
+    of (launcher, chains, reverses, plan) they record."""
+    import dataclasses
+    import importlib
 
+    from danspeech_tpu_torch.ops import walks
 
-def _fake_routes(monkeypatch, module, names):
-    """Replace the routes ``names`` of ``module`` by recorders; returns the
-    list of (route, args, kwargs) they record."""
+    module_name, walk_name, _ = WRAPPERS[name]
+    module = importlib.import_module(f"danspeech_tpu_torch.ops.{module_name}")
     routed = []
 
-    def fake(name):
-        def route(*args, **kwargs):
-            routed.append((name, args, kwargs))
-            if name in ("_bidi_fused_f32", "_bidi_fused_f32_persistent"):
-                return (None,) * 4
-            return [(None, None)] * len(args[0])
-        return route
+    def fake(kind):
+        def launch(chains, reverses, planned=None):
+            routed.append((kind, list(chains), list(reverses), planned))
+            return [(None, None)] * len(chains)
+        return launch
 
-    for name in names:
-        monkeypatch.setattr(module, name, fake(name))
+    walk = getattr(module, walk_name)
+    monkeypatch.setattr(module, walk_name, dataclasses.replace(
+        walk, **{k: fake(k) for k in ("persistent", "step", "persistent_f32", "step_f32")}))
+    monkeypatch.setattr(walks, "device_info", lambda device: (sms, SMEM))
+    for wrapper in _counters().values():
+        for attr, zero in (("launches", 0), ("chains", 0),
+                           ("design_counts", {"persistent": 0, "step": 0}),
+                           ("dtype_counts", {"bfloat16": 0, "float32": 0})):
+            monkeypatch.setattr(wrapper, attr, zero)
     return routed
+
+
+def _counters():
+    from danspeech_tpu_torch.ops import gru_cuda, lstm_cuda, rnn_tanh_cuda
+
+    return {name: getattr(m, name) for m in (gru_cuda, lstm_cuda, rnn_tanh_cuda)
+            for name in set(COUNTED_ON.values()) if hasattr(m, name)}
+
+
+def _read(wrapper):
+    return (wrapper.launches, wrapper.chains, dict(wrapper.design_counts),
+            dict(wrapper.dtype_counts))
+
+
+@pytest.mark.parametrize("sms", [SMS, 1])
+@pytest.mark.parametrize("design", [None, "persistent", "step"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", list(WRAPPERS))
+def test_run_counts_exactly_the_launches_it_issues(monkeypatch, name, dtype, design, sms):
+    """Every wrapper, in both operand sets and every design, on a card where
+    every plan fits (an H100's figures, H = 16) and on one of one SM, where
+    no two chains fit in one launch: its counter rises by exactly the C calls
+    walks.run issued (one for a cooperative launch of two chains or a step
+    design's host loop), ``chains`` by the chains walked, no other counter
+    moves. A pair walks both chains in one persistent launch where the
+    two-chain plan fits, else one launch a chain on the one-chain plan; the
+    bf16 step kernels take one chain (B2's two), the float32 ones two. B2's
+    bf16 persistent launches count on gru_scan, B6's on lstm_scan. Where no
+    plan fits (B3's two directions on one SM) None takes the step design and
+    "persistent" raises before anything is launched or counted."""
+    routed = _fake_launchers(monkeypatch, name, sms)
+    chains = WRAPPERS[name][2]
+    counters = _counters()
+    f32 = dtype == "float32"
+    if sms == 1 and name == "gru_bidi_fused" and design == "persistent":
+        with pytest.raises(ValueError, match="does not fit: 2 .* on 1 SMs"):
+            _call(name, 16, 5, dtype)(design)
+        assert routed == [] and all(w.launches == 0 for w in counters.values())
+        return
+    _call(name, 16, 5, dtype)(design)
+    taken = "step" if design == "step" or (sms == 1 and name == "gru_bidi_fused") \
+        else "persistent"
+    if taken == "persistent":
+        launches = chains if sms == 1 else 1
+    else:
+        launches = 1 if f32 or name == "gru_scan_bidi" else chains
+    kind = taken + ("_f32" if f32 else "")
+    assert [r[0] for r in routed] == [kind] * launches
+    assert sum(len(r[1]) for r in routed) == chains
+    assert [f for r in routed for f in r[2]] == REVERSES.get(name, [True] * chains
+                                                           if "bwd" in name else [False])
+    if taken == "persistent":
+        planner = getattr(pp, F32_PLANNER[name]) if f32 else None
+        for r in routed:
+            assert r[3].design == "persistent"
+            if planner is not None and name != "gru_bidi_fused":
+                assert r[3] == planner(16, 5, len(r[1]), sms, SMEM)
+    counted = COUNTED_ON[name]
+    if taken == "persistent" and not f32:
+        counted = OWNER.get(name, counted)
+    for wrapper_name, wrapper in counters.items():
+        want = (0, 0, {"persistent": 0, "step": 0}, {"bfloat16": 0, "float32": 0})
+        if wrapper_name == counted:
+            want = (launches, chains, {"persistent": 0, "step": 0, taken: launches},
+                    {"bfloat16": 0, "float32": 0, dtype: launches})
+        assert _read(wrapper) == want, wrapper_name
 
 
 @pytest.mark.parametrize("hidden,batch", [(1200, 128), (1200, 32), (2000, 1), (2000, 128),
                                           (64, 5), (8, 1)])
-@pytest.mark.parametrize("name", list(F32_ENTRIES))
+@pytest.mark.parametrize("name", list(WRAPPERS))
 def test_float32_plans_take_the_step_design_everywhere(monkeypatch, name, hidden, batch):
     """B1-B9 in float32 are planned (plan_gru_f32_forward for B1-B3,
     plan_gru_f32_backward for B4, plan_lstm_f32_forward for B5 and B6,
     plan_lstm_f32_backward for B7, plan_rnn_tanh_f32_forward for B8,
     plan_rnn_tanh_f32_backward for B9, an H100's figures), and every plan
-    fits at these shapes: None and "persistent" take the persistent route
-    with the plan of one chain (B1, B4-B9) or two (B2, B3 and the pairs),
-    "step" the step route, each counted by its design and by the chains it
-    walks. An unknown design raises ValueError, before any route runs or
-    anything is counted."""
-    import importlib
-
-    module_name, counted, route, chains = F32_ENTRIES[name]
-    module = importlib.import_module(f"danspeech_tpu_torch.ops.{module_name}")
-    wrapper = getattr(module, counted)
-    monkeypatch.setattr(wrapper, "launches", 0)
-    monkeypatch.setattr(wrapper, "design_counts", {"persistent": 0, "step": 0})
-    monkeypatch.setattr(wrapper, "dtype_counts", {"bfloat16": 0, "float32": 0})
-    forward = F32_PLANNED[name]
-    monkeypatch.setattr(module, "device_info", lambda device: (SMS, SMEM))
-    routed = _fake_routes(monkeypatch, module, [route, forward[0]])
-    call = _f32_call(name, hidden, batch)
+    fits at these shapes: None and "persistent" take the persistent launcher
+    with the plan of all the call's chains (B3's two directions, a pair's
+    two chains), "step" the step launcher, one launch either way, counted by
+    its design. An unknown design raises ValueError, before anything is
+    launched or counted."""
+    routed = _fake_launchers(monkeypatch, name, SMS)
+    wrapper = _counters()[COUNTED_ON[name]]
+    planner = getattr(pp, F32_PLANNER[name])
+    chains = 2 if name == "gru_bidi_fused" else WRAPPERS[name][2]
+    call = _call(name, hidden, batch)
     designs = (None, "step", "persistent")
     for k, design in enumerate(designs, 1):
         call(design)
         assert len(routed) == k
         taken = "persistent" if design != "step" else "step"
-        assert routed[-1][0] == (forward[0] if taken == "persistent" else route)
+        assert routed[-1][0] == taken + "_f32"
         if taken == "persistent":
-            planned = routed[-1][2].get("planned", routed[-1][1][-1])
-            assert planned == getattr(pp, forward[1])(hidden, batch, forward[2], SMS, SMEM)
-            assert planned.design == "persistent"
-            if name != "gru_bidi_fused":  # its route takes the layer's operands
-                assert len(routed[-1][1][0]) == forward[2]  # the chains the launch walks
-    want = {"persistent": 2, "step": 1}
-    assert (wrapper.launches, wrapper.design_counts, wrapper.dtype_counts) == (
-        len(designs) * chains, {k: v * chains for k, v in want.items()},
-        {"bfloat16": 0, "float32": len(designs) * chains})
+            assert routed[-1][3] == planner(hidden, batch, chains, SMS, SMEM)
+            assert routed[-1][3].design == "persistent"
+    assert _read(wrapper) == (3, 3 * WRAPPERS[name][2], {"persistent": 2, "step": 1},
+                              {"bfloat16": 0, "float32": 3})
     with pytest.raises(ValueError, match="unknown design"):
         call("fused")
-    assert len(routed) == len(designs) and wrapper.launches == len(designs) * chains
+    assert len(routed) == len(designs) and wrapper.launches == len(designs)
 
 
-@pytest.mark.parametrize("name", list(F32_PLANNED))
+@pytest.mark.parametrize("name", list(F32_PLANNER))
 def test_f32_walk_of_names_each_wrappers_walk(name):
     """persist_plan.F32_WALK_OF, which chip_smoke.py plans each float32
-    walk by, names for every wrapper with a persistent design the walk its
-    planner plans, at a training and a serving layer shape."""
-    planner = getattr(pp, F32_PLANNED[name][1])
-    assert set(pp.F32_WALK_OF) == set(F32_PLANNED)
+    walk by, names for every wrapper the walk its planner plans, at a
+    training and a serving layer shape."""
+    planner = getattr(pp, F32_PLANNER[name])
+    assert set(pp.F32_WALK_OF) == set(F32_PLANNER)
     for hidden, batch in ((800, 32), (800, 128)):
         for chains in (1, 2):
             got = pp.plan_f32(pp.F32_WALK_OF[name], hidden, batch, chains, SMS, SMEM)
@@ -500,42 +564,34 @@ def test_f32_walk_of_names_each_wrappers_walk(name):
             assert got.walk == pp.F32_WALK_OF[name]
 
 
-@pytest.mark.parametrize("name", list(F32_FORWARD))
+@pytest.mark.parametrize("name", ["gru_bidi_fused", "gru_scan", "gru_scan_bidi"])
 def test_float32_forward_takes_the_step_design_where_the_plan_does(monkeypatch, name):
     """On a card of one SM two chains cannot run persistently: B3 and B2's
-    pair plan "step". B3 then takes the step route for None and refuses
-    "persistent" (ValueError naming the reason) before any route runs; B2
-    walks its chains one launch each on the one-chain plan, which fits; B1
-    has one chain and stays persistent."""
-    from danspeech_tpu_torch.ops import gru_cuda
-
-    monkeypatch.setattr(gru_cuda, "device_info", lambda device: (1, SMEM))
-    wrapper = getattr(gru_cuda, name)
-    monkeypatch.setattr(wrapper, "launches", 0)
-    monkeypatch.setattr(wrapper, "design_counts", {"persistent": 0, "step": 0})
-    monkeypatch.setattr(wrapper, "dtype_counts", {"bfloat16": 0, "float32": 0})
-    routed = _fake_routes(monkeypatch, gru_cuda,
-                          ["_bidi_fused_f32", "_bidi_fused_f32_persistent", "_scan_f32",
-                           "_scan_f32_persistent"])
-    call = _f32_call(name, 64, 5)
+    pair plan "step". B3 then takes the step launcher for None and refuses
+    "persistent" (ValueError naming the reason) before anything runs; B2
+    walks its chains one launch each on the one-chain plan, which fits, and
+    counts two launches; B1 has one chain and stays persistent."""
+    routed = _fake_launchers(monkeypatch, name, 1)
+    wrapper = _counters()[name]
+    call = _call(name, 64, 5)
     call(None)
     single = pp.plan_gru_f32_forward(64, 5, 1, 1, SMEM)
     assert single.design == "persistent" and single.grid == 1
     assert pp.plan_gru_f32_forward(64, 5, 2, 1, SMEM).design == "step"
     if name == "gru_bidi_fused":
-        assert [r[0] for r in routed] == ["_bidi_fused_f32"]
+        assert [r[0] for r in routed] == ["step_f32"]
         with pytest.raises(ValueError, match="does not fit: 2 chains on 1 SMs"):
             call("persistent")
         assert wrapper.design_counts == {"persistent": 0, "step": 1}
     elif name == "gru_scan_bidi":
-        assert [r[0] for r in routed] == ["_scan_f32_persistent"] * 2
-        assert [len(r[1][0]) for r in routed] == [1, 1]
-        assert [r[1][1] for r in routed] == [[False], [True]]
-        assert all(r[1][2] == single for r in routed)
-        assert wrapper.design_counts == {"persistent": 1, "step": 0}
+        assert [r[0] for r in routed] == ["persistent_f32"] * 2
+        assert [len(r[1]) for r in routed] == [1, 1]
+        assert [r[2] for r in routed] == [[False], [True]]
+        assert all(r[3] == single for r in routed)
+        assert wrapper.design_counts == {"persistent": 2, "step": 0}
     else:
-        assert [r[0] for r in routed] == ["_scan_f32_persistent"]
-        assert routed[0][1][2] == single
+        assert [r[0] for r in routed] == ["persistent_f32"]
+        assert routed[0][3] == single
         assert wrapper.design_counts == {"persistent": 1, "step": 0}
 
 
@@ -546,37 +602,71 @@ def test_float32_forward_takes_the_step_design_where_the_plan_does(monkeypatch, 
 def test_float32_walk_pairs_take_a_launch_a_chain_where_the_pair_does_not_fit(monkeypatch,
                                                                              name):
     """On a card of one SM the float32 pair plans of B4, B5/B6, B7, B8 and
-    B9 are "step" (two chains on one SM) and the one-chain plans fit: a pair then
-    walks its chains in one persistent launch each, on the one-chain plan,
-    and counts two chains; "persistent" is allowed (the one-chain plan fits)
-    and "step" walks both chains in the step launches. A single chain stays
-    persistent."""
-    import importlib
-
-    module_name, counted, route, chains = F32_ENTRIES[name]
-    persistent, planner, _ = F32_PLANNED[name]
-    module = importlib.import_module(f"danspeech_tpu_torch.ops.{module_name}")
-    wrapper = getattr(module, counted)
-    monkeypatch.setattr(module, "device_info", lambda device: (1, SMEM))
-    monkeypatch.setattr(wrapper, "launches", 0)
-    monkeypatch.setattr(wrapper, "design_counts", {"persistent": 0, "step": 0})
-    monkeypatch.setattr(wrapper, "dtype_counts", {"bfloat16": 0, "float32": 0})
-    routed = _fake_routes(monkeypatch, module, [route, persistent])
-    call = _f32_call(name, 64, 5)
-    single = getattr(pp, planner)(64, 5, 1, 1, SMEM)
+    B9 are "step" (two chains on one SM) and the one-chain plans fit: a pair
+    then walks its chains in one persistent launch each, on the one-chain
+    plan, and counts two launches; "persistent" is allowed (the one-chain
+    plan fits) and "step" walks both chains in one step launch. A single
+    chain stays persistent."""
+    routed = _fake_launchers(monkeypatch, name, 1)
+    chains = WRAPPERS[name][2]
+    wrapper = _counters()[COUNTED_ON[name]]
+    planner = getattr(pp, F32_PLANNER[name])
+    call = _call(name, 64, 5)
+    single = planner(64, 5, 1, 1, SMEM)
     assert single.design == "persistent" and single.grid == 1
-    assert getattr(pp, planner)(64, 5, 2, 1, SMEM).design == "step"
+    assert planner(64, 5, 2, 1, SMEM).design == "step"
     call(None)
     call("persistent")
-    walks = [r for r in routed if r[0] == persistent]
-    assert len(walks) == 2 * chains and len(routed) == 2 * chains
-    assert all(len(r[1][0]) == 1 and r[1][-1] == single for r in walks)
+    assert len(routed) == 2 * chains
+    assert all(r[0] == "persistent_f32" and len(r[1]) == 1 and r[3] == single
+               for r in routed)
     if chains == 2:
-        assert [r[1][1] for r in walks[:2]] == PAIR_REVERSES[name]
+        assert [r[2] for r in routed[:2]] == [[f] for f in REVERSES[name]]
     call("step")
-    assert routed[-1][0] == route and len(routed[-1][1][0]) == chains
-    assert wrapper.design_counts == {"persistent": 2 * chains, "step": chains}
-    assert wrapper.launches == 3 * chains
+    assert routed[-1][0] == "step_f32" and len(routed[-1][1]) == chains
+    assert wrapper.design_counts == {"persistent": 2 * chains, "step": 1}
+    assert (wrapper.launches, wrapper.chains) == (2 * chains + 1, 3 * chains)
+
+
+def test_bidi_fused_reads_kept_weight_layouts(monkeypatch):
+    """B3's persistent launch reads w_hh^T of both directions from
+    gru_cuda.transposed and the stacked w_ih^T from
+    gru_cuda.stacked_transposes, kept per tensor: the same tensors come back
+    on the second call, and are made again after a weight is written in
+    place (an optimizer step)."""
+    import torch
+
+    from danspeech_tpu_torch.ops import cuda_build, gru_cuda
+
+    calls = []
+    monkeypatch.setattr(cuda_build, "bind", lambda *a: a)
+    monkeypatch.setattr(cuda_build, "call", lambda fn, name, dev, *args: calls.append(args))
+    gen = torch.Generator().manual_seed(5)
+    t, b, d, h = 3, 2, 16, 8
+
+    def w(*shape):
+        return torch.randn(*shape, generator=gen).to(torch.bfloat16)
+
+    layer = (w(t, b, d), torch.tensor([3, 2], dtype=torch.int32), w(d, 3 * h), w(d, 3 * h),
+             w(h, 3 * h), w(h, 3 * h), *(torch.randn(3 * h, generator=gen) for _ in range(4)))
+    planned = pp.plan_gru_forward(h, b, SMS, SMEM)
+    kept = gru_cuda.stacked_transposes(layer[2], layer[3])
+    assert torch.equal(kept, torch.stack([layer[2].t(), layer[3].t()]))
+    for _ in range(2):
+        gru_cuda._bidi_fused(*layer, planned=planned)
+    assert gru_cuda.stacked_transposes(layer[2], layer[3]) is kept
+    for args in calls:
+        assert args[4] == gru_cuda.transposed(layer[4]).data_ptr()
+        assert args[5] == gru_cuda.transposed(layer[5]).data_ptr()
+        assert args[15] == kept.data_ptr()
+    layer[3].add_(0)  # a new version: the stacked copy is made again
+    again = gru_cuda.stacked_transposes(layer[2], layer[3])
+    assert again is not kept and torch.equal(again, kept)
+    gru_cuda._bidi_fused(*layer, planned=planned)
+    assert calls[-1][15] == again.data_ptr()
+    w_hh_t = gru_cuda.transposed(layer[4])
+    layer[4].add_(0)
+    assert gru_cuda.transposed(layer[4]) is not w_hh_t
 
 
 def test_wrappers_take_a_design_argument_and_use_the_plain_version_on_the_cpu():
@@ -668,7 +758,7 @@ def test_slice_7_wrappers_take_a_design_argument_and_use_the_plain_version_on_th
 
     wrappers = (lstm_cuda.lstm_bwd_scan, gru_cuda.gru_scan_bidi)
     before = [(w.launches, dict(w.design_counts)) for w in wrappers]
-    pairs = lstm_cuda.lstm_bwd_scan.pair_launches
+    chains = lstm_cuda.lstm_bwd_scan.chains
     a, c = walk(), walk()
     for g, r in zip(lstm_cuda.lstm_bwd_scan(*a, reverse=True, design=design),
                     lstm_cuda.lstm_bwd_scan_plain(*a, reverse=True)):
@@ -685,4 +775,4 @@ def test_slice_7_wrappers_take_a_design_argument_and_use_the_plain_version_on_th
                     gru_cuda.gru_scan_bidi_plain(*bidi)):
         assert torch.equal(g, r)
     assert [(w.launches, dict(w.design_counts)) for w in wrappers] == before
-    assert lstm_cuda.lstm_bwd_scan.pair_launches == pairs
+    assert lstm_cuda.lstm_bwd_scan.chains == chains

@@ -35,7 +35,7 @@ from danspeech_tpu.ops import rnn as jrnn
 from danspeech_tpu_torch.ops import cuda_build, gru_cuda
 from danspeech_tpu_torch.ops import persist_plan as pp
 from danspeech_tpu_torch.ops import rnn as trnn
-from danspeech_tpu_torch.ops import rnn_tanh_cuda
+from danspeech_tpu_torch.ops import rnn_tanh_cuda, walks
 
 F32_ATOL = 1e-5
 BF16_ATOL = 1e-2
@@ -238,29 +238,37 @@ def test_rnn_tanh_layer_bf16_close_to_jax_pallas(direction, sum_directions):
         np.testing.assert_allclose(g.numpy(), r, atol=3e-2 * scale, rtol=0)
 
 
+def _spy_walks(monkeypatch):
+    """Records each chain walks.run is handed, as (the wrapper whose Walk it
+    is, the chain, its reverse flag, its result); on CPU tensors the plain
+    version runs once a chain."""
+    seen, run = [], walks.run
+
+    def spy(walk, chains, reverses, design=None):
+        results = run(walk, chains, reverses, design)
+        kind = "scan" if walk is rnn_tanh_cuda.RNN_TANH_SCAN else "bwd"
+        seen.extend((kind, c, r, res) for c, r, res in zip(chains, reverses, results))
+        return results
+
+    monkeypatch.setattr(walks, "run", spy)
+    return seen
+
+
 def test_projection_holds_both_biases_and_the_walk_reads_the_output(monkeypatch):
     """The kernels' contract: gx = x @ w_ih + b_ih + b_hh rounded to the
     weights' dtype, and a backward walk that gets the direction's own output
     stream, opposite the chain's order."""
-    seen = {}
-    orig_scan = rnn_tanh_cuda.rnn_tanh_scan
-    orig_bwd = rnn_tanh_cuda.rnn_tanh_bwd_scan
-
-    def spy_scan(gx, lengths, w_hh, reverse=False):
-        res = orig_scan(gx, lengths, w_hh, reverse=reverse)
-        seen["gx", reverse], seen["out", reverse] = gx, res[0]
-        return res
-
-    def spy_bwd(out, dout, lengths, w_hh, reverse=True):
-        seen["walk", reverse] = out
-        return orig_bwd(out, dout, lengths, w_hh, reverse=reverse)
-
-    monkeypatch.setattr(rnn_tanh_cuda, "rnn_tanh_scan", spy_scan)
-    monkeypatch.setattr(rnn_tanh_cuda, "rnn_tanh_bwd_scan", spy_bwd)
+    walked = _spy_walks(monkeypatch)
     x, lens, fwd, bwd, r_out = _layer_case("bidi", True, [7, 4], seed=3)
     leaves = _torch_leaves(x, fwd, bwd)
     out = _torch_layer(leaves, lens, True, "auto", cast=torch.bfloat16)
     out.sum().backward()
+    seen = {}
+    for kind, chain, reverse, res in walked:
+        if kind == "scan":
+            seen["gx", reverse], seen["out", reverse] = chain[0], res[0]
+        else:
+            seen["walk", reverse] = chain[0]
     for k, reverse in ((0, False), (1, True)):
         w_ih, _, b_ih, b_hh = leaves[1 + 4 * k : 5 + 4 * k]
         want = (leaves[0].detach().bfloat16().float() @ w_ih.detach().bfloat16().float()
@@ -318,7 +326,7 @@ def _walk_chain(a, tdt, lengths):
 
 
 def _counters():
-    return [(w.launches, w.pair_launches, dict(w.design_counts))
+    return [(w.launches, w.chains, dict(w.design_counts))
             for w in (rnn_tanh_cuda.rnn_tanh_scan, rnn_tanh_cuda.rnn_tanh_bwd_scan)]
 
 
@@ -437,18 +445,16 @@ def test_bidi_layer_takes_the_pair_routes(monkeypatch, dtype, sum_directions):
     gradients match the JAX package's rnn_tanh_layer (float32:
     ``impl="xla"``, F32_ATOL and GRAD_TOL; bf16 weights: the Pallas kernels
     in interpret mode, the bounds of test_rnn_tanh_layer_bf16_close_to_jax_pallas)."""
-    pairs, walks = [], []
+    pairs = []
     orig_pair = rnn_tanh_cuda.rnn_tanh_scan_pair
     orig_bwd_pair = rnn_tanh_cuda.rnn_tanh_bwd_scan_pair
-    orig_walk = rnn_tanh_cuda.rnn_tanh_bwd_scan
     monkeypatch.setattr(rnn_tanh_cuda, "rnn_tanh_scan_pair",
                         lambda a, b, ra, rb: pairs.append(("scan", ra, rb))
                         or orig_pair(a, b, ra, rb))
     monkeypatch.setattr(rnn_tanh_cuda, "rnn_tanh_bwd_scan_pair",
                         lambda a, b, **kw: pairs.append(("bwd", kw["reverse_a"], kw["reverse_b"]))
                         or orig_bwd_pair(a, b, **kw))
-    monkeypatch.setattr(rnn_tanh_cuda, "rnn_tanh_bwd_scan",
-                        lambda *a, **kw: walks.append(kw["reverse"]) or orig_walk(*a, **kw))
+    seen = _spy_walks(monkeypatch)
     x, lens, fwd, bwd, r_out = _layer_case("bidi", sum_directions, [13, 7, 0, 4], seed=27)
     cast = None if dtype == "float32" else torch.bfloat16
     leaves = _torch_leaves(x, fwd, bwd)
@@ -465,7 +471,8 @@ def test_bidi_layer_takes_the_pair_routes(monkeypatch, dtype, sum_directions):
     want = by_hand[0] + by_hand[1] if sum_directions else torch.cat(by_hand, -1)
     assert torch.equal(out.detach(), want)
     got = torch.autograd.grad((out * torch.from_numpy(r_out)).sum(), leaves)
-    assert pairs == [("scan", False, True), ("bwd", True, False)] and walks == [True, False]
+    walked = [r for kind, _, r, _ in seen if kind == "bwd"]
+    assert pairs == [("scan", False, True), ("bwd", True, False)] and walked == [True, False]
     run, args = _jax_layer(x, lens, fwd, bwd, sum_directions,
                            "xla" if cast is None else "pallas",
                            cast=None if cast is None else jnp.bfloat16)

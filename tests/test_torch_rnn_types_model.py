@@ -36,7 +36,7 @@ from danspeech_tpu_torch.models import DeepSpeechModel as TModel
 from danspeech_tpu_torch.models import checkpoint as tckpt
 from danspeech_tpu_torch.models import deepspeech as tds
 from danspeech_tpu_torch.models.config import DeepSpeechConfig as TConfig
-from danspeech_tpu_torch.ops import lstm_cuda, rnn_tanh_cuda
+from danspeech_tpu_torch.ops import lstm_cuda, rnn_tanh_cuda, walks
 from danspeech_tpu_torch.ops import rnn as trnn
 from danspeech_tpu_torch.train import continue_training, export_model, train
 from danspeech_tpu_torch.train import step as tstep
@@ -275,14 +275,19 @@ def test_remat_runs_each_kernel_the_stated_number_of_times(rnn_type, monkeypatch
     that keeps nothing, the recomputed forward (for the LSTM the one with the
     cell stream) and one backward walk; without remat the first of them does
     not run. Remat does not change the gradients."""
-    calls = []
-    for module, names in ((lstm_cuda, ("lstm_scan", "lstm_scan_with_cell", "lstm_bwd_scan")),
-                          (rnn_tanh_cuda, ("rnn_tanh_scan", "rnn_tanh_bwd_scan"))):
-        for name in names:
-            orig = getattr(module, name)
-            monkeypatch.setattr(
-                module, name,
-                lambda *a, _o=orig, _n=name, **kw: calls.append(_n) or _o(*a, **kw))
+    calls = []  # one entry a chain walks.run walked, by the wrapper whose Walk it is
+    kinds = {"lstm_scan": lstm_cuda.LSTM_SCAN,
+             "lstm_scan_with_cell": lstm_cuda.LSTM_SCAN_WITH_CELL,
+             "lstm_bwd_scan": lstm_cuda.LSTM_BWD_SCAN,
+             "rnn_tanh_scan": rnn_tanh_cuda.RNN_TANH_SCAN,
+             "rnn_tanh_bwd_scan": rnn_tanh_cuda.RNN_TANH_BWD_SCAN}
+    run = walks.run
+
+    def spy(walk, chains, reverses, design=None):
+        calls.extend(n for n, w in kinds.items() if w is walk for _ in chains)
+        return run(walk, chains, reverses, design)
+
+    monkeypatch.setattr(walks, "run", spy)
     _, _, tcfg, tparams = _models(**_small(rnn_type))
     x, lengths = _spect(4)
     chains = 2 * tcfg.rnn_layers

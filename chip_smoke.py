@@ -614,6 +614,12 @@ def phase_kernels():
     lengths = rng.integers(1, 402, size=32)
     lengths[0], lengths[1] = 401, 1
     flag.append(check_gru(gen, 401, 32, 1200, 1200, lengths.tolist(), timed=True))
+    # the flagship's layer 0 at the dispatch groups' row counts beside 128:
+    # what the scheduler's walk charge (engine.WIDE_BLOCK_STEP) rests on
+    for b in (32, 64):
+        lengths = np.random.default_rng(2016 + b).integers(1, 402, size=b)
+        lengths[0], lengths[1] = 401, 1
+        flag.append(check_gru(gen, 401, b, 2016, 1200, lengths.tolist(), timed=True))
     return small + flag
 
 
@@ -761,7 +767,12 @@ def phase_scan_kernels():
     train = np.random.default_rng(2001).integers(1, 402, size=32)
     train[0] = 401
     checks.append(check_scan(gen, "uni train layer", 401, train.tolist(), 2000,
-                             False, carried=False, timed=False))
+                             False, carried=False, timed=True))
+    # one 64-row block beside the batch layer's two (the scheduler's walk charge)
+    half = np.random.default_rng(2002).integers(1, 402, size=64)
+    half[0], half[1] = 401, 1
+    checks.append(check_scan(gen, "uni B=64 layer", 401, half.tolist(), 2000,
+                             False, carried=False, timed=True))
     checks.append(check_scan(gen, "streaming step", STREAM_T, [STREAM_VALID], 2000,
                              False, carried=True, timed=True))
     # the widest batch of the CUDA-core product (eight streams stepped together)
@@ -835,7 +846,8 @@ def check_scan_bidi(gen, label, t, lengths, h, carried, timed):
     if carried:
         h0 = [torch.rand(b, h, generator=gen, device=dev) - 0.5 for _ in range(2)]
     args = (*gx, lens, *w_hh, *b_ih, *b_hh, *h0)
-    planned, apart = walks.plan_of(gru_cuda.GRU_SCAN_BIDI, h, b, 2, lens.device)
+    planned, apart = walks.plan_of(gru_cuda.GRU_SCAN_BIDI, h, b, 2,
+                                   walks.device_info(lens.device))
     if planned.design != "persistent":
         raise AssertionError(f"gru_scan_bidi H={h} B={b}: planned {planned}")
     layout = "one launch a chain" if apart else "both chains, one launch"
@@ -1425,13 +1437,13 @@ def phase_rnn_type_kernels():
 
 # B5 at the LSTM layer of deepspeech.pytorch's bidirectional DeepSpeech2 (H =
 # 1024) and the dispatch groups of 2-20 s utterances: up to 1,000 frames, 16,
-# 32 or 128 rows
-B5_H1024 = (1000, 1024, (16, 32, 128))
+# 32, 64 or 128 rows
+B5_H1024 = (1000, 1024, (16, 32, 64, 128))
 B5_H1024_TITLE = "phase 3b: B5 (lstm_scan) at H = 1024, T = 1000, as a pair"
 
 
 def phase_b5_h1024(card):
-    """B5 (``lstm_scan``) at H = 1024, T = 1000 and B = 16, 32 and 128, each
+    """B5 (``lstm_scan``) at H = 1024, T = 1000 and B = 16, 32, 64 and 128, each
     batch with ragged lengths (the longest T, one of 1): held to its plain
     version in both designs and as a pair of chains in one launch, the
     served path (:func:`check_rnn_kernel`), timed beside the plain version
@@ -1628,6 +1640,7 @@ def phase_serve(card):
     gru_cuda.gru_bidi_fused.launches = 0
     lookahead_cuda.lookahead.launches = 0
     zero_designs()
+    planned = dict(eng.plan_counts)
     calls = []
     for path, wave in zip(clips, clip_audio):
         t0 = time.perf_counter()
@@ -1644,6 +1657,7 @@ def phase_serve(card):
                       time.perf_counter() - t0))
         if len(texts) != len(batch) or not all(isinstance(t, str) for t in texts):
             raise AssertionError("recognize_batch returned the wrong shape")
+    planned = planned_since("flagship recognize + recognize_batch", eng, planned)
     launches = gru_cuda.gru_bidi_fused.launches
     log(f"  gru_bidi_fused launches on the main path: {launches} "
         f"(expected {expected} = {config.rnn_layers} layers x dispatch groups)")
@@ -1703,7 +1717,7 @@ def phase_serve(card):
     check_small = compare_probs("small model: card vs CPU path", probs.cpu(),
                                 ref, out_lens.cpu(), len(idxs))
     return {"launches": launches, "expected_launches": expected,
-            "lookahead_launches": stencils, "profile": profile,
+            "lookahead_launches": stencils, "profile": profile, "planned": planned,
             "serve": serve, "flagship_vs_plain": check_flag,
             "small_vs_cpu": check_small}
 
@@ -1900,6 +1914,7 @@ def phase_stream(card):
     gru_cuda.gru_scan.launches = 0
     stencils0 = lookahead_cuda.lookahead.design_counts["stencil"]
     zero_designs()
+    planned = dict(eng.plan_counts)
     serve = []
     for k, batch in enumerate(batches):
         torch.cuda.synchronize()
@@ -1913,6 +1928,7 @@ def phase_stream(card):
                       "audio_s": audio_s, "wall_s": wall, "audio_s_per_s": audio_s / wall})
         log(f"  recognize_batch(uni batch{k}): {audio_s:.2f} audio-s in {wall:.3f} s "
             f"= {audio_s / wall:.1f} audio-s/s [{card}]")
+    planned = planned_since("uni recognize_batch", eng, planned)
     batch_launches = gru_cuda.gru_scan.launches
     log(f"  gru_scan launches on the uni batch path: {batch_launches} (expected "
         f"{expected} = {layers} layers x dispatch groups)")
@@ -1926,7 +1942,7 @@ def phase_stream(card):
         raise AssertionError("the uni batch path did not run each forward's lookahead "
                              "on the stencil")
     out["batch"] = {"launches": batch_launches, "lookahead_launches": stencils,
-                    "forwards": groups, "serve": serve}
+                    "forwards": groups, "serve": serve, "planned": planned}
     out["batch"]["profile"] = profile_call(
         "one uni recognize_batch", lambda: rec.recognize_batch(batches[1]),
         groups=STREAM_PROFILE_GROUPS)
@@ -2383,6 +2399,7 @@ def phase_rnn_type(card, cfg, train_steps, profile, loop):
     rec.recognize_batch(batch[:4])  # warm-up: cuDNN picks its conv algorithms
     zero_launches()
     zero_designs()
+    planned = dict(eng.plan_counts)
     t0 = time.perf_counter()
     text = rec.recognize(clip_audio)
     clip_s = time.perf_counter() - t0
@@ -2390,6 +2407,7 @@ def phase_rnn_type(card, cfg, train_steps, profile, loop):
     texts = rec.recognize_batch(batch)
     wall = time.perf_counter() - t0
     counts = read_launches()
+    planned = planned_since(f"{name} recognize + recognize_batch", eng, planned)
     if not isinstance(text, str) or len(texts) != len(batch) or not all(
             isinstance(t, str) for t in texts):
         raise AssertionError(f"{name}: recognize / recognize_batch returned the wrong shape")
@@ -2408,7 +2426,8 @@ def phase_rnn_type(card, cfg, train_steps, profile, loop):
     add(counts)
     out["serve"] = {"recognize_s": clip_s, "audio_s": audio_s, "wall_s": wall,
                     "audio_s_per_s": audio_s / wall,
-                    "launches": counts, "dispatch_groups": groups, "chains": dict(walked)}
+                    "launches": counts, "dispatch_groups": groups, "chains": dict(walked),
+                    "planned": planned}
     if profile:
         out["serve"]["profile"] = profile_call(
             f"one {name} recognize_batch", lambda: rec.recognize_batch(batch),
@@ -3057,6 +3076,16 @@ def group_forward(eng, waves):
                                    torch.from_numpy(lengths).to("cuda"))
     torch.cuda.synchronize()
     return probs, out_lens, len(idxs), staged
+
+
+def planned_since(label, eng, before):
+    """What ``eng``'s batch scheduler planned since ``before`` (a copy of its
+    ``plan_counts``), logged and returned."""
+    got = {k: eng.plan_counts[k] - before[k] for k in before}
+    log(f"  {label}: the scheduler planned {got['calls']} calls, {got['groups']} "
+        f"dispatch groups, {got['rows']} rows, {got['padded_row_s']:.1f} padded row-s, "
+        f"{got['walked_s']:.1f} s walked a layer")
+    return got
 
 
 def timed_batch(rec, waves):
@@ -3758,7 +3787,7 @@ def phase_parallel(card):
     import pickle
 
     from danspeech_tpu_torch import Recognizer
-    from danspeech_tpu_torch.decode.greedy import GreedyDecoder
+    from danspeech_tpu_torch.decode.greedy import GreedyDecoder, collapse_batch
     from danspeech_tpu_torch.models import DeepSpeechConfig, DeepSpeechModel
     from danspeech_tpu_torch.models import deepspeech as ds
     from danspeech_tpu_torch.parallel import PipelinedTranscriber, ShardedTranscriber, make_mesh
@@ -3780,18 +3809,15 @@ def phase_parallel(card):
     eng = rec.danspeech_recognizer
     default_texts, default_wall = timed_batch(rec, waves)
     default_texts, default_wall = timed_batch(rec, waves)
-    eng.MERGE_INFLATION = float("inf")  # one dispatch group: the transcriber's shape
-    plan = eng._plan_groups(waves)
-    if len(plan) != 1:
-        fail("the engine did not plan one dispatch group")
-    # the transcriber gets the rows in the group's order, so that every row
-    # sits where it sits in the engine's launch
-    order = plan[0][0]
-    inverse = np.argsort(order)
-    one_texts, _ = timed_batch(rec, waves)
-    waves = [waves[i] for i in order]
-    default_texts = [default_texts[i] for i in order]
-    one_texts = [one_texts[i] for i in order]
+    # the rows staged as one dispatch group in their own order, the
+    # transcriber's shape, and decoded as the engine decodes a group
+    maxlen = -(-max(len(w) for w in waves) // eng.SAMPLE_BUCKET) * eng.SAMPLE_BUCKET
+    staged, lengths = eng._stage_group(waves, list(range(len(waves))), maxlen)
+    group_probs, group_lens = eng._forward(eng._compute_params, staged.to("cuda"),
+                                           torch.from_numpy(lengths).to("cuda"))
+    one_texts = collapse_batch(group_probs.argmax(-1).cpu().numpy(),
+                               group_lens.cpu().numpy(), eng.labels, eng.labels.index("_"))
+    del staged
     tr = ShardedTranscriber(flag, mesh)
     dec = GreedyDecoder(flag.labels, blank_index=flag.labels.index("_"))
     tr.transcribe(waves[:8], dec)  # warm-up
@@ -3804,7 +3830,6 @@ def phase_parallel(card):
     if dp_launches["gru_bidi_fused"] != fconfig.rnn_layers:
         fail(f"ShardedTranscriber: launches {dp_launches}")
     launches["gru_bidi_fused"] += dp_launches["gru_bidi_fused"]
-    group_probs, _, _, _ = group_forward(eng, [waves[i] for i in inverse])
     bad = [i for i, (a, b) in enumerate(zip(texts, one_texts)) if a != b]
     same_default = sum(a == b for a, b in zip(texts, default_texts))
     probs, lens = tr.acoustic_probs(waves)

@@ -4,11 +4,12 @@ transcription.
 The port of the batch and streaming paths of ``danspeech_tpu/engine.py``.
 Batch: the device program (int16/float32 waveforms -> spectrogram -> conv
 -> RNN stack -> head -> softmax, and the argmax when the decoder is greedy)
-runs on the engine's device; waveforms are grouped by length bucket into
-dispatch groups of at most 128 rows, every group is staged in pinned host
-memory, uploaded and enqueued before the host decodes the first group, so
-host decoding overlaps the device work of later groups. With a language
-model each group's decoder is resolved by its row count: the device beam
+runs on the engine's device; the waveforms, sorted by length, are cut into
+dispatch groups of at most 128 rows at the least cost of padded volume and
+recurrent walk (:meth:`DanSpeechRecognizer._plan_groups`), every group is
+staged in pinned host memory, uploaded and enqueued before the host decodes
+the first group, so host decoding overlaps the device work of later groups.
+With a language model each group's decoder is resolved by its row count: the device beam
 search reads the probabilities where they are, the host beam gets them
 through a pinned asynchronous copy with the pad rows sliced off.
 Streaming: the host parses each chunk's spectrogram, pads it to a
@@ -53,7 +54,7 @@ from .features.spectrogram import (
 )
 from .models import deepspeech as ds
 from .models import streaming
-from .ops import precision
+from .ops import gru_cuda, lstm_cuda, persist_plan, precision, rnn_tanh_cuda, walks
 from .ops import stft as stft_ops
 from .utils.profiling import annotate
 
@@ -77,6 +78,27 @@ def _resolve_compute_dtype(compute_dtype: str, device: torch.device) -> str:
     if compute_dtype not in ("bfloat16", "float32"):
         raise ValueError(f"unknown compute_dtype: {compute_dtype!r}")
     return compute_dtype
+
+
+# rho: the time of one step of a 128-row block (two warpgroups on the rows,
+# as B3's and B5's walks plan more than 64 rows) over that of a 64-row block,
+# the mean of the two walks' ratios on an H100 80GB HBM3 at 700 W
+# (chip_smoke.py phases 3 and 3b): B5 as a pair at T = 1000, H = 1024, 12.62
+# against 9.20 us a step (1.37); B3's walk at T = 401, H = 1200, D = 2016,
+# 16.89 against 11.49 us a step (1.47)
+WIDE_BLOCK_STEP = 1.42
+
+
+def _recurrent_walk(config) -> tuple:
+    """(the walk, ``ops/walks.py``, that serving ``config``'s recurrent
+    layers launches, its chains a layer): B3 for a bidirectional GRU, B1 for
+    a unidirectional one, B5 for the LSTM, B8 for the tanh RNN."""
+    chains = 2 if config.bidirectional else 1
+    if config.rnn_type == "gru":
+        return (gru_cuda.GRU_BIDI_FUSED if chains == 2 else gru_cuda.GRU_SCAN), chains
+    if config.rnn_type == "lstm":
+        return lstm_cuda.LSTM_SCAN, chains
+    return rnn_tanh_cuda.RNN_TANH_SCAN, chains
 
 
 # the mu-law code of a zero sample (0xFF): what pads a staged row's tail
@@ -117,9 +139,6 @@ class DanSpeechRecognizer:
     SAMPLE_BUCKET = 16000
     # rows of one dispatch group; row counts pad to powers of two up to it
     MAX_BATCH_ROWS = 128
-    # merging two adjacent length buckets into one dispatch may inflate the
-    # padded sample volume (rows x bucket length) by at most this factor
-    MERGE_INFLATION = 1.6
     # total bytes of pinned staging buffers kept across calls
     STAGING_CACHE_BYTES = 256 * 1024 * 1024
     # streaming chunk frame counts are padded to multiples of this
@@ -149,6 +168,10 @@ class DanSpeechRecognizer:
         print(f"Using device: {self.device}")
         self.compute_dtype = _resolve_compute_dtype(compute_dtype, self.device)
         self._compute_params = None
+        self._walk_weights = None  # w by padded row count, for the model's walk
+        # what the batch scheduler planned, summed over calls
+        self.plan_counts = {"calls": 0, "groups": 0, "rows": 0, "padded_row_s": 0.0,
+                            "walked_s": 0.0}
 
         self.model = None
         self.model_name = None
@@ -204,6 +227,7 @@ class DanSpeechRecognizer:
         self._window = self.audio_parser.window.to(self.device)
         self.labels = model.labels
         self._compute_params = self._device_params(model)
+        self._walk_weights = None
         self.update_decoder(labels=self.labels)
 
     def _device_params(self, model):
@@ -367,37 +391,93 @@ class DanSpeechRecognizer:
             p *= 2
         return min(p, DanSpeechRecognizer.MAX_BATCH_ROWS)
 
+    def _walk_weight(self, rows: int) -> float:
+        """w of a group padded to ``rows`` rows: one step of the bf16 plan
+        (``ops/persist_plan.py``) that the model's recurrent walk takes for
+        them, in steps of one 64-row block. The plan's row blocks step one
+        after another, a 64-row block (one warpgroup on the rows, the two
+        splitting the depth) costing 1 and a 128-row block (a warpgroup each
+        64 rows) WIDE_BLOCK_STEP, twice over where a layer's two chains walk
+        one launch after the other. Planned on CUDA with the device's SM
+        count and shared memory, elsewhere with an H100's; float32 serving
+        is planned the same way."""
+        if self._walk_weights is None:
+            walk, chains = _recurrent_walk(self.model.config)
+            info = (walks.device_info(self.device) if self.device.type == "cuda"
+                    else (persist_plan.H100_SMS, persist_plan.H100_SMEM_OPTIN))
+            weights = {}
+            for q in (1 << k for k in range(self.MAX_BATCH_ROWS.bit_length())):
+                planned, apart = walks.plan_of(walk, self.model.config.rnn_hidden_size, q,
+                                               chains, info)
+                per_block = 1.0 if planned.row_groups == 1 else WIDE_BLOCK_STEP
+                weights[q] = planned.row_blocks * per_block * (2 if apart else 1)
+            self._walk_weights = weights
+        return self._walk_weights[rows]
+
     def _plan_groups(self, recordings: list[np.ndarray]):
-        """Group utterance indices into (indices, bucket_len) dispatch
-        plans: one length bucket per SAMPLE_BUCKET quantum, at most
-        MAX_BATCH_ROWS rows per plan, then adjacent under-filled buckets
-        merged while the padded volume stays within MERGE_INFLATION of the
-        sum of the merged plans' own volumes."""
-        buckets: dict[int, list[int]] = {}
-        for i, r in enumerate(recordings):
-            b = _bucket(len(r), self.SAMPLE_BUCKET)
-            buckets.setdefault(b, []).append(i)
+        """Group utterance indices into (indices, bucket_len) dispatch plans.
+
+        The recordings, sorted by length, are cut into contiguous groups of
+        at most MAX_BATCH_ROWS rows. A group of n rows whose longest lies in
+        length bucket L (a SAMPLE_BUCKET multiple) costs
+
+            q * L + GROUP_ROWS * L * w(q),    q = _row_quantum(n):
+
+        its padded volume, which the convolutions, the projections and the
+        elementwise passes work through, and its recurrent walk: L steps of
+        the plan for q rows, w(q) steps of a 64-row block each
+        (:meth:`_walk_weight`). The cut minimises the summed cost, on a tie
+        with the fewest groups. A cut that is neither a bucket's end nor a
+        power of two rows after the group's start can move right without
+        raising the cost, so only those are tried."""
+        n = len(recordings)
+        order = sorted(range(n), key=lambda i: len(recordings[i]))
+        maxlens = [_bucket(len(recordings[i]), self.SAMPLE_BUCKET) for i in order]
+        top = self.MAX_BATCH_ROWS
+        sizes = [1 << k for k in range(top.bit_length())]  # the row quanta
+        # the cost of a group of d rows over its bucket length, and a hair
+        # more a group, so that of two plans that cost the same the one with
+        # fewer groups is cheaper
+        per_quantum = {q: q + persist_plan.GROUP_ROWS * self._walk_weight(q) for q in sizes}
+        factor = [0.0] + [per_quantum[1 << (d - 1).bit_length()] for d in range(1, top + 1)]
+        hair = 1e-3
+        bucket_ends = [j for j in range(1, n + 1) if j == n or maxlens[j] != maxlens[j - 1]]
+        # cost[j], start[j]: of the cheapest plan of the first j rows, and
+        # the first row of its last group
+        cost = [0.0] + [float("inf")] * n
+        start = [0] * (n + 1)
+        e = 0
+        for i in range(n):
+            base = cost[i] + hair
+            while bucket_ends[e] <= i:
+                e += 1
+            last = i + top
+            for j in [i + q for q in sizes if i + q <= n] + bucket_ends[e : e + top]:
+                if j > last:
+                    continue
+                c = base + factor[j - i] * maxlens[j - 1]
+                if c < cost[j]:
+                    cost[j], start[j] = c, i
         plans = []
-        for maxlen in sorted(buckets):
-            idxs = buckets[maxlen]
-            for s in range(0, len(idxs), self.MAX_BATCH_ROWS):
-                plans.append((idxs[s : s + self.MAX_BATCH_ROWS], maxlen))
+        j = n
+        while j > 0:
+            i = start[j]
+            plans.append((order[i:j], maxlens[j - 1]))
+            j = i
+        return plans[::-1]
 
-        def cost(idxs, maxlen):
-            return self._row_quantum(len(idxs)) * maxlen
-
-        merged: list[tuple[list[int], int, int]] = []  # (idxs, maxlen, orig)
-        for idxs, maxlen in plans:  # ascending maxlen
-            own = cost(idxs, maxlen)
-            if merged:
-                prev_idxs, _, prev_orig = merged[-1]
-                if len(prev_idxs) + len(idxs) <= self.MAX_BATCH_ROWS:
-                    joint = cost(prev_idxs + idxs, maxlen)
-                    if joint <= self.MERGE_INFLATION * (prev_orig + own):
-                        merged[-1] = (prev_idxs + idxs, maxlen, prev_orig + own)
-                        continue
-            merged.append((list(idxs), maxlen, own))
-        return [(idxs, maxlen) for idxs, maxlen, _ in merged]
+    def _count_plan(self, plans) -> None:
+        """Add one call's dispatch plans to :attr:`plan_counts`: the groups,
+        the real rows, the padded row-seconds and the seconds walked (each
+        group's bucket length: the steps every recurrent layer walks)."""
+        rate = self.audio_parser.sampling_rate
+        counts = self.plan_counts
+        counts["calls"] += 1
+        counts["groups"] += len(plans)
+        counts["rows"] += sum(len(idxs) for idxs, _ in plans)
+        counts["padded_row_s"] += sum(self._row_quantum(len(idxs)) * maxlen
+                                      for idxs, maxlen in plans) / rate
+        counts["walked_s"] += sum(maxlen for _, maxlen in plans) / rate
 
     def _staging_buffer(self, shape, dtype: torch.dtype) -> torch.Tensor:
         """A host staging buffer for one dispatch group (pinned when the
@@ -481,6 +561,7 @@ class DanSpeechRecognizer:
     def _transcribe_pipelined_inner(self, recordings, show_all):
         with annotate("engine.plan"):
             plans = self._plan_groups(recordings)
+        self._count_plan(plans)
         params = self._compute_params
         greedy = isinstance(self.decoder, GreedyDecoder)
         self._staging_used = set()

@@ -1,8 +1,9 @@
 """High-throughput batch serving with the int16 fast path: the twin of
 ``examples/batch_serving.py``.
 
-``Recognizer.recognize_batch`` runs the bucketed scheduler: length-bucketed
-dispatch groups of up to 128 rows, pinned int16 staging buffers, the
+``Recognizer.recognize_batch`` runs the batch scheduler: length-sorted
+dispatch groups of up to 128 rows, cut where padded volume and recurrent
+walk cost least, pinned int16 staging buffers, the
 argmax on the device and the host collapse of the paths. The first call
 warms up (kernel builds on CUDA); the second is timed.
 

@@ -110,13 +110,13 @@ def choose(design: str | None, planned) -> str:
     return design
 
 
-def plan_of(walk: Walk, hidden: int, batch: int, chains: int, device: torch.device,
+def plan_of(walk: Walk, hidden: int, batch: int, chains: int, info: tuple[int, int],
             dtype: torch.dtype = torch.bfloat16) -> tuple:
-    """(the plan :func:`run` takes for ``chains`` chains of ``walk`` on
-    ``device`` in the set ``dtype``, whether it walks them one launch a
-    chain): the two-chain plan where it fits, else the one-chain plan."""
+    """(the plan :func:`run` takes for ``chains`` chains of ``walk`` on a
+    device of ``info`` (:func:`device_info`) in the set ``dtype``, whether it
+    walks them one launch a chain): the two-chain plan where it fits, else
+    the one-chain plan."""
     planner = walk.plan_f32 if dtype == torch.float32 else walk.plan
-    info = device_info(device)
     planned = planner(hidden, batch, chains, *info)
     if chains == 1 or planned.design == "persistent":
         return planned, False
@@ -142,7 +142,7 @@ def run(walk: Walk, chains, reverses, design: str | None = None) -> list:
         raise TypeError("the two chains' operands must be one set: bf16 or float32")
     f32 = dtype == torch.float32
     planned, apart = plan_of(walk, chains[0][walk.w_at].shape[0], chains[0][0].shape[1],
-                             len(chains), device, dtype)
+                             len(chains), device_info(device), dtype)
     design = choose(design, planned)
     counter = walk.counter
     if design == "persistent":

@@ -8,6 +8,7 @@
                                           # spends its clocks (-DPS_PROFILE build)
     python3 chip_smoke.py --lookahead  # phases 1, 2 and 11c only
     python3 chip_smoke.py --b5-h1024  # phases 1, 2 and 3b only
+    python3 chip_smoke.py --b5-h2048  # phases 1, 2 and 3c only
     python3 chip_smoke.py --f32-train  # phases 1, 2 and phase 12g's float32
                                        # train steps alone, each step split,
                                        # unchecked: runs on an older tree too,
@@ -6268,6 +6269,55 @@ def phase_clocks(card):
 # ---------------------------------------------------------------------------
 
 
+# B5 at Mozilla DeepSpeech's one LSTM (H = 2048): no persistent plan fits, so
+# one chain walks one launch a step; dispatch groups of 2-20 s utterances
+B5_H2048 = (1000, 2048, (16, 32, 64, 128))
+B5_H2048_TITLE = "phase 3c: B5 (lstm_scan) at H = 2048, T = 1000, one chain, step design"
+
+
+def phase_b5_h2048(card):
+    """B5 (``lstm_scan``) at H = 2048, T = 1000 and B = 16, 32, 64 and 128,
+    each batch with ragged lengths (the longest T, one of 1), one chain as
+    the served path calls it (``design=None``): the plan must be the step
+    design, the result is held to the plain version (GRU_ATOL), the step
+    kernel's launches counted one a step (``lstm_step_launches``), timed by
+    CUDA events beside cuDNN's ``nn.LSTM`` in bf16, one direction; µs a
+    step over the T launched (``engine.STEP_TWO_BLOCKS`` is the ratio of B =
+    128's to B = 64's)."""
+    from danspeech_tpu_torch.ops import lstm_cuda, persist_plan, walks
+
+    t, h, batches = B5_H2048
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2048)
+    rows = []
+    for b in batches:
+        lengths = np.random.default_rng(2048 + b).integers(1, t + 1, size=b)
+        lengths[0], lengths[1] = t, 1
+        args = lstm_inputs(gen, t, lengths.tolist(), h)
+        planned = persist_plan.plan_lstm_forward(h, b, 1, *walks.device_info(args[1].device))
+        if planned.design != "step":
+            raise AssertionError(f"B5 H={h} B={b}: planned {planned}")
+        ref = lstm_cuda.lstm_scan_plain(*args)
+        before = lstm_cuda.lstm_step_launches.design_counts["step"]
+        got = lstm_cuda.lstm_scan(*args)
+        torch.cuda.synchronize()
+        launched = lstm_cuda.lstm_step_launches.design_counts["step"] - before
+        if launched != t:
+            raise AssertionError(f"B5 H={h} B={b}: {launched} step launches counted, not {t}")
+        errs, _ = compare_outputs(f"B5 H={h} B={b}", ("out", "h_last", "c_last"), got, ref,
+                                  GRU_ATOL)
+        ms = time_ms(lambda: lstm_cuda.lstm_scan(*args), iters=3)
+        res = {"label": f"H={h} B={b}", "t": t, "b": b, "errs": errs, "kernel_ms": ms,
+               "us_a_step": 1e3 * ms / t,
+               "library_ms": cudnn_rnn_ms(torch.nn.LSTM(h, h), gen, t, b, h, backward=False)}
+        log(f"  B5 H={h} T={t} B={b}, one chain, step design: {ms:.3f} ms = "
+            f"{res['us_a_step']:.2f} us a step; cuDNN nn.LSTM bf16 one direction "
+            f"{res['library_ms']:.3f} ms; max|err| "
+            + ", ".join(f"{k}={v:.3e}" for k, v in errs.items()) + f" [{card}]")
+        rows.append(res)
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels", action="store_true",
@@ -6297,6 +6347,10 @@ def main(argv=None) -> int:
     ap.add_argument("--b5-h1024", action="store_true",
                     help="run phases 1, 2 and 3b only (build, then B5 at H = 1024, T = "
                          "1000, B = 16, 32 and 128 against its plain version and cuDNN)")
+    ap.add_argument("--b5-h2048", action="store_true",
+                    help="run phases 1, 2 and 3c only (build, then B5's step design at "
+                         "H = 2048, T = 1000, B = 16, 32, 64 and 128, one chain, against "
+                         "its plain version and cuDNN)")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -6371,6 +6425,19 @@ def main(argv=None) -> int:
             "count": torch.cuda.device_count()}}))
         return 0
 
+    if args.b5_h2048:
+        log(B5_H2048_TITLE)
+        saved = f32_flags()
+        set_f32_flags(F32_FLAGS)
+        try:
+            print(json.dumps({"b5_h2048": phase_b5_h2048(card), "card": card}))
+        finally:
+            set_f32_flags(saved)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+
     if args.only:
         if args.only == 8:
             log("phase 8: serving with a language model (host, device and auto beams)")
@@ -6412,6 +6479,8 @@ def main(argv=None) -> int:
         rnn_type_checks = phase_rnn_type_kernels()
         log(B5_H1024_TITLE)
         b5_h1024 = phase_b5_h1024(card)
+        log(B5_H2048_TITLE)
+        b5_h2048 = phase_b5_h2048(card)
     finally:
         set_f32_flags(saved)
     log(f"  the float32 flags (matmul precision, cuDNN TF32) after phase 3: {f32_flags()}")
@@ -6554,6 +6623,7 @@ def main(argv=None) -> int:
     print(json.dumps({"kernels": kernels, **gemm, "barrier_us": barrier["us"],
                       "card": card}))
     print(json.dumps({"b5_h1024": b5_h1024, "card": card}))
+    print(json.dumps({"b5_h2048": b5_h2048, "card": card}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -3,7 +3,9 @@ transcription.
 
 The port of the batch and streaming paths of ``danspeech_tpu/engine.py``.
 Batch: the device program (int16/float32 waveforms -> spectrogram -> conv
--> RNN stack -> head -> softmax, and the argmax when the decoder is greedy)
+-> RNN stack -> head -> softmax, and the argmax when the decoder is greedy;
+for a Mozilla DeepSpeech model, ``config.family == "mozilla"``, MFCC ->
+context windows -> dense layers -> LSTM -> dense head, ``models/mozilla.py``)
 runs on the engine's device; the waveforms, sorted by length, are cut into
 dispatch groups of at most 128 rows at the least cost of padded volume and
 recurrent walk (:meth:`DanSpeechRecognizer._plan_groups`), every group is
@@ -53,7 +55,7 @@ from .features.spectrogram import (
     SpectrogramAudioParser,
 )
 from .models import deepspeech as ds
-from .models import streaming
+from .models import mozilla, streaming
 from .ops import gru_cuda, lstm_cuda, persist_plan, precision, rnn_tanh_cuda, walks
 from .ops import stft as stft_ops
 from .utils.profiling import annotate
@@ -100,6 +102,13 @@ def _recurrent_walk(config) -> tuple:
         return lstm_cuda.LSTM_SCAN, chains
     return rnn_tanh_cuda.RNN_TANH_SCAN, chains
 
+
+# the step design's (one launch a step, where no persistent plan fits) step
+# of two 64-row blocks over that of one: its grid (csrc/rnn_step.cuh) holds
+# ceil(rows / 64) row blocks of every unit slice, launched together each step;
+# B5 one chain at H = 2048, T = 1000 on an H100 80GB HBM3 at 700 W
+# (chip_smoke.py phase 3c): 137.71 against 112.57 us a step at B = 128 and 64
+STEP_TWO_BLOCKS = 137.71 / 112.57
 
 # the mu-law code of a zero sample (0xFF): what pads a staged row's tail
 # (code 0 would decode to -32124)
@@ -233,6 +242,9 @@ class DanSpeechRecognizer:
     def _device_params(self, model):
         """The model's parameters cast to the compute dtype, on the device."""
         params = model.params
+        if model.config.family == mozilla.FAMILY:
+            dtype = torch.bfloat16 if self.compute_dtype == "bfloat16" else torch.float32
+            return ds.params_to(mozilla.compute_params(params, dtype), self.device)
         if self.compute_dtype == "bfloat16":
             params = ds.cast_matmul_weights(params, torch.bfloat16)
         return ds.params_to(params, self.device)
@@ -355,11 +367,14 @@ class DanSpeechRecognizer:
     @torch.inference_mode()
     def _forward(self, params, waveforms, lengths, rnn_impl: str = "auto"):
         """(rows, n) int16/float32 waveforms, or uint8 mu-law codes, on the
-        device -> ((rows, T', C) probabilities, (rows,) output lengths)."""
+        device -> ((rows, T', C) probabilities, (rows,) output lengths): the
+        forward pass of the model's family."""
         parser = self.audio_parser
         if waveforms.dtype == torch.uint8:
             waveforms = ulaw_decode(waveforms)
         with self._precision():
+            if self.model.config.family == mozilla.FAMILY:
+                return mozilla.forward(params, waveforms, lengths, rnn_impl=rnn_impl)
             with annotate("model.features"):
                 spect, frame_lens = stft_ops.batched_log_spectrogram(
                     waveforms.float(), lengths, parser.n_fft, parser.hop_length,
@@ -394,13 +409,16 @@ class DanSpeechRecognizer:
     def _walk_weight(self, rows: int) -> float:
         """w of a group padded to ``rows`` rows: one step of the bf16 plan
         (``ops/persist_plan.py``) that the model's recurrent walk takes for
-        them, in steps of one 64-row block. The plan's row blocks step one
-        after another, a 64-row block (one warpgroup on the rows, the two
-        splitting the depth) costing 1 and a 128-row block (a warpgroup each
-        64 rows) WIDE_BLOCK_STEP, twice over where a layer's two chains walk
-        one launch after the other. Planned on CUDA with the device's SM
-        count and shared memory, elsewhere with an H100's; float32 serving
-        is planned the same way."""
+        them, in steps of one 64-row block. The persistent plan's row blocks
+        step one after another, a 64-row block (one warpgroup on the rows,
+        the two splitting the depth) costing 1 and a 128-row block (a
+        warpgroup each 64 rows) WIDE_BLOCK_STEP. The step design (one launch
+        a step, where no persistent plan fits) launches the 64-row blocks of
+        its grid (``persist_plan.STEP_ROWS``) together each step: one costs
+        1, two STEP_TWO_BLOCKS. Either costs twice over where a layer's two
+        chains walk one launch after the other. Planned on CUDA
+        with the device's SM count and shared memory, elsewhere with an
+        H100's; float32 serving is planned the same way."""
         if self._walk_weights is None:
             walk, chains = _recurrent_walk(self.model.config)
             info = (walks.device_info(self.device) if self.device.type == "cuda"
@@ -409,8 +427,12 @@ class DanSpeechRecognizer:
             for q in (1 << k for k in range(self.MAX_BATCH_ROWS.bit_length())):
                 planned, apart = walks.plan_of(walk, self.model.config.rnn_hidden_size, q,
                                                chains, info)
-                per_block = 1.0 if planned.row_groups == 1 else WIDE_BLOCK_STEP
-                weights[q] = planned.row_blocks * per_block * (2 if apart else 1)
+                if planned.design == "step":
+                    step = 1.0 if q <= persist_plan.STEP_ROWS else STEP_TWO_BLOCKS
+                else:
+                    per_block = 1.0 if planned.row_groups == 1 else WIDE_BLOCK_STEP
+                    step = planned.row_blocks * per_block
+                weights[q] = step * (2 if apart else 1)
             self._walk_weights = weights
         return self._walk_weights[rows]
 
@@ -656,6 +678,8 @@ class DanSpeechRecognizer:
         alone when no launcher started it) and the engine keeps."""
         if self.model is None:
             raise ModelNotInitialized("No acoustic model loaded")
+        if self.model.config.family != "ds2":
+            raise ValueError("the long form serves DeepSpeech2 models only")
         from .parallel.mesh import make_mesh
         from .parallel.time_shard import transcribe_long_form
 

@@ -1,9 +1,10 @@
-"""Model package: DeepSpeech2 config, params, forward, checkpoints."""
+"""Model package: DeepSpeech2 and Mozilla DeepSpeech (``config.family``)
+configs, params, forward passes, checkpoints."""
 
 from __future__ import annotations
 
 from .config import DeepSpeechConfig, default_labels  # noqa: F401
-from . import deepspeech  # noqa: F401
+from . import deepspeech, mozilla  # noqa: F401
 from .deepspeech import forward, init_params, num_params  # noqa: F401
 
 
@@ -69,7 +70,8 @@ class DeepSpeechModel:
 
     @classmethod
     def init_random(cls, config: DeepSpeechConfig, seed: int = 0) -> "DeepSpeechModel":
-        return cls(config, init_params(config, seed=seed))
+        init = mozilla.init_params if config.family == mozilla.FAMILY else init_params
+        return cls(config, init(config, seed=seed))
 
     def save(self, path: str) -> None:
         from .checkpoint import save_checkpoint

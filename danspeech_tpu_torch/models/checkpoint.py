@@ -13,6 +13,13 @@ key names, RNN weights in torch's (G·H, I) layout, G = 3, 4 or 1 for
    ``weights_only=True``);
 2. the native ``.dsz`` format: that dict as an ``.npz`` plus a JSON config
    inside one zip.
+
+A package or config whose ``family`` is ``"mozilla"`` (Mozilla DeepSpeech,
+:mod:`.mozilla`) holds the release's TensorFlow variables instead:
+``layer_{1,2,3,5,6}/weights`` (in, out) and ``/bias``, and the LSTM's
+``kernel`` (I + H, 4H), rows [x; h], gate columns i, c~, f, o, with its one
+``bias`` (4H,) (:func:`mozilla_params_from_state_dict`). A package without
+``family`` is DeepSpeech2's.
 """
 
 from __future__ import annotations
@@ -25,6 +32,8 @@ import numpy as np
 import torch
 
 from ..ops.conv import BatchNormParams, ConvParams, LinearParams, LookaheadParams
+from ..ops.rnn import LSTMWeights
+from . import mozilla
 from .config import DeepSpeechConfig
 from .deepspeech import RNN_WEIGHTS_CLS, Params
 from .torch_pickle import torch_load
@@ -60,8 +69,11 @@ def params_from_state_dict(
     (streaming); head at ``fc.0.module.{0,1}``.
     Values may be numpy arrays or CPU tensors of any floating dtype (a
     package's tensors); keys nothing reads, such as BatchNorm's
-    ``num_batches_tracked``, are ignored.
+    ``num_batches_tracked``, are ignored. A ``"mozilla"`` config reads the
+    release's variables (:func:`mozilla_params_from_state_dict`).
     """
+    if config.family == mozilla.FAMILY:
+        return mozilla_params_from_state_dict(state_dict, config, dtype)
     sd = {k: _numpy(v) for k, v in state_dict.items()}
 
     convs = []
@@ -126,12 +138,49 @@ def params_from_state_dict(
     }
 
 
+def mozilla_params_from_state_dict(state_dict: dict, config: DeepSpeechConfig,
+                                   dtype=torch.float32) -> dict:
+    """Mozilla DeepSpeech's parameter tree (:mod:`.mozilla`) from the
+    release's variables, on the CPU: each dense layer as it lies; the LSTM
+    kernel's rows split into w_ih (the x rows) and w_hh (the h rows), its
+    gate columns and its bias moved from TensorFlow's i, c~, f, o to the
+    port's i, f, g, o, the bias handed over as ``b_ih`` (``b_hh`` zeros: the
+    walk adds their sum at every step)."""
+    sd = {k: _numpy(v) for k, v in state_dict.items()}
+    hidden = config.rnn_hidden_size
+    kernel = sd[mozilla.LSTM_KERNEL]
+    if kernel.shape != (2 * hidden, 4 * hidden):
+        raise ValueError(f"{mozilla.LSTM_KERNEL} has shape {kernel.shape}, expected "
+                         f"{(2 * hidden, 4 * hidden)} for rnn_hidden_size {hidden}")
+    kernel = mozilla.reorder_gates(kernel, hidden)
+    params = {name: mozilla.Dense(weight=_t(sd[f"{name}/weights"], dtype),
+                                  bias=_t(sd[f"{name}/bias"], dtype))
+              for name in mozilla.DENSE}
+    params["lstm"] = LSTMWeights(
+        w_ih=_t(kernel[:hidden], dtype), w_hh=_t(kernel[hidden:], dtype),
+        b_ih=_t(mozilla.reorder_gates(sd[mozilla.LSTM_BIAS], hidden), dtype),
+        b_hh=torch.zeros(4 * hidden, dtype=dtype))
+    return params
+
+
 def state_dict_from_params(params: Params, config: DeepSpeechConfig) -> dict:
     """Inverse mapping: parameter tree -> reference-named numpy state_dict
-    (float32)."""
+    (float32); the release's variables for a ``"mozilla"`` config."""
 
     def n(t):
         return t.detach().float().cpu().numpy()
+
+    if config.family == mozilla.FAMILY:
+        sd = {}
+        for name in mozilla.DENSE:
+            sd[f"{name}/weights"] = n(params[name].weight)
+            sd[f"{name}/bias"] = n(params[name].bias)
+        lstm = params["lstm"]
+        hidden = config.rnn_hidden_size
+        sd[mozilla.LSTM_KERNEL] = mozilla.reorder_gates(
+            np.concatenate([n(lstm.w_ih), n(lstm.w_hh)]), hidden)
+        sd[mozilla.LSTM_BIAS] = mozilla.reorder_gates(n(lstm.b_ih) + n(lstm.b_hh), hidden)
+        return sd
 
     sd: dict[str, np.ndarray] = {}
     for i, c in enumerate(params["conv"]):
@@ -171,10 +220,17 @@ def state_dict_from_params(params: Params, config: DeepSpeechConfig) -> dict:
 
 def config_from_package(package: dict) -> DeepSpeechConfig:
     """A config from a package's hyperparameters (the keys the original
-    ``DeepSpeech.load_model`` reads; labels as a string or a list)."""
+    ``DeepSpeech.load_model`` reads; labels as a string or a list). A
+    ``"mozilla"`` package gives ``family``, ``model_name``,
+    ``rnn_hidden_size``, ``labels`` and ``audio_conf`` only."""
     labels = package["labels"]
     if isinstance(labels, (list, tuple)):
         labels = "".join(labels)
+    family = str(package.get("family", "ds2"))
+    if family == mozilla.FAMILY:
+        return DeepSpeechConfig(model_name=str(package["model_name"]), family=family,
+                                rnn_hidden_size=int(package["rnn_hidden_size"]),
+                                labels=str(labels), audio_conf=dict(package["audio_conf"]))
     return DeepSpeechConfig(
         model_name=str(package["model_name"]),
         rnn_hidden_size=int(package["rnn_hidden_size"]),

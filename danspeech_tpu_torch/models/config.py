@@ -28,6 +28,9 @@ CONV_SPECS = [
 ]
 
 SUPPORTED_RNNS = ("gru", "lstm", "rnn")
+# the model families: DeepSpeech2 (models/deepspeech.py, every zoo package and
+# .dsz written before the field) and Mozilla DeepSpeech (models/mozilla.py)
+FAMILIES = ("ds2", "mozilla")
 
 
 @dataclass
@@ -44,8 +47,16 @@ class DeepSpeechConfig:
     conv_layers: int = 2
     context: int = 20
     streaming_model: bool = False
+    family: str = "ds2"
 
     def __post_init__(self):
+        if self.family not in FAMILIES:
+            raise ValueError(f"family must be one of {FAMILIES}")
+        if self.family == "mozilla":
+            # one graph: dense layers around one unidirectional LSTM, no convs
+            self.rnn_type, self.rnn_layers, self.conv_layers = "lstm", 1, 0
+            self.bidirectional = self.streaming_model = False
+            return
         if self.conv_layers == 0:
             raise ConvError("0 convolutional layers configuration not supported")
         if self.conv_layers > 3:
@@ -88,7 +99,12 @@ class DeepSpeechConfig:
         return size * CONV_SPECS[self.conv_layers - 1]["out"]
 
     def to_dict(self) -> dict:
-        return asdict(self)
+        """The fields; a DeepSpeech2 config leaves ``family`` out, as the
+        configs written before it (and the JAX package's) have none."""
+        d = asdict(self)
+        if self.family == "ds2":
+            del d["family"]
+        return d
 
     @classmethod
     def from_dict(cls, d: dict) -> "DeepSpeechConfig":

@@ -42,6 +42,7 @@ version.
 from __future__ import annotations
 
 import dataclasses
+from types import SimpleNamespace
 
 import torch
 
@@ -193,8 +194,14 @@ def _scan_f32_persistent(chains, reverses, with_cell, planned):
     return [o if with_cell else (o[0], o[2], o[3]) for o in outs]
 
 
+# launches of lstm_step_kernel, one a step walked, as a trace counts its
+# events (walks.run counts a step design's run of T launches as one): the
+# served path of a width whose resident slices do not fit (H = 2048)
+lstm_step_launches = SimpleNamespace(design_counts={"step": 0})
+
+
 def _step(gx, lengths, w_hh, b_hh, h0, c0, reverse, with_cell):
-    """T launches of the step kernel."""
+    """T launches of the step kernel, counted on :data:`lstm_step_launches`."""
     name = "lstm_scan_with_cell" if with_cell else "lstm_scan"
     launch = cuda_build.bind("lstm_scan", f"{name}_launch", 9 if with_cell else 8, 4)
     t_max, batch, _ = gx.shape
@@ -212,6 +219,7 @@ def _step(gx, lengths, w_hh, b_hh, h0, c0, reverse, with_cell):
                     gx.data_ptr(), lengths.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(),
                     h32.data_ptr(), h16.data_ptr(), c.data_ptr(), *streams,
                     t_max, batch, hidden, int(bool(reverse)))
+    lstm_step_launches.design_counts["step"] += t_max
     h_last = h32[t_max % 2]  # the buffer the final step wrote
     return (out, cseq, h_last, c) if with_cell else (out, h_last, c)
 

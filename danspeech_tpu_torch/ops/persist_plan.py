@@ -55,6 +55,10 @@ MAX_ROWS = 128      # rows of the left operand per row block (2 warpgroups)
 STATIC_RESERVE = 1024  # bytes kept free for a kernel's static shared memory
 DOT_ROWS = 8        # PS_DOT_ROWS: the widest batch of the CUDA-core product
 
+# R_BR of csrc/rnn_step.cuh: the batch rows a block of the LSTM and tanh-RNN
+# step kernels owns; the step design's grid holds ceil(B / STEP_ROWS) of them
+STEP_ROWS = 64
+
 H100_SMS = 132
 H100_SMEM_OPTIN = 232_448
 
